@@ -14,14 +14,33 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                times over several launches (CUDA events), the plain
                version's time, the least time the card could take (bound),
                and for K4 a bf16 torch.matmul chain as a yardstick;
-  4. serve   — a full-width model (README Blender recipe: -O --bound 1.0
+  4. train-kernels — at the train step's shapes (4096 random rays of a
+               view, budget 128, the uncompacted M = 524,288 samples): K2
+               with perturbation noise bit-exact against its plain version;
+               the K1, K3 and K4 backward kernels against their plain
+               backwards (stated limits) with median times, plain times,
+               bounds and library yardsticks; then one whole train step
+               (loss and per-leaf gradients) through the kernels against
+               one through the plain versions, in bf16 and in fp32;
+  5. serve   — a full-width model (README Blender recipe: -O --bound 1.0
                --scale 0.8 --dt_gamma 0, NGPConfig defaults, grid 128^3,
                max_steps 1024, budget 256) with random weights from a seed
                and a procedural ball grid, written as a checkpoint in the
                JAX format, loaded by the serving Trainer, which renders 4
                views at 800x800 (157 chunks of 4096 rays each); launch
                counts; view 0 again through the plain versions; the
-               occupancy rebuild of a grid-less checkpoint through K1 + K4.
+               occupancy rebuild of a grid-less checkpoint through K1 + K4;
+  6. train   — a fresh full-width model (standard init) trained by the
+               port's Trainer.train (the CLI's train defaults: 4096 rays,
+               budget 128 auto-adapted, grid updates every 16 steps,
+               auto compaction and group budget, lr 1e-2, EMA 0.95) for 512
+               steps on 32 analytic views of 800x800 of a ball of radius
+               0.7, made here; loss per epoch,
+               train rays/s, step time, peak memory and every kernel's
+               launches; it fails unless the loss falls and a held-out
+               view's PSNR rises at least 6 dB over the untrained model's;
+               then torch.profiler over 16 more steps (device time by
+               kernel, the device's idle share).
 
 The last lines are one JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -51,6 +70,16 @@ RES = 800
 ORBIT_RADIUS = 4.0 * 0.8
 N_VIEWS = 4
 CHUNK = 4096
+# the train step (CLI defaults): rays a step, the initial march budget, and
+# the train phase's length
+TRAIN_RAYS = 4096
+TRAIN_BUDGET = 128
+TRAIN_VIEWS = 32
+TRAIN_ITERS = 512
+# the train phase's ball fills ~30% of a view, like a Blender object; the
+# serving ball (radius 0.4, ~10%) left the auto group budget at its floor of
+# 16 groups and training stalled there (PERF.md, the group budget finding)
+TRAIN_BALL = 0.7
 
 
 def log(*a):
@@ -155,14 +184,14 @@ def phase_build():
 
 
 # ---------------------------------------------------------------- phase 3
-def make_model(dev, *, bound=1.0, dense=False, seed=0):
+def make_model(dev, *, bound=1.0, dense=False, seed=0, dtype=torch.bfloat16):
     """The full-width model of the README recipe, random weights from a seed;
     the hash table is drawn at U(+-1) instead of U(+-1e-4) so the field
     varies in space (densities from ~0 to opaque)."""
     from nerf_signature_tpu_torch.api import NGPModel
     from nerf_signature_tpu_torch.models.ngp import NGPConfig
 
-    cfg = NGPConfig(bound=bound, compute_dtype=torch.bfloat16, dense_coarse=dense)
+    cfg = NGPConfig(bound=bound, compute_dtype=dtype, dense_coarse=dense)
     m = NGPModel(cfg, min_near=0.2, density_thresh=10.0, dt_gamma=0.0,
                  max_steps=1024, grid_size=128, seed=seed, infer_budget=256,
                  device=dev)
@@ -366,6 +395,244 @@ def library_mlp_ms(fp, cfg, feat, dirs):
 
 
 # ---------------------------------------------------------------- phase 4
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+def train_rays(dev, seed=3):
+    """TRAIN_RAYS random pixels of an orbit view (the train sampler's draw)."""
+    from nerf_signature_tpu_torch.data.rays import get_rays
+
+    fl = RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
+    r = get_rays(orbit_poses(1, ORBIT_RADIUS, seed=seed), (fl, fl, RES / 2, RES / 2), RES,
+                 RES, TRAIN_RAYS, rng=np.random.default_rng(seed))
+    return (torch.from_numpy(r["rays_o"][0]).to(dev).contiguous(),
+            torch.from_numpy(r["rays_d"][0]).to(dev).contiguous())
+
+
+def phase_train_kernels(dev):
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import composite as t_comp
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+    from nerf_signature_tpu_torch.ops import marching as t_march
+    from nerf_signature_tpu_torch.render.renderer import default_aabb
+
+    results = {}
+    m = make_model(dev)
+    cfg = m.cfg
+    ro, rd = train_rays(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    noise = torch.rand((TRAIN_RAYS,), generator=gen, device=dev)
+    grid = m.occ.occupancy
+    aabb = default_aabb(m.rc)
+
+    # ---- K2 with perturbation noise, the auto prefilter (on here) and off
+    for pf in (None, False):
+        kw = dict(min_near=m.rc.min_near, bound=1.0, dt_gamma=0.0, max_steps=1024,
+                  budget=TRAIN_BUDGET, prefilter=pf, noise=noise)
+        plan = t_march.march_plan(grid.shape[0], 128, bound=1.0, max_steps=1024,
+                                  budget=TRAIN_BUDGET, prefilter=pf)
+        coarse = t_march.coarse_grid(grid, plan)
+        k = t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse, **kw)
+        p = t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse, plain=True, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(k["mask"], p["mask"]):
+            raise AssertionError(f"K2 with noise: mask differs (prefilter={plan.prefilter})")
+        err = max(float((k[n].float() - p[n].float()).abs().max())
+                  for n in ("xyzs", "ts", "deltas", "nears", "fars", "n_occupied",
+                            "n_occupied_raw", "n_groups_occ"))
+        log(f"[K2 noise] prefilter={plan.prefilter}: mask equal, max abs err {err} (limit 0), "
+            f"{int(k['mask'].sum())} samples")
+        if err != 0.0:
+            raise AssertionError(f"K2 with noise differs from its plain version by {err}")
+        if pf is None:
+            march = k
+            ms = median_ms(lambda: t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse,
+                                                           **kw), 30)
+            pms = median_ms(lambda: t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse,
+                                                            plain=True, **kw), 5, 1)
+            N, S = k["mask"].shape
+            bms, bby = bound_of(N * 28 + N * S * 21 + N * 20 + grid.numel() + coarse.numel(),
+                                0, PEAK_FP32)
+            results["K2_march"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                       bound_by=bby, library_ms=None)
+
+    N, S = march["mask"].shape
+    M = N * S
+    live = march["mask"].reshape(-1).float()
+    fp = t_ngp.field_params(m.params, cfg)
+    res, S_log2 = cfg.resolutions, cfg.log2_hashmap_size
+    rows = fp["hash_table"].shape[0]
+    x01 = ((march["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+    dirs = march["dirs"].reshape(-1, 3).contiguous()
+    log(f"[train-kernels] N={N} S={S} M={M} samples, {int(live.sum())} live")
+
+    # ---- K1 backward: cotangents zero on padded samples, like a train step
+    g_feat = torch.randn((M, cfg.enc_dim), generator=gen, device=dev) * 1e-4 * live[:, None]
+    gk = t_hash._hash_encode_bwd_kernel(x01, g_feat, rows, res, S_log2, torch.bfloat16,
+                                        False, None)
+    gp = t_hash.hash_encode_bwd_plain(x01, g_feat, rows, res, S_log2, torch.bfloat16)
+    e1, a1 = rel_l2(gk, gp), float((gk - gp).abs().max())
+    log(f"[K1 bwd] rel L2 {e1:.3g} (limit 1e-5), max abs err {a1:.3g}")
+    if not e1 <= 1e-5:
+        raise AssertionError(f"K1 backward differs from its plain version: rel L2 {e1}")
+    ms1 = median_ms(lambda: t_hash._hash_encode_bwd_kernel(
+        x01, g_feat, rows, res, S_log2, torch.bfloat16, False, None), 20)
+    pms1 = median_ms(lambda: t_hash.hash_encode_bwd_plain(
+        x01, g_feat, rows, res, S_log2, torch.bfloat16), 3, 1)
+    idx, val = [], []
+    g3 = g_feat.reshape(M, -1, 2).permute(1, 0, 2)
+    for ci, cw in t_hash._corners(x01, res, S_log2, False, None, torch.float32):
+        ct = (cw[..., None] * g3).to(torch.bfloat16).float()
+        for f in range(2):
+            idx.append((ci * 2 + f).reshape(-1))
+            val.append(ct[..., f].reshape(-1))
+    idx, val = torch.cat(idx), torch.cat(val)
+    n_adds = int((val != 0).sum())
+    buf = torch.zeros(rows * 2, device=dev)
+    lib1 = median_ms(lambda: buf.index_add_(0, idx, val), 10)
+    del idx, val, buf
+    bms1, bby1 = bound_of(M * (12 + cfg.enc_dim * 4) + rows * 8, n_adds, PEAK_FP32)
+    results["K1_hash_encode_bwd"] = dict(max_abs_err=a1, rel_l2=e1, ms=ms1, plain_ms=pms1,
+                                         bound_ms=bms1, bound_by=bby1, library_ms=lib1)
+
+    # ---- K4 backward, bf16, on the encoded samples
+    with torch.no_grad():
+        feat = t_hash.hash_encode(x01, fp["hash_table"], res, S_log2, table_g=fp["hash_table_g"])
+        sig, _, rgb = t_ngp.field_heads(fp, cfg, feat, dirs)
+    g_sigma = torch.randn((M,), generator=gen, device=dev) * 1e-4 * live
+    g_rgb = torch.randn((M, 3), generator=gen, device=dev) * 1e-4 * live[:, None]
+    widths = t_ngp._kernel_widths(fp, cfg)
+    flat = fp["mlp_flat"]
+    gf_k, gw_k = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb)
+    nets = [w.clone().requires_grad_(True) for w in fp["sigma_net"] + fp["color_net"]]
+    pp = dict(fp, sigma_net=nets[:2], color_net=nets[2:])
+    f_p = feat.clone().requires_grad_(True)
+    s_p, _, r_p = t_ngp.field_heads_plain(pp, cfg, f_p, dirs)
+    plain_bwd = lambda: torch.autograd.grad([s_p, r_p], [f_p] + nets, [g_sigma, g_rgb],
+                                            retain_graph=True)
+    gp4 = plain_bwd()
+    gw_p = torch.cat([g.reshape(-1) for g in gp4[1:]])
+    e4 = max(rel_l2(gf_k, gp4[0]), max(rel_l2(a, b.reshape(-1)) for a, b in zip(
+        torch.split(gw_k, [w.numel() for w in nets]), gp4[1:])))
+    a4 = max(float((gf_k - gp4[0]).abs().max()), float((gw_k - gw_p).abs().max()))
+    log(f"[K4 bwd] bf16: worst rel L2 over g_feat and the 5 weight leaves {e4:.3g} "
+        f"(limit 1e-2), max abs err {a4:.3g}")
+    if not e4 <= 1e-2:
+        raise AssertionError(f"K4 backward differs from its plain version: rel L2 {e4}")
+    again = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb)[1]
+    if not torch.equal(again, gw_k):
+        raise AssertionError("K4 backward weight gradient is not deterministic")
+    ms4 = median_ms(lambda: t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma,
+                                                  g_rgb), 10)
+    pms4 = median_ms(plain_bwd, 5, 1)
+    lib4 = library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb)
+    n_w = flat.numel()
+    bms4, bby4 = bound_of(M * (cfg.enc_dim * 4 * 2 + 12 + 4 + 12) + n_w * 8, M * 6 * n_w,
+                          PEAK_BF16)
+    results["K4_field_bwd"] = dict(max_abs_err=a4, rel_l2=e4, ms=ms4, plain_ms=pms4,
+                                   bound_ms=bms4, bound_by=bby4, library_ms=lib4)
+    del f_p, s_p, r_p, gp4
+
+    # ---- K3 backward on the field's output, the loss's cotangents
+    sig2 = (sig.reshape(N, S) * m.rc.density_scale).contiguous()
+    rgb2 = rgb.reshape(N, S, 3).contiguous()
+    bg = torch.rand((N, 3), generator=gen, device=dev)
+    g_img = torch.randn((N, 3), generator=gen, device=dev) * 1e-4
+    g_ws = -(g_img * bg).sum(-1)
+    args = (march["deltas"], march["ts"], march["mask"], 1e-4)
+    gs_k, gr_k = t_comp.composite_rays_bwd(sig2, rgb2, *args, g_ws=g_ws, g_image=g_img)
+    s_p, r_p = sig2.clone().requires_grad_(True), rgb2.clone().requires_grad_(True)
+    out = t_comp.composite_rays_plain(s_p, r_p, march["deltas"], march["ts"], march["mask"])
+    plain3 = lambda: torch.autograd.grad([out["weights_sum"], out["image"]], [s_p, r_p],
+                                         [g_ws, g_img], retain_graph=True)
+    gs_p, gr_p = plain3()
+    e3 = max(rel_l2(gs_k, gs_p), rel_l2(gr_k, gr_p))
+    a3 = max(float((gs_k - gs_p).abs().max()), float((gr_k - gr_p).abs().max()))
+    log(f"[K3 bwd] rel L2 {e3:.3g} (limit 1e-5), max abs err {a3:.3g}")
+    if not e3 <= 1e-5:
+        raise AssertionError(f"K3 backward differs from its plain version: rel L2 {e3}")
+    ms3 = median_ms(lambda: t_comp.composite_rays_bwd(sig2, rgb2, *args, g_ws=g_ws,
+                                                      g_image=g_img), 30)
+    pms3 = median_ms(plain3, 10, 1)
+    with torch.no_grad():
+        tau = torch.where(march["mask"], sig2 * march["deltas"], 0.0)
+        t_in = torch.exp(-(torch.cumsum(tau, -1) - tau))
+        n_live = int((t_in >= 1e-4).sum()) + int((t_in < 1e-4).any(-1).sum())
+    bms3, bby3 = bound_of(n_live * 25 + N * 16 + N * S * 16, n_live * 40, PEAK_FP32)
+    results["K3_composite_bwd"] = dict(max_abs_err=a3, rel_l2=e3, ms=ms3, plain_ms=pms3,
+                                       bound_ms=bms3, bound_by=bby3, library_ms=None)
+    del out, s_p, r_p
+
+    # ---- one whole train step through the kernels and through the plain versions
+    for dtype, lim_loss, lim_rel, min_cos in ((torch.bfloat16, 1e-3, 6e-2, 0.998),
+                                              (torch.float32, 1e-5, 1e-4, None)):
+        mt = make_model(dev, dtype=dtype)
+        (lk, gk_), (lp, gp_) = (train_step_grads(mt, ro, rd, bg, noise, plain)
+                                for plain in (False, True))
+        el = abs(float(lk) - float(lp)) / abs(float(lp))
+        worst = max(rel_l2(a, b) for a, b in zip(gk_, gp_))
+        cmin = min(cosine(a, b) for a, b in zip(gk_, gp_))
+        log(f"[train step] {str(dtype)[6:]}: loss {float(lk):.6g} vs plain {float(lp):.6g} "
+            f"(rel {el:.3g}, limit {lim_loss:g}); per-leaf grads worst rel L2 {worst:.3g} "
+            f"(limit {lim_rel:g}), min cosine {cmin:.6f}"
+            + (f" (limit {min_cos})" if min_cos else ""))
+        if not (el <= lim_loss and worst <= lim_rel and (min_cos is None or cmin >= min_cos)):
+            raise AssertionError(f"train step through the kernels differs from the plain "
+                                 f"one ({str(dtype)})")
+        del mt
+    for name, r in results.items():
+        log(f"[{name}] ms {r['ms']:.4f} | plain {r['plain_ms']:.4f} | "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']}) | library {r['library_ms']}")
+    return results
+
+
+def train_step_grads(m, ro, rd, bg, noise, plain):
+    """The train step's loss (trainer.py's MSE over a random background) and
+    its per-leaf gradients, through the kernels or the plain versions."""
+    from nerf_signature_tpu_torch.models.ngp import field_params, ngp_field
+    from nerf_signature_tpu_torch.render.renderer import render_rays_occ
+    from nerf_signature_tpu_torch.train.trainer import param_leaves
+
+    leaves = param_leaves(m.params)
+    for p in leaves:
+        p.requires_grad_(True)
+    g = torch.Generator().manual_seed(11)
+    images = torch.rand((ro.shape[0], 4), generator=g).to(ro.device)
+    gt = images[:, :3] * images[:, 3:] + bg * (1.0 - images[:, 3:])
+    fp = field_params(m.params, m.cfg)
+    out = render_rays_occ(lambda x, d: ngp_field(fp, m.cfg, x, d, plain=plain),
+                          m.occ.occupancy, ro, rd, m.rc, budget=TRAIN_BUDGET, bg_color=bg,
+                          noise=noise, plain=plain)
+    loss = torch.mean(torch.mean((out["image"] - gt) ** 2, dim=-1))
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb):
+    """Autograd backward of the bf16 torch.matmul chain of library_mlp_ms (a
+    yardstick, never called by the port)."""
+    from nerf_signature_tpu_torch.ops.sh import sh_encode
+
+    bf = torch.bfloat16
+    ws = [w.to(bf).requires_grad_(True) for w in fp["sigma_net"]]
+    wc = [w.to(bf).requires_grad_(True) for w in fp["color_net"]]
+    xs = feat.to(bf).requires_grad_(True)
+    xc = torch.cat([sh_encode(dirs, 4), feat[:, :15]], -1).to(bf).requires_grad_(True)
+    h = torch.relu(xs @ ws[0]) @ ws[1]
+    c = torch.relu(torch.relu(xc @ wc[0]) @ wc[1]) @ wc[2]
+    gh = torch.cat([g_sigma[:, None], torch.zeros_like(h[:, 1:], dtype=torch.float32)],
+                   -1).to(bf)
+    gc = g_rgb.to(bf)
+    return median_ms(lambda: torch.autograd.grad([h, c], [xs, xc] + ws + wc, [gh, gc],
+                                                 retain_graph=True), 10)
+
+
+# ---------------------------------------------------------------- phase 5
 def phase_serve(dev, workdir):
     from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.ops import marching as t_march
@@ -373,7 +640,7 @@ def phase_serve(dev, workdir):
     from nerf_signature_tpu_torch.train.metrics import PSNRMeter
     from nerf_signature_tpu_torch.train.trainer import Trainer
 
-    opt = type("Opt", (), {"max_ray_batch": CHUNK})()
+    opt = type("Opt", (), {"max_ray_batch": CHUNK, "lr": 1e-2, "iters": 30000})()
     ws = os.path.join(workdir, "ws")
     # the checkpoint: full-width params + the ball grid, in the JAX format
     writer = Trainer("ngp", opt, make_model(dev), workspace=ws, use_checkpoint="scratch",
@@ -419,8 +686,9 @@ def phase_serve(dev, workdir):
     log(f"[serve] launches during the main path: {launches}")
     per_view = math.ceil(RES * RES / CHUNK)
     for name, n in launches.items():
-        if n != N_VIEWS * per_view:
-            raise AssertionError(f"{name}: {n} launches, expected {N_VIEWS} x {per_view}")
+        want = N_VIEWS * per_view if name in FORWARD else 0  # serving runs no backward
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches while serving, expected {want}")
 
     # ---- view 0 through the kernels and through the plain versions
     m = trainer.model
@@ -471,6 +739,138 @@ def phase_serve(dev, workdir):
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+class BallViews:
+    """The train loader: TRAIN_VIEWS orbit views of the analytic ball
+    (radius TRAIN_BALL) at RES x RES; each step draws TRAIN_RAYS random
+    pixels of one view (shuffled per epoch) and colours them analytically
+    (no images are stored)."""
+
+    def __init__(self, seed=5):
+        self.poses = orbit_poses(TRAIN_VIEWS, ORBIT_RADIUS, seed=seed)
+        fl = RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
+        self.intrinsics = np.array([fl, fl, RES / 2, RES / 2])
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return TRAIN_VIEWS
+
+    def __iter__(self):
+        from nerf_signature_tpu_torch.data.rays import get_rays
+
+        for v in self.rng.permutation(TRAIN_VIEWS):
+            r = get_rays(self.poses[v:v + 1], self.intrinsics, RES, RES, TRAIN_RAYS,
+                         rng=self.rng)
+            yield {"H": RES, "W": RES, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
+                   "images": ball_rgba(r["rays_o"], r["rays_d"], radius=TRAIN_BALL)}
+
+
+def held_out_psnr(m, params, rays, gt):
+    backup, m.params = m.params, params
+    try:
+        img = m.render(rays["rays_o"][0], rays["rays_d"][0], staged=True)["image"]
+    finally:
+        m.params = backup
+    if not (bool(torch.isfinite(img).all()) and img.shape == gt.shape):
+        raise AssertionError("held-out render is not finite or has the wrong shape")
+    return psnr(img, gt)
+
+
+def phase_train(dev):
+    from types import SimpleNamespace
+
+    from nerf_signature_tpu_torch.api import NGPModel
+    from nerf_signature_tpu_torch.models.ngp import NGPConfig
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.train.trainer import Trainer
+
+    opt = SimpleNamespace(lr=1e-2, iters=TRAIN_ITERS, num_rays=TRAIN_RAYS, max_steps=1024,
+                          update_extra_interval=16, compact_frac=-1, group_budget=-1,
+                          max_ray_batch=CHUNK, patch_size=1, color_space="srgb")
+    model = NGPModel(NGPConfig(bound=1.0), min_near=0.2, density_thresh=10.0, dt_gamma=0.0,
+                     max_steps=1024, grid_size=128, seed=2, train_budget=TRAIN_BUDGET,
+                     infer_budget=256, device=dev)
+    loader = BallViews()
+    held = view_rays(orbit_poses(1, ORBIT_RADIUS, seed=9))
+    rgba = ball_rgba(held["rays_o"][0], held["rays_d"][0], radius=TRAIN_BALL)
+    gt = torch.from_numpy(rgba[:, :3] * rgba[:, 3:] + (1.0 - rgba[:, 3:])).to(dev)
+    # no workspace: no per-epoch checkpoint (params, EMA and Adam's moments,
+    # ~270 MB each) inside the timed loop; the CPU tests cover the ring buffer
+    trainer = Trainer("ngp", opt, model, workspace=None, use_checkpoint="scratch")
+    psnr0 = held_out_psnr(model, trainer.eval_params(), held, gt)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    trainer.train(loader, None, max_epochs=math.ceil(TRAIN_ITERS / TRAIN_VIEWS))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = trainer.global_step
+    psnr1 = held_out_psnr(model, trainer.eval_params(), held, gt)
+    losses = trainer.stats["loss"]
+    occ = float(model.occ.occupancy.float().mean())
+    log(f"[train] {steps} steps of {TRAIN_RAYS} rays in {seconds:.2f} s (grid updates and "
+        f"mark_untrained_grid included): {steps * TRAIN_RAYS / seconds:.0f} "
+        f"train rays/s, {seconds / steps * 1e3:.2f} ms a step; peak memory {peak:.2f} GiB")
+    log(f"[train] epoch losses {[round(v, 6) for v in losses]}")
+    log(f"[train] final budget {model.train_budget}, compaction {model.rc.compact_frac}, "
+        f"group budget {model.rc.group_budget}, grid {occ:.2%} occupied after "
+        f"{int(model.occ.iter_density)} updates")
+    log(f"[train] held-out view PSNR vs the analytic ball: untrained {psnr0:.2f} dB, "
+        f"trained {psnr1:.2f} dB (limit: +6 dB)")
+    log(f"[train] launches during Trainer.train: {launches}")
+    profile_steps(trainer, loader)
+    if steps != TRAIN_ITERS:
+        raise AssertionError(f"Trainer.train ran {steps} steps, expected {TRAIN_ITERS}")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not psnr1 >= psnr0 + 6.0:
+        raise AssertionError(f"held-out PSNR {psnr1:.2f} dB < untrained {psnr0:.2f} + 6 dB")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched by Trainer.train")
+    return dict(launches=launches, seconds=seconds, steps=steps,
+                rays_per_s=steps * TRAIN_RAYS / seconds, psnr0=psnr0, psnr1=psnr1)
+
+
+def profile_steps(trainer, loader, n=16):
+    """torch.profiler over n more train steps (after the timed run): the
+    device's busy time by kernel, from the trace's device events (kernels,
+    copies, memsets; one stream, so they do not overlap), and its idle share
+    of the wall clock."""
+    from itertools import islice
+
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = list(islice(iter(loader), n))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for data in batches:
+            trainer.train_step_data(data)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    by_name = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    busy_us = sum(by_name.values())
+    log(f"[profile] {n} train steps: wall {wall_us / n / 1e3:.3f} ms a step, device busy "
+        f"{busy_us / n / 1e3:.3f} ms a step (idle share {1 - busy_us / wall_us:.1%}), "
+        f"{len(by_name)} distinct device functions")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
+        log(f"[profile]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name[:90]}")
+
+
 SOURCES = {
     "K1_hash_encode": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
                        "nerf_signature_tpu/ops/hashenc.py:250"),
@@ -480,7 +880,14 @@ SOURCES = {
                      "nerf_signature_tpu/ops/composite.py:25"),
     "K4_field": ("nerf_signature_tpu_torch/csrc/field.cu",
                  "nerf_signature_tpu/models/mlp.py:30"),
+    "K1_hash_encode_bwd": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
+                           "nerf_signature_tpu/ops/hashenc.py:124"),
+    "K3_composite_bwd": ("nerf_signature_tpu_torch/csrc/composite.cu",
+                         "nerf_signature_tpu/ops/composite.py:25"),
+    "K4_field_bwd": ("nerf_signature_tpu_torch/csrc/field.cu",
+                     "nerf_signature_tpu/models/mlp.py:30"),
 }
+FORWARD = ("K1_hash_encode", "K2_march", "K3_composite", "K4_field")
 
 
 def main():
@@ -494,17 +901,27 @@ def main():
     dev = torch.device("cuda")
     phase_build()
     kernels = phase_kernels(dev)
+    train_kernels = phase_train_kernels(dev)
     with tempfile.TemporaryDirectory() as workdir:
         launches = phase_serve(dev, workdir)
+    train = phase_train(dev)
     rows = []
-    for name in ("K1_hash_encode", "K2_march", "K3_composite", "K4_field"):
-        r = kernels[name]
-        src, replaces = SOURCES[name]
-        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": rows}))
+    for name, (src, replaces) in SOURCES.items():
+        # forward kernels: the serving path's numbers and launches (slice 1);
+        # backward kernels: the train step's shapes and Trainer.train's launches
+        r = kernels[name] if name in FORWARD else train_kernels[name]
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": launches[name] if name in FORWARD else train["launches"][name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"], "train_launches": train["launches"][name]}
+        if name == "K2_march":  # with perturbation noise at the train step's shapes
+            t = train_kernels[name]
+            row.update(train_ms=t["ms"], train_plain_ms=t["plain_ms"],
+                       train_bound_ms=t["bound_ms"], train_max_abs_err=t["max_abs_err"])
+        rows.append(row)
+    print(json.dumps({"kernels": rows, "train": {
+        k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1")}}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,13 @@ import numpy as np
 import torch
 
 from .models.ngp import NGPConfig, field_params, init_ngp_params, ngp_density, ngp_field
-from .ops.grid import init_occupancy_grid, num_cascades, render_grid, update_occupancy_grid
+from .ops.grid import (
+    init_occupancy_grid,
+    mark_untrained_grid,
+    num_cascades,
+    render_grid,
+    update_occupancy_grid,
+)
 from .ops.marching import coarse_grid, march_plan
 from .render.renderer import RenderConfig, render_rays_occ
 from .utils.device import resolve_device
@@ -65,6 +71,7 @@ class NGPModel:
     def reset_extra_state(self):
         self.occ = init_occupancy_grid(self.rc.bound, self.rc.grid_size, self.device)
 
+    @torch.no_grad()
     def update_extra_state(self, decay=0.95, draws=None):
         """Full update for the first 16 updates, partial after.  Random draws
         come from ``self.generator`` unless ``draws`` is given."""
@@ -76,6 +83,14 @@ class NGPModel:
             density_scale=self.rc.density_scale,
             density_thresh=self.density_thresh, decay=decay, full=full,
             draws=draws, generator=self.generator)
+
+    @torch.no_grad()
+    def mark_untrained_grid(self, poses, intrinsics):
+        """Mark cells no training camera sees as never occupied (-1)."""
+        self.occ = mark_untrained_grid(
+            self.occ, torch.as_tensor(np.asarray(poses, np.float32), device=self.device),
+            tuple(np.asarray(intrinsics, np.float64).tolist()),
+            bound=self.rc.bound, grid_size=self.rc.grid_size)
 
     def set_aabb_crop(self, bounds):
         """Set (or clear with None) the inference crop box, clamped to the
@@ -96,11 +111,10 @@ class NGPModel:
         """rays_o/d: [..., 3] arrays or tensors.  Returns dict of tensors on
         the model's device with the leading shape restored.  ``staged``
         renders 4096-ray chunks (tail padded with ones), like the JAX
-        package's staged path.  ``plain=True`` runs the plain versions of
-        every kernel (how the kernel path is checked on the card)."""
-        if perturb:
-            raise NotImplementedError(
-                "perturbed (training) renders land with the training slice")
+        package's staged path.  ``perturb`` jitters each ray's first sample
+        with noise drawn from ``self.generator`` and marches with the train
+        budget.  ``plain=True`` runs the plain versions of every kernel (how
+        the kernel path is checked on the card)."""
         rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=self.device)
         rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=self.device)
         prefix = rays_o.shape[:-1]
@@ -112,7 +126,7 @@ class NGPModel:
         else:
             bg = torch.as_tensor(bg_color, dtype=torch.float32,
                                  device=self.device).reshape(-1, 3)
-        budget = budget or self.infer_budget
+        budget = budget or (self.train_budget if perturb else self.infer_budget)
 
         # once per render: the gather-dtype table, the packed MLP weights,
         # the bool grid and the prefilter's dilated coarse grid
@@ -126,10 +140,12 @@ class NGPModel:
         coarse = coarse_grid(grid, plan)
 
         def chunk(ro, rd, bg_c):
+            noise = (torch.rand((ro.shape[0],), generator=self.generator, device=self.device)
+                     if perturb else None)
             return render_rays_occ(
                 lambda x, d: ngp_field(fp, self.cfg, x, d, plain=plain),
                 grid, ro, rd, rc, budget=budget, bg_color=bg_c,
-                aabb=self.aabb_infer, coarse=coarse, plain=plain)
+                aabb=self.aabb_infer, coarse=coarse, noise=noise, plain=plain)
 
         if staged and N > max_ray_batch:
             pad = (-N) % max_ray_batch

@@ -7,7 +7,10 @@
 // t_{i+1} = t_i + clip(t_i*dt_gamma, dt_min, dt_max); the cascade level and
 // cell of each candidate; the first S occupied candidates kept in order;
 // and the three counts n_occupied, n_occupied_raw and n_groups_occ with
-// the JAX semantics.  With the prefilter, the walk goes over groups of
+// the JAX semantics.  With a perturbation `noise` [N] in [0, 1) (training),
+// the walk starts at t0 = near + clip(near * dt_gamma, dt_min, dt_max) *
+// noise, rounded like marching.py:340 (two products, one sum); NULL = no
+// perturbation.  With the prefilter, the walk goes over groups of
 // `group` candidates: the dilated coarse grid is tested at each group's
 // midpoint (levels lmid-1..lmid+1 when C > 1), every occupied group is
 // counted, and fine candidates are tested only inside the first
@@ -101,7 +104,8 @@ __device__ __forceinline__ float next_dt(float t, const MarchParams& q) {
 
 __global__ void march_fwd(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                           const unsigned char* __restrict__ grid,
-                          const unsigned char* __restrict__ coarse, MarchParams q,
+                          const unsigned char* __restrict__ coarse,
+                          const float* __restrict__ noise, MarchParams q,
                           float* __restrict__ xyzs, float* __restrict__ deltas,
                           float* __restrict__ ts, unsigned char* __restrict__ mask,
                           float* __restrict__ nears, float* __restrict__ fars,
@@ -149,7 +153,9 @@ __global__ void march_fwd(const float* __restrict__ rays_o, const float* __restr
     ++kept;
   };
 
-  const float t_start = near;
+  float t_start = near;
+  if (noise != nullptr)
+    t_start = __fadd_rn(near, __fmul_rn(next_dt(near, q), noise[n]));
   if (q.prefilter) {
     const int n_groups = q.n_cand / q.group;
     const int mid = q.group / 2;
@@ -222,7 +228,8 @@ __global__ void march_fwd(const float* __restrict__ rays_o, const float* __restr
 }
 
 extern "C" int ngp_march(const void* rays_o, const void* rays_d, const float* aabb,
-                         const void* grid, const void* coarse, int N, int C, int H, int Hc,
+                         const void* grid, const void* coarse, const void* noise, int N, int C,
+                         int H, int Hc,
                          int n_cand, int budget, int group, int group_budget, int prefilter,
                          float bound, float min_near, float dt_min, float dt_max, float dt_gamma,
                          float mip0, void* xyzs, void* deltas, void* ts, void* mask, void* nears,
@@ -251,7 +258,7 @@ extern "C" int ngp_march(const void* rays_o, const void* rays_d, const float* aa
   const int threads = 64;  // 4096-ray chunks: spread the rays over 64 SMs
   march_fwd<<<ngp_blocks(N, threads), threads, 0, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const unsigned char*)grid,
-      (const unsigned char*)coarse, q, (float*)xyzs, (float*)deltas, (float*)ts,
+      (const unsigned char*)coarse, (const float*)noise, q, (float*)xyzs, (float*)deltas, (float*)ts,
       (unsigned char*)mask, (float*)nears, (float*)fars, (int*)n_occupied,
       (int*)n_occupied_raw, (int*)n_groups_occ);
   NGP_RETURN_LAST_ERROR();

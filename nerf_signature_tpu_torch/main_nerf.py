@@ -1,16 +1,22 @@
-"""Clean-stage CLI of the port, serving half: the twin of the repo's
-``main_nerf.py --test`` (same flags).
+"""Clean-stage CLI of the port: the twin of the repo's ``main_nerf.py``
+(same flags), training and ``--test``.
 
+    python -m nerf_signature_tpu_torch.main_nerf <scene> -O \\
+        --bound 1.0 --scale 0.8 --dt_gamma 0            # train
     python -m nerf_signature_tpu_torch.main_nerf <scene> -O --test \\
-        --bound 1.0 --scale 0.8 --dt_gamma 0
+        --bound 1.0 --scale 0.8 --dt_gamma 0            # evaluate, render, mesh
 
 runs on the CUDA GPU; ``--cpu`` runs the plain PyTorch versions on the CPU.
-Training (no ``--test``) lands with the next slice and exits non-zero.
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): ``--steps_per_dispatch``, ``--error_map``, ``--patch_size`` with
+LPIPS/SSIM, ``--clip_text``, ``--stochastic_hash_grad``, ``--bg_radius > 0``,
+``--devices > 1``, ``--t_cull > 0``; ``--gui`` and ``--prewatermark`` exit 2.
 """
 
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from .utils.config import add_common_args, apply_O_macro
@@ -21,16 +27,15 @@ def main(argv=None):
     add_common_args(parser)
     opt = apply_O_macro(parser.parse_args(argv))
     print(opt)
-    if not opt.test:
-        print("nerf_signature_tpu_torch: only --test (serving) is ported; "
-              "training lands with the next slice (ROADMAP slice 2)",
-              file=sys.stderr)
-        return 2
     for flag in ("gui", "prewatermark"):
         if getattr(opt, flag):
             print(f"nerf_signature_tpu_torch: --{flag} is not ported yet",
                   file=sys.stderr)
             return 2
+    if not opt.test and opt.steps_per_dispatch > 0:
+        raise NotImplementedError(
+            "--steps_per_dispatch (the on-device K-step loop) is ROADMAP queue 1 "
+            "item 'device loop / CUDA graph of the step', not ported yet")
 
     from .api import NGPModel
     from .data.provider import NeRFDataset
@@ -61,6 +66,15 @@ def main(argv=None):
         device=device,
     )
     metrics = [PSNRMeter(), LPIPSMeter(weights_path=opt.lpips_weights)]
+    if not opt.test:
+        train_loader = NeRFDataset(opt, type="train").dataloader()
+        valid_loader = NeRFDataset(opt, type="val", downscale=1).dataloader()
+        trainer = Trainer("ngp", opt, model, workspace=opt.workspace, ema_decay=0.95,
+                          metrics=metrics, use_checkpoint=opt.ckpt, eval_interval=50)
+        max_epoch = int(np.ceil(opt.iters / len(train_loader)))
+        trainer.train(train_loader, valid_loader, max_epoch)
+        trainer.evaluate_one_epoch(valid_loader)
+        return 0
     trainer = Trainer("ngp", opt, model, workspace=opt.workspace,
                       metrics=metrics, use_checkpoint=opt.ckpt)
     mesh_path = f"{opt.workspace}/mesh.ply"

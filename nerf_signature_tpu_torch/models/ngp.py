@@ -23,7 +23,6 @@ from ..ops.activation import trunc_exp
 from ..ops.hashenc import (
     hash_encode,
     hash_encode_2d,
-    hash_encode_plain,
     init_hash_table,
     init_hash_table_sized,
     level_resolutions,
@@ -128,7 +127,7 @@ def field_params(params, cfg: NGPConfig):
     table = params["hash_table"]
     gd = cfg.compute_dtype
     out = dict(params)
-    out["hash_table_g"] = table.to(gd) if gd != table.dtype else table
+    out["hash_table_g"] = table.detach().to(gd) if gd != table.dtype else table.detach()
     out["mlp_flat"] = torch.cat(
         [w.reshape(-1) for w in list(params["sigma_net"]) + list(params["color_net"])])
     return out
@@ -136,20 +135,17 @@ def field_params(params, cfg: NGPConfig):
 
 def _encode_pos(params, cfg: NGPConfig, x, plain=False):
     """x in [-bound, bound] -> hash features [M, enc_dim] (K1, or its plain
-    version when ``plain``); the rows are gathered in the compute dtype."""
+    version when ``plain``), differentiable in the master table; the rows
+    are gathered in the compute dtype."""
     bound = torch.tensor(cfg.bound, dtype=torch.float32, device=x.device)
     x01 = (x + bound) / (2.0 * bound)
-    if plain:
-        return hash_encode_plain(
-            x01, params["hash_table"], cfg.resolutions, cfg.log2_hashmap_size,
-            gather_dtype=cfg.compute_dtype, dense_sides=cfg.dense_sides,
-            table_g=params.get("hash_table_g"))
     return hash_encode(
         x01, params["hash_table"], cfg.resolutions, cfg.log2_hashmap_size,
         gather_dtype=cfg.compute_dtype, dense_sides=cfg.dense_sides,
         table_g=params.get("hash_table_g"),
         stochastic_grad=cfg.stochastic_hash_grad,
         level_stride=cfg.hash_level_stride, fwd_corners=cfg.hash_fwd_corners,
+        plain=plain,
     )
 
 
@@ -193,16 +189,31 @@ def field_heads(params, cfg: NGPConfig, feat, dirs=None, want_geo=False):
     """K4: fused sigma head, SH, colour head.  feat [M, enc_dim] fp32,
     dirs [M, 3] or None (no colour).  Returns (sigma [M], geo [M, G] or None,
     rgb [M, 3] or None); geo is returned when ``want_geo`` (always on the
-    plain path)."""
+    plain path).  Under autograd (training) the CUDA path is
+    ``FieldHeadsFn``, whose backward is the K4 backward kernel; the CPU path
+    is autograd through ``field_heads_plain``."""
     if not feat.is_cuda:
         return field_heads_plain(params, cfg, feat, dirs)
-    _cuda.no_grad_inputs("field_heads", feat, *params["sigma_net"], *params["color_net"])
-    in_dim, hidden, out1, hidden_c = _kernel_widths(params, cfg)
-    M = feat.shape[0]
-    dev = feat.device
+    nets = list(params["sigma_net"]) + list(params["color_net"])
     flat = params.get("mlp_flat")
     if flat is None:
         flat = field_params(params, cfg)["mlp_flat"]
+    widths = _kernel_widths(params, cfg)
+    if _cuda.needs_grad(feat, flat, *nets):
+        if dirs is None or want_geo:
+            raise NotImplementedError(
+                "the field kernel's backward takes the (sigma, rgb) heads of a "
+                "train step; geo features and density-only queries run without "
+                "grad")
+        sigma, rgb = FieldHeadsFn.apply(feat, dirs, flat, cfg, widths)
+        return sigma, None, rgb
+    return _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths)
+
+
+def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths):
+    in_dim, hidden, out1, hidden_c = widths
+    M = feat.shape[0]
+    dev = feat.device
     _cuda.check(feat, "feat", torch.float32, (M, in_dim), dev)
     _cuda.check(flat, "mlp_flat", torch.float32, None, dev)
     if dirs is not None:
@@ -214,6 +225,48 @@ def field_heads(params, cfg: NGPConfig, feat, dirs=None, want_geo=False):
                 _cuda.ptr(geo), _cuda.ptr(rgb), M, in_dim, hidden, out1, hidden_c,
                 int(cfg.compute_dtype == torch.bfloat16))
     return sigma, geo, rgb
+
+
+class FieldHeadsFn(torch.autograd.Function):
+    """K4 forward and backward: (feat [M, IN], dirs [M, 3], mlp_flat, cfg,
+    widths) -> (sigma [M], rgb [M, 3]); gradients to feat and mlp_flat."""
+
+    @staticmethod
+    def forward(ctx, feat, dirs, flat, cfg, widths):
+        sigma, _, rgb = _field_heads_kernel(cfg, flat, feat, dirs, False, widths)
+        ctx.save_for_backward(feat, dirs, flat)
+        ctx.cfg, ctx.widths = cfg, widths
+        return sigma, rgb
+
+    @staticmethod
+    def backward(ctx, g_sigma, g_rgb):
+        feat, dirs, flat = ctx.saved_tensors
+        g_feat, g_flat = field_heads_bwd(ctx.cfg, ctx.widths, feat, dirs, flat,
+                                         g_sigma.contiguous(), g_rgb.contiguous())
+        return g_feat, None, g_flat, None, None
+
+
+def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb):
+    """The K4 backward kernel: (g_feat [M, IN], g_flat [n_weights]), both
+    fp32, from the cotangents of sigma [M] and rgb [M, 3]."""
+    in_dim, hidden, out1, hidden_c = widths
+    M = feat.shape[0]
+    dev = feat.device
+    _cuda.check(feat, "feat", torch.float32, (M, in_dim), dev)
+    _cuda.check(dirs, "dirs", torch.float32, (M, 3), dev)
+    _cuda.check(flat, "mlp_flat", torch.float32, None, dev)
+    _cuda.check(g_sigma, "g_sigma", torch.float32, (M,), dev)
+    _cuda.check(g_rgb, "g_rgb", torch.float32, (M, 3), dev)
+    g_feat = torch.empty((M, in_dim), dtype=torch.float32, device=dev)
+    g_flat = torch.empty_like(flat)
+    # one 128-sample block per SM: the kernel's shared memory holds one block
+    n_blocks = min((M + 127) // 128, torch.cuda.get_device_properties(dev).multi_processor_count)
+    partials = torch.empty((n_blocks, flat.numel()), dtype=torch.float32, device=dev)
+    _cuda.FIELD_BWD(feat.data_ptr(), dirs.data_ptr(), flat.data_ptr(), g_sigma.data_ptr(),
+                    g_rgb.data_ptr(), g_feat.data_ptr(), partials.data_ptr(),
+                    g_flat.data_ptr(), M, n_blocks, in_dim, hidden, out1, hidden_c,
+                    int(cfg.compute_dtype == torch.bfloat16))
+    return g_feat, g_flat
 
 
 def ngp_density(params, cfg: NGPConfig, x):

@@ -49,9 +49,12 @@ _UP = ctypes.POINTER(ctypes.c_uint)
 # symbol -> argtypes, the stream (last argument) included
 _SIGNATURES = {
     "ngp_hash_encode": [_P, _P, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
+    "ngp_hash_encode_bwd": [_P, _P, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
     "ngp_field": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 6 + [_P],
     "ngp_composite": [_P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
-    "ngp_march": ([_P, _P, _FP, _P, _P] + [_I] * 9 + [_F] * 6 + [_P] * 9 + [_P]),
+    "ngp_composite_bwd": [_P] * 5 + [_F, _I, _I] + [_P] * 7,
+    "ngp_march": ([_P, _P, _FP, _P, _P, _P] + [_I] * 9 + [_F] * 6 + [_P] * 9 + [_P]),
 }
 
 _lib = None
@@ -158,12 +161,17 @@ class CudaKernel:
 
 
 HASH_ENCODE = CudaKernel("ngp_hash_encode")
+HASH_ENCODE_BWD = CudaKernel("ngp_hash_encode_bwd")
 FIELD = CudaKernel("ngp_field")
+FIELD_BWD = CudaKernel("ngp_field_bwd")
 COMPOSITE = CudaKernel("ngp_composite")
+COMPOSITE_BWD = CudaKernel("ngp_composite_bwd")
 MARCH = CudaKernel("ngp_march")
 
 KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH,
-           "K3_composite": COMPOSITE, "K4_field": FIELD}
+           "K3_composite": COMPOSITE, "K4_field": FIELD,
+           "K1_hash_encode_bwd": HASH_ENCODE_BWD, "K3_composite_bwd": COMPOSITE_BWD,
+           "K4_field_bwd": FIELD_BWD}
 
 
 def reset_launch_counts():
@@ -192,11 +200,7 @@ def check(t, name, dtype, shape=None, device=None):
         raise ValueError(f"{name}: must be a CUDA tensor on {device}")
 
 
-def no_grad_inputs(name, *tensors):
-    """The backward kernels come with the training slice: refuse to build a
-    graph through a forward-only kernel."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward only; its backward lands with "
-            "the training slice (ROADMAP queue 2). Call it under torch.no_grad().")
+def needs_grad(*tensors):
+    """Whether autograd will differentiate through a call on these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

@@ -166,11 +166,35 @@ def update_occupancy_grid(grid: OccupancyGrid, density_fn, *, bound,
     )
 
 
-def mark_untrained_grid(*args, **kwargs):
-    """Frustum marking of cells no training camera sees: training slice."""
-    raise NotImplementedError(
-        "mark_untrained_grid lands with the training slice (ROADMAP queue 1, "
-        "slice 2: grid maintenance)")
+@torch.no_grad()
+def mark_untrained_grid(grid: OccupancyGrid, poses, intrinsics, *, bound,
+                        grid_size=128, chunk=16):
+    """Mark cells seen by no training camera as -1 (never occupied).
+
+    The JAX package's ``mark_untrained_grid`` (ref ``nerf/renderer.py:
+    379-442``): per cascade, the frustum test of every cell centre against
+    every camera, ``chunk`` poses at a time.  poses: cam2world [B, 4, 4]
+    tensor; intrinsics: (fx, fy, cx, cy)."""
+    C = grid.density.shape[0]
+    H = grid_size
+    dev = grid.density.device
+    fx, fy, cx, cy = intrinsics
+    world = 2.0 * _linear_coords(H, dev).to(torch.float32) / (H - 1) - 1.0  # [H^3, 3]
+    poses = poses.to(device=dev, dtype=torch.float32)
+    count = torch.zeros((C, H**3), dtype=torch.int32, device=dev)
+    for cas in range(C):
+        cas_bound = min(2**cas, bound)
+        half = cas_bound / H
+        pts = world * (cas_bound - half)
+        for b in range(0, poses.shape[0], chunk):
+            pose_c = poses[b:b + chunk]
+            cam = torch.bmm(pts[None] - pose_c[:, None, :3, 3], pose_c[:, :3, :3])
+            mz = cam[..., 2] > 0
+            mx = torch.abs(cam[..., 0]) < cx / fx * cam[..., 2] + half * 2
+            my = torch.abs(cam[..., 1]) < cy / fy * cam[..., 2] + half * 2
+            count[cas] += (mz & mx & my).sum(dim=0, dtype=torch.int32)
+    density = torch.where(count == 0, -1.0, grid.density)
+    return grid._replace(density=density)
 
 
 def packbits(occupancy_flat):

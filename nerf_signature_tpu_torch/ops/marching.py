@@ -316,13 +316,14 @@ def _march_plain(rays_o, rays_d, occupancy, coarse, nears, fars, plan, bound,
 def march_rays_aabb(rays_o, rays_d, aabb, occupancy, *, min_near, bound,
                     dt_gamma=0.0, max_steps=1024, n_cand=None, budget=128,
                     prefilter=None, group=4, coarse_factor=2,
-                    group_budget=None, coarse=None, plain=False):
+                    group_budget=None, coarse=None, noise=None, plain=False):
     """K2 wrapper: slab test against ``aabb`` ([6] floats) + march.
 
     CPU tensors (or ``plain=True``) run ``near_far_from_aabb`` and
     ``march_rays``; CUDA tensors launch the marcher kernel, which takes the
-    bool grid and no perturbation (the training slice brings both).
-    Returns the ``march_rays`` dict plus ``nears`` and ``fars`` [N]."""
+    bool grid.  ``noise``: optional [N] U[0, 1) perturbation of t0 (training;
+    the JAX version draws it from ``perturb_key``), bit-exact between the
+    two.  Returns the ``march_rays`` dict plus ``nears`` and ``fars`` [N]."""
     C, H = occupancy.shape[0], occupancy.shape[1]
     plan = march_plan(C, H, bound=bound, dt_gamma=dt_gamma, max_steps=max_steps,
                       n_cand=n_cand, budget=budget, prefilter=prefilter,
@@ -333,13 +334,13 @@ def march_rays_aabb(rays_o, rays_d, aabb, occupancy, *, min_near, bound,
     if plain or not rays_o.is_cuda:
         nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
         out = _march_plain(rays_o, rays_d, occupancy, coarse, nears, fars, plan,
-                           bound, dt_gamma, None, 0.0)
+                           bound, dt_gamma, noise, 0.0)
         out.update(nears=nears, fars=fars)
         return out
     if occupancy.dtype != torch.bool:
         raise NotImplementedError(
             "the marcher kernel takes the bool occupancy grid; the float "
-            "render grid (t_cull) lands with the training slice")
+            "render grid (t_cull > 0) is ROADMAP queue 2 item K2 (t_cull)")
     N = rays_o.shape[0]
     S = plan.budget
     dev = rays_o.device
@@ -349,6 +350,8 @@ def march_rays_aabb(rays_o, rays_d, aabb, occupancy, *, min_near, bound,
     if coarse is not None:
         Hc = H // plan.coarse_factor
         _cuda.check(coarse, "coarse", torch.bool, (C, Hc, Hc, Hc), dev)
+    if noise is not None:
+        _cuda.check(noise, "noise", torch.float32, (N,), dev)
     aabb_host = np.ascontiguousarray(
         torch.as_tensor(aabb, dtype=torch.float32).reshape(6).cpu().numpy())
     f32 = torch.float32
@@ -365,7 +368,7 @@ def march_rays_aabb(rays_o, rays_d, aabb, occupancy, *, min_near, bound,
     }
     _cuda.MARCH(
         rays_o.data_ptr(), rays_d.data_ptr(), aabb_host.ctypes.data_as(_cuda._FP),
-        occupancy.data_ptr(), _cuda.ptr(coarse),
+        occupancy.data_ptr(), _cuda.ptr(coarse), _cuda.ptr(noise),
         N, C, H, H // plan.coarse_factor, plan.n_cand, S, plan.group,
         plan.group_budget, int(plan.prefilter),
         float(bound), float(min_near), plan.dt_min, plan.dt_max, float(dt_gamma),

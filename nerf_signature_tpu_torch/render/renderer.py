@@ -3,7 +3,9 @@
 
 One chunk of rays: slab test + march (K2) -> field (K1 + K4, through
 ``field_fn``) -> composite (K3) -> background blend and normalised depth.
-The fixed-step path (``render_rays_fixed``) is not ported yet.
+Training differentiates through it (the kernels' autograd Functions, and
+autograd through the compaction's gathers).  The fixed-step path
+(``render_rays_fixed``) is not ported yet.
 """
 
 import dataclasses
@@ -44,26 +46,30 @@ def default_aabb(rc: RenderConfig):
 def render_rays_occ(field_fn: Callable, occupancy, rays_o, rays_d,
                     rc: RenderConfig, *, budget: int, bg_color=1.0,
                     n_cand: Optional[int] = None, aabb=None, coarse=None,
-                    plain=False):
-    """Occupancy-grid render of [N, 3] rays.
+                    noise=None, plain=False):
+    """Occupancy-grid render of [N, 3] rays, differentiable in what
+    ``field_fn`` closes over (the train step's params).
 
     ``field_fn(xyzs [M, 3], dirs [M, 3]) -> (sigma [M], rgb [M, 3])``.
-    ``aabb``: optional [6] crop box (default: the scene bound).  ``coarse``:
-    the prefilter's dilated coarse grid, built once per render by the caller
-    (built here when None).  ``plain=True`` runs the plain versions of the
-    marcher and compositor whatever the device.
+    ``bg_color``: a scalar, [1, 3] or a per-ray [N, 3] tensor.  ``noise``:
+    optional [N] U[0, 1) march perturbation (training; JAX draws it from
+    ``perturb_key``).  ``aabb``: optional [6] crop box (default: the scene
+    bound).  ``coarse``: the prefilter's dilated coarse grid, built once per
+    render by the caller (built here when None).  ``plain=True`` runs the
+    plain versions of the marcher and compositor whatever the device.
     Returns dict(image [N, 3], depth [N], weights_sum [N], n_occupied,
     n_occupied_raw, n_groups_occ [N])."""
     if rc.t_cull > 0:
         raise NotImplementedError(
-            "t_cull is a train-step lever; it lands with the training slice")
+            "t_cull > 0 needs the float render grid in the marcher kernel: "
+            "ROADMAP queue 2 item K2 (t_cull), not ported yet")
     if aabb is None:
         aabb = default_aabb(rc)
     m = march_rays_aabb(
         rays_o, rays_d, aabb, occupancy, min_near=rc.min_near, bound=rc.bound,
         dt_gamma=rc.dt_gamma, max_steps=rc.max_steps, n_cand=n_cand,
         budget=budget, prefilter=rc.prefilter,
-        group_budget=rc.group_budget or None, coarse=coarse, plain=plain,
+        group_budget=rc.group_budget or None, coarse=coarse, noise=noise, plain=plain,
     )
     nears, fars = m["nears"], m["fars"]
     N, S = m["mask"].shape

@@ -4,7 +4,11 @@ The JAX package writes ``pickle.dump(flax.serialization.to_state_dict(tree))``
 (``nerf_signature_tpu/train/checkpoint.py``): nested dicts of numpy arrays,
 where a list becomes ``{"0": ..., "1": ...}`` and a NamedTuple a dict of its
 fields.  This module reads and writes exactly that, and converts the NGP
-params between that form and the port's dict of tensors.
+params and the optimizer state between that form and the port's tensors.
+The optimizer state is optax's ``adam`` with a schedule:
+``(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))``, i.e.
+``{"0": {"count", "mu", "nu"}, "1": {"count"}}`` with ``mu``/``nu`` laid out
+like the params, so a port checkpoint resumes in JAX and back.
 """
 
 import glob
@@ -74,6 +78,22 @@ def params_to_jax(params):
     return to_state_dict(params)
 
 
+def opt_state_to_jax(count, mu, nu):
+    """Adam's step count and moments (params-shaped dicts of tensors) ->
+    optax's ``adam`` state in state-dict form."""
+    c = np.asarray(count, np.int32)
+    return {"0": {"count": c, "mu": params_to_jax(mu), "nu": params_to_jax(nu)},
+            "1": {"count": c.copy()}}
+
+
+def opt_state_from_jax(state_dict, device="cpu"):
+    """optax's ``adam`` state (state-dict form) -> (count, mu, nu), the
+    moments as the port's params dicts on ``device``."""
+    adam = state_dict["0"]
+    return (int(np.asarray(adam["count"])), params_from_jax(adam["mu"], device),
+            params_from_jax(adam["nu"], device))
+
+
 def check_params_like(template, params):
     """Raise when a loaded tree's leaf shapes differ from the model's: a
     silent layout mismatch (e.g. a --dense_coarse checkpoint in a hashed
@@ -101,3 +121,14 @@ def checkpoint_candidates(ckpt_dir, name):
     """All ring-buffer checkpoints, newest first."""
     return sorted(glob.glob(os.path.join(ckpt_dir, f"{name}_ep*.ckpt")),
                   reverse=True)
+
+
+def prune_checkpoints(ckpt_dir, name, max_keep=2):
+    """Keep the newest ``max_keep`` ring-buffer checkpoints (like the JAX
+    package, ``max_keep=0`` keeps them all)."""
+    lst = sorted(glob.glob(os.path.join(ckpt_dir, f"{name}_ep*.ckpt")))
+    for p in lst[:-max_keep]:
+        try:
+            os.remove(p)
+        except FileNotFoundError:
+            pass

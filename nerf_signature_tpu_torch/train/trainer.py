@@ -1,31 +1,74 @@
-"""Clean-stage trainer, serving half (counterpart of
-``nerf_signature_tpu/train/trainer.py:Trainer``): checkpoint resolution and
-loading, the occupancy rebuild for grid-less checkpoints, evaluation and the
-test render.  The optimisation methods come with the training slice (ROADMAP
-slice 2) and raise until then.
+"""Clean-stage trainer (counterpart of
+``nerf_signature_tpu/train/trainer.py:Trainer``): the train step (render,
+MSE, backward through the kernels, Adam, EMA), the epoch loop with grid
+maintenance and the budget/compaction/group adaptations, checkpoints in the
+JAX format (optimizer state included) with the ring buffer and the best
+checkpoint, evaluation and the test render.
+
+Randomness is explicit: the per-step random background and march noise are
+drawn from the model's ``torch.Generator`` and handed to the renderer as
+tensors (JAX splits a key into the same two draws).  Paths not ported yet
+raise ``NotImplementedError`` naming their ROADMAP item: the device loop
+(``--steps_per_dispatch``), ``--error_map``, the patch LPIPS/SSIM losses,
+``--clip_text``, the stochastic hash estimators (K7) and ``--devices > 1``.
 """
 
+import dataclasses
+import json
+import math
 import os
 import pickle
 import struct
+import time
 import zlib
 
 import numpy as np
 import torch
 
 from ..api import NGPModel
-from ..ops.grid import update_occupancy_grid
+from ..models.ngp import field_params, ngp_field
+from ..ops.grid import render_grid, update_occupancy_grid
+from ..ops.marching import num_candidates
+from ..render.renderer import render_rays_occ
 from .checkpoint import (
     check_params_like,
     checkpoint_candidates,
     load_checkpoint,
+    opt_state_from_jax,
+    opt_state_to_jax,
     params_from_jax,
+    prune_checkpoints,
     save_checkpoint,
 )
 from .metrics import PSNRMeter
 
-_TRAINING = ("training lands with the next slice of the port (ROADMAP slice 2: "
-             "the clean train step with the backward kernels)")
+
+def srgb_to_linear(x):
+    """ref ``nerf/utils.py:48-50``."""
+    return np.where(x < 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def make_lr_schedule(lr, iters):
+    """``lr * 0.1 ** min(count / iters, 1)`` in float32, like the JAX
+    schedule (ref ``main_nerf.py:127``)."""
+    f32 = np.float32
+
+    def schedule(count):
+        frac = np.minimum(f32(count) / f32(iters), f32(1.0))
+        return float(f32(lr) * np.power(f32(0.1), frac))
+
+    return schedule
+
+
+def param_leaves(params):
+    """The params dict's tensors in a fixed order (the optimizer's order)."""
+    return [params["hash_table"], *params["sigma_net"], *params["color_net"]]
+
+
+def make_optimizer(params, lr):
+    """Adam(betas=(0.9, 0.99), eps=1e-15) over the params' leaves, ref
+    ``main_nerf.py:122``; the caller sets each step's lr from the schedule."""
+    return torch.optim.Adam(param_leaves(params), lr=lr, betas=(0.9, 0.99), eps=1e-15)
 
 
 def write_png(path, img8):
@@ -47,7 +90,7 @@ def write_png(path, img8):
 
 
 class Trainer:
-    """Serving trainer: holds the model, its EMA params and the workspace."""
+    """Holds the model, its optimizer and EMA params, and the workspace."""
 
     def __init__(self, name, opt, model: NGPModel, workspace="workspace",
                  ema_decay=0.95, metrics=None, eval_interval=50,
@@ -61,12 +104,20 @@ class Trainer:
         self.eval_interval = eval_interval
         self.max_keep_ckpt = max_keep_ckpt
         self.mute = mute
+        _refuse_unported(opt, model)
+
+        for p in param_leaves(model.params):
+            p.requires_grad_(True)
+        self.lr_schedule = make_lr_schedule(opt.lr, opt.iters)
+        self.optimizer = make_optimizer(model.params, opt.lr)
         self.ema_params = _clone(model.params)
-        self.opt_state_raw = None  # restored by the training slice
         self.epoch = 0
         self.global_step = 0
         self.stats = {"loss": [], "valid_loss": [], "results": [],
                       "checkpoints": [], "best_result": None}
+        self._budget_hysteresis = 0
+        self._group_hysteresis = 0
+        self._compact_pending = None
 
         if workspace is not None:
             os.makedirs(workspace, exist_ok=True)
@@ -102,11 +153,214 @@ class Trainer:
             with open(self.log_path, "a") as f:
                 print(*args, file=f)
 
-    # ----------------------------------------------------------------- train
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    def log_metrics(self, **scalars):
+        """One JSON line of scalars per call in ``metrics.jsonl``."""
+        if not self.workspace:
+            return
+        with open(os.path.join(self.workspace, "metrics.jsonl"), "a") as f:
+            f.write(json.dumps({"step": self.global_step, **scalars}) + "\n")
 
-    train_one_epoch = train_step_data = train_device = train
+    # ------------------------------------------------------------ adaptation
+    def _adapt_compaction(self, mean_occ, immediate=False):
+        """Auto sample-compaction (``--compact_frac -1``): the slot fraction
+        from measured occupancy (1.3x headroom, 1/16 buckets, a 2/16 lower
+        dead-band, two-in-a-row hysteresis), as the JAX trainer picks it."""
+        if getattr(self.opt, "compact_frac", 0) != -1:
+            return
+        m = self.model
+        S = m.train_budget
+        fill = min(float(mean_occ), S) / S
+        target = min(1.0, math.ceil(1.3 * fill * 16.0) / 16.0)
+        cur = m.rc.compact_frac or 1.0
+        if target == cur or (not immediate and target < cur and cur - target < 0.125):
+            self._compact_pending = None
+            return
+        if immediate or self._compact_pending == target:
+            m.rc = dataclasses.replace(m.rc, compact_frac=0.0 if target == 1.0 else target)
+            self._compact_pending = None
+            self.log(f"[compact] sample compaction -> {target}")
+        else:
+            self._compact_pending = target
+
+    def _adapt_budget(self, n_occ):
+        """The static march budget follows the smallest power of two >=
+        1.5 x mean(n_occ) (floor 32, cap max_steps), one bucket per two
+        agreeing checks; a move re-fits the compaction at once."""
+        mean = float(np.asarray(n_occ).mean())
+        b = self.model.train_budget
+        target = 1 << max(5, int(np.ceil(np.log2(max(1.5 * mean, 1.0)))))
+        target = min(target, self.opt.max_steps)
+        if target > b:
+            self._budget_hysteresis = max(self._budget_hysteresis, 0) + 1
+        elif target < b:
+            self._budget_hysteresis = min(self._budget_hysteresis, 0) - 1
+        else:
+            self._budget_hysteresis = 0
+        moved = False
+        if self._budget_hysteresis >= 2:
+            self.model.train_budget = min(b * 2, self.opt.max_steps)
+            self._budget_hysteresis = 0
+            moved = True
+            self.log(f"[budget] raise march budget -> {self.model.train_budget}")
+        elif self._budget_hysteresis <= -2:
+            self.model.train_budget = max(b // 2, 32)
+            self._budget_hysteresis = 0
+            moved = True
+            self.log(f"[budget] lower march budget -> {self.model.train_budget}")
+        if moved:
+            self._adapt_compaction(mean, immediate=True)
+
+    def _adapt_group_budget(self, mean_groups):
+        """March coarse-group budget (``--group_budget -1``): the same
+        1.5x-mean power-of-two rule fed by the uncapped ``n_groups_occ``,
+        floor 16 groups, idle until the grid's 16 full updates are done."""
+        if getattr(self.opt, "group_budget", 0) != -1:
+            return
+        m = self.model
+        if int(m.occ.iter_density) < 16:
+            self._group_hysteresis = 0
+            return
+        rc = m.rc
+        n_groups_max = max(num_candidates(rc.bound, rc.max_steps, rc.dt_gamma) // 4, 1)
+        cur = rc.group_budget or max(64, m.train_budget // 2)
+        target = 1 << max(4, int(np.ceil(np.log2(max(1.5 * mean_groups, 1.0)))))
+        target = min(target, n_groups_max)
+        if target > cur:
+            self._group_hysteresis = max(self._group_hysteresis, 0) + 1
+        elif target < cur:
+            self._group_hysteresis = min(self._group_hysteresis, 0) - 1
+        else:
+            self._group_hysteresis = 0
+        if self._group_hysteresis >= 2:
+            m.rc = dataclasses.replace(rc, group_budget=min(max(cur * 2, 16), n_groups_max))
+            self._group_hysteresis = 0
+            self.log(f"[group] raise march group budget -> {m.rc.group_budget}")
+        elif self._group_hysteresis <= -2:
+            m.rc = dataclasses.replace(rc, group_budget=max(cur // 2, 16))
+            self._group_hysteresis = 0
+            self.log(f"[group] lower march group budget -> {m.rc.group_budget}")
+
+    def _rc_train(self):
+        """RenderConfig of the next step: the t_cull fog gate (march exact
+        until the grid's 16 full updates are done)."""
+        rc = self.model.rc
+        if rc.t_cull and int(self.model.occ.iter_density) < 16:
+            return dataclasses.replace(rc, t_cull=0.0)
+        return rc
+
+    # ----------------------------------------------------------------- train
+    def _train_step(self, rays_o, rays_d, images, bg, noise, rc, budget):
+        """One optimisation step on [N, 3] rays and [N, 3 or 4] images with
+        the given draws (bg [N, 3] or [1, 3], noise [N]).  Returns (loss,
+        per_ray, n_occupied, n_occupied_raw, n_groups_occ), detached."""
+        m = self.model
+        if images.shape[-1] == 4:
+            gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
+        else:
+            gt = images
+        fp = field_params(m.params, m.cfg)
+        out = render_rays_occ(
+            lambda x, d: ngp_field(fp, m.cfg, x, d), render_grid(m.occ, rc.t_cull),
+            rays_o, rays_d, rc, budget=budget, bg_color=bg, noise=noise)
+        per_ray = torch.mean((out["image"] - gt) ** 2, dim=-1)
+        loss = torch.mean(per_ray)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_schedule(self.opt_count())
+        self.optimizer.step()
+        if self.ema_decay is not None:
+            with torch.no_grad():
+                for e, p in zip(param_leaves(self.ema_params), param_leaves(m.params)):
+                    e.mul_(self.ema_decay).add_(p * (1.0 - self.ema_decay))
+        return (loss.detach(), per_ray.detach(), out["n_occupied"],
+                out["n_occupied_raw"], out["n_groups_occ"])
+
+    def opt_count(self):
+        """Adam steps taken (optax's ``count``)."""
+        state = self.optimizer.state.get(param_leaves(self.model.params)[0])
+        return int(state["step"]) if state else 0
+
+    def draws(self, n, has_alpha):
+        """The step's random background [n, 3] (ones without alpha) and
+        march noise [n], from the model's generator."""
+        m = self.model
+        if has_alpha:
+            bg = torch.rand((n, 3), generator=m.generator, device=m.device)
+        else:
+            bg = torch.ones((1, 3), device=m.device)
+        return bg, torch.rand((n,), generator=m.generator, device=m.device)
+
+    def train_step_data(self, data):
+        if "images" not in data:
+            # GT-free rand_pose batch: no CLIP guidance in the port, skip it
+            if not getattr(self, "_warned_gt_free", False):
+                self._warned_gt_free = True
+                self.log("[train] skipping GT-free rand_pose batches: no --clip_text")
+            return None, None, None, None, None
+        m = self.model
+        images = np.asarray(data["images"]).reshape(-1, data["images"].shape[-1])
+        if getattr(self.opt, "color_space", "srgb") == "linear":
+            images = images.copy()
+            images[..., :3] = srgb_to_linear(images[..., :3])
+        dev = m.device
+        rays_o = torch.as_tensor(np.asarray(data["rays_o"]).reshape(-1, 3), device=dev)
+        rays_d = torch.as_tensor(np.asarray(data["rays_d"]).reshape(-1, 3), device=dev)
+        images = torch.as_tensor(np.asarray(images, np.float32), device=dev)
+        bg, noise = self.draws(rays_o.shape[0], images.shape[-1] == 4)
+        return self._train_step(rays_o, rays_d, images, bg, noise, self._rc_train(),
+                                m.train_budget)
+
+    def train_one_epoch(self, loader):
+        m = self.model
+        total_loss, nsteps = 0.0, 0
+        t_epoch = time.time()
+        update_interval = getattr(self.opt, "update_extra_interval", 16)
+        for data in loader:
+            if (self.global_step % update_interval == 0
+                    and self.global_step != getattr(self, "_last_extra", -1)):
+                m.update_extra_state()
+                self._last_extra = self.global_step
+            loss, per_ray, n_occ, n_occ_raw, n_groups = self.train_step_data(data)
+            if loss is None:
+                continue
+            if self.global_step % update_interval == update_interval - 1:
+                self._adapt_budget(n_occ_raw.cpu().numpy())
+                self._adapt_compaction(float(n_occ.float().mean()))
+                self._adapt_group_budget(float(n_groups.float().mean()))
+            total_loss += float(loss)
+            nsteps += 1
+            self.global_step += 1
+            if self.global_step >= self.opt.iters:
+                break
+        avg = total_loss / max(nsteps, 1)
+        self.stats["loss"].append(avg)
+        dt = max(time.time() - t_epoch, 1e-9)
+        self.log_metrics(loss=avg, rays_per_sec=nsteps * self.opt.num_rays / dt,
+                         train_budget=m.train_budget)
+        return avg
+
+    def train_device(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the on-device K-step loop (--steps_per_dispatch) is ROADMAP queue 1 "
+            "item 'device loop / CUDA graph of the step', not ported yet")
+
+    def train(self, train_loader, valid_loader=None, max_epochs=1):
+        if getattr(train_loader, "poses", None) is not None:
+            self.model.mark_untrained_grid(train_loader.poses, train_loader.intrinsics)
+        start = time.time()
+        for epoch in range(self.epoch + 1, max_epochs + 1):
+            self.epoch = epoch
+            avg = self.train_one_epoch(train_loader)
+            self.log(f"[epoch {epoch}/{max_epochs}] loss={avg:.6f} "
+                     f"step={self.global_step} elapsed={time.time() - start:.1f}s")
+            if self.workspace:
+                self.save_checkpoint(full=True)
+                prune_checkpoints(self.ckpt_path, self.name, self.max_keep_ckpt)
+            if valid_loader is not None and epoch % self.eval_interval == 0:
+                self.evaluate_one_epoch(valid_loader)
+            if self.global_step >= self.opt.iters:
+                break
 
     # ------------------------------------------------------------------ eval
     def eval_params(self):
@@ -171,6 +425,26 @@ class Trainer:
         return frames
 
     # ------------------------------------------------------------ checkpoint
+    def _opt_state(self):
+        """Adam's state in optax's layout (zeros before the first step)."""
+        params = self.model.params
+        mu, nu = {}, {}
+        for k, v in params.items():
+            vs = v if isinstance(v, list) else [v]
+            st = [self.optimizer.state.get(p) for p in vs]
+            mus = [s["exp_avg"] if s else torch.zeros_like(p) for s, p in zip(st, vs)]
+            nus = [s["exp_avg_sq"] if s else torch.zeros_like(p) for s, p in zip(st, vs)]
+            mu[k], nu[k] = (mus, nus) if isinstance(v, list) else (mus[0], nus[0])
+        return opt_state_to_jax(self.opt_count(), mu, nu)
+
+    def _load_opt_state(self, state_dict):
+        count, mu, nu = opt_state_from_jax(state_dict, self.model.device)
+        check_params_like(self.model.params, mu)
+        check_params_like(self.model.params, nu)
+        for p, a, b in zip(param_leaves(self.model.params), param_leaves(mu), param_leaves(nu)):
+            self.optimizer.state[p] = {"step": torch.tensor(float(count)), "exp_avg": a,
+                                       "exp_avg_sq": b}
+
     def _state(self, full=True):
         state = {
             "params": self.model.params,
@@ -180,13 +454,13 @@ class Trainer:
             "global_step": self.global_step,
             "train_budget": self.model.train_budget,
         }
-        if full and self.opt_state_raw is not None:
-            state["opt_state"] = self.opt_state_raw
+        if full:
+            state["opt_state"] = self._opt_state()
         return state
 
     def save_checkpoint(self, full=True, best=False):
         """Write the JAX package's checkpoint format (the best checkpoint
-        drops the grid, like the reference)."""
+        drops the grid and the optimizer state, like the reference)."""
         if best:
             state = self._state(full=False)
             state.pop("occ")
@@ -198,15 +472,17 @@ class Trainer:
         return path
 
     def load_checkpoint(self, path, model_only=False):
+        """Restore a checkpoint of either package.  Params and EMA are copied
+        into the existing tensors, so the optimizer keeps its references."""
         raw = load_checkpoint(path)
         m = self.model
         params = params_from_jax(raw["params"], m.device)
         check_params_like(m.params, params)
-        m.params = params
+        _copy_into(m.params, params)
         if "ema_params" in raw:
             ema = params_from_jax(raw["ema_params"], m.device)
             check_params_like(m.params, ema)
-            self.ema_params = ema
+            _copy_into(self.ema_params, ema)
         if "occ" in raw:
             fields = {}
             for k, v in raw["occ"].items():
@@ -224,8 +500,11 @@ class Trainer:
             self.epoch = int(raw.get("epoch", 0))
             self.global_step = int(raw.get("global_step", 0))
             m.train_budget = int(raw.get("train_budget", m.train_budget))
-            # kept raw for the training slice; not restored into an optimizer
-            self.opt_state_raw = raw.get("opt_state")
+            if "opt_state" in raw:
+                try:
+                    self._load_opt_state(raw["opt_state"])
+                except (KeyError, ValueError, TypeError) as e:
+                    self.log(f"[ckpt] optimizer restore failed (soft): {e}")
         self.log(f"[ckpt] loaded {path}")
         self._ensure_occupancy(path)
 
@@ -252,5 +531,30 @@ class Trainer:
 
 
 def _clone(params):
-    return {k: [w.clone() for w in v] if isinstance(v, list) else v.clone()
+    return {k: [w.detach().clone() for w in v] if isinstance(v, list) else v.detach().clone()
             for k, v in params.items()}
+
+
+@torch.no_grad()
+def _copy_into(dst, src):
+    for a, b in zip(param_leaves(dst), param_leaves(src)):
+        a.copy_(b)
+
+
+def _refuse_unported(opt, model):
+    """Raise on the train-path options this slice does not port."""
+    todo = []
+    if getattr(opt, "devices", 0) > 1:
+        todo.append("--devices > 1 (ROADMAP: parallel/ as DDP over NCCL)")
+    if getattr(opt, "error_map", False):
+        todo.append("--error_map (ROADMAP queue 1: error map, patch losses, CLIP)")
+    if getattr(opt, "clip_text", ""):
+        todo.append("--clip_text (ROADMAP queue 1: error map, patch losses, CLIP)")
+    if getattr(opt, "patch_size", 1) > 1 and (
+            getattr(opt, "lpips_weights", None) or getattr(opt, "lambda_ssim", 0)):
+        todo.append("--patch_size with LPIPS/SSIM (ROADMAP queue 1: error map, "
+                    "patch losses, CLIP)")
+    if model.cfg.stochastic_hash_grad or getattr(opt, "hash_fwd_corners", 8) != 8:
+        todo.append("--stochastic_hash_grad / --hash_fwd_corners 1 (ROADMAP queue 2 K7)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + "; ".join(todo))

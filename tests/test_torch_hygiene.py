@@ -68,10 +68,15 @@ def test_default_device_is_the_gpu_and_never_silently_the_cpu():
 
 
 def test_wrappers_refuse_grad_through_forward_only_kernels():
+    """No kernel of the train path is forward-only any more: each has its
+    backward kernel, and ``needs_grad`` routes a call through the kernel's
+    autograd Function exactly when autograd will differentiate it."""
     from nerf_signature_tpu_torch.ops import _cuda
 
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _cuda.no_grad_inputs("k", x)
+    assert _cuda.needs_grad(x) and _cuda.needs_grad(None, x)
+    assert not _cuda.needs_grad(torch.zeros(3), None)
     with torch.no_grad():
-        _cuda.no_grad_inputs("k", x)
+        assert not _cuda.needs_grad(x)
+    assert {"K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd"} <= set(_cuda.KERNELS)
+    assert not hasattr(_cuda, "no_grad_inputs")

@@ -104,6 +104,7 @@ HASH_CASES = {
     "fp32_hashed": dict(gather=None, dense=False, shared=False),
     "bf16_hashed": dict(gather="bf16", dense=False, shared=False),
     "fp32_dense": dict(gather=None, dense=True, shared=False),
+    "bf16_dense": dict(gather="bf16", dense=True, shared=False),
     "bf16_shared": dict(gather="bf16", dense=False, shared=True),
 }
 

@@ -206,8 +206,13 @@ def test_render_grid_and_packbits_match_jax():
     flat = occ.reshape(-1)
     assert np.array_equal(np.asarray(j_grid.packbits(jnp.asarray(flat))),
                           t_grid.packbits(torch.from_numpy(flat)).numpy())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        t_grid.mark_untrained_grid(gt, None, None)
+    # the frustum marking is ported: a camera looking away from the box sees
+    # no cell, so every cell is marked untrained (-1)
+    away = np.eye(4, dtype=np.float32)[None]
+    away[0, :3, 3] = (0.0, 0.0, 10.0)
+    marked = t_grid.mark_untrained_grid(gt, torch.from_numpy(away), (8.0, 8.0, 4.0, 4.0),
+                                        bound=2.0, grid_size=8)
+    assert (marked.density == -1).all() and marked.occupancy is gt.occupancy
 
 
 # --------------------------------------------------------------- checkpoints

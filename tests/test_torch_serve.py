@@ -63,7 +63,7 @@ def ball_loader(n=2, res=RES, seed=0):
 
 
 def _opt(**kw):
-    d = dict(lr=1e-2, iters=10, max_ray_batch=128, devices=1, patch_size=1)
+    d = dict(lr=1e-2, iters=10, max_ray_batch=128, devices=1, patch_size=1, num_rays=256)
     d.update(kw)
     return types.SimpleNamespace(**d)
 
@@ -81,7 +81,8 @@ def test_serving_trainer_matches_jax_trainer(tmp_path):
     os.link(ckpt, os.path.join(ws_t, "checkpoints", os.path.basename(ckpt)))
     tt = TTrainer("ngp", _opt(), tm, workspace=ws_t, use_checkpoint="latest", mute=True,
                   metrics=[PSNRMeter(), SSIMMeter(), LPIPSMeter()])
-    assert tt.epoch == 4 and tt.opt_state_raw is not None
+    # Adam's state is restored from optax's (count 0, zero moments)
+    assert tt.epoch == 4 and tt.opt_count() == 0 and len(tt.optimizer.state) == 6
 
     loader = ball_loader()
     loss_j = jt.evaluate_one_epoch(loader)
@@ -111,8 +112,10 @@ def test_best_checkpoint_without_grid_rebuilds_occupancy(tmp_path):
              mute=True)
     frac = float(fresh.occ.occupancy.float().mean())
     assert 0.0 < frac < 1.0 and int(fresh.occ.iter_density) == 2
-    with pytest.raises(NotImplementedError, match="slice"):
-        TTrainer("ngp", _opt(), fresh, workspace=None).train(None)
+    # the rebuilt model trains: two steps on two ball views
+    trainer = TTrainer("ngp", _opt(), fresh, workspace=None, mute=True)
+    trainer.train(ball_loader(), None, max_epochs=1)
+    assert trainer.global_step == 2 and trainer.opt_count() == 2
 
 
 def _write_ball_scene(root, res=RES):
@@ -120,7 +123,7 @@ def _write_ball_scene(root, res=RES):
 
     os.makedirs(root, exist_ok=True)
     rng = np.random.default_rng(0)
-    for split, n in [("train", 1), ("test", 2)]:
+    for split, n in [("train", 1), ("val", 1), ("test", 2)]:
         frames = []
         for i, pose in enumerate(rand_poses(rng, n, radius=1.8)):
             # invert the provider's nerf->ngp axis swap (scale 1)
@@ -170,8 +173,33 @@ def test_cli_test_mode_on_cpu_writes_pngs_and_mesh(tmp_path):
     n_verts = int(header.split("element vertex ")[1].split()[0])
     assert n_verts > 0
 
+    # train mode: a few iterations at a tiny config in a fresh workspace,
+    # a checkpoint in the JAX format, then --test renders from it
+    ws_train = str(tmp_path / "ws_train")
+    tiny = ["--cpu", "-O", "--bound", "1.0", "--scale", "1.0", "--dt_gamma", "0",
+            "--grid_size", "32", "--max_steps", "128", "--n_levels", "4",
+            "--density_thresh", "0.01", "--min_near", "0.05"]
     train = subprocess.run(
-        [sys.executable, "-m", "nerf_signature_tpu_torch.main_nerf", scene,
-         "--workspace", ws, "--cpu"], cwd=REPO, capture_output=True, text=True,
-        timeout=300)
-    assert train.returncode != 0 and "next slice" in train.stderr
+        [sys.executable, "-m", "nerf_signature_tpu_torch.main_nerf", scene, "--workspace",
+         ws_train, "--iters", "6", "--num_rays", "128", "--train_budget", "32"] + tiny,
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert train.returncode == 0, train.stdout[-3000:] + train.stderr[-3000:]
+    assert "[epoch 6/6]" in train.stdout and "[eval]" in train.stdout
+    from nerf_signature_tpu.api import NGPModel as JModel
+    from nerf_signature_tpu.models.ngp import NGPConfig as JConfig
+    from nerf_signature_tpu.train import checkpoint as j_ckpt
+
+    ckpt = j_ckpt.latest_checkpoint(os.path.join(ws_train, "checkpoints"), "ngp")
+    raw = j_ckpt.load_checkpoint(ckpt)
+    jm = JModel(JConfig(bound=1.0, n_levels=4, compute_dtype=jnp.bfloat16), grid_size=32)
+    restored = j_ckpt.restore_like(jm.params, raw["params"])
+    assert raw["global_step"] == 6 and int(raw["opt_state"]["0"]["count"]) == 6
+    assert all(np.isfinite(np.asarray(v)).all() for v in jax.tree_util.tree_leaves(restored))
+    test = subprocess.run(
+        [sys.executable, "-m", "nerf_signature_tpu_torch.main_nerf", scene, "--workspace",
+         ws_train, "--test", "--infer_budget", "32", "--mesh_resolution", "16"] + tiny,
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert test.returncode == 0, test.stdout[-3000:] + test.stderr[-3000:]
+    assert "[ckpt] loaded" in test.stdout
+    assert sorted(os.listdir(os.path.join(ws_train, "results"))) == [
+        "ngp_0000_rgb.png", "ngp_0001_rgb.png"]
