@@ -40,7 +40,9 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                launches; it fails unless the loss falls and a held-out
                view's PSNR rises at least 6 dB over the untrained model's;
                then torch.profiler over 16 more steps (device time by
-               kernel, the device's idle share).
+               kernel, the device's idle share); then 384 steps on the
+               radius-0.4 ball, which fail unless the march budget, the
+               compaction and the group budget each moved.
 
 The last lines are one JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -76,10 +78,15 @@ TRAIN_RAYS = 4096
 TRAIN_BUDGET = 128
 TRAIN_VIEWS = 32
 TRAIN_ITERS = 512
-# the train phase's ball fills ~30% of a view, like a Blender object; the
-# serving ball (radius 0.4, ~10%) left the auto group budget at its floor of
-# 16 groups and training stalled there (PERF.md, the group budget finding)
+# the train phase's ball; on the serving ball (radius 0.4) the auto group
+# budget sinks to its floor of 16 groups and training stalls there (PERF.md,
+# the group budget finding), so the quality check trains on a larger ball
 TRAIN_BALL = 0.7
+# the adaptations' case: the serving ball moves the march budget, the
+# compaction and the group budget (the group budget only after the grid's
+# 16th update, at step 240)
+ADAPT_BALL = 0.4
+ADAPT_ITERS = 384
 
 
 def log(*a):
@@ -399,11 +406,6 @@ def rel_l2(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
 
 
-def cosine(a, b):
-    a, b = a.double().flatten(), b.double().flatten()
-    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
-
-
 def train_rays(dev, seed=3):
     """TRAIN_RAYS random pixels of an orbit view (the train sampler's draw)."""
     from nerf_signature_tpu_torch.data.rays import get_rays
@@ -497,7 +499,10 @@ def phase_train_kernels(dev):
     buf = torch.zeros(rows * 2, device=dev)
     lib1 = median_ms(lambda: buf.index_add_(0, idx, val), 10)
     del idx, val, buf
-    bms1, bby1 = bound_of(M * (12 + cfg.enc_dim * 4) + rows * 8, n_adds, PEAK_FP32)
+    # bound: the cotangent read and the grad table written whole; x read only
+    # for samples with a nonzero cotangent; one add for each nonzero pair
+    n_hot = int((g_feat != 0).any(-1).sum())
+    bms1, bby1 = bound_of(M * cfg.enc_dim * 4 + n_hot * 12 + rows * 8, n_adds, PEAK_FP32)
     results["K1_hash_encode_bwd"] = dict(max_abs_err=a1, rel_l2=e1, ms=ms1, plain_ms=pms1,
                                          bound_ms=bms1, bound_by=bby1, library_ms=lib1)
 
@@ -532,9 +537,14 @@ def phase_train_kernels(dev):
                                                   g_rgb), 10)
     pms4 = median_ms(plain_bwd, 5, 1)
     lib4 = library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb)
+    # bound: every sample's cotangents read and g_feat written; feat and dirs
+    # read, and the forward and both products done (6 flops a weight), only
+    # for samples with a nonzero cotangent; the weights read, g_weights written
     n_w = flat.numel()
-    bms4, bby4 = bound_of(M * (cfg.enc_dim * 4 * 2 + 12 + 4 + 12) + n_w * 8, M * 6 * n_w,
-                          PEAK_BF16)
+    n_hot = int(((g_sigma != 0) | (g_rgb != 0).any(-1)).sum())
+    bms4, bby4 = bound_of(M * (4 + 12 + cfg.enc_dim * 4) + n_hot * (cfg.enc_dim * 4 + 12)
+                          + n_w * 8, n_hot * 6 * n_w, PEAK_BF16)
+    log(f"[K4 bwd] {n_hot} of {M} samples carry a nonzero cotangent")
     results["K4_field_bwd"] = dict(max_abs_err=a4, rel_l2=e4, ms=ms4, plain_ms=pms4,
                                    bound_ms=bms4, bound_by=bby4, library_ms=lib4)
     del f_p, s_p, r_p, gp4
@@ -569,20 +579,22 @@ def phase_train_kernels(dev):
                                        bound_ms=bms3, bound_by=bby3, library_ms=None)
     del out, s_p, r_p
 
-    # ---- one whole train step through the kernels and through the plain versions
-    for dtype, lim_loss, lim_rel, min_cos in ((torch.bfloat16, 1e-3, 6e-2, 0.998),
-                                              (torch.float32, 1e-5, 1e-4, None)):
+    # ---- one whole train step through the kernels and through the plain versions;
+    # K2 is bit-exact and K3/K1 differ by fp32 sum order, so what is left is
+    # K4's bf16 roundings of sums taken in another order than cuBLAS's.  The
+    # limits are a few times the readings on an H100 (loss 7.0e-8 relative;
+    # per-leaf rel L2 2.6e-4 in bf16, 8.1e-7 in fp32)
+    for dtype, lim_rel in ((torch.bfloat16, 2e-3), (torch.float32, 1e-5)):
+        lim_loss = 1e-6
         mt = make_model(dev, dtype=dtype)
         (lk, gk_), (lp, gp_) = (train_step_grads(mt, ro, rd, bg, noise, plain)
                                 for plain in (False, True))
         el = abs(float(lk) - float(lp)) / abs(float(lp))
         worst = max(rel_l2(a, b) for a, b in zip(gk_, gp_))
-        cmin = min(cosine(a, b) for a, b in zip(gk_, gp_))
         log(f"[train step] {str(dtype)[6:]}: loss {float(lk):.6g} vs plain {float(lp):.6g} "
             f"(rel {el:.3g}, limit {lim_loss:g}); per-leaf grads worst rel L2 {worst:.3g} "
-            f"(limit {lim_rel:g}), min cosine {cmin:.6f}"
-            + (f" (limit {min_cos})" if min_cos else ""))
-        if not (el <= lim_loss and worst <= lim_rel and (min_cos is None or cmin >= min_cos)):
+            f"(limit {lim_rel:g})")
+        if not (el <= lim_loss and worst <= lim_rel):
             raise AssertionError(f"train step through the kernels differs from the plain "
                                  f"one ({str(dtype)})")
         del mt
@@ -741,12 +753,13 @@ def phase_serve(dev, workdir):
 
 # ---------------------------------------------------------------- phase 6
 class BallViews:
-    """The train loader: TRAIN_VIEWS orbit views of the analytic ball
-    (radius TRAIN_BALL) at RES x RES; each step draws TRAIN_RAYS random
-    pixels of one view (shuffled per epoch) and colours them analytically
-    (no images are stored)."""
+    """The train loader: TRAIN_VIEWS orbit views of the analytic ball of
+    ``radius`` at RES x RES; each step draws TRAIN_RAYS random pixels of one
+    view (shuffled per epoch) and colours them analytically (no images are
+    stored)."""
 
-    def __init__(self, seed=5):
+    def __init__(self, radius, seed=5):
+        self.radius = radius
         self.poses = orbit_poses(TRAIN_VIEWS, ORBIT_RADIUS, seed=seed)
         fl = RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
         self.intrinsics = np.array([fl, fl, RES / 2, RES / 2])
@@ -762,7 +775,7 @@ class BallViews:
             r = get_rays(self.poses[v:v + 1], self.intrinsics, RES, RES, TRAIN_RAYS,
                          rng=self.rng)
             yield {"H": RES, "W": RES, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
-                   "images": ball_rgba(r["rays_o"], r["rays_d"], radius=TRAIN_BALL)}
+                   "images": ball_rgba(r["rays_o"], r["rays_d"], radius=self.radius)}
 
 
 def held_out_psnr(m, params, rays, gt):
@@ -776,7 +789,36 @@ def held_out_psnr(m, params, rays, gt):
     return psnr(img, gt)
 
 
-def phase_train(dev):
+def watch_adaptations(trainer):
+    """Count the moves of the march budget, the compaction and the group
+    budget: their values are compared before every train step.  Returns the
+    counts and the compare function (call it once more after training)."""
+    m = trainer.model
+    moves = {"budget": 0, "compaction": 0, "group budget": 0}
+    last = [(m.train_budget, m.rc.compact_frac, m.rc.group_budget)]
+
+    def note():
+        now = (m.train_budget, m.rc.compact_frac, m.rc.group_budget)
+        for k, a, b in zip(moves, last[0], now):
+            moves[k] += a != b
+        last[0] = now
+
+    step = trainer.train_step_data
+
+    def watched(data):
+        note()
+        return step(data)
+
+    trainer.train_step_data = watched
+    return moves, note
+
+
+def train_case(dev, radius, iters, group_budget=-1):
+    """A fresh full-width model (standard init) trained by the port's
+    Trainer.train with the CLI's train defaults on BallViews(radius).
+    Returns the trainer, its loader, the loop's wall seconds, the kernels'
+    launches, peak memory, the held-out view's PSNR before and after, and the
+    adaptations' moves."""
     from types import SimpleNamespace
 
     from nerf_signature_tpu_torch.api import NGPModel
@@ -784,45 +826,60 @@ def phase_train(dev):
     from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.train.trainer import Trainer
 
-    opt = SimpleNamespace(lr=1e-2, iters=TRAIN_ITERS, num_rays=TRAIN_RAYS, max_steps=1024,
-                          update_extra_interval=16, compact_frac=-1, group_budget=-1,
+    opt = SimpleNamespace(lr=1e-2, iters=iters, num_rays=TRAIN_RAYS, max_steps=1024,
+                          update_extra_interval=16, compact_frac=-1, group_budget=group_budget,
                           max_ray_batch=CHUNK, patch_size=1, color_space="srgb")
     model = NGPModel(NGPConfig(bound=1.0), min_near=0.2, density_thresh=10.0, dt_gamma=0.0,
                      max_steps=1024, grid_size=128, seed=2, train_budget=TRAIN_BUDGET,
                      infer_budget=256, device=dev)
-    loader = BallViews()
+    loader = BallViews(radius)
     held = view_rays(orbit_poses(1, ORBIT_RADIUS, seed=9))
-    rgba = ball_rgba(held["rays_o"][0], held["rays_d"][0], radius=TRAIN_BALL)
+    rgba = ball_rgba(held["rays_o"][0], held["rays_d"][0], radius=radius)
     gt = torch.from_numpy(rgba[:, :3] * rgba[:, 3:] + (1.0 - rgba[:, 3:])).to(dev)
     # no workspace: no per-epoch checkpoint (params, EMA and Adam's moments,
     # ~270 MB each) inside the timed loop; the CPU tests cover the ring buffer
     trainer = Trainer("ngp", opt, model, workspace=None, use_checkpoint="scratch")
+    moves, note = watch_adaptations(trainer)
     psnr0 = held_out_psnr(model, trainer.eval_params(), held, gt)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     t0 = time.time()
-    trainer.train(loader, None, max_epochs=math.ceil(TRAIN_ITERS / TRAIN_VIEWS))
+    trainer.train(loader, None, max_epochs=math.ceil(iters / TRAIN_VIEWS))
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = _cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    steps = trainer.global_step
+    note()
     psnr1 = held_out_psnr(model, trainer.eval_params(), held, gt)
-    losses = trainer.stats["loss"]
+    return dict(trainer=trainer, loader=loader, seconds=seconds, launches=launches,
+                peak=peak, psnr0=psnr0, psnr1=psnr1, moves=moves)
+
+
+def adaptation_state(model):
     occ = float(model.occ.occupancy.float().mean())
+    return (f"final budget {model.train_budget}, compaction {model.rc.compact_frac}, "
+            f"group budget {model.rc.group_budget}, grid {occ:.2%} occupied after "
+            f"{int(model.occ.iter_density)} updates")
+
+
+def phase_train(dev):
+    r = train_case(dev, TRAIN_BALL, TRAIN_ITERS)
+    trainer, seconds, launches = r["trainer"], r["seconds"], r["launches"]
+    steps = trainer.global_step
+    psnr0, psnr1 = r["psnr0"], r["psnr1"]
+    losses = trainer.stats["loss"]
     log(f"[train] {steps} steps of {TRAIN_RAYS} rays in {seconds:.2f} s (grid updates and "
         f"mark_untrained_grid included): {steps * TRAIN_RAYS / seconds:.0f} "
-        f"train rays/s, {seconds / steps * 1e3:.2f} ms a step; peak memory {peak:.2f} GiB")
+        f"train rays/s, {seconds / steps * 1e3:.2f} ms a step; peak memory "
+        f"{r['peak']:.2f} GiB")
     log(f"[train] epoch losses {[round(v, 6) for v in losses]}")
-    log(f"[train] final budget {model.train_budget}, compaction {model.rc.compact_frac}, "
-        f"group budget {model.rc.group_budget}, grid {occ:.2%} occupied after "
-        f"{int(model.occ.iter_density)} updates")
+    log(f"[train] {adaptation_state(trainer.model)}; moves {r['moves']}")
     log(f"[train] held-out view PSNR vs the analytic ball: untrained {psnr0:.2f} dB, "
         f"trained {psnr1:.2f} dB (limit: +6 dB)")
     log(f"[train] launches during Trainer.train: {launches}")
-    profile_steps(trainer, loader)
+    profile_steps(trainer, r["loader"])
     if steps != TRAIN_ITERS:
         raise AssertionError(f"Trainer.train ran {steps} steps, expected {TRAIN_ITERS}")
     if not losses[-1] < 0.5 * losses[0]:
@@ -832,6 +889,16 @@ def phase_train(dev):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was not launched by Trainer.train")
+    del r, trainer
+
+    # ---- the adaptations' case: each of the three must move at least once
+    a = train_case(dev, ADAPT_BALL, ADAPT_ITERS)
+    log(f"[train adapt] ball of radius {ADAPT_BALL}, {a['trainer'].global_step} steps in "
+        f"{a['seconds']:.2f} s: moves {a['moves']}; {adaptation_state(a['trainer'].model)}; "
+        f"held-out PSNR {a['psnr0']:.2f} -> {a['psnr1']:.2f} dB")
+    for name, n in a["moves"].items():
+        if n == 0:
+            raise AssertionError(f"the {name} adaptation never moved in {ADAPT_ITERS} steps")
     return dict(launches=launches, seconds=seconds, steps=steps,
                 rays_per_s=steps * TRAIN_RAYS / seconds, psnr0=psnr0, psnr1=psnr1)
 

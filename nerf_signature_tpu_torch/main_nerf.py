@@ -42,8 +42,10 @@ def main(argv=None):
     from .meshing.extract import save_mesh
     from .models.ngp import NGPConfig
     from .train.metrics import LPIPSMeter, PSNRMeter
-    from .train.trainer import Trainer
+    from .train.trainer import T_CULL_TODO, Trainer
 
+    if not opt.test and opt.t_cull > 0:
+        raise NotImplementedError(T_CULL_TODO)
     device = "cpu" if opt.cpu else None
     cfg = NGPConfig(
         bound=opt.bound,

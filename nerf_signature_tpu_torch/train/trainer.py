@@ -10,7 +10,8 @@ drawn from the model's ``torch.Generator`` and handed to the renderer as
 tensors (JAX splits a key into the same two draws).  Paths not ported yet
 raise ``NotImplementedError`` naming their ROADMAP item: the device loop
 (``--steps_per_dispatch``), ``--error_map``, the patch LPIPS/SSIM losses,
-``--clip_text``, the stochastic hash estimators (K7) and ``--devices > 1``.
+``--clip_text``, the stochastic hash estimators (K7), ``--devices > 1`` and
+training with ``t_cull > 0``.
 """
 
 import dataclasses
@@ -41,6 +42,9 @@ from .checkpoint import (
     save_checkpoint,
 )
 from .metrics import PSNRMeter
+
+T_CULL_TODO = ("training with --t_cull > 0 needs the float render grid in the marcher "
+               "kernel: ROADMAP queue 2 item K2 (t_cull), not ported yet")
 
 
 def srgb_to_linear(x):
@@ -292,6 +296,9 @@ class Trainer:
         return bg, torch.rand((n,), generator=m.generator, device=m.device)
 
     def train_step_data(self, data):
+        if self.model.rc.t_cull > 0:
+            # refused before the first step, not once _rc_train lets it through
+            raise NotImplementedError(T_CULL_TODO)
         if "images" not in data:
             # GT-free rand_pose batch: no CLIP guidance in the port, skip it
             if not getattr(self, "_warned_gt_free", False):

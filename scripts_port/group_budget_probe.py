@@ -4,19 +4,16 @@ the auto group budget, on one NVIDIA GPU.
 
     python3 scripts_port/group_budget_probe.py
 
-Each case trains a fresh model through ``Trainer.train`` for 512 steps of
-4096 rays (chip_smoke.py's train phase: the CLI's train defaults, 32 views
-of 800x800) and prints the held-out view's PSNR before and after, the
-adaptations' final state and the last epochs' losses.  The cases: the
-serving ball (radius 0.4, ~10% of a view) with the defaults
-(``--compact_frac -1 --group_budget -1``), the same with the static group
-budget (``--group_budget 0``), and the train phase's ball (radius 0.7).
+Each case is chip_smoke.py's ``train_case``: a fresh model trained through
+``Trainer.train`` for 512 steps of 4096 rays (the CLI's train defaults, 32
+views of 800x800).  It prints the held-out view's PSNR before and after, the
+adaptations' moves and final state, and the last epochs' losses.  The cases:
+the serving ball (radius 0.4) with the defaults (``--compact_frac -1
+--group_budget -1``), the same with the static group budget
+(``--group_budget 0``), and the train phase's ball (radius 0.7).
 """
 
-import math
 import sys
-import time
-from types import SimpleNamespace
 
 import torch
 
@@ -28,41 +25,17 @@ CASES = [("ball 0.4, defaults", 0.4, -1), ("ball 0.4, static group budget", 0.4,
 
 
 def main():
-    from nerf_signature_tpu_torch.api import NGPModel
-    from nerf_signature_tpu_torch.models.ngp import NGPConfig
-    from nerf_signature_tpu_torch.train.trainer import Trainer
-
     if not torch.cuda.is_available():
         print("group_budget_probe: no CUDA GPU visible", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     cs.phase_device()
     for name, radius, group in CASES:
-        cs.TRAIN_BALL = radius  # BallViews colours its rays with this ball
-        held = cs.view_rays(cs.orbit_poses(1, cs.ORBIT_RADIUS, seed=9))
-        rgba = cs.ball_rgba(held["rays_o"][0], held["rays_d"][0], radius=radius)
-        gt = torch.from_numpy(rgba[:, :3] * rgba[:, 3:] + (1.0 - rgba[:, 3:])).to(dev)
-        opt = SimpleNamespace(lr=1e-2, iters=cs.TRAIN_ITERS, num_rays=cs.TRAIN_RAYS,
-                              max_steps=1024, update_extra_interval=16, compact_frac=-1,
-                              group_budget=group, max_ray_batch=cs.CHUNK, patch_size=1,
-                              color_space="srgb")
-        model = NGPModel(NGPConfig(bound=1.0), min_near=0.2, density_thresh=10.0,
-                         dt_gamma=0.0, max_steps=1024, grid_size=128, seed=2,
-                         train_budget=cs.TRAIN_BUDGET, infer_budget=256, device=dev)
-        trainer = Trainer("ngp", opt, model, workspace=None, use_checkpoint="scratch",
-                          mute=True)
-        before = cs.held_out_psnr(model, trainer.eval_params(), held, gt)
-        t0 = time.time()
-        trainer.train(cs.BallViews(), None, max_epochs=math.ceil(cs.TRAIN_ITERS / cs.TRAIN_VIEWS))
-        torch.cuda.synchronize()
-        seconds = time.time() - t0
-        after = cs.held_out_psnr(model, trainer.eval_params(), held, gt)
-        rc = model.rc
-        print(f"[probe] {name}: held-out PSNR {before:.2f} -> {after:.2f} dB; budget "
-              f"{model.train_budget}, compaction {rc.compact_frac}, group budget "
-              f"{rc.group_budget}, grid {float(model.occ.occupancy.float().mean()):.2%} "
-              f"occupied; last 4 epoch losses "
-              f"{[round(v, 6) for v in trainer.stats['loss'][-4:]]}; {seconds:.1f} s",
+        r = cs.train_case(dev, radius, cs.TRAIN_ITERS, group_budget=group)
+        losses = r["trainer"].stats["loss"][-4:]
+        print(f"[probe] {name}: held-out PSNR {r['psnr0']:.2f} -> {r['psnr1']:.2f} dB; "
+              f"moves {r['moves']}; {cs.adaptation_state(r['trainer'].model)}; last 4 "
+              f"epoch losses {[round(v, 6) for v in losses]}; {r['seconds']:.1f} s",
               flush=True)
     return 0
 

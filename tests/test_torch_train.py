@@ -375,6 +375,25 @@ def test_trainer_refuses_unported_paths():
         tt.train_device(None)
 
 
+def test_training_with_t_cull_is_refused_at_the_start(tmp_path):
+    """--t_cull > 0 trains through the float render grid the marcher kernel
+    lacks: the CLI refuses it before reading the scene, and the Trainer
+    before its first step."""
+    import dataclasses
+
+    from nerf_signature_tpu_torch import main_nerf as t_main
+
+    with pytest.raises(NotImplementedError, match="t_cull"):
+        t_main.main([str(tmp_path / "no_scene"), "--cpu", "--t_cull", "1e-3"])
+    _, tm = make_models("fp32", 1.0)
+    tm.rc = dataclasses.replace(tm.rc, t_cull=1e-3)
+    tt = t_trainer.Trainer("ngp", _opt(), tm, workspace=None, mute=True)
+    ro, rd, images = batch()
+    with pytest.raises(NotImplementedError, match="t_cull"):
+        tt.train_step_data({"rays_o": ro, "rays_d": rd, "images": images})
+    assert tt.global_step == 0 and tt.opt_count() == 0
+
+
 def test_trainer_train_runs_grid_maintenance_and_lowers_the_loss(tmp_path):
     """Trainer.train on a tiny ball scene: mark_untrained_grid, the grid
     update every 16 steps, the adaptations, the ring buffer."""
