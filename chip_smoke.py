@@ -8,12 +8,15 @@ Run from the root of the repository, on a machine with one CUDA GPU and the
 CUDA toolkit (nvcc).  Phases, each failing loudly:
 
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the four kernels (csrc/*.cu, sm_90a);
+  2. build   — nvcc builds the kernels (csrc/*.cu, sm_90a), one process a
+               source, all started together;
   3. kernels — K1-K4 at the serving path's shapes: each kernel against its
                plain version on the same inputs (stated limits), median
                times over several launches (CUDA events), the plain
                version's time, the least time the card could take (bound),
-               and for K4 a bf16 torch.matmul chain as a yardstick;
+               and for K4 a bf16 torch.matmul chain as a yardstick; P1 (the
+               Pallas probe's gather) at the probe's shapes, bit-exact,
+               with torch.take as its yardstick;
   4. train-kernels — at the train step's shapes (4096 random rays of a
                view, budget 128, the uncompacted M = 524,288 samples): K2
                with perturbation noise bit-exact against its plain version;
@@ -21,7 +24,12 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                backwards (stated limits) with median times, plain times,
                bounds and library yardsticks; then one whole train step
                (loss and per-leaf gradients) through the kernels against
-               one through the plain versions, in bf16 and in fp32;
+               one through the plain versions, in bf16 and in fp32; then at
+               the watermark step's shapes (32 key blocks of 12x12 and 4096
+               content rays, budget 256): K9 forward (bit-exact) and
+               backward (exact), the feature-only K4 backward, and one whole
+               watermark step (loss and per-leaf gradients) through the
+               kernels against the plain versions, in bf16 and in fp32;
   5. serve   — a full-width model (README Blender recipe: -O --bound 1.0
                --scale 0.8 --dt_gamma 0, NGPConfig defaults, grid 128^3,
                max_steps 1024, budget 256) with random weights from a seed
@@ -42,7 +50,20 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                then torch.profiler over 16 more steps (device time by
                kernel, the device's idle share); then 384 steps on the
                radius-0.4 ball, which fail unless the march budget, the
-               compaction and the group budget each moved.
+               compaction and the group budget each moved;
+  7. wm      — the watermark stage at the README stage-2 recipe (-O
+               --message_dim 32 --num_rows 32 --num_cols 32 --downscale 2
+               --lambda_w 0.005 --lambda_i 1.0 --loss_w bce --iters 1000) on
+               the backbone phase 6 trained, frozen, built by the CLI's own
+               setup from a Blender-style scene file (32 orbit views, 800x800
+               halved, no images) and key blocks picked on the key render:
+               resolve_auto_compaction, WatermarkTrainer.train (watermark
+               rays/s, step time, peak memory, launches), test_bitacc over
+               200 messages with no distortion and 200 with noise (bit
+               accuracy, log10 p, seconds a message), test_image on 2 views,
+               a profile of 16 more steps; it fails unless lossw halves, bit
+               accuracy >= 0.95 with no distortion and the test image PSNR
+               >= 30 dB.
 
 The last lines are one JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -87,6 +108,20 @@ TRAIN_BALL = 0.7
 # 16th update, at step 240)
 ADAPT_BALL = 0.4
 ADAPT_ITERS = 384
+# the watermark stage, README stage-2 recipe: -O --message_dim 32 --num_rows 32
+# --num_cols 32 --downscale 2 --lambda_w 0.005 --lambda_i 1.0 --loss_w bce
+# --iters 1000 on the backbone the train phase trained; a step renders
+# 4096 content rays and 32 key blocks of 12x12 (8,704 rays) at budget 256
+WM_BITS = 32
+WM_RES = RES // 2
+WM_BLOCK = WM_RES // 32
+WM_ITERS = 1000
+WM_TRIALS = 200
+WM_STEP_RAYS = TRAIN_RAYS + WM_BITS * WM_BLOCK**2
+WM_RECIPE = ["-O", "--wtmk_tcnn", "--message_dim", "32", "--lambda_w", "0.005",
+             "--lambda_i", "1.0", "--loss_w", "bce", "--iters", str(WM_ITERS),
+             "--num_rows", "32", "--num_cols", "32", "--downscale", "2",
+             "--bound", "1.0", "--scale", "0.8", "--dt_gamma", "0"]
 
 
 def log(*a):
@@ -359,10 +394,37 @@ def phase_kernels(dev):
     results["K3_composite"] = dict(max_abs_err=e3, ms=ms3, plain_ms=pms3, bound_ms=bms3,
                                    bound_by=bby3, library_ms=None)
     del k2["march"]
+    results["P1_gather"] = p1_gather(dev)
     for name, r in results.items():
         log(f"[{name.split('_')[0]}] ms {r['ms']:.4f} | plain {r['plain_ms']:.4f} | "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']}) | library {r['library_ms']}")
     return results
+
+
+def p1_gather(dev):
+    """P1 at the Pallas probe's shapes: a [2^19] fp32 table gathered at
+    524,288 int32 indices, bit-exact with table[idx]; torch.take is the
+    yardstick."""
+    from nerf_signature_tpu_torch.ops import gather as t_gather
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    T, N = 1 << 19, 524_288
+    table = torch.rand(T, generator=g, device=dev)
+    idx = torch.randint(0, T, (N,), generator=g, device=dev, dtype=torch.int32)
+    out = t_gather.table_gather(table, idx)
+    ref = t_gather.table_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    log(f"[P1] table {T} fp32, {N} indices: max abs err {err} (limit 0)")
+    if not torch.equal(out, ref):
+        raise AssertionError("P1 differs from table[idx]")
+    idx64 = idx.long()
+    ms = median_ms(lambda: t_gather.table_gather(table, idx), 50)
+    pms = median_ms(lambda: t_gather.table_gather_plain(table, idx), 50)
+    lib = median_ms(lambda: torch.take(table, idx64), 50)
+    bms, bby = bound_of(N * 4 + N * 4 + T * 4, 0, PEAK_FP32)
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                library_ms=lib)
 
 
 def touched_rows(x01, res, log2_size):
@@ -598,6 +660,7 @@ def phase_train_kernels(dev):
             raise AssertionError(f"train step through the kernels differs from the plain "
                                  f"one ({str(dtype)})")
         del mt
+    wm_kernels(dev, results)
     for name, r in results.items():
         log(f"[{name}] ms {r['ms']:.4f} | plain {r['plain_ms']:.4f} | "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']}) | library {r['library_ms']}")
@@ -625,14 +688,15 @@ def train_step_grads(m, ro, rd, bg, noise, plain):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-def library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb):
+def library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb, weights_grad=True):
     """Autograd backward of the bf16 torch.matmul chain of library_mlp_ms (a
-    yardstick, never called by the port)."""
+    yardstick, never called by the port); with ``weights_grad`` False the
+    inputs' gradients only (frozen weights)."""
     from nerf_signature_tpu_torch.ops.sh import sh_encode
 
     bf = torch.bfloat16
-    ws = [w.to(bf).requires_grad_(True) for w in fp["sigma_net"]]
-    wc = [w.to(bf).requires_grad_(True) for w in fp["color_net"]]
+    ws = [w.to(bf).requires_grad_(weights_grad) for w in fp["sigma_net"]]
+    wc = [w.to(bf).requires_grad_(weights_grad) for w in fp["color_net"]]
     xs = feat.to(bf).requires_grad_(True)
     xc = torch.cat([sh_encode(dirs, 4), feat[:, :15]], -1).to(bf).requires_grad_(True)
     h = torch.relu(xs @ ws[0]) @ ws[1]
@@ -640,8 +704,194 @@ def library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb):
     gh = torch.cat([g_sigma[:, None], torch.zeros_like(h[:, 1:], dtype=torch.float32)],
                    -1).to(bf)
     gc = g_rgb.to(bf)
-    return median_ms(lambda: torch.autograd.grad([h, c], [xs, xc] + ws + wc, [gh, gc],
-                                                 retain_graph=True), 10)
+    wrt = [xs, xc] + (ws + wc if weights_grad else [])
+    return median_ms(lambda: torch.autograd.grad([h, c], wrt, [gh, gc], retain_graph=True), 10)
+
+
+def make_wm_model(dev, dtype=torch.bfloat16, seed=0):
+    """The recipe's watermarked model with random weights from a seed: the
+    full-width backbone of make_model on the ball grid, 32-bit message
+    tables at U(+-0.1) (so the message moves the field), a fresh decoder."""
+    from nerf_signature_tpu_torch.api import WatermarkModel
+    from nerf_signature_tpu_torch.models.ngp import NGPConfig
+    from nerf_signature_tpu_torch.models.watermark import WatermarkConfig
+
+    wcfg = WatermarkConfig(ngp=NGPConfig(bound=1.0, compute_dtype=dtype), message_dim=WM_BITS)
+    m = WatermarkModel(wcfg, min_near=0.2, density_thresh=10.0, dt_gamma=0.0,
+                       max_steps=1024, grid_size=128, seed=seed, infer_budget=256, device=dev)
+    m.backbone["hash_table"].mul_(1e4)
+    m.trainable["msg_tables"].mul_(1e3)
+    m.occ = m.occ._replace(occupancy=ball_grid(m.cascade, 128).to(dev))
+    return m
+
+
+def wm_step_inputs(dev, seed=4):
+    """A watermark step's rays at the recipe's shapes: 32 key blocks of
+    12x12 tiling the middle of one 400x400 view (on the ball), 4096 random
+    pixels of another view with random pseudo-GT, a random message."""
+    from nerf_signature_tpu_torch.data.rays import get_rays
+
+    fl = WM_RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
+    intr = (fl, fl, WM_RES / 2, WM_RES / 2)
+    poses = orbit_poses(2, ORBIT_RADIUS, seed=seed)
+    key = get_rays(poses[:1], intr, WM_RES, WM_RES, -1)
+    ro = key["rays_o"][0].reshape(WM_RES, WM_RES, 3)
+    rd = key["rays_d"][0].reshape(WM_RES, WM_RES, 3)
+    r0, c0, B = WM_RES // 2 - 2 * WM_BLOCK, WM_RES // 2 - 4 * WM_BLOCK, WM_BLOCK
+    corners = [(r0 + (i // 8) * B, c0 + (i % 8) * B) for i in range(WM_BITS)]
+    ro_b = np.stack([ro[r:r + B, c:c + B] for r, c in corners])
+    rd_b = np.stack([rd[r:r + B, c:c + B] for r, c in corners])
+    rng = np.random.default_rng(seed)
+    ct = get_rays(poses[1:], intr, WM_RES, WM_RES, TRAIN_RAYS, rng=rng)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    return dict(ro_b=t(ro_b), rd_b=t(rd_b), ct_o=t(ct["rays_o"][0]), ct_d=t(ct["rays_d"][0]),
+                ct_gt=t(rng.uniform(size=(TRAIN_RAYS, 3))),
+                bits=torch.from_numpy(rng.integers(0, 2, WM_BITS).astype(np.int32)).to(dev))
+
+
+def wm_step_grads(m, x, plain):
+    """The watermark step's loss (trainer_wtmk._wm_step_loss at the recipe's
+    lambdas, one render at budget 256) and the trainable leaves' gradients,
+    through the kernels or the plain versions."""
+    from nerf_signature_tpu_torch.train import trainer_wtmk as t_twm
+
+    leaves = t_twm.trainable_leaves(m.trainable)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = t_twm._wm_step_loss(
+        m.backbone, m.trainable, m.occ.occupancy, x["ro_b"], x["rd_b"], x["ct_o"], x["ct_d"],
+        x["ct_gt"], x["bits"], None, 0.005, 1.0, m.wcfg, m.rc, 256, 256, "none",
+        t_twm.make_loss_w("bce"), plain=plain)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def wm_kernels(dev, results):
+    """K9 forward and backward, the feature-only K4 backward and one whole
+    watermark step, kernels against plain versions, at the recipe's shapes."""
+    from nerf_signature_tpu_torch.models import message as t_msg
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+    from nerf_signature_tpu_torch.ops import marching as t_march
+    from nerf_signature_tpu_torch.render.renderer import default_aabb
+
+    m = make_wm_model(dev)
+    x = wm_step_inputs(dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    # ---- K9 forward: bit-exact (same adds in bit order, same bf16 rounding)
+    tables, bits = m.trainable["msg_tables"], x["bits"]
+    D, _, T, F = tables.shape
+    for gd in (torch.bfloat16, torch.float32):
+        k_eff, k_g = t_msg._msg_table_kernel(tables, bits, gd)
+        p_eff, p_g = t_msg.msg_table_plain(tables, bits, gd)
+        torch.cuda.synchronize()
+        if not (torch.equal(k_eff, p_eff) and torch.equal(k_g, p_g)):
+            raise AssertionError(f"K9 differs from its plain version ({gd})")
+    e9 = float((k_eff - p_eff).abs().max())
+    log(f"[K9] D={D} T={T} F={F}: eff and the bf16/fp32 copies equal to the plain version "
+        f"(max abs err {e9}, limit 0)")
+    rows = torch.arange(D, device=dev) * 2 + bits.long()
+    flat = tables.reshape(2 * D, T * F)
+    ms9 = median_ms(lambda: t_msg._msg_table_kernel(tables, bits, torch.bfloat16), 30)
+    pms9 = median_ms(lambda: t_msg.msg_table_plain(tables, bits, torch.bfloat16), 10)
+    lib9 = median_ms(lambda: flat.index_select(0, rows).sum(0), 30)
+    bms9, bby9 = bound_of(D * T * F * 4 + D * 4 + T * F * (4 + 2), D * T * F, PEAK_FP32)
+    results["K9_msg_table"] = dict(max_abs_err=e9, ms=ms9, plain_ms=pms9, bound_ms=bms9,
+                                   bound_by=bby9, library_ms=lib9)
+
+    # ---- K9 backward: exact (g_eff into the selected tables, zeros elsewhere)
+    g_eff = torch.randn((T, F), generator=gen, device=dev)
+    gk = t_msg._msg_table_bwd_kernel(g_eff, bits, D)
+    gp = t_msg.msg_table_bwd_plain(g_eff, bits, D)
+    torch.cuda.synchronize()
+    if not torch.equal(gk, gp):
+        raise AssertionError("K9 backward differs from its plain version")
+    log(f"[K9 bwd] g_tables [{D}, 2, {T}, {F}] equal to the plain version (limit 0)")
+    ms9b = median_ms(lambda: t_msg._msg_table_bwd_kernel(g_eff, bits, D), 30)
+    pms9b = median_ms(lambda: t_msg.msg_table_bwd_plain(g_eff, bits, D), 10)
+    bms9b, bby9b = bound_of(2 * D * T * F * 4 + T * F * 4 + D * 4, 0, PEAK_FP32)
+    results["K9_msg_table_bwd"] = dict(max_abs_err=0.0, ms=ms9b, plain_ms=pms9b,
+                                       bound_ms=bms9b, bound_by=bby9b, library_ms=None)
+    del gk, gp
+
+    # ---- K4 backward, features only, on the step's uncompacted samples
+    ro = torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]])
+    rd = torch.cat([x["rd_b"].reshape(-1, 3), x["ct_d"]])
+    march = t_march.march_rays_aabb(ro, rd, default_aabb(m.rc), m.occ.occupancy,
+                                    min_near=0.2, bound=1.0, max_steps=1024, budget=256)
+    N, S = march["mask"].shape
+    M = N * S
+    live = march["mask"].reshape(-1).float()
+    cfg = m.cfg
+    fp = t_ngp.field_params(m.backbone, cfg)
+    x01 = ((march["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+    dirs = march["dirs"].reshape(-1, 3).contiguous()
+    with torch.no_grad():
+        feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions, cfg.log2_hashmap_size,
+                                  table_g=fp["hash_table_g"])
+    del march, x01
+    g_sigma = torch.randn((M,), generator=gen, device=dev) * 1e-4 * live
+    g_rgb = torch.randn((M, 3), generator=gen, device=dev) * 1e-4 * live[:, None]
+    widths = t_ngp._kernel_widths(fp, cfg)
+    gf_k = t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, fp["mlp_flat"], g_sigma, g_rgb)
+    gf_full = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, fp["mlp_flat"], g_sigma, g_rgb)[0]
+    f_p = feat.clone().requires_grad_(True)
+    s_p, _, r_p = t_ngp.field_heads_plain(fp, cfg, f_p, dirs)
+    plain_bwd = lambda: torch.autograd.grad([s_p, r_p], [f_p], [g_sigma, g_rgb],
+                                            retain_graph=True)
+    (gf_p,) = plain_bwd()
+    e4 = rel_l2(gf_k, gf_p)
+    a4 = float((gf_k - gf_p).abs().max())
+    log(f"[K4 bwd feat] bf16, N={N} S={S} M={M}: rel L2 vs plain {e4:.3g} (limit 1e-2), "
+        f"max abs err {a4:.3g}; equal to the full backward's g_feat: "
+        f"{torch.equal(gf_k, gf_full)}")
+    if not (e4 <= 1e-2 and torch.equal(gf_k, gf_full)):
+        raise AssertionError("the feature-only K4 backward differs from its plain version "
+                             "or from the full backward's g_feat")
+    del gf_full
+    ms4 = median_ms(lambda: t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, fp["mlp_flat"],
+                                                       g_sigma, g_rgb), 10)
+    full_ms = median_ms(lambda: t_ngp.field_heads_bwd(cfg, widths, feat, dirs, fp["mlp_flat"],
+                                                      g_sigma, g_rgb), 5)
+    log(f"[K4 bwd feat] {ms4:.4f} ms; the full backward (with the weight gradient) on the "
+        f"same inputs {full_ms:.4f} ms")
+    pms4 = median_ms(plain_bwd, 5, 1)
+    lib4 = library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb, weights_grad=False)
+    # bound: cotangents read and g_feat written for every sample; feat and
+    # dirs read, the forward and the transposed products done (4 flops a
+    # weight) only for samples with a nonzero cotangent; no weight gradient
+    n_w = fp["mlp_flat"].numel()
+    n_hot = int(((g_sigma != 0) | (g_rgb != 0).any(-1)).sum())
+    bms4, bby4 = bound_of(M * (4 + 12 + cfg.enc_dim * 4) + n_hot * (cfg.enc_dim * 4 + 12)
+                          + n_w * 4, n_hot * 4 * n_w, PEAK_BF16)
+    log(f"[K4 bwd feat] {n_hot} of {M} samples carry a nonzero cotangent")
+    results["K4_field_bwd_feat"] = dict(max_abs_err=a4, rel_l2=e4, ms=ms4, plain_ms=pms4,
+                                        bound_ms=bms4, bound_by=bby4, library_ms=lib4,
+                                        full_bwd_ms=full_ms)
+    del f_p, s_p, r_p, gf_p, feat, dirs, g_sigma, g_rgb, live
+
+    # ---- one whole watermark step through the kernels and through the plain
+    # versions; a conv bias before a batch norm has a zero gradient in exact
+    # arithmetic (noise of ~1e-9 either way) and is left out of the per-leaf
+    # comparison
+    # the limits are a few times the readings on an H100 (loss equal; worst
+    # leaf 8.4e-4 in bf16, the message tables', and 2.0e-5 in fp32)
+    for dtype, lim_rel in ((torch.bfloat16, 5e-3), (torch.float32, 1e-4)):
+        lim_loss = 1e-6
+        mt = make_wm_model(dev, dtype=dtype)
+        (lk, gk_), (lp, gp_) = (wm_step_grads(mt, x, plain) for plain in (False, True))
+        el = abs(float(lk) - float(lp)) / abs(float(lp))
+        scale = max(float(g.norm()) for g in gp_)
+        kept = [(a, b) for a, b in zip(gk_, gp_) if float(b.norm()) > 1e-5 * scale]
+        worst = max(rel_l2(a, b) for a, b in kept)
+        log(f"[wm step] {str(dtype)[6:]}: loss {float(lk):.6g} vs plain {float(lp):.6g} "
+            f"(rel {el:.3g}, limit {lim_loss:g}); {len(kept)} of {len(gp_)} trainable leaves' "
+            f"grads, worst rel L2 {worst:.3g} (limit {lim_rel:g}); message tables "
+            f"{rel_l2(gk_[0], gp_[0]):.3g}")
+        if not (el <= lim_loss and worst <= lim_rel):
+            raise AssertionError(f"watermark step through the kernels differs from the plain "
+                                 f"one ({str(dtype)})")
+        del mt, gk_, gp_
 
 
 # ---------------------------------------------------------------- phase 5
@@ -886,9 +1136,10 @@ def phase_train(dev):
         raise AssertionError(f"the loss did not fall: {losses}")
     if not psnr1 >= psnr0 + 6.0:
         raise AssertionError(f"held-out PSNR {psnr1:.2f} dB < untrained {psnr0:.2f} + 6 dB")
-    for name, n in launches.items():
-        if n == 0:
+    for name in SOURCES:
+        if name in CLEAN_TRAIN and launches[name] == 0:
             raise AssertionError(f"{name} was not launched by Trainer.train")
+    trained = trainer.model  # the wm phase's frozen backbone
     del r, trainer
 
     # ---- the adaptations' case: each of the three must move at least once
@@ -900,24 +1151,26 @@ def phase_train(dev):
         if n == 0:
             raise AssertionError(f"the {name} adaptation never moved in {ADAPT_ITERS} steps")
     return dict(launches=launches, seconds=seconds, steps=steps,
-                rays_per_s=steps * TRAIN_RAYS / seconds, psnr0=psnr0, psnr1=psnr1)
+                rays_per_s=steps * TRAIN_RAYS / seconds, psnr0=psnr0, psnr1=psnr1,
+                model=trained)
 
 
-def profile_steps(trainer, loader, n=16):
+def profile_steps(trainer, loader, n=16, tag="profile", step=None):
     """torch.profiler over n more train steps (after the timed run): the
     device's busy time by kernel, from the trace's device events (kernels,
     copies, memsets; one stream, so they do not overlap), and its idle share
-    of the wall clock."""
+    of the wall clock.  ``step(data)`` defaults to ``trainer.train_step_data``."""
     from itertools import islice
 
     from torch.profiler import ProfilerActivity, profile
 
+    step = step or trainer.train_step_data
     batches = list(islice(iter(loader), n))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for data in batches:
-            trainer.train_step_data(data)
+            step(data)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     with tempfile.TemporaryDirectory() as d:
@@ -931,11 +1184,171 @@ def profile_steps(trainer, loader, n=16):
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
     busy_us = sum(by_name.values())
-    log(f"[profile] {n} train steps: wall {wall_us / n / 1e3:.3f} ms a step, device busy "
+    log(f"[{tag}] {n} train steps: wall {wall_us / n / 1e3:.3f} ms a step, device busy "
         f"{busy_us / n / 1e3:.3f} ms a step (idle share {1 - busy_us / wall_us:.1%}), "
         f"{len(by_name)} distinct device functions")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
-        log(f"[profile]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name[:90]}")
+        log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name[:90]}")
+
+
+# ---------------------------------------------------------------- phase 7
+def orbit_poses_rh(n, radius, seed):
+    """Right-handed orbit poses (scipy's slerp of the test poses needs
+    det > 0), in the ngp convention."""
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(np.pi / 3, 2 * np.pi / 3, n)
+    ph = rng.uniform(0, 2 * np.pi, n)
+    c = np.stack([radius * np.sin(th) * np.sin(ph), radius * np.cos(th),
+                  radius * np.sin(th) * np.cos(ph)], -1).astype(np.float32)
+    fwd = -c / np.linalg.norm(c, axis=-1, keepdims=True)
+    right = np.cross(np.tile([0.0, -1.0, 0.0], (n, 1)), fwd)
+    right /= np.linalg.norm(right, axis=-1, keepdims=True)
+    poses = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    poses[:, :3, :3] = np.stack([right, np.cross(fwd, right), fwd], -1)
+    poses[:, :3, 3] = c
+    return poses
+
+
+def write_scene(root, scale=0.8):
+    """A Blender-style scene of the analytic ball: transforms_{train,test}.json
+    with h = w = 800 (400 at --downscale 2), the Blender camera angle, 32
+    train and 2 test orbit poses.  No images: the watermark stage renders
+    its ground truth with the frozen backbone."""
+    os.makedirs(root, exist_ok=True)
+    for split, n, seed in (("train", TRAIN_VIEWS, 31), ("test", 2, 32)):
+        frames = []
+        for i, p in enumerate(orbit_poses_rh(n, ORBIT_RADIUS, seed)):
+            m = np.eye(4, dtype=np.float32)  # inverse of nerf_matrix_to_ngp
+            m[0] = [p[2, 0], -p[2, 1], -p[2, 2], p[2, 3] / scale]
+            m[1] = [p[0, 0], -p[0, 1], -p[0, 2], p[0, 3] / scale]
+            m[2] = [p[1, 0], -p[1, 1], -p[1, 2], p[1, 3] / scale]
+            frames.append({"file_path": f"r_{i}", "transform_matrix": m.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": BLENDER_ANGLE_X, "h": RES, "w": RES, "frames": frames},
+                      f)
+    return root
+
+
+def pick_key_blocks(model, ws, seed):
+    """The key pose (a random orbit pose, as the provider draws it) and the
+    32 key blocks of its render with the largest pixel variance, saved where
+    the CLI loads them (the JPEG-ratio picker needs PIL, which this machine
+    may lack)."""
+    from nerf_signature_tpu_torch.data.rays import get_rays, rand_poses
+
+    pose = rand_poses(np.random.default_rng(seed), 1, radius=ORBIT_RADIUS)
+    fl = WM_RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
+    r = get_rays(pose, (fl, fl, WM_RES / 2, WM_RES / 2), WM_RES, WM_RES, -1)
+    img = model.render(r["rays_o"][0], r["rays_d"][0], None, staged=True)["image"]
+    img = img.float().cpu().numpy().reshape(WM_RES, WM_RES, 3)
+    B = WM_BLOCK
+    blocks = img[:32 * B, :32 * B].reshape(32, B, 32, B, 3).transpose(0, 2, 1, 3, 4)
+    var = blocks.reshape(32 * 32, -1).var(-1)
+    sel = np.argsort(-var)[:WM_BITS]
+    rows, cols = sel // 32, sel % 32
+    coords = np.stack([rows * B, cols * B, (rows + 1) * B, (cols + 1) * B], 1).astype(np.int64)
+    np.save(os.path.join(ws, "key_poses.npy"), pose)
+    np.save(os.path.join(ws, "key_blocks.npy"), coords)
+    return float(var[sel].min())
+
+
+def phase_wm(dev, backbone_model, workdir):
+    """The watermark stage at the README stage-2 recipe on the backbone the
+    train phase trained: the CLI's own setup (parser, model, trainer,
+    provider), resolve_auto_compaction, WatermarkTrainer.train for 1000
+    iterations, then ownership verification and test images."""
+    from nerf_signature_tpu_torch import main_nerf_wtmk
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.train.checkpoint import save_checkpoint
+
+    clean = os.path.join(workdir, "clean", "ngp_ep0016.ckpt")
+    save_checkpoint(clean, {"params": backbone_model.params, "occ": backbone_model.occ,
+                            "epoch": 16, "global_step": TRAIN_ITERS})
+    scene = write_scene(os.path.join(workdir, "scene"))
+    ws = os.path.join(workdir, "ws_wm")
+    # only the final checkpoint: per-epoch saves of params, tables and Adam's
+    # moments (~0.9 GB each) would sit inside the timed loop
+    opt = main_nerf_wtmk.parse([scene, "--workspace", ws, "--ckpt", clean,
+                                "--save_interval", "1000"] + WM_RECIPE)
+    t0 = time.time()
+    model, trainer, make_loader = main_nerf_wtmk.setup(opt)
+    os.makedirs(ws, exist_ok=True)
+    var_min = pick_key_blocks(model, ws, opt.seed)
+    loader = make_loader("train", 1, 100)
+    set_up = time.time() - t0
+    trainer.resolve_auto_compaction(loader)
+    m = model
+    log(f"[wm] set-up {set_up:.2f} s (checkpoint load, key render, {len(loader)} pseudo-GT "
+        f"views of {loader.H}x{loader.W}); key blocks {loader.images_block.shape}, least "
+        f"block variance {var_min:.4g}; resolved compaction {m.rc.compact_frac}, group budget "
+        f"{m.rc.group_budget}")
+
+    # the main path: WatermarkTrainer.train, epochs timed (no checkpoint I/O)
+    epoch_s = []
+    run_epoch = trainer.train_one_epoch
+
+    def timed_epoch(ldr):
+        t = time.time()
+        out = run_epoch(ldr)  # ends in a host sync (the epoch's mean loss)
+        epoch_s.append(time.time() - t)
+        return out
+
+    trainer.train_one_epoch = timed_epoch
+    max_epochs = math.ceil(WM_ITERS / len(loader))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    trainer.train(loader, None, None, max_epochs)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer.train_one_epoch = run_epoch
+    steps, seconds = trainer.global_step, sum(epoch_s)
+    lossw, lossi = trainer.stats["lossw"], trainer.stats["lossi"]
+    log(f"[wm] {steps} steps of {WM_STEP_RAYS} rays in {seconds:.2f} s: "
+        f"{steps * WM_STEP_RAYS / seconds:.0f} watermark rays/s, {seconds / steps * 1e3:.2f} ms "
+        f"a step; peak memory {peak:.2f} GiB")
+    log(f"[wm] epoch lossw {[round(v, 5) for v in lossw]}")
+    log(f"[wm] epoch lossi {[round(v, 7) for v in lossi]}")
+    log(f"[wm] launches during WatermarkTrainer.train: {launches}")
+
+    res = {"launches": launches, "steps": steps, "seconds": seconds,
+           "rays_per_s": steps * WM_STEP_RAYS / seconds, "step_ms": seconds / steps * 1e3,
+           "peak_gib": peak, "compact_frac": m.rc.compact_frac,
+           "group_budget": m.rc.group_budget}
+    meter = trainer.metrics_message[0]
+    for kind in ("none", "noise"):
+        trainer.distortion = kind
+        trials = make_loader("test", 1, WM_TRIALS)  # renders the key view
+        _cuda.reset_launch_counts()
+        acc = trainer.test_bitacc(trials)
+        per_msg = {k: v / WM_TRIALS for k, v in _cuda.launch_counts().items() if v}
+        res[f"bitacc_{kind}"] = acc
+        res[f"log10p_{kind}"] = meter.pvalue()
+        res[f"s_per_message_{kind}"] = trainer.bitacc_seconds / WM_TRIALS
+        log(f"[wm] test_bitacc --distortion {kind}: bit accuracy {acc:.4f} over {meter.N} "
+            f"messages, log10 p {meter.pvalue():.1f}; {trainer.bitacc_seconds / WM_TRIALS:.4f} s "
+            f"a message; launches a message {per_msg}")
+    trainer.distortion = "none"
+    images = trainer.test_image(make_loader("test_image", 2, 4))
+    res["test_image_psnr"] = float(images["PSNR"])
+    profile_steps(trainer, loader, tag="wm profile",
+                  step=lambda data: trainer.train_step_data(data, trainer.random_message()))
+
+    if steps != WM_ITERS:
+        raise AssertionError(f"WatermarkTrainer.train ran {steps} steps, expected {WM_ITERS}")
+    if not lossw[-1] <= 0.5 * lossw[0]:
+        raise AssertionError(f"lossw did not halve: first epoch {lossw[0]}, last {lossw[-1]}")
+    if not res["bitacc_none"] >= 0.95:
+        raise AssertionError(f"bit accuracy {res['bitacc_none']:.4f} < 0.95")
+    if not images["PSNR"] >= 30.0:
+        raise AssertionError(f"test_image PSNR {images['PSNR']:.2f} dB < 30 dB")
+    for name in WM_TRAIN:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched by WatermarkTrainer.train")
+    if launches["K4_field_bwd"] != 0:
+        raise AssertionError("the frozen backbone's weight gradient was computed")
+    return res
 
 
 SOURCES = {
@@ -953,8 +1366,23 @@ SOURCES = {
                          "nerf_signature_tpu/ops/composite.py:25"),
     "K4_field_bwd": ("nerf_signature_tpu_torch/csrc/field.cu",
                      "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_feat": ("nerf_signature_tpu_torch/csrc/field_feat.cu",
+                          "nerf_signature_tpu/models/mlp.py:30"),
+    "K9_msg_table": ("nerf_signature_tpu_torch/csrc/msgtable.cu",
+                     "nerf_signature_tpu/models/message.py:45"),
+    "K9_msg_table_bwd": ("nerf_signature_tpu_torch/csrc/msgtable.cu",
+                         "nerf_signature_tpu/models/message.py:45"),
+    "P1_gather": ("nerf_signature_tpu_torch/csrc/gather.cu",
+                  "scripts_dev/pallas_gather_probe.py:46"),
 }
 FORWARD = ("K1_hash_encode", "K2_march", "K3_composite", "K4_field")
+CLEAN_TRAIN = FORWARD + ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd")
+# the watermark step: the forward kernels, K9 both ways, K1's and K3's
+# backward and K4's feature-only backward (the backbone is frozen)
+WM_TRAIN = FORWARD + ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd_feat",
+                      "K9_msg_table", "K9_msg_table_bwd")
+# rows measured in the kernels phase (the serving or the probe's shapes)
+KERNEL_PHASE = FORWARD + ("P1_gather",)
 
 
 def main():
@@ -972,23 +1400,38 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         launches = phase_serve(dev, workdir)
     train = phase_train(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        wm = phase_wm(dev, train.pop("model"), workdir)
     rows = []
     for name, (src, replaces) in SOURCES.items():
         # forward kernels: the serving path's numbers and launches (slice 1);
-        # backward kernels: the train step's shapes and Trainer.train's launches
-        r = kernels[name] if name in FORWARD else train_kernels[name]
+        # backward kernels: the train step's shapes and Trainer.train's
+        # launches (slice 2); the watermark kernels: the watermark step's
+        # shapes and WatermarkTrainer.train's launches (slice 3); P1 is on no
+        # entry point's path (0 launches there), timed at the probe's shapes
+        r = kernels[name] if name in KERNEL_PHASE else train_kernels[name]
+        if name in FORWARD:
+            n, path = launches[name], "serve"
+        elif name in CLEAN_TRAIN:
+            n, path = train["launches"][name], "train"
+        else:
+            n, path = wm["launches"][name], "wm" if name != "P1_gather" else "none (dev probe)"
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-               "launches": launches[name] if name in FORWARD else train["launches"][name],
-               "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-               "library_ms": r["library_ms"], "train_launches": train["launches"][name]}
+               "path": path, "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"], "train_launches": train["launches"][name],
+               "wm_launches": wm["launches"][name]}
+        if "full_bwd_ms" in r:
+            row["full_bwd_ms"] = r["full_bwd_ms"]
         if name == "K2_march":  # with perturbation noise at the train step's shapes
             t = train_kernels[name]
             row.update(train_ms=t["ms"], train_plain_ms=t["plain_ms"],
                        train_bound_ms=t["bound_ms"], train_max_abs_err=t["max_abs_err"])
         rows.append(row)
+    wm.pop("launches")
     print(json.dumps({"kernels": rows, "train": {
-        k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1")}}))
+        k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1")},
+        "wm": wm}, default=float))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

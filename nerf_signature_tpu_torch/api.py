@@ -1,11 +1,14 @@
-"""High-level model object (counterpart of ``nerf_signature_tpu/api.py``):
+"""High-level model objects (counterpart of ``nerf_signature_tpu/api.py``):
 params, occupancy grid and render options, with the staged chunked render.
 
 The model lives on one device, ``"cuda"`` unless the caller passes
 ``device="cpu"``; with no GPU visible and no explicit CPU request it raises.
-On the card every chunk goes through the four kernels (K2 marcher, K1 hash
-encoder, K4 field heads, K3 compositor); on the CPU through their plain
-versions.  ``WatermarkModel`` comes with the watermark slice.
+On the card every chunk goes through the kernels (K2 marcher, K1 hash
+encoder, K4 field heads, K3 compositor, and K9's effective table under a
+message); on the CPU through their plain versions.  ``NGPModel`` is the
+clean model; ``WatermarkModel`` holds a frozen ``backbone`` and the
+``trainable`` message tables and decoder, and renders with or without a
+message.
 """
 
 import dataclasses
@@ -14,6 +17,13 @@ import numpy as np
 import torch
 
 from .models.ngp import NGPConfig, field_params, init_ngp_params, ngp_density, ngp_field
+from .models.watermark import (
+    WatermarkConfig,
+    init_watermark_params,
+    wtmk_density,
+    wtmk_field,
+    wtmk_field_params,
+)
 from .ops.grid import (
     init_occupancy_grid,
     mark_untrained_grid,
@@ -26,18 +36,15 @@ from .render.renderer import RenderConfig, render_rays_occ
 from .utils.device import resolve_device
 
 
-class NGPModel:
-    """Clean instant-NGP model (params dict + occupancy grid + renderer)."""
+class _BaseModel:
+    """Occupancy grid, render options, random generator and the staged
+    render, shared by the clean and the watermarked model.  A subclass
+    supplies ``_density_query`` and ``_render_field``."""
 
-    def __init__(self, cfg: NGPConfig = None, *, bound=1.0, cuda_ray=True,
-                 density_scale=1.0, min_near=0.2, density_thresh=0.01,
-                 bg_radius=-1.0, dt_gamma=0.0, max_steps=1024, grid_size=128,
-                 seed=0, train_budget=128, infer_budget=256, num_steps=128,
-                 upsample_steps=0, compact_frac=0.0, t_cull=0.0, device=None):
+    def __init__(self, rc: RenderConfig, *, device, seed, density_thresh, train_budget,
+                 infer_budget, cuda_ray, bg_radius):
         self.device = resolve_device(device)
-        self.cfg = cfg or NGPConfig(bound=bound, density_scale=density_scale,
-                                    bg_radius=bg_radius)
-        if self.cfg.bg_radius > 0 or bg_radius > 0:
+        if bg_radius > 0:
             raise NotImplementedError(
                 "bg_radius > 0 needs the 2D hash encoder (ROADMAP queue 2 item "
                 "K8), not ported yet")
@@ -45,28 +52,30 @@ class NGPModel:
             raise NotImplementedError(
                 "the fixed-step renderer (cuda_ray off) is not ported yet; the "
                 "port renders through the occupancy grid (-O / --cuda_ray)")
-        self.rc = RenderConfig(
-            bound=self.cfg.bound, grid_size=grid_size, density_scale=density_scale,
-            min_near=min_near, dt_gamma=dt_gamma, max_steps=max_steps,
-            num_steps=num_steps, upsample_steps=upsample_steps,
-            bg_radius=bg_radius, compact_frac=compact_frac, t_cull=t_cull)
+        self.rc = rc
         # renders are exact: t_cull is a train-step lever
-        self.rc_eval = dataclasses.replace(self.rc, t_cull=0.0) if t_cull else self.rc
-        self.cascade = num_cascades(self.rc.bound)
+        self.rc_eval = dataclasses.replace(rc, t_cull=0.0) if rc.t_cull else rc
+        self.cascade = num_cascades(rc.bound)
         self.density_thresh = density_thresh
         self.train_budget = train_budget
         self.infer_budget = infer_budget
         self.aabb_infer = None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = init_ngp_params(torch.Generator().manual_seed(seed), self.cfg,
-                                      self.device)
-        self.occ = init_occupancy_grid(self.rc.bound, grid_size, self.device)
+        self.occ = init_occupancy_grid(rc.bound, rc.grid_size, self.device)
+
+    def _density_query(self):
+        """x [M, 3] -> raw sigma [M], with the per-query buffers built once."""
+        raise NotImplementedError
+
+    def _render_field(self, message, plain):
+        """field_fn(x, d) -> (sigma, rgb) for one render."""
+        raise NotImplementedError
 
     # -- occupancy maintenance -------------------------------------------
     @torch.no_grad()
     def density_fn(self, x):
         """x [M, 3] world positions -> raw sigma [M] (K1 + K4 on the card)."""
-        return ngp_density(field_params(self.params, self.cfg), self.cfg, x)["sigma"]
+        return self._density_query()(x)
 
     def reset_extra_state(self):
         self.occ = init_occupancy_grid(self.rc.bound, self.rc.grid_size, self.device)
@@ -76,11 +85,9 @@ class NGPModel:
         """Full update for the first 16 updates, partial after.  Random draws
         come from ``self.generator`` unless ``draws`` is given."""
         full = int(self.occ.iter_density) < 16
-        fp = field_params(self.params, self.cfg)
         self.occ = update_occupancy_grid(
-            self.occ, lambda x: ngp_density(fp, self.cfg, x)["sigma"],
-            bound=self.rc.bound, grid_size=self.rc.grid_size,
-            density_scale=self.rc.density_scale,
+            self.occ, self._density_query(), bound=self.rc.bound,
+            grid_size=self.rc.grid_size, density_scale=self.rc.density_scale,
             density_thresh=self.density_thresh, decay=decay, full=full,
             draws=draws, generator=self.generator)
 
@@ -106,15 +113,16 @@ class NGPModel:
 
     # -- rendering ----------------------------------------------------------
     @torch.no_grad()
-    def render(self, rays_o, rays_d, *, staged=False, max_ray_batch=4096,
+    def render(self, rays_o, rays_d, message=None, *, staged=False, max_ray_batch=4096,
                bg_color=None, perturb=False, budget=None, plain=False, **_):
         """rays_o/d: [..., 3] arrays or tensors.  Returns dict of tensors on
-        the model's device with the leading shape restored.  ``staged``
-        renders 4096-ray chunks (tail padded with ones), like the JAX
-        package's staged path.  ``perturb`` jitters each ray's first sample
-        with noise drawn from ``self.generator`` and marches with the train
-        budget.  ``plain=True`` runs the plain versions of every kernel (how
-        the kernel path is checked on the card)."""
+        the model's device with the leading shape restored.  ``message``: the
+        watermark bits (the watermarked model; the clean model ignores it).
+        ``staged`` renders 4096-ray chunks (tail padded with ones), like the
+        JAX package's staged path.  ``perturb`` jitters each ray's first
+        sample with noise drawn from ``self.generator`` and marches with the
+        train budget.  ``plain=True`` runs the plain versions of every kernel
+        (how the kernel path is checked on the card)."""
         rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=self.device)
         rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=self.device)
         prefix = rays_o.shape[:-1]
@@ -128,10 +136,10 @@ class NGPModel:
                                  device=self.device).reshape(-1, 3)
         budget = budget or (self.train_budget if perturb else self.infer_budget)
 
-        # once per render: the gather-dtype table, the packed MLP weights,
+        # once per render: the gather-dtype tables, the packed MLP weights,
         # the bool grid and the prefilter's dilated coarse grid
         rc = self.rc_eval
-        fp = field_params(self.params, self.cfg)
+        field = self._render_field(message, plain)
         grid = render_grid(self.occ, rc.t_cull)
         plan = march_plan(grid.shape[0], grid.shape[1], bound=rc.bound,
                           dt_gamma=rc.dt_gamma, max_steps=rc.max_steps,
@@ -142,10 +150,9 @@ class NGPModel:
         def chunk(ro, rd, bg_c):
             noise = (torch.rand((ro.shape[0],), generator=self.generator, device=self.device)
                      if perturb else None)
-            return render_rays_occ(
-                lambda x, d: ngp_field(fp, self.cfg, x, d, plain=plain),
-                grid, ro, rd, rc, budget=budget, bg_color=bg_c,
-                aabb=self.aabb_infer, coarse=coarse, noise=noise, plain=plain)
+            return render_rays_occ(field, grid, ro, rd, rc, budget=budget, bg_color=bg_c,
+                                   aabb=self.aabb_infer, coarse=coarse, noise=noise,
+                                   plain=plain)
 
         if staged and N > max_ray_batch:
             pad = (-N) % max_ray_batch
@@ -173,3 +180,74 @@ class NGPModel:
         if "weights_sum" in results:
             results["weights_sum"] = results["weights_sum"].reshape(*prefix)
         return results
+
+
+class NGPModel(_BaseModel):
+    """Clean instant-NGP model (params dict + occupancy grid + renderer)."""
+
+    def __init__(self, cfg: NGPConfig = None, *, bound=1.0, cuda_ray=True,
+                 density_scale=1.0, min_near=0.2, density_thresh=0.01,
+                 bg_radius=-1.0, dt_gamma=0.0, max_steps=1024, grid_size=128,
+                 seed=0, train_budget=128, infer_budget=256, num_steps=128,
+                 upsample_steps=0, compact_frac=0.0, t_cull=0.0, device=None):
+        self.cfg = cfg or NGPConfig(bound=bound, density_scale=density_scale,
+                                    bg_radius=bg_radius)
+        rc = RenderConfig(
+            bound=self.cfg.bound, grid_size=grid_size, density_scale=density_scale,
+            min_near=min_near, dt_gamma=dt_gamma, max_steps=max_steps,
+            num_steps=num_steps, upsample_steps=upsample_steps,
+            bg_radius=bg_radius, compact_frac=compact_frac, t_cull=t_cull)
+        super().__init__(rc, device=device, seed=seed, density_thresh=density_thresh,
+                         train_budget=train_budget, infer_budget=infer_budget,
+                         cuda_ray=cuda_ray, bg_radius=max(bg_radius, self.cfg.bg_radius))
+        self.params = init_ngp_params(torch.Generator().manual_seed(seed), self.cfg,
+                                      self.device)
+
+    def _density_query(self):
+        fp = field_params(self.params, self.cfg)
+        return lambda x: ngp_density(fp, self.cfg, x)["sigma"]
+
+    def _render_field(self, message, plain):
+        fp = field_params(self.params, self.cfg)
+        return lambda x, d: ngp_field(fp, self.cfg, x, d, plain=plain)
+
+
+class WatermarkModel(_BaseModel):
+    """Watermarked model: frozen ``backbone`` (NGP params) + ``trainable``
+    (``msg_tables`` and ``decoder``).  ``density_fn`` is message-free."""
+
+    def __init__(self, wcfg: WatermarkConfig = None, *, bound=1.0, message_dim=16,
+                 n_views=1, cuda_ray=True, density_scale=1.0, min_near=0.2,
+                 density_thresh=0.01, bg_radius=-1.0, dt_gamma=0.0, max_steps=1024,
+                 grid_size=128, seed=0, train_budget=128, infer_budget=256,
+                 compact_frac=0.0, t_cull=0.0, device=None):
+        self.wcfg = wcfg or WatermarkConfig(
+            ngp=NGPConfig(bound=bound, density_scale=density_scale, bg_radius=bg_radius),
+            message_dim=message_dim, n_views=n_views)
+        rc = RenderConfig(
+            bound=self.wcfg.ngp.bound, grid_size=grid_size, density_scale=density_scale,
+            min_near=min_near, dt_gamma=dt_gamma, max_steps=max_steps,
+            bg_radius=bg_radius, compact_frac=compact_frac, t_cull=t_cull)
+        super().__init__(rc, device=device, seed=seed, density_thresh=density_thresh,
+                         train_budget=train_budget, infer_budget=infer_budget,
+                         cuda_ray=cuda_ray, bg_radius=max(bg_radius, self.wcfg.ngp.bg_radius))
+        p = init_watermark_params(torch.Generator().manual_seed(seed), self.wcfg, self.device)
+        self.backbone = p["backbone"]
+        self.trainable = p["trainable"]
+
+    @property
+    def cfg(self):
+        return self.wcfg.ngp
+
+    def field_params(self, message=None, plain=False):
+        """``wtmk_field_params`` of the current backbone, trainable and
+        message (differentiable in the msg tables under autograd)."""
+        return wtmk_field_params(self.backbone, self.trainable, self.wcfg, message, plain)
+
+    def _density_query(self):
+        fp = self.field_params()
+        return lambda x: wtmk_density(fp, self.wcfg, x)["sigma"]
+
+    def _render_field(self, message, plain):
+        fp = self.field_params(message, plain)
+        return lambda x, d: wtmk_field(fp, self.wcfg, x, d, plain=plain)

@@ -1,0 +1,114 @@
+"""HiDDeN-style CNN bit extractor (counterpart of the multi-view decoder in
+``nerf_signature_tpu/models/hidden.py``).
+
+``ConvBNRelu`` = Conv3x3 (stride 1, pad 1) + BatchNorm (eps 1e-3, BATCH
+statistics in train and eval alike, biased variance) + GELU (tanh
+approximation, ``jax.nn.gelu``'s default); ``num_blocks`` of them, one more
+to ``num_bits * redundancy`` channels, a global average pool, a linear
+layer, the sum over the redundancy.  ImageNet normalisation.
+
+Params are a plain dict laid out like the JAX tree, except that conv weights
+are stored OIHW (torch's layout; JAX stores HWIO) and ``linear.w`` is
+``[in, out]`` (``x @ w``).  ``train/checkpoint.py`` permutes at the
+checkpoint boundary.  The public functions take images channel-last
+([B, H, W, C], the JAX layout); the convs run in NCHW through cuDNN, as JAX
+leaves them to XLA.  The single-view decoder and the encoder belong to the
+prewatermark variant (ROADMAP queue 1) and are not ported.
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+_IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def normalize_img(x):
+    """x: [..., 3] in [0, 1] -> ImageNet-normalised (channel-last)."""
+    mean = torch.as_tensor(_IMAGENET_MEAN, device=x.device)
+    std = torch.as_tensor(_IMAGENET_STD, device=x.device)
+    return (x - mean) / std
+
+
+def unnormalize_img(x):
+    mean = torch.as_tensor(_IMAGENET_MEAN, device=x.device)
+    std = torch.as_tensor(_IMAGENET_STD, device=x.device)
+    return x * std + mean
+
+
+@dataclasses.dataclass(frozen=True)
+class HiddenDecoderConfig:
+    num_blocks: int = 8
+    num_bits: int = 1
+    redundancy: int = 1
+    input_ch: int = 3        # n_views * 3 in the reference
+    channels: int = 64
+    bn_eps: float = 1e-3
+
+
+def _uniform(generator, shape, bound, device):
+    return ((torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound).to(device)
+
+
+def _conv_init(generator, k, cin, cout, device):
+    """torch Conv2d's default init, U(+-1/sqrt(fan_in)) for weight and bias;
+    the weight OIHW."""
+    bound = 1.0 / math.sqrt(cin * k * k)
+    return {"w": _uniform(generator, (cout, cin, k, k), bound, device),
+            "b": _uniform(generator, (cout,), bound, device)}
+
+
+def _bn_init(ch, device):
+    return {"scale": torch.ones((ch,), device=device), "bias": torch.zeros((ch,), device=device)}
+
+
+def init_hidden_decoder(generator, cfg: HiddenDecoderConfig, device="cpu"):
+    """Random decoder params from a (CPU) ``torch.Generator``."""
+    blocks = []
+    cin = cfg.input_ch
+    for _ in range(cfg.num_blocks):
+        blocks.append({"conv": _conv_init(generator, 3, cin, cfg.channels, device),
+                       "bn": _bn_init(cfg.channels, device)})
+        cin = cfg.channels
+    out_ch = cfg.num_bits * cfg.redundancy
+    head = {"conv": _conv_init(generator, 3, cfg.channels, out_ch, device),
+            "bn": _bn_init(out_ch, device)}
+    bound = 1.0 / math.sqrt(out_ch)
+    linear = {"w": _uniform(generator, (out_ch, out_ch), bound, device),
+              "b": _uniform(generator, (out_ch,), bound, device)}
+    return {"blocks": blocks, "head": head, "linear": linear}
+
+
+def decoder_leaves(params):
+    """The decoder's tensors in the JAX tree's order (the optimizer's)."""
+    out = []
+    for p in list(params["blocks"]) + [params["head"]]:
+        out += [p["bn"]["bias"], p["bn"]["scale"], p["conv"]["b"], p["conv"]["w"]]
+    return out + [params["linear"]["b"], params["linear"]["w"]]
+
+
+def _conv_bn_gelu(p, x, eps):
+    """x [N, C, H, W]; batch statistics over (N, H, W), biased variance."""
+    y = F.conv2d(x, p["conv"]["w"], p["conv"]["b"], padding=1)
+    mean = y.mean(dim=(0, 2, 3), keepdim=True)
+    var = ((y - mean) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+    yn = (y - mean) * torch.rsqrt(var + eps)
+    yn = yn * p["bn"]["scale"][:, None, None] + p["bn"]["bias"][:, None, None]
+    return F.gelu(yn, approximate="tanh")
+
+
+def hidden_decoder_apply(params, cfg: HiddenDecoderConfig, x):
+    """x: [B, H, W, input_ch] (already normalised) -> logits [B, num_bits].
+    The batch statistics span the whole batch: decode one message's blocks
+    a call (JAX vmaps the decode over messages)."""
+    x = x.permute(0, 3, 1, 2)
+    for p in params["blocks"]:
+        x = _conv_bn_gelu(p, x, cfg.bn_eps)
+    x = _conv_bn_gelu(params["head"], x, cfg.bn_eps)
+    x = x.mean(dim=(2, 3))  # AdaptiveAvgPool2d((1, 1)) -> [B, out_ch]
+    x = x @ params["linear"]["w"] + params["linear"]["b"]
+    return x.reshape(-1, cfg.num_bits, cfg.redundancy).sum(-1)

@@ -229,7 +229,8 @@ def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths):
 
 class FieldHeadsFn(torch.autograd.Function):
     """K4 forward and backward: (feat [M, IN], dirs [M, 3], mlp_flat, cfg,
-    widths) -> (sigma [M], rgb [M, 3]); gradients to feat and mlp_flat."""
+    widths) -> (sigma [M], rgb [M, 3]); gradients to feat and mlp_flat, or to
+    feat alone (the feature-only kernel) when mlp_flat needs none."""
 
     @staticmethod
     def forward(ctx, feat, dirs, flat, cfg, widths):
@@ -241,9 +242,32 @@ class FieldHeadsFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_sigma, g_rgb):
         feat, dirs, flat = ctx.saved_tensors
-        g_feat, g_flat = field_heads_bwd(ctx.cfg, ctx.widths, feat, dirs, flat,
-                                         g_sigma.contiguous(), g_rgb.contiguous())
+        args = (ctx.cfg, ctx.widths, feat, dirs, flat, g_sigma.contiguous(),
+                g_rgb.contiguous())
+        if not ctx.needs_input_grad[2]:
+            # frozen weights (the watermark stage's backbone): g_feat only
+            return field_heads_bwd_feat(*args), None, None, None, None
+        g_feat, g_flat = field_heads_bwd(*args)
         return g_feat, None, g_flat, None, None
+
+
+def field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb):
+    """The feature-only K4 backward kernel: g_feat [M, IN] fp32 from the
+    cotangents of sigma [M] and rgb [M, 3], no weight gradient (the weights
+    are frozen).  Equal to ``field_heads_bwd``'s g_feat bit for bit."""
+    in_dim, hidden, out1, hidden_c = widths
+    M = feat.shape[0]
+    dev = feat.device
+    _cuda.check(feat, "feat", torch.float32, (M, in_dim), dev)
+    _cuda.check(dirs, "dirs", torch.float32, (M, 3), dev)
+    _cuda.check(flat, "mlp_flat", torch.float32, None, dev)
+    _cuda.check(g_sigma, "g_sigma", torch.float32, (M,), dev)
+    _cuda.check(g_rgb, "g_rgb", torch.float32, (M, 3), dev)
+    g_feat = torch.empty((M, in_dim), dtype=torch.float32, device=dev)
+    _cuda.FIELD_BWD_FEAT(feat.data_ptr(), dirs.data_ptr(), flat.data_ptr(), g_sigma.data_ptr(),
+                         g_rgb.data_ptr(), g_feat.data_ptr(), M, in_dim, hidden, out1, hidden_c,
+                         int(cfg.compute_dtype == torch.bfloat16))
+    return g_feat
 
 
 def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb):

@@ -37,6 +37,9 @@ SOURCES = {
     "hashenc.cu": ["-fmad=false"],
     "composite.cu": ["-fmad=false"],
     "field.cu": ["-fmad=false"],
+    "field_feat.cu": ["-fmad=false"],
+    "msgtable.cu": ["-fmad=false"],
+    "gather.cu": [],
 }
 
 _P = ctypes.c_void_p
@@ -52,6 +55,10 @@ _SIGNATURES = {
     "ngp_hash_encode_bwd": [_P, _P, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
     "ngp_field": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 6 + [_P],
+    "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 5 + [_P],
+    "ngp_msg_table": [_P, _P, _I, _L, _P, _P, _I, _P],
+    "ngp_msg_table_bwd": [_P, _P, _I, _L, _P, _P],
+    "ngp_table_gather": [_P, _P, _L, _L, _P, _P],
     "ngp_composite": [_P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
     "ngp_composite_bwd": [_P] * 5 + [_F, _I, _I] + [_P] * 7,
     "ngp_march": ([_P, _P, _FP, _P, _P, _P] + [_I] * 9 + [_F] * 6 + [_P] * 9 + [_P]),
@@ -167,11 +174,17 @@ FIELD_BWD = CudaKernel("ngp_field_bwd")
 COMPOSITE = CudaKernel("ngp_composite")
 COMPOSITE_BWD = CudaKernel("ngp_composite_bwd")
 MARCH = CudaKernel("ngp_march")
+FIELD_BWD_FEAT = CudaKernel("ngp_field_bwd_feat")
+MSG_TABLE = CudaKernel("ngp_msg_table")
+MSG_TABLE_BWD = CudaKernel("ngp_msg_table_bwd")
+TABLE_GATHER = CudaKernel("ngp_table_gather")
 
 KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH,
            "K3_composite": COMPOSITE, "K4_field": FIELD,
            "K1_hash_encode_bwd": HASH_ENCODE_BWD, "K3_composite_bwd": COMPOSITE_BWD,
-           "K4_field_bwd": FIELD_BWD}
+           "K4_field_bwd": FIELD_BWD, "K4_field_bwd_feat": FIELD_BWD_FEAT,
+           "K9_msg_table": MSG_TABLE, "K9_msg_table_bwd": MSG_TABLE_BWD,
+           "P1_gather": TABLE_GATHER}
 
 
 def reset_launch_counts():

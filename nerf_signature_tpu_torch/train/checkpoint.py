@@ -4,8 +4,10 @@ The JAX package writes ``pickle.dump(flax.serialization.to_state_dict(tree))``
 (``nerf_signature_tpu/train/checkpoint.py``): nested dicts of numpy arrays,
 where a list becomes ``{"0": ..., "1": ...}`` and a NamedTuple a dict of its
 fields.  This module reads and writes exactly that, and converts the NGP
-params and the optimizer state between that form and the port's tensors.
-The optimizer state is optax's ``adam`` with a schedule:
+params, the watermark stage's ``trainable`` tree (``trainable_from_jax`` /
+``trainable_to_jax``: conv weights HWIO there, OIHW here) and the optimizer
+state between that form and the port's tensors.  The optimizer state is
+optax's ``adam`` with a schedule:
 ``(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))``, i.e.
 ``{"0": {"count", "mu", "nu"}, "1": {"count"}}`` with ``mu``/``nu`` laid out
 like the params, so a port checkpoint resumes in JAX and back.
@@ -78,20 +80,55 @@ def params_to_jax(params):
     return to_state_dict(params)
 
 
-def opt_state_to_jax(count, mu, nu):
-    """Adam's step count and moments (params-shaped dicts of tensors) ->
-    optax's ``adam`` state in state-dict form."""
+def _decoder_map(tree, conv_w, leaf):
+    """Apply ``conv_w`` to every conv weight and ``leaf`` to every other
+    leaf of a decoder tree (blocks as a list or {"0": ...})."""
+    def block(b):
+        return {"conv": {"w": conv_w(b["conv"]["w"]), "b": leaf(b["conv"]["b"])},
+                "bn": {"scale": leaf(b["bn"]["scale"]), "bias": leaf(b["bn"]["bias"])}}
+
+    return {"blocks": [block(b) for b in _as_list(tree["blocks"])],
+            "head": block(tree["head"]),
+            "linear": {"w": leaf(tree["linear"]["w"]), "b": leaf(tree["linear"]["b"])}}
+
+
+def trainable_from_jax(state_dict, device="cpu"):
+    """JAX watermark ``trainable`` ({msg_tables, decoder}, numpy, list or
+    state-dict form) -> the port's tensors; conv weights HWIO -> OIHW."""
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    return {"msg_tables": t(state_dict["msg_tables"]),
+            "decoder": _decoder_map(state_dict["decoder"],
+                                    lambda w: t(np.transpose(np.asarray(w), (3, 2, 0, 1))), t)}
+
+
+def trainable_to_jax(trainable):
+    """The port's ``trainable`` -> the JAX checkpoint's state-dict form;
+    conv weights OIHW -> HWIO."""
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    dec = _decoder_map(trainable["decoder"],
+                       lambda w: np.ascontiguousarray(a(w).transpose(2, 3, 1, 0)), a)
+    return to_state_dict({"msg_tables": a(trainable["msg_tables"]), "decoder": dec})
+
+
+def opt_state_to_jax(count, mu, nu, tree_to_jax=params_to_jax):
+    """Adam's step count and moments (laid out like the params) -> optax's
+    ``adam`` state in state-dict form; ``tree_to_jax`` converts one moment
+    tree (``trainable_to_jax`` for the watermark stage)."""
     c = np.asarray(count, np.int32)
-    return {"0": {"count": c, "mu": params_to_jax(mu), "nu": params_to_jax(nu)},
+    return {"0": {"count": c, "mu": tree_to_jax(mu), "nu": tree_to_jax(nu)},
             "1": {"count": c.copy()}}
 
 
-def opt_state_from_jax(state_dict, device="cpu"):
+def opt_state_from_jax(state_dict, device="cpu", tree_from_jax=params_from_jax):
     """optax's ``adam`` state (state-dict form) -> (count, mu, nu), the
-    moments as the port's params dicts on ``device``."""
+    moments converted by ``tree_from_jax`` onto ``device``."""
     adam = state_dict["0"]
-    return (int(np.asarray(adam["count"])), params_from_jax(adam["mu"], device),
-            params_from_jax(adam["nu"], device))
+    return (int(np.asarray(adam["count"])), tree_from_jax(adam["mu"], device),
+            tree_from_jax(adam["nu"], device))
 
 
 def check_params_like(template, params):

@@ -491,18 +491,7 @@ class Trainer:
             check_params_like(m.params, ema)
             _copy_into(self.ema_params, ema)
         if "occ" in raw:
-            fields = {}
-            for k, v in raw["occ"].items():
-                cur = getattr(m.occ, k)
-                t = torch.as_tensor(np.asarray(v)).to(m.device)
-                if cur is not None:
-                    if tuple(t.shape) != tuple(cur.shape):
-                        raise ValueError(
-                            f"checkpoint grid {k!r} has shape {tuple(t.shape)}, "
-                            f"model has {tuple(cur.shape)} (grid_size/bound differ?)")
-                    t = t.to(cur.dtype)
-                fields[k] = t
-            m.occ = m.occ._replace(**fields)
+            restore_occupancy(m, raw["occ"])
         if not model_only:
             self.epoch = int(raw.get("epoch", 0))
             self.global_step = int(raw.get("global_step", 0))
@@ -513,28 +502,45 @@ class Trainer:
                 except (KeyError, ValueError, TypeError) as e:
                     self.log(f"[ckpt] optimizer restore failed (soft): {e}")
         self.log(f"[ckpt] loaded {path}")
-        self._ensure_occupancy(path)
+        ensure_occupancy(m, path, self.log)
 
-    def _ensure_occupancy(self, path):
-        """Best-format checkpoints drop the density grid: rebuild it from the
-        loaded density field (two full-grid passes through K1 + K4)."""
-        m = self.model
-        if bool(m.occ.occupancy.any()):
-            return
-        self.log(f"[ckpt] {path} carries no occupancy grid (best-ckpt format "
-                 "drops it) — rebuilding from the density field")
-        for _ in range(2):
-            m.occ = update_occupancy_grid(
-                m.occ, m.density_fn, bound=m.rc.bound, grid_size=m.rc.grid_size,
-                density_scale=m.rc.density_scale, density_thresh=m.density_thresh,
-                full=True, generator=m.generator)
-        frac = float(m.occ.occupancy.float().mean())
-        self.log(f"[ckpt] rebuilt occupancy grid: {frac:.3f} occupied")
-        if frac == 0.0:
-            raise RuntimeError(
-                "occupancy rebuild produced an empty grid — the model in "
-                f"{path} renders nothing (wrong checkpoint, or density_thresh "
-                f"{m.density_thresh} too high for this scene)")
+
+def restore_occupancy(model, occ_state):
+    """Load a checkpoint's grid fields into ``model.occ``, checking shapes."""
+    fields = {}
+    for k, v in occ_state.items():
+        cur = getattr(model.occ, k)
+        t = torch.as_tensor(np.asarray(v)).to(model.device)
+        if cur is not None:
+            if tuple(t.shape) != tuple(cur.shape):
+                raise ValueError(
+                    f"checkpoint grid {k!r} has shape {tuple(t.shape)}, "
+                    f"model has {tuple(cur.shape)} (grid_size/bound differ?)")
+            t = t.to(cur.dtype)
+        fields[k] = t
+    model.occ = model.occ._replace(**fields)
+
+
+def ensure_occupancy(model, path, log):
+    """Best-format checkpoints drop the density grid: rebuild it from the
+    loaded density field (two full-grid passes through K1 + K4)."""
+    m = model
+    if bool(m.occ.occupancy.any()):
+        return
+    log(f"[ckpt] {path} carries no occupancy grid (best-ckpt format "
+        "drops it) — rebuilding from the density field")
+    for _ in range(2):
+        m.occ = update_occupancy_grid(
+            m.occ, m.density_fn, bound=m.rc.bound, grid_size=m.rc.grid_size,
+            density_scale=m.rc.density_scale, density_thresh=m.density_thresh,
+            full=True, generator=m.generator)
+    frac = float(m.occ.occupancy.float().mean())
+    log(f"[ckpt] rebuilt occupancy grid: {frac:.3f} occupied")
+    if frac == 0.0:
+        raise RuntimeError(
+            "occupancy rebuild produced an empty grid — the model in "
+            f"{path} renders nothing (wrong checkpoint, or density_thresh "
+            f"{m.density_thresh} too high for this scene)")
 
 
 def _clone(params):

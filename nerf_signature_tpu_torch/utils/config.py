@@ -1,7 +1,5 @@
-"""CLI flag surface (a copy of the clean-stage half of
-``nerf_signature_tpu/utils/config.py``, which the port does not import; the
-watermark flags come with the watermark slice), reproducing both reference
-entry points
+"""CLI flag surface (a copy of ``nerf_signature_tpu/utils/config.py``, which
+the port does not import), reproducing both reference entry points
 (``main_nerf.py:12-62`` — 27 flags; ``main_nerf_wtmk.py:12-77`` — +13 wm
 flags), including the ``-O`` macro (= fp16 + occupancy-grid marching +
 preload) and the reference quirks we consciously keep or fix:
@@ -191,6 +189,113 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--prewatermark_steps", type=int, default=600,
                         help="HiDDeN encoder/decoder pretraining steps")
     parser.add_argument("--prewatermark_strength", type=float, default=0.1)
+    return parser
+
+
+def add_wtmk_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--wtmk_tcnn", action="store_true",
+                        help="watermarked network (name kept for parity)")
+    parser.add_argument("--message_dim", type=int, default=16)
+    parser.add_argument("--downscale", type=float, default=1)
+    parser.add_argument("--lambda_w", type=float, default=1.0)
+    parser.add_argument("--lambda_i", type=float, default=1.0)
+    parser.add_argument("--loss_w", type=str, default="bce")
+    parser.add_argument("--n_views", type=int, default=1)
+    parser.add_argument("--num_rows", type=int, default=16)
+    parser.add_argument("--num_cols", type=int, default=16)
+    parser.add_argument("--use_existset", action="store_true")
+    parser.add_argument("--eval_interval", type=int, default=10)
+    parser.add_argument("--num_images_test", type=int, default=360)
+    parser.add_argument("--n_test_bitacc", type=int, default=200,
+                        help="random messages per bit-accuracy evaluation "
+                             "(ref n_test=200, main_nerf_wtmk.py:122)")
+    parser.add_argument("--bitacc_batch", type=int, default=8,
+                        help="messages drawn at a time in test_bitacc, as "
+                             "the JAX package draws them (the port renders "
+                             "and decodes each message on its own)")
+    parser.add_argument("--n_test_attack", type=int, default=50,
+                        help="messages per attack in --attack_suite sweeps")
+    parser.add_argument("--pseudo_gt_cache", type=str, default=None,
+                        help="npz path caching the rendered pseudo-GT pool "
+                             "across CLI invocations (fingerprinted against "
+                             "backbone+poses; stale caches re-render)")
+    parser.add_argument("--wm_polish_iters", type=int, default=0,
+                        help="extra iters appended after the main wm "
+                             "schedule with lambda_w dropped to "
+                             "--wm_polish_lambda_w: the content loss "
+                             "recovers PSNR while locked bit margins "
+                             "survive (cf. the finetune-attack result)")
+    parser.add_argument("--wm_polish_lambda_w", type=float, default=0.0)
+    parser.add_argument("--lambda_ssim", type=float, default=0.0,
+                        help="wm-stage structural content guard: adds "
+                             "lambda_ssim * (1 - SSIM) over patch-structured "
+                             "content rays (requires --patch_size > 1).  "
+                             "Targets the high-frequency density speckle the "
+                             "message perturbation produces, which per-ray "
+                             "MSE suppresses only slowly; weight-free unlike "
+                             "LPIPS.  No reference equivalent (PERF.md)")
+    parser.add_argument("--lambda_msg_reg", type=float, default=0.0,
+                        help="amplitude regulariser on the message "
+                             "perturbation source: adds lambda_msg_reg * "
+                             "mean(effective_table(message)**2) to the wm "
+                             "objective.  Bounds the feature-space "
+                             "perturbation injected into the frozen backbone "
+                             "(root cause of the backbone-draw-dependent "
+                             "density speckle, PERF.md) instead of repairing "
+                             "its image-space damage; typical useful range "
+                             "0.1-10.  No reference equivalent")
+    parser.add_argument("--wm_content_budget", type=int, default=0,
+                        help="march budget for wm-stage CONTENT rays; 0 = "
+                             "match the pseudo-GT render budget "
+                             "(--infer_budget) so loss_i has no render-budget "
+                             "floor; set to --train_budget to reproduce the "
+                             "round-1 mismatch for A/B")
+    parser.add_argument(
+        "--distortion", type=str, default="none",
+        choices=["none", "noise", "rotation", "scaling", "blurring",
+                 "brightness", "jpeg", "crop"],
+    )
+    # robustness suites (reference: --distortion rerun + the checkpoint-variant
+    # epsilon-ball adversarial attack)
+    parser.add_argument(
+        "--hash_select", type=int, default=1, choices=[0, 1, 2, 3],
+        help="message-injection ablation (ref network_wtmk_tcnn_ablation_"
+             "hash*): 1=finest level (paper default), 2=coarsest, 3=middle, "
+             "0=all levels",
+    )
+    parser.add_argument("--whole_image_wm", action="store_true",
+                        help="legacy whole-image extraction (utils_wtmk.py)")
+    parser.add_argument("--copyrnerf", action="store_true",
+                        help="CopyRNeRF baseline: color-space message MLP + "
+                             "whole-image extraction (ref network_copyrnerf_"
+                             "tcnn / utils_wtmk_copyrnerf snapshots)")
+    parser.add_argument("--copyrnerf_replace", action="store_true",
+                        help="CopyRNeRF upstream-exact variant: msg MLP "
+                             "REPLACES the per-sample color instead of the "
+                             "default +-0.5 residual blend")
+    parser.add_argument("--finetune_decoder", action="store_true",
+                        help="freeze msg encoder too; train only the decoder")
+    parser.add_argument("--attack_suite", action="store_true",
+                        help="run the named-attack bit-acc sweep in --test")
+    parser.add_argument("--adv_attack", action="store_true",
+                        help="run the epsilon-ball parameter attack in --test")
+    parser.add_argument("--adv_epsilon", type=float, default=1e-3)
+    parser.add_argument("--adv_steps", type=int, default=100)
+    parser.add_argument("--finetune_attack", action="store_true",
+                        help="run the backbone finetuning attack in --test "
+                             "(ref utils_finetuning_attack_disen)")
+    parser.add_argument("--finetune_attack_steps", type=int, default=100)
+    parser.add_argument("--finetune_attack_lr", type=float, default=1e-3)
+    parser.add_argument("--finetune_attack_full", action="store_true",
+                        help="finetune ALL backbone nets, not just the hash "
+                             "table (ref network_finetune_tcnn variant)")
+    parser.add_argument(
+        "--block_selection", type=str, default="jpeg",
+        choices=["jpeg", "random"],
+        help="key-block picker: 'jpeg' = least-JPEG-compressible blocks "
+             "(paper); 'random' = uniform random blocks (ref "
+             "NeRFDataset_random_patch / _Disen_random_view ablations)",
+    )
     return parser
 
 

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1-K4, forward and backward) against their
-plain PyTorch versions on the same inputs, on the card.  Skipped where no
-GPU is visible.
+"""The port's CUDA kernels (K1-K4 forward and backward, K9 forward and
+backward, the feature-only K4 backward, P1) against their plain PyTorch
+versions on the same inputs, on the card.  Skipped where no GPU is
+visible.
 
 This file imports torch and the port only, so it runs where JAX is not
 installed, without the repo's JAX conftest:
@@ -14,6 +15,9 @@ bf16 step (see test_torch_field).  Backward (relative L2 over the whole
 gradient): the hash encoder's scatter-add and the compositor 1e-5 (atomic
 and summation order), the field heads 1e-5 at fp32 and 1e-2 at bf16 (a
 bf16 step where the kernel's fp32 sums and cuBLAS's round differently).
+K9 forward bit for bit (the same adds in bit order, the same bf16 rounding)
+and its backward exactly (a copy); the feature-only K4 backward equals the
+full one's g_feat bit for bit; P1 equals ``table[idx]``.
 """
 
 import numpy as np
@@ -230,3 +234,85 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(NotImplementedError, match="bool occupancy"):
         t_march.march_rays_aabb(o, o + 1, (-1, -1, -1, 1, 1, 1), occ.float(),
                                 min_near=0.2, bound=1.0)
+
+
+@pytest.mark.parametrize("gather", [torch.bfloat16, torch.float32])
+def test_msg_table_kernel_matches_plain(cuda, gather):
+    from nerf_signature_tpu_torch.models import message as t_msg
+
+    g = torch.Generator().manual_seed(9)
+    D = 32
+    tables = t_msg.init_msg_tables(g, D, 2, 19, cuda)
+    bits = torch.randint(0, 2, (D,), generator=g, dtype=torch.int32).to(cuda)
+    k_eff, k_g = t_msg.effective_table(tables, bits, gather)
+    p_eff, p_g = t_msg.effective_table(tables, bits, gather, plain=True)
+    assert torch.equal(k_eff, p_eff) and torch.equal(k_g, p_g) and k_g.dtype == gather
+    g_eff = torch.randn(k_eff.shape, generator=g).to(cuda)
+    grads = []
+    for plain in (False, True):
+        t = tables.clone().requires_grad_(True)
+        t_msg.effective_table(t, bits, gather, plain=plain)[0].backward(g_eff)
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_field_bwd_feat_kernel_matches_plain(cuda, dtype):
+    cfg = t_ngp.NGPConfig(compute_dtype=dtype)
+    params = t_ngp.init_ngp_params(torch.Generator().manual_seed(10), cfg, cuda)
+    params["hash_table"].mul_(1e4)
+    fp = t_ngp.field_params(params, cfg)
+    g = torch.Generator().manual_seed(11)
+    M = 100_000
+    x = (torch.rand((M, 3), generator=g) * 2 - 1).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn((M, 3), generator=g), dim=-1).to(cuda)
+    with torch.no_grad():
+        feat = t_ngp._encode_pos(fp, cfg, x)
+    g_sigma = (torch.randn(M, generator=g) * 1e-3).to(cuda)
+    g_rgb = (torch.randn((M, 3), generator=g) * 1e-3).to(cuda)
+    g_sigma[::5] = 0.0
+    g_rgb[::5] = 0.0
+    w = t_ngp._kernel_widths(params, cfg)
+    only = t_ngp.field_heads_bwd_feat(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb)
+    full = t_ngp.field_heads_bwd(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb)[0]
+    assert torch.equal(only, full)
+    # through autograd with frozen weights: the feature-only kernel runs
+    f = feat.clone().requires_grad_(True)
+    sigma, _, rgb = t_ngp.field_heads(fp, cfg, f, d)
+    torch.autograd.backward([sigma, rgb], [g_sigma, g_rgb])
+    assert torch.equal(f.grad, only)
+    fp_ = feat.clone().requires_grad_(True)
+    sp, _, rp = t_ngp.field_heads_plain(fp, cfg, fp_, d)
+    torch.autograd.backward([sp, rp], [g_sigma, g_rgb])
+    assert rel_l2(only, fp_.grad) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_table_gather_kernel_matches_plain(cuda):
+    from nerf_signature_tpu_torch.ops import gather as t_gather
+
+    g = torch.Generator().manual_seed(12)
+    table = torch.rand(1 << 19, generator=g).to(cuda)
+    idx = torch.randint(0, 1 << 19, (524_288,), generator=g, dtype=torch.int32).to(cuda)
+    out = t_gather.table_gather(table, idx)
+    assert torch.equal(out, t_gather.table_gather_plain(table, idx))
+    assert torch.equal(out, torch.take(table, idx.long()))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_hash_encode_kernel_one_level_and_shared_table(cuda, shared):
+    """K1 as the message feature calls it: one level at resolution 2048 on
+    a 2^19-row table, or every level on one shared table (hash_select 0)."""
+    g = torch.Generator().manual_seed(13)
+    res = t_hash.level_resolutions(16, 16, 2048) if shared else np.array([2048.0])
+    table = (torch.rand((1 << 19, 2), generator=g) * 2 - 1).to(cuda)
+    x = torch.rand((1 << 16, 3), generator=g).to(cuda)
+    for gd in (torch.bfloat16, None):
+        k = t_hash.hash_encode(x, table, res, 19, gather_dtype=gd, shared_table=shared)
+        p = t_hash.hash_encode_plain(x, table, res, 19, gather_dtype=gd, shared_table=shared)
+        torch.testing.assert_close(k, p, rtol=1e-6, atol=1e-7)
+    g_feat = torch.randn((1 << 16, len(res) * 2), generator=g).to(cuda)
+    k = t_hash._hash_encode_bwd_kernel(x, g_feat, 1 << 19, res, 19, torch.bfloat16, shared,
+                                       None)
+    p = t_hash.hash_encode_bwd_plain(x, g_feat, 1 << 19, res, 19, torch.bfloat16,
+                                     shared_table=shared)
+    assert rel_l2(k, p) <= 1e-5
