@@ -27,9 +27,11 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                one through the plain versions, in bf16 and in fp32; then at
                the watermark step's shapes (32 key blocks of 12x12 and 4096
                content rays, budget 256): K9 forward (bit-exact) and
-               backward (exact), the feature-only K4 backward, and one whole
+               backward (exact), the feature-only K4 backward in bf16 (the
+               tensor-core kernel) and fp32 (the SIMT one), and one whole
                watermark step (loss and per-leaf gradients) through the
-               kernels against the plain versions, in bf16 and in fp32;
+               kernels against the plain versions, in bf16 and in fp32; each
+               whole step must run K4 on its dtype's route alone;
   5. serve   — a full-width model (README Blender recipe: -O --bound 1.0
                --scale 0.8 --dt_gamma 0, NGPConfig defaults, grid 128^3,
                max_steps 1024, budget 256) with random weights from a seed
@@ -70,9 +72,11 @@ nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX: the port is ``nerf_signature_tpu_torch``.
 """
 
+import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -223,6 +227,17 @@ def phase_build():
     for line in info["log"].splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log("[build]   " + line.strip())
+    # the tensor-core kernels must not spill (ptxas -v, every instantiation)
+    spills = {}
+    for sec in info["log"].split("== ")[1:]:
+        name = sec.split()[0]
+        if name in TENSOR_CORE_SOURCES:
+            spills[name] = [int(n) for n in re.findall(r"(\d+) bytes spill stores", sec)]
+    log(f"[build] spill stores of the tensor-core kernels (bytes, per instantiation): {spills}")
+    if sorted(spills) != sorted(TENSOR_CORE_SOURCES) or not all(spills.values()) or any(
+            any(v) for v in spills.values()):
+        raise AssertionError(f"the tensor-core kernels spill or were not reported: {spills}")
+    return info["seconds"]
 
 
 # ---------------------------------------------------------------- phase 3
@@ -354,22 +369,12 @@ def phase_kernels(dev):
                                      plain_ms=pms1, bound_ms=bms1, bound_by=bby1,
                                      library_ms=None)
 
-    # ---- K4 field heads at bf16 on those features
-    sk, _, rk = t_ngp.field_heads(fp, cfg, feat, dirs)
-    sp, _, rp = t_ngp.field_heads_plain(fp, cfg, feat, dirs)
-    e_rgb = float((rk - rp).abs().max())
-    e_sig = float(((sk - sp).abs() / sp.abs().clamp_min(1e-6)).max())
-    log(f"[K4] bf16: rgb max abs err {e_rgb:.3g} (limit 1e-2), sigma max rel err "
-        f"{e_sig:.3g} (limit 2e-2); sigma range {float(sp.min()):.3g}..{float(sp.max()):.3g}")
-    if not (e_rgb <= 1e-2 and e_sig <= 2e-2):
-        raise AssertionError("K4 differs from its plain version beyond its limits")
-    ms4 = median_ms(lambda: t_ngp.field_heads(fp, cfg, feat, dirs), 20)
-    pms4 = median_ms(lambda: t_ngp.field_heads_plain(fp, cfg, feat, dirs), 5, 1)
-    lib4 = library_mlp_ms(fp, cfg, feat, dirs)
-    n_w = sum(w.numel() for w in fp["sigma_net"] + fp["color_net"])
-    bms4, bby4 = bound_of(M * (32 * 4 + 12 + 4 + 12), M * 2 * n_w, PEAK_BF16)
-    results["K4_field"] = dict(max_abs_err=e_rgb, ms=ms4, plain_ms=pms4, bound_ms=bms4,
-                               bound_by=bby4, library_ms=lib4)
+    # ---- K4 field heads on those features: bf16 on the tensor cores (the
+    # serving path), fp32 on the SIMT units (the fp32 route)
+    results["K4_field"], (sp, rp) = k4_forward(fp, cfg, feat, dirs)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    fp32 = t_ngp.field_params(m.params, cfg32)
+    results["K4_field_f32"], _ = k4_forward(fp32, cfg32, feat, dirs)
 
     # ---- K3 compositor on the field's output
     N, S = k2["march"]["mask"].shape
@@ -444,16 +449,52 @@ def touched_rows(x01, res, log2_size):
     return int(seen.sum())
 
 
-def library_mlp_ms(fp, cfg, feat, dirs):
-    """The same two MLPs as a chain of bf16 torch.matmul calls (a yardstick,
-    never called by the port); inputs prepared outside the timed region."""
+def k4_forward(fp, cfg, feat, dirs):
+    """K4's forward in cfg's dtype (bf16: the tensor-core kernel; fp32: the
+    SIMT one) against its plain version, with and without directions (the
+    density-only query of grid updates and meshing); its row's numbers and
+    the plain (sigma, rgb)."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+
+    bf16 = cfg.compute_dtype == torch.bfloat16
+    tag = "K4" if bf16 else "K4 f32"
+    sk, gk, rk = t_ngp.field_heads(fp, cfg, feat, dirs, want_geo=True)
+    sd, gd, _ = t_ngp.field_heads(fp, cfg, feat, None, want_geo=True)
+    sp, gp, rp = t_ngp.field_heads_plain(fp, cfg, feat, dirs)
+    e_rgb = float((rk - rp).abs().max())
+    e_sig = float(((sk - sp).abs() / sp.abs().clamp_min(1e-6)).max())
+    # geo: |k - p| <= atol + rtol |p|, reported as the worst ratio to that
+    lim_sig, lim_rgb, g_rtol, g_atol = (2e-2, 1e-2, 2e-2, 1e-2) if bf16 else (1e-5,) * 4
+    e_geo = float(((gk - gp).abs() / (g_atol + g_rtol * gp.abs())).max())
+    steps = {n: float((a != b).float().mean()) for n, a, b in
+             (("sigma", sk, sp), ("geo", gk, gp), ("rgb", rk, rp))}
+    same = torch.equal(sd, sk) and torch.equal(gd, gk)
+    log(f"[{tag}] rgb max abs err {e_rgb:.3g} (limit {lim_rgb:g}), sigma max rel err {e_sig:.3g} "
+        f"(limit {lim_sig:g}), geo worst share of its limit {e_geo:.3g} (limit 1); sigma range "
+        f"{float(sp.min()):.3g}..{float(sp.max()):.3g}; share of outputs not equal to the "
+        f"plain version's {steps}; density-only query equal to the colour query's: {same}")
+    if not (e_rgb <= lim_rgb and e_sig <= lim_sig and e_geo <= 1.0 and same):
+        raise AssertionError(f"{tag} differs from its plain version beyond its limits")
+    ms = median_ms(lambda: t_ngp.field_heads(fp, cfg, feat, dirs), 20)
+    pms = median_ms(lambda: t_ngp.field_heads_plain(fp, cfg, feat, dirs), 5, 1)
+    lib = library_mlp_ms(fp, feat, dirs, cfg.compute_dtype)
+    M = feat.shape[0]
+    n_w = sum(w.numel() for w in fp["sigma_net"] + fp["color_net"])
+    bms, bby = bound_of(M * (32 * 4 + 12 + 4 + 12), M * 2 * n_w, PEAK_BF16 if bf16 else PEAK_FP32)
+    return dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                library_ms=lib, share_not_equal=steps), (sp, rp)
+
+
+def library_mlp_ms(fp, feat, dirs, dtype=torch.bfloat16):
+    """The same two MLPs as a chain of torch.matmul calls in ``dtype`` (a
+    yardstick, never called by the port); inputs prepared outside the timed
+    region."""
     from nerf_signature_tpu_torch.ops.sh import sh_encode
 
-    bf = torch.bfloat16
-    ws = [w.to(bf) for w in fp["sigma_net"]]
-    wc = [w.to(bf) for w in fp["color_net"]]
-    xs = feat.to(bf)
-    xc = torch.cat([sh_encode(dirs, 4), feat[:, :15]], -1).to(bf)
+    ws = [w.to(dtype) for w in fp["sigma_net"]]
+    wc = [w.to(dtype) for w in fp["color_net"]]
+    xs = feat.to(dtype)
+    xc = torch.cat([sh_encode(dirs, 4), feat[:, :15]], -1).to(dtype)
 
     def run():
         h = torch.relu(xs @ ws[0]) @ ws[1]
@@ -481,6 +522,7 @@ def train_rays(dev, seed=3):
 
 def phase_train_kernels(dev):
     from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.ops import composite as t_comp
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
     from nerf_signature_tpu_torch.ops import marching as t_march
@@ -646,11 +688,15 @@ def phase_train_kernels(dev):
     # K4's bf16 roundings of sums taken in another order than cuBLAS's.  The
     # limits are a few times the readings on an H100 (loss 7.0e-8 relative;
     # per-leaf rel L2 2.6e-4 in bf16, 8.1e-7 in fp32)
+    fp32_counts = {}
     for dtype, lim_rel in ((torch.bfloat16, 2e-3), (torch.float32, 1e-5)):
         lim_loss = 1e-6
         mt = make_model(dev, dtype=dtype)
+        _cuda.reset_launch_counts()
         (lk, gk_), (lp, gp_) = (train_step_grads(mt, ro, rd, bg, noise, plain)
                                 for plain in (False, True))
+        fp32_counts.setdefault("train step", {}).update(
+            k4_route(_cuda.launch_counts(), dtype, ("K4_field",), "train step"))
         el = abs(float(lk) - float(lp)) / abs(float(lp))
         worst = max(rel_l2(a, b) for a, b in zip(gk_, gp_))
         log(f"[train step] {str(dtype)[6:]}: loss {float(lk):.6g} vs plain {float(lp):.6g} "
@@ -660,7 +706,8 @@ def phase_train_kernels(dev):
             raise AssertionError(f"train step through the kernels differs from the plain "
                                  f"one ({str(dtype)})")
         del mt
-    wm_kernels(dev, results)
+    wm_kernels(dev, results, fp32_counts)
+    results["K4_field_bwd_feat_f32"]["fp32_step_launches"] = fp32_counts
     for name, r in results.items():
         log(f"[{name}] ms {r['ms']:.4f} | plain {r['plain_ms']:.4f} | "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']}) | library {r['library_ms']}")
@@ -688,13 +735,13 @@ def train_step_grads(m, ro, rd, bg, noise, plain):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-def library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb, weights_grad=True):
-    """Autograd backward of the bf16 torch.matmul chain of library_mlp_ms (a
-    yardstick, never called by the port); with ``weights_grad`` False the
-    inputs' gradients only (frozen weights)."""
+def library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb, weights_grad=True, dtype=torch.bfloat16):
+    """Autograd backward of the torch.matmul chain of library_mlp_ms in
+    ``dtype`` (a yardstick, never called by the port); with ``weights_grad``
+    False the inputs' gradients only (frozen weights)."""
     from nerf_signature_tpu_torch.ops.sh import sh_encode
 
-    bf = torch.bfloat16
+    bf = dtype
     ws = [w.to(bf).requires_grad_(weights_grad) for w in fp["sigma_net"]]
     wc = [w.to(bf).requires_grad_(weights_grad) for w in fp["color_net"]]
     xs = feat.to(bf).requires_grad_(True)
@@ -765,11 +812,77 @@ def wm_step_grads(m, x, plain):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-def wm_kernels(dev, results):
+def k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb):
+    """The feature-only K4 backward in cfg's dtype (bf16: the tensor-core
+    kernel; fp32: the SIMT one) against autograd through the plain version
+    and against the full backward's g_feat (SIMT; in fp32 the same products,
+    so equal bit for bit; in bf16 summed in another order); its row."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+
+    bf16 = cfg.compute_dtype == torch.bfloat16
+    tag = "K4 bwd feat" if bf16 else "K4 bwd feat f32"
+    widths = t_ngp._kernel_widths(fp, cfg)
+    flat, mma = fp["mlp_flat"], fp.get("mlp_mma")
+    gf_k = t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma)
+    gf_full = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb)[0]
+    f_p = feat.clone().requires_grad_(True)
+    s_p, _, r_p = t_ngp.field_heads_plain(fp, cfg, f_p, dirs)
+    plain_bwd = lambda: torch.autograd.grad([s_p, r_p], [f_p], [g_sigma, g_rgb],
+                                            retain_graph=True)
+    (gf_p,) = plain_bwd()
+    lim = 1e-2 if bf16 else 1e-5
+    e4, e_full = rel_l2(gf_k, gf_p), rel_l2(gf_k, gf_full)
+    a4 = float((gf_k - gf_p).abs().max())
+    equal_full = torch.equal(gf_k, gf_full)
+    log(f"[{tag}] rel L2 vs plain {e4:.3g} (limit {lim:g}), max abs err {a4:.3g}; vs the full "
+        f"backward's g_feat rel L2 {e_full:.3g} (limit {lim:g}{'' if bf16 else ', and equal'}), "
+        f"equal bit for bit: {equal_full}")
+    if not (e4 <= lim and e_full <= lim and (bf16 or equal_full)):
+        raise AssertionError(f"{tag} differs from its plain version or from the full "
+                             "backward's g_feat")
+    del gf_full, gf_p
+    ms = median_ms(lambda: t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma,
+                                                      g_rgb, mma), 10)
+    full_ms = median_ms(lambda: t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma,
+                                                      g_rgb), 5)
+    log(f"[{tag}] {ms:.4f} ms; the full backward (with the weight gradient) on the same "
+        f"inputs {full_ms:.4f} ms")
+    pms = median_ms(plain_bwd, 5, 1)
+    lib = library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb, weights_grad=False,
+                             dtype=cfg.compute_dtype)
+    # bound: cotangents read and g_feat written for every sample; feat and
+    # dirs read, the forward and the transposed products done (4 flops a
+    # weight) only for samples with a nonzero cotangent; no weight gradient
+    M = feat.shape[0]
+    n_hot = int(((g_sigma != 0) | (g_rgb != 0).any(-1)).sum())
+    bms, bby = bound_of(M * (4 + 12 + cfg.enc_dim * 4) + n_hot * (cfg.enc_dim * 4 + 12)
+                        + flat.numel() * 4, n_hot * 4 * flat.numel(),
+                        PEAK_BF16 if bf16 else PEAK_FP32)
+    log(f"[{tag}] {n_hot} of {M} samples carry a nonzero cotangent")
+    return dict(max_abs_err=a4, rel_l2=e4, rel_l2_vs_full_bwd=e_full, ms=ms, plain_ms=pms,
+                bound_ms=bms, bound_by=bby, library_ms=lib, full_bwd_ms=full_ms)
+
+
+def k4_route(counts, dtype, names, what):
+    """Fail unless K4's kernels in ``names`` ran on the route of ``dtype``
+    alone: bf16 the tensor-core kernel, fp32 the SIMT one (``name_f32``).
+    Returns the SIMT kernels' counts."""
+    for name in names:
+        tc, simt = counts[name], counts[name + "_f32"]
+        ok = (tc > 0 and simt == 0) if dtype == torch.bfloat16 else (tc == 0 and simt > 0)
+        if not ok:
+            raise AssertionError(f"{what} in {dtype}: {name} launched {tc} times on the tensor "
+                                 f"cores and {simt} times on the SIMT route")
+    return {name + "_f32": counts[name + "_f32"] for name in names}
+
+
+def wm_kernels(dev, results, fp32_counts):
     """K9 forward and backward, the feature-only K4 backward and one whole
-    watermark step, kernels against plain versions, at the recipe's shapes."""
+    watermark step, kernels against plain versions, at the recipe's shapes;
+    the fp32 step's SIMT launches go to ``fp32_counts``."""
     from nerf_signature_tpu_torch.models import message as t_msg
     from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
     from nerf_signature_tpu_torch.ops import marching as t_march
     from nerf_signature_tpu_torch.render.renderer import default_aabb
@@ -832,43 +945,12 @@ def wm_kernels(dev, results):
     del march, x01
     g_sigma = torch.randn((M,), generator=gen, device=dev) * 1e-4 * live
     g_rgb = torch.randn((M, 3), generator=gen, device=dev) * 1e-4 * live[:, None]
-    widths = t_ngp._kernel_widths(fp, cfg)
-    gf_k = t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, fp["mlp_flat"], g_sigma, g_rgb)
-    gf_full = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, fp["mlp_flat"], g_sigma, g_rgb)[0]
-    f_p = feat.clone().requires_grad_(True)
-    s_p, _, r_p = t_ngp.field_heads_plain(fp, cfg, f_p, dirs)
-    plain_bwd = lambda: torch.autograd.grad([s_p, r_p], [f_p], [g_sigma, g_rgb],
-                                            retain_graph=True)
-    (gf_p,) = plain_bwd()
-    e4 = rel_l2(gf_k, gf_p)
-    a4 = float((gf_k - gf_p).abs().max())
-    log(f"[K4 bwd feat] bf16, N={N} S={S} M={M}: rel L2 vs plain {e4:.3g} (limit 1e-2), "
-        f"max abs err {a4:.3g}; equal to the full backward's g_feat: "
-        f"{torch.equal(gf_k, gf_full)}")
-    if not (e4 <= 1e-2 and torch.equal(gf_k, gf_full)):
-        raise AssertionError("the feature-only K4 backward differs from its plain version "
-                             "or from the full backward's g_feat")
-    del gf_full
-    ms4 = median_ms(lambda: t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, fp["mlp_flat"],
-                                                       g_sigma, g_rgb), 10)
-    full_ms = median_ms(lambda: t_ngp.field_heads_bwd(cfg, widths, feat, dirs, fp["mlp_flat"],
-                                                      g_sigma, g_rgb), 5)
-    log(f"[K4 bwd feat] {ms4:.4f} ms; the full backward (with the weight gradient) on the "
-        f"same inputs {full_ms:.4f} ms")
-    pms4 = median_ms(plain_bwd, 5, 1)
-    lib4 = library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb, weights_grad=False)
-    # bound: cotangents read and g_feat written for every sample; feat and
-    # dirs read, the forward and the transposed products done (4 flops a
-    # weight) only for samples with a nonzero cotangent; no weight gradient
-    n_w = fp["mlp_flat"].numel()
-    n_hot = int(((g_sigma != 0) | (g_rgb != 0).any(-1)).sum())
-    bms4, bby4 = bound_of(M * (4 + 12 + cfg.enc_dim * 4) + n_hot * (cfg.enc_dim * 4 + 12)
-                          + n_w * 4, n_hot * 4 * n_w, PEAK_BF16)
-    log(f"[K4 bwd feat] {n_hot} of {M} samples carry a nonzero cotangent")
-    results["K4_field_bwd_feat"] = dict(max_abs_err=a4, rel_l2=e4, ms=ms4, plain_ms=pms4,
-                                        bound_ms=bms4, bound_by=bby4, library_ms=lib4,
-                                        full_bwd_ms=full_ms)
-    del f_p, s_p, r_p, gf_p, feat, dirs, g_sigma, g_rgb, live
+    log(f"[K4 bwd feat] N={N} S={S} M={M}")
+    results["K4_field_bwd_feat"] = k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    results["K4_field_bwd_feat_f32"] = k4_bwd_feat(t_ngp.field_params(m.backbone, cfg32), cfg32,
+                                                   feat, dirs, g_sigma, g_rgb)
+    del feat, dirs, g_sigma, g_rgb, live
 
     # ---- one whole watermark step through the kernels and through the plain
     # versions; a conv bias before a batch norm has a zero gradient in exact
@@ -879,7 +961,10 @@ def wm_kernels(dev, results):
     for dtype, lim_rel in ((torch.bfloat16, 5e-3), (torch.float32, 1e-4)):
         lim_loss = 1e-6
         mt = make_wm_model(dev, dtype=dtype)
+        _cuda.reset_launch_counts()
         (lk, gk_), (lp, gp_) = (wm_step_grads(mt, x, plain) for plain in (False, True))
+        fp32_counts["wm step"] = k4_route(_cuda.launch_counts(), dtype,
+                                          ("K4_field", "K4_field_bwd_feat"), "wm step")
         el = abs(float(lk) - float(lp)) / abs(float(lp))
         scale = max(float(g.norm()) for g in gp_)
         kept = [(a, b) for a, b in zip(gk_, gp_) if float(b.norm()) > 1e-5 * scale]
@@ -996,8 +1081,9 @@ def phase_serve(dev, workdir):
     n = _cuda.launch_counts()
     log(f"[serve] grid rebuild (2 full passes over 128^3 cells) {time.time() - t0:.2f} s: "
         f"{frac:.2%} occupied; launches {n}")
-    if not (0.0 < frac < 1.0 and n["K1_hash_encode"] > 0 and n["K4_field"] > 0):
-        raise AssertionError("grid rebuild did not run through K1 + K4")
+    if not (0.0 < frac < 1.0 and n["K1_hash_encode"] > 0):
+        raise AssertionError("grid rebuild did not run through K1")
+    k4_route(n, torch.bfloat16, ("K4_field",), "grid rebuild")
     return launches
 
 
@@ -1139,6 +1225,7 @@ def phase_train(dev):
     for name in SOURCES:
         if name in CLEAN_TRAIN and launches[name] == 0:
             raise AssertionError(f"{name} was not launched by Trainer.train")
+    k4_route(launches, torch.bfloat16, ("K4_field",), "Trainer.train")
     trained = trainer.model  # the wm phase's frozen backbone
     del r, trainer
 
@@ -1348,6 +1435,8 @@ def phase_wm(dev, backbone_model, workdir):
             raise AssertionError(f"{name} was not launched by WatermarkTrainer.train")
     if launches["K4_field_bwd"] != 0:
         raise AssertionError("the frozen backbone's weight gradient was computed")
+    k4_route(launches, torch.bfloat16, ("K4_field", "K4_field_bwd_feat"),
+             "WatermarkTrainer.train")
     return res
 
 
@@ -1358,16 +1447,20 @@ SOURCES = {
                  "nerf_signature_tpu/ops/marching.py:310"),
     "K3_composite": ("nerf_signature_tpu_torch/csrc/composite.cu",
                      "nerf_signature_tpu/ops/composite.py:25"),
-    "K4_field": ("nerf_signature_tpu_torch/csrc/field.cu",
+    "K4_field": ("nerf_signature_tpu_torch/csrc/field_mma.cu",
                  "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
+                     "nerf_signature_tpu/models/mlp.py:30"),
     "K1_hash_encode_bwd": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
                            "nerf_signature_tpu/ops/hashenc.py:124"),
     "K3_composite_bwd": ("nerf_signature_tpu_torch/csrc/composite.cu",
                          "nerf_signature_tpu/ops/composite.py:25"),
     "K4_field_bwd": ("nerf_signature_tpu_torch/csrc/field.cu",
                      "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_feat": ("nerf_signature_tpu_torch/csrc/field_feat.cu",
+    "K4_field_bwd_feat": ("nerf_signature_tpu_torch/csrc/field_mma_bwd.cu",
                           "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_feat_f32": ("nerf_signature_tpu_torch/csrc/field_feat.cu",
+                              "nerf_signature_tpu/models/mlp.py:30"),
     "K9_msg_table": ("nerf_signature_tpu_torch/csrc/msgtable.cu",
                      "nerf_signature_tpu/models/message.py:45"),
     "K9_msg_table_bwd": ("nerf_signature_tpu_torch/csrc/msgtable.cu",
@@ -1382,7 +1475,11 @@ CLEAN_TRAIN = FORWARD + ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd
 WM_TRAIN = FORWARD + ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd_feat",
                       "K9_msg_table", "K9_msg_table_bwd")
 # rows measured in the kernels phase (the serving or the probe's shapes)
-KERNEL_PHASE = FORWARD + ("P1_gather",)
+KERNEL_PHASE = FORWARD + ("K4_field_f32", "P1_gather")
+# K4's fp32 route (SIMT): off the bf16 main path, run by the fp32 whole-step checks
+FP32_ROUTE = ("K4_field_f32", "K4_field_bwd_feat_f32")
+# the sources of the tensor-core kernels, which must build without spills
+TENSOR_CORE_SOURCES = ("field_mma.cu", "field_mma_bwd.cu")
 
 
 def main():
@@ -1394,7 +1491,7 @@ def main():
 
     gpu_line = phase_device()
     dev = torch.device("cuda")
-    phase_build()
+    build_s = phase_build()
     kernels = phase_kernels(dev)
     train_kernels = phase_train_kernels(dev)
     with tempfile.TemporaryDirectory() as workdir:
@@ -1408,28 +1505,38 @@ def main():
         # backward kernels: the train step's shapes and Trainer.train's
         # launches (slice 2); the watermark kernels: the watermark step's
         # shapes and WatermarkTrainer.train's launches (slice 3); P1 is on no
-        # entry point's path (0 launches there), timed at the probe's shapes
+        # entry point's path (0 launches there), timed at the probe's shapes;
+        # K4's SIMT kernels are the fp32 route, off the bf16 main path
         r = kernels[name] if name in KERNEL_PHASE else train_kernels[name]
         if name in FORWARD:
             n, path = launches[name], "serve"
         elif name in CLEAN_TRAIN:
             n, path = train["launches"][name], "train"
+        elif name in WM_TRAIN:
+            n, path = wm["launches"][name], "wm"
+        elif name in FP32_ROUTE:
+            n, path = 0, "fp32 route (the fp32 whole-step checks)"
         else:
-            n, path = wm["launches"][name], "wm" if name != "P1_gather" else "none (dev probe)"
+            n, path = 0, "none (dev probe)"
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "path": path, "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "train_launches": train["launches"][name],
                "wm_launches": wm["launches"][name]}
-        if "full_bwd_ms" in r:
-            row["full_bwd_ms"] = r["full_bwd_ms"]
+        for extra in ("full_bwd_ms", "share_not_equal", "rel_l2_vs_full_bwd"):
+            if extra in r:
+                row[extra] = r[extra]
+        if name in FP32_ROUTE:
+            row["fp32_step_launches"] = {
+                step: c[name] for step, c in
+                train_kernels["K4_field_bwd_feat_f32"]["fp32_step_launches"].items() if name in c}
         if name == "K2_march":  # with perturbation noise at the train step's shapes
             t = train_kernels[name]
             row.update(train_ms=t["ms"], train_plain_ms=t["plain_ms"],
                        train_bound_ms=t["bound_ms"], train_max_abs_err=t["max_abs_err"])
         rows.append(row)
     wm.pop("launches")
-    print(json.dumps({"kernels": rows, "train": {
+    print(json.dumps({"kernels": rows, "build_s": build_s, "train": {
         k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1")},
         "wm": wm}, default=float))
     print(gpu_line)

@@ -11,23 +11,21 @@
 // and colour out), 0.05 ms at 3.35 TB/s, and its 19.6 GFLOP would take
 // 0.02 ms on the bf16 tensor cores: the least time is the bytes.  This
 // kernel runs the products on the fp32 FMA units (67 TFLOP/s, 0.29 ms for
-// the same flops), so its own roof is operations; wgmma tiles are a later
-// step.
+// the same flops), so its own roof is operations.  It is the fp32 route; in
+// bf16 the forward runs on the tensor cores (field_mma.cu).
 //
 // Design: the 9,344 weights of both MLPs (37 KB as fp32) are staged once per
-// block in shared memory, rounded to bf16 first when the field computes in
-// bf16, and every warp reads them as broadcasts.  One thread per sample
+// block in shared memory, and every warp reads them as broadcasts.  One
+// thread per sample
 // keeps its activations in registers (the layer widths are template
 // parameters, so the loops unroll).  A thread handles ONE sample: with a
 // loop over samples the compiler hoists all 9,344 loop-invariant weight
 // loads out of it and spills them (36 KB of stack a thread, measured with
 // -Xptxas -v on sm_90a), so each 256-thread block stages the weights for
-// its own 256 samples instead.  Rounding
-// matches mlp_apply: in bf16 mode the input and EVERY layer's output are
-// rounded to bf16 (jnp.dot(..., preferred_element_type=bf16)) before the
-// ReLU, with fp32 accumulation inside a layer.  The file is compiled with
-// -fmad=false, so the SH polynomials round like the plain version; the
-// matrix products use explicit fmaf.
+// its own 256 samples instead.  In fp32
+// mlp_apply rounds nowhere between layers, and neither does this kernel.
+// The file is compiled with -fmad=false, so the SH polynomials round like
+// the plain version; the matrix products use explicit fmaf.
 
 #include <cuda_bf16.h>
 
@@ -38,15 +36,14 @@
 template <int IN, int HID, int OUT1, int HC>
 __global__ void field_fwd(const float* __restrict__ feat, const float* __restrict__ dirs,
                           const float* __restrict__ weights, float* __restrict__ sigma,
-                          float* __restrict__ geo, float* __restrict__ rgb, long long M,
-                          int bf16_mode) {
+                          float* __restrict__ geo, float* __restrict__ rgb, long long M) {
   constexpr int CIN = SH_DIM + OUT1 - 1;
   constexpr int N_S0 = IN * HID, N_S1 = HID * OUT1;
   constexpr int N_C0 = CIN * HC, N_C1 = HC * HC, N_C2 = HC * 3;
   constexpr int N_W = N_S0 + N_S1 + N_C0 + N_C1 + N_C2;
   __shared__ float w_s[N_W];
-  const bool bf16 = bf16_mode != 0;
-  for (int i = threadIdx.x; i < N_W; i += blockDim.x) w_s[i] = round_to(weights[i], bf16);
+  constexpr bool bf16 = false;  // the fp32 route (bf16: field_mma.cu)
+  for (int i = threadIdx.x; i < N_W; i += blockDim.x) w_s[i] = weights[i];
   __syncthreads();
   const float* Ws0 = w_s;
   const float* Ws1 = Ws0 + N_S0;
@@ -58,15 +55,7 @@ __global__ void field_fwd(const float* __restrict__ feat, const float* __restric
   if (m >= M) return;
   {
     float x[IN];
-    const float4* f4 = reinterpret_cast<const float4*>(feat + m * IN);
-#pragma unroll
-    for (int k = 0; k < IN / 4; ++k) {
-      float4 v = f4[k];
-      x[4 * k + 0] = round_to(v.x, bf16);
-      x[4 * k + 1] = round_to(v.y, bf16);
-      x[4 * k + 2] = round_to(v.z, bf16);
-      x[4 * k + 3] = round_to(v.w, bf16);
-    }
+    load_feat<IN>(feat, m, true, x, bf16);
     float h[HID];
     dense<IN, HID, true>(x, Ws0, h, bf16);
     float o[OUT1];
@@ -81,8 +70,6 @@ __global__ void field_fwd(const float* __restrict__ feat, const float* __restric
     sh4(dirs[m * 3 + 0], dirs[m * 3 + 1], dirs[m * 3 + 2], c);
 #pragma unroll
     for (int j = 1; j < OUT1; ++j) c[SH_DIM + j - 1] = o[j];
-#pragma unroll
-    for (int k = 0; k < CIN; ++k) c[k] = round_to(c[k], bf16);
     float c1[HC];
     dense<CIN, HC, true>(c, Wc0, c1, bf16);
     float c2[HC];
@@ -96,26 +83,26 @@ __global__ void field_fwd(const float* __restrict__ feat, const float* __restric
 
 template <int IN, int HID, int OUT1, int HC>
 static int launch_field(const void* feat, const void* dirs, const void* weights, void* sigma,
-                        void* geo, void* rgb, long long M, int bf16, cudaStream_t s) {
+                        void* geo, void* rgb, long long M, cudaStream_t s) {
   const int threads = 256;
   field_fwd<IN, HID, OUT1, HC><<<ngp_blocks(M, threads), threads, 0, s>>>(
       (const float*)feat, (const float*)dirs, (const float*)weights, (float*)sigma,
-      (float*)geo, (float*)rgb, M, bf16);
+      (float*)geo, (float*)rgb, M);
   NGP_RETURN_LAST_ERROR();
 }
 
 // Widths supported: the NGPConfig defaults (32 -> 64 -> 16, 31 -> 64 -> 64 -> 3)
-// and the narrow test config (8 -> 16 -> 16, 31 -> 16 -> 16 -> 3).
+// and the narrow test config (8 -> 16 -> 16, 31 -> 16 -> 16 -> 3).  fp32 only.
 extern "C" int ngp_field(const void* feat, const void* dirs, const void* weights, void* sigma,
                          void* geo, void* rgb, long long M, int in_dim, int hidden, int out1,
-                         int hidden_color, int bf16, void* stream) {
+                         int hidden_color, void* stream) {
   if (M == 0) return 0;
   if (rgb != nullptr && dirs == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (in_dim == 32 && hidden == 64 && out1 == 16 && hidden_color == 64)
-    return launch_field<32, 64, 16, 64>(feat, dirs, weights, sigma, geo, rgb, M, bf16, s);
+    return launch_field<32, 64, 16, 64>(feat, dirs, weights, sigma, geo, rgb, M, s);
   if (in_dim == 8 && hidden == 16 && out1 == 16 && hidden_color == 16)
-    return launch_field<8, 16, 16, 16>(feat, dirs, weights, sigma, geo, rgb, M, bf16, s);
+    return launch_field<8, 16, 16, 16>(feat, dirs, weights, sigma, geo, rgb, M, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,8 +20,12 @@
 // cotangents need nothing else of the activations.  A sample whose
 // cotangents are all zero writes a zero g_feat and does no work.  The
 // products and roundings are field_bwd's (matvec_t), so g_feat equals its
-// g_feat bit for bit.  A file of its own so that nvcc builds it in parallel
-// with field.cu.
+// g_feat bit for bit.  The port calls it for the fp32 route only (bf16 runs
+// on the tensor cores, field_mma_bwd.cu), but the rounding stays a runtime
+// argument: with it known at compile time ptxas hoists the weight loads,
+// and the full-width kernel spilled 34 KB (-Xptxas -v, sm_90a) and took 38
+// ms at the watermark step's shapes on an H100.  A file of its own so that
+// nvcc builds it in parallel with field.cu.
 
 #include <cuda_bf16.h>
 

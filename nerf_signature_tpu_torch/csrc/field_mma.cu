@@ -1,0 +1,109 @@
+// K4 forward on the tensor cores (bf16): field_mma_fwd.  Design, rounding
+// and bounds: field_mma.cuh.
+
+#include "field_mma.cuh"
+
+namespace {
+
+template <class D>
+__global__ void __launch_bounds__(D::THREADS, D::MIN_BLOCKS)
+    field_mma_fwd(const float* __restrict__ feat, const float* __restrict__ dirs,
+                  const __nv_bfloat16* __restrict__ wpack, float* __restrict__ sigma,
+                  float* __restrict__ geo, float* __restrict__ rgb, long long M) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* fbuf = reinterpret_cast<float*>(smem + 2 * D::N_PACK) + warp * 2 * D::FTILE;
+  const uint32_t w = smem_u32(smem);
+  const long long n_tiles = (M + D::ROWS - 1) / D::ROWS;
+  const long long stride = (long long)gridDim.x * D::WARPS;
+  long long tile = (long long)blockIdx.x * D::WARPS + warp;
+  if (tile < n_tiles) load_feat_tile<D>(fbuf, feat, tile * D::ROWS, M, lane);
+  cp_async_commit();
+  stage_weights<D>(wpack, smem);
+  __syncthreads();
+
+  for (int buf = 0; tile < n_tiles; tile += stride, buf ^= 1) {
+    if (tile + stride < n_tiles)
+      load_feat_tile<D>(fbuf + (buf ^ 1) * D::FTILE, feat, (tile + stride) * D::ROWS, M, lane);
+    cp_async_commit();
+    const long long row0 = tile * D::ROWS;
+    float dv[D::RT][2][3];
+    if (rgb != nullptr) load_dirs(dirs, row0, g, M, dv);
+    cp_async_wait<1>();
+    __syncwarp();
+    uint32_t ax[D::RT][D::KIN / 16][4];
+    feat_frags<D>(fbuf + buf * D::FTILE, g, t, ax);
+    float o[D::RT][2][4];
+    uint32_t mask_h[D::RT];
+    sigma_mlp<D>(ax, w, lane, o, mask_h);
+#pragma unroll
+    for (int r = 0; r < D::RT; ++r)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long m = row0 + r * 16 + g + 8 * hh;
+        if (m >= M) continue;
+        if (t == 0) sigma[m] = expf(o[r][0][2 * hh]);  // trunc_exp's forward
+        if (geo != nullptr) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int col = 8 * j + 2 * t + q;
+              if (col >= 1) geo[m * (D::OUT1 - 1) + col - 1] = o[r][j][2 * hh + q];
+            }
+        }
+      }
+    if (rgb != nullptr) {
+      float c3[D::RT][1][4];
+      uint32_t mask_c1[D::RT], mask_c2[D::RT];
+      colour_mlp<D>(dv, o, w, lane, t, c3, mask_c1, mask_c2);
+#pragma unroll
+      for (int r = 0; r < D::RT; ++r)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long m = row0 + r * 16 + g + 8 * hh;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int col = 2 * t + q;
+            if (m < M && col < 3) rgb[m * 3 + col] = sigmoid_of(bf16_round(c3[r][0][2 * hh + q]));
+          }
+        }
+    }
+    __syncwarp();  // every lane is done with this buffer before it is refilled
+  }
+  cp_async_wait<0>();
+}
+
+template <int IN, int HID, int OUT1, int HC>
+int launch_fwd(const void* feat, const void* dirs, const void* wpack, void* sigma, void* geo,
+               void* rgb, long long M, cudaStream_t s) {
+  using D = FwdDims<IN, HID, OUT1, HC>;
+  auto kernel = field_mma_fwd<D>;
+  int blocks = 0;
+  const int rc = persistent_blocks<D>(kernel, M, &blocks);
+  if (rc != 0) return rc;
+  kernel<<<blocks, D::THREADS, D::SMEM, s>>>((const float*)feat, (const float*)dirs,
+                                             (const __nv_bfloat16*)wpack, (float*)sigma,
+                                             (float*)geo, (float*)rgb, M);
+  NGP_RETURN_LAST_ERROR();
+}
+
+}  // namespace
+
+// wpack: the packed bf16 weights (models/ngp.py:pack_mlp_mma), 16-byte
+// aligned.  Widths: the NGPConfig defaults (32 -> 64 -> 16, 31 -> 64 -> 64 -> 3)
+// and the narrow test config (8 -> 16 -> 16, 31 -> 16 -> 16 -> 3).
+extern "C" int ngp_field_mma(const void* feat, const void* dirs, const void* wpack, void* sigma,
+                             void* geo, void* rgb, long long M, int in_dim, int hidden, int out1,
+                             int hidden_color, void* stream) {
+  if (M == 0) return 0;
+  if (rgb != nullptr && dirs == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (in_dim == 32 && hidden == 64 && out1 == 16 && hidden_color == 64)
+    return launch_fwd<32, 64, 16, 64>(feat, dirs, wpack, sigma, geo, rgb, M, s);
+  if (in_dim == 8 && hidden == 16 && out1 == 16 && hidden_color == 16)
+    return launch_fwd<8, 16, 16, 16>(feat, dirs, wpack, sigma, geo, rgb, M, s);
+  return (int)cudaErrorInvalidValue;
+}
+

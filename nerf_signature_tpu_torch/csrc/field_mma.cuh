@@ -1,0 +1,455 @@
+// Shared by the tensor-core K4 kernels (field_mma.cu: the forward;
+// field_mma_bwd.cu: the feature-only backward, a file of its own so that
+// nvcc builds the two in parallel): the weight layout and tile plan, the
+// PTX wrappers (ldmatrix, mma.sync, cp.async) and the layers.
+//
+// K4 on the tensor cores, the bf16 route: the fused field heads forward
+// (field_mma_fwd) and their backward to the features alone
+// (field_mma_bwd_feat).  The SIMT kernels of field.cu and field_feat.cu are
+// the fp32 route.
+//
+// Replaces XLA's fusion of nerf_signature_tpu/models/mlp.py:mlp_apply as
+// models/ngp.py:_sigma_head and ngp_color call it (with sh_encode at degree
+// 4, trunc_exp and the sigmoid), and, for the backward, JAX's VJP of it with
+// the weights a captured constant (train/trainer_wtmk.py:_wm_step_loss).
+//
+// Rounding: mlp_apply rounds its input to bf16, sums each dot in fp32
+// (preferred_element_type) and rounds each layer's output to bf16 before the
+// ReLU.  mma.sync m16n8k16 with bf16 operands and an fp32 accumulator,
+// rounded to bf16 at each layer's output, rounds at the same points; only
+// the order of the sum inside a dot differs from the plain version's.  The
+// backward rounds where field.cu's field_bwd does, points (1) and (2).
+//
+// What bounds it on the H100: bytes.  At the serving shapes (1,048,576
+// samples) the forward must move 163 MB (0.049 ms at 3.35 TB/s) and do 19.6
+// GFLOP (0.02 ms at the bf16 tensor-core peak).
+//
+// Design:
+// - a persistent grid, as many 128-thread blocks as fit on the SMs.  Each
+//   block stages the packed bf16 weights (models/ngp.py:pack_mlp_mma) in
+//   shared memory once; each warp walks tiles of samples: 32 in the forward
+//   (two 16-row mma tiles, so that each B fragment serves both), 16 in the
+//   backward, whose registers hold more (FwdDims, BwdDims);
+// - a warp's feature tile comes in by cp.async in 16-byte pieces, double
+//   buffered in the warp's own shared memory, and is read back as bf16 A
+//   fragments;
+// - activations never leave registers: a layer's fp32 accumulators (two n8
+//   tiles) are rounded to bf16, ReLU'd and repacked as the next layer's k16 A
+//   fragment, since m16n8k16's C and A layouts line up;
+// - B fragments come by ldmatrix.trans from W [in, out] row-major (forward)
+//   and by ldmatrix from the same copy as W^T (backward); rows are padded to
+//   an odd number of 16-byte units, so the 8 rows of an ldmatrix fall in
+//   distinct banks;
+// - the colour input is [SH(16), o(16)], o's whole fragment, against
+//   Wc0' [32, HC] whose row 16 is zero and whose rows 17-31 are Wc0's rows
+//   16-30: [SH, o] @ Wc0' == [SH, o[1:]] @ Wc0 with no shift across lanes.
+//   The last colour layer is padded to 8 outputs, IN = 8 to k = 16;
+// - the backward recomputes the forward with the same fragments and keeps
+//   each hidden layer's ReLU mask as one bit a fragment element (32 bits a
+//   16-row tile for 64 units).  A layer's input cotangent has the C layout of
+//   its forward activation, so the mask applies in registers.  A warp tile
+//   whose cotangents are all zero writes zeros and loads no features.
+// Compiled with -fmad=false, so SH and the sigmoid round like the plain
+// version.
+
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include "common.cuh"
+#include "field_common.cuh"
+
+namespace {
+
+// row stride (elements) of an n-column bf16 matrix in shared memory
+__host__ __device__ constexpr int pad_ld(int n) { return (n / 8) % 2 == 0 ? n + 8 : n; }
+
+// The packed weights (the order of models/ngp.py:mma_layout), the warp
+// tiles (RT 16-row mma tiles a warp carries together) and the block's plan:
+// WARPS warps a block, at least MIN_BLOCKS blocks an SM (ptxas's register
+// cap, 65536 / (32 * WARPS * MIN_BLOCKS)).
+template <int IN_, int HID_, int OUT1_, int HC_, int RT_, int WARPS_, int MIN_BLOCKS_>
+struct MmaDims {
+  static constexpr int IN = IN_, HID = HID_, OUT1 = OUT1_, HC = HC_;
+  static constexpr int RT = RT_, ROWS = 16 * RT_, WARPS = WARPS_, THREADS = 32 * WARPS_,
+                       MIN_BLOCKS = MIN_BLOCKS_;
+  static_assert(OUT1 == 16 && SH_DIM == 16, "the colour input [SH(16), o(16)] is two k16 blocks");
+  static_assert((IN == 8 || IN == 32) && HID % 16 == 0 && HID <= 64 && HC % 16 == 0 && HC <= 64,
+                "fragment shapes and 32-bit ReLU masks");
+  static_assert(ROWS <= 32, "a warp tile's liveness: one sample a lane");
+  static constexpr int KIN = IN < 16 ? 16 : IN;
+  static constexpr int LD_S0 = pad_ld(HID), LD_S1 = pad_ld(OUT1), LD_C0 = pad_ld(HC),
+                       LD_C1 = pad_ld(HC), LD_C2 = pad_ld(8);
+  static constexpr int O_S1 = KIN * LD_S0;
+  static constexpr int O_C0 = O_S1 + HID * LD_S1;
+  static constexpr int O_C1 = O_C0 + 2 * SH_DIM * LD_C0;
+  static constexpr int O_C2 = O_C1 + HC * LD_C1;
+  static constexpr int N_PACK = O_C2 + HC * LD_C2;  // bf16 elements
+  static_assert(N_PACK % 8 == 0, "16-byte staging");
+  // feature tile row stride (floats): 8-byte fragment reads without conflicts
+  static constexpr int FLD = IN == 32 ? IN + 8 : IN;
+  static constexpr int FTILE = ROWS * FLD;
+  static constexpr size_t SMEM = (size_t)N_PACK * 2 + (size_t)WARPS * 2 * FTILE * 4;
+};
+
+// The forward carries two 16-row tiles a warp (each B fragment serves both)
+// under a 168-register cap; the backward holds the recomputed forward's
+// masks and the cotangents besides, and carries one under the same cap
+// (-Xptxas -v on sm_90a, full width: two tiles spill at 255 registers, one
+// spills at 128).
+template <int IN, int HID, int OUT1, int HC>
+using FwdDims = MmaDims<IN, HID, OUT1, HC, 2, 4, 3>;
+template <int IN, int HID, int OUT1, int HC>
+using BwdDims = MmaDims<IN, HID, OUT1, HC, 1, 4, 3>;
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a (16x16, row) @ b (16x8, col); bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The block copies the packed bf16 weights into shared memory.
+template <class D>
+__device__ __forceinline__ void stage_weights(const __nv_bfloat16* __restrict__ wpack,
+                                              unsigned char* smem) {
+  const uint4* src = reinterpret_cast<const uint4*>(wpack);
+  uint4* dst = reinterpret_cast<uint4*>(smem);
+  for (int i = threadIdx.x; i < D::N_PACK / 8; i += D::THREADS) dst[i] = src[i];
+}
+
+// A warp's ROWS feature rows into its buffer (rows past M are zero-filled).
+template <class D>
+__device__ __forceinline__ void load_feat_tile(float* buf, const float* __restrict__ feat,
+                                               long long row0, long long M, int lane) {
+  constexpr int PIECES = D::IN / 4;  // 16-byte pieces a row
+  static_assert(D::ROWS * PIECES % 32 == 0, "whole 16-byte pieces a lane");
+#pragma unroll
+  for (int j = 0; j < D::ROWS * PIECES / 32; ++j) {
+    const int i = j * 32 + lane;
+    const int r = i / PIECES, p = i % PIECES;
+    const long long m = row0 + r;
+    const bool ok = m < M;
+    cp_async16(smem_u32(buf + r * D::FLD + p * 4), feat + (ok ? m : 0) * D::IN + p * 4,
+               ok ? 16 : 0);
+  }
+}
+
+// The tile's features as bf16 A fragments (IN = 8: k 8-15 are zero).
+template <class D>
+__device__ __forceinline__ void feat_frags(const float* buf, int g, int t,
+                                           uint32_t (&a)[D::RT][D::KIN / 16][4]) {
+#pragma unroll
+  for (int r = 0; r < D::RT; ++r) {
+#pragma unroll
+    for (int kt = 0; kt < D::KIN / 16; ++kt) {
+      const float* p0 = buf + (r * 16 + g) * D::FLD + kt * 16 + 2 * t;
+      const float* p1 = p0 + 8 * D::FLD;
+      const float2 x0 = *reinterpret_cast<const float2*>(p0);
+      const float2 x1 = *reinterpret_cast<const float2*>(p1);
+      a[r][kt][0] = pack_bf16(x0.x, x0.y);
+      a[r][kt][1] = pack_bf16(x1.x, x1.y);
+      if (kt * 16 + 8 < D::IN) {
+        const float2 y0 = *reinterpret_cast<const float2*>(p0 + 8);
+        const float2 y1 = *reinterpret_cast<const float2*>(p1 + 8);
+        a[r][kt][2] = pack_bf16(y0.x, y0.y);
+        a[r][kt][3] = pack_bf16(y1.x, y1.y);
+      } else {
+        a[r][kt][2] = 0u;
+        a[r][kt][3] = 0u;
+      }
+    }
+  }
+}
+
+// acc[r] = A[r] (16 x 16*KT) @ W (16*KT x 8*NT), W bf16 [in, out] in shared
+// memory at byte address w with row stride LD.
+template <int RT, int KT, int NT, int LD>
+__device__ __forceinline__ void mma_layer(const uint32_t (&a)[RT][KT][4], uint32_t w,
+                                          float (&acc)[RT][NT][4], int lane) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    if constexpr (NT == 1) {
+      uint32_t b[2];  // rows kt*16 + 0-7 and 8-15
+      ldsm_x2_t(b, w + 2u * (uint32_t)((kt * 16 + (lane & 15)) * LD));
+#pragma unroll
+      for (int r = 0; r < RT; ++r) mma16816(acc[r][0], a[r][kt], b[0], b[1]);
+    } else {
+      static_assert(NT % 2 == 0, "n8 tiles in pairs");
+      const int i = lane >> 3;
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t b[4];  // (k 0-7, n), (k 8-15, n), (k 0-7, n+1), (k 8-15, n+1)
+        ldsm_x4_t(b, w + 2u * (uint32_t)((kt * 16 + (i & 1) * 8 + (lane & 7)) * LD +
+                                         (n + (i >> 1)) * 8));
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          mma16816(acc[r][n], a[r][kt], b[0], b[1]);
+          mma16816(acc[r][n + 1], a[r][kt], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// acc[r] (16 x 8*KT8, columns 8*KLO on) = G[r] (16 x 16*NK) @ W^T for W bf16
+// [K, N] in shared memory at byte address w with row stride LD.  N8: the
+// layer has 8 outputs, the reduction's k 8-15 are zero.
+template <int KT8, int KLO, int LD, bool N8, int RT, int NK>
+__device__ __forceinline__ void mma_layer_t(const uint32_t (&g)[RT][NK][4], uint32_t w,
+                                            float (&acc)[RT][KT8][4], int lane) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int n = 0; n < KT8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.0f;
+#pragma unroll
+  for (int nk = 0; nk < NK; ++nk) {
+    if constexpr (N8) {
+      static_assert(NK == 1 && KT8 % 2 == 0, "an 8-output layer");
+      const int i = (lane >> 3) & 1;
+#pragma unroll
+      for (int j = 0; j < KT8; j += 2) {
+        uint32_t b[2];  // b0 of output tiles j and j+1
+        ldsm_x2(b, w + 2u * (uint32_t)(((KLO + j + i) * 8 + (lane & 7)) * LD));
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          mma16816(acc[r][j], g[r][0], b[0], 0u);
+          mma16816(acc[r][j + 1], g[r][0], b[1], 0u);
+        }
+      }
+    } else if constexpr (KT8 == 1) {
+      const int i = (lane >> 3) & 1;
+      uint32_t b[2];  // (rows KLO*8 + 0-7; n 0-7 and 8-15 of this k16 block)
+      ldsm_x2(b, w + 2u * (uint32_t)((KLO * 8 + (lane & 7)) * LD + nk * 16 + i * 8));
+#pragma unroll
+      for (int r = 0; r < RT; ++r) mma16816(acc[r][0], g[r][nk], b[0], b[1]);
+    } else {
+      static_assert(KT8 % 2 == 0, "output tiles in pairs");
+      const int i = lane >> 3;
+#pragma unroll
+      for (int j = 0; j < KT8; j += 2) {
+        uint32_t b[4];  // (tile j, n 0-7), (tile j, n 8-15), (tile j+1, ...), ...
+        ldsm_x4(b, w + 2u * (uint32_t)(((KLO + j + (i >> 1)) * 8 + (lane & 7)) * LD + nk * 16 +
+                                       (i & 1) * 8));
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          mma16816(acc[r][j], g[r][nk], b[0], b[1]);
+          mma16816(acc[r][j + 1], g[r][nk], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// A layer's C fragments (NT n8 tiles) -> the next layer's A fragments (NT/2
+// k16 blocks), rounded to bf16 and ReLU'd; returns the ReLU mask, bit 4j + e
+// for element e of tile j.
+template <int NT>
+__device__ __forceinline__ uint32_t relu_frags(const float (&c)[NT][4], uint32_t (&a)[NT / 2][4]) {
+  uint32_t mask = 0u;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = bf16_round(c[j][e]);
+      mask |= (v[e] > 0.0f ? 1u : 0u) << (4 * j + e);
+      v[e] = fmaxf(v[e], 0.0f);
+    }
+    a[j >> 1][(j & 1) * 2] = pack_bf16(v[0], v[1]);
+    a[j >> 1][(j & 1) * 2 + 1] = pack_bf16(v[2], v[3]);
+  }
+  return mask;
+}
+
+// An input cotangent's C fragments -> A fragments: rounded to bf16 (2), then
+// zeroed where the forward activation's ReLU was off.
+template <int NT>
+__device__ __forceinline__ void masked_frags(const float (&c)[NT][4], uint32_t mask,
+                                             uint32_t (&a)[NT / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = ((mask >> (4 * j + e)) & 1u) ? bf16_round(c[j][e]) : 0.0f;
+    a[j >> 1][(j & 1) * 2] = pack_bf16(v[0], v[1]);
+    a[j >> 1][(j & 1) * 2 + 1] = pack_bf16(v[2], v[3]);
+  }
+}
+
+// SH(16) of one direction: this lane's columns 2t, 2t+1 (lo) and 2t+8, 2t+9
+// (hi), rounded to bf16 (the colour input's first k16 block).
+__device__ __forceinline__ void sh_frag(const float (&d)[3], int t, uint32_t& lo, uint32_t& hi) {
+  float s[SH_DIM];
+  sh4(d[0], d[1], d[2], s);
+  float v0 = s[0], v1 = s[1], v2 = s[8], v3 = s[9];
+#pragma unroll
+  for (int q = 1; q < 4; ++q) {
+    if (t == q) {
+      v0 = s[2 * q];
+      v1 = s[2 * q + 1];
+      v2 = s[2 * q + 8];
+      v3 = s[2 * q + 9];
+    }
+  }
+  lo = pack_bf16(v0, v1);
+  hi = pack_bf16(v2, v3);
+}
+
+// The directions of this lane's rows (g and g+8 of each 16-row tile).
+template <int RT>
+__device__ __forceinline__ void load_dirs(const float* __restrict__ dirs, long long row0, int g,
+                                          long long M, float (&dv)[RT][2][3]) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long m = row0 + r * 16 + g + 8 * hh;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dv[r][hh][c] = m < M ? dirs[m * 3 + c] : 0.0f;
+    }
+}
+
+// The sigma MLP's output o (rounded to bf16) and, with recompute, the masks.
+template <class D>
+__device__ __forceinline__ void sigma_mlp(const uint32_t (&ax)[D::RT][D::KIN / 16][4], uint32_t w,
+                                          int lane, float (&o)[D::RT][2][4],
+                                          uint32_t (&mask_h)[D::RT]) {
+  {
+    float h[D::RT][D::HID / 8][4];
+    mma_layer<D::RT, D::KIN / 16, D::HID / 8, D::LD_S0>(ax, w, h, lane);
+    uint32_t ah[D::RT][D::HID / 16][4];
+#pragma unroll
+    for (int r = 0; r < D::RT; ++r) mask_h[r] = relu_frags<D::HID / 8>(h[r], ah[r]);
+    mma_layer<D::RT, D::HID / 16, 2, D::LD_S1>(ah, w + 2u * D::O_S1, o, lane);
+  }
+#pragma unroll
+  for (int r = 0; r < D::RT; ++r)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[r][j][e] = bf16_round(o[r][j][e]);
+}
+
+// The colour MLP up to its last layer's fp32 sums c3 (cols 2t, 2t+1 of 8).
+template <class D>
+__device__ __forceinline__ void colour_mlp(const float (&dv)[D::RT][2][3],
+                                           const float (&o)[D::RT][2][4], uint32_t w, int lane,
+                                           int t, float (&c3)[D::RT][1][4],
+                                           uint32_t (&mask_c1)[D::RT], uint32_t (&mask_c2)[D::RT]) {
+  uint32_t a2[D::RT][D::HC / 16][4];
+  {
+    uint32_t a1[D::RT][D::HC / 16][4];
+    {
+      uint32_t ac[D::RT][2][4];  // [SH(16), o(16)]
+#pragma unroll
+      for (int r = 0; r < D::RT; ++r) {
+        sh_frag(dv[r][0], t, ac[r][0][0], ac[r][0][2]);
+        sh_frag(dv[r][1], t, ac[r][0][1], ac[r][0][3]);
+        ac[r][1][0] = pack_bf16(o[r][0][0], o[r][0][1]);
+        ac[r][1][1] = pack_bf16(o[r][0][2], o[r][0][3]);
+        ac[r][1][2] = pack_bf16(o[r][1][0], o[r][1][1]);
+        ac[r][1][3] = pack_bf16(o[r][1][2], o[r][1][3]);
+      }
+      float c1[D::RT][D::HC / 8][4];
+      mma_layer<D::RT, 2, D::HC / 8, D::LD_C0>(ac, w + 2u * D::O_C0, c1, lane);
+#pragma unroll
+      for (int r = 0; r < D::RT; ++r) mask_c1[r] = relu_frags<D::HC / 8>(c1[r], a1[r]);
+    }
+    float c2[D::RT][D::HC / 8][4];
+    mma_layer<D::RT, D::HC / 16, D::HC / 8, D::LD_C1>(a1, w + 2u * D::O_C1, c2, lane);
+#pragma unroll
+    for (int r = 0; r < D::RT; ++r) mask_c2[r] = relu_frags<D::HC / 8>(c2[r], a2[r]);
+  }
+  mma_layer<D::RT, D::HC / 16, 1, D::LD_C2>(a2, w + 2u * D::O_C2, c3, lane);
+}
+
+__device__ __forceinline__ float sigmoid_of(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// Blocks of a persistent grid: as many as fit on the card's SMs, at most
+// one warp per tile.
+template <class D, class Kernel>
+int persistent_blocks(Kernel kernel, long long M, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::SMEM);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, D::THREADS, D::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (M + D::ROWS - 1) / D::ROWS;
+  const long long want = (tiles + D::WARPS - 1) / D::WARPS;
+  const long long most = (long long)per_sm * sms;
+  *blocks = (int)(want < most ? want : most);
+  return 0;
+}
+
+}  // namespace

@@ -4,18 +4,22 @@ positions in [-bound, bound] -> [0, 1] -> 16-level hash encoding (K1) ->
 sigma MLP 32 -> 64 -> (1 + 15), sigma = trunc_exp(h[0]) -> SH degree 4 of
 the direction, concatenated with the 15 geo features -> colour MLP
 31 -> 64 -> 64 -> 3 -> sigmoid.  The two heads run fused in one kernel (K4,
-``field_heads``).
+``field_heads``): on the tensor cores in bf16 (``csrc/field_mma.cu``), on
+the SIMT units in fp32 (``csrc/field.cu``, ``csrc/field_feat.cu``).
 
 Params are a plain dict, laid out like the JAX tree: ``hash_table``
 [rows, F] fp32, ``sigma_net`` / ``color_net`` lists of ``[in, out]`` fp32
 weights.  ``field_params`` adds what a render computes once and reuses for
-every chunk: the table cast to the gather dtype and the MLP weights packed
-into one flat buffer for the kernel.
+every chunk: the table cast to the gather dtype, the MLP weights packed
+into one flat buffer and, for the tensor-core kernels, into their bf16
+layout (``mma_layout``).
 """
 
 import dataclasses
+import functools
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..ops import _cuda
@@ -122,15 +126,75 @@ def init_ngp_params(generator, cfg: NGPConfig, device="cpu"):
 
 def field_params(params, cfg: NGPConfig):
     """``params`` plus the per-render derived buffers: ``hash_table_g`` (the
-    table in the gather dtype, cast once) and ``mlp_flat`` (all MLP weights
-    in one fp32 buffer, the kernel's layout)."""
+    table in the gather dtype, cast once), ``mlp_flat`` (all MLP weights in
+    one fp32 buffer, the SIMT kernels' layout) and, in bf16 on the card,
+    ``mlp_mma`` (the tensor-core kernels' packed bf16 weights)."""
     table = params["hash_table"]
     gd = cfg.compute_dtype
     out = dict(params)
     out["hash_table_g"] = table.detach().to(gd) if gd != table.dtype else table.detach()
     out["mlp_flat"] = torch.cat(
         [w.reshape(-1) for w in list(params["sigma_net"]) + list(params["color_net"])])
+    if _tensor_cores(cfg) and table.is_cuda:
+        out["mlp_mma"] = pack_mlp_mma(out["mlp_flat"].detach(),
+                                      _kernel_widths(params, cfg)).to(torch.bfloat16)
     return out
+
+
+def _tensor_cores(cfg: NGPConfig):
+    """The route of K4's forward and feature-only backward on the card, by
+    the dtype alone: the tensor-core kernels (``csrc/field_mma.cu``) in
+    bf16, the SIMT ones (``csrc/field.cu``, ``csrc/field_feat.cu``) in
+    fp32."""
+    return cfg.compute_dtype == torch.bfloat16
+
+
+def _mma_ld(n):
+    """Row stride (elements) of an n-column bf16 matrix in the tensor-core
+    kernels' shared memory: an odd number of 16-byte units, so the 8 rows an
+    ``ldmatrix`` reads fall in distinct banks (``pad_ld`` in field_mma.cu)."""
+    return n + 8 if (n // 8) % 2 == 0 else n
+
+
+def mma_layout(widths):
+    """The tensor-core kernels' weight buffer, in order: (name, rows, cols,
+    row stride) of each ``[in, out]`` matrix.  ``s0`` is Ws0 with IN padded
+    to 16 rows; ``c0`` is Wc0' [SH + OUT1, HC]: SH's 16 rows, a zero row 16
+    facing o[0], then Wc0's rows 16-30 facing o[1:], so the colour input is
+    [SH, o] whole; ``c2`` pads the 3 outputs to 8.  Padding is zero."""
+    in_dim, hidden, out1, hc = widths
+    return [("s0", max(in_dim, 16), hidden, _mma_ld(hidden)),
+            ("s1", hidden, out1, _mma_ld(out1)),
+            ("c0", 16 + out1, hc, _mma_ld(hc)),
+            ("c1", hc, hc, _mma_ld(hc)),
+            ("c2", hc, 8, _mma_ld(8))]
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_source_index(widths, device):
+    """For each element of the packed buffer, its index in ``mlp_flat``, or
+    ``n_weights`` (a zero appended to it) for the padding and Wc0' row 16."""
+    in_dim, hidden, out1, hc = widths
+    shapes = [(in_dim, hidden), (hidden, out1), (16 + out1 - 1, hc), (hc, hc), (hc, 3)]
+    offsets = np.cumsum([0] + [k * n for k, n in shapes])
+    parts = []
+    for (name, rows, _, ld), (k_src, n_src), off in zip(mma_layout(widths), shapes, offsets):
+        idx = np.full((rows, ld), offsets[-1], np.int64)
+        for r in range(rows):
+            src = r - 1 if name == "c0" and r > 16 else r
+            if (name == "c0" and r == 16) or src >= k_src:
+                continue
+            idx[r, :n_src] = off + src * n_src + np.arange(n_src)
+        parts.append(idx.reshape(-1))
+    return torch.from_numpy(np.concatenate(parts)).to(device)
+
+
+def pack_mlp_mma(flat, widths):
+    """``mlp_flat`` -> the tensor-core kernels' layout (``mma_layout``), in
+    flat's dtype; the kernels take it in bf16 (``field_params`` rounds it
+    once, as ``mlp_apply``'s ``w.astype(bf16)`` does)."""
+    idx = _mma_source_index(tuple(widths), flat.device)
+    return torch.nn.functional.pad(flat, (0, 1))[idx]
 
 
 def _encode_pos(params, cfg: NGPConfig, x, plain=False):
@@ -195,9 +259,9 @@ def field_heads(params, cfg: NGPConfig, feat, dirs=None, want_geo=False):
     if not feat.is_cuda:
         return field_heads_plain(params, cfg, feat, dirs)
     nets = list(params["sigma_net"]) + list(params["color_net"])
-    flat = params.get("mlp_flat")
-    if flat is None:
-        flat = field_params(params, cfg)["mlp_flat"]
+    if params.get("mlp_flat") is None:
+        params = field_params(params, cfg)
+    flat, mma = params["mlp_flat"], params.get("mlp_mma")
     widths = _kernel_widths(params, cfg)
     if _cuda.needs_grad(feat, flat, *nets):
         if dirs is None or want_geo:
@@ -205,12 +269,24 @@ def field_heads(params, cfg: NGPConfig, feat, dirs=None, want_geo=False):
                 "the field kernel's backward takes the (sigma, rgb) heads of a "
                 "train step; geo features and density-only queries run without "
                 "grad")
-        sigma, rgb = FieldHeadsFn.apply(feat, dirs, flat, cfg, widths)
+        sigma, rgb = FieldHeadsFn.apply(feat, dirs, flat, mma, cfg, widths)
         return sigma, None, rgb
-    return _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths)
+    return _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma)
 
 
-def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths):
+def _mma_weights(flat, mma, widths, dev):
+    """The tensor-core kernels' packed bf16 weights: ``mma`` as
+    ``field_params`` made it, or packed from ``flat`` now."""
+    if mma is None:
+        mma = pack_mlp_mma(flat.detach(), widths).to(torch.bfloat16)
+    n = sum(rows * ld for _, rows, _, ld in mma_layout(widths))
+    _cuda.check(mma, "mlp_mma", torch.bfloat16, (n,), dev)
+    if mma.data_ptr() % 16:
+        raise ValueError("mlp_mma: must be 16-byte aligned")
+    return mma
+
+
+def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma=None):
     in_dim, hidden, out1, hidden_c = widths
     M = feat.shape[0]
     dev = feat.device
@@ -221,40 +297,46 @@ def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths):
     sigma = torch.empty((M,), dtype=torch.float32, device=dev)
     geo = torch.empty((M, out1 - 1), dtype=torch.float32, device=dev) if want_geo else None
     rgb = torch.empty((M, 3), dtype=torch.float32, device=dev) if dirs is not None else None
-    _cuda.FIELD(feat.data_ptr(), _cuda.ptr(dirs), flat.data_ptr(), sigma.data_ptr(),
-                _cuda.ptr(geo), _cuda.ptr(rgb), M, in_dim, hidden, out1, hidden_c,
-                int(cfg.compute_dtype == torch.bfloat16))
+    outs = (sigma.data_ptr(), _cuda.ptr(geo), _cuda.ptr(rgb), M, in_dim, hidden, out1, hidden_c)
+    if _tensor_cores(cfg):
+        mma = _mma_weights(flat, mma, widths, dev)
+        _cuda.FIELD_MMA(feat.data_ptr(), _cuda.ptr(dirs), mma.data_ptr(), *outs)
+    else:  # fp32: the SIMT kernel
+        _cuda.FIELD(feat.data_ptr(), _cuda.ptr(dirs), flat.data_ptr(), *outs)
     return sigma, geo, rgb
 
 
 class FieldHeadsFn(torch.autograd.Function):
-    """K4 forward and backward: (feat [M, IN], dirs [M, 3], mlp_flat, cfg,
-    widths) -> (sigma [M], rgb [M, 3]); gradients to feat and mlp_flat, or to
-    feat alone (the feature-only kernel) when mlp_flat needs none."""
+    """K4 forward and backward: (feat [M, IN], dirs [M, 3], mlp_flat, the
+    packed bf16 weights or None, cfg, widths) -> (sigma [M], rgb [M, 3]);
+    gradients to feat and mlp_flat, or to feat alone (the feature-only
+    kernel) when mlp_flat needs none."""
 
     @staticmethod
-    def forward(ctx, feat, dirs, flat, cfg, widths):
-        sigma, _, rgb = _field_heads_kernel(cfg, flat, feat, dirs, False, widths)
-        ctx.save_for_backward(feat, dirs, flat)
+    def forward(ctx, feat, dirs, flat, mma, cfg, widths):
+        sigma, _, rgb = _field_heads_kernel(cfg, flat, feat, dirs, False, widths, mma)
+        ctx.save_for_backward(feat, dirs, flat, mma)
         ctx.cfg, ctx.widths = cfg, widths
         return sigma, rgb
 
     @staticmethod
     def backward(ctx, g_sigma, g_rgb):
-        feat, dirs, flat = ctx.saved_tensors
+        feat, dirs, flat, mma = ctx.saved_tensors
         args = (ctx.cfg, ctx.widths, feat, dirs, flat, g_sigma.contiguous(),
                 g_rgb.contiguous())
         if not ctx.needs_input_grad[2]:
             # frozen weights (the watermark stage's backbone): g_feat only
-            return field_heads_bwd_feat(*args), None, None, None, None
+            return field_heads_bwd_feat(*args, mma), None, None, None, None, None
         g_feat, g_flat = field_heads_bwd(*args)
-        return g_feat, None, g_flat, None, None
+        return g_feat, None, g_flat, None, None, None
 
 
-def field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb):
+def field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None):
     """The feature-only K4 backward kernel: g_feat [M, IN] fp32 from the
     cotangents of sigma [M] and rgb [M, 3], no weight gradient (the weights
-    are frozen).  Equal to ``field_heads_bwd``'s g_feat bit for bit."""
+    are frozen).  In fp32 the SIMT kernel, equal to ``field_heads_bwd``'s
+    g_feat bit for bit; in bf16 the tensor-core kernel, which rounds at the
+    same points but sums each product in another order."""
     in_dim, hidden, out1, hidden_c = widths
     M = feat.shape[0]
     dev = feat.device
@@ -264,9 +346,13 @@ def field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb):
     _cuda.check(g_sigma, "g_sigma", torch.float32, (M,), dev)
     _cuda.check(g_rgb, "g_rgb", torch.float32, (M, 3), dev)
     g_feat = torch.empty((M, in_dim), dtype=torch.float32, device=dev)
-    _cuda.FIELD_BWD_FEAT(feat.data_ptr(), dirs.data_ptr(), flat.data_ptr(), g_sigma.data_ptr(),
-                         g_rgb.data_ptr(), g_feat.data_ptr(), M, in_dim, hidden, out1, hidden_c,
-                         int(cfg.compute_dtype == torch.bfloat16))
+    args = (g_sigma.data_ptr(), g_rgb.data_ptr(), g_feat.data_ptr(), M, in_dim, hidden, out1,
+            hidden_c)
+    if _tensor_cores(cfg):
+        mma = _mma_weights(flat, mma, widths, dev)
+        _cuda.FIELD_BWD_FEAT_MMA(feat.data_ptr(), dirs.data_ptr(), mma.data_ptr(), *args)
+    else:  # fp32: the SIMT kernel, rounding flag 0
+        _cuda.FIELD_BWD_FEAT(feat.data_ptr(), dirs.data_ptr(), flat.data_ptr(), *args, 0)
     return g_feat
 
 

@@ -38,6 +38,8 @@ SOURCES = {
     "composite.cu": ["-fmad=false"],
     "field.cu": ["-fmad=false"],
     "field_feat.cu": ["-fmad=false"],
+    "field_mma.cu": ["-fmad=false"],
+    "field_mma_bwd.cu": ["-fmad=false"],
     "msgtable.cu": ["-fmad=false"],
     "gather.cu": [],
 }
@@ -53,9 +55,11 @@ _UP = ctypes.POINTER(ctypes.c_uint)
 _SIGNATURES = {
     "ngp_hash_encode": [_P, _P, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
     "ngp_hash_encode_bwd": [_P, _P, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
-    "ngp_field": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    "ngp_field": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 6 + [_P],
     "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 5 + [_P],
+    "ngp_field_mma": [_P] * 6 + [_L] + [_I] * 4 + [_P],
+    "ngp_field_mma_bwd_feat": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     "ngp_msg_table": [_P, _P, _I, _L, _P, _P, _I, _P],
     "ngp_msg_table_bwd": [_P, _P, _I, _L, _P, _P],
     "ngp_table_gather": [_P, _P, _L, _L, _P, _P],
@@ -98,7 +102,12 @@ def build():
     out_dir = os.path.join(BUILD_ROOT, _fingerprint())
     lib_path = os.path.join(out_dir, "libngp_kernels.so")
     if os.path.exists(lib_path):
-        build_info.update(seconds=0.0, path=lib_path, log="(cached build)")
+        log_path = os.path.join(out_dir, "build.log")
+        log = "(cached build)"
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        build_info.update(seconds=0.0, path=lib_path, log=log)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
@@ -110,10 +119,17 @@ def build():
             "-c", os.path.join(CSRC, name), "-o", obj]
         procs.append((name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    # each source's compile time: the slowest sets the build's pace
+    done = {}
+    while len(done) < len(procs):
+        for name, _, p in procs:
+            if name not in done and p.poll() is not None:
+                done[name] = time.time() - t0
+        time.sleep(0.1)
     logs, failed = [], []
     for name, obj, p in procs:
         out, _ = p.communicate()
-        logs.append(f"== {name}\n{out}")
+        logs.append(f"== {name} ({done[name]:.1f} s)\n{out}")
         if p.returncode != 0:
             failed.append(name)
     if failed:
@@ -170,19 +186,24 @@ class CudaKernel:
 HASH_ENCODE = CudaKernel("ngp_hash_encode")
 HASH_ENCODE_BWD = CudaKernel("ngp_hash_encode_bwd")
 FIELD = CudaKernel("ngp_field")
+FIELD_MMA = CudaKernel("ngp_field_mma")
 FIELD_BWD = CudaKernel("ngp_field_bwd")
 COMPOSITE = CudaKernel("ngp_composite")
 COMPOSITE_BWD = CudaKernel("ngp_composite_bwd")
 MARCH = CudaKernel("ngp_march")
 FIELD_BWD_FEAT = CudaKernel("ngp_field_bwd_feat")
+FIELD_BWD_FEAT_MMA = CudaKernel("ngp_field_mma_bwd_feat")
 MSG_TABLE = CudaKernel("ngp_msg_table")
 MSG_TABLE_BWD = CudaKernel("ngp_msg_table_bwd")
 TABLE_GATHER = CudaKernel("ngp_table_gather")
 
+# K4's forward and feature-only backward have two routes, counted apart:
+# the tensor-core kernels (bf16) and the SIMT ones (fp32)
 KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH,
-           "K3_composite": COMPOSITE, "K4_field": FIELD,
+           "K3_composite": COMPOSITE, "K4_field": FIELD_MMA, "K4_field_f32": FIELD,
            "K1_hash_encode_bwd": HASH_ENCODE_BWD, "K3_composite_bwd": COMPOSITE_BWD,
-           "K4_field_bwd": FIELD_BWD, "K4_field_bwd_feat": FIELD_BWD_FEAT,
+           "K4_field_bwd": FIELD_BWD, "K4_field_bwd_feat": FIELD_BWD_FEAT_MMA,
+           "K4_field_bwd_feat_f32": FIELD_BWD_FEAT,
            "K9_msg_table": MSG_TABLE, "K9_msg_table_bwd": MSG_TABLE_BWD,
            "P1_gather": TABLE_GATHER}
 

@@ -10,14 +10,16 @@ installed, without the repo's JAX conftest:
 
 Limits: the marcher bit for bit, with and without perturbation noise (same
 roundings, no FMA contraction); the hash encoder and compositor within an
-fp32 ulp; the field heads at fp32 within 1e-5 relative, at bf16 within one
-bf16 step (see test_torch_field).  Backward (relative L2 over the whole
-gradient): the hash encoder's scatter-add and the compositor 1e-5 (atomic
-and summation order), the field heads 1e-5 at fp32 and 1e-2 at bf16 (a
-bf16 step where the kernel's fp32 sums and cuBLAS's round differently).
-K9 forward bit for bit (the same adds in bit order, the same bf16 rounding)
-and its backward exactly (a copy); the feature-only K4 backward equals the
-full one's g_feat bit for bit; P1 equals ``table[idx]``.
+fp32 ulp; the field heads at fp32 (the SIMT kernel) within 1e-5 relative,
+at bf16 (the tensor-core kernel) within one bf16 step (see
+test_torch_field).  Backward (relative L2 over the whole gradient): the
+hash encoder's scatter-add and the compositor 1e-5 (atomic and summation
+order), the field heads 1e-5 at fp32 and 1e-2 at bf16 (a bf16 step where
+the kernel's fp32 sums and cuBLAS's round differently).  K9 forward bit for
+bit (the same adds in bit order, the same bf16 rounding) and its backward
+exactly (a copy); the feature-only K4 backward equals the full one's g_feat
+bit for bit at fp32 (the same SIMT products) and within 1e-2 relative L2 at
+bf16 (the tensor cores sum in another order); P1 equals ``table[idx]``.
 """
 
 import numpy as np
@@ -96,9 +98,12 @@ def test_march_kernel_matches_plain(cuda, bound, prefilter, gamma):
         assert torch.equal(k[name], p[name]), name
 
 
+@pytest.mark.parametrize("query", ["colour", "density"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("widths", ["full", "narrow"])
-def test_field_kernel_matches_plain(cuda, dtype, widths):
+def test_field_kernel_matches_plain(cuda, dtype, widths, query):
+    from nerf_signature_tpu_torch.ops import _cuda
+
     kw = {} if widths == "full" else dict(n_levels=4, hidden_dim=16, hidden_dim_color=16,
                                           log2_hashmap_size=12)
     cfg = t_ngp.NGPConfig(compute_dtype=dtype, **kw)
@@ -106,18 +111,27 @@ def test_field_kernel_matches_plain(cuda, dtype, widths):
     params["hash_table"].mul_(1e4)
     fp = t_ngp.field_params(params, cfg)
     g = torch.Generator().manual_seed(4)
-    x = (torch.rand((1 << 16, 3), generator=g) * 2 - 1).to(cuda)
-    d = torch.nn.functional.normalize(torch.randn((1 << 16, 3), generator=g), dim=-1).to(cuda)
+    M = (1 << 16) - 17  # not a multiple of the 32-sample warp tile
+    x = (torch.rand((M, 3), generator=g) * 2 - 1).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn((M, 3), generator=g), dim=-1).to(cuda)
+    d = d if query == "colour" else None  # density only: grid updates, meshing
     feat = t_ngp._encode_pos(fp, cfg, x)
+    _cuda.reset_launch_counts()
     sk, gk, rk = t_ngp.field_heads(fp, cfg, feat, d, want_geo=True)
+    route = "K4_field" if dtype == torch.bfloat16 else "K4_field_f32"
+    counts = _cuda.launch_counts()
+    assert counts[route] == 1 and counts["K4_field"] + counts["K4_field_f32"] == 1
     sp, gp, rp = t_ngp.field_heads_plain(fp, cfg, feat, d)
+    assert (rk is None) == (d is None)
+    pairs = ((sk, sp), (gk, gp)) + (((rk, rp),) if d is not None else ())
     if dtype == torch.float32:
-        for a, b in ((sk, sp), (gk, gp), (rk, rp)):
+        for a, b in pairs:
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     else:
         torch.testing.assert_close(sk, sp, rtol=2e-2, atol=0)
-        torch.testing.assert_close(rk, rp, rtol=0, atol=1e-2)
         torch.testing.assert_close(gk, gp, rtol=2e-2, atol=1e-2)
+        if d is not None:
+            torch.testing.assert_close(rk, rp, rtol=0, atol=1e-2)
 
 
 def rel_l2(a, b):
@@ -257,13 +271,18 @@ def test_msg_table_kernel_matches_plain(cuda, gather):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_field_bwd_feat_kernel_matches_plain(cuda, dtype):
-    cfg = t_ngp.NGPConfig(compute_dtype=dtype)
+@pytest.mark.parametrize("widths", ["full", "narrow"])
+def test_field_bwd_feat_kernel_matches_plain(cuda, dtype, widths):
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    kw = {} if widths == "full" else dict(n_levels=4, hidden_dim=16, hidden_dim_color=16,
+                                          log2_hashmap_size=12)
+    cfg = t_ngp.NGPConfig(compute_dtype=dtype, **kw)
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(10), cfg, cuda)
     params["hash_table"].mul_(1e4)
     fp = t_ngp.field_params(params, cfg)
     g = torch.Generator().manual_seed(11)
-    M = 100_000
+    M = 100_003  # not a multiple of the 32-sample warp tile
     x = (torch.rand((M, 3), generator=g) * 2 - 1).to(cuda)
     d = torch.nn.functional.normalize(torch.randn((M, 3), generator=g), dim=-1).to(cuda)
     with torch.no_grad():
@@ -272,15 +291,26 @@ def test_field_bwd_feat_kernel_matches_plain(cuda, dtype):
     g_rgb = (torch.randn((M, 3), generator=g) * 1e-3).to(cuda)
     g_sigma[::5] = 0.0
     g_rgb[::5] = 0.0
+    g_sigma[:64] = 0.0  # two whole warp tiles with zero cotangents
+    g_rgb[:64] = 0.0
     w = t_ngp._kernel_widths(params, cfg)
-    only = t_ngp.field_heads_bwd_feat(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb)
+    only = t_ngp.field_heads_bwd_feat(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb,
+                                      fp.get("mlp_mma"))
+    assert not bool(only[:64].any())
     full = t_ngp.field_heads_bwd(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb)[0]
-    assert torch.equal(only, full)
+    if dtype == torch.float32:
+        assert torch.equal(only, full)
+    else:
+        assert rel_l2(only, full) <= 1e-2
     # through autograd with frozen weights: the feature-only kernel runs
+    _cuda.reset_launch_counts()
     f = feat.clone().requires_grad_(True)
     sigma, _, rgb = t_ngp.field_heads(fp, cfg, f, d)
     torch.autograd.backward([sigma, rgb], [g_sigma, g_rgb])
     assert torch.equal(f.grad, only)
+    route = "K4_field_bwd_feat" if dtype == torch.bfloat16 else "K4_field_bwd_feat_f32"
+    counts = _cuda.launch_counts()
+    assert counts[route] == 1 and counts["K4_field_bwd"] == 0
     fp_ = feat.clone().requires_grad_(True)
     sp, _, rp = t_ngp.field_heads_plain(fp, cfg, fp_, d)
     torch.autograd.backward([sp, rp], [g_sigma, g_rgb])
