@@ -16,13 +16,16 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                version's time, the least time the card could take (bound),
                and for K4 a bf16 torch.matmul chain as a yardstick; P1 (the
                Pallas probe's gather) at the probe's shapes, bit-exact,
-               with torch.take as its yardstick;
+               with torch.take as its yardstick, and the device time
+               (torch.profiler) of the kernel, table[idx] and torch.take;
   4. train-kernels — at the train step's shapes (4096 random rays of a
                view, budget 128, the uncompacted M = 524,288 samples): K2
                with perturbation noise bit-exact against its plain version;
                the K1, K3 and K4 backward kernels against their plain
                backwards (stated limits) with median times, plain times,
-               bounds and library yardsticks; then one whole train step
+               bounds and library yardsticks (K4's full backward in bf16 on
+               the tensor cores and in fp32 on the SIMT units, each with
+               bit-equal repeats and its device time); then one whole train step
                (loss and per-leaf gradients) through the kernels against
                one through the plain versions, in bf16 and in fp32; then at
                the watermark step's shapes (32 key blocks of 12x12 and 4096
@@ -147,6 +150,41 @@ def median_ms(fn, reps, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_events(prof):
+    """{name: microseconds} of the device work (kernels, copies, memsets)
+    in a torch.profiler trace."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    by_name = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    return by_name
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call of ``fn``: the durations of the device work
+    that ``reps`` calls launch, summed from a torch.profiler trace, over
+    ``reps`` (the host's dispatch and the gaps between launches left out,
+    which CUDA events around a call count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = device_events(prof)
+    if not by_name:
+        raise AssertionError("torch.profiler recorded no device work")
+    return sum(by_name.values()) / reps / 1e3
 
 
 def bound_of(n_bytes, n_ops, peak_ops):
@@ -424,12 +462,17 @@ def p1_gather(dev):
     if not torch.equal(out, ref):
         raise AssertionError("P1 differs from table[idx]")
     idx64 = idx.long()
-    ms = median_ms(lambda: t_gather.table_gather(table, idx), 50)
-    pms = median_ms(lambda: t_gather.table_gather_plain(table, idx), 50)
-    lib = median_ms(lambda: torch.take(table, idx64), 50)
+    runs = (lambda: t_gather.table_gather(table, idx),
+            lambda: t_gather.table_gather_plain(table, idx), lambda: torch.take(table, idx64))
+    # per call with CUDA events around it (host dispatch included), then the
+    # device's own time; the table is in L2 after the first call either way
+    ms, pms, lib = (median_ms(fn, 50) for fn in runs)
+    dms, pdms, ldms = (device_ms(fn, 50) for fn in runs)
     bms, bby = bound_of(N * 4 + N * 4 + T * 4, 0, PEAK_FP32)
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                library_ms=lib)
+    log(f"[P1] per call {ms:.4f} ms, device {dms:.4f} ms; table[idx] {pms:.4f} / {pdms:.4f} ms; "
+        f"torch.take {lib:.4f} / {ldms:.4f} ms; bound {bms:.4f} ms ({bby})")
+    return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, plain_device_ms=pdms,
+                bound_ms=bms, bound_by=bby, library_ms=lib, library_device_ms=ldms)
 
 
 def touched_rows(x01, res, log2_size):
@@ -610,48 +653,17 @@ def phase_train_kernels(dev):
     results["K1_hash_encode_bwd"] = dict(max_abs_err=a1, rel_l2=e1, ms=ms1, plain_ms=pms1,
                                          bound_ms=bms1, bound_by=bby1, library_ms=lib1)
 
-    # ---- K4 backward, bf16, on the encoded samples
+    # ---- K4's full backward on the encoded samples: bf16 on the tensor
+    # cores (the clean step's route), fp32 on the SIMT units
     with torch.no_grad():
         feat = t_hash.hash_encode(x01, fp["hash_table"], res, S_log2, table_g=fp["hash_table_g"])
         sig, _, rgb = t_ngp.field_heads(fp, cfg, feat, dirs)
     g_sigma = torch.randn((M,), generator=gen, device=dev) * 1e-4 * live
     g_rgb = torch.randn((M, 3), generator=gen, device=dev) * 1e-4 * live[:, None]
-    widths = t_ngp._kernel_widths(fp, cfg)
-    flat = fp["mlp_flat"]
-    gf_k, gw_k = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb)
-    nets = [w.clone().requires_grad_(True) for w in fp["sigma_net"] + fp["color_net"]]
-    pp = dict(fp, sigma_net=nets[:2], color_net=nets[2:])
-    f_p = feat.clone().requires_grad_(True)
-    s_p, _, r_p = t_ngp.field_heads_plain(pp, cfg, f_p, dirs)
-    plain_bwd = lambda: torch.autograd.grad([s_p, r_p], [f_p] + nets, [g_sigma, g_rgb],
-                                            retain_graph=True)
-    gp4 = plain_bwd()
-    gw_p = torch.cat([g.reshape(-1) for g in gp4[1:]])
-    e4 = max(rel_l2(gf_k, gp4[0]), max(rel_l2(a, b.reshape(-1)) for a, b in zip(
-        torch.split(gw_k, [w.numel() for w in nets]), gp4[1:])))
-    a4 = max(float((gf_k - gp4[0]).abs().max()), float((gw_k - gw_p).abs().max()))
-    log(f"[K4 bwd] bf16: worst rel L2 over g_feat and the 5 weight leaves {e4:.3g} "
-        f"(limit 1e-2), max abs err {a4:.3g}")
-    if not e4 <= 1e-2:
-        raise AssertionError(f"K4 backward differs from its plain version: rel L2 {e4}")
-    again = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb)[1]
-    if not torch.equal(again, gw_k):
-        raise AssertionError("K4 backward weight gradient is not deterministic")
-    ms4 = median_ms(lambda: t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma,
-                                                  g_rgb), 10)
-    pms4 = median_ms(plain_bwd, 5, 1)
-    lib4 = library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb)
-    # bound: every sample's cotangents read and g_feat written; feat and dirs
-    # read, and the forward and both products done (6 flops a weight), only
-    # for samples with a nonzero cotangent; the weights read, g_weights written
-    n_w = flat.numel()
-    n_hot = int(((g_sigma != 0) | (g_rgb != 0).any(-1)).sum())
-    bms4, bby4 = bound_of(M * (4 + 12 + cfg.enc_dim * 4) + n_hot * (cfg.enc_dim * 4 + 12)
-                          + n_w * 8, n_hot * 6 * n_w, PEAK_BF16)
-    log(f"[K4 bwd] {n_hot} of {M} samples carry a nonzero cotangent")
-    results["K4_field_bwd"] = dict(max_abs_err=a4, rel_l2=e4, ms=ms4, plain_ms=pms4,
-                                   bound_ms=bms4, bound_by=bby4, library_ms=lib4)
-    del f_p, s_p, r_p, gp4
+    results["K4_field_bwd"] = k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    results["K4_field_bwd_f32"] = k4_bwd(t_ngp.field_params(m.params, cfg32), cfg32, feat, dirs,
+                                         g_sigma, g_rgb)
 
     # ---- K3 backward on the field's output, the loss's cotangents
     sig2 = (sig.reshape(N, S) * m.rc.density_scale).contiguous()
@@ -696,7 +708,7 @@ def phase_train_kernels(dev):
         (lk, gk_), (lp, gp_) = (train_step_grads(mt, ro, rd, bg, noise, plain)
                                 for plain in (False, True))
         fp32_counts.setdefault("train step", {}).update(
-            k4_route(_cuda.launch_counts(), dtype, ("K4_field",), "train step"))
+            k4_route(_cuda.launch_counts(), dtype, ("K4_field", "K4_field_bwd"), "train step"))
         el = abs(float(lk) - float(lp)) / abs(float(lp))
         worst = max(rel_l2(a, b) for a, b in zip(gk_, gp_))
         log(f"[train step] {str(dtype)[6:]}: loss {float(lk):.6g} vs plain {float(lp):.6g} "
@@ -712,6 +724,60 @@ def phase_train_kernels(dev):
         log(f"[{name}] ms {r['ms']:.4f} | plain {r['plain_ms']:.4f} | "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']}) | library {r['library_ms']}")
     return results
+
+
+def k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb):
+    """K4's full backward in cfg's dtype (bf16: the tensor-core kernel; fp32:
+    the SIMT one) against autograd through the plain version, with a
+    bit-equal repeat; its row, with the device time of the kernel and of
+    the library chain's autograd."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+
+    bf16 = cfg.compute_dtype == torch.bfloat16
+    tag = "K4 bwd" if bf16 else "K4 bwd f32"
+    widths = t_ngp._kernel_widths(fp, cfg)
+    flat, mma = fp["mlp_flat"], fp.get("mlp_mma")
+    run = lambda: t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma)
+    gf_k, gw_k = run()
+    nets = [w.clone().requires_grad_(True) for w in fp["sigma_net"] + fp["color_net"]]
+    pp = dict(fp, sigma_net=nets[:2], color_net=nets[2:])
+    f_p = feat.clone().requires_grad_(True)
+    s_p, _, r_p = t_ngp.field_heads_plain(pp, cfg, f_p, dirs)
+    plain_bwd = lambda: torch.autograd.grad([s_p, r_p], [f_p] + nets, [g_sigma, g_rgb],
+                                            retain_graph=True)
+    gp4 = plain_bwd()
+    gw_p = torch.cat([g.reshape(-1) for g in gp4[1:]])
+    e4 = max(rel_l2(gf_k, gp4[0]), max(rel_l2(a, b.reshape(-1)) for a, b in zip(
+        torch.split(gw_k, [w.numel() for w in nets]), gp4[1:])))
+    a4 = max(float((gf_k - gp4[0]).abs().max()), float((gw_k - gw_p).abs().max()))
+    lim = 1e-2 if bf16 else 1e-5
+    log(f"[{tag}] worst rel L2 over g_feat and the 5 weight leaves {e4:.3g} (limit {lim:g}), "
+        f"max abs err {a4:.3g}")
+    if not e4 <= lim:
+        raise AssertionError(f"{tag} differs from its plain version: rel L2 {e4}")
+    gf_again, gw_again = run()
+    if not (torch.equal(gw_again, gw_k) and torch.equal(gf_again, gf_k)):
+        raise AssertionError(f"{tag}: a repeat is not bit-equal (weight gradient or g_feat)")
+    del gf_again, gw_again, gp4
+    ms = median_ms(run, 10)
+    dms = device_ms(run)
+    pms = median_ms(plain_bwd, 5, 1)
+    del plain_bwd, f_p, s_p, r_p
+    lib_run = library_mlp_bwd(fp, feat, dirs, g_sigma, g_rgb, dtype=cfg.compute_dtype)
+    lib, ldms = median_ms(lib_run, 10), device_ms(lib_run, 10)
+    # bound: every sample's cotangents read and g_feat written; feat and dirs
+    # read, and the forward and both products done (6 flops a weight), only
+    # for samples with a nonzero cotangent; the weights read, g_weights written
+    M = feat.shape[0]
+    n_w = flat.numel()
+    n_hot = int(((g_sigma != 0) | (g_rgb != 0).any(-1)).sum())
+    bms, bby = bound_of(M * (4 + 12 + cfg.enc_dim * 4) + n_hot * (cfg.enc_dim * 4 + 12)
+                        + n_w * 8, n_hot * 6 * n_w, PEAK_BF16 if bf16 else PEAK_FP32)
+    log(f"[{tag}] {n_hot} of {M} samples carry a nonzero cotangent; per call {ms:.4f} ms, "
+        f"device {dms:.4f} ms; library chain {lib:.4f} / {ldms:.4f} ms; bound {bms:.4f} ms "
+        f"({bby}); bit-equal repeat")
+    return dict(max_abs_err=a4, rel_l2=e4, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                bound_by=bby, library_ms=lib, library_device_ms=ldms)
 
 
 def train_step_grads(m, ro, rd, bg, noise, plain):
@@ -735,10 +801,11 @@ def train_step_grads(m, ro, rd, bg, noise, plain):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-def library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb, weights_grad=True, dtype=torch.bfloat16):
-    """Autograd backward of the torch.matmul chain of library_mlp_ms in
-    ``dtype`` (a yardstick, never called by the port); with ``weights_grad``
-    False the inputs' gradients only (frozen weights)."""
+def library_mlp_bwd(fp, feat, dirs, g_sigma, g_rgb, weights_grad=True, dtype=torch.bfloat16):
+    """A call of autograd's backward of the torch.matmul chain of
+    library_mlp_ms in ``dtype`` (a yardstick, never called by the port);
+    with ``weights_grad`` False the inputs' gradients only (frozen
+    weights)."""
     from nerf_signature_tpu_torch.ops.sh import sh_encode
 
     bf = dtype
@@ -752,7 +819,7 @@ def library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb, weights_grad=True, dtype=
                    -1).to(bf)
     gc = g_rgb.to(bf)
     wrt = [xs, xc] + (ws + wc if weights_grad else [])
-    return median_ms(lambda: torch.autograd.grad([h, c], wrt, [gh, gc], retain_graph=True), 10)
+    return lambda: torch.autograd.grad([h, c], wrt, [gh, gc], retain_graph=True)
 
 
 def make_wm_model(dev, dtype=torch.bfloat16, seed=0):
@@ -815,8 +882,8 @@ def wm_step_grads(m, x, plain):
 def k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb):
     """The feature-only K4 backward in cfg's dtype (bf16: the tensor-core
     kernel; fp32: the SIMT one) against autograd through the plain version
-    and against the full backward's g_feat (SIMT; in fp32 the same products,
-    so equal bit for bit; in bf16 summed in another order); its row."""
+    and against the full backward's g_feat, on the same route (the same
+    products, so equal bit for bit); its row."""
     from nerf_signature_tpu_torch.models import ngp as t_ngp
 
     bf16 = cfg.compute_dtype == torch.bfloat16
@@ -824,7 +891,7 @@ def k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb):
     widths = t_ngp._kernel_widths(fp, cfg)
     flat, mma = fp["mlp_flat"], fp.get("mlp_mma")
     gf_k = t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma)
-    gf_full = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb)[0]
+    gf_full = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma)[0]
     f_p = feat.clone().requires_grad_(True)
     s_p, _, r_p = t_ngp.field_heads_plain(fp, cfg, f_p, dirs)
     plain_bwd = lambda: torch.autograd.grad([s_p, r_p], [f_p], [g_sigma, g_rgb],
@@ -835,21 +902,20 @@ def k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb):
     a4 = float((gf_k - gf_p).abs().max())
     equal_full = torch.equal(gf_k, gf_full)
     log(f"[{tag}] rel L2 vs plain {e4:.3g} (limit {lim:g}), max abs err {a4:.3g}; vs the full "
-        f"backward's g_feat rel L2 {e_full:.3g} (limit {lim:g}{'' if bf16 else ', and equal'}), "
-        f"equal bit for bit: {equal_full}")
-    if not (e4 <= lim and e_full <= lim and (bf16 or equal_full)):
+        f"backward's g_feat rel L2 {e_full:.3g} (limit 0), equal bit for bit: {equal_full}")
+    if not (e4 <= lim and equal_full):
         raise AssertionError(f"{tag} differs from its plain version or from the full "
                              "backward's g_feat")
     del gf_full, gf_p
     ms = median_ms(lambda: t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma,
                                                       g_rgb, mma), 10)
     full_ms = median_ms(lambda: t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma,
-                                                      g_rgb), 5)
+                                                      g_rgb, mma), 5)
     log(f"[{tag}] {ms:.4f} ms; the full backward (with the weight gradient) on the same "
         f"inputs {full_ms:.4f} ms")
     pms = median_ms(plain_bwd, 5, 1)
-    lib = library_mlp_bwd_ms(fp, feat, dirs, g_sigma, g_rgb, weights_grad=False,
-                             dtype=cfg.compute_dtype)
+    lib = median_ms(library_mlp_bwd(fp, feat, dirs, g_sigma, g_rgb, weights_grad=False,
+                                    dtype=cfg.compute_dtype), 10)
     # bound: cotangents read and g_feat written for every sample; feat and
     # dirs read, the forward and the transposed products done (4 flops a
     # weight) only for samples with a nonzero cotangent; no weight gradient
@@ -1225,7 +1291,7 @@ def phase_train(dev):
     for name in SOURCES:
         if name in CLEAN_TRAIN and launches[name] == 0:
             raise AssertionError(f"{name} was not launched by Trainer.train")
-    k4_route(launches, torch.bfloat16, ("K4_field",), "Trainer.train")
+    k4_route(launches, torch.bfloat16, ("K4_field", "K4_field_bwd"), "Trainer.train")
     trained = trainer.model  # the wm phase's frozen backbone
     del r, trainer
 
@@ -1260,16 +1326,7 @@ def profile_steps(trainer, loader, n=16, tag="profile", step=None):
             step(data)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    by_name = {}
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    by_name = device_events(prof)
     busy_us = sum(by_name.values())
     log(f"[{tag}] {n} train steps: wall {wall_us / n / 1e3:.3f} ms a step, device busy "
         f"{busy_us / n / 1e3:.3f} ms a step (idle share {1 - busy_us / wall_us:.1%}), "
@@ -1433,7 +1490,7 @@ def phase_wm(dev, backbone_model, workdir):
     for name in WM_TRAIN:
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched by WatermarkTrainer.train")
-    if launches["K4_field_bwd"] != 0:
+    if launches["K4_field_bwd"] + launches["K4_field_bwd_f32"] != 0:
         raise AssertionError("the frozen backbone's weight gradient was computed")
     k4_route(launches, torch.bfloat16, ("K4_field", "K4_field_bwd_feat"),
              "WatermarkTrainer.train")
@@ -1455,8 +1512,10 @@ SOURCES = {
                            "nerf_signature_tpu/ops/hashenc.py:124"),
     "K3_composite_bwd": ("nerf_signature_tpu_torch/csrc/composite.cu",
                          "nerf_signature_tpu/ops/composite.py:25"),
-    "K4_field_bwd": ("nerf_signature_tpu_torch/csrc/field.cu",
+    "K4_field_bwd": ("nerf_signature_tpu_torch/csrc/field_mma_bwd_full.cu",
                      "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
+                         "nerf_signature_tpu/models/mlp.py:30"),
     "K4_field_bwd_feat": ("nerf_signature_tpu_torch/csrc/field_mma_bwd.cu",
                           "nerf_signature_tpu/models/mlp.py:30"),
     "K4_field_bwd_feat_f32": ("nerf_signature_tpu_torch/csrc/field_feat.cu",
@@ -1477,9 +1536,9 @@ WM_TRAIN = FORWARD + ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd_fe
 # rows measured in the kernels phase (the serving or the probe's shapes)
 KERNEL_PHASE = FORWARD + ("K4_field_f32", "P1_gather")
 # K4's fp32 route (SIMT): off the bf16 main path, run by the fp32 whole-step checks
-FP32_ROUTE = ("K4_field_f32", "K4_field_bwd_feat_f32")
+FP32_ROUTE = ("K4_field_f32", "K4_field_bwd_f32", "K4_field_bwd_feat_f32")
 # the sources of the tensor-core kernels, which must build without spills
-TENSOR_CORE_SOURCES = ("field_mma.cu", "field_mma_bwd.cu")
+TENSOR_CORE_SOURCES = ("field_mma.cu", "field_mma_bwd.cu", "field_mma_bwd_full.cu")
 
 
 def main():
@@ -1523,7 +1582,8 @@ def main():
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "train_launches": train["launches"][name],
                "wm_launches": wm["launches"][name]}
-        for extra in ("full_bwd_ms", "share_not_equal", "rel_l2_vs_full_bwd"):
+        for extra in ("device_ms", "plain_device_ms", "library_device_ms", "rel_l2", "full_bwd_ms",
+                      "share_not_equal", "rel_l2_vs_full_bwd"):
             if extra in r:
                 row[extra] = r[extra]
         if name in FP32_ROUTE:

@@ -108,25 +108,15 @@ extern "C" int ngp_field(const void* feat, const void* dirs, const void* weights
 
 // ---------------------------------------------------------------- backward
 //
-// K4 backward (field_bwd + field_bwd_reduce): replaces JAX's autodiff of
-// models/mlp.py:mlp_apply through _sigma_head and ngp_color, with
-// trunc_exp's clamped VJP (ops/activation.py:24) and the sigmoid.  Given
-// feat [M, IN], dirs [M, 3], the flat weights and the cotangents g_sigma [M]
-// and g_rgb [M, 3], it returns g_feat [M, IN] and g_weights [N_W] (fp32).
-// No gradient flows to dirs (SH has no parameters, rays carry none).
-//
-// bf16 rounding points (-O): JAX holds every activation AND every cotangent
-// of mlp_apply in bf16 (jnp.dot(..., preferred_element_type=bf16)), so in
-// bf16 mode this kernel rounds to bf16 at
-//   (1) the cotangent entering each mlp_apply, i.e. the transpose of its
-//       final .astype(float32): g_rgb * s(1-s) for the colour MLP, and
-//       [g_sigma * exp(clip(h0, -15, 15)), g_geo] for the sigma MLP;
-//   (2) each layer's input cotangent, g_in = round(g_out @ W^T) (fp32 sum,
-//       one rounding), before the previous ReLU's mask;
-//   (3) each weight gradient, ONCE, after the fp32 sum over all M samples
-//       (in field_bwd_reduce): the bf16 dot's output, cast to fp32 by the
-//       transpose of w.astype(bf16).
-// The forward is recomputed with the forward kernel's exact roundings.
+// K4 backward (field_bwd + field_bwd_reduce), the fp32 route: replaces
+// JAX's autodiff of models/mlp.py:mlp_apply through _sigma_head and
+// ngp_color, with trunc_exp's clamped VJP (ops/activation.py:24) and the
+// sigmoid.  Given feat [M, IN], dirs [M, 3], the flat weights and the
+// cotangents g_sigma [M] and g_rgb [M, 3], it returns g_feat [M, IN] and
+// g_weights [N_W] (fp32).  No gradient flows to dirs (SH has no parameters,
+// rays carry none).  In fp32 mlp_apply rounds nowhere between layers and
+// neither does this kernel; the bf16 route, with JAX's bf16 rounding
+// points, runs on the tensor cores (field_mma_bwd_full.cu).
 //
 // What bounds it on the H100: at the training shapes the operations.  Per
 // sample it does three passes over the 9,344 weights (the forward again,
@@ -137,7 +127,7 @@ extern "C" int ngp_field(const void* feat, const void* dirs, const void* weights
 // Design: a persistent grid (one 128-thread block per SM; the wrapper
 // passes the count) walks tiles of 128 samples, one sample per thread.
 // Dynamic shared memory (189 KB at the default widths, set with
-// cudaFuncSetAttribute) holds the bf16-rounded weights, the block's fp32
+// cudaFuncSetAttribute) holds the weights, the block's fp32
 // weight-gradient partial sums, the tile's activations ([row][sample], so a
 // thread's writes and a warp's reads are conflict-free) and one layer's
 // output cotangents ([sample][j], padded).  A tile whose cotangents are
@@ -152,8 +142,8 @@ extern "C" int ngp_field(const void* feat, const void* dirs, const void* weights
 // block order: g_weights is deterministic for a given grid.
 
 // One layer's backward inside the block.  act: this layer's input rows
-// ([K][T]); g_out: this thread's (rounded) output cotangent; g_in: its input
-// cotangent (rounded), zeroed where the input's ReLU was off when MASK.
+// ([K][T]); g_out: this thread's output cotangent; g_in: its input
+// cotangent, zeroed where the input's ReLU was off when MASK.
 template <int K, int J, bool MASK, int T, int LD>
 __device__ __forceinline__ void layer_bwd(const float* __restrict__ W, float* __restrict__ dW,
                                           const float* __restrict__ act, float* __restrict__ cot,
@@ -188,7 +178,7 @@ __global__ void __launch_bounds__(128, 1)
     field_bwd(const float* __restrict__ feat, const float* __restrict__ dirs,
               const float* __restrict__ weights, const float* __restrict__ g_sigma,
               const float* __restrict__ g_rgb, float* __restrict__ g_feat,
-              float* __restrict__ partials, long long M, int bf16_mode) {
+              float* __restrict__ partials, long long M) {
   using D = FieldDims<IN, HID, OUT1, HC>;
   constexpr int CIN = D::CIN, T = D::T, LD = D::LD, N_W = D::N_W;
   extern __shared__ float smem[];
@@ -196,9 +186,9 @@ __global__ void __launch_bounds__(128, 1)
   float* dw_s = w_s + N_W;
   float* act = dw_s + N_W;
   float* cot = act + D::ACT_ROWS * T;
-  const bool bf16 = bf16_mode != 0;
+  constexpr bool bf16 = false;  // the fp32 route (bf16: field_mma_bwd_full.cu)
   for (int i = threadIdx.x; i < N_W; i += T) {
-    w_s[i] = round_to(weights[i], bf16);
+    w_s[i] = weights[i];
     dw_s[i] = 0.0f;
   }
   __syncthreads();
@@ -250,10 +240,7 @@ __global__ void __launch_bounds__(128, 1)
 #pragma unroll
       for (int j = 1; j < OUT1; ++j) c[SH_DIM + j - 1] = o[j];
 #pragma unroll
-      for (int k = 0; k < CIN; ++k) {
-        c[k] = round_to(c[k], bf16);
-        act[k * T + t] = c[k];
-      }
+      for (int k = 0; k < CIN; ++k) act[k * T + t] = c[k];
       float c1[HC];
       dense<CIN, HC, true>(c, Wc0, c1, bf16);
 #pragma unroll
@@ -268,7 +255,7 @@ __global__ void __launch_bounds__(128, 1)
       for (int j = 0; j < 3; ++j) {
         const float s = 1.0f / (1.0f + expf(-c3[j]));
         const float g = valid ? g_rgb[m * 3 + j] : 0.0f;
-        gc3[j] = round_to(g * (s * (1.0f - s)), bf16);  // (1)
+        gc3[j] = g * (s * (1.0f - s));
       }
     }
     // ---- colour MLP backward
@@ -282,9 +269,9 @@ __global__ void __launch_bounds__(128, 1)
     // ---- sigma MLP backward: trunc_exp's clamped VJP, then recompute the
     // sigma MLP's forward into the activation rows
     float gh[OUT1];
-    gh[0] = round_to((valid ? g_sigma[m] : 0.0f) * expf(ngp_clip(h0, -15.0f, 15.0f)), bf16);
+    gh[0] = (valid ? g_sigma[m] : 0.0f) * expf(ngp_clip(h0, -15.0f, 15.0f));
 #pragma unroll
-    for (int j = 1; j < OUT1; ++j) gh[j] = g_in[SH_DIM + j - 1];  // already bf16 values
+    for (int j = 1; j < OUT1; ++j) gh[j] = g_in[SH_DIM + j - 1];
     float gx[IN];
     {
       float x[IN];
@@ -310,21 +297,20 @@ __global__ void __launch_bounds__(128, 1)
   for (int i = threadIdx.x; i < N_W; i += T) partials[(long long)blockIdx.x * N_W + i] = dw_s[i];
 }
 
-// Sums the blocks' partials in block order; rounds once to bf16 in bf16 mode (3).
+// Sums the blocks' partials in block order.
 __global__ void field_bwd_reduce(const float* __restrict__ partials, int n_blocks, int n_w,
-                                 float* __restrict__ g_weights, int bf16_mode) {
+                                 float* __restrict__ g_weights) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_w) return;
   float s = 0.0f;
   for (int b = 0; b < n_blocks; ++b) s += partials[(long long)b * n_w + e];
-  g_weights[e] = round_to(s, bf16_mode != 0);
+  g_weights[e] = s;
 }
 
 template <int IN, int HID, int OUT1, int HC>
 static int launch_field_bwd(const void* feat, const void* dirs, const void* weights,
                             const void* g_sigma, const void* g_rgb, void* g_feat, void* partials,
-                            void* g_weights, long long M, int n_blocks, int bf16,
-                            cudaStream_t s) {
+                            void* g_weights, long long M, int n_blocks, cudaStream_t s) {
   using D = FieldDims<IN, HID, OUT1, HC>;
   auto kernel = field_bwd<IN, HID, OUT1, HC>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -332,11 +318,11 @@ static int launch_field_bwd(const void* feat, const void* dirs, const void* weig
   if (err != cudaSuccess) return (int)err;
   kernel<<<n_blocks, D::T, D::SMEM, s>>>(
       (const float*)feat, (const float*)dirs, (const float*)weights, (const float*)g_sigma,
-      (const float*)g_rgb, (float*)g_feat, (float*)partials, M, bf16);
+      (const float*)g_rgb, (float*)g_feat, (float*)partials, M);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   field_bwd_reduce<<<ngp_blocks(D::N_W, 256), 256, 0, s>>>((const float*)partials, n_blocks,
-                                                           D::N_W, (float*)g_weights, bf16);
+                                                           D::N_W, (float*)g_weights);
   NGP_RETURN_LAST_ERROR();
 }
 
@@ -344,15 +330,15 @@ static int launch_field_bwd(const void* feat, const void* dirs, const void* weig
 extern "C" int ngp_field_bwd(const void* feat, const void* dirs, const void* weights,
                              const void* g_sigma, const void* g_rgb, void* g_feat,
                              void* partials, void* g_weights, long long M, int n_blocks,
-                             int in_dim, int hidden, int out1, int hidden_color, int bf16,
+                             int in_dim, int hidden, int out1, int hidden_color,
                              void* stream) {
   if (M == 0 || n_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (in_dim == 32 && hidden == 64 && out1 == 16 && hidden_color == 64)
     return launch_field_bwd<32, 64, 16, 64>(feat, dirs, weights, g_sigma, g_rgb, g_feat,
-                                            partials, g_weights, M, n_blocks, bf16, s);
+                                            partials, g_weights, M, n_blocks, s);
   if (in_dim == 8 && hidden == 16 && out1 == 16 && hidden_color == 16)
     return launch_field_bwd<8, 16, 16, 16>(feat, dirs, weights, g_sigma, g_rgb, g_feat,
-                                           partials, g_weights, M, n_blocks, bf16, s);
+                                           partials, g_weights, M, n_blocks, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,8 +4,9 @@
 // trunc_exp and the sigmoid) where the weights are a captured constant:
 // nerf_signature_tpu/train/trainer_wtmk.py:_wm_step_loss differentiates the
 // trainable subtree only, so the backbone's MLPs pass back the input
-// cotangent alone, g_feat [M, IN] from g_sigma and g_rgb, with field_bwd's
-// bf16 rounding points (1) and (2) (field.cu) and no (3).
+// cotangent alone, g_feat [M, IN] from g_sigma and g_rgb, with JAX's bf16
+// rounding points (1) and (2) (field_mma.cuh) and no (3) when the flag
+// asks for them.
 //
 // What bounds it on the H100: per sample the forward again and one
 // transposed product a layer (4 flops a weight, 37 kFLOP) on the fp32 FMA

@@ -1,24 +1,37 @@
 // Shared by the tensor-core K4 kernels (field_mma.cu: the forward;
-// field_mma_bwd.cu: the feature-only backward, a file of its own so that
-// nvcc builds the two in parallel): the weight layout and tile plan, the
-// PTX wrappers (ldmatrix, mma.sync, cp.async) and the layers.
+// field_mma_bwd.cu: the feature-only backward; field_mma_bwd_full.cu: the
+// full backward with the weight gradient; one file each so that nvcc builds
+// them in parallel): the weight layout and tile plan, the PTX wrappers
+// (ldmatrix, mma.sync, cp.async), the layers and the backward chain.
 //
 // K4 on the tensor cores, the bf16 route: the fused field heads forward
-// (field_mma_fwd) and their backward to the features alone
-// (field_mma_bwd_feat).  The SIMT kernels of field.cu and field_feat.cu are
-// the fp32 route.
+// (field_mma_fwd), their backward to the features alone
+// (field_mma_bwd_feat) and their full backward (field_mma_bwd_full).  The
+// SIMT kernels of field.cu and field_feat.cu are the fp32 route.
 //
 // Replaces XLA's fusion of nerf_signature_tpu/models/mlp.py:mlp_apply as
 // models/ngp.py:_sigma_head and ngp_color call it (with sh_encode at degree
-// 4, trunc_exp and the sigmoid), and, for the backward, JAX's VJP of it with
-// the weights a captured constant (train/trainer_wtmk.py:_wm_step_loss).
+// 4, trunc_exp and the sigmoid), and, for the backward, JAX's VJP of it:
+// with the weights a captured constant (train/trainer_wtmk.py:_wm_step_loss)
+// or with their gradient (the clean train step).
 //
 // Rounding: mlp_apply rounds its input to bf16, sums each dot in fp32
 // (preferred_element_type) and rounds each layer's output to bf16 before the
 // ReLU.  mma.sync m16n8k16 with bf16 operands and an fp32 accumulator,
 // rounded to bf16 at each layer's output, rounds at the same points; only
-// the order of the sum inside a dot differs from the plain version's.  The
-// backward rounds where field.cu's field_bwd does, points (1) and (2).
+// the order of the sum inside a dot differs from the plain version's.  JAX
+// holds every cotangent of mlp_apply in bf16 too, so the backward rounds at
+//   (1) the cotangent entering each mlp_apply, i.e. the transpose of its
+//       final .astype(float32): g_rgb * s(1-s) for the colour MLP, and
+//       [g_sigma * exp(clip(h0, -15, 15)), g_geo] for the sigma MLP;
+//   (2) each layer's input cotangent, g_in = round(g_out @ W^T) (fp32 sum,
+//       one rounding), before the previous ReLU's mask;
+//   (3) each weight gradient, ONCE, after the fp32 sum over all M samples
+//       (the bf16 dot's output, cast to fp32 by the transpose of
+//       w.astype(bf16)): field_mma_bwd_full's reduce.
+// The recomputed forward is the forward kernel's own, fragment for
+// fragment, so the masks and activations the backward differentiates are
+// those the loss saw.
 //
 // What bounds it on the H100: bytes.  At the serving shapes (1,048,576
 // samples) the forward must move 163 MB (0.049 ms at 3.35 TB/s) and do 19.6
@@ -48,7 +61,10 @@
 //   each hidden layer's ReLU mask as one bit a fragment element (32 bits a
 //   16-row tile for 64 units).  A layer's input cotangent has the C layout of
 //   its forward activation, so the mask applies in registers.  A warp tile
-//   whose cotangents are all zero writes zeros and loads no features.
+//   whose cotangents are all zero writes zeros and loads no features.  The
+//   full backward's block plan differs (field_mma_bwd_full.cu: 256-thread
+//   blocks, features loaded straight into fragments, the weight gradient
+//   from staged fragments).
 // Compiled with -fmad=false, so SH and the sigmoid round like the plain
 // version.
 
@@ -376,17 +392,34 @@ __device__ __forceinline__ void load_dirs(const float* __restrict__ dirs, long l
     }
 }
 
+// The layers in the packed order (models/ngp.py:mma_layout).
+enum Layer { L_S0 = 0, L_S1 = 1, L_C0 = 2, L_C1 = 3, L_C2 = 4 };
+
+// Where the backward puts what a weight gradient needs: each layer's input
+// activation and output cotangent as the bf16 A fragments of one 16-row
+// tile (act<L>, cot<L>).  The forward and the feature-only backward keep
+// nothing; field_mma_bwd_full.cu stages them in shared memory.
+struct NoStage {
+  template <int L, int KB>
+  __device__ __forceinline__ void act(int, const uint32_t (&)[KB][4]) const {}
+  template <int L, int KB>
+  __device__ __forceinline__ void cot(int, const uint32_t (&)[KB][4]) const {}
+};
+
 // The sigma MLP's output o (rounded to bf16) and, with recompute, the masks.
-template <class D>
+template <class D, class Stage = NoStage>
 __device__ __forceinline__ void sigma_mlp(const uint32_t (&ax)[D::RT][D::KIN / 16][4], uint32_t w,
                                           int lane, float (&o)[D::RT][2][4],
-                                          uint32_t (&mask_h)[D::RT]) {
+                                          uint32_t (&mask_h)[D::RT], const Stage& st = Stage()) {
   {
     float h[D::RT][D::HID / 8][4];
     mma_layer<D::RT, D::KIN / 16, D::HID / 8, D::LD_S0>(ax, w, h, lane);
     uint32_t ah[D::RT][D::HID / 16][4];
 #pragma unroll
-    for (int r = 0; r < D::RT; ++r) mask_h[r] = relu_frags<D::HID / 8>(h[r], ah[r]);
+    for (int r = 0; r < D::RT; ++r) {
+      mask_h[r] = relu_frags<D::HID / 8>(h[r], ah[r]);
+      st.template act<L_S1>(r, ah[r]);
+    }
     mma_layer<D::RT, D::HID / 16, 2, D::LD_S1>(ah, w + 2u * D::O_S1, o, lane);
   }
 #pragma unroll
@@ -398,11 +431,12 @@ __device__ __forceinline__ void sigma_mlp(const uint32_t (&ax)[D::RT][D::KIN / 1
 }
 
 // The colour MLP up to its last layer's fp32 sums c3 (cols 2t, 2t+1 of 8).
-template <class D>
+template <class D, class Stage = NoStage>
 __device__ __forceinline__ void colour_mlp(const float (&dv)[D::RT][2][3],
                                            const float (&o)[D::RT][2][4], uint32_t w, int lane,
                                            int t, float (&c3)[D::RT][1][4],
-                                           uint32_t (&mask_c1)[D::RT], uint32_t (&mask_c2)[D::RT]) {
+                                           uint32_t (&mask_c1)[D::RT], uint32_t (&mask_c2)[D::RT],
+                                           const Stage& st = Stage()) {
   uint32_t a2[D::RT][D::HC / 16][4];
   {
     uint32_t a1[D::RT][D::HC / 16][4];
@@ -416,21 +450,148 @@ __device__ __forceinline__ void colour_mlp(const float (&dv)[D::RT][2][3],
         ac[r][1][1] = pack_bf16(o[r][0][2], o[r][0][3]);
         ac[r][1][2] = pack_bf16(o[r][1][0], o[r][1][1]);
         ac[r][1][3] = pack_bf16(o[r][1][2], o[r][1][3]);
+        st.template act<L_C0>(r, ac[r]);
       }
       float c1[D::RT][D::HC / 8][4];
       mma_layer<D::RT, 2, D::HC / 8, D::LD_C0>(ac, w + 2u * D::O_C0, c1, lane);
 #pragma unroll
-      for (int r = 0; r < D::RT; ++r) mask_c1[r] = relu_frags<D::HC / 8>(c1[r], a1[r]);
+      for (int r = 0; r < D::RT; ++r) {
+        mask_c1[r] = relu_frags<D::HC / 8>(c1[r], a1[r]);
+        st.template act<L_C1>(r, a1[r]);
+      }
     }
     float c2[D::RT][D::HC / 8][4];
     mma_layer<D::RT, D::HC / 16, D::HC / 8, D::LD_C1>(a1, w + 2u * D::O_C1, c2, lane);
 #pragma unroll
-    for (int r = 0; r < D::RT; ++r) mask_c2[r] = relu_frags<D::HC / 8>(c2[r], a2[r]);
+    for (int r = 0; r < D::RT; ++r) {
+      mask_c2[r] = relu_frags<D::HC / 8>(c2[r], a2[r]);
+      st.template act<L_C2>(r, a2[r]);
+    }
   }
   mma_layer<D::RT, D::HC / 16, 1, D::LD_C2>(a2, w + 2u * D::O_C2, c3, lane);
 }
 
 __device__ __forceinline__ float sigmoid_of(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// The backward of one warp tile whose rows start at row0: the forward again
+// with the forward kernel's fragments (keeping the ReLU masks), then the
+// input cotangents layer by layer down to g_feat, which it writes (rows past
+// M are skipped).  ax: the tile's features as A fragments; dv: its
+// directions.  st receives each layer's activation and output cotangent.
+template <class D, class Stage>
+__device__ __forceinline__ void bwd_chain(const uint32_t (&ax)[D::RT][D::KIN / 16][4],
+                                          const float (&dv)[D::RT][2][3], uint32_t w, int lane,
+                                          long long row0, long long M,
+                                          const float* __restrict__ g_sigma,
+                                          const float* __restrict__ g_rgb,
+                                          float* __restrict__ g_feat, const Stage& st) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < D::RT; ++r) st.template act<L_S0>(r, ax[r]);
+  // ---- the forward again, with the same fragments; keep the masks
+  float o[D::RT][2][4];
+  uint32_t mask_h[D::RT], mask_c1[D::RT], mask_c2[D::RT];
+  sigma_mlp<D>(ax, w, lane, o, mask_h, st);
+  float c3[D::RT][1][4];
+  colour_mlp<D>(dv, o, w, lane, t, c3, mask_c1, mask_c2, st);
+  // ---- the colour MLP's cotangent (1): g_rgb * s(1-s), as an A fragment
+  // over the last layer's 8 (padded to 16) outputs
+  uint32_t agc[D::RT][1][4];
+#pragma unroll
+  for (int r = 0; r < D::RT; ++r) {
+    float gc[2][2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long m = row0 + r * 16 + g + 8 * hh;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int col = 2 * t + q;
+        const float gr = (m < M && col < 3) ? g_rgb[m * 3 + col] : 0.0f;
+        const float s = sigmoid_of(bf16_round(c3[r][0][2 * hh + q]));
+        gc[hh][q] = bf16_round(gr * (s * (1.0f - s)));
+      }
+    }
+    agc[r][0][0] = pack_bf16(gc[0][0], gc[0][1]);
+    agc[r][0][1] = pack_bf16(gc[1][0], gc[1][1]);
+    agc[r][0][2] = 0u;
+    agc[r][0][3] = 0u;
+    st.template cot<L_C2>(r, agc[r]);
+  }
+  // ---- colour MLP, input cotangents (2)
+  uint32_t agh[D::RT][1][4];
+  {
+    uint32_t ag1[D::RT][D::HC / 16][4];
+    {
+      uint32_t ag2[D::RT][D::HC / 16][4];
+      {
+        float acc[D::RT][D::HC / 8][4];
+        mma_layer_t<D::HC / 8, 0, D::LD_C2, true>(agc, w + 2u * D::O_C2, acc, lane);
+#pragma unroll
+        for (int r = 0; r < D::RT; ++r) {
+          masked_frags<D::HC / 8>(acc[r], mask_c2[r], ag2[r]);
+          st.template cot<L_C1>(r, ag2[r]);
+        }
+      }
+      float acc[D::RT][D::HC / 8][4];
+      mma_layer_t<D::HC / 8, 0, D::LD_C1, false>(ag2, w + 2u * D::O_C1, acc, lane);
+#pragma unroll
+      for (int r = 0; r < D::RT; ++r) {
+        masked_frags<D::HC / 8>(acc[r], mask_c1[r], ag1[r]);
+        st.template cot<L_C0>(r, ag1[r]);
+      }
+    }
+    // the cotangent of o: Wc0' rows 16-31; column 16 (o[0]'s, a zero row)
+    // takes trunc_exp's clamped VJP of sigma instead (1)
+    float go[D::RT][2][4];
+    mma_layer_t<2, 2, D::LD_C0, false>(ag1, w + 2u * D::O_C0, go, lane);
+#pragma unroll
+    for (int r = 0; r < D::RT; ++r) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) go[r][j][e] = bf16_round(go[r][j][e]);
+      if (t == 0) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long m = row0 + r * 16 + g + 8 * hh;
+          const float gs = m < M ? g_sigma[m] : 0.0f;
+          go[r][0][2 * hh] = bf16_round(gs * expf(ngp_clip(o[r][0][2 * hh], -15.0f, 15.0f)));
+        }
+      }
+      agh[r][0][0] = pack_bf16(go[r][0][0], go[r][0][1]);
+      agh[r][0][1] = pack_bf16(go[r][0][2], go[r][0][3]);
+      agh[r][0][2] = pack_bf16(go[r][1][0], go[r][1][1]);
+      agh[r][0][3] = pack_bf16(go[r][1][2], go[r][1][3]);
+      st.template cot<L_S1>(r, agh[r]);
+    }
+  }
+  // ---- sigma MLP, input cotangents (2)
+  float gx[D::RT][D::IN / 8][4];
+  {
+    uint32_t agh1[D::RT][D::HID / 16][4];
+    {
+      float acc[D::RT][D::HID / 8][4];
+      mma_layer_t<D::HID / 8, 0, D::LD_S1, false>(agh, w + 2u * D::O_S1, acc, lane);
+#pragma unroll
+      for (int r = 0; r < D::RT; ++r) {
+        masked_frags<D::HID / 8>(acc[r], mask_h[r], agh1[r]);
+        st.template cot<L_S0>(r, agh1[r]);
+      }
+    }
+    mma_layer_t<D::IN / 8, 0, D::LD_S0, false>(agh1, w, gx, lane);
+  }
+#pragma unroll
+  for (int r = 0; r < D::RT; ++r)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long m = row0 + r * 16 + g + 8 * hh;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < D::IN / 8; ++j)
+        *reinterpret_cast<float2*>(g_feat + m * D::IN + 8 * j + 2 * t) =
+            make_float2(bf16_round(gx[r][j][2 * hh]), bf16_round(gx[r][j][2 * hh + 1]));
+    }
+}
 
 // Blocks of a persistent grid: as many as fit on the card's SMs, at most
 // one warp per tile.

@@ -1,6 +1,7 @@
 // K4 backward to the features alone on the tensor cores (bf16):
-// field_mma_bwd_feat, for the watermark stage's frozen backbone.  Design,
-// rounding and bounds: field_mma.cuh.
+// field_mma_bwd_feat, for the watermark stage's frozen backbone: the
+// backward chain of field_mma.cuh (bwd_chain) with no weight gradient, so
+// nothing is staged.  Design, rounding and bounds: field_mma.cuh.
 
 #include "field_mma.cuh"
 
@@ -59,100 +60,9 @@ __global__ void __launch_bounds__(D::THREADS, D::MIN_BLOCKS)
       load_dirs(dirs, row0, g, M, dv);
       cp_async_wait<1>();
       __syncwarp();
-      // ---- the forward again, with the same fragments; keep the masks
       uint32_t ax[D::RT][D::KIN / 16][4];
       feat_frags<D>(fbuf + buf * D::FTILE, g, t, ax);
-      float o[D::RT][2][4];
-      uint32_t mask_h[D::RT], mask_c1[D::RT], mask_c2[D::RT];
-      sigma_mlp<D>(ax, w, lane, o, mask_h);
-      float c3[D::RT][1][4];
-      colour_mlp<D>(dv, o, w, lane, t, c3, mask_c1, mask_c2);
-      // ---- the colour MLP's cotangent (1): g_rgb * s(1-s), as an A fragment
-      // over the last layer's 8 (padded to 16) outputs
-      uint32_t agc[D::RT][1][4];
-#pragma unroll
-      for (int r = 0; r < D::RT; ++r) {
-        float gc[2][2];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const long long m = row0 + r * 16 + g + 8 * hh;
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int col = 2 * t + q;
-            const float gr = (m < M && col < 3) ? g_rgb[m * 3 + col] : 0.0f;
-            const float s = sigmoid_of(bf16_round(c3[r][0][2 * hh + q]));
-            gc[hh][q] = bf16_round(gr * (s * (1.0f - s)));
-          }
-        }
-        agc[r][0][0] = pack_bf16(gc[0][0], gc[0][1]);
-        agc[r][0][1] = pack_bf16(gc[1][0], gc[1][1]);
-        agc[r][0][2] = 0u;
-        agc[r][0][3] = 0u;
-      }
-      // ---- colour MLP, input cotangents only (2)
-      uint32_t agh[D::RT][1][4];
-      {
-        uint32_t ag1[D::RT][D::HC / 16][4];
-        {
-          uint32_t ag2[D::RT][D::HC / 16][4];
-          {
-            float acc[D::RT][D::HC / 8][4];
-            mma_layer_t<D::HC / 8, 0, D::LD_C2, true>(agc, w + 2u * D::O_C2, acc, lane);
-#pragma unroll
-            for (int r = 0; r < D::RT; ++r) masked_frags<D::HC / 8>(acc[r], mask_c2[r], ag2[r]);
-          }
-          float acc[D::RT][D::HC / 8][4];
-          mma_layer_t<D::HC / 8, 0, D::LD_C1, false>(ag2, w + 2u * D::O_C1, acc, lane);
-#pragma unroll
-          for (int r = 0; r < D::RT; ++r) masked_frags<D::HC / 8>(acc[r], mask_c1[r], ag1[r]);
-        }
-        // the cotangent of o: Wc0' rows 16-31; column 16 (o[0]'s, a zero row)
-        // takes trunc_exp's clamped VJP of sigma instead (1)
-        float go[D::RT][2][4];
-        mma_layer_t<2, 2, D::LD_C0, false>(ag1, w + 2u * D::O_C0, go, lane);
-#pragma unroll
-        for (int r = 0; r < D::RT; ++r) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) go[r][j][e] = bf16_round(go[r][j][e]);
-          if (t == 0) {
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const long long m = row0 + r * 16 + g + 8 * hh;
-              const float gs = m < M ? g_sigma[m] : 0.0f;
-              go[r][0][2 * hh] = bf16_round(gs * expf(ngp_clip(o[r][0][2 * hh], -15.0f, 15.0f)));
-            }
-          }
-          agh[r][0][0] = pack_bf16(go[r][0][0], go[r][0][1]);
-          agh[r][0][1] = pack_bf16(go[r][0][2], go[r][0][3]);
-          agh[r][0][2] = pack_bf16(go[r][1][0], go[r][1][1]);
-          agh[r][0][3] = pack_bf16(go[r][1][2], go[r][1][3]);
-        }
-      }
-      // ---- sigma MLP, input cotangents (2)
-      float gx[D::RT][D::IN / 8][4];
-      {
-        uint32_t agh1[D::RT][D::HID / 16][4];
-        {
-          float acc[D::RT][D::HID / 8][4];
-          mma_layer_t<D::HID / 8, 0, D::LD_S1, false>(agh, w + 2u * D::O_S1, acc, lane);
-#pragma unroll
-          for (int r = 0; r < D::RT; ++r) masked_frags<D::HID / 8>(acc[r], mask_h[r], agh1[r]);
-        }
-        mma_layer_t<D::IN / 8, 0, D::LD_S0, false>(agh1, w, gx, lane);
-      }
-#pragma unroll
-      for (int r = 0; r < D::RT; ++r)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const long long m = row0 + r * 16 + g + 8 * hh;
-          if (m >= M) continue;
-#pragma unroll
-          for (int j = 0; j < D::IN / 8; ++j)
-            *reinterpret_cast<float2*>(g_feat + m * D::IN + 8 * j + 2 * t) =
-                make_float2(bf16_round(gx[r][j][2 * hh]), bf16_round(gx[r][j][2 * hh + 1]));
-        }
+      bwd_chain<D>(ax, dv, w, lane, row0, M, g_sigma, g_rgb, g_feat, NoStage());
     }
     __syncwarp();  // every lane is done with this buffer before it is refilled
     live = live_next;

@@ -4,8 +4,9 @@ positions in [-bound, bound] -> [0, 1] -> 16-level hash encoding (K1) ->
 sigma MLP 32 -> 64 -> (1 + 15), sigma = trunc_exp(h[0]) -> SH degree 4 of
 the direction, concatenated with the 15 geo features -> colour MLP
 31 -> 64 -> 64 -> 3 -> sigmoid.  The two heads run fused in one kernel (K4,
-``field_heads``): on the tensor cores in bf16 (``csrc/field_mma.cu``), on
-the SIMT units in fp32 (``csrc/field.cu``, ``csrc/field_feat.cu``).
+``field_heads``), forward and backward: on the tensor cores in bf16
+(``csrc/field_mma*.cu``), on the SIMT units in fp32 (``csrc/field.cu``,
+``csrc/field_feat.cu``).
 
 Params are a plain dict, laid out like the JAX tree: ``hash_table``
 [rows, F] fp32, ``sigma_net`` / ``color_net`` lists of ``[in, out]`` fp32
@@ -142,10 +143,10 @@ def field_params(params, cfg: NGPConfig):
 
 
 def _tensor_cores(cfg: NGPConfig):
-    """The route of K4's forward and feature-only backward on the card, by
-    the dtype alone: the tensor-core kernels (``csrc/field_mma.cu``) in
-    bf16, the SIMT ones (``csrc/field.cu``, ``csrc/field_feat.cu``) in
-    fp32."""
+    """The route of K4's forward, full backward and feature-only backward on
+    the card, by the dtype alone: the tensor-core kernels
+    (``csrc/field_mma*.cu``) in bf16, the SIMT ones (``csrc/field.cu``,
+    ``csrc/field_feat.cu``) in fp32."""
     return cfg.compute_dtype == torch.bfloat16
 
 
@@ -187,6 +188,32 @@ def _mma_source_index(widths, device):
             idx[r, :n_src] = off + src * n_src + np.arange(n_src)
         parts.append(idx.reshape(-1))
     return torch.from_numpy(np.concatenate(parts)).to(device)
+
+
+def _n_weights(widths):
+    in_dim, hidden, out1, hc = widths
+    return in_dim * hidden + hidden * out1 + (16 + out1 - 1) * hc + hc * hc + hc * 3
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_grad_index(widths, device):
+    """For each element of ``mlp_flat``, its position in the packed buffer:
+    the inverse of ``_mma_source_index``, int32.  The tensor-core backward
+    sums the weight gradient in the packed layout and reads it back through
+    this index, so Wc0' row 16 and the padding get no gradient."""
+    src = _mma_source_index(widths, torch.device("cpu"))
+    n_w = _n_weights(widths)
+    keep = src < n_w
+    index = torch.empty(n_w, dtype=torch.int64)
+    index[src[keep]] = torch.nonzero(keep).reshape(-1)
+    return index.to(torch.int32).to(device)
+
+
+def mma_grad_to_flat(g_packed, widths):
+    """A gradient in the packed layout (``mma_layout``) -> ``mlp_flat``
+    order: the adjoint of ``pack_mlp_mma`` (Wc0' row 16 and the padding
+    are dropped).  The plain version of the tensor-core backward's reduce."""
+    return g_packed[_mma_grad_index(tuple(widths), g_packed.device).long()]
 
 
 def pack_mlp_mma(flat, widths):
@@ -327,7 +354,7 @@ class FieldHeadsFn(torch.autograd.Function):
         if not ctx.needs_input_grad[2]:
             # frozen weights (the watermark stage's backbone): g_feat only
             return field_heads_bwd_feat(*args, mma), None, None, None, None, None
-        g_feat, g_flat = field_heads_bwd(*args)
+        g_feat, g_flat = field_heads_bwd(*args, mma)
         return g_feat, None, g_flat, None, None, None
 
 
@@ -356,9 +383,14 @@ def field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None
     return g_feat
 
 
-def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb):
+def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None):
     """The K4 backward kernel: (g_feat [M, IN], g_flat [n_weights]), both
-    fp32, from the cotangents of sigma [M] and rgb [M, 3]."""
+    fp32, from the cotangents of sigma [M] and rgb [M, 3].  In bf16 the
+    tensor-core kernel on the packed weights (``mma``, or packed from
+    ``flat`` now), which recomputes the forward with the forward kernel's
+    fragments; in fp32 the SIMT one.  Either sums the weight gradient in
+    per-block partials, one block an SM, reduced in block order
+    (deterministic)."""
     in_dim, hidden, out1, hidden_c = widths
     M = feat.shape[0]
     dev = feat.device
@@ -369,13 +401,24 @@ def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb):
     _cuda.check(g_rgb, "g_rgb", torch.float32, (M, 3), dev)
     g_feat = torch.empty((M, in_dim), dtype=torch.float32, device=dev)
     g_flat = torch.empty_like(flat)
-    # one 128-sample block per SM: the kernel's shared memory holds one block
-    n_blocks = min((M + 127) // 128, torch.cuda.get_device_properties(dev).multi_processor_count)
-    partials = torch.empty((n_blocks, flat.numel()), dtype=torch.float32, device=dev)
-    _cuda.FIELD_BWD(feat.data_ptr(), dirs.data_ptr(), flat.data_ptr(), g_sigma.data_ptr(),
-                    g_rgb.data_ptr(), g_feat.data_ptr(), partials.data_ptr(),
-                    g_flat.data_ptr(), M, n_blocks, in_dim, hidden, out1, hidden_c,
-                    int(cfg.compute_dtype == torch.bfloat16))
+    sms = _cuda.sm_count(dev)
+    if _tensor_cores(cfg):
+        mma = _mma_weights(flat, mma, widths, dev)
+        if feat.data_ptr() % 8:
+            raise ValueError("feat: must be 8-byte aligned")
+        # one 256-thread block an SM, each walking chunks of 512 samples
+        n_blocks = max(1, min(-(-M // 512), sms))
+        partials = torch.empty((n_blocks, mma.numel()), dtype=torch.float32, device=dev)
+        _cuda.FIELD_BWD_MMA(feat.data_ptr(), dirs.data_ptr(), mma.data_ptr(), g_sigma.data_ptr(),
+                            g_rgb.data_ptr(), g_feat.data_ptr(), partials.data_ptr(),
+                            _mma_grad_index(tuple(widths), dev).data_ptr(), g_flat.data_ptr(),
+                            M, n_blocks, in_dim, hidden, out1, hidden_c)
+    else:  # fp32: the SIMT kernel, one 128-sample block an SM
+        n_blocks = min((M + 127) // 128, sms)
+        partials = torch.empty((n_blocks, flat.numel()), dtype=torch.float32, device=dev)
+        _cuda.FIELD_BWD(feat.data_ptr(), dirs.data_ptr(), flat.data_ptr(), g_sigma.data_ptr(),
+                        g_rgb.data_ptr(), g_feat.data_ptr(), partials.data_ptr(),
+                        g_flat.data_ptr(), M, n_blocks, in_dim, hidden, out1, hidden_c)
     return g_feat, g_flat
 
 

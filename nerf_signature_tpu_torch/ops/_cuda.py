@@ -15,6 +15,7 @@ being lost.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,6 +41,7 @@ SOURCES = {
     "field_feat.cu": ["-fmad=false"],
     "field_mma.cu": ["-fmad=false"],
     "field_mma_bwd.cu": ["-fmad=false"],
+    "field_mma_bwd_full.cu": ["-fmad=false"],
     "msgtable.cu": ["-fmad=false"],
     "gather.cu": [],
 }
@@ -56,10 +58,11 @@ _SIGNATURES = {
     "ngp_hash_encode": [_P, _P, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
     "ngp_hash_encode_bwd": [_P, _P, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
     "ngp_field": [_P] * 6 + [_L] + [_I] * 4 + [_P],
-    "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 6 + [_P],
+    "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_P],
     "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 5 + [_P],
     "ngp_field_mma": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     "ngp_field_mma_bwd_feat": [_P] * 6 + [_L] + [_I] * 4 + [_P],
+    "ngp_field_mma_bwd": [_P] * 9 + [_L] + [_I] * 5 + [_P],
     "ngp_msg_table": [_P, _P, _I, _L, _P, _P, _I, _P],
     "ngp_msg_table_bwd": [_P, _P, _I, _L, _P, _P],
     "ngp_table_gather": [_P, _P, _L, _L, _P, _P],
@@ -172,13 +175,14 @@ class CudaKernel:
     def __init__(self, symbol):
         self.symbol = symbol
         self.launches = 0
+        self._fn = None
 
     def __call__(self, *args):
-        lib = library()
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, self.symbol)(*args, stream)
+        if self._fn is None:
+            self._fn = getattr(library(), self.symbol)
+        rc = self._fn(*args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            msg = lib.ngp_error_string(rc).decode()
+            msg = library().ngp_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
         self.launches += 1
 
@@ -188,6 +192,7 @@ HASH_ENCODE_BWD = CudaKernel("ngp_hash_encode_bwd")
 FIELD = CudaKernel("ngp_field")
 FIELD_MMA = CudaKernel("ngp_field_mma")
 FIELD_BWD = CudaKernel("ngp_field_bwd")
+FIELD_BWD_MMA = CudaKernel("ngp_field_mma_bwd")
 COMPOSITE = CudaKernel("ngp_composite")
 COMPOSITE_BWD = CudaKernel("ngp_composite_bwd")
 MARCH = CudaKernel("ngp_march")
@@ -197,13 +202,14 @@ MSG_TABLE = CudaKernel("ngp_msg_table")
 MSG_TABLE_BWD = CudaKernel("ngp_msg_table_bwd")
 TABLE_GATHER = CudaKernel("ngp_table_gather")
 
-# K4's forward and feature-only backward have two routes, counted apart:
-# the tensor-core kernels (bf16) and the SIMT ones (fp32)
+# K4's forward, full backward and feature-only backward have two routes
+# each, counted apart: the tensor-core kernels (bf16) and the SIMT ones
+# (fp32, ``_f32``)
 KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH,
            "K3_composite": COMPOSITE, "K4_field": FIELD_MMA, "K4_field_f32": FIELD,
            "K1_hash_encode_bwd": HASH_ENCODE_BWD, "K3_composite_bwd": COMPOSITE_BWD,
-           "K4_field_bwd": FIELD_BWD, "K4_field_bwd_feat": FIELD_BWD_FEAT_MMA,
-           "K4_field_bwd_feat_f32": FIELD_BWD_FEAT,
+           "K4_field_bwd": FIELD_BWD_MMA, "K4_field_bwd_f32": FIELD_BWD,
+           "K4_field_bwd_feat": FIELD_BWD_FEAT_MMA, "K4_field_bwd_feat_f32": FIELD_BWD_FEAT,
            "K9_msg_table": MSG_TABLE, "K9_msg_table_bwd": MSG_TABLE_BWD,
            "P1_gather": TABLE_GATHER}
 
@@ -215,6 +221,12 @@ def reset_launch_counts():
 
 def launch_counts():
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """The card's streaming multiprocessors (persistent grids size by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t):

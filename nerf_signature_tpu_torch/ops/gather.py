@@ -19,13 +19,19 @@ def table_gather_plain(table, idx):
     return table[idx.long()]
 
 
-def table_gather(table, idx):
-    """[T] fp32 table, [N] int32 indices -> [N] fp32."""
+def table_gather(table, idx, out=None):
+    """[T] fp32 table, [N] int32 indices -> [N] fp32, written into ``out``
+    when it is given (any 1-D contiguous view: the kernel takes unaligned
+    starts and any N in one launch)."""
     if not table.is_cuda:
-        return table_gather_plain(table, idx)
+        res = table_gather_plain(table, idx)
+        return res if out is None else out.copy_(res)
     T, N = table.shape[0], idx.shape[0]
     _cuda.check(table, "table", torch.float32, (T,))
     _cuda.check(idx, "idx", torch.int32, (N,), table.device)
-    out = torch.empty((N,), dtype=torch.float32, device=table.device)
+    if out is None:
+        out = torch.empty((N,), dtype=torch.float32, device=table.device)
+    else:
+        _cuda.check(out, "out", torch.float32, (N,), table.device)
     _cuda.TABLE_GATHER(table.data_ptr(), idx.data_ptr(), T, N, out.data_ptr())
     return out

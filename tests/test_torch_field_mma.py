@@ -1,6 +1,6 @@
 """The tensor-core K4 kernels' weight layout and route, on the CPU.
 
-``csrc/field_mma.cu`` reads the MLP weights packed by
+``csrc/field_mma*.cu`` read the MLP weights packed by
 ``models/ngp.py:pack_mlp_mma`` (``mma_layout``): rows padded for
 ``ldmatrix``, IN padded to 16, the colour layer 0 as Wc0' (a zero row 16
 facing o[0], Wc0's rows 16-30 below it) and the last colour layer padded to
@@ -9,12 +9,16 @@ that the shifted colour layer is exact, and hold the heads computed from
 the packed matrices against JAX's ``_sigma_head`` / ``ngp_color`` in fp32
 (rtol 1e-6 and atol 1e-6: the same arithmetic with zeros added in the
 padded places; the sums run in another order, which moves values near zero
-by a few 1e-7).  The kernels themselves run on the card
+by a few 1e-7).  The full backward sums the weight gradient in the packed
+layout and reads it back through ``mma_grad_to_flat``: the map is the
+adjoint of the pack, and autograd through the packed heads, then the map,
+is JAX's VJP.  The kernels themselves run on the card
 (``test_torch_kernels.py``).
 """
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ import torch
 from nerf_signature_tpu.models import ngp as j_ngp
 from nerf_signature_tpu_torch.models import ngp as t_ngp
 from nerf_signature_tpu_torch.ops import _cuda
+from nerf_signature_tpu_torch.ops.activation import trunc_exp
 from nerf_signature_tpu_torch.ops.sh import sh_encode
 
 WIDTHS = {"full": (32, 64, 16, 64), "narrow": (8, 16, 16, 16)}
@@ -105,15 +110,17 @@ def test_shifted_colour_layer_is_exact(widths):
     assert torch.equal(_bf16(got_b), _bf16(ref_b))
 
 
-def _packed_heads(mats, widths, feat, dirs):
+def _packed_heads(mats, widths, feat, dirs, dtype=torch.float32):
     """The heads as the tensor-core kernels compute them, from the packed
-    matrices (in fp32): sigma, geo, rgb."""
-    m = {name: mats[name][:, :cols] for name, _, cols, _ in t_ngp.mma_layout(widths)}
-    x = torch.nn.functional.pad(feat, (0, m["s0"].shape[0] - feat.shape[1]))
+    matrices, in ``dtype`` (each layer's output rounded where ``mlp_apply``
+    rounds it): sigma, geo, rgb, fp32."""
+    m = {name: mats[name][:, :cols].to(dtype) for name, _, cols, _ in t_ngp.mma_layout(widths)}
+    x = torch.nn.functional.pad(feat, (0, m["s0"].shape[0] - feat.shape[1])).to(dtype)
     o = torch.relu(x @ m["s0"]) @ m["s1"]
-    c = torch.cat([sh_encode(dirs, 4), o], -1)
-    rgb = torch.sigmoid(torch.relu(torch.relu(c @ m["c0"]) @ m["c1"]) @ m["c2"])[:, :3]
-    return torch.exp(o[:, 0]), o[:, 1:], rgb
+    c = torch.cat([sh_encode(dirs, 4).to(dtype), o], -1)
+    c3 = torch.relu(torch.relu(c @ m["c0"]) @ m["c1"]) @ m["c2"]
+    o = o.float()
+    return trunc_exp(o[:, 0]), o[:, 1:], torch.sigmoid(c3.float())[:, :3]
 
 
 @pytest.mark.parametrize("widths", ["full", "narrow"])
@@ -167,3 +174,128 @@ def test_route_follows_the_dtype(monkeypatch, dtype):
         assert names == ["FIELD", "FIELD_BWD_FEAT"]
         assert calls[0][1][2] == fp["mlp_flat"].data_ptr()  # fp32 weights, unpacked
         assert calls[1][1][-1] == 0  # no rounding
+
+
+def _n_pack(widths):
+    return sum(rows * ld for _, rows, _, ld in t_ngp.mma_layout(widths))
+
+
+@pytest.mark.parametrize("widths", ["full", "narrow"])
+def test_packed_grad_map_is_the_adjoint_of_the_pack(widths):
+    """<pack(x), y> == <x, map(y)>, and the map drops Wc0' row 16 and every
+    padded place: a packed gradient there reaches no weight."""
+    w = WIDTHS[widths]
+    n_w, n_pack = t_ngp._n_weights(w), _n_pack(w)
+    assert n_w == sum(v.numel() for v in _params(widths)["sigma_net"] + _params(widths)["color_net"])
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=n_w))
+    y = torch.from_numpy(rng.normal(size=n_pack))
+    lhs = float((t_ngp.pack_mlp_mma(x, w) * y).sum())
+    rhs = float((x * t_ngp.mma_grad_to_flat(y, w)).sum())
+    assert lhs == pytest.approx(rhs, rel=1e-12)
+    extras = t_ngp.pack_mlp_mma(torch.ones(n_w, dtype=torch.float64), w) == 0
+    assert bool(_unpack(extras, w)["c0"][16].all())
+    assert int(extras.sum()) == n_pack - n_w
+    assert not bool(t_ngp.mma_grad_to_flat(torch.where(extras, y, 0.0), w).any())
+    assert bool(t_ngp.mma_grad_to_flat(torch.where(extras, 0.0, y), w).ne(0).all())
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+# bf16: both sides round at the same points (each activation and cotangent,
+# each weight gradient once).  At these shapes they agree exactly (every
+# leaf reads 0); the bound leaves room for sums taken in another order, where
+# a value one bf16 step (0.4-0.8%) away carries through the layers below it,
+# and is the card's limit for the kernel against autograd (chip_smoke.py).
+BF16_REL_L2 = 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("widths", ["full", "narrow"])
+def test_full_bwd_emulation_matches_jax_vjp(widths, dtype):
+    """The full backward's math on the CPU: autograd through the packed
+    heads gives the packed weight gradient (Wc0' row 16 included), which
+    the map reads back in mlp_flat order; with g_feat it is JAX's VJP of
+    ``_sigma_head`` + ``ngp_color`` on the same seeded cotangents (fp32:
+    elementwise rtol 1e-5; bf16: BF16_REL_L2 a leaf)."""
+    w = WIDTHS[widths]
+    p = _params(widths, seed=6)
+    flat = t_ngp.field_params(p, _cfg(widths))["mlp_flat"]
+    rng = np.random.default_rng(7)
+    M = 512
+    feat = rng.uniform(-1, 1, size=(M, w[0])).astype(np.float32)
+    d = rng.normal(size=(M, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    g_sigma = rng.normal(size=M).astype(np.float32)
+    g_rgb = rng.normal(size=(M, 3)).astype(np.float32)
+    g_sigma[::4] = 0.0  # padded samples
+    g_rgb[::4] = 0.0
+
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jcfg = j_ngp.NGPConfig(compute_dtype=jd, **({} if widths == "full" else NARROW))
+
+    def heads(ws, wc, f):
+        pj = {"sigma_net": ws, "color_net": wc}
+        sigma, geo = j_ngp._sigma_head(pj, jcfg, f)
+        return sigma, j_ngp.ngp_color(pj, jcfg, jnp.asarray(d), geo)
+
+    _, vjp = jax.vjp(heads, [jnp.asarray(v.numpy()) for v in p["sigma_net"]],
+                     [jnp.asarray(v.numpy()) for v in p["color_net"]], jnp.asarray(feat))
+    gws, gwc, gf_j = vjp((jnp.asarray(g_sigma), jnp.asarray(g_rgb)))
+    leaves_j = [np.asarray(g, np.float32) for g in gws + gwc]
+
+    packed = t_ngp.pack_mlp_mma(flat, w).requires_grad_(True)
+    f_t = torch.from_numpy(feat).requires_grad_(True)
+    s_t, _, r_t = _packed_heads(_unpack(packed, w), w, f_t, torch.from_numpy(d), dtype)
+    g_packed, gf_t = torch.autograd.grad([s_t, r_t], [packed, f_t],
+                                         [torch.from_numpy(g_sigma), torch.from_numpy(g_rgb)])
+    assert bool(_unpack(g_packed, w)["c0"][16].ne(0).any())  # o[0]'s row: a gradient, dropped
+    g_flat = t_ngp.mma_grad_to_flat(g_packed, w)
+    leaves_t = torch.split(g_flat, [v.size for v in leaves_j])
+    pairs = [(gf_t, np.asarray(gf_j, np.float32))] + [
+        (a.reshape(b.shape), b) for a, b in zip(leaves_t, leaves_j)]
+    for a, b in pairs:
+        a = a.detach().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * float(np.abs(b).max()))
+        else:
+            assert _rel_l2(a, b) <= BF16_REL_L2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_full_bwd_route_follows_the_dtype(monkeypatch, dtype):
+    """Through FieldHeadsFn: bf16 launches the tensor-core full backward on
+    the packed weights the forward saved, fp32 the SIMT one on the flat
+    weights, each counted under its own name; the C entry points are
+    replaced by recorders."""
+    k = _cuda.KERNELS
+    assert (k["K4_field_bwd"], k["K4_field_bwd_f32"]) == (_cuda.FIELD_BWD_MMA, _cuda.FIELD_BWD)
+    calls = []
+    for name in ("FIELD", "FIELD_MMA", "FIELD_BWD", "FIELD_BWD_MMA"):
+        monkeypatch.setattr(_cuda, name, lambda *a, _n=name: calls.append((_n, a)))
+    monkeypatch.setattr(_cuda, "check", lambda *a, **kw: None)
+    monkeypatch.setattr(_cuda, "sm_count", lambda dev: 132)
+    cfg = _cfg("narrow", dtype)
+    fp = t_ngp.field_params(_params("narrow"), cfg)
+    widths = t_ngp._kernel_widths(fp, cfg)
+    M = 1000
+    flat = fp["mlp_flat"].clone().requires_grad_(True)
+    feat = torch.zeros((M, 8), requires_grad=True)
+    mma = t_ngp.pack_mlp_mma(flat.detach(), widths).to(torch.bfloat16)
+    sigma, rgb = t_ngp.FieldHeadsFn.apply(feat, torch.zeros((M, 3)), flat, mma, cfg, widths)
+    torch.autograd.backward([sigma, rgb], [torch.zeros(M), torch.zeros((M, 3))])
+    assert flat.grad.shape == flat.shape and feat.grad.shape == feat.shape
+    names = [n for n, _ in calls]
+    args = calls[1][1]
+    if dtype == torch.bfloat16:
+        assert names == ["FIELD_MMA", "FIELD_BWD_MMA"]
+        assert args[2] == mma.data_ptr() and len(args) == 15
+        assert args[7] == t_ngp._mma_grad_index(widths, feat.device).data_ptr()
+        assert args[9:11] == (M, 2)  # M, one block per 512-sample chunk (two here)
+    else:
+        assert names == ["FIELD", "FIELD_BWD"]
+        assert args[2] == flat.data_ptr() and len(args) == 14
+        assert args[8:10] == (M, 8)  # M, one block per 128-sample tile
