@@ -11,8 +11,11 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
   2. build   — nvcc builds the kernels (csrc/*.cu, sm_90a), one process a
                source, all started together;
   3. kernels — K1-K4 at the serving path's shapes: each kernel against its
-               plain version on the same inputs (stated limits), median
-               times over several launches (CUDA events), the plain
+               plain version on the same inputs (stated limits; K2 bit for
+               bit with C = 1 and 2, dt_gamma 0 and 1/128, the prefilter on,
+               off and on with a group budget that truncates), median
+               times over several launches (CUDA events; K1 and K2 also
+               their device time, torch.profiler), the plain
                version's time, the least time the card could take (bound),
                and for K4 a bf16 torch.matmul chain as a yardstick; P1 (the
                Pallas probe's gather) at the probe's shapes, bit-exact,
@@ -35,15 +38,25 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                watermark step (loss and per-leaf gradients) through the
                kernels against the plain versions, in bf16 and in fp32; each
                whole step must run K4 on its dtype's route alone;
-  5. serve   — a full-width model (README Blender recipe: -O --bound 1.0
+  5. geometry — the 8-level table geometries at 2^19 rows a level: 8 x 2
+               (K4 at encoding width 16) and 8 x 4 (K1 with 4 features a
+               row): K1 forward (bit-exact) and backward, K4 forward, full
+               and feature-only backward on both routes, each against its
+               plain version; a whole clean and a whole watermark step
+               through the kernels against the plain versions (bf16, fp32);
+               Trainer.train for 128 steps on the radius-0.7 ball (launches;
+               at 8 x 4 the held-out PSNR must rise 6 dB); 16 x 4 (width 64)
+               must be refused before a model is built;
+  6. serve   — a full-width model (README Blender recipe: -O --bound 1.0
                --scale 0.8 --dt_gamma 0, NGPConfig defaults, grid 128^3,
                max_steps 1024, budget 256) with random weights from a seed
                and a procedural ball grid, written as a checkpoint in the
                JAX format, loaded by the serving Trainer, which renders 4
                views at 800x800 (157 chunks of 4096 rays each); launch
-               counts; view 0 again through the plain versions; the
+               counts; view 0 under torch.profiler (device time by
+               kernel) and again through the plain versions; the
                occupancy rebuild of a grid-less checkpoint through K1 + K4;
-  6. train   — a fresh full-width model (standard init) trained by the
+  7. train   — a fresh full-width model (standard init) trained by the
                port's Trainer.train (the CLI's train defaults: 4096 rays,
                budget 128 auto-adapted, grid updates every 16 steps,
                auto compaction and group budget, lr 1e-2, EMA 0.95) for 512
@@ -56,10 +69,10 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                kernel, the device's idle share); then 384 steps on the
                radius-0.4 ball, which fail unless the march budget, the
                compaction and the group budget each moved;
-  7. wm      — the watermark stage at the README stage-2 recipe (-O
+  8. wm      — the watermark stage at the README stage-2 recipe (-O
                --message_dim 32 --num_rows 32 --num_cols 32 --downscale 2
                --lambda_w 0.005 --lambda_i 1.0 --loss_w bce --iters 1000) on
-               the backbone phase 6 trained, frozen, built by the CLI's own
+               the backbone phase 7 trained, frozen, built by the CLI's own
                setup from a Blender-style scene file (32 orbit views, 800x800
                halved, no images) and key blocks picked on the key render:
                resolve_auto_compaction, WatermarkTrainer.train (watermark
@@ -115,6 +128,10 @@ TRAIN_BALL = 0.7
 # 16th update, at step 240)
 ADAPT_BALL = 0.4
 ADAPT_ITERS = 384
+# the 8-level table geometries (levels, features a row) the card takes
+# besides 16 x 2, and the length of their Trainer.train runs
+GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4)}
+GEO_ITERS = 128
 # the watermark stage, README stage-2 recipe: -O --message_dim 32 --num_rows 32
 # --num_cols 32 --downscale 2 --lambda_w 0.005 --lambda_i 1.0 --loss_w bce
 # --iters 1000 on the backbone the train phase trained; a step renders
@@ -185,6 +202,31 @@ def device_ms(fn, reps=20):
     if not by_name:
         raise AssertionError("torch.profiler recorded no device work")
     return sum(by_name.values()) / reps / 1e3
+
+
+# the forward kernels a served view runs, by a substring of their names
+VIEW_KERNELS = {"K1": "hash_encode_fwd", "K2": "march_fwd", "K3": "composite_fwd",
+                "K4": "field_mma_fwd"}
+
+
+def view_profile(render):
+    """One served view under torch.profiler: the device ms of K1-K4's
+    forward kernels, their sum, all device work, and the render's wall clock
+    (profiler on)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        render()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    by_name = device_events(prof)
+    out = {k: sum(us for n, us in by_name.items() if pat in n) / 1e3
+           for k, pat in VIEW_KERNELS.items()}
+    out.update(kernels_ms=sum(out.values()), device_ms=sum(by_name.values()) / 1e3,
+               wall_ms=wall * 1e3)
+    return out
 
 
 def bound_of(n_bytes, n_ops, peak_ops):
@@ -279,20 +321,33 @@ def phase_build():
 
 
 # ---------------------------------------------------------------- phase 3
-def make_model(dev, *, bound=1.0, dense=False, seed=0, dtype=torch.bfloat16):
-    """The full-width model of the README recipe, random weights from a seed;
-    the hash table is drawn at U(+-1) instead of U(+-1e-4) so the field
-    varies in space (densities from ~0 to opaque)."""
+def make_model(dev, *, bound=1.0, dense=False, seed=0, dtype=torch.bfloat16, levels=16,
+               features=2):
+    """The full-width model of the README recipe (or another table geometry:
+    ``levels`` x ``features``, 2^19 rows a level), random weights from a
+    seed; the hash table is drawn at U(+-1) instead of U(+-1e-4) so the
+    field varies in space (densities from ~0 to opaque)."""
     from nerf_signature_tpu_torch.api import NGPModel
     from nerf_signature_tpu_torch.models.ngp import NGPConfig
 
-    cfg = NGPConfig(bound=bound, compute_dtype=dtype, dense_coarse=dense)
+    cfg = NGPConfig(bound=bound, compute_dtype=dtype, dense_coarse=dense, n_levels=levels,
+                    n_features=features)
     m = NGPModel(cfg, min_near=0.2, density_thresh=10.0, dt_gamma=0.0,
                  max_steps=1024, grid_size=128, seed=seed, infer_budget=256,
                  device=dev)
     m.params["hash_table"].mul_(1e4)
     m.occ = m.occ._replace(occupancy=ball_grid(m.cascade, 128, bound=bound).to(dev))
     return m
+
+
+def serve_chunk(dev):
+    """The serving path's chunk of view 0 with the most occupied samples
+    (the ball's centre): its rays and first ray's index."""
+    rays = view_rays(orbit_poses(N_VIEWS, ORBIT_RADIUS)[:1])
+    lo = ((RES // 2) * RES // CHUNK) * CHUNK
+    ro = torch.from_numpy(rays["rays_o"][0, lo:lo + CHUNK]).to(dev).contiguous()
+    rd = torch.from_numpy(rays["rays_d"][0, lo:lo + CHUNK]).to(dev).contiguous()
+    return ro, rd, lo
 
 
 def march_kwargs(m, prefilter):
@@ -311,30 +366,25 @@ def phase_kernels(dev):
     results = {}
     m = make_model(dev)
     cfg = m.cfg
-    poses = orbit_poses(N_VIEWS, ORBIT_RADIUS)
-    rays = view_rays(poses[:1])
-    # the chunk of view 0 with the most occupied samples (the ball's centre)
-    mid = (RES // 2) * RES
-    lo = (mid // CHUNK) * CHUNK
-    ro = torch.from_numpy(rays["rays_o"][0, lo:lo + CHUNK]).to(dev).contiguous()
-    rd = torch.from_numpy(rays["rays_d"][0, lo:lo + CHUNK]).to(dev).contiguous()
+    ro, rd, lo = serve_chunk(dev)
 
-    # ---- K2 marcher: C = 1 (this recipe) and C = 2, prefilter on and off
+    # ---- K2 marcher: C = 1 (this recipe) and C = 2, dt_gamma 0 and 1/128,
+    # prefilter on and off, and on with a group budget that truncates
     k2 = None
-    for bound, gamma in ((1.0, 0.0), (2.0, 1 / 128)):
-        mb = m if bound == 1.0 else make_model(dev, bound=2.0)
-        if bound == 1.0:
-            ro_b, rd_b = ro, rd
-        else:
-            rb = view_rays(orbit_poses(1, 4.5, seed=1))
-            ro_b = torch.from_numpy(rb["rays_o"][0, lo:lo + CHUNK]).to(dev).contiguous()
-            rd_b = torch.from_numpy(rb["rays_d"][0, lo:lo + CHUNK]).to(dev).contiguous()
+    rb = view_rays(orbit_poses(1, 4.5, seed=1))
+    cases = {1.0: (m, ro, rd), 2.0: (
+        make_model(dev, bound=2.0),
+        torch.from_numpy(rb["rays_o"][0, lo:lo + CHUNK]).to(dev).contiguous(),
+        torch.from_numpy(rb["rays_d"][0, lo:lo + CHUNK]).to(dev).contiguous())}
+    for bound, gamma in ((1.0, 0.0), (2.0, 1 / 128), (1.0, 1 / 128), (2.0, 0.0)):
+        mb, ro_b, rd_b = cases[bound]
         grid = mb.occ.occupancy
-        for pf in (True, False):
+        for pf, gb in ((True, None), (False, None), (True, 16)):
             kw = march_kwargs(mb, pf)
-            kw["dt_gamma"] = gamma
+            kw.update(dt_gamma=gamma, group_budget=gb)
             plan = t_march.march_plan(grid.shape[0], 128, bound=bound, dt_gamma=gamma,
-                                      max_steps=1024, budget=256, prefilter=pf)
+                                      max_steps=1024, budget=256, prefilter=pf,
+                                      group_budget=gb)
             coarse = t_march.coarse_grid(grid, plan)
             aabb = default_aabb(mb.rc)
             k = t_march.march_rays_aabb(ro_b, rd_b, aabb, grid, coarse=coarse, **kw)
@@ -350,22 +400,24 @@ def phase_kernels(dev):
                 raise AssertionError(f"K2 outputs differ by {err} (C={grid.shape[0]}, "
                                      f"prefilter={pf}); limit 0 (same roundings)")
             n_samp = int(k["mask"].sum())
-            log(f"[K2] C={grid.shape[0]} prefilter={pf} dt_gamma={gamma:g}: mask equal, "
+            log(f"[K2] C={grid.shape[0]} prefilter={pf} group budget {plan.group_budget} "
+                f"dt_gamma={gamma:g}: mask equal, "
                 f"max abs err {err} (limit 0), {n_samp} samples "
                 f"({n_samp / CHUNK:.1f}/ray), groups/ray "
                 f"{float(k['n_groups_occ'].float().mean()):.1f}")
-            if bound == 1.0 and pf == plan.prefilter and pf:
-                ms = median_ms(lambda: t_march.march_rays_aabb(
-                    ro_b, rd_b, aabb, grid, coarse=coarse, **kw), 30)
+            if (bound, gamma, gb) == (1.0, 0.0, None) and pf:  # the serving path's march
+                run = lambda: t_march.march_rays_aabb(ro_b, rd_b, aabb, grid, coarse=coarse, **kw)
+                ms, dms = median_ms(run, 30), device_ms(run, 30)
                 pms = median_ms(lambda: t_march.march_rays_aabb(
                     ro_b, rd_b, aabb, grid, coarse=coarse, plain=True, **kw), 5, 1)
                 N, S = k["mask"].shape
                 n_bytes = (N * 24 + N * S * (12 + 4 + 4 + 1) + N * 20
                            + grid.numel() + coarse.numel())
                 bms, bby = bound_of(n_bytes, 0, PEAK_FP32)
-                k2 = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                k2 = dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
                           bound_by=bby, library_ms=None, march=k)
     results["K2_march"] = k2
+    del cases
 
     # ---- K1 hash encoder on the march's samples of that chunk
     fp = t_ngp.field_params(m.params, cfg)
@@ -392,20 +444,11 @@ def phase_kernels(dev):
     del md, tg
     for name, e in (("hashed bf16", err1), (f"dense ({sum(1 for s in sides if s)} levels) "
                                             "bf16", e_dense), ("hashed fp32", e_f32)):
-        log(f"[K1] {name}: max abs err {e:.3g} (limit 1e-6)")
-        if not e <= 1e-6:
+        log(f"[K1] {name}: max abs err {e:.3g} (limit 0: the same roundings)")
+        if e != 0.0:
             raise AssertionError(f"K1 {name} differs from its plain version by {e}")
-    ms1 = median_ms(lambda: t_hash.hash_encode(x01, fp["hash_table"], res, S_log2,
-                                               table_g=fp["hash_table_g"]), 20)
-    pms1 = median_ms(lambda: t_hash.hash_encode_plain(x01, fp["hash_table"], res, S_log2,
-                                                      table_g=fp["hash_table_g"]), 3, 1)
-    rows = touched_rows(x01, res, S_log2)
-    L = len(res)
-    bms1, bby1 = bound_of(M * 12 + M * L * 2 * 4 + rows * 4, M * L * 57, PEAK_FP32)
-    log(f"[K1] M={M} L={L}: {rows} distinct table rows touched ({rows * 4 / 1e6:.1f} MB bf16)")
-    results["K1_hash_encode"] = dict(max_abs_err=max(err1, e_dense, e_f32), ms=ms1,
-                                     plain_ms=pms1, bound_ms=bms1, bound_by=bby1,
-                                     library_ms=None)
+    results["K1_hash_encode"] = dict(k1_timing(x01, fp, res, S_log2),
+                                     max_abs_err=max(err1, e_dense, e_f32))
 
     # ---- K4 field heads on those features: bf16 on the tensor cores (the
     # serving path), fp32 on the SIMT units (the fp32 route)
@@ -475,6 +518,27 @@ def p1_gather(dev):
                 bound_ms=bms, bound_by=bby, library_ms=lib, library_device_ms=ldms)
 
 
+def k1_timing(x01, fp, res, log2_size):
+    """K1's forward row at these positions (the gather in bf16): per call
+    (CUDA events) and on the device (torch.profiler), its plain version,
+    and the bound."""
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+
+    run = lambda: t_hash.hash_encode(x01, fp["hash_table"], res, log2_size,
+                                     table_g=fp["hash_table_g"])
+    ms, dms = median_ms(run, 20), device_ms(run, 20)
+    pms = median_ms(lambda: t_hash.hash_encode_plain(x01, fp["hash_table"], res, log2_size,
+                                                     table_g=fp["hash_table_g"]), 3, 1)
+    rows = touched_rows(x01, res, log2_size)
+    M, L, F = x01.shape[0], len(res), fp["hash_table"].shape[1]
+    # positions read, features written, each touched bf16 row read once; per
+    # (sample, level) 25 flops of weights and 8 corners x F multiply-adds
+    bms, bby = bound_of(M * 12 + M * L * F * 4 + rows * F * 2, M * L * (25 + 16 * F), PEAK_FP32)
+    log(f"[K1] M={M} L={L} F={F}: {rows} distinct table rows touched "
+        f"({rows * F * 2 / 1e6:.1f} MB bf16); per call {ms:.4f} ms, device {dms:.4f} ms")
+    return dict(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None)
+
+
 def touched_rows(x01, res, log2_size):
     """Distinct table rows the 8-corner gathers of these positions read."""
     from nerf_signature_tpu_torch.ops.hashenc import _hash3
@@ -523,7 +587,8 @@ def k4_forward(fp, cfg, feat, dirs):
     lib = library_mlp_ms(fp, feat, dirs, cfg.compute_dtype)
     M = feat.shape[0]
     n_w = sum(w.numel() for w in fp["sigma_net"] + fp["color_net"])
-    bms, bby = bound_of(M * (32 * 4 + 12 + 4 + 12), M * 2 * n_w, PEAK_BF16 if bf16 else PEAK_FP32)
+    bms, bby = bound_of(M * (cfg.enc_dim * 4 + 12 + 4 + 12), M * 2 * n_w,
+                        PEAK_BF16 if bf16 else PEAK_FP32)
     return dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
                 library_ms=lib, share_not_equal=steps), (sp, rp)
 
@@ -601,15 +666,15 @@ def phase_train_kernels(dev):
             raise AssertionError(f"K2 with noise differs from its plain version by {err}")
         if pf is None:
             march = k
-            ms = median_ms(lambda: t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse,
-                                                           **kw), 30)
+            run = lambda: t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse, **kw)
+            ms, dms = median_ms(run, 30), device_ms(run, 30)
             pms = median_ms(lambda: t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse,
                                                             plain=True, **kw), 5, 1)
             N, S = k["mask"].shape
             bms, bby = bound_of(N * 28 + N * S * 21 + N * 20 + grid.numel() + coarse.numel(),
                                 0, PEAK_FP32)
-            results["K2_march"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                                       bound_by=bby, library_ms=None)
+            results["K2_march"] = dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+                                       bound_ms=bms, bound_by=bby, library_ms=None)
 
     N, S = march["mask"].shape
     M = N * S
@@ -622,36 +687,7 @@ def phase_train_kernels(dev):
     log(f"[train-kernels] N={N} S={S} M={M} samples, {int(live.sum())} live")
 
     # ---- K1 backward: cotangents zero on padded samples, like a train step
-    g_feat = torch.randn((M, cfg.enc_dim), generator=gen, device=dev) * 1e-4 * live[:, None]
-    gk = t_hash._hash_encode_bwd_kernel(x01, g_feat, rows, res, S_log2, torch.bfloat16,
-                                        False, None)
-    gp = t_hash.hash_encode_bwd_plain(x01, g_feat, rows, res, S_log2, torch.bfloat16)
-    e1, a1 = rel_l2(gk, gp), float((gk - gp).abs().max())
-    log(f"[K1 bwd] rel L2 {e1:.3g} (limit 1e-5), max abs err {a1:.3g}")
-    if not e1 <= 1e-5:
-        raise AssertionError(f"K1 backward differs from its plain version: rel L2 {e1}")
-    ms1 = median_ms(lambda: t_hash._hash_encode_bwd_kernel(
-        x01, g_feat, rows, res, S_log2, torch.bfloat16, False, None), 20)
-    pms1 = median_ms(lambda: t_hash.hash_encode_bwd_plain(
-        x01, g_feat, rows, res, S_log2, torch.bfloat16), 3, 1)
-    idx, val = [], []
-    g3 = g_feat.reshape(M, -1, 2).permute(1, 0, 2)
-    for ci, cw in t_hash._corners(x01, res, S_log2, False, None, torch.float32):
-        ct = (cw[..., None] * g3).to(torch.bfloat16).float()
-        for f in range(2):
-            idx.append((ci * 2 + f).reshape(-1))
-            val.append(ct[..., f].reshape(-1))
-    idx, val = torch.cat(idx), torch.cat(val)
-    n_adds = int((val != 0).sum())
-    buf = torch.zeros(rows * 2, device=dev)
-    lib1 = median_ms(lambda: buf.index_add_(0, idx, val), 10)
-    del idx, val, buf
-    # bound: the cotangent read and the grad table written whole; x read only
-    # for samples with a nonzero cotangent; one add for each nonzero pair
-    n_hot = int((g_feat != 0).any(-1).sum())
-    bms1, bby1 = bound_of(M * cfg.enc_dim * 4 + n_hot * 12 + rows * 8, n_adds, PEAK_FP32)
-    results["K1_hash_encode_bwd"] = dict(max_abs_err=a1, rel_l2=e1, ms=ms1, plain_ms=pms1,
-                                         bound_ms=bms1, bound_by=bby1, library_ms=lib1)
+    results["K1_hash_encode_bwd"] = k1_bwd(x01, live, rows, res, S_log2, cfg.n_features, gen)
 
     # ---- K4's full backward on the encoded samples: bf16 on the tensor
     # cores (the clean step's route), fp32 on the SIMT units
@@ -695,35 +731,123 @@ def phase_train_kernels(dev):
                                        bound_ms=bms3, bound_by=bby3, library_ms=None)
     del out, s_p, r_p
 
-    # ---- one whole train step through the kernels and through the plain versions;
-    # K2 is bit-exact and K3/K1 differ by fp32 sum order, so what is left is
-    # K4's bf16 roundings of sums taken in another order than cuBLAS's.  The
-    # limits are a few times the readings on an H100 (loss 7.0e-8 relative;
-    # per-leaf rel L2 2.6e-4 in bf16, 8.1e-7 in fp32)
-    fp32_counts = {}
-    for dtype, lim_rel in ((torch.bfloat16, 2e-3), (torch.float32, 1e-5)):
-        lim_loss = 1e-6
-        mt = make_model(dev, dtype=dtype)
-        _cuda.reset_launch_counts()
-        (lk, gk_), (lp, gp_) = (train_step_grads(mt, ro, rd, bg, noise, plain)
-                                for plain in (False, True))
-        fp32_counts.setdefault("train step", {}).update(
-            k4_route(_cuda.launch_counts(), dtype, ("K4_field", "K4_field_bwd"), "train step"))
-        el = abs(float(lk) - float(lp)) / abs(float(lp))
-        worst = max(rel_l2(a, b) for a, b in zip(gk_, gp_))
-        log(f"[train step] {str(dtype)[6:]}: loss {float(lk):.6g} vs plain {float(lp):.6g} "
-            f"(rel {el:.3g}, limit {lim_loss:g}); per-leaf grads worst rel L2 {worst:.3g} "
-            f"(limit {lim_rel:g})")
-        if not (el <= lim_loss and worst <= lim_rel):
-            raise AssertionError(f"train step through the kernels differs from the plain "
-                                 f"one ({str(dtype)})")
-        del mt
+    # ---- one whole train step through the kernels and through the plain
+    # versions, in bf16 and fp32
+    fp32_counts = {"train step": clean_steps(dev, ro, rd, bg, noise)["float32"]}
     wm_kernels(dev, results, fp32_counts)
     results["K4_field_bwd_feat_f32"]["fp32_step_launches"] = fp32_counts
     for name, r in results.items():
         log(f"[{name}] ms {r['ms']:.4f} | plain {r['plain_ms']:.4f} | "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']}) | library {r['library_ms']}")
     return results
+
+
+def clean_steps(dev, ro, rd, bg, noise, levels=16, features=2):
+    """One whole train step through the kernels against one through the
+    plain versions, in bf16 and in fp32, at a table geometry (``levels`` x
+    ``features``).  K2 is bit-exact and K3/K1 differ by fp32 sum order, so
+    what is left is K4's bf16 roundings of sums taken in another order than
+    cuBLAS's.  The limits are a few times the readings on an H100 (loss
+    7.0e-8 relative; per-leaf rel L2 2.6e-4 in bf16, 8.1e-7 in fp32).  Fails
+    unless K4 ran on the dtype's route alone; returns each dtype's launches."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    counts = {}
+    for dtype, lim_rel in ((torch.bfloat16, 2e-3), (torch.float32, 1e-5)):
+        lim_loss = 1e-6
+        mt = make_model(dev, dtype=dtype, levels=levels, features=features)
+        _cuda.reset_launch_counts()
+        (lk, gk_), (lp, gp_) = (train_step_grads(mt, ro, rd, bg, noise, plain)
+                                for plain in (False, True))
+        n = _cuda.launch_counts()
+        k4_route(n, dtype, ("K4_field", "K4_field_bwd"), "train step")
+        counts[str(dtype)[6:]] = n
+        el = abs(float(lk) - float(lp)) / abs(float(lp))
+        worst = max(rel_l2(a, b) for a, b in zip(gk_, gp_))
+        log(f"[train step] {levels} x {features}, {str(dtype)[6:]}: loss {float(lk):.6g} vs "
+            f"plain {float(lp):.6g} (rel {el:.3g}, limit {lim_loss:g}); per-leaf grads worst "
+            f"rel L2 {worst:.3g} (limit {lim_rel:g})")
+        if not (el <= lim_loss and worst <= lim_rel):
+            raise AssertionError(f"train step through the kernels differs from the plain "
+                                 f"one ({levels} x {features}, {str(dtype)})")
+        del mt
+    return counts
+
+
+def wm_steps(dev, x, levels=16, features=2):
+    """One whole watermark step through the kernels against one through the
+    plain versions, in bf16 and in fp32, at a table geometry.  A conv bias
+    before a batch norm has a zero gradient in exact arithmetic (noise of
+    ~1e-9 either way) and is left out of the per-leaf comparison.  The
+    limits are a few times the readings on an H100 (loss equal; worst leaf
+    8.4e-4 in bf16, the message tables', and 2.0e-5 in fp32).  Fails unless
+    K4 ran on the dtype's route alone; returns each dtype's launches."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    counts = {}
+    for dtype, lim_rel in ((torch.bfloat16, 5e-3), (torch.float32, 1e-4)):
+        lim_loss = 1e-6
+        mt = make_wm_model(dev, dtype=dtype, levels=levels, features=features)
+        _cuda.reset_launch_counts()
+        (lk, gk_), (lp, gp_) = (wm_step_grads(mt, x, plain) for plain in (False, True))
+        n = _cuda.launch_counts()
+        k4_route(n, dtype, ("K4_field", "K4_field_bwd_feat"), "wm step")
+        counts[str(dtype)[6:]] = n
+        el = abs(float(lk) - float(lp)) / abs(float(lp))
+        scale = max(float(g.norm()) for g in gp_)
+        kept = [(a, b) for a, b in zip(gk_, gp_) if float(b.norm()) > 1e-5 * scale]
+        worst = max(rel_l2(a, b) for a, b in kept)
+        log(f"[wm step] {levels} x {features}, {str(dtype)[6:]}: loss {float(lk):.6g} vs plain "
+            f"{float(lp):.6g} (rel {el:.3g}, limit {lim_loss:g}); {len(kept)} of {len(gp_)} "
+            f"trainable leaves' grads, worst rel L2 {worst:.3g} (limit {lim_rel:g}); message "
+            f"tables {rel_l2(gk_[0], gp_[0]):.3g}")
+        if not (el <= lim_loss and worst <= lim_rel):
+            raise AssertionError(f"watermark step through the kernels differs from the plain "
+                                 f"one ({levels} x {features}, {str(dtype)})")
+        del mt, gk_, gp_
+    return counts
+
+
+def k1_bwd(x01, live, n_rows, res, log2_size, F, gen):
+    """K1's backward (bf16 gather) against its plain version on random
+    cotangents of the live samples (zero on padded ones, as in a train
+    step); its row, with index_add_ of the same corner contributions as the
+    yardstick."""
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+
+    M, L = x01.shape[0], len(res)
+    dev = x01.device
+    g_feat = torch.randn((M, L * F), generator=gen, device=dev) * 1e-4 * live[:, None]
+    run = lambda: t_hash._hash_encode_bwd_kernel(x01, g_feat, n_rows, res, log2_size,
+                                                 torch.bfloat16, False, None)
+    gk = run()
+    gp = t_hash.hash_encode_bwd_plain(x01, g_feat, n_rows, res, log2_size, torch.bfloat16)
+    e1, a1 = rel_l2(gk, gp), float((gk - gp).abs().max())
+    log(f"[K1 bwd] F={F}: rel L2 {e1:.3g} (limit 1e-5), max abs err {a1:.3g}")
+    if not e1 <= 1e-5:
+        raise AssertionError(f"K1 backward (F={F}) differs from its plain version: rel L2 {e1}")
+    del gk, gp
+    ms = median_ms(run, 20)
+    pms = median_ms(lambda: t_hash.hash_encode_bwd_plain(
+        x01, g_feat, n_rows, res, log2_size, torch.bfloat16), 3, 1)
+    idx, val = [], []
+    g3 = g_feat.reshape(M, L, F).permute(1, 0, 2)
+    for ci, cw in t_hash._corners(x01, res, log2_size, False, None, torch.float32):
+        ct = (cw[..., None] * g3).to(torch.bfloat16).float()
+        for f in range(F):
+            idx.append((ci * F + f).reshape(-1))
+            val.append(ct[..., f].reshape(-1))
+    idx, val = torch.cat(idx), torch.cat(val)
+    n_adds = int((val != 0).sum())
+    buf = torch.zeros(n_rows * F, device=dev)
+    lib = median_ms(lambda: buf.index_add_(0, idx, val), 10)
+    del idx, val, buf
+    # bound: the cotangent read and the grad table written whole; x read only
+    # for samples with a nonzero cotangent; one add for each nonzero value
+    n_hot = int((g_feat != 0).any(-1).sum())
+    bms, bby = bound_of(M * L * F * 4 + n_hot * 12 + n_rows * F * 4, n_adds, PEAK_FP32)
+    return dict(max_abs_err=a1, rel_l2=e1, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                library_ms=lib)
 
 
 def k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb):
@@ -822,7 +946,7 @@ def library_mlp_bwd(fp, feat, dirs, g_sigma, g_rgb, weights_grad=True, dtype=tor
     return lambda: torch.autograd.grad([h, c], wrt, [gh, gc], retain_graph=True)
 
 
-def make_wm_model(dev, dtype=torch.bfloat16, seed=0):
+def make_wm_model(dev, dtype=torch.bfloat16, seed=0, levels=16, features=2):
     """The recipe's watermarked model with random weights from a seed: the
     full-width backbone of make_model on the ball grid, 32-bit message
     tables at U(+-0.1) (so the message moves the field), a fresh decoder."""
@@ -830,7 +954,8 @@ def make_wm_model(dev, dtype=torch.bfloat16, seed=0):
     from nerf_signature_tpu_torch.models.ngp import NGPConfig
     from nerf_signature_tpu_torch.models.watermark import WatermarkConfig
 
-    wcfg = WatermarkConfig(ngp=NGPConfig(bound=1.0, compute_dtype=dtype), message_dim=WM_BITS)
+    wcfg = WatermarkConfig(ngp=NGPConfig(bound=1.0, compute_dtype=dtype, n_levels=levels,
+                                         n_features=features), message_dim=WM_BITS)
     m = WatermarkModel(wcfg, min_near=0.2, density_thresh=10.0, dt_gamma=0.0,
                        max_steps=1024, grid_size=128, seed=seed, infer_budget=256, device=dev)
     m.backbone["hash_table"].mul_(1e4)
@@ -1019,33 +1144,136 @@ def wm_kernels(dev, results, fp32_counts):
     del feat, dirs, g_sigma, g_rgb, live
 
     # ---- one whole watermark step through the kernels and through the plain
-    # versions; a conv bias before a batch norm has a zero gradient in exact
-    # arithmetic (noise of ~1e-9 either way) and is left out of the per-leaf
-    # comparison
-    # the limits are a few times the readings on an H100 (loss equal; worst
-    # leaf 8.4e-4 in bf16, the message tables', and 2.0e-5 in fp32)
-    for dtype, lim_rel in ((torch.bfloat16, 5e-3), (torch.float32, 1e-4)):
-        lim_loss = 1e-6
-        mt = make_wm_model(dev, dtype=dtype)
-        _cuda.reset_launch_counts()
-        (lk, gk_), (lp, gp_) = (wm_step_grads(mt, x, plain) for plain in (False, True))
-        fp32_counts["wm step"] = k4_route(_cuda.launch_counts(), dtype,
-                                          ("K4_field", "K4_field_bwd_feat"), "wm step")
-        el = abs(float(lk) - float(lp)) / abs(float(lp))
-        scale = max(float(g.norm()) for g in gp_)
-        kept = [(a, b) for a, b in zip(gk_, gp_) if float(b.norm()) > 1e-5 * scale]
-        worst = max(rel_l2(a, b) for a, b in kept)
-        log(f"[wm step] {str(dtype)[6:]}: loss {float(lk):.6g} vs plain {float(lp):.6g} "
-            f"(rel {el:.3g}, limit {lim_loss:g}); {len(kept)} of {len(gp_)} trainable leaves' "
-            f"grads, worst rel L2 {worst:.3g} (limit {lim_rel:g}); message tables "
-            f"{rel_l2(gk_[0], gp_[0]):.3g}")
-        if not (el <= lim_loss and worst <= lim_rel):
-            raise AssertionError(f"watermark step through the kernels differs from the plain "
-                                 f"one ({str(dtype)})")
-        del mt, gk_, gp_
+    # versions, in bf16 and fp32
+    fp32_counts["wm step"] = wm_steps(dev, x)["float32"]
 
 
 # ---------------------------------------------------------------- phase 5
+def phase_geometry(dev):
+    """The 8-level table geometries at full table size (2^19 rows a level):
+    8 x 2 (K4 at encoding width 16) and 8 x 4 (K1 with 4 features a row).
+    For each: K1's forward (bit-exact) and K4's forward on the serving
+    chunk's samples, K1's and K4's full backward at the train step's shapes,
+    K4's feature-only backward at the watermark step's, each kernel against
+    its plain version on both of K4's routes; one whole clean step and one
+    whole watermark step through the kernels against the plain versions (bf16
+    and fp32, the existing limits); Trainer.train for GEO_ITERS steps on the
+    radius-0.7 ball, the quality limit checked at 8 x 4; and the refusal of
+    16 x 4 (width 64) before a model is built.  Returns the rows of K1 at
+    F = 4 and K4 at width 16, each geometry's launches (its Trainer.train
+    run, and under "wm_step" the bf16 watermark step's) and its training
+    numbers."""
+    from nerf_signature_tpu_torch.api import NGPModel
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+    from nerf_signature_tpu_torch.ops import marching as t_march
+    from nerf_signature_tpu_torch.render.renderer import default_aabb
+
+    try:
+        NGPModel(t_ngp.NGPConfig(n_levels=16, n_features=4), device=dev)
+    except NotImplementedError as e:
+        if "ROADMAP queue 3" not in str(e):
+            raise
+        log(f"[geometry] 16 x 4 refused up front: {str(e)[:120]}...")
+    else:
+        raise AssertionError("16 x 4 (encoding width 64) was not refused on the card")
+
+    rows, launches, stats = {}, {}, {}
+    for geo, (L, F) in GEOMETRIES.items():
+        gen = torch.Generator(device=dev).manual_seed(23)
+        m = make_model(dev, levels=L, features=F)
+        cfg, S_log2 = m.cfg, m.cfg.log2_hashmap_size
+        fp = t_ngp.field_params(m.params, cfg)
+        cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        fp32 = t_ngp.field_params(m.params, cfg32)
+        aabb, grid = default_aabb(m.rc), m.occ.occupancy
+        # serving shapes: K1 bit-exact, then K4 on both routes
+        ro, rd, _ = serve_chunk(dev)
+        mk = t_march.march_rays_aabb(ro, rd, aabb, grid, **march_kwargs(m, None))
+        x01 = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+        dirs = mk["dirs"].reshape(-1, 3).contiguous()
+        del mk
+        feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions, S_log2,
+                                  table_g=fp["hash_table_g"])
+        same = torch.equal(feat, t_hash.hash_encode_plain(x01, fp["hash_table"], cfg.resolutions,
+                                                          S_log2, table_g=fp["hash_table_g"]))
+        log(f"[geometry] {geo}: K1 forward at M={x01.shape[0]}, L={L}, F={F} equal to its "
+            f"plain version bit for bit: {same} (limit: equal)")
+        if not same:
+            raise AssertionError(f"K1 ({geo}) differs from its plain version")
+        fwd = {"K4_field": k4_forward(fp, cfg, feat, dirs)[0],
+               "K4_field_f32": k4_forward(fp32, cfg32, feat, dirs)[0]}
+        if F == 4:
+            rows["K1_hash_encode_f4"] = dict(k1_timing(x01, fp, cfg.resolutions, S_log2),
+                                             max_abs_err=0.0)
+        del feat, x01, dirs
+        # train step shapes: K1's and K4's full backward
+        ro, rd = train_rays(dev)
+        noise = torch.rand((TRAIN_RAYS,), generator=gen, device=dev)
+        mk = t_march.march_rays_aabb(ro, rd, aabb, grid, noise=noise, **dict(
+            march_kwargs(m, None), budget=TRAIN_BUDGET))
+        live = mk["mask"].reshape(-1).float()
+        x01 = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+        dirs = mk["dirs"].reshape(-1, 3).contiguous()
+        del mk
+        bwd = k1_bwd(x01, live, fp["hash_table"].shape[0], cfg.resolutions, S_log2, F, gen)
+        if F == 4:
+            rows["K1_hash_encode_bwd_f4"] = bwd
+        with torch.no_grad():
+            feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions, S_log2,
+                                      table_g=fp["hash_table_g"])
+        g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
+        g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
+        fwd["K4_field_bwd"] = k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb)
+        fwd["K4_field_bwd_f32"] = k4_bwd(fp32, cfg32, feat, dirs, g_sigma, g_rgb)
+        del feat, x01, dirs, g_sigma, g_rgb, live
+        bg = torch.rand((TRAIN_RAYS, 3), generator=gen, device=dev)
+        clean_steps(dev, ro, rd, bg, noise, L, F)
+        # watermark step shapes: K4's feature-only backward, then the whole step
+        mw = make_wm_model(dev, levels=L, features=F)
+        x = wm_step_inputs(dev)
+        fpw = t_ngp.field_params(mw.backbone, cfg)
+        fpw32 = t_ngp.field_params(mw.backbone, cfg32)
+        mk = t_march.march_rays_aabb(
+            torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]]),
+            torch.cat([x["rd_b"].reshape(-1, 3), x["ct_d"]]), default_aabb(mw.rc),
+            mw.occ.occupancy, min_near=0.2, bound=1.0, max_steps=1024, budget=256)
+        live = mk["mask"].reshape(-1).float()
+        x01 = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+        dirs = mk["dirs"].reshape(-1, 3).contiguous()
+        del mk
+        with torch.no_grad():
+            feat = t_hash.hash_encode(x01, fpw["hash_table"], cfg.resolutions, S_log2,
+                                      table_g=fpw["hash_table_g"])
+        g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
+        g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
+        fwd["K4_field_bwd_feat"] = k4_bwd_feat(fpw, cfg, feat, dirs, g_sigma, g_rgb)
+        fwd["K4_field_bwd_feat_f32"] = k4_bwd_feat(fpw32, cfg32, feat, dirs, g_sigma, g_rgb)
+        del feat, x01, dirs, g_sigma, g_rgb, live, mw, fpw, fpw32, m, fp, fp32
+        wm = wm_steps(dev, x, L, F)
+        if F == 2:  # K4 at encoding width 16: its rows
+            rows.update({(k[:-4] + "_in16_f32" if k.endswith("_f32") else k + "_in16"): r
+                         for k, r in fwd.items()})
+        # the main path: Trainer.train with this geometry
+        r = train_case(dev, TRAIN_BALL, GEO_ITERS, levels=L, features=F)
+        launches[geo] = dict(r["launches"], wm_step=wm["bfloat16"])
+        stats[geo] = {k: r[k] for k in ("seconds", "psnr0", "psnr1")}
+        log(f"[geometry] {geo}: Trainer.train {r['trainer'].global_step} steps in "
+            f"{r['seconds']:.2f} s, held-out PSNR {r['psnr0']:.2f} -> {r['psnr1']:.2f} dB "
+            f"(limit at 8 x 4: +6 dB); launches {r['launches']}")
+        for name in CLEAN_TRAIN:
+            if r["launches"][name] == 0:
+                raise AssertionError(f"{name} was not launched by Trainer.train at {geo}")
+        k4_route(r["launches"], torch.bfloat16, ("K4_field", "K4_field_bwd"),
+                 f"Trainer.train at {geo}")
+        if geo == "8x4" and not r["psnr1"] >= r["psnr0"] + 6.0:
+            raise AssertionError(f"8 x 4: held-out PSNR {r['psnr1']:.2f} dB < untrained "
+                                 f"{r['psnr0']:.2f} + 6 dB")
+        del r
+    return rows, launches, stats
+
+
+# ---------------------------------------------------------------- phase 6
 def phase_serve(dev, workdir):
     from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.ops import marching as t_march
@@ -1111,6 +1339,10 @@ def phase_serve(dev, workdir):
         img_k = m.render(rays["rays_o"][0], rays["rays_d"][0], staged=True)["image"]
         torch.cuda.synchronize()
         t_kernel = time.time() - t0
+        view = view_profile(lambda: m.render(rays["rays_o"][0], rays["rays_d"][0], staged=True))
+        log(f"[serve] view 0 under torch.profiler: device ms by kernel "
+            f"{ {k: round(view[k], 3) for k in VIEW_KERNELS} }, K1-K4 {view['kernels_ms']:.2f} ms, "
+            f"all device work {view['device_ms']:.2f} ms, wall {view['wall_ms']:.1f} ms")
         t0 = time.time()
         img_p = m.render(rays["rays_o"][0], rays["rays_d"][0], staged=True, plain=True)["image"]
         torch.cuda.synchronize()
@@ -1150,10 +1382,10 @@ def phase_serve(dev, workdir):
     if not (0.0 < frac < 1.0 and n["K1_hash_encode"] > 0):
         raise AssertionError("grid rebuild did not run through K1")
     k4_route(n, torch.bfloat16, ("K4_field",), "grid rebuild")
-    return launches
+    return launches, view
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 class BallViews:
     """The train loader: TRAIN_VIEWS orbit views of the analytic ball of
     ``radius`` at RES x RES; each step draws TRAIN_RAYS random pixels of one
@@ -1215,9 +1447,10 @@ def watch_adaptations(trainer):
     return moves, note
 
 
-def train_case(dev, radius, iters, group_budget=-1):
-    """A fresh full-width model (standard init) trained by the port's
-    Trainer.train with the CLI's train defaults on BallViews(radius).
+def train_case(dev, radius, iters, group_budget=-1, levels=16, features=2):
+    """A fresh full-width model (standard init; ``levels`` x ``features``
+    table geometry) trained by the port's Trainer.train with the CLI's train
+    defaults on BallViews(radius).
     Returns the trainer, its loader, the loop's wall seconds, the kernels'
     launches, peak memory, the held-out view's PSNR before and after, and the
     adaptations' moves."""
@@ -1231,9 +1464,10 @@ def train_case(dev, radius, iters, group_budget=-1):
     opt = SimpleNamespace(lr=1e-2, iters=iters, num_rays=TRAIN_RAYS, max_steps=1024,
                           update_extra_interval=16, compact_frac=-1, group_budget=group_budget,
                           max_ray_batch=CHUNK, patch_size=1, color_space="srgb")
-    model = NGPModel(NGPConfig(bound=1.0), min_near=0.2, density_thresh=10.0, dt_gamma=0.0,
-                     max_steps=1024, grid_size=128, seed=2, train_budget=TRAIN_BUDGET,
-                     infer_budget=256, device=dev)
+    model = NGPModel(NGPConfig(bound=1.0, n_levels=levels, n_features=features),
+                     min_near=0.2, density_thresh=10.0, dt_gamma=0.0, max_steps=1024,
+                     grid_size=128, seed=2, train_budget=TRAIN_BUDGET, infer_budget=256,
+                     device=dev)
     loader = BallViews(radius)
     held = view_rays(orbit_poses(1, ORBIT_RADIUS, seed=9))
     rgba = ball_rgba(held["rays_o"][0], held["rays_d"][0], radius=radius)
@@ -1335,7 +1569,7 @@ def profile_steps(trainer, loader, n=16, tag="profile", step=None):
         log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name[:90]}")
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 8
 def orbit_poses_rh(n, radius, seed):
     """Right-handed orbit poses (scipy's slerp of the test poses needs
     det > 0), in the ngp convention."""
@@ -1526,7 +1760,26 @@ SOURCES = {
                          "nerf_signature_tpu/models/message.py:45"),
     "P1_gather": ("nerf_signature_tpu_torch/csrc/gather.cu",
                   "scripts_dev/pallas_gather_probe.py:46"),
+    # the 8-level geometries: K1 with 4 features a row (8 x 4), K4 at
+    # encoding width 16 (8 x 2) on each route
+    "K1_hash_encode_f4": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
+                          "nerf_signature_tpu/ops/hashenc.py:250"),
+    "K1_hash_encode_bwd_f4": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
+                              "nerf_signature_tpu/ops/hashenc.py:124"),
+    "K4_field_in16": ("nerf_signature_tpu_torch/csrc/field_mma.cu",
+                      "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_in16_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
+                          "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_in16": ("nerf_signature_tpu_torch/csrc/field_mma_bwd_full.cu",
+                          "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_in16_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
+                              "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_feat_in16": ("nerf_signature_tpu_torch/csrc/field_mma_bwd.cu",
+                               "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_feat_in16_f32": ("nerf_signature_tpu_torch/csrc/field_feat.cu",
+                                   "nerf_signature_tpu/models/mlp.py:30"),
 }
+GEOMETRY_ROWS = tuple(n for n in SOURCES if n.endswith(("_f4", "_in16", "_in16_f32")))
 FORWARD = ("K1_hash_encode", "K2_march", "K3_composite", "K4_field")
 CLEAN_TRAIN = FORWARD + ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd")
 # the watermark step: the forward kernels, K9 both ways, K1's and K3's
@@ -1553,8 +1806,9 @@ def main():
     build_s = phase_build()
     kernels = phase_kernels(dev)
     train_kernels = phase_train_kernels(dev)
+    geometry, geometry_launches, geometry_stats = phase_geometry(dev)
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_serve(dev, workdir)
+        launches, view = phase_serve(dev, workdir)
     train = phase_train(dev)
     with tempfile.TemporaryDirectory() as workdir:
         wm = phase_wm(dev, train.pop("model"), workdir)
@@ -1565,23 +1819,38 @@ def main():
         # launches (slice 2); the watermark kernels: the watermark step's
         # shapes and WatermarkTrainer.train's launches (slice 3); P1 is on no
         # entry point's path (0 launches there), timed at the probe's shapes;
-        # K4's SIMT kernels are the fp32 route, off the bf16 main path
-        r = kernels[name] if name in KERNEL_PHASE else train_kernels[name]
-        if name in FORWARD:
-            n, path = launches[name], "serve"
-        elif name in CLEAN_TRAIN:
-            n, path = train["launches"][name], "train"
-        elif name in WM_TRAIN:
-            n, path = wm["launches"][name], "wm"
-        elif name in FP32_ROUTE:
-            n, path = 0, "fp32 route (the fp32 whole-step checks)"
+        # K4's SIMT kernels are the fp32 route, off the bf16 main path; K1
+        # at F = 4 and K4 at width 16: the geometry phase's shapes, launches
+        # of Trainer.train at 8 x 4 or 8 x 2 (K4's feature-only backward: of
+        # the whole watermark step through the kernels at 8 x 2)
+        base = name.replace("_in16", "").replace("_f4", "")
+        if name in GEOMETRY_ROWS:
+            r = geometry[name]
+            geo = "8x4" if name.endswith("_f4") else "8x2"
+            train_n, wm_n = geometry_launches[geo][base], geometry_launches[geo]["wm_step"][base]
+            if base in FP32_ROUTE:
+                n, path = 0, f"fp32 route at {geo} (the fp32 whole-step checks)"
+            elif base == "K4_field_bwd_feat":
+                n, path = wm_n, f"wm step at {geo} (kernels vs plain)"
+            else:
+                n, path = train_n, f"train at {geo}"
         else:
-            n, path = 0, "none (dev probe)"
+            r = kernels[name] if name in KERNEL_PHASE else train_kernels[name]
+            train_n, wm_n = train["launches"][name], wm["launches"][name]
+            if name in FORWARD:
+                n, path = launches[name], "serve"
+            elif name in CLEAN_TRAIN:
+                n, path = train_n, "train"
+            elif name in WM_TRAIN:
+                n, path = wm_n, "wm"
+            elif name in FP32_ROUTE:
+                n, path = 0, "fp32 route (the fp32 whole-step checks)"
+            else:
+                n, path = 0, "none (dev probe)"
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "path": path, "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-               "library_ms": r["library_ms"], "train_launches": train["launches"][name],
-               "wm_launches": wm["launches"][name]}
+               "library_ms": r["library_ms"], "train_launches": train_n, "wm_launches": wm_n}
         for extra in ("device_ms", "plain_device_ms", "library_device_ms", "rel_l2", "full_bwd_ms",
                       "share_not_equal", "rel_l2_vs_full_bwd"):
             if extra in r:
@@ -1589,16 +1858,18 @@ def main():
         if name in FP32_ROUTE:
             row["fp32_step_launches"] = {
                 step: c[name] for step, c in
-                train_kernels["K4_field_bwd_feat_f32"]["fp32_step_launches"].items() if name in c}
+                train_kernels["K4_field_bwd_feat_f32"]["fp32_step_launches"].items()
+                if c.get(name)}
         if name == "K2_march":  # with perturbation noise at the train step's shapes
             t = train_kernels[name]
-            row.update(train_ms=t["ms"], train_plain_ms=t["plain_ms"],
-                       train_bound_ms=t["bound_ms"], train_max_abs_err=t["max_abs_err"])
+            row.update(train_ms=t["ms"], train_device_ms=t["device_ms"],
+                       train_plain_ms=t["plain_ms"], train_bound_ms=t["bound_ms"],
+                       train_max_abs_err=t["max_abs_err"])
         rows.append(row)
     wm.pop("launches")
-    print(json.dumps({"kernels": rows, "build_s": build_s, "train": {
+    print(json.dumps({"kernels": rows, "build_s": build_s, "view": view, "train": {
         k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1")},
-        "wm": wm}, default=float))
+        "geometry": geometry_stats, "wm": wm}, default=float))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

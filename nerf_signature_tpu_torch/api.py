@@ -3,6 +3,8 @@ params, occupancy grid and render options, with the staged chunked render.
 
 The model lives on one device, ``"cuda"`` unless the caller passes
 ``device="cpu"``; with no GPU visible and no explicit CPU request it raises.
+On the card a table geometry the kernels lack (``check_kernel_geometry``,
+e.g. 16 levels x 4 features) is refused before anything is built.
 On the card every chunk goes through the kernels (K2 marcher, K1 hash
 encoder, K4 field heads, K3 compositor, and K9's effective table under a
 message); on the CPU through their plain versions.  ``NGPModel`` is the
@@ -16,7 +18,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models.ngp import NGPConfig, field_params, init_ngp_params, ngp_density, ngp_field
+from .models.ngp import (
+    NGPConfig,
+    check_kernel_geometry,
+    field_params,
+    init_ngp_params,
+    ngp_density,
+    ngp_field,
+)
 from .models.watermark import (
     WatermarkConfig,
     init_watermark_params,
@@ -41,8 +50,10 @@ class _BaseModel:
     render, shared by the clean and the watermarked model.  A subclass
     supplies ``_density_query`` and ``_render_field``."""
 
-    def __init__(self, rc: RenderConfig, *, device, seed, density_thresh, train_budget,
-                 infer_budget, cuda_ray, bg_radius):
+    def __init__(self, cfg: NGPConfig, rc: RenderConfig, *, device, seed, density_thresh,
+                 train_budget, infer_budget, cuda_ray, bg_radius):
+        if device is None or torch.device(device).type == "cuda":
+            check_kernel_geometry(cfg)  # before anything is built
         self.device = resolve_device(device)
         if bg_radius > 0:
             raise NotImplementedError(
@@ -197,7 +208,7 @@ class NGPModel(_BaseModel):
             min_near=min_near, dt_gamma=dt_gamma, max_steps=max_steps,
             num_steps=num_steps, upsample_steps=upsample_steps,
             bg_radius=bg_radius, compact_frac=compact_frac, t_cull=t_cull)
-        super().__init__(rc, device=device, seed=seed, density_thresh=density_thresh,
+        super().__init__(self.cfg, rc, device=device, seed=seed, density_thresh=density_thresh,
                          train_budget=train_budget, infer_budget=infer_budget,
                          cuda_ray=cuda_ray, bg_radius=max(bg_radius, self.cfg.bg_radius))
         self.params = init_ngp_params(torch.Generator().manual_seed(seed), self.cfg,
@@ -228,9 +239,10 @@ class WatermarkModel(_BaseModel):
             bound=self.wcfg.ngp.bound, grid_size=grid_size, density_scale=density_scale,
             min_near=min_near, dt_gamma=dt_gamma, max_steps=max_steps,
             bg_radius=bg_radius, compact_frac=compact_frac, t_cull=t_cull)
-        super().__init__(rc, device=device, seed=seed, density_thresh=density_thresh,
-                         train_budget=train_budget, infer_budget=infer_budget,
-                         cuda_ray=cuda_ray, bg_radius=max(bg_radius, self.wcfg.ngp.bg_radius))
+        super().__init__(self.wcfg.ngp, rc, device=device, seed=seed,
+                         density_thresh=density_thresh, train_budget=train_budget,
+                         infer_budget=infer_budget, cuda_ray=cuda_ray,
+                         bg_radius=max(bg_radius, self.wcfg.ngp.bg_radius))
         p = init_watermark_params(torch.Generator().manual_seed(seed), self.wcfg, self.device)
         self.backbone = p["backbone"]
         self.trainable = p["trainable"]

@@ -82,8 +82,8 @@ __global__ void field_fwd(const float* __restrict__ feat, const float* __restric
 }
 
 template <int IN, int HID, int OUT1, int HC>
-static int launch_field(const void* feat, const void* dirs, const void* weights, void* sigma,
-                        void* geo, void* rgb, long long M, cudaStream_t s) {
+int launch_field(const void* feat, const void* dirs, const void* weights, void* sigma,
+                 void* geo, void* rgb, long long M, cudaStream_t s) {
   const int threads = 256;
   field_fwd<IN, HID, OUT1, HC><<<ngp_blocks(M, threads), threads, 0, s>>>(
       (const float*)feat, (const float*)dirs, (const float*)weights, (float*)sigma,
@@ -91,20 +91,29 @@ static int launch_field(const void* feat, const void* dirs, const void* weights,
   NGP_RETURN_LAST_ERROR();
 }
 
-// Widths supported: the NGPConfig defaults (32 -> 64 -> 16, 31 -> 64 -> 64 -> 3)
-// and the narrow test config (8 -> 16 -> 16, 31 -> 16 -> 16 -> 3).  fp32 only.
+#ifndef NGP_IN
+#define NGP_EXTERN(IN, HID, OUT1, HC) \
+  extern template int launch_field<IN, HID, OUT1, HC>(const void*, const void*, const void*, \
+                                                      void*, void*, void*, long long,          \
+                                                      cudaStream_t);
+NGP_FIELD_WIDTHS(NGP_EXTERN)
+#undef NGP_EXTERN
+
+// Widths supported: NGP_FIELD_WIDTHS (field_common.cuh).  fp32 only.
 extern "C" int ngp_field(const void* feat, const void* dirs, const void* weights, void* sigma,
                          void* geo, void* rgb, long long M, int in_dim, int hidden, int out1,
                          int hidden_color, void* stream) {
   if (M == 0) return 0;
   if (rgb != nullptr && dirs == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (in_dim == 32 && hidden == 64 && out1 == 16 && hidden_color == 64)
-    return launch_field<32, 64, 16, 64>(feat, dirs, weights, sigma, geo, rgb, M, s);
-  if (in_dim == 8 && hidden == 16 && out1 == 16 && hidden_color == 16)
-    return launch_field<8, 16, 16, 16>(feat, dirs, weights, sigma, geo, rgb, M, s);
+#define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
+  if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
+    return launch_field<IN, HID, OUT1, HC>(feat, dirs, weights, sigma, geo, rgb, M, s);
+  NGP_FIELD_WIDTHS(NGP_DISPATCH)
+#undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
+#endif  // NGP_IN
 
 // ---------------------------------------------------------------- backward
 //
@@ -298,7 +307,7 @@ __global__ void __launch_bounds__(128, 1)
 }
 
 // Sums the blocks' partials in block order.
-__global__ void field_bwd_reduce(const float* __restrict__ partials, int n_blocks, int n_w,
+static __global__ void field_bwd_reduce(const float* __restrict__ partials, int n_blocks, int n_w,
                                  float* __restrict__ g_weights) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_w) return;
@@ -308,9 +317,9 @@ __global__ void field_bwd_reduce(const float* __restrict__ partials, int n_block
 }
 
 template <int IN, int HID, int OUT1, int HC>
-static int launch_field_bwd(const void* feat, const void* dirs, const void* weights,
-                            const void* g_sigma, const void* g_rgb, void* g_feat, void* partials,
-                            void* g_weights, long long M, int n_blocks, cudaStream_t s) {
+int launch_field_bwd(const void* feat, const void* dirs, const void* weights,
+                     const void* g_sigma, const void* g_rgb, void* g_feat, void* partials,
+                     void* g_weights, long long M, int n_blocks, cudaStream_t s) {
   using D = FieldDims<IN, HID, OUT1, HC>;
   auto kernel = field_bwd<IN, HID, OUT1, HC>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -326,6 +335,14 @@ static int launch_field_bwd(const void* feat, const void* dirs, const void* weig
   NGP_RETURN_LAST_ERROR();
 }
 
+#ifndef NGP_IN
+#define NGP_EXTERN(IN, HID, OUT1, HC) \
+  extern template int launch_field_bwd<IN, HID, OUT1, HC>(                                  \
+      const void*, const void*, const void*, const void*, const void*, void*, void*, void*,  \
+      long long, int, cudaStream_t);
+NGP_FIELD_WIDTHS(NGP_EXTERN)
+#undef NGP_EXTERN
+
 // partials: [n_blocks, N_W] fp32 scratch; n_blocks >= 1 blocks of 128 threads.
 extern "C" int ngp_field_bwd(const void* feat, const void* dirs, const void* weights,
                              const void* g_sigma, const void* g_rgb, void* g_feat,
@@ -334,11 +351,19 @@ extern "C" int ngp_field_bwd(const void* feat, const void* dirs, const void* wei
                              void* stream) {
   if (M == 0 || n_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (in_dim == 32 && hidden == 64 && out1 == 16 && hidden_color == 64)
-    return launch_field_bwd<32, 64, 16, 64>(feat, dirs, weights, g_sigma, g_rgb, g_feat,
-                                            partials, g_weights, M, n_blocks, s);
-  if (in_dim == 8 && hidden == 16 && out1 == 16 && hidden_color == 16)
-    return launch_field_bwd<8, 16, 16, 16>(feat, dirs, weights, g_sigma, g_rgb, g_feat,
-                                           partials, g_weights, M, n_blocks, s);
+#define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
+  if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
+    return launch_field_bwd<IN, HID, OUT1, HC>(feat, dirs, weights, g_sigma, g_rgb, g_feat,   \
+                                               partials, g_weights, M, n_blocks, s);
+  NGP_FIELD_WIDTHS(NGP_DISPATCH)
+#undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
+#else
+template int launch_field<NGP_IN, NGP_HID, NGP_OUT1, NGP_HC>(const void*, const void*,
+                                                             const void*, void*, void*, void*,
+                                                             long long, cudaStream_t);
+template int launch_field_bwd<NGP_IN, NGP_HID, NGP_OUT1, NGP_HC>(
+    const void*, const void*, const void*, const void*, const void*, void*, void*, void*, long long,
+    int, cudaStream_t);
+#endif  // NGP_IN

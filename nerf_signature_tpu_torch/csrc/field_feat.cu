@@ -136,9 +136,9 @@ __global__ void __launch_bounds__(128)
 }
 
 template <int IN, int HID, int OUT1, int HC>
-static int launch_field_bwd_feat(const void* feat, const void* dirs, const void* weights,
-                                 const void* g_sigma, const void* g_rgb, void* g_feat,
-                                 long long M, int bf16, cudaStream_t s) {
+int launch_field_bwd_feat(const void* feat, const void* dirs, const void* weights,
+                          const void* g_sigma, const void* g_rgb, void* g_feat, long long M,
+                          int bf16, cudaStream_t s) {
   const int threads = 128;
   field_bwd_feat<IN, HID, OUT1, HC><<<ngp_blocks(M, threads), threads, 0, s>>>(
       (const float*)feat, (const float*)dirs, (const float*)weights, (const float*)g_sigma,
@@ -146,17 +146,30 @@ static int launch_field_bwd_feat(const void* feat, const void* dirs, const void*
   NGP_RETURN_LAST_ERROR();
 }
 
+#ifndef NGP_IN
+#define NGP_EXTERN(IN, HID, OUT1, HC) \
+  extern template int launch_field_bwd_feat<IN, HID, OUT1, HC>(                           \
+      const void*, const void*, const void*, const void*, const void*, void*, long long, int, \
+      cudaStream_t);
+NGP_FIELD_WIDTHS(NGP_EXTERN)
+#undef NGP_EXTERN
+
 extern "C" int ngp_field_bwd_feat(const void* feat, const void* dirs, const void* weights,
                                   const void* g_sigma, const void* g_rgb, void* g_feat,
                                   long long M, int in_dim, int hidden, int out1,
                                   int hidden_color, int bf16, void* stream) {
   if (M == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (in_dim == 32 && hidden == 64 && out1 == 16 && hidden_color == 64)
-    return launch_field_bwd_feat<32, 64, 16, 64>(feat, dirs, weights, g_sigma, g_rgb, g_feat,
-                                                 M, bf16, s);
-  if (in_dim == 8 && hidden == 16 && out1 == 16 && hidden_color == 16)
-    return launch_field_bwd_feat<8, 16, 16, 16>(feat, dirs, weights, g_sigma, g_rgb, g_feat,
-                                                M, bf16, s);
+#define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
+  if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
+    return launch_field_bwd_feat<IN, HID, OUT1, HC>(feat, dirs, weights, g_sigma, g_rgb,      \
+                                                    g_feat, M, bf16, s);
+  NGP_FIELD_WIDTHS(NGP_DISPATCH)
+#undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
+#else
+template int launch_field_bwd_feat<NGP_IN, NGP_HID, NGP_OUT1, NGP_HC>(
+    const void*, const void*, const void*, const void*, const void*, void*, long long, int,
+    cudaStream_t);
+#endif  // NGP_IN

@@ -92,18 +92,18 @@ int launch_fwd(const void* feat, const void* dirs, const void* wpack, void* sigm
 }  // namespace
 
 // wpack: the packed bf16 weights (models/ngp.py:pack_mlp_mma), 16-byte
-// aligned.  Widths: the NGPConfig defaults (32 -> 64 -> 16, 31 -> 64 -> 64 -> 3)
-// and the narrow test config (8 -> 16 -> 16, 31 -> 16 -> 16 -> 3).
+// aligned.  Widths: NGP_FIELD_WIDTHS (field_common.cuh).
 extern "C" int ngp_field_mma(const void* feat, const void* dirs, const void* wpack, void* sigma,
                              void* geo, void* rgb, long long M, int in_dim, int hidden, int out1,
                              int hidden_color, void* stream) {
   if (M == 0) return 0;
   if (rgb != nullptr && dirs == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (in_dim == 32 && hidden == 64 && out1 == 16 && hidden_color == 64)
-    return launch_fwd<32, 64, 16, 64>(feat, dirs, wpack, sigma, geo, rgb, M, s);
-  if (in_dim == 8 && hidden == 16 && out1 == 16 && hidden_color == 16)
-    return launch_fwd<8, 16, 16, 16>(feat, dirs, wpack, sigma, geo, rgb, M, s);
+#define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
+  if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
+    return launch_fwd<IN, HID, OUT1, HC>(feat, dirs, wpack, sigma, geo, rgb, M, s);
+  NGP_FIELD_WIDTHS(NGP_DISPATCH)
+#undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
 

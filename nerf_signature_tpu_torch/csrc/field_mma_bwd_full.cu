@@ -340,11 +340,11 @@ extern "C" int ngp_field_mma_bwd(const void* feat, const void* dirs, const void*
                                  void* stream) {
   if (n_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (in_dim == 32 && hidden == 64 && out1 == 16 && hidden_color == 64)
-    return launch_bwd_full<32, 64, 16, 64>(feat, dirs, wpack, g_sigma, g_rgb, g_feat, partials,
-                                           index, g_flat, M, n_blocks, s);
-  if (in_dim == 8 && hidden == 16 && out1 == 16 && hidden_color == 16)
-    return launch_bwd_full<8, 16, 16, 16>(feat, dirs, wpack, g_sigma, g_rgb, g_feat, partials,
-                                          index, g_flat, M, n_blocks, s);
+#define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
+  if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
+    return launch_bwd_full<IN, HID, OUT1, HC>(feat, dirs, wpack, g_sigma, g_rgb, g_feat,      \
+                                              partials, index, g_flat, M, n_blocks, s);
+  NGP_FIELD_WIDTHS(NGP_DISPATCH)
+#undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

@@ -16,22 +16,35 @@
 // counted, and fine candidates are tested only inside the first
 // `group_budget` occupied groups.
 //
-// What bounds it on the H100: latency, not bytes or flops.  Per ray it
-// reads 24 B of ray and writes S*(12+4+4+1) B of samples; the grid lookups
-// are single bytes from a 2 MB (fine) and a 256 KB (coarse) table that stay
-// in L2.  A chunk has only 4096 rays, so the walk is a chain of dependent
-// loads on 4096 threads.
+// What bounds it on the H100: bytes.  Per ray it reads 24 B of ray and
+// writes S*(12+4+4+1) B of samples (22 MB for a 4096-ray chunk at S = 256);
+// the grid lookups are single bytes from a 2 MB (fine) and a 256 KB
+// (coarse) table that stay in L2.  What it must beat is latency: the walk
+// is a chain of dependent L2 loads (up to 1024 candidates a ray).
 //
-// Design: one thread per ray.  Candidates past `far` can never be valid
-// and t never decreases along the walk, so the walk stops at the first
-// candidate (or group start) at or beyond far: that is exact for the
-// samples and for all three counts.  It does not stop at S, because the
-// counts need the rest of the walk.  Slots past the last kept sample get
-// zeros, as marching.py:521-524 writes them.  Position and cell arithmetic
-// use __fmul_rn/__fadd_rn/__fdiv_rn (and the file is compiled with
-// -fmad=false), so every candidate lands in the same cell as in the plain
-// version: a flipped cell at a boundary would change which samples a ray
-// keeps.
+// Design: one warp a ray, so a 4096-ray chunk is 4096 warps (~31 an SM).
+// The walk goes in chunks of 32 candidates (or 32 groups), one a lane:
+// - dt_gamma == 0: each lane computes its candidate in closed form; with
+//   dt_gamma > 0 every lane runs the chunk's serial recurrence (the same
+//   rounded steps as one thread would) and keeps its own step;
+// - the occupied lanes are ranked by __ballot_sync + __popc, so a ray's
+//   kept samples go to consecutive slots of its row from consecutive lanes
+//   (coalesced stores), in candidate order;
+// - t never decreases along the walk and no candidate at or past `far` can
+//   be valid, so the walk ends after the first chunk with a lane at or past
+//   far (or past n_cand): exact for the samples and for all three counts.
+//   It does not stop at S, because the counts need the rest of the walk;
+// - prefilter: a chunk tests 32 group midpoints against the dilated coarse
+//   grid; a ballot prefix gives each occupied group its ordinal, compared
+//   with group_budget (every occupied group is counted); then the admitted
+//   groups' fine candidates are tested 32 / group groups a pass, lane =
+//   (group, candidate), so lane order is candidate order;
+// - the unused slots are zero-filled (as marching.py:521-524 writes them)
+//   by a warp-wide coalesced loop.
+// Position and cell arithmetic use __fmul_rn/__fadd_rn/__fdiv_rn (and the
+// file is compiled with -fmad=false), so every candidate lands in the same
+// cell as in the plain version: a flipped cell at a boundary would change
+// which samples a ray keeps.
 
 #include "common.cuh"
 
@@ -102,17 +115,58 @@ __device__ __forceinline__ float next_dt(float t, const MarchParams& q) {
   return ngp_clip(__fmul_rn(t, q.dt_gamma), q.dt_min, q.dt_max);
 }
 
-__global__ void march_fwd(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
-                          const unsigned char* __restrict__ grid,
-                          const unsigned char* __restrict__ coarse,
-                          const float* __restrict__ noise, MarchParams q,
-                          float* __restrict__ xyzs, float* __restrict__ deltas,
-                          float* __restrict__ ts, unsigned char* __restrict__ mask,
-                          float* __restrict__ nears, float* __restrict__ fars,
-                          int* __restrict__ n_occupied, int* __restrict__ n_occupied_raw,
-                          int* __restrict__ n_groups_occ) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+#define NGP_FULL 0xffffffffu
+#define NGP_MARCH_WARPS 4
+
+// The ray's output row and the warp's running counts; every lane holds the
+// same counts.
+struct RayRow {
+  float* xyzs;
+  float* deltas;
+  float* ts;
+  unsigned char* mask;
+  int budget, kept, occ_raw;
+
+  // Keep the sample of each lane with `occ`, in lane order, after the
+  // samples kept so far; returns the ballot.
+  __device__ __forceinline__ unsigned keep(bool occ, float t, float dt, const float* p,
+                                           unsigned lanes_below) {
+    const unsigned b = __ballot_sync(NGP_FULL, occ);
+    if (occ) {
+      const int s = kept + __popc(b & lanes_below);
+      if (s < budget) {
+        ts[s] = t;
+        deltas[s] = dt;
+        xyzs[s * 3 + 0] = p[0];
+        xyzs[s * 3 + 1] = p[1];
+        xyzs[s * 3 + 2] = p[2];
+        mask[s] = 1;
+      }
+    }
+    kept += __popc(b);
+    occ_raw += __popc(b);
+    return b;
+  }
+};
+
+// Position of the n-th (from 0) set bit of mask, or -1.
+__device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
+  for (int i = 0; i < n && mask; ++i) mask &= mask - 1u;
+  return mask ? __ffs(mask) - 1 : -1;
+}
+
+__global__ void __launch_bounds__(32 * NGP_MARCH_WARPS)
+    march_fwd(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+              const unsigned char* __restrict__ grid, const unsigned char* __restrict__ coarse,
+              const float* __restrict__ noise, MarchParams q, float* __restrict__ xyzs,
+              float* __restrict__ deltas, float* __restrict__ ts,
+              unsigned char* __restrict__ mask, float* __restrict__ nears,
+              float* __restrict__ fars, int* __restrict__ n_occupied,
+              int* __restrict__ n_occupied_raw, int* __restrict__ n_groups_occ) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * NGP_MARCH_WARPS + (threadIdx.x >> 5);  // one warp a ray
   if (n >= q.N) return;
+  const unsigned below = (1u << lane) - 1u;
   float o[3], d[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -120,7 +174,7 @@ __global__ void march_fwd(const float* __restrict__ rays_o, const float* __restr
     d[a] = rays_d[n * 3 + a];
   }
 
-  // prologue: slab test (ops/intersect.py:near_far_from_aabb)
+  // prologue: slab test (ops/intersect.py:near_far_from_aabb), every lane
   float near = -INFINITY, far = INFINITY;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -133,98 +187,129 @@ __global__ void march_fwd(const float* __restrict__ rays_o, const float* __restr
   const bool miss = near > far;
   near = fmaxf(near, q.min_near);
   if (miss) near = far = NGP_MISS;
-  nears[n] = near;
-  fars[n] = far;
+  if (lane == 0) {
+    nears[n] = near;
+    fars[n] = far;
+  }
 
   const long long row = (long long)n * q.budget;
-  int kept = 0, occ_raw = 0, groups_occ = 0;
-  float p[3];
-
-  auto keep = [&](float t, float dt, const float* pos) {
-    if (kept < q.budget) {
-      const long long k = row + kept;
-      ts[k] = t;
-      deltas[k] = dt;
-      xyzs[k * 3 + 0] = pos[0];
-      xyzs[k * 3 + 1] = pos[1];
-      xyzs[k * 3 + 2] = pos[2];
-      mask[k] = 1;
-    }
-    ++kept;
-  };
+  RayRow out{xyzs + row * 3, deltas + row, ts + row, mask + row, q.budget, 0, 0};
+  int groups_occ = 0;
+  float p[3] = {0.0f, 0.0f, 0.0f};
+  const bool closed = q.dt_gamma == 0.0f;  // closed-form candidates
 
   float t_start = near;
   if (noise != nullptr)
     t_start = __fadd_rn(near, __fmul_rn(next_dt(near, q), noise[n]));
+  float t_run = t_start;  // dt_gamma > 0: the recurrence at the chunk's start
   if (q.prefilter) {
-    const int n_groups = q.n_cand / q.group;
-    const int mid = q.group / 2;
-    float t_run = t_start;  // recurrence state at the start of the group (dt_gamma > 0)
-    float tg[NGP_MAX_GROUP], dg[NGP_MAX_GROUP];
-    for (int g = 0; g < n_groups; ++g) {
-      for (int j = 0; j < q.group; ++j) {
-        if (q.dt_gamma == 0.0f) {
-          tg[j] = __fadd_rn(t_start, __fmul_rn((float)(g * q.group + j), q.dt_min));
-          dg[j] = q.dt_min;
+    const int G = q.group, n_groups = q.n_cand / G, mid = G / 2;
+    const int per_pass = 32 / G;  // admitted groups a fine pass
+    const int slot = lane / G, j = lane - slot * G;
+    for (int gbase = 0; gbase < n_groups; gbase += 32) {
+      const int gi = gbase + lane;
+      float tf, tm, dm;  // the group's first candidate, its midpoint and its step
+      if (closed) {
+        tf = __fadd_rn(t_start, __fmul_rn((float)(gi * G), q.dt_min));
+        tm = __fadd_rn(t_start, __fmul_rn((float)(gi * G + mid), q.dt_min));
+        dm = q.dt_min;
+      } else {
+        tf = tm = dm = 0.0f;
+        for (int k = 0; k < 32; ++k) {
+          for (int c = 0; c < G; ++c) {
+            const float dc = next_dt(t_run, q);
+            if (k == lane && c == 0) tf = t_run;
+            if (k == lane && c == mid) {
+              tm = t_run;
+              dm = dc;
+            }
+            t_run = __fadd_rn(t_run, dc);
+          }
+        }
+      }
+      const bool gvalid = gi < n_groups && tf < far;
+      bool cocc = false;
+      if (gvalid) {
+        position(o, d, tm, q.bound, p);
+        cocc = coarse_occupied(coarse, q, p, dm);
+      }
+      const unsigned cb = __ballot_sync(NGP_FULL, cocc);
+      // the group's ordinal among the ray's occupied groups, from 0
+      const bool admit = cocc && groups_occ + __popc(cb & below) < q.group_budget;
+      unsigned rest = __ballot_sync(NGP_FULL, admit);
+      groups_occ += __popc(cb);
+      // the admitted groups' fine candidates, per_pass groups at a time
+      while (rest) {
+        const int src = slot < per_pass ? nth_set_bit(rest, slot) : -1;
+        const float tf_src = __shfl_sync(NGP_FULL, tf, src < 0 ? 0 : src);
+        float t, dt;
+        if (closed) {
+          t = __fadd_rn(t_start, __fmul_rn((float)((gbase + src) * G + j), q.dt_min));
+          dt = q.dt_min;
         } else {
-          dg[j] = next_dt(t_run, q);
-          tg[j] = t_run;
-          t_run = __fadd_rn(t_run, dg[j]);
+          t = tf_src;
+          for (int c = 0; c < j; ++c) t = __fadd_rn(t, next_dt(t, q));
+          dt = next_dt(t, q);
         }
-      }
-      if (!(tg[0] < far)) break;  // this and every later group start at/after far
-      position(o, d, tg[mid], q.bound, p);
-      if (!coarse_occupied(coarse, q, p, dg[mid])) continue;
-      ++groups_occ;
-      if (groups_occ > q.group_budget) continue;  // counted, never tested
-      for (int j = 0; j < q.group; ++j) {
-        if (!(tg[j] < far)) break;
-        position(o, d, tg[j], q.bound, p);
-        if (fine_occupied(grid, q, p, dg[j])) {
-          ++occ_raw;
-          keep(tg[j], dg[j], p);
+        bool occ = false;
+        if (src >= 0 && t < far) {
+          position(o, d, t, q.bound, p);
+          occ = fine_occupied(grid, q, p, dt);
         }
+        out.keep(occ, t, dt, p, below);
+        for (int k = 0; k < per_pass && rest; ++k) rest &= rest - 1u;
       }
+      if (!__all_sync(NGP_FULL, gvalid)) break;
     }
   } else {
-    float t_run = t_start;
-    int last_group = -1;
-    for (int i = 0; i < q.n_cand; ++i) {
+    int last_occ = -1;  // the last occupied candidate so far
+    for (int base = 0; base < q.n_cand; base += 32) {
+      const int i = base + lane;
       float t, dt;
-      if (q.dt_gamma == 0.0f) {
+      if (closed) {
         t = __fadd_rn(t_start, __fmul_rn((float)i, q.dt_min));
         dt = q.dt_min;
       } else {
-        t = t_run;
-        dt = next_dt(t_run, q);
-        t_run = __fadd_rn(t_run, dt);
-      }
-      if (!(t < far)) break;
-      position(o, d, t, q.bound, p);
-      if (fine_occupied(grid, q, p, dt)) {
-        ++occ_raw;
-        const int gi = i / q.group;
-        if (gi != last_group) {
-          ++groups_occ;
-          last_group = gi;
+        t = dt = 0.0f;
+        for (int k = 0; k < 32; ++k) {
+          const float dk = next_dt(t_run, q);
+          if (k == lane) {
+            t = t_run;
+            dt = dk;
+          }
+          t_run = __fadd_rn(t_run, dk);
         }
-        keep(t, dt, p);
       }
+      const bool valid = i < q.n_cand && t < far;
+      bool occ = false;
+      if (valid) {
+        position(o, d, t, q.bound, p);
+        occ = fine_occupied(grid, q, p, dt);
+      }
+      const unsigned b = out.keep(occ, t, dt, p, below);
+      // an occupied candidate opens a group unless the occupied one before
+      // it lies in the same group
+      const int prev = (b & below) ? base + 31 - __clz(b & below) : last_occ;
+      const bool opens = occ && (prev < 0 || prev / q.group != i / q.group);
+      groups_occ += __popc(__ballot_sync(NGP_FULL, opens));
+      if (b) last_occ = base + 31 - __clz(b);
+      if (!__all_sync(NGP_FULL, valid)) break;
     }
   }
 
-  for (int s = kept; s < q.budget; ++s) {
-    const long long k = row + s;
-    ts[k] = 0.0f;
-    deltas[k] = 0.0f;
-    xyzs[k * 3 + 0] = 0.0f;
-    xyzs[k * 3 + 1] = 0.0f;
-    xyzs[k * 3 + 2] = 0.0f;
-    mask[k] = 0;
+  // zeros past the last kept sample, lanes on consecutive addresses
+  const int k0 = min(out.kept, q.budget);
+  for (int s = k0 + lane; s < q.budget; s += 32) {
+    out.ts[s] = 0.0f;
+    out.deltas[s] = 0.0f;
+    out.mask[s] = 0;
   }
-  n_occupied[n] = occ_raw;
-  n_occupied_raw[n] = occ_raw;
-  n_groups_occ[n] = groups_occ;
+  for (int f = 3 * k0 + lane; f < 3 * q.budget; f += 32) out.xyzs[f] = 0.0f;
+  if (lane == 0) {
+    n_occupied[n] = out.occ_raw;
+    n_occupied_raw[n] = out.occ_raw;
+    n_groups_occ[n] = groups_occ;
+  }
 }
 
 extern "C" int ngp_march(const void* rays_o, const void* rays_d, const float* aabb,
@@ -255,8 +340,8 @@ extern "C" int ngp_march(const void* rays_o, const void* rays_d, const float* aa
   q.dt_max = dt_max;
   q.dt_gamma = dt_gamma;
   q.mip0 = mip0;
-  const int threads = 64;  // 4096-ray chunks: spread the rays over 64 SMs
-  march_fwd<<<ngp_blocks(N, threads), threads, 0, (cudaStream_t)stream>>>(
+  march_fwd<<<ngp_blocks(N, NGP_MARCH_WARPS), 32 * NGP_MARCH_WARPS, 0,
+              (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const unsigned char*)grid,
       (const unsigned char*)coarse, (const float*)noise, q, (float*)xyzs, (float*)deltas, (float*)ts,
       (unsigned char*)mask, (float*)nears, (float*)fars, (int*)n_occupied,

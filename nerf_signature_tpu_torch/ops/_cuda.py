@@ -1,8 +1,9 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources live in ``nerf_signature_tpu_torch/csrc/*.cu``.  At first use
-they are compiled by ``nvcc`` for ``sm_90a`` (one process per source, all
-started together) into ONE shared library with a plain C interface, which
+they are compiled by ``nvcc`` for ``sm_90a`` (one process per source, and
+per K4 width for the SIMT field sources, all started together) into ONE
+shared library with a plain C interface, which
 is loaded with ``ctypes``.  The library goes into ``_build/<hash>/``, where
 the hash covers the sources and the flags, so an edited source never loads
 a stale build.  Nothing here runs at import time: the CPU tests import every
@@ -45,6 +46,13 @@ SOURCES = {
     "msgtable.cu": ["-fmad=false"],
     "gather.cu": [],
 }
+# K4's widths (IN, hidden, 1 + geo, colour hidden), the list
+# csrc/field_common.cuh:NGP_FIELD_WIDTHS instantiates: 16 levels x 2
+# features and 8 x 4 (IN = 32), 8 x 2 (IN = 16), the narrow test model
+FIELD_WIDTHS = ((32, 64, 16, 64), (16, 64, 16, 64), (8, 16, 16, 16))
+# the SIMT sources, on which ptxas takes minutes a width: compiled once a
+# width (-DNGP_IN=...) and once for their C entry points, all in parallel
+SPLIT_BY_WIDTH = ("field.cu", "field_feat.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,8 +63,8 @@ _UP = ctypes.POINTER(ctypes.c_uint)
 
 # symbol -> argtypes, the stream (last argument) included
 _SIGNATURES = {
-    "ngp_hash_encode": [_P, _P, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
-    "ngp_hash_encode_bwd": [_P, _P, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
+    "ngp_hash_encode": [_P, _P, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
+    "ngp_hash_encode_bwd": [_P, _P, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
     "ngp_field": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_P],
     "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 5 + [_P],
@@ -88,9 +96,21 @@ def _nvcc():
     return found
 
 
+def _jobs():
+    """(tag, source, flags) of every nvcc process of the build."""
+    jobs = []
+    for name, flags in SOURCES.items():
+        jobs.append((name, name, flags))
+        if name in SPLIT_BY_WIDTH:
+            for w in FIELD_WIDTHS:
+                defs = [f"-DNGP_{k}={v}" for k, v in zip(("IN", "HID", "OUT1", "HC"), w)]
+                jobs.append((f"{name}[{','.join(map(str, w))}]", name, flags + defs))
+    return jobs
+
+
 def _fingerprint():
     h = hashlib.sha256()
-    h.update(repr((_ARCH, _COMMON, sorted(SOURCES.items()))).encode())
+    h.update(repr((_ARCH, _COMMON, _jobs())).encode())
     for name in sorted(os.listdir(CSRC)):
         if name.endswith((".cu", ".cuh")):
             h.update(name.encode())
@@ -116,10 +136,9 @@ def build():
     nvcc = _nvcc()
     t0 = time.time()
     procs = []
-    for name, flags in SOURCES.items():
-        obj = os.path.join(out_dir, name.replace(".cu", f".{os.getpid()}.o"))
-        cmd = [nvcc] + _ARCH + _COMMON + flags + [
-            "-c", os.path.join(CSRC, name), "-o", obj]
+    for i, (name, src, flags) in enumerate(_jobs()):
+        obj = os.path.join(out_dir, f"{i}.{os.getpid()}.o")
+        cmd = [nvcc] + _ARCH + _COMMON + flags + ["-c", os.path.join(CSRC, src), "-o", obj]
         procs.append((name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     # each source's compile time: the slowest sets the build's pace

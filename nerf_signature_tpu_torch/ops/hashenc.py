@@ -22,6 +22,9 @@ import torch
 from . import _cuda
 
 _PRIMES = (1, 2654435761, 805459861)
+# the row widths (features a row) the kernels take; any other F runs only
+# through the plain versions
+KERNEL_FEATURES = (2, 4)
 _CORNERS = [(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)]
 _U32 = 0xFFFFFFFF
 
@@ -240,21 +243,27 @@ def _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides):
     return res, offs, sides
 
 
+def _kernel_features(F):
+    """The row widths K1's kernels take: F = 2 or 4 features a row."""
+    if F not in KERNEL_FEATURES:
+        raise ValueError(f"the hash-encode kernels take rows of F in {KERNEL_FEATURES} "
+                         f"features, got F = {F}")
+    return F
+
+
 def _hash_encode_kernel(x, table_g, n_rows, resolutions, log2_hashmap_size, shared_table,
                         dense_sides):
     L = len(resolutions)
-    if table_g.shape[-1] != 2:
-        raise ValueError(f"the hash-encode kernel gathers F = 2 feature rows, "
-                         f"got F = {table_g.shape[-1]}")
+    F = _kernel_features(table_g.shape[-1])
     if table_g.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"gather dtype must be bfloat16 or float32, got {table_g.dtype}")
     M = x.shape[0]
     _cuda.check(x, "x", torch.float32, (M, 3))
-    _cuda.check(table_g, "table_g", table_g.dtype, (n_rows, 2), x.device)
-    out = torch.empty((M, L * 2), dtype=torch.float32, device=x.device)
+    _cuda.check(table_g, "table_g", table_g.dtype, (n_rows, F), x.device)
+    out = torch.empty((M, L * F), dtype=torch.float32, device=x.device)
     res, offs, sides = _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides)
     _cuda.HASH_ENCODE(
-        x.data_ptr(), table_g.data_ptr(), int(table_g.dtype == torch.bfloat16),
+        x.data_ptr(), table_g.data_ptr(), int(table_g.dtype == torch.bfloat16), F,
         out.data_ptr(), M, L,
         res.ctypes.data_as(_cuda._FP), offs.ctypes.data_as(_cuda._UP),
         sides.ctypes.data_as(_cuda._UP), log2_hashmap_size)
@@ -265,12 +274,13 @@ def _hash_encode_bwd_kernel(x, g_feat, n_rows, resolutions, log2_hashmap_size, g
                             shared_table, dense_sides):
     L = len(resolutions)
     M = x.shape[0]
+    F = _kernel_features(g_feat.shape[-1] // L)
     _cuda.check(x, "x", torch.float32, (M, 3))
-    _cuda.check(g_feat, "g_feat", torch.float32, (M, L * 2), x.device)
-    g_table = torch.zeros((n_rows, 2), dtype=torch.float32, device=x.device)
+    _cuda.check(g_feat, "g_feat", torch.float32, (M, L * F), x.device)
+    g_table = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
     res, offs, sides = _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides)
     _cuda.HASH_ENCODE_BWD(
-        x.data_ptr(), g_feat.data_ptr(), int(gather_dtype == torch.bfloat16),
+        x.data_ptr(), g_feat.data_ptr(), int(gather_dtype == torch.bfloat16), F,
         g_table.data_ptr(), M, L,
         res.ctypes.data_as(_cuda._FP), offs.ctypes.data_as(_cuda._UP),
         sides.ctypes.data_as(_cuda._UP), log2_hashmap_size)

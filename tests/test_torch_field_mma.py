@@ -17,6 +17,7 @@ is JAX's VJP.  The kernels themselves run on the card
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -30,12 +31,14 @@ from nerf_signature_tpu_torch.ops import _cuda
 from nerf_signature_tpu_torch.ops.activation import trunc_exp
 from nerf_signature_tpu_torch.ops.sh import sh_encode
 
-WIDTHS = {"full": (32, 64, 16, 64), "narrow": (8, 16, 16, 16)}
-NARROW = dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12)
+# "full": 16 levels x 2 features (and 8 x 4, the same widths); "8x2": IN = 16
+WIDTHS = {"full": (32, 64, 16, 64), "8x2": (16, 64, 16, 64), "narrow": (8, 16, 16, 16)}
+CFGS = {"full": {}, "8x2": dict(n_levels=8),
+        "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12)}
 
 
 def _cfg(widths, dtype=torch.float32):
-    return t_ngp.NGPConfig(compute_dtype=dtype, **({} if widths == "full" else NARROW))
+    return t_ngp.NGPConfig(compute_dtype=dtype, **CFGS[widths])
 
 
 def _params(widths, seed=0):
@@ -64,7 +67,7 @@ def _padded(w, rows, ld):
     return out
 
 
-@pytest.mark.parametrize("widths", ["full", "narrow"])
+@pytest.mark.parametrize("widths", list(WIDTHS))
 def test_packed_buffer_rebuilds_each_matrix(widths):
     p, mats = _pack(widths)
     ws0, ws1 = p["sigma_net"]
@@ -90,7 +93,7 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
-@pytest.mark.parametrize("widths", ["full", "narrow"])
+@pytest.mark.parametrize("widths", list(WIDTHS))
 def test_shifted_colour_layer_is_exact(widths):
     """[SH, o] @ Wc0' == [SH, o[1:]] @ Wc0: exactly in fp32, on the
     bf16-rounded operands the kernel multiplies, and after the output's
@@ -123,15 +126,14 @@ def _packed_heads(mats, widths, feat, dirs, dtype=torch.float32):
     return trunc_exp(o[:, 0]), o[:, 1:], torch.sigmoid(c3.float())[:, :3]
 
 
-@pytest.mark.parametrize("widths", ["full", "narrow"])
+@pytest.mark.parametrize("widths", list(WIDTHS))
 def test_packed_heads_match_jax(widths):
     p, mats = _pack(widths, seed=3)
     rng = np.random.default_rng(4)
     feat = rng.uniform(-1, 1, size=(1024, WIDTHS[widths][0])).astype(np.float32)
     d = rng.normal(size=(1024, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    jcfg = j_ngp.NGPConfig(compute_dtype=jnp.float32,
-                           **({} if widths == "full" else NARROW))
+    jcfg = j_ngp.NGPConfig(compute_dtype=jnp.float32, **CFGS[widths])
     pj = {k: [jnp.asarray(w.numpy()) for w in p[k]] for k in ("sigma_net", "color_net")}
     sj, gj = j_ngp._sigma_head(pj, jcfg, jnp.asarray(feat))
     rj = j_ngp.ngp_color(pj, jcfg, jnp.asarray(d), gj)
@@ -143,6 +145,23 @@ def test_packed_heads_match_jax(widths):
 def test_sources_list_every_cu_file():
     cu = {n for n in os.listdir(_cuda.CSRC) if n.endswith(".cu")}
     assert set(_cuda.SOURCES) == cu
+
+
+def test_field_widths_are_the_ones_the_sources_instantiate():
+    """FIELD_WIDTHS (the split build, the geometry check) and the C list
+    NGP_FIELD_WIDTHS (every K4 source's dispatch) are the same widths; the
+    SIMT sources are compiled once a width and once for the entry points."""
+    with open(os.path.join(_cuda.CSRC, "field_common.cuh")) as f:
+        line = next(ln for ln in f if ln.startswith("#define NGP_FIELD_WIDTHS(X)"))
+    widths = tuple(tuple(int(v) for v in m.split(","))
+                   for m in re.findall(r"X\(([\d, ]+)\)", line))
+    assert widths == _cuda.FIELD_WIDTHS
+    jobs = [(src, flags) for _, src, flags in _cuda._jobs()]
+    for name in _cuda.SPLIT_BY_WIDTH:
+        mine = [flags for src, flags in jobs if src == name]
+        assert len(mine) == 1 + len(widths)
+        split = sorted(sum("-DNGP_IN=" in f for f in fl) for fl in mine)
+        assert split == [0] + [1] * len(widths)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -180,7 +199,7 @@ def _n_pack(widths):
     return sum(rows * ld for _, rows, _, ld in t_ngp.mma_layout(widths))
 
 
-@pytest.mark.parametrize("widths", ["full", "narrow"])
+@pytest.mark.parametrize("widths", list(WIDTHS))
 def test_packed_grad_map_is_the_adjoint_of_the_pack(widths):
     """<pack(x), y> == <x, map(y)>, and the map drops Wc0' row 16 and every
     padded place: a packed gradient there reaches no weight."""
@@ -214,7 +233,7 @@ BF16_REL_L2 = 1e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("widths", ["full", "narrow"])
+@pytest.mark.parametrize("widths", list(WIDTHS))
 def test_full_bwd_emulation_matches_jax_vjp(widths, dtype):
     """The full backward's math on the CPU: autograd through the packed
     heads gives the packed weight gradient (Wc0' row 16 included), which
@@ -235,7 +254,7 @@ def test_full_bwd_emulation_matches_jax_vjp(widths, dtype):
     g_rgb[::4] = 0.0
 
     jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
-    jcfg = j_ngp.NGPConfig(compute_dtype=jd, **({} if widths == "full" else NARROW))
+    jcfg = j_ngp.NGPConfig(compute_dtype=jd, **CFGS[widths])
 
     def heads(ws, wc, f):
         pj = {"sigma_net": ws, "color_net": wc}

@@ -78,7 +78,8 @@ def test_default_device_is_the_gpu_and_never_silently_the_cpu():
     from nerf_signature_tpu_torch.models.watermark import WatermarkConfig
     from nerf_signature_tpu_torch.utils.device import resolve_device
 
-    small = NGPConfig(n_levels=4, log2_hashmap_size=12)
+    # the narrow model the field kernels are built for (ops/_cuda.py:FIELD_WIDTHS)
+    small = NGPConfig(n_levels=4, log2_hashmap_size=12, hidden_dim=16, hidden_dim_color=16)
     wsmall = WatermarkConfig(ngp=small, message_dim=2, msg_log2_hashmap_size=10)
     if torch.cuda.is_available():
         assert NGPModel(small, grid_size=16).device.type == "cuda"

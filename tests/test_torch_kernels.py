@@ -34,6 +34,11 @@ from nerf_signature_tpu_torch.ops import marching as t_march
 
 pytestmark = pytest.mark.cuda
 
+# K4's widths: "full" is 16 levels x 2 features (8 x 4 has the same widths),
+# "8x2" encoding width 16, "narrow" the 8-wide test model
+WIDTHS = {"full": {}, "8x2": dict(n_levels=8),
+          "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12)}
+
 
 @pytest.fixture
 def cuda():
@@ -101,12 +106,11 @@ def test_march_kernel_matches_plain(cuda, bound, prefilter, gamma):
 
 @pytest.mark.parametrize("query", ["colour", "density"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("widths", ["full", "narrow"])
+@pytest.mark.parametrize("widths", list(WIDTHS))
 def test_field_kernel_matches_plain(cuda, dtype, widths, query):
     from nerf_signature_tpu_torch.ops import _cuda
 
-    kw = {} if widths == "full" else dict(n_levels=4, hidden_dim=16, hidden_dim_color=16,
-                                          log2_hashmap_size=12)
+    kw = WIDTHS[widths]
     cfg = t_ngp.NGPConfig(compute_dtype=dtype, **kw)
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(3), cfg, cuda)
     params["hash_table"].mul_(1e4)
@@ -201,14 +205,13 @@ def test_composite_bwd_kernel_matches_plain(cuda, use_mask):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("widths", ["full", "narrow"])
+@pytest.mark.parametrize("widths", list(WIDTHS))
 def test_field_bwd_kernel_matches_plain(cuda, dtype, widths):
     """bf16: the tensor-core kernel (field_mma_bwd_full.cu); fp32: the SIMT
     one (field.cu)."""
     from nerf_signature_tpu_torch.ops import _cuda
 
-    kw = {} if widths == "full" else dict(n_levels=4, hidden_dim=16, hidden_dim_color=16,
-                                          log2_hashmap_size=12)
+    kw = WIDTHS[widths]
     cfg = t_ngp.NGPConfig(compute_dtype=dtype, **kw)
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(7), cfg, cuda)
     params["hash_table"].mul_(1e4)
@@ -284,12 +287,11 @@ def test_msg_table_kernel_matches_plain(cuda, gather):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("widths", ["full", "narrow"])
+@pytest.mark.parametrize("widths", list(WIDTHS))
 def test_field_bwd_feat_kernel_matches_plain(cuda, dtype, widths):
     from nerf_signature_tpu_torch.ops import _cuda
 
-    kw = {} if widths == "full" else dict(n_levels=4, hidden_dim=16, hidden_dim_color=16,
-                                          log2_hashmap_size=12)
+    kw = WIDTHS[widths]
     cfg = t_ngp.NGPConfig(compute_dtype=dtype, **kw)
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(10), cfg, cuda)
     params["hash_table"].mul_(1e4)
@@ -378,3 +380,52 @@ def test_hash_encode_kernel_one_level_and_shared_table(cuda, shared):
     p = t_hash.hash_encode_bwd_plain(x, g_feat, 1 << 19, res, 19, torch.bfloat16,
                                      shared_table=shared)
     assert rel_l2(k, p) <= 1e-5
+
+
+@pytest.mark.parametrize("gather", ["bf16", "fp32", "dense"])
+@pytest.mark.parametrize("L,F", [(16, 2), (8, 2), (8, 4), (5, 2), (5, 4)])
+def test_hash_encode_kernel_is_bit_exact(cuda, L, F, gather):
+    """The level-major forward: equal to the plain version bit for bit, for
+    rows of 2 and 4 features, an odd level count (8-byte stores) and a
+    ragged last tile; its backward within 1e-5 relative L2 (atomic order)."""
+    g = torch.Generator().manual_seed(15)
+    res = t_hash.level_resolutions(L, 16, 2048)
+    sides = t_hash.level_sides(res, 19, True) if gather == "dense" else None
+    rows = int(t_hash.level_row_counts(sides, 19).sum()) if sides else L << 19
+    table = (torch.rand((rows, F), generator=g) * 2 - 1).to(cuda)
+    M = (1 << 16) + 77  # not a multiple of the 128-sample tile
+    x = (torch.rand((M, 3), generator=g) * 1.1 - 0.05).to(cuda)
+    x[: M // 4] = 0.5  # padded slots: one point
+    gd = torch.float32 if gather == "fp32" else torch.bfloat16
+    tg = table.to(gd)
+    k = t_hash._hash_encode_kernel(x, tg, rows, res, 19, False, sides)
+    p = t_hash.hash_encode_plain(x, table, res, 19, dense_sides=sides, table_g=tg)
+    assert k.shape == (M, L * F) and torch.equal(k, p)
+    g_feat = torch.randn((M, L * F), generator=g).to(cuda)
+    g_feat[::3] = 0.0
+    kb = t_hash._hash_encode_bwd_kernel(x, g_feat, rows, res, 19, gd, False, sides)
+    pb = t_hash.hash_encode_bwd_plain(x, g_feat, rows, res, 19, gd, dense_sides=sides)
+    assert rel_l2(kb, pb) <= 1e-5
+
+
+@pytest.mark.parametrize("bound,gamma,group,group_budget,noise", [
+    (1.0, 0.0, 4, 8, False), (1.0, 0.0, 4, 8, True), (2.0, 1 / 128, 4, 4, False),
+    (2.0, 1 / 128, 4, 4, True), (1.0, 0.0, 3, 10, False), (2.0, 1 / 128, 16, 3, False)])
+def test_march_kernel_group_budget_and_group_sizes_match_plain(cuda, bound, gamma, group,
+                                                               group_budget, noise):
+    """The warp walk's prefilter with a group budget that truncates and
+    groups that do not divide 32 (or fill half a warp), bit for bit."""
+    rng = np.random.default_rng(16)
+    C = 1 if bound <= 1 else 2
+    occ = torch.tensor(rng.uniform(size=(C, 128, 128, 128)) < 0.05).to(cuda)
+    o, d = (v.to(cuda) for v in _rays(rng, 4096, bound))
+    nz = torch.rand(4096, generator=torch.Generator().manual_seed(17)).to(cuda) if noise else None
+    aabb = (-bound,) * 3 + (bound,) * 3
+    kw = dict(min_near=0.2, bound=bound, dt_gamma=gamma, max_steps=1024, budget=128,
+              prefilter=True, group=group, group_budget=group_budget, noise=nz,
+              n_cand=1020 if group == 3 else None)
+    k = t_march.march_rays_aabb(o, d, aabb, occ, **kw)
+    p = t_march.march_rays_aabb(o, d, aabb, occ, plain=True, **kw)
+    assert k["mask"].any() and (p["n_groups_occ"] > group_budget).any()
+    for name in p:
+        assert torch.equal(k[name], p[name]), name
