@@ -89,6 +89,7 @@ nothing of JAX: the port is ``nerf_signature_tpu_torch``.
 """
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -132,6 +133,9 @@ ADAPT_ITERS = 384
 # besides 16 x 2, and the length of their Trainer.train runs
 GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4)}
 GEO_ITERS = 128
+# the watermark stage's length on each geometry's trained backbone (two
+# epochs of the recipe's 32 views)
+GEO_WM_ITERS = 64
 # the watermark stage, README stage-2 recipe: -O --message_dim 32 --num_rows 32
 # --num_cols 32 --downscale 2 --lambda_w 0.005 --lambda_i 1.0 --loss_w bce
 # --iters 1000 on the backbone the train phase trained; a step renders
@@ -194,14 +198,15 @@ def device_ms(fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = device_events(prof)
-    if not by_name:
-        raise AssertionError("torch.profiler recorded no device work")
-    return sum(by_name.values()) / reps / 1e3
+    for _ in range(2):  # now and then a trace comes back without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = device_events(prof)
+        if by_name:
+            return sum(by_name.values()) / reps / 1e3
+    raise AssertionError("torch.profiler recorded no device work")
 
 
 # the forward kernels a served view runs, by a substring of their names
@@ -1159,10 +1164,12 @@ def phase_geometry(dev):
     whole watermark step through the kernels against the plain versions (bf16
     and fp32, the existing limits); Trainer.train for GEO_ITERS steps on the
     radius-0.7 ball, the quality limit checked at 8 x 4; and the refusal of
-    16 x 4 (width 64) before a model is built.  Returns the rows of K1 at
-    F = 4 and K4 at width 16, each geometry's launches (its Trainer.train
-    run, and under "wm_step" the bf16 watermark step's) and its training
-    numbers."""
+    16 x 4 (width 64) before a model is built.  Then each geometry's
+    watermark stage on the backbone its Trainer.train run trained: the
+    README stage-2 recipe for GEO_WM_ITERS steps through the CLI's setup
+    (``wm_train``).  Returns the rows of K1 at F = 4 and K4 at width 16,
+    each geometry's launches (under "train" its Trainer.train run's, under
+    "wm" its WatermarkTrainer.train run's) and its training numbers."""
     from nerf_signature_tpu_torch.api import NGPModel
     from nerf_signature_tpu_torch.models import ngp as t_ngp
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
@@ -1250,13 +1257,12 @@ def phase_geometry(dev):
         fwd["K4_field_bwd_feat"] = k4_bwd_feat(fpw, cfg, feat, dirs, g_sigma, g_rgb)
         fwd["K4_field_bwd_feat_f32"] = k4_bwd_feat(fpw32, cfg32, feat, dirs, g_sigma, g_rgb)
         del feat, x01, dirs, g_sigma, g_rgb, live, mw, fpw, fpw32, m, fp, fp32
-        wm = wm_steps(dev, x, L, F)
+        wm_steps(dev, x, L, F)
         if F == 2:  # K4 at encoding width 16: its rows
             rows.update({(k[:-4] + "_in16_f32" if k.endswith("_f32") else k + "_in16"): r
                          for k, r in fwd.items()})
         # the main path: Trainer.train with this geometry
         r = train_case(dev, TRAIN_BALL, GEO_ITERS, levels=L, features=F)
-        launches[geo] = dict(r["launches"], wm_step=wm["bfloat16"])
         stats[geo] = {k: r[k] for k in ("seconds", "psnr0", "psnr1")}
         log(f"[geometry] {geo}: Trainer.train {r['trainer'].global_step} steps in "
             f"{r['seconds']:.2f} s, held-out PSNR {r['psnr0']:.2f} -> {r['psnr1']:.2f} dB "
@@ -1269,7 +1275,14 @@ def phase_geometry(dev):
         if geo == "8x4" and not r["psnr1"] >= r["psnr0"] + 6.0:
             raise AssertionError(f"8 x 4: held-out PSNR {r['psnr1']:.2f} dB < untrained "
                                  f"{r['psnr0']:.2f} + 6 dB")
-        del r
+        # the main path: the watermark stage on this geometry's trained backbone
+        with tempfile.TemporaryDirectory() as workdir:
+            w = wm_train(dev, r["trainer"].model, workdir, GEO_WM_ITERS,
+                         ["--n_levels", str(L), "--n_features", str(F)], f"geometry wm {geo}")
+        launches[geo] = {"train": r["launches"], "wm": w["launches"]}
+        stats[geo].update(wm_steps=w["steps"], wm_seconds=w["seconds"])
+        del r, w
+        gc.collect()  # the trainers hold cycles: free their models before the next phase
     return rows, launches, stats
 
 
@@ -1546,7 +1559,8 @@ def profile_steps(trainer, loader, n=16, tag="profile", step=None):
     """torch.profiler over n more train steps (after the timed run): the
     device's busy time by kernel, from the trace's device events (kernels,
     copies, memsets; one stream, so they do not overlap), and its idle share
-    of the wall clock.  ``step(data)`` defaults to ``trainer.train_step_data``."""
+    of the wall clock.  ``step(data)`` defaults to ``trainer.train_step_data``.
+    Returns the wall and busy ms a step and the idle share."""
     from itertools import islice
 
     from torch.profiler import ProfilerActivity, profile
@@ -1567,6 +1581,8 @@ def profile_steps(trainer, loader, n=16, tag="profile", step=None):
         f"{len(by_name)} distinct device functions")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
         log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name[:90]}")
+    return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
+            "idle_share": 1 - busy_us / wall_us}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1630,11 +1646,14 @@ def pick_key_blocks(model, ws, seed):
     return float(var[sel].min())
 
 
-def phase_wm(dev, backbone_model, workdir):
-    """The watermark stage at the README stage-2 recipe on the backbone the
-    train phase trained: the CLI's own setup (parser, model, trainer,
-    provider), resolve_auto_compaction, WatermarkTrainer.train for 1000
-    iterations, then ownership verification and test images."""
+def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm"):
+    """The watermark stage's main path as its CLI drives it, on
+    ``backbone_model`` saved as the clean checkpoint: main_nerf_wtmk's parser
+    and setup (the README stage-2 recipe for ``iters`` steps, plus ``extra``
+    flags), the key blocks, resolve_auto_compaction, then
+    WatermarkTrainer.train with the launch counts set to 0 just before it,
+    its epochs timed (no checkpoint I/O).  Returns the model, trainer,
+    loader factory, the run's launches, steps, seconds and peak memory."""
     from nerf_signature_tpu_torch import main_nerf_wtmk
     from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.train.checkpoint import save_checkpoint
@@ -1647,7 +1666,8 @@ def phase_wm(dev, backbone_model, workdir):
     # only the final checkpoint: per-epoch saves of params, tables and Adam's
     # moments (~0.9 GB each) would sit inside the timed loop
     opt = main_nerf_wtmk.parse([scene, "--workspace", ws, "--ckpt", clean,
-                                "--save_interval", "1000"] + WM_RECIPE)
+                                "--save_interval", "1000"] + WM_RECIPE
+                               + ["--iters", str(iters), *extra])
     t0 = time.time()
     model, trainer, make_loader = main_nerf_wtmk.setup(opt)
     os.makedirs(ws, exist_ok=True)
@@ -1655,13 +1675,11 @@ def phase_wm(dev, backbone_model, workdir):
     loader = make_loader("train", 1, 100)
     set_up = time.time() - t0
     trainer.resolve_auto_compaction(loader)
-    m = model
-    log(f"[wm] set-up {set_up:.2f} s (checkpoint load, key render, {len(loader)} pseudo-GT "
+    log(f"[{tag}] set-up {set_up:.2f} s (checkpoint load, key render, {len(loader)} pseudo-GT "
         f"views of {loader.H}x{loader.W}); key blocks {loader.images_block.shape}, least "
-        f"block variance {var_min:.4g}; resolved compaction {m.rc.compact_frac}, group budget "
-        f"{m.rc.group_budget}")
+        f"block variance {var_min:.4g}; resolved compaction {model.rc.compact_frac}, group "
+        f"budget {model.rc.group_budget}")
 
-    # the main path: WatermarkTrainer.train, epochs timed (no checkpoint I/O)
     epoch_s = []
     run_epoch = trainer.train_one_epoch
 
@@ -1672,7 +1690,7 @@ def phase_wm(dev, backbone_model, workdir):
         return out
 
     trainer.train_one_epoch = timed_epoch
-    max_epochs = math.ceil(WM_ITERS / len(loader))
+    max_epochs = math.ceil(iters / len(loader))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
@@ -1682,13 +1700,35 @@ def phase_wm(dev, backbone_model, workdir):
     peak = torch.cuda.max_memory_allocated() / 2**30
     trainer.train_one_epoch = run_epoch
     steps, seconds = trainer.global_step, sum(epoch_s)
-    lossw, lossi = trainer.stats["lossw"], trainer.stats["lossi"]
-    log(f"[wm] {steps} steps of {WM_STEP_RAYS} rays in {seconds:.2f} s: "
+    log(f"[{tag}] {steps} steps of {WM_STEP_RAYS} rays in {seconds:.2f} s: "
         f"{steps * WM_STEP_RAYS / seconds:.0f} watermark rays/s, {seconds / steps * 1e3:.2f} ms "
         f"a step; peak memory {peak:.2f} GiB")
-    log(f"[wm] epoch lossw {[round(v, 5) for v in lossw]}")
+    log(f"[{tag}] epoch lossw {[round(v, 5) for v in trainer.stats['lossw']]}")
+    log(f"[{tag}] launches during WatermarkTrainer.train: {launches}")
+    if steps != iters:
+        raise AssertionError(f"WatermarkTrainer.train ran {steps} steps, expected {iters}")
+    for name in WM_TRAIN:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched by WatermarkTrainer.train ({tag})")
+    if launches["K4_field_bwd"] + launches["K4_field_bwd_f32"] != 0:
+        raise AssertionError(f"the frozen backbone's weight gradient was computed ({tag})")
+    k4_route(launches, torch.bfloat16, ("K4_field", "K4_field_bwd_feat"),
+             f"WatermarkTrainer.train ({tag})")
+    return dict(model=model, trainer=trainer, make_loader=make_loader, loader=loader,
+                launches=launches, steps=steps, seconds=seconds, peak=peak)
+
+
+def phase_wm(dev, backbone_model, workdir):
+    """The watermark stage at the README stage-2 recipe on the backbone the
+    train phase trained (``wm_train``, 1000 iterations), then ownership
+    verification and test images."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    w = wm_train(dev, backbone_model, workdir)
+    m, trainer, make_loader, loader = w["model"], w["trainer"], w["make_loader"], w["loader"]
+    launches, steps, seconds, peak = w["launches"], w["steps"], w["seconds"], w["peak"]
+    lossw, lossi = trainer.stats["lossw"], trainer.stats["lossi"]
     log(f"[wm] epoch lossi {[round(v, 7) for v in lossi]}")
-    log(f"[wm] launches during WatermarkTrainer.train: {launches}")
 
     res = {"launches": launches, "steps": steps, "seconds": seconds,
            "rays_per_s": steps * WM_STEP_RAYS / seconds, "step_ms": seconds / steps * 1e3,
@@ -1713,21 +1753,12 @@ def phase_wm(dev, backbone_model, workdir):
     profile_steps(trainer, loader, tag="wm profile",
                   step=lambda data: trainer.train_step_data(data, trainer.random_message()))
 
-    if steps != WM_ITERS:
-        raise AssertionError(f"WatermarkTrainer.train ran {steps} steps, expected {WM_ITERS}")
     if not lossw[-1] <= 0.5 * lossw[0]:
         raise AssertionError(f"lossw did not halve: first epoch {lossw[0]}, last {lossw[-1]}")
     if not res["bitacc_none"] >= 0.95:
         raise AssertionError(f"bit accuracy {res['bitacc_none']:.4f} < 0.95")
     if not images["PSNR"] >= 30.0:
         raise AssertionError(f"test_image PSNR {images['PSNR']:.2f} dB < 30 dB")
-    for name in WM_TRAIN:
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was not launched by WatermarkTrainer.train")
-    if launches["K4_field_bwd"] + launches["K4_field_bwd_f32"] != 0:
-        raise AssertionError("the frozen backbone's weight gradient was computed")
-    k4_route(launches, torch.bfloat16, ("K4_field", "K4_field_bwd_feat"),
-             "WatermarkTrainer.train")
     return res
 
 
@@ -1822,16 +1853,16 @@ def main():
         # K4's SIMT kernels are the fp32 route, off the bf16 main path; K1
         # at F = 4 and K4 at width 16: the geometry phase's shapes, launches
         # of Trainer.train at 8 x 4 or 8 x 2 (K4's feature-only backward: of
-        # the whole watermark step through the kernels at 8 x 2)
+        # WatermarkTrainer.train at 8 x 2)
         base = name.replace("_in16", "").replace("_f4", "")
         if name in GEOMETRY_ROWS:
             r = geometry[name]
             geo = "8x4" if name.endswith("_f4") else "8x2"
-            train_n, wm_n = geometry_launches[geo][base], geometry_launches[geo]["wm_step"][base]
+            train_n, wm_n = (geometry_launches[geo][k][base] for k in ("train", "wm"))
             if base in FP32_ROUTE:
                 n, path = 0, f"fp32 route at {geo} (the fp32 whole-step checks)"
-            elif base == "K4_field_bwd_feat":
-                n, path = wm_n, f"wm step at {geo} (kernels vs plain)"
+            elif base not in CLEAN_TRAIN:
+                n, path = wm_n, f"wm at {geo}"
             else:
                 n, path = train_n, f"train at {geo}"
         else:

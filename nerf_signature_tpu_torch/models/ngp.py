@@ -265,11 +265,19 @@ GEOMETRY_TODO = ("ROADMAP queue 3 item 'table geometries on the card beyond 16 x
                  "8 x 4'")
 
 
-def _refuse(what):
+def _check_field(widths, sh_degree, layers, n_features=None, geometry=""):
+    """The one rule of what the card's field kernels run: K4's widths (IN,
+    hidden, 1 + geo, colour hidden) in FIELD_WIDTHS with SH degree 4, a
+    2-layer sigma MLP and a 3-layer colour MLP, and, where given, K1's rows
+    of ``n_features`` in KERNEL_FEATURES.  Raises naming the ROADMAP item."""
+    if (widths in _cuda.FIELD_WIDTHS and (sh_degree, *layers) == (4, 2, 3)
+            and n_features in (None, *KERNEL_FEATURES)):
+        return
     raise NotImplementedError(
-        f"the card's field kernels do not run {what} yet ({GEOMETRY_TODO}; K1 takes rows of "
-        f"F in {KERNEL_FEATURES} features, K4 the widths {_cuda.FIELD_WIDTHS} with SH degree "
-        f"4, a 2-layer sigma MLP and a 3-layer colour MLP); on the CPU (--cpu, "
+        f"the card's field kernels do not run {geometry}MLP widths {widths}, SH degree "
+        f"{sh_degree}, {layers[0]} + {layers[1]} layers yet ({GEOMETRY_TODO}; K1 takes rows "
+        f"of F in {KERNEL_FEATURES} features, K4 the widths {_cuda.FIELD_WIDTHS} with SH "
+        f"degree 4, a 2-layer sigma MLP and a 3-layer colour MLP); on the CPU (--cpu, "
         f"device='cpu') every geometry runs through the plain versions")
 
 
@@ -277,22 +285,17 @@ def check_kernel_geometry(cfg: NGPConfig):
     """Refuse up front, before a model is built on the card, a config
     whose field the kernels cannot run: a row width F that K1 lacks or an
     encoding width (n_levels x F) that K4 lacks, e.g. 16 x 4 (width 64)."""
-    widths = (cfg.enc_dim, cfg.hidden_dim, 1 + cfg.geo_feat_dim, cfg.hidden_dim_color)
-    if cfg.n_features not in KERNEL_FEATURES or widths not in _cuda.FIELD_WIDTHS or (
-            cfg.sh_degree, cfg.num_layers, cfg.num_layers_color) != (4, 2, 3):
-        _refuse(f"{cfg.n_levels} levels x {cfg.n_features} features (MLP widths {widths}, "
-                f"SH degree {cfg.sh_degree}, {cfg.num_layers} + {cfg.num_layers_color} layers)")
+    _check_field((cfg.enc_dim, cfg.hidden_dim, 1 + cfg.geo_feat_dim, cfg.hidden_dim_color),
+                 cfg.sh_degree, (cfg.num_layers, cfg.num_layers_color), cfg.n_features,
+                 f"{cfg.n_levels} levels x {cfg.n_features} features, ")
 
 
 def _kernel_widths(params, cfg: NGPConfig):
     """K4's widths (IN, hidden, 1 + geo, colour hidden) read from the
-    params; raises where the kernels lack them."""
+    params; raises where the kernels lack them (``_check_field``)."""
     s, c = params["sigma_net"], params["color_net"]
-    if cfg.sh_degree != 4 or len(s) != 2 or len(c) != 3:
-        _refuse(f"SH degree {cfg.sh_degree} with {len(s)} + {len(c)} MLP layers")
-    widths = (s[0].shape[0], s[0].shape[1], s[1].shape[1], c[0].shape[1])
-    if widths not in _cuda.FIELD_WIDTHS or c[1].shape[1] != widths[3]:
-        _refuse(f"the MLP widths {widths}")
+    widths = (s[0].shape[0], s[0].shape[1], s[-1].shape[1], c[0].shape[1])
+    _check_field(widths, cfg.sh_degree, (len(s), len(c)))
     if cfg.compute_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"compute dtype {cfg.compute_dtype}")
     return widths

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time K2 (the marcher), K2 with noise, K1's forward and a served view's
-kernels for one tree of the repository, on one NVIDIA GPU: the way to put
-two commits side by side on one card.
+"""Time K2 (the marcher), K2 with noise, K1's forward, K4 on both routes, a
+served view's kernels, the clean train step and the watermark step for one
+tree of the repository, on one NVIDIA GPU: the way to put two commits side
+by side on one card.
 
     python3 scripts_port/kernel_ab.py <tree> [--out FILE]
 
@@ -11,18 +12,27 @@ imported, and the inputs are made by this repository's ``chip_smoke.py``
 helpers from their seeds: K2 and K1 on the serving chunk of view 0 (4096
 rays at the ball's centre, budget 256, the prefilter on), K2 with noise on
 the train step's 4096 random rays (budget 128), and view 0 at 800x800
-rendered in 157 chunks under torch.profiler (device time by kernel).  Each
-kernel: per call (CUDA events around one call, median) and on the device
-(torch.profiler, the durations of its device work).  Prints one JSON line
-(also to ``--out``).  Run each tree in its own process, in turns (parent,
-change, change, parent), all in one call to the card.
+rendered in 157 chunks under torch.profiler (device time by kernel).  K4's
+forward (bf16 and fp32) on the serving chunk, its full backward at the
+train step's samples and its feature-only backward at the watermark step's
+(chip_smoke.py's shapes and cotangents).  Each kernel: per call (CUDA
+events around one call, median) and on the device (torch.profiler, the
+durations of its device work).  Then the end-to-end rates: Trainer.train
+for 512 steps on the radius-0.7 ball (train rays/s) and
+WatermarkTrainer.train for 1000 steps of the README stage-2 recipe on that
+backbone (watermark rays/s), each followed by 16 profiled steps (wall and
+device busy ms a step, idle share).  Prints one JSON line (also to
+``--out``).  Run each tree in its own process, in turns (parent, change,
+change, parent), all in one call to the card.
 """
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
 import sys
+import tempfile
 
 import torch
 
@@ -86,10 +96,77 @@ def main():
     timed("K2_noise", lambda: t_march.march_rays_aabb(ro_t, rd_t, aabb, grid, coarse=coarse_t,
                                                       **kw_t))
 
+    # K4 on both routes: forward on the serving chunk
+    cfg32 = dataclasses.replace(m.cfg, compute_dtype=torch.float32)
+    fp32 = t_ngp.field_params(m.params, cfg32)
+    march = t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse, **kw)
+    x01 = ((march["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+    dirs = march["dirs"].reshape(-1, 3).contiguous()
+    del march
+    with torch.no_grad():
+        feat = t_hash.hash_encode(x01, fp["hash_table"], res, S, table_g=fp["hash_table_g"])
+    timed("K4", lambda: t_ngp.field_heads(fp, m.cfg, feat, dirs), 20)
+    timed("K4_f32", lambda: t_ngp.field_heads(fp32, cfg32, feat, dirs), 10)
+    del x01, dirs, feat
+
+    def backward_inputs(fpx, ro_, rd_, aabb_, grid_, gen, **march_kw):
+        """Encoded samples and cotangents zero on padded samples, as in
+        chip_smoke.py's train-kernels and watermark-kernels phases."""
+        mk = t_march.march_rays_aabb(ro_, rd_, aabb_, grid_, **march_kw)
+        live = mk["mask"].reshape(-1).float()
+        xs = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+        ds = mk["dirs"].reshape(-1, 3).contiguous()
+        with torch.no_grad():
+            f = t_hash.hash_encode(xs, fpx["hash_table"], res, S, table_g=fpx["hash_table_g"])
+        gs = torch.randn((xs.shape[0],), generator=gen, device=dev) * 1e-4 * live
+        gr = torch.randn((xs.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
+        return f, ds, gs, gr
+
+    # K4's full backward at the train step's samples
+    f, ds, gs, gr = backward_inputs(fp, ro_t, rd_t, aabb, grid,
+                                    torch.Generator(device=dev).manual_seed(7),
+                                    coarse=coarse_t, **kw_t)
+    for name, fpx, cfg in (("K4_bwd", fp, m.cfg), ("K4_bwd_f32", fp32, cfg32)):
+        w = t_ngp._kernel_widths(fpx, cfg)
+        timed(name, lambda: t_ngp.field_heads_bwd(cfg, w, f, ds, fpx["mlp_flat"], gs, gr,
+                                                  fpx.get("mlp_mma")), 10)
+    del f, ds, gs, gr
+    # K4's feature-only backward at the watermark step's samples
+    mw = cs.make_wm_model(dev)
+    x = cs.wm_step_inputs(dev)
+    fpw = t_ngp.field_params(mw.backbone, mw.cfg)
+    cfgw32 = dataclasses.replace(mw.cfg, compute_dtype=torch.float32)
+    fpw32 = t_ngp.field_params(mw.backbone, cfgw32)
+    f, ds, gs, gr = backward_inputs(
+        fpw, torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]]),
+        torch.cat([x["rd_b"].reshape(-1, 3), x["ct_d"]]), default_aabb(mw.rc),
+        mw.occ.occupancy, torch.Generator(device=dev).manual_seed(17), min_near=0.2,
+        bound=1.0, max_steps=1024, budget=256)
+    for name, fpx, cfg in (("K4_bwd_feat", fpw, mw.cfg), ("K4_bwd_feat_f32", fpw32, cfgw32)):
+        w = t_ngp._kernel_widths(fpx, cfg)
+        timed(name, lambda: t_ngp.field_heads_bwd_feat(cfg, w, f, ds, fpx["mlp_flat"], gs, gr,
+                                                       fpx.get("mlp_mma")), 10)
+    del f, ds, gs, gr, mw, x, fpw, fpw32, fp32
+
     rays = cs.view_rays(cs.orbit_poses(cs.N_VIEWS, cs.ORBIT_RADIUS)[:1])
     render = lambda: m.render(rays["rays_o"][0], rays["rays_d"][0], staged=True)
     render()
     out["view"] = cs.view_profile(render)
+    del m, fp
+
+    # the end-to-end rates: the clean train step and the watermark step
+    r = cs.train_case(dev, cs.TRAIN_BALL, cs.TRAIN_ITERS)
+    steps = r["trainer"].global_step
+    out["train"] = dict(cs.profile_steps(r["trainer"], r["loader"]), steps=steps,
+                        seconds=r["seconds"], psnr1=r["psnr1"],
+                        rays_per_s=steps * cs.TRAIN_RAYS / r["seconds"])
+    with tempfile.TemporaryDirectory() as workdir:
+        w = cs.wm_train(dev, r["trainer"].model, workdir)
+        tr = w["trainer"]
+        prof = cs.profile_steps(tr, w["loader"], tag="wm profile",
+                                step=lambda d: tr.train_step_data(d, tr.random_message()))
+        out["wm"] = dict(prof, steps=w["steps"], seconds=w["seconds"],
+                         rays_per_s=w["steps"] * cs.WM_STEP_RAYS / w["seconds"])
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
