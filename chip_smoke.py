@@ -13,9 +13,12 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
   3. kernels — K1-K4 at the serving path's shapes: each kernel against its
                plain version on the same inputs (stated limits; K2 bit for
                bit with C = 1 and 2, dt_gamma 0 and 1/128, the prefilter on,
-               off and on with a group budget that truncates), median
-               times over several launches (CUDA events; K1 and K2 also
-               their device time, torch.profiler), the plain
+               off and on with a group budget that truncates; K3 forward and
+               backward also on edge cases: S of 1, 31, 32, 40 and 256,
+               stops inside the first chunk and at slots 31 and 32, the
+               mask on, absent and all off, T_thresh 0 and 1e-4, N = 0),
+               median times over several launches (CUDA events; K1, K2 and
+               K3 also their device time, torch.profiler), the plain
                version's time, the least time the card could take (bound),
                and for K4 a bf16 torch.matmul chain as a yardstick; P1 (the
                Pallas probe's gather) at the probe's shapes, bit-exact,
@@ -27,26 +30,32 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                the K1, K3 and K4 backward kernels against their plain
                backwards (stated limits) with median times, plain times,
                bounds and library yardsticks (K4's full backward in bf16 on
-               the tensor cores and in fp32 on the SIMT units, each with
-               bit-equal repeats and its device time); then one whole train step
+               the tensor cores and in fp32 on the SIMT units, K3's
+               backward, each with bit-equal repeats and its device time),
+               K3's forward at this shape too; then one whole train step
                (loss and per-leaf gradients) through the kernels against
                one through the plain versions, in bf16 and in fp32; then at
                the watermark step's shapes (32 key blocks of 12x12 and 4096
                content rays, budget 256): K9 forward (bit-exact) and
-               backward (exact), the feature-only K4 backward in bf16 (the
-               tensor-core kernel) and fp32 (the SIMT one), and one whole
+               backward (exact), K1's backward into the message's
+               effective table (one level, its bound and index_add_), the
+               feature-only K4 backward in bf16 (the tensor-core kernel) and
+               fp32 (the SIMT one), K3 forward and backward (as above, N =
+               8,704, S = 256), and one whole
                watermark step (loss and per-leaf gradients) through the
                kernels against the plain versions, in bf16 and in fp32; each
                whole step must run K4 on its dtype's route alone;
-  5. geometry — the 8-level table geometries at 2^19 rows a level: 8 x 2
-               (K4 at encoding width 16) and 8 x 4 (K1 with 4 features a
-               row): K1 forward (bit-exact) and backward, K4 forward, full
-               and feature-only backward on both routes, each against its
-               plain version; a whole clean and a whole watermark step
-               through the kernels against the plain versions (bf16, fp32);
+  5. geometry — the other table geometries at 2^19 rows a level: 8 x 2
+               (K4 at encoding width 16), 8 x 4 (K1 with 4 features a row)
+               and 16 x 4 (K4 at width 64, K1 with 4 features at 16 levels):
+               K1 forward (bit-exact) and backward, K4 forward, full and
+               feature-only backward on both routes, each against its plain
+               version; a whole clean and a whole watermark step through
+               the kernels against the plain versions (bf16, fp32);
                Trainer.train for 128 steps on the radius-0.7 ball (launches;
-               at 8 x 4 the held-out PSNR must rise 6 dB); 16 x 4 (width 64)
-               must be refused before a model is built;
+               at 8 x 4 and 16 x 4 the held-out PSNR must rise 6 dB), then
+               64 watermark steps on that backbone; 12 x 2 (width 24) must be
+               refused before a model is built;
   6. serve   — a full-width model (README Blender recipe: -O --bound 1.0
                --scale 0.8 --dt_gamma 0, NGPConfig defaults, grid 128^3,
                max_steps 1024, budget 256) with random weights from a seed
@@ -131,7 +140,12 @@ ADAPT_BALL = 0.4
 ADAPT_ITERS = 384
 # the 8-level table geometries (levels, features a row) the card takes
 # besides 16 x 2, and the length of their Trainer.train runs
-GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4)}
+GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4)}
+# the geometries whose held-out PSNR must rise 6 dB in GEO_ITERS steps
+GEO_QUALITY = ("8x4", "16x4")
+# each geometry's row suffixes: K1 at 4 features a row, K4 at its width
+K1_ROWS = {"8x4": "_f4", "16x4": "_16x4"}
+K4_ROWS = {"8x2": "_in16", "16x4": "_in64"}
 GEO_ITERS = 128
 # the watermark stage's length on each geometry's trained backbone (two
 # epochs of the recipe's 32 views)
@@ -363,7 +377,6 @@ def march_kwargs(m, prefilter):
 
 def phase_kernels(dev):
     from nerf_signature_tpu_torch.models import ngp as t_ngp
-    from nerf_signature_tpu_torch.ops import composite as t_comp
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
     from nerf_signature_tpu_torch.ops import marching as t_march
     from nerf_signature_tpu_torch.render.renderer import default_aabb
@@ -462,28 +475,13 @@ def phase_kernels(dev):
     fp32 = t_ngp.field_params(m.params, cfg32)
     results["K4_field_f32"], _ = k4_forward(fp32, cfg32, feat, dirs)
 
-    # ---- K3 compositor on the field's output
+    # ---- K3 compositor on the field's output, then its edge cases
     N, S = k2["march"]["mask"].shape
     mk = k2["march"]
     sig = (sp.reshape(N, S) * m.rc.density_scale).contiguous()
     rgb = rp.reshape(N, S, 3).contiguous()
-    ck = t_comp.composite_rays(sig, rgb, mk["deltas"], mk["ts"], mask=mk["mask"])
-    cp = t_comp.composite_rays_plain(sig, rgb, mk["deltas"], mk["ts"], mask=mk["mask"])
-    e3 = max(float((ck[n] - cp[n]).abs().max()) for n in ck)
-    tau = torch.where(mk["mask"], sig * mk["deltas"], 0.0)
-    t_in = torch.exp(-(torch.cumsum(tau, -1) - tau))
-    n_live = int((t_in >= 1e-4).sum()) + int((t_in < 1e-4).any(-1).sum())
-    log(f"[K3] max abs err {e3:.3g} (limit 1e-5); {n_live} of {N * S} slots read "
-        f"before T < 1e-4")
-    if not e3 <= 1e-5:
-        raise AssertionError(f"K3 differs from its plain version by {e3}")
-    ms3 = median_ms(lambda: t_comp.composite_rays(sig, rgb, mk["deltas"], mk["ts"],
-                                                  mask=mk["mask"]), 30)
-    pms3 = median_ms(lambda: t_comp.composite_rays_plain(sig, rgb, mk["deltas"], mk["ts"],
-                                                         mask=mk["mask"]), 10, 1)
-    bms3, bby3 = bound_of(n_live * 25 + N * S * 4 + N * 20, n_live * 12, PEAK_FP32)
-    results["K3_composite"] = dict(max_abs_err=e3, ms=ms3, plain_ms=pms3, bound_ms=bms3,
-                                   bound_by=bby3, library_ms=None)
+    results["K3_composite"], _ = k3_rows("serve", sig, rgb, mk["deltas"], mk["ts"], mk["mask"])
+    k3_edges(dev)
     del k2["march"]
     results["P1_gather"] = p1_gather(dev)
     for name, r in results.items():
@@ -622,6 +620,134 @@ def rel_l2(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
 
 
+def k3_rows(tag, sig, rgb, deltas, ts, mask, g_ws=None, g_img=None):
+    """K3 forward (and, given the cotangents, backward) on one shape's
+    inputs, against the plain version: the forward within 1e-5 max abs
+    error, the backward within 1e-5 relative L2 with bit-equal repeats.
+    Per call (CUDA events) and on the device (torch.profiler), the plain
+    version's time and the bound, from the slots these inputs make the
+    kernel read (those before each ray's stop).  Returns the rows."""
+    from nerf_signature_tpu_torch.ops import composite as t_comp
+
+    N, S = sig.shape
+    fwd = lambda: t_comp.composite_rays(sig, rgb, deltas, ts, mask=mask)
+    plain = lambda: t_comp.composite_rays_plain(sig, rgb, deltas, ts, mask=mask)
+    ck, cp = fwd(), plain()
+    e3 = max(float((ck[n] - cp[n]).abs().max()) for n in ck)
+    with torch.no_grad():
+        tau = sig * deltas if mask is None else torch.where(mask, sig * deltas, 0.0)
+        t_in = torch.exp(-(torch.cumsum(tau, -1) - tau))
+        n_read = int((t_in >= 1e-4).sum()) + int((t_in < 1e-4).any(-1).sum())
+    log(f"[K3 {tag}] N={N} S={S}: max abs err {e3:.3g} (limit 1e-5); {n_read} of {N * S} "
+        f"slots read before T < 1e-4")
+    if not e3 <= 1e-5:
+        raise AssertionError(f"K3 ({tag}) differs from its plain version by {e3}")
+    bms, bby = bound_of(n_read * 25 + N * S * 4 + N * 20, n_read * 12, PEAK_FP32)
+    row_f = dict(max_abs_err=e3, ms=median_ms(fwd, 30), device_ms=device_ms(fwd, 30),
+                 plain_ms=median_ms(plain, 10, 1), bound_ms=bms, bound_by=bby, library_ms=None)
+    log(f"[K3 {tag}] {row_f['ms']:.4f} ms a call, device {row_f['device_ms']:.4f} ms, plain "
+        f"{row_f['plain_ms']:.4f} ms, bound {bms:.4f} ms ({bby})")
+    if g_img is None:
+        return row_f, None
+    bwd = lambda: t_comp.composite_rays_bwd(sig, rgb, deltas, ts, mask, 1e-4, g_ws=g_ws,
+                                            g_image=g_img)
+    (gs_k, gr_k), (gs_2, gr_2) = bwd(), bwd()
+    same = torch.equal(gs_k, gs_2) and torch.equal(gr_k, gr_2)
+    s_p, r_p = sig.clone().requires_grad_(True), rgb.clone().requires_grad_(True)
+    out = t_comp.composite_rays_plain(s_p, r_p, deltas, ts, mask)
+    plain_b = lambda: torch.autograd.grad([out["weights_sum"], out["image"]], [s_p, r_p],
+                                          [g_ws, g_img], retain_graph=True)
+    gs_p, gr_p = plain_b()
+    e = max(rel_l2(gs_k, gs_p), rel_l2(gr_k, gr_p))
+    a = max(float((gs_k - gs_p).abs().max()), float((gr_k - gr_p).abs().max()))
+    log(f"[K3 bwd {tag}] rel L2 {e:.3g} (limit 1e-5), max abs err {a:.3g}; repeats equal bit "
+        f"for bit: {same}")
+    if not (e <= 1e-5 and same):
+        raise AssertionError(f"K3 backward ({tag}) differs from its plain version (rel L2 {e}) "
+                             f"or from itself")
+    bms, bby = bound_of(n_read * 25 + N * 16 + N * S * 16, n_read * 40, PEAK_FP32)
+    row_b = dict(max_abs_err=a, rel_l2=e, ms=median_ms(bwd, 30), device_ms=device_ms(bwd, 30),
+                 plain_ms=median_ms(plain_b, 10, 1), bound_ms=bms, bound_by=bby,
+                 library_ms=None)
+    log(f"[K3 bwd {tag}] {row_b['ms']:.4f} ms a call, device {row_b['device_ms']:.4f} ms, "
+        f"plain {row_b['plain_ms']:.4f} ms, bound {bms:.4f} ms ({bby})")
+    return row_f, row_b
+
+
+def k3_edge_inputs(dev, N, S, mask_kind, seed=8):
+    """Compositor inputs with rays that stop inside the first chunk, at slot
+    31 and at slot 32 (an opaque slot of tau = 20 just before), opaque rays,
+    and the mask random, absent or all off."""
+    rng = np.random.default_rng(seed + S)
+    sig = rng.exponential(3.0, size=(N, S)).astype(np.float32)
+    sig[N // 2:] *= 60.0
+    rgb = rng.uniform(size=(N, S, 3)).astype(np.float32)
+    dt = rng.uniform(0.005, 0.05, size=(N, S)).astype(np.float32)
+    mask = rng.uniform(size=(N, S)) < 0.8
+    for row, slot in ((0, 0), (1, 30), (2, 31), (3, 5)):
+        if slot < S:
+            sig[row, :slot] = 0.01
+            sig[row, slot], dt[row, slot] = 400.0, 0.05
+            mask[row, :slot + 1] = True
+    ts = np.cumsum(dt, axis=-1).astype(np.float32)
+    if mask_kind == "all_masked":
+        mask[:] = False
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(sig), t(rgb), t(dt), t(ts), None if mask_kind == "off" else t(mask)
+
+
+def k3_edges(dev):
+    """K3 forward and backward against the plain versions where the warp
+    walk has its edges: S of 1, 31, 32, 40 and 256 (not a multiple of the
+    32-slot chunk, or one chunk), stops inside the first chunk and at slots
+    31 and 32, the mask on, absent and all off, T_thresh 0 and 1e-4, 515
+    rays (not a multiple of a block's 4), and N = 0.  Forward within 1e-5
+    max abs error, backward within 1e-5 relative L2 (all-masked: exactly
+    zero), bit-equal repeats."""
+    from nerf_signature_tpu_torch.ops import composite as t_comp
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst_f = worst_b = 0.0
+    n_cases = 0
+    for S in (1, 31, 32, 40, 256):
+        for mask_kind in ("on", "off", "all_masked"):
+            for thr in (0.0, 1e-4):
+                sig, rgb, dt, ts, mask = k3_edge_inputs(dev, 515, S, mask_kind)
+                k = t_comp.composite_rays(sig, rgb, dt, ts, mask=mask, T_thresh=thr)
+                p = t_comp.composite_rays_plain(sig, rgb, dt, ts, mask=mask, T_thresh=thr)
+                ef = max(float((k[n] - p[n]).abs().max()) for n in k)
+                cts = [torch.randn(shape, generator=gen, device=dev)
+                       for shape in ((515,), (515,), (515, 3), (515, S))]
+                once = t_comp.composite_rays_bwd(sig, rgb, dt, ts, mask, thr, *cts)
+                again = t_comp.composite_rays_bwd(sig, rgb, dt, ts, mask, thr, *cts)
+                s_p, r_p = sig.clone().requires_grad_(True), rgb.clone().requires_grad_(True)
+                out = t_comp.composite_rays_plain(s_p, r_p, dt, ts, mask=mask, T_thresh=thr)
+                gs_p, gr_p = torch.autograd.grad(
+                    [out[n] for n in ("weights_sum", "depth", "image", "weights")], [s_p, r_p],
+                    cts)
+                if mask_kind == "all_masked":
+                    eb = 0.0 if not (once[0].any() or once[1].any()) else math.inf
+                else:
+                    eb = max(rel_l2(once[0], gs_p), rel_l2(once[1], gr_p))
+                same = torch.equal(once[0], again[0]) and torch.equal(once[1], again[1])
+                stops = True
+                if thr > 0 and S > 32 and mask_kind != "all_masked":
+                    w = k["weights"]
+                    stops = not (w[0, 1:].any() or w[1, 31:].any() or w[2, 32:].any())
+                if not (ef <= 1e-5 and eb <= 1e-5 and same and stops):
+                    raise AssertionError(
+                        f"K3 edge case S={S} mask={mask_kind} T_thresh={thr}: forward max abs "
+                        f"err {ef}, backward rel L2 {eb}, repeats equal {same}, stops {stops}")
+                worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
+                n_cases += 1
+    empty = t_comp.composite_rays(*(torch.zeros((0, 64) + e, device=dev)
+                                    for e in ((), (3,), (), ())))
+    if empty["weights"].shape != (0, 64) or empty["image"].shape != (0, 3):
+        raise AssertionError("K3 at N = 0: wrong output shapes")
+    log(f"[K3 edges] {n_cases} cases and N = 0: forward worst max abs err {worst_f:.3g} "
+        f"(limit 1e-5), backward worst rel L2 {worst_b:.3g} (limit 1e-5), repeats equal")
+
+
 def train_rays(dev, seed=3):
     """TRAIN_RAYS random pixels of an orbit view (the train sampler's draw)."""
     from nerf_signature_tpu_torch.data.rays import get_rays
@@ -635,8 +761,6 @@ def train_rays(dev, seed=3):
 
 def phase_train_kernels(dev):
     from nerf_signature_tpu_torch.models import ngp as t_ngp
-    from nerf_signature_tpu_torch.ops import _cuda
-    from nerf_signature_tpu_torch.ops import composite as t_comp
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
     from nerf_signature_tpu_torch.ops import marching as t_march
     from nerf_signature_tpu_torch.render.renderer import default_aabb
@@ -706,35 +830,14 @@ def phase_train_kernels(dev):
     results["K4_field_bwd_f32"] = k4_bwd(t_ngp.field_params(m.params, cfg32), cfg32, feat, dirs,
                                          g_sigma, g_rgb)
 
-    # ---- K3 backward on the field's output, the loss's cotangents
+    # ---- K3 forward and backward on the field's output, the loss's cotangents
     sig2 = (sig.reshape(N, S) * m.rc.density_scale).contiguous()
     rgb2 = rgb.reshape(N, S, 3).contiguous()
     bg = torch.rand((N, 3), generator=gen, device=dev)
     g_img = torch.randn((N, 3), generator=gen, device=dev) * 1e-4
     g_ws = -(g_img * bg).sum(-1)
-    args = (march["deltas"], march["ts"], march["mask"], 1e-4)
-    gs_k, gr_k = t_comp.composite_rays_bwd(sig2, rgb2, *args, g_ws=g_ws, g_image=g_img)
-    s_p, r_p = sig2.clone().requires_grad_(True), rgb2.clone().requires_grad_(True)
-    out = t_comp.composite_rays_plain(s_p, r_p, march["deltas"], march["ts"], march["mask"])
-    plain3 = lambda: torch.autograd.grad([out["weights_sum"], out["image"]], [s_p, r_p],
-                                         [g_ws, g_img], retain_graph=True)
-    gs_p, gr_p = plain3()
-    e3 = max(rel_l2(gs_k, gs_p), rel_l2(gr_k, gr_p))
-    a3 = max(float((gs_k - gs_p).abs().max()), float((gr_k - gr_p).abs().max()))
-    log(f"[K3 bwd] rel L2 {e3:.3g} (limit 1e-5), max abs err {a3:.3g}")
-    if not e3 <= 1e-5:
-        raise AssertionError(f"K3 backward differs from its plain version: rel L2 {e3}")
-    ms3 = median_ms(lambda: t_comp.composite_rays_bwd(sig2, rgb2, *args, g_ws=g_ws,
-                                                      g_image=g_img), 30)
-    pms3 = median_ms(plain3, 10, 1)
-    with torch.no_grad():
-        tau = torch.where(march["mask"], sig2 * march["deltas"], 0.0)
-        t_in = torch.exp(-(torch.cumsum(tau, -1) - tau))
-        n_live = int((t_in >= 1e-4).sum()) + int((t_in < 1e-4).any(-1).sum())
-    bms3, bby3 = bound_of(n_live * 25 + N * 16 + N * S * 16, n_live * 40, PEAK_FP32)
-    results["K3_composite_bwd"] = dict(max_abs_err=a3, rel_l2=e3, ms=ms3, plain_ms=pms3,
-                                       bound_ms=bms3, bound_by=bby3, library_ms=None)
-    del out, s_p, r_p
+    results["K3_composite_clean"], results["K3_composite_bwd"] = k3_rows(
+        "clean step", sig2, rgb2, march["deltas"], march["ts"], march["mask"], g_ws, g_img)
 
     # ---- one whole train step through the kernels and through the plain
     # versions, in bf16 and fp32
@@ -1073,12 +1176,13 @@ def k4_route(counts, dtype, names, what):
 
 
 def wm_kernels(dev, results, fp32_counts):
-    """K9 forward and backward, the feature-only K4 backward and one whole
+    """K9 forward and backward, K1's backward into the message table, K3
+    forward and backward, the feature-only K4 backward and one whole
     watermark step, kernels against plain versions, at the recipe's shapes;
     the fp32 step's SIMT launches go to ``fp32_counts``."""
     from nerf_signature_tpu_torch.models import message as t_msg
     from nerf_signature_tpu_torch.models import ngp as t_ngp
-    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.models import watermark as t_wm
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
     from nerf_signature_tpu_torch.ops import marching as t_march
     from nerf_signature_tpu_torch.render.renderer import default_aabb
@@ -1138,7 +1242,24 @@ def wm_kernels(dev, results, fp32_counts):
     with torch.no_grad():
         feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions, cfg.log2_hashmap_size,
                                   table_g=fp["hash_table_g"])
-    del march, x01
+        sig, _, rgb = t_ngp.field_heads(fp, cfg, feat, dirs)
+
+    # ---- K1 backward into the message's effective table: one level, the
+    # table's T rows of F features, the step's uncompacted samples
+    res_m, _, _ = t_wm.msg_encode_placement(m.wcfg)
+    log(f"[K1 bwd wm] L={len(res_m)} (resolution {res_m[0]:g}), {T} rows of F={F}, M={M}")
+    results["K1_hash_encode_bwd_wm"] = k1_bwd(x01, live, T, res_m, m.wcfg.msg_log2_hashmap_size,
+                                              F, gen)
+    del x01
+
+    # ---- K3 forward and backward on the field's output at this step's shapes
+    sig = (sig.reshape(N, S) * m.rc.density_scale).contiguous()
+    rgb = rgb.reshape(N, S, 3).contiguous()
+    g_img = torch.randn((N, 3), generator=gen, device=dev) * 1e-4
+    g_ws = -(g_img * torch.rand((N, 3), generator=gen, device=dev)).sum(-1)
+    results["K3_composite_wm"], results["K3_composite_bwd_wm"] = k3_rows(
+        "watermark step", sig, rgb, march["deltas"], march["ts"], march["mask"], g_ws, g_img)
+    del march, sig, rgb, g_img, g_ws
     g_sigma = torch.randn((M,), generator=gen, device=dev) * 1e-4 * live
     g_rgb = torch.randn((M, 3), generator=gen, device=dev) * 1e-4 * live[:, None]
     log(f"[K4 bwd feat] N={N} S={S} M={M}")
@@ -1155,19 +1276,20 @@ def wm_kernels(dev, results, fp32_counts):
 
 # ---------------------------------------------------------------- phase 5
 def phase_geometry(dev):
-    """The 8-level table geometries at full table size (2^19 rows a level):
-    8 x 2 (K4 at encoding width 16) and 8 x 4 (K1 with 4 features a row).
+    """The other table geometries at full table size (2^19 rows a level):
+    8 x 2 (K4 at encoding width 16), 8 x 4 (K1 with 4 features a row) and
+    16 x 4 (K4 at width 64, K1 with 4 features at 16 levels).
     For each: K1's forward (bit-exact) and K4's forward on the serving
     chunk's samples, K1's and K4's full backward at the train step's shapes,
     K4's feature-only backward at the watermark step's, each kernel against
     its plain version on both of K4's routes; one whole clean step and one
     whole watermark step through the kernels against the plain versions (bf16
     and fp32, the existing limits); Trainer.train for GEO_ITERS steps on the
-    radius-0.7 ball, the quality limit checked at 8 x 4; and the refusal of
-    16 x 4 (width 64) before a model is built.  Then each geometry's
+    radius-0.7 ball, the quality limit checked at 8 x 4 and 16 x 4; and the
+    refusal of 12 x 2 (width 24) before a model is built.  Then each geometry's
     watermark stage on the backbone its Trainer.train run trained: the
     README stage-2 recipe for GEO_WM_ITERS steps through the CLI's setup
-    (``wm_train``).  Returns the rows of K1 at F = 4 and K4 at width 16,
+    (``wm_train``).  Returns the rows of K1 at F = 4 and K4 at widths 16 and 64,
     each geometry's launches (under "train" its Trainer.train run's, under
     "wm" its WatermarkTrainer.train run's) and its training numbers."""
     from nerf_signature_tpu_torch.api import NGPModel
@@ -1177,13 +1299,13 @@ def phase_geometry(dev):
     from nerf_signature_tpu_torch.render.renderer import default_aabb
 
     try:
-        NGPModel(t_ngp.NGPConfig(n_levels=16, n_features=4), device=dev)
+        NGPModel(t_ngp.NGPConfig(n_levels=12, n_features=2), device=dev)
     except NotImplementedError as e:
         if "ROADMAP queue 3" not in str(e):
             raise
-        log(f"[geometry] 16 x 4 refused up front: {str(e)[:120]}...")
+        log(f"[geometry] 12 x 2 refused up front: {str(e)[:120]}...")
     else:
-        raise AssertionError("16 x 4 (encoding width 64) was not refused on the card")
+        raise AssertionError("12 x 2 (encoding width 24) was not refused on the card")
 
     rows, launches, stats = {}, {}, {}
     for geo, (L, F) in GEOMETRIES.items():
@@ -1210,9 +1332,9 @@ def phase_geometry(dev):
             raise AssertionError(f"K1 ({geo}) differs from its plain version")
         fwd = {"K4_field": k4_forward(fp, cfg, feat, dirs)[0],
                "K4_field_f32": k4_forward(fp32, cfg32, feat, dirs)[0]}
-        if F == 4:
-            rows["K1_hash_encode_f4"] = dict(k1_timing(x01, fp, cfg.resolutions, S_log2),
-                                             max_abs_err=0.0)
+        if geo in K1_ROWS:
+            rows["K1_hash_encode" + K1_ROWS[geo]] = dict(
+                k1_timing(x01, fp, cfg.resolutions, S_log2), max_abs_err=0.0)
         del feat, x01, dirs
         # train step shapes: K1's and K4's full backward
         ro, rd = train_rays(dev)
@@ -1224,8 +1346,8 @@ def phase_geometry(dev):
         dirs = mk["dirs"].reshape(-1, 3).contiguous()
         del mk
         bwd = k1_bwd(x01, live, fp["hash_table"].shape[0], cfg.resolutions, S_log2, F, gen)
-        if F == 4:
-            rows["K1_hash_encode_bwd_f4"] = bwd
+        if geo in K1_ROWS:
+            rows["K1_hash_encode_bwd" + K1_ROWS[geo]] = bwd
         with torch.no_grad():
             feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions, S_log2,
                                       table_g=fp["hash_table_g"])
@@ -1258,22 +1380,23 @@ def phase_geometry(dev):
         fwd["K4_field_bwd_feat_f32"] = k4_bwd_feat(fpw32, cfg32, feat, dirs, g_sigma, g_rgb)
         del feat, x01, dirs, g_sigma, g_rgb, live, mw, fpw, fpw32, m, fp, fp32
         wm_steps(dev, x, L, F)
-        if F == 2:  # K4 at encoding width 16: its rows
-            rows.update({(k[:-4] + "_in16_f32" if k.endswith("_f32") else k + "_in16"): r
+        if geo in K4_ROWS:  # K4 at this geometry's encoding width: its rows
+            w = K4_ROWS[geo]
+            rows.update({(k[:-4] + w + "_f32" if k.endswith("_f32") else k + w): r
                          for k, r in fwd.items()})
         # the main path: Trainer.train with this geometry
         r = train_case(dev, TRAIN_BALL, GEO_ITERS, levels=L, features=F)
         stats[geo] = {k: r[k] for k in ("seconds", "psnr0", "psnr1")}
         log(f"[geometry] {geo}: Trainer.train {r['trainer'].global_step} steps in "
             f"{r['seconds']:.2f} s, held-out PSNR {r['psnr0']:.2f} -> {r['psnr1']:.2f} dB "
-            f"(limit at 8 x 4: +6 dB); launches {r['launches']}")
+            f"(limit at {' and '.join(GEO_QUALITY)}: +6 dB); launches {r['launches']}")
         for name in CLEAN_TRAIN:
             if r["launches"][name] == 0:
                 raise AssertionError(f"{name} was not launched by Trainer.train at {geo}")
         k4_route(r["launches"], torch.bfloat16, ("K4_field", "K4_field_bwd"),
                  f"Trainer.train at {geo}")
-        if geo == "8x4" and not r["psnr1"] >= r["psnr0"] + 6.0:
-            raise AssertionError(f"8 x 4: held-out PSNR {r['psnr1']:.2f} dB < untrained "
+        if geo in GEO_QUALITY and not r["psnr1"] >= r["psnr0"] + 6.0:
+            raise AssertionError(f"{geo}: held-out PSNR {r['psnr1']:.2f} dB < untrained "
                                  f"{r['psnr0']:.2f} + 6 dB")
         # the main path: the watermark stage on this geometry's trained backbone
         with tempfile.TemporaryDirectory() as workdir:
@@ -1809,8 +1932,39 @@ SOURCES = {
                                "nerf_signature_tpu/models/mlp.py:30"),
     "K4_field_bwd_feat_in16_f32": ("nerf_signature_tpu_torch/csrc/field_feat.cu",
                                    "nerf_signature_tpu/models/mlp.py:30"),
+    # 16 x 4: K1 with 4 features a row at 16 levels, K4 at encoding width 64
+    # on each route
+    "K1_hash_encode_16x4": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
+                            "nerf_signature_tpu/ops/hashenc.py:250"),
+    "K1_hash_encode_bwd_16x4": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
+                                "nerf_signature_tpu/ops/hashenc.py:124"),
+    "K4_field_in64": ("nerf_signature_tpu_torch/csrc/field_mma.cu",
+                      "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_in64_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
+                          "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_in64": ("nerf_signature_tpu_torch/csrc/field_mma_bwd_full.cu",
+                          "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_in64_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
+                              "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_feat_in64": ("nerf_signature_tpu_torch/csrc/field_mma_bwd.cu",
+                               "nerf_signature_tpu/models/mlp.py:30"),
+    "K4_field_bwd_feat_in64_f32": ("nerf_signature_tpu_torch/csrc/field_feat.cu",
+                                   "nerf_signature_tpu/models/mlp.py:30"),
+    # K1's backward into the message's effective table (the watermark step)
+    "K1_hash_encode_bwd_wm": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
+                              "nerf_signature_tpu/ops/hashenc.py:124"),
+    # K3 at the clean step's and the watermark step's shapes
+    "K3_composite_clean": ("nerf_signature_tpu_torch/csrc/composite.cu",
+                           "nerf_signature_tpu/ops/composite.py:25"),
+    "K3_composite_wm": ("nerf_signature_tpu_torch/csrc/composite.cu",
+                        "nerf_signature_tpu/ops/composite.py:25"),
+    "K3_composite_bwd_wm": ("nerf_signature_tpu_torch/csrc/composite.cu",
+                            "nerf_signature_tpu/ops/composite.py:25"),
 }
-GEOMETRY_ROWS = tuple(n for n in SOURCES if n.endswith(("_f4", "_in16", "_in16_f32")))
+# a geometry row's suffix (in its name, before any "_f32") and its geometry
+GEOMETRY_SUFFIXES = {v: k for rows in (K1_ROWS, K4_ROWS) for k, v in rows.items()}
+# a row at another step's shapes: its suffix and the run whose launches it takes
+SHAPE_SUFFIXES = {"_clean": "train", "_wm": "wm"}
 FORWARD = ("K1_hash_encode", "K2_march", "K3_composite", "K4_field")
 CLEAN_TRAIN = FORWARD + ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd")
 # the watermark step: the forward kernels, K9 both ways, K1's and K3's
@@ -1851,13 +2005,17 @@ def main():
         # shapes and WatermarkTrainer.train's launches (slice 3); P1 is on no
         # entry point's path (0 launches there), timed at the probe's shapes;
         # K4's SIMT kernels are the fp32 route, off the bf16 main path; K1
-        # at F = 4 and K4 at width 16: the geometry phase's shapes, launches
-        # of Trainer.train at 8 x 4 or 8 x 2 (K4's feature-only backward: of
-        # WatermarkTrainer.train at 8 x 2)
-        base = name.replace("_in16", "").replace("_f4", "")
-        if name in GEOMETRY_ROWS:
+        # at F = 4 and K4 at widths 16 and 64: the geometry phase's shapes,
+        # launches of Trainer.train at that geometry (K4's feature-only
+        # backward: of WatermarkTrainer.train there); K3 at the clean and
+        # watermark steps' shapes: launches of that step's run.  Every row
+        # also carries the train and watermark runs' launches.
+        suffix = next((k for k in GEOMETRY_SUFFIXES if k in name), None)
+        shape = next((k for k in SHAPE_SUFFIXES if name.endswith(k)), None)
+        base = name.replace(suffix or shape or "", "")
+        if suffix:
+            geo = GEOMETRY_SUFFIXES[suffix]
             r = geometry[name]
-            geo = "8x4" if name.endswith("_f4") else "8x2"
             train_n, wm_n = (geometry_launches[geo][k][base] for k in ("train", "wm"))
             if base in FP32_ROUTE:
                 n, path = 0, f"fp32 route at {geo} (the fp32 whole-step checks)"
@@ -1867,8 +2025,11 @@ def main():
                 n, path = train_n, f"train at {geo}"
         else:
             r = kernels[name] if name in KERNEL_PHASE else train_kernels[name]
-            train_n, wm_n = train["launches"][name], wm["launches"][name]
-            if name in FORWARD:
+            train_n, wm_n = train["launches"][base], wm["launches"][base]
+            if shape:
+                n, path = {"train": train_n, "wm": wm_n}[SHAPE_SUFFIXES[shape]], \
+                    SHAPE_SUFFIXES[shape]
+            elif name in FORWARD:
                 n, path = launches[name], "serve"
             elif name in CLEAN_TRAIN:
                 n, path = train_n, "train"

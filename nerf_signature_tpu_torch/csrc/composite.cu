@@ -10,48 +10,171 @@
 // writes 20 B of image, depth and weight sum.  The arithmetic is two exps a
 // slot.
 //
-// Design: one thread per ray, sequential over the S slots, carrying the
-// inclusive cumulative sum exactly as the JAX formula writes it (T_in is
-// recomputed as exp(-(cum - tau)), not multiplied up).  T is non-increasing
-// along the ray, so once the entering T falls below T_thresh every later
-// weight is zero: the thread stops reading there and writes zeros for the
-// rest of the row.  Compiled with -fmad=false so every product rounds like
-// the plain version.
+// Design: one warp a ray, RAYS rays a block, the slots in chunks of 32 with
+// lane = slot, so every load and store of a chunk is one coalesced
+// instruction: sigma, delta and the mask byte (the next chunk's are loaded
+// ahead, while this chunk's sums run), t, and the chunk's 96 contiguous
+// colour floats as 3 loads regrouped through the warp's shared buffer.
+// - The inclusive sum cum_i = cum_{i-1} + tau_i is taken slot by slot in
+//   slot order (a serial chain of shuffles, carried from chunk to chunk),
+//   so it rounds exactly as a sequential loop does; T_in = exp(-(cum_i -
+//   tau_i)) is then lane-wise.  cum, T_in and every weight are bit for bit
+//   those of the one-thread-a-ray walk: a parallel scan would move T_in by
+//   ulps, and a slot whose T_in sits at T_thresh would flip.
+// - T is non-increasing along the ray, so once the entering T falls below
+//   T_thresh every later weight is zero: the first such lane is found by a
+//   ballot, the warp stops after that chunk (of the rest of the row it has
+//   read only the next chunk's sigma, delta and mask, loaded ahead) and
+//   zero-fills the rest of the row with coalesced stores.
+// - weights_sum, depth and image are per-lane sums over the chunks, then a
+//   warp's xor tree: fp32 reordering of the sequential sums.
+// Compiled with -fmad=false so every product rounds like the plain version.
 
 #include "common.cuh"
 
-__global__ void composite_fwd(const float* __restrict__ sigmas, const float* __restrict__ rgbs,
-                              const float* __restrict__ deltas, const float* __restrict__ ts,
-                              const unsigned char* __restrict__ mask, float T_thresh, int N,
-                              int S, float* __restrict__ weights_sum, float* __restrict__ depth,
-                              float* __restrict__ image, float* __restrict__ weights) {
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
+namespace {
+
+constexpr int RAYS = 4;  // rays (warps) a block
+constexpr unsigned FULL = 0xffffffffu;
+
+// One lane's slot of a chunk: sigma and delta are read only for live slots.
+struct Slot {
+  float sigma, delta;
+  bool live;
+};
+
+__device__ __forceinline__ Slot load_slot(const float* __restrict__ sigmas,
+                                          const float* __restrict__ deltas,
+                                          const unsigned char* __restrict__ mask, long long k,
+                                          bool valid) {
+  Slot s;
+  s.live = valid && (mask == nullptr || mask[k] != 0);
+  s.sigma = s.live ? sigmas[k] : 0.0f;
+  s.delta = s.live ? deltas[k] : 0.0f;
+  return s;
+}
+
+// carry + tau_0 + ... + tau_lane, added one slot at a time in slot order;
+// carry becomes the chunk's last sum.  Every lane runs the same chain.  A
+// chunk with no live slot adds only zeros, and its callers skip the chain.
+__device__ __forceinline__ float serial_cumsum(float& carry, float tau, int lane) {
+  float c = carry, mine = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    c = __fadd_rn(c, __shfl_sync(FULL, tau, j));
+    mine = lane == j ? c : mine;
+  }
+  carry = c;
+  return mine;
+}
+
+// The warp's sum, by an xor tree (every lane gets the same bits).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// Inclusive prefix sum over the lanes (Hillis-Steele).
+__device__ __forceinline__ float inclusive_scan(float v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(FULL, v, off);
+    if (lane >= off) v = __fadd_rn(y, v);
+  }
+  return v;
+}
+
+// Lanes before the first set bit of stop (all lanes if none is set).
+__device__ __forceinline__ unsigned lanes_before(unsigned stop) {
+  return stop ? (1u << (__ffs(stop) - 1)) - 1u : FULL;
+}
+
+// The chunk's colours: n3 floats from src in 3 coalesced loads (a float is
+// read only if its slot's bit is set in want, else 0), regrouped so that
+// each lane holds its own slot's three.
+__device__ __forceinline__ void load_rgb(const float* __restrict__ src, int n3, unsigned want,
+                                         float* buf, int lane, float (&c)[3]) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int e = q * 32 + lane;
+    buf[e] = (e < n3 && ((want >> (e / 3)) & 1u)) ? src[e] : 0.0f;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 3; ++q) c[q] = buf[3 * lane + q];
+  __syncwarp();
+}
+
+// The reverse: each lane's three values out as n3 contiguous floats.
+__device__ __forceinline__ void store_rgb(float* __restrict__ dst, int n3, const float (&c)[3],
+                                          float* buf, int lane) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) buf[3 * lane + q] = c[q];
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int e = q * 32 + lane;
+    if (e < n3) dst[e] = buf[e];
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(32 * RAYS)
+    composite_fwd(const float* __restrict__ sigmas, const float* __restrict__ rgbs,
+                  const float* __restrict__ deltas, const float* __restrict__ ts,
+                  const unsigned char* __restrict__ mask, float T_thresh, int N, int S,
+                  float* __restrict__ weights_sum, float* __restrict__ depth,
+                  float* __restrict__ image, float* __restrict__ weights) {
+  __shared__ float rgb_buf[RAYS][96];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * RAYS + warp;
   if (n >= N) return;
   const long long base = (long long)n * S;
-  float cum = 0.0f, ws = 0.0f, dep = 0.0f, r = 0.0f, g = 0.0f, b = 0.0f;
-  int i = 0;
-  for (; i < S; ++i) {
+  float* buf = rgb_buf[warp];
+  float cum = 0.0f, ws = 0.0f, dep = 0.0f, col[3] = {0.0f, 0.0f, 0.0f};
+  Slot cur = load_slot(sigmas, deltas, mask, base + lane, lane < S);
+  int c0 = 0;
+  while (c0 < S) {
+    const int i = c0 + lane, next = c0 + 32;
+    const bool valid = i < S;
     const long long k = base + i;
-    const bool live_slot = (mask == nullptr) || mask[k];
-    const float tau = live_slot ? __fmul_rn(sigmas[k], deltas[k]) : 0.0f;
-    const float cum_i = __fadd_rn(cum, tau);
+    const Slot nxt = load_slot(sigmas, deltas, mask, base + next + lane, next + lane < S);
+    const float tau = cur.live ? __fmul_rn(cur.sigma, cur.delta) : 0.0f;
+    const float cum_i = __any_sync(FULL, cur.live) ? serial_cumsum(cum, tau, lane) : cum;
     const float T_in = expf(-__fsub_rn(cum_i, tau));
-    if (!(T_in >= T_thresh)) break;
-    cum = cum_i;
-    float w = live_slot ? __fmul_rn(__fsub_rn(1.0f, expf(-tau)), T_in) : 0.0f;
-    weights[k] = w;
-    ws = __fadd_rn(ws, w);
-    dep = __fadd_rn(dep, __fmul_rn(w, ts[k]));
-    r = __fadd_rn(r, __fmul_rn(w, rgbs[k * 3 + 0]));
-    g = __fadd_rn(g, __fmul_rn(w, rgbs[k * 3 + 1]));
-    b = __fadd_rn(b, __fmul_rn(w, rgbs[k * 3 + 2]));
+    const unsigned stop = __ballot_sync(FULL, valid && !(T_in >= T_thresh));
+    const bool keep = cur.live && ((lanes_before(stop) >> lane) & 1u);
+    const unsigned want = __ballot_sync(FULL, keep);
+    float w = 0.0f;
+    if (want) {
+      float c[3];
+      load_rgb(rgbs + 3 * (base + c0), 3 * min(32, S - c0), want, buf, lane, c);
+      if (keep) {
+        w = __fmul_rn(__fsub_rn(1.0f, expf(-tau)), T_in);
+        ws = __fadd_rn(ws, w);
+        dep = __fadd_rn(dep, __fmul_rn(w, ts[k]));
+#pragma unroll
+        for (int q = 0; q < 3; ++q) col[q] = __fadd_rn(col[q], __fmul_rn(w, c[q]));
+      }
+    }
+    if (valid) weights[k] = w;
+    c0 = next;
+    if (stop) break;
+    cur = nxt;
   }
-  for (; i < S; ++i) weights[base + i] = 0.0f;
-  weights_sum[n] = ws;
-  depth[n] = dep;
-  image[n * 3 + 0] = r;
-  image[n * 3 + 1] = g;
-  image[n * 3 + 2] = b;
+  for (int i = c0 + lane; i < S; i += 32) weights[base + i] = 0.0f;
+  ws = warp_sum(ws);
+  dep = warp_sum(dep);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) col[q] = warp_sum(col[q]);
+  if (lane == 0) {
+    weights_sum[n] = ws;
+    depth[n] = dep;
+    image[n * 3 + 0] = col[0];
+    image[n * 3 + 1] = col[1];
+    image[n * 3 + 2] = col[2];
+  }
 }
 
 // K3 backward: d sigmas [N, S] and d rgbs [N, S, 3] from the cotangents of
@@ -71,92 +194,124 @@ __global__ void composite_fwd(const float* __restrict__ sigmas, const float* __r
 // (25 B, twice) and writes 16 B of gradients; slots past termination are
 // only written (zeros).
 //
-// Design: one thread per ray, replaying the forward's loop exactly (same
-// roundings, same stop at the first slot whose entering T falls below
-// T_thresh).  Pass 1 sums R = sum_{live} w_i e_i; pass 2 walks again and
-// takes the suffix sum as R minus the running prefix.  One thread per ray
-// leaves a warp's loads uncoalesced (rows are S*4 bytes apart), as in the
-// forward; a warp per ray is the later speed step.
-__global__ void composite_bwd(const float* __restrict__ sigmas, const float* __restrict__ rgbs,
-                              const float* __restrict__ deltas, const float* __restrict__ ts,
-                              const unsigned char* __restrict__ mask, float T_thresh, int N,
-                              int S, const float* __restrict__ g_ws,
-                              const float* __restrict__ g_depth,
-                              const float* __restrict__ g_image,
-                              const float* __restrict__ g_weights, float* __restrict__ g_sigmas,
-                              float* __restrict__ g_rgbs) {
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
+// Design: the forward's layout (a warp a ray, chunks of 32, lane = slot,
+// coalesced loads and stores, the serial chain for cum, the ballot stop), in
+// two passes.  Pass 1 replays the forward's chunks up to the stop and sums
+// R = sum_live w_i e_i (per lane, then the xor tree).  Pass 2 replays them
+// again, takes the prefix P_k of w_i e_i by a warp scan carried from chunk
+// to chunk, and writes the gradients with the suffix sum as R - P_k; masked
+// slots and slots past the stop get zeros.  No atomics: repeats are
+// bit-equal.
+__global__ void __launch_bounds__(32 * RAYS)
+    composite_bwd(const float* __restrict__ sigmas, const float* __restrict__ rgbs,
+                  const float* __restrict__ deltas, const float* __restrict__ ts,
+                  const unsigned char* __restrict__ mask, float T_thresh, int N, int S,
+                  const float* __restrict__ g_ws, const float* __restrict__ g_depth,
+                  const float* __restrict__ g_image, const float* __restrict__ g_weights,
+                  float* __restrict__ g_sigmas, float* __restrict__ g_rgbs) {
+  __shared__ float rgb_buf[RAYS][96];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * RAYS + warp;
   if (n >= N) return;
   const long long base = (long long)n * S;
+  float* buf = rgb_buf[warp];
   const float gws = g_ws ? g_ws[n] : 0.0f;
   const float gd = g_depth ? g_depth[n] : 0.0f;
-  const float gr = g_image ? g_image[n * 3 + 0] : 0.0f;
-  const float gg = g_image ? g_image[n * 3 + 1] : 0.0f;
-  const float gb = g_image ? g_image[n * 3 + 2] : 0.0f;
+  float gc[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) gc[q] = g_image ? g_image[n * 3 + q] : 0.0f;
 
-  auto slot_e = [&](long long k) {
-    float e = __fadd_rn(__fadd_rn(__fmul_rn(gr, rgbs[k * 3 + 0]), __fmul_rn(gg, rgbs[k * 3 + 1])),
-                        __fmul_rn(gb, rgbs[k * 3 + 2]));
+  // e of a live slot k with colours c, in the one-thread walk's order
+  auto slot_e = [&](const float (&c)[3], long long k) {
+    float e = __fadd_rn(__fadd_rn(__fmul_rn(gc[0], c[0]), __fmul_rn(gc[1], c[1])),
+                        __fmul_rn(gc[2], c[2]));
     e = __fadd_rn(__fadd_rn(e, gws), __fmul_rn(gd, ts[k]));
     return g_weights ? __fadd_rn(e, g_weights[k]) : e;
   };
 
-  // pass 1: the forward's walk, summing w_i * e_i
-  float cum = 0.0f, R = 0.0f;
-  int stop = 0;
-  for (; stop < S; ++stop) {
-    const long long k = base + stop;
-    const bool live_slot = (mask == nullptr) || mask[k];
-    const float tau = live_slot ? __fmul_rn(sigmas[k], deltas[k]) : 0.0f;
-    const float cum_i = __fadd_rn(cum, tau);
+  // pass 1: the forward's walk, summing w_i * e_i; stop = the first slot
+  // whose entering T is below T_thresh (S if none)
+  float cum = 0.0f, r_lane = 0.0f;
+  int stop = S;
+  Slot cur = load_slot(sigmas, deltas, mask, base + lane, lane < S);
+  for (int c0 = 0; c0 < S; c0 += 32) {
+    const int i = c0 + lane, next = c0 + 32;
+    const bool valid = i < S;
+    const long long k = base + i;
+    const Slot nxt = load_slot(sigmas, deltas, mask, base + next + lane, next + lane < S);
+    const float tau = cur.live ? __fmul_rn(cur.sigma, cur.delta) : 0.0f;
+    const float cum_i = __any_sync(FULL, cur.live) ? serial_cumsum(cum, tau, lane) : cum;
     const float T_in = expf(-__fsub_rn(cum_i, tau));
-    if (!(T_in >= T_thresh)) break;
-    cum = cum_i;
-    if (!live_slot) continue;
-    const float w = __fmul_rn(__fsub_rn(1.0f, expf(-tau)), T_in);
-    R = __fadd_rn(R, __fmul_rn(w, slot_e(k)));
+    const unsigned stop_bits = __ballot_sync(FULL, valid && !(T_in >= T_thresh));
+    const bool keep = cur.live && ((lanes_before(stop_bits) >> lane) & 1u);
+    const unsigned want = __ballot_sync(FULL, keep);
+    if (want) {
+      float c[3];
+      load_rgb(rgbs + 3 * (base + c0), 3 * min(32, S - c0), want, buf, lane, c);
+      if (keep) {
+        const float w = __fmul_rn(__fsub_rn(1.0f, expf(-tau)), T_in);
+        r_lane = __fadd_rn(r_lane, __fmul_rn(w, slot_e(c, k)));
+      }
+    }
+    if (stop_bits) {
+      stop = c0 + __ffs(stop_bits) - 1;
+      break;
+    }
+    cur = nxt;
   }
+  const float R = warp_sum(r_lane);
 
-  // pass 2: the gradients, with the suffix sum R - prefix
+  // pass 2: the gradients of the slots before the stop, the suffix sum as
+  // R - prefix
   cum = 0.0f;
   float P = 0.0f;
-  int i = 0;
-  for (; i < stop; ++i) {
+  int c0 = 0;
+  if (stop > 0) cur = load_slot(sigmas, deltas, mask, base + lane, lane < stop);
+  for (; c0 < stop; c0 += 32) {
+    const int i = c0 + lane, next = c0 + 32;
+    const bool valid = i < S;
     const long long k = base + i;
-    if (!((mask == nullptr) || mask[k])) {  // masked: tau = 0, cum unchanged
-      g_sigmas[k] = 0.0f;
-      g_rgbs[k * 3 + 0] = g_rgbs[k * 3 + 1] = g_rgbs[k * 3 + 2] = 0.0f;
-      continue;
-    }
-    const float delta = deltas[k];
-    const float tau = __fmul_rn(sigmas[k], delta);
-    const float cum_i = __fadd_rn(cum, tau);
+    const Slot nxt = load_slot(sigmas, deltas, mask, base + next + lane, next + lane < stop);
+    const float tau = cur.live ? __fmul_rn(cur.sigma, cur.delta) : 0.0f;
+    const float cum_i = __any_sync(FULL, cur.live) ? serial_cumsum(cum, tau, lane) : cum;
     const float T_in = expf(-__fsub_rn(cum_i, tau));
-    cum = cum_i;
-    const float e_tau = expf(-tau);
-    const float w = __fmul_rn(__fsub_rn(1.0f, e_tau), T_in);
-    const float e = slot_e(k);
-    P = __fadd_rn(P, __fmul_rn(w, e));
-    const float dtau = __fsub_rn(__fmul_rn(__fmul_rn(e, e_tau), T_in), __fsub_rn(R, P));
-    g_sigmas[k] = __fmul_rn(dtau, delta);
-    g_rgbs[k * 3 + 0] = __fmul_rn(w, gr);
-    g_rgbs[k * 3 + 1] = __fmul_rn(w, gg);
-    g_rgbs[k * 3 + 2] = __fmul_rn(w, gb);
+    const bool keep = cur.live && i < stop;
+    const unsigned want = __ballot_sync(FULL, keep);
+    float gs = 0.0f, gr[3] = {0.0f, 0.0f, 0.0f};
+    if (want) {
+      float c[3];
+      load_rgb(rgbs + 3 * (base + c0), 3 * min(32, S - c0), want, buf, lane, c);
+      float w = 0.0f, e = 0.0f, e_tau = 0.0f;
+      if (keep) {
+        e_tau = expf(-tau);
+        w = __fmul_rn(__fsub_rn(1.0f, e_tau), T_in);
+        e = slot_e(c, k);
+      }
+      const float Pk = __fadd_rn(P, inclusive_scan(keep ? __fmul_rn(w, e) : 0.0f, lane));
+      P = __shfl_sync(FULL, Pk, 31);
+      if (keep) {
+        const float dtau = __fsub_rn(__fmul_rn(__fmul_rn(e, e_tau), T_in), __fsub_rn(R, Pk));
+        gs = __fmul_rn(dtau, cur.delta);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) gr[q] = __fmul_rn(w, gc[q]);
+      }
+    }
+    if (valid) g_sigmas[k] = gs;
+    store_rgb(g_rgbs + 3 * (base + c0), 3 * min(32, S - c0), gr, buf, lane);
+    cur = nxt;
   }
-  for (; i < S; ++i) {
-    const long long k = base + i;
-    g_sigmas[k] = 0.0f;
-    g_rgbs[k * 3 + 0] = g_rgbs[k * 3 + 1] = g_rgbs[k * 3 + 2] = 0.0f;
-  }
+  for (int i = c0 + lane; i < S; i += 32) g_sigmas[base + i] = 0.0f;
+  for (long long e = 3LL * c0 + lane; e < 3LL * S; e += 32) g_rgbs[3 * base + e] = 0.0f;
 }
+
+}  // namespace
 
 extern "C" int ngp_composite(const void* sigmas, const void* rgbs, const void* deltas,
                              const void* ts, const void* mask, float T_thresh, int N, int S,
                              void* weights_sum, void* depth, void* image, void* weights,
                              void* stream) {
   if (N == 0) return 0;
-  const int threads = 128;
-  composite_fwd<<<ngp_blocks(N, threads), threads, 0, (cudaStream_t)stream>>>(
+  composite_fwd<<<ngp_blocks(N, RAYS), 32 * RAYS, 0, (cudaStream_t)stream>>>(
       (const float*)sigmas, (const float*)rgbs, (const float*)deltas, (const float*)ts,
       (const unsigned char*)mask, T_thresh, N, S, (float*)weights_sum, (float*)depth,
       (float*)image, (float*)weights);
@@ -169,8 +324,7 @@ extern "C" int ngp_composite_bwd(const void* sigmas, const void* rgbs, const voi
                                  const void* g_weights, void* g_sigmas, void* g_rgbs,
                                  void* stream) {
   if (N == 0) return 0;
-  const int threads = 128;
-  composite_bwd<<<ngp_blocks(N, threads), threads, 0, (cudaStream_t)stream>>>(
+  composite_bwd<<<ngp_blocks(N, RAYS), 32 * RAYS, 0, (cudaStream_t)stream>>>(
       (const float*)sigmas, (const float*)rgbs, (const float*)deltas, (const float*)ts,
       (const unsigned char*)mask, T_thresh, N, S, (const float*)g_ws, (const float*)g_depth,
       (const float*)g_image, (const float*)g_weights, (float*)g_sigmas, (float*)g_rgbs);

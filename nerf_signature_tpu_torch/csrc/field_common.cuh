@@ -10,13 +10,14 @@
 
 // The widths (IN, HID, OUT1, HC) every K4 source is built for, one X(...) a
 // width: the NGPConfig defaults at 16 levels x 2 features and 8 x 4 (IN =
-// 32), at 8 x 2 (IN = 16), and the narrow test model (IN = 8).  The same
+// 32), at 8 x 2 (IN = 16), at 16 x 4 and 32 x 2 (IN = 64), and the narrow
+// test model (IN = 8).  The same
 // list is ops/_cuda.py:FIELD_WIDTHS.  ptxas takes minutes on each width of
 // the SIMT sources (field.cu, field_feat.cu), so ops/_cuda.py compiles them
 // once a width (-DNGP_IN=.. -DNGP_HID=.. -DNGP_OUT1=.. -DNGP_HC=..: the
 // object instantiates that width's launchers) and once without NGP_IN (the
 // C entry points, which call the launchers of every width), all in parallel.
-#define NGP_FIELD_WIDTHS(X) X(32, 64, 16, 64) X(16, 64, 16, 64) X(8, 16, 16, 16)
+#define NGP_FIELD_WIDTHS(X) X(32, 64, 16, 64) X(16, 64, 16, 64) X(64, 64, 16, 64) X(8, 16, 16, 16)
 
 __device__ __forceinline__ float round_to(float v, bool bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;

@@ -90,7 +90,7 @@ struct MmaDims {
   static constexpr int RT = RT_, ROWS = 16 * RT_, WARPS = WARPS_, THREADS = 32 * WARPS_,
                        MIN_BLOCKS = MIN_BLOCKS_;
   static_assert(OUT1 == 16 && SH_DIM == 16, "the colour input [SH(16), o(16)] is two k16 blocks");
-  static_assert((IN == 8 || IN == 16 || IN == 32) && HID % 16 == 0 && HID <= 64 &&
+  static_assert((IN == 8 || IN == 16 || IN == 32 || IN == 64) && HID % 16 == 0 && HID <= 64 &&
                     HC % 16 == 0 && HC <= 64,
                 "fragment shapes and 32-bit ReLU masks");
   static_assert(ROWS <= 32, "a warp tile's liveness: one sample a lane");
@@ -104,8 +104,8 @@ struct MmaDims {
   static constexpr int N_PACK = O_C2 + HC * LD_C2;  // bf16 elements
   static_assert(N_PACK % 8 == 0, "16-byte staging");
   // feature tile row stride (floats): the 8-byte fragment reads of rows g =
-  // 0-3 (a half warp) fall in distinct banks (FLD = 8 or 8 mod 32), and so
-  // do load_feat_tile's 16-byte pieces
+  // 0-3 (a half warp) fall in distinct banks (FLD = 8 or 8 mod 32: 24, 40
+  // and 72 at IN = 16, 32 and 64), and so do load_feat_tile's 16-byte pieces
   static constexpr int FLD = IN == 8 ? IN : IN + 8;
   static constexpr int FTILE = ROWS * FLD;
   static constexpr size_t SMEM = (size_t)N_PACK * 2 + (size_t)WARPS * 2 * FTILE * 4;
@@ -196,9 +196,10 @@ __device__ __forceinline__ void stage_weights(const __nv_bfloat16* __restrict__ 
 }
 
 // A warp's ROWS feature rows into its buffer (rows past M are zero-filled).
-// A quarter warp's 8 pieces go to distinct banks: at IN = 16 (two rows a
-// quarter, FLD = 24) the row index's two low bits are swapped, so that the
-// quarters take rows {0, 2}, {1, 3}, {4, 6}, {5, 7} of each 8.
+// A quarter warp's 8 pieces go to distinct banks: at IN = 32 and 64 they
+// are 128 contiguous bytes of one row; at IN = 16 (two rows a quarter, FLD =
+// 24) the row index's two low bits are swapped, so that the quarters take
+// rows {0, 2}, {1, 3}, {4, 6}, {5, 7} of each 8.
 template <class D>
 __device__ __forceinline__ void load_feat_tile(float* buf, const float* __restrict__ feat,
                                                long long row0, long long M, int lane) {

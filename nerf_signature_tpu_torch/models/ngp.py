@@ -261,8 +261,8 @@ def field_heads_plain(params, cfg: NGPConfig, feat, dirs=None):
     return sigma, geo, rgb
 
 
-GEOMETRY_TODO = ("ROADMAP queue 3 item 'table geometries on the card beyond 16 x 2, 8 x 2 and "
-                 "8 x 4'")
+GEOMETRY_TODO = ("ROADMAP queue 3 item 'table geometries on the card beyond encoding widths 16, "
+                 "32 and 64 with rows of 2 or 4 features'")
 
 
 def _check_field(widths, sh_degree, layers, n_features=None, geometry=""):
@@ -284,7 +284,7 @@ def _check_field(widths, sh_degree, layers, n_features=None, geometry=""):
 def check_kernel_geometry(cfg: NGPConfig):
     """Refuse up front, before a model is built on the card, a config
     whose field the kernels cannot run: a row width F that K1 lacks or an
-    encoding width (n_levels x F) that K4 lacks, e.g. 16 x 4 (width 64)."""
+    encoding width (n_levels x F) that K4 lacks, e.g. 12 x 2 (width 24)."""
     _check_field((cfg.enc_dim, cfg.hidden_dim, 1 + cfg.geo_feat_dim, cfg.hidden_dim_color),
                  cfg.sh_degree, (cfg.num_layers, cfg.num_layers_color), cfg.n_features,
                  f"{cfg.n_levels} levels x {cfg.n_features} features, ")

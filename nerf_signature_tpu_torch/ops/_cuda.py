@@ -48,8 +48,9 @@ SOURCES = {
 }
 # K4's widths (IN, hidden, 1 + geo, colour hidden), the list
 # csrc/field_common.cuh:NGP_FIELD_WIDTHS instantiates: 16 levels x 2
-# features and 8 x 4 (IN = 32), 8 x 2 (IN = 16), the narrow test model
-FIELD_WIDTHS = ((32, 64, 16, 64), (16, 64, 16, 64), (8, 16, 16, 16))
+# features and 8 x 4 (IN = 32), 8 x 2 (IN = 16), 16 x 4 and 32 x 2 (IN =
+# 64), the narrow test model
+FIELD_WIDTHS = ((32, 64, 16, 64), (16, 64, 16, 64), (64, 64, 16, 64), (8, 16, 16, 16))
 # the SIMT sources, on which ptxas takes minutes a width: compiled once a
 # width (-DNGP_IN=...) and once for their C entry points, all in parallel
 SPLIT_BY_WIDTH = ("field.cu", "field_feat.cu")

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time K2 (the marcher), K2 with noise, K1's forward, K4 on both routes, a
-served view's kernels, the clean train step and the watermark step for one
-tree of the repository, on one NVIDIA GPU: the way to put two commits side
-by side on one card.
+"""Time K2 (the marcher), K2 with noise, K1's forward, K4 on both routes, K3
+forward and backward, a served view's kernels, the clean train step and the
+watermark step for one tree of the repository, on one NVIDIA GPU: the way
+to put two commits side by side on one card.
 
     python3 scripts_port/kernel_ab.py <tree> [--out FILE]
 
@@ -15,7 +15,10 @@ the train step's 4096 random rays (budget 128), and view 0 at 800x800
 rendered in 157 chunks under torch.profiler (device time by kernel).  K4's
 forward (bf16 and fp32) on the serving chunk, its full backward at the
 train step's samples and its feature-only backward at the watermark step's
-(chip_smoke.py's shapes and cotangents).  Each kernel: per call (CUDA
+(chip_smoke.py's shapes and cotangents).  K3's forward on the field's
+output at the serving chunk, the train step's samples and the watermark
+step's, and its backward at the last two (the loss's cotangents of
+weights_sum and image, as chip_smoke.py draws them).  Each kernel: per call (CUDA
 events around one call, median) and on the device (torch.profiler, the
 durations of its device work).  Then the end-to-end rates: Trainer.train
 for 512 steps on the radius-0.7 ball (train rays/s) and
@@ -58,6 +61,7 @@ def main():
         raise RuntimeError(f"imported {pkg.__file__}, not the package of {tree}")
     from nerf_signature_tpu_torch.models import ngp as t_ngp
     from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.ops import composite as t_comp
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
     from nerf_signature_tpu_torch.ops import marching as t_march
     from nerf_signature_tpu_torch.render.renderer import default_aabb
@@ -69,6 +73,21 @@ def main():
 
     def timed(name, run, reps=30):
         out[name] = {"ms": cs.median_ms(run, reps), "device_ms": cs.device_ms(run, reps)}
+
+    def k3(tag, fpx, cfg, mk, f, ds, gen, backward=True):
+        """K3 forward (and backward) on the field's output at these samples."""
+        N_, S_ = mk["mask"].shape
+        with torch.no_grad():
+            sig, _, rgb = t_ngp.field_heads(fpx, cfg, f, ds)
+        sig = (sig.reshape(N_, S_) * m.rc.density_scale).contiguous()
+        rgb = rgb.reshape(N_, S_, 3).contiguous()
+        args = (sig, rgb, mk["deltas"], mk["ts"])
+        timed("K3_" + tag, lambda: t_comp.composite_rays(*args, mask=mk["mask"]))
+        if backward:
+            g_img = torch.randn((N_, 3), generator=gen, device=dev) * 1e-4
+            g_ws = -(g_img * torch.rand((N_, 3), generator=gen, device=dev)).sum(-1)
+            timed("K3_bwd_" + tag, lambda: t_comp.composite_rays_bwd(
+                *args, mk["mask"], 1e-4, g_ws=g_ws, g_image=g_img))
 
     m = cs.make_model(dev)
     grid, aabb = m.occ.occupancy, default_aabb(m.rc)
@@ -102,28 +121,30 @@ def main():
     march = t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse, **kw)
     x01 = ((march["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
     dirs = march["dirs"].reshape(-1, 3).contiguous()
-    del march
     with torch.no_grad():
         feat = t_hash.hash_encode(x01, fp["hash_table"], res, S, table_g=fp["hash_table_g"])
     timed("K4", lambda: t_ngp.field_heads(fp, m.cfg, feat, dirs), 20)
     timed("K4_f32", lambda: t_ngp.field_heads(fp32, cfg32, feat, dirs), 10)
-    del x01, dirs, feat
+    k3("serve", fp, m.cfg, march, feat, dirs, None, backward=False)
+    del x01, dirs, feat, march
 
-    def backward_inputs(fpx, ro_, rd_, aabb_, grid_, gen, **march_kw):
+    def backward_inputs(fpx, cfg, tag, ro_, rd_, aabb_, grid_, gen, **march_kw):
         """Encoded samples and cotangents zero on padded samples, as in
-        chip_smoke.py's train-kernels and watermark-kernels phases."""
+        chip_smoke.py's train-kernels and watermark-kernels phases; K3 at
+        these samples (``tag``) on the way."""
         mk = t_march.march_rays_aabb(ro_, rd_, aabb_, grid_, **march_kw)
         live = mk["mask"].reshape(-1).float()
         xs = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
         ds = mk["dirs"].reshape(-1, 3).contiguous()
         with torch.no_grad():
             f = t_hash.hash_encode(xs, fpx["hash_table"], res, S, table_g=fpx["hash_table_g"])
+        k3(tag, fpx, cfg, mk, f, ds, gen)
         gs = torch.randn((xs.shape[0],), generator=gen, device=dev) * 1e-4 * live
         gr = torch.randn((xs.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
         return f, ds, gs, gr
 
     # K4's full backward at the train step's samples
-    f, ds, gs, gr = backward_inputs(fp, ro_t, rd_t, aabb, grid,
+    f, ds, gs, gr = backward_inputs(fp, m.cfg, "clean", ro_t, rd_t, aabb, grid,
                                     torch.Generator(device=dev).manual_seed(7),
                                     coarse=coarse_t, **kw_t)
     for name, fpx, cfg in (("K4_bwd", fp, m.cfg), ("K4_bwd_f32", fp32, cfg32)):
@@ -138,7 +159,7 @@ def main():
     cfgw32 = dataclasses.replace(mw.cfg, compute_dtype=torch.float32)
     fpw32 = t_ngp.field_params(mw.backbone, cfgw32)
     f, ds, gs, gr = backward_inputs(
-        fpw, torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]]),
+        fpw, mw.cfg, "wm", torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]]),
         torch.cat([x["rd_b"].reshape(-1, 3), x["ct_d"]]), default_aabb(mw.rc),
         mw.occ.occupancy, torch.Generator(device=dev).manual_seed(17), min_near=0.2,
         bound=1.0, max_steps=1024, budget=256)

@@ -31,9 +31,11 @@ from nerf_signature_tpu_torch.ops import _cuda
 from nerf_signature_tpu_torch.ops.activation import trunc_exp
 from nerf_signature_tpu_torch.ops.sh import sh_encode
 
-# "full": 16 levels x 2 features (and 8 x 4, the same widths); "8x2": IN = 16
-WIDTHS = {"full": (32, 64, 16, 64), "8x2": (16, 64, 16, 64), "narrow": (8, 16, 16, 16)}
-CFGS = {"full": {}, "8x2": dict(n_levels=8),
+# "full": 16 levels x 2 features (and 8 x 4, the same widths); "8x2": IN = 16;
+# "16x4": IN = 64 (and 32 x 2)
+WIDTHS = {"full": (32, 64, 16, 64), "8x2": (16, 64, 16, 64), "16x4": (64, 64, 16, 64),
+          "narrow": (8, 16, 16, 16)}
+CFGS = {"full": {}, "8x2": dict(n_levels=8), "16x4": dict(n_features=4),
         "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12)}
 
 

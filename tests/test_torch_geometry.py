@@ -1,14 +1,21 @@
-"""The 8-level table geometries the card takes besides the default 16 x 2:
-8 levels x 2 features (K4 at encoding width 16) and 8 x 4 (K1 with 4
-features a row, K4 at width 32), held against the JAX package on the CPU
-(the plain versions), plus the up-front refusal of what the card lacks.
+"""The table geometries the card takes besides the default 16 x 2: 8
+levels x 2 features (K4 at encoding width 16), 8 x 4 (K1 with 4 features a
+row, K4 at width 32), 16 x 4 and 32 x 2 (K4 at width 64), held against the
+JAX package on the CPU (the plain versions), plus the up-front refusal of
+what the card lacks.
 
-Sizes: 8 levels of 2^12 rows at resolutions 16, 32, ..., 2048, the default
-MLP widths (64), inputs from numpy seeds.  The resolutions are powers of
-two, so ``x * res`` is exact: at other resolutions (8 levels from 16 to
+Sizes: levels of 2^12 rows, the default MLP widths (64), inputs from numpy
+seeds; 8 levels at resolutions 16, 32, ..., 2048, 16 levels at 1, 2, ...,
+2^15 and 32 levels all at 16 (``RESOLUTIONS``).  The resolutions are powers
+of two, so ``x * res`` is exact: at other resolutions (8 levels from 16 to
 128, say) XLA on the CPU contracts ``x * res - floor(x * res)`` into an FMA
 and a corner weight moves by an ulp of ``x * res`` (~7.6e-6 below 128), the
-known FMA difference of ROADMAP queue 3.  Tolerances and why:
+known FMA difference of ROADMAP queue 3.  (16 levels from 16 to 2^19 put
+four levels of 2^16 cells or more on a 2^12-row table: pure hash noise,
+where one bf16 rounding flip in a 64-term sum moves the bf16 gradients by up
+to 1e-2 relative L2 between any two sum orders; PyTorch against itself with
+the MLP's inputs permuted moves them by 2e-3.  fp32 agrees there to 4e-7.)
+Tolerances and why:
   * hash encoding, fp32 and bf16 gathers: rtol 1e-5 / atol 1e-6 forward
     (the same rows and corner order; weight products may differ by an ulp),
     1e-6 relative L2 for the table's gradient (the same bf16 rounding of
@@ -48,15 +55,19 @@ from test_torch_train_ops import rel_l2
 
 T = torch.from_numpy
 DT = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
-GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4)}
-SMALL = dict(log2_hashmap_size=12, base_resolution=16, finest_resolution=2048)
+GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4), "32x2": (32, 2)}
+# (base, finest) resolution by level count: every level's a power of two
+RESOLUTIONS = {8: (16, 2048), 16: (1, 1 << 15), 32: (16, 16)}
+SMALL = dict(log2_hashmap_size=12)
 
 
 def cfgs(geometry, dtype, **kw):
     """(JAX NGPConfig, port NGPConfig) of a geometry at the small size."""
     L, F = GEOMETRIES[geometry]
     jd, td = DT[dtype]
-    kw = dict(SMALL, bound=1.0, n_levels=L, n_features=F, **kw)
+    base, finest = RESOLUTIONS[L]
+    kw = dict(SMALL, base_resolution=base, finest_resolution=finest, bound=1.0, n_levels=L,
+              n_features=F, **kw)
     return j_ngp.NGPConfig(compute_dtype=jd, **kw), t_ngp.NGPConfig(compute_dtype=td, **kw)
 
 
@@ -99,13 +110,13 @@ def test_hash_encode_four_features_and_vjp_match_jax(name):
     assert rel_l2(tt.grad.numpy(), gj) <= 1e-6
 
 
-# ------------------------------------------------------ K4 at IN = 16 / 32
+# ------------------------------------------------- K4 at IN = 16 / 32 / 64
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
 def test_field_heads_match_jax(geometry, dtype):
     jcfg, tcfg = cfgs(geometry, dtype)
     assert t_ngp._kernel_widths(t_ngp.init_ngp_params(torch.Generator(), tcfg), tcfg) == (
-        {"8x2": 16, "8x4": 32}[geometry], 64, 16, 64)
+        {"8x2": 16, "8x4": 32, "16x4": 64, "32x2": 64}[geometry], 64, 16, 64)
     pj = jax_params(jcfg)
     pt = t_ckpt.params_from_jax(pj)
     rng = np.random.default_rng(41)
@@ -174,9 +185,10 @@ def test_clean_step_loss_and_grads_match_jax(geometry, dtype):
 
 
 # --------------------------------------------------- the message feature
+@pytest.mark.parametrize("geometry", ["8x4", "16x4"])
 @pytest.mark.parametrize("hash_select", [1, 0])
-def test_msg_feature_four_features_matches_jax(hash_select):
-    jn, tn = cfgs("8x4", "fp32")
+def test_msg_feature_four_features_matches_jax(hash_select, geometry):
+    jn, tn = cfgs(geometry, "fp32")
     wkw = dict(message_dim=3, msg_resolution=64, msg_log2_hashmap_size=10,
                hash_select=hash_select)
     jcfg, tcfg = j_wm.WatermarkConfig(ngp=jn, **wkw), t_wm.WatermarkConfig(ngp=tn, **wkw)
@@ -195,7 +207,8 @@ def test_msg_feature_four_features_matches_jax(hash_select):
     tt = T(tables).requires_grad_(True)
     ft = t_wm._msg_feature({"msg_tables": tt}, tcfg, T(x01), message)
     ft.backward(T(g))
-    assert ft.shape == np.asarray(fj).shape == (512, 32 if hash_select == 0 else 4)
+    L = GEOMETRIES[geometry][0]
+    assert ft.shape == np.asarray(fj).shape == (512, 4 * L if hash_select == 0 else 4)
     np.testing.assert_allclose(ft.detach().numpy(), np.asarray(fj), rtol=1e-5, atol=1e-6)
     assert rel_l2(tt.grad.numpy(), gj) <= 1e-6
 
@@ -222,27 +235,29 @@ def test_hash_kernels_take_two_or_four_features(F):
 
 
 @pytest.mark.parametrize("levels,features", [(16, 2), (8, 2), (8, 4), (16, 4), (8, 1), (8, 3),
-                                             (4, 4), (12, 2), (32, 2)])
+                                             (4, 4), (12, 2), (32, 2), (8, 8)])
 def test_kernel_geometry_accepts_exactly_the_built_widths(levels, features):
     cfg = t_ngp.NGPConfig(n_levels=levels, n_features=features, log2_hashmap_size=10)
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(0), cfg)
-    ok = (levels, features) in ((16, 2), (8, 2), (8, 4), (4, 4))  # widths 32, 16, 32, 16
+    # widths 32, 16, 32, 64, 16, 64
+    ok = (levels, features) in ((16, 2), (8, 2), (8, 4), (16, 4), (4, 4), (32, 2))
     if ok:
         t_ngp.check_kernel_geometry(cfg)
         assert t_ngp._kernel_widths(params, cfg) in _cuda.FIELD_WIDTHS
         return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
         t_ngp.check_kernel_geometry(cfg)
-    if levels * features not in (16, 32):
+    if levels * features not in (16, 32, 64):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
             t_ngp._kernel_widths(params, cfg)
 
 
-def test_cuda_models_refuse_sixteen_by_four_up_front():
-    """On a CUDA device string, before anything is built (no card needed)."""
+def test_cuda_models_refuse_twelve_by_two_up_front():
+    """On a CUDA device string, before anything is built (no card needed):
+    12 x 2, encoding width 24, which K4 lacks."""
     from nerf_signature_tpu_torch.api import NGPModel, WatermarkModel
 
-    cfg = t_ngp.NGPConfig(n_levels=16, n_features=4, log2_hashmap_size=10)
+    cfg = t_ngp.NGPConfig(n_levels=12, n_features=2, log2_hashmap_size=10)
     for device in ("cuda", None, "cuda:0"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
             NGPModel(cfg, grid_size=16, device=device)
@@ -258,12 +273,12 @@ def test_cuda_models_refuse_sixteen_by_four_up_front():
 
 
 @pytest.mark.parametrize("cli", ["main_nerf", "main_nerf_wtmk"])
-def test_clis_refuse_sixteen_by_four_before_reading_the_scene(tmp_path, cli):
+def test_clis_refuse_twelve_by_two_before_reading_the_scene(tmp_path, cli):
     import importlib
 
     main = importlib.import_module(f"nerf_signature_tpu_torch.{cli}").main
     argv = [str(tmp_path / "no_scene"), "--workspace", str(tmp_path / "ws"), "-O",
-            "--n_levels", "16", "--n_features", "4"]
+            "--n_levels", "12", "--n_features", "2"]
     if cli == "main_nerf_wtmk":
         argv += ["--wtmk_tcnn", "--ckpt", str(tmp_path / "none.ckpt")]
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):

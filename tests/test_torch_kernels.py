@@ -20,7 +20,10 @@ bit (the same adds in bit order, the same bf16 rounding) and its backward
 exactly (a copy); the feature-only K4 backward equals the full one's g_feat
 bit for bit (fp32: the same SIMT products; bf16: the same tensor-core
 chain); the full K4 backward's weight gradient is deterministic (bit-equal
-repeats); P1 equals ``table[idx]`` for any N and unaligned views.
+repeats); P1 equals ``table[idx]`` for any N and unaligned views.  K3 is
+also held at its warp walk's edges (S not a multiple of the 32-slot chunk,
+stops inside the first chunk and at its boundary, the mask absent or all
+off, T_thresh 0, N = 0), its backward repeats bit-equal (no atomics).
 """
 
 import numpy as np
@@ -35,8 +38,9 @@ from nerf_signature_tpu_torch.ops import marching as t_march
 pytestmark = pytest.mark.cuda
 
 # K4's widths: "full" is 16 levels x 2 features (8 x 4 has the same widths),
-# "8x2" encoding width 16, "narrow" the 8-wide test model
-WIDTHS = {"full": {}, "8x2": dict(n_levels=8),
+# "8x2" encoding width 16, "16x4" width 64 (32 x 2 has the same), "narrow"
+# the 8-wide test model
+WIDTHS = {"full": {}, "8x2": dict(n_levels=8), "16x4": dict(n_features=4),
           "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12)}
 
 
@@ -429,3 +433,76 @@ def test_march_kernel_group_budget_and_group_sizes_match_plain(cuda, bound, gamm
     assert k["mask"].any() and (p["n_groups_occ"] > group_budget).any()
     for name in p:
         assert torch.equal(k[name], p[name]), name
+
+
+def k3_edge_inputs(N, S, mask_kind, seed=8):
+    """numpy compositor inputs with rays that stop inside the first chunk, at
+    slot 31 and at slot 32 (an opaque slot of tau = 20 just before: a larger
+    tau would lose T_in's precision in cum - tau, in every version), opaque
+    rays, and the mask random, absent or all off."""
+    rng = np.random.default_rng(seed + S)
+    sig = rng.exponential(3.0, size=(N, S)).astype(np.float32)
+    sig[N // 2:] *= 60.0
+    rgb = rng.uniform(size=(N, S, 3)).astype(np.float32)
+    dt = rng.uniform(0.005, 0.05, size=(N, S)).astype(np.float32)
+    mask = rng.uniform(size=(N, S)) < 0.8
+    for row, slot in ((0, 0), (1, 30), (2, 31), (3, 5)):
+        if slot < S:
+            sig[row, :slot] = 0.01
+            sig[row, slot], dt[row, slot] = 400.0, 0.05
+            mask[row, :slot + 1] = True
+    ts = np.cumsum(dt, axis=-1).astype(np.float32)
+    if mask_kind == "all_masked":
+        mask[:] = False
+    return sig, rgb, dt, ts, (None if mask_kind == "off" else mask)
+
+
+@pytest.mark.parametrize("T_thresh", [0.0, 1e-4])
+@pytest.mark.parametrize("mask_kind", ["on", "off", "all_masked"])
+@pytest.mark.parametrize("S", [1, 31, 32, 40, 256])
+def test_composite_kernels_edge_cases(cuda, S, mask_kind, T_thresh):
+    """K3 (one warp a ray, chunks of 32) at S not a multiple of 32, stops
+    inside the first chunk and at its boundary, all-masked rays, no mask and
+    T_thresh = 0: forward within 1e-5, backward within 1e-5 relative L2 with
+    bit-equal repeats (no atomics)."""
+    N = 515  # not a multiple of the block's 4 rays
+    sig, rgb, dt, ts, mask = (None if v is None else torch.from_numpy(v).to(cuda)
+                              for v in k3_edge_inputs(N, S, mask_kind))
+    k = t_comp.composite_rays(sig, rgb, dt, ts, mask=mask, T_thresh=T_thresh)
+    p = t_comp.composite_rays_plain(sig, rgb, dt, ts, mask=mask, T_thresh=T_thresh)
+    for name in k:
+        assert float((k[name] - p[name]).abs().max()) <= 1e-5, name
+    g = torch.Generator(device=cuda).manual_seed(9)
+    cts = [torch.randn(shape, generator=g, device=cuda) for shape in ((N,), (N,), (N, 3), (N, S))]
+    once = t_comp.composite_rays_bwd(sig, rgb, dt, ts, mask, T_thresh, *cts)
+    again = t_comp.composite_rays_bwd(sig, rgb, dt, ts, mask, T_thresh, *cts)
+    assert torch.equal(once[0], again[0]) and torch.equal(once[1], again[1])
+    s_, r_ = sig.clone().requires_grad_(True), rgb.clone().requires_grad_(True)
+    out = t_comp.composite_rays_plain(s_, r_, dt, ts, mask=mask, T_thresh=T_thresh)
+    gs_p, gr_p = torch.autograd.grad([out[n] for n in ("weights_sum", "depth", "image",
+                                                       "weights")], [s_, r_], cts)
+    if mask_kind == "all_masked":
+        assert not once[0].any() and not once[1].any() and not k["weights"].any()
+        return
+    assert rel_l2(once[0], gs_p) <= 1e-5 and rel_l2(once[1], gr_p) <= 1e-5
+    if T_thresh > 0 and S > 32:  # the stops: at slot 1, 31 and 32
+        w = k["weights"]
+        assert not w[0, 1:].any() and not w[1, 31:].any() and not w[2, 32:].any()
+        assert bool((w[:3, 0] > 0).all())
+
+
+@pytest.mark.parametrize("N,S", [(0, 64), (7, 1), (3, 0)])
+def test_composite_kernels_empty_and_tiny(cuda, N, S):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    sig = torch.rand((N, S), generator=g, device=cuda) * 5
+    rgb = torch.rand((N, S, 3), generator=g, device=cuda)
+    dt = torch.full((N, S), 0.01, device=cuda)
+    ts = torch.cumsum(dt, -1)
+    k = t_comp.composite_rays(sig, rgb, dt, ts)
+    p = t_comp.composite_rays_plain(sig, rgb, dt, ts)
+    for name in k:
+        assert k[name].shape == p[name].shape
+        torch.testing.assert_close(k[name], p[name], rtol=1e-5, atol=1e-5)
+    cts = (torch.ones((N,), device=cuda), None, torch.ones((N, 3), device=cuda), None)
+    gs, gr = t_comp.composite_rays_bwd(sig, rgb, dt, ts, None, 1e-4, *cts)
+    assert gs.shape == (N, S) and gr.shape == (N, S, 3) and bool(torch.isfinite(gs).all())
