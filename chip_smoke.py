@@ -46,12 +46,13 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                kernels against the plain versions, in bf16 and in fp32; each
                whole step must run K4 on its dtype's route alone;
   5. geometry — the other table geometries at 2^19 rows a level: 8 x 2
-               (K4 at encoding width 16), 8 x 4 (K1 with 4 features a row)
-               and 16 x 4 (K4 at width 64, K1 with 4 features at 16 levels):
-               K1 forward (bit-exact) and backward, K4 forward, full and
-               feature-only backward on both routes, each against its plain
-               version; a whole clean and a whole watermark step through
-               the kernels against the plain versions (bf16, fp32);
+               (K4 at encoding width 16), 8 x 4 (K1 with 4 features a row),
+               16 x 4 (K4 at width 64, K1 with 4 features at 16 levels) and
+               32 x 2 (K4 at width 64, K1 at 32 levels): K1 forward
+               (bit-exact) and backward, K4 forward, full and feature-only
+               backward on both routes, each against its plain version; a
+               whole clean and a whole watermark step through the kernels
+               against the plain versions (bf16, fp32); but for 32 x 2,
                Trainer.train for 128 steps on the radius-0.7 ball (launches;
                at 8 x 4 and 16 x 4 the held-out PSNR must rise 6 dB), then
                64 watermark steps on that backbone; 12 x 2 (width 24) must be
@@ -138,14 +139,14 @@ TRAIN_BALL = 0.7
 # 16th update, at step 240)
 ADAPT_BALL = 0.4
 ADAPT_ITERS = 384
-# the 8-level table geometries (levels, features a row) the card takes
-# besides 16 x 2, and the length of their Trainer.train runs
-GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4)}
+# the table geometries (levels, features a row) the card takes besides
+# 16 x 2, and the length of their Trainer.train runs
+GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4), "32x2": (32, 2)}
+# the geometries that also train and run the watermark stage (32 x 2, K4 at
+# width 64 as 16 x 4 is: its kernels and whole steps only)
+GEO_TRAINED = ("8x2", "8x4", "16x4")
 # the geometries whose held-out PSNR must rise 6 dB in GEO_ITERS steps
 GEO_QUALITY = ("8x4", "16x4")
-# each geometry's row suffixes: K1 at 4 features a row, K4 at its width
-K1_ROWS = {"8x4": "_f4", "16x4": "_16x4"}
-K4_ROWS = {"8x2": "_in16", "16x4": "_in64"}
 GEO_ITERS = 128
 # the watermark stage's length on each geometry's trained backbone (two
 # epochs of the recipe's 32 views)
@@ -620,13 +621,26 @@ def rel_l2(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
 
 
+def k3_needs(sig, deltas, mask, T_thresh=1e-4):
+    """What K3 must read of these inputs: the slots before each ray's stop
+    (the first whose entering T is below T_thresh), whose mask bytes it
+    needs, and the live ones among them, whose sigma, delta, t and three
+    colours (24 B) it needs.  Masked slots, and every slot from the stop on,
+    need nothing but their zero outputs."""
+    with torch.no_grad():
+        live = torch.ones_like(sig, dtype=torch.bool) if mask is None else mask
+        tau = torch.where(live, sig * deltas, 0.0)
+        t_in = torch.exp(-(torch.cumsum(tau, -1) - tau))
+        before = torch.cumsum((t_in < T_thresh).int(), -1) == 0
+        return int(before.sum()), int((before & live).sum())
+
+
 def k3_rows(tag, sig, rgb, deltas, ts, mask, g_ws=None, g_img=None):
     """K3 forward (and, given the cotangents, backward) on one shape's
     inputs, against the plain version: the forward within 1e-5 max abs
     error, the backward within 1e-5 relative L2 with bit-equal repeats.
     Per call (CUDA events) and on the device (torch.profiler), the plain
-    version's time and the bound, from the slots these inputs make the
-    kernel read (those before each ray's stop).  Returns the rows."""
+    version's time and the bound (from ``k3_needs``).  Returns the rows."""
     from nerf_signature_tpu_torch.ops import composite as t_comp
 
     N, S = sig.shape
@@ -634,17 +648,17 @@ def k3_rows(tag, sig, rgb, deltas, ts, mask, g_ws=None, g_img=None):
     plain = lambda: t_comp.composite_rays_plain(sig, rgb, deltas, ts, mask=mask)
     ck, cp = fwd(), plain()
     e3 = max(float((ck[n] - cp[n]).abs().max()) for n in ck)
-    with torch.no_grad():
-        tau = sig * deltas if mask is None else torch.where(mask, sig * deltas, 0.0)
-        t_in = torch.exp(-(torch.cumsum(tau, -1) - tau))
-        n_read = int((t_in >= 1e-4).sum()) + int((t_in < 1e-4).any(-1).sum())
-    log(f"[K3 {tag}] N={N} S={S}: max abs err {e3:.3g} (limit 1e-5); {n_read} of {N * S} "
-        f"slots read before T < 1e-4")
+    n_before, n_live = k3_needs(sig, deltas, mask)
+    log(f"[K3 {tag}] N={N} S={S}: max abs err {e3:.3g} (limit 1e-5); of {N * S} slots "
+        f"{n_before} lie before their ray's stop (T < 1e-4), {n_live} of them live")
     if not e3 <= 1e-5:
         raise AssertionError(f"K3 ({tag}) differs from its plain version by {e3}")
-    bms, bby = bound_of(n_read * 25 + N * S * 4 + N * 20, n_read * 12, PEAK_FP32)
+    read = n_live * 24 + (0 if mask is None else n_before)
+    bms, bby = bound_of(read + N * S * 4 + N * 20, n_live * 12, PEAK_FP32)
+    needs = dict(slots=N * S, before_stop=n_before, live=n_live)
     row_f = dict(max_abs_err=e3, ms=median_ms(fwd, 30), device_ms=device_ms(fwd, 30),
-                 plain_ms=median_ms(plain, 10, 1), bound_ms=bms, bound_by=bby, library_ms=None)
+                 plain_ms=median_ms(plain, 10, 1), bound_ms=bms, bound_by=bby, library_ms=None,
+                 needs=needs)
     log(f"[K3 {tag}] {row_f['ms']:.4f} ms a call, device {row_f['device_ms']:.4f} ms, plain "
         f"{row_f['plain_ms']:.4f} ms, bound {bms:.4f} ms ({bby})")
     if g_img is None:
@@ -665,35 +679,13 @@ def k3_rows(tag, sig, rgb, deltas, ts, mask, g_ws=None, g_img=None):
     if not (e <= 1e-5 and same):
         raise AssertionError(f"K3 backward ({tag}) differs from its plain version (rel L2 {e}) "
                              f"or from itself")
-    bms, bby = bound_of(n_read * 25 + N * 16 + N * S * 16, n_read * 40, PEAK_FP32)
+    bms, bby = bound_of(read + N * 16 + N * S * 16, n_live * 40, PEAK_FP32)
     row_b = dict(max_abs_err=a, rel_l2=e, ms=median_ms(bwd, 30), device_ms=device_ms(bwd, 30),
                  plain_ms=median_ms(plain_b, 10, 1), bound_ms=bms, bound_by=bby,
-                 library_ms=None)
+                 library_ms=None, needs=needs)
     log(f"[K3 bwd {tag}] {row_b['ms']:.4f} ms a call, device {row_b['device_ms']:.4f} ms, "
         f"plain {row_b['plain_ms']:.4f} ms, bound {bms:.4f} ms ({bby})")
     return row_f, row_b
-
-
-def k3_edge_inputs(dev, N, S, mask_kind, seed=8):
-    """Compositor inputs with rays that stop inside the first chunk, at slot
-    31 and at slot 32 (an opaque slot of tau = 20 just before), opaque rays,
-    and the mask random, absent or all off."""
-    rng = np.random.default_rng(seed + S)
-    sig = rng.exponential(3.0, size=(N, S)).astype(np.float32)
-    sig[N // 2:] *= 60.0
-    rgb = rng.uniform(size=(N, S, 3)).astype(np.float32)
-    dt = rng.uniform(0.005, 0.05, size=(N, S)).astype(np.float32)
-    mask = rng.uniform(size=(N, S)) < 0.8
-    for row, slot in ((0, 0), (1, 30), (2, 31), (3, 5)):
-        if slot < S:
-            sig[row, :slot] = 0.01
-            sig[row, slot], dt[row, slot] = 400.0, 0.05
-            mask[row, :slot + 1] = True
-    ts = np.cumsum(dt, axis=-1).astype(np.float32)
-    if mask_kind == "all_masked":
-        mask[:] = False
-    t = lambda a: torch.from_numpy(a).to(dev)
-    return t(sig), t(rgb), t(dt), t(ts), None if mask_kind == "off" else t(mask)
 
 
 def k3_edges(dev):
@@ -704,6 +696,7 @@ def k3_edges(dev):
     rays (not a multiple of a block's 4), and N = 0.  Forward within 1e-5
     max abs error, backward within 1e-5 relative L2 (all-masked: exactly
     zero), bit-equal repeats."""
+    from nerf_signature_tpu_torch.kernel_cases import k3_edge_inputs
     from nerf_signature_tpu_torch.ops import composite as t_comp
 
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -712,7 +705,8 @@ def k3_edges(dev):
     for S in (1, 31, 32, 40, 256):
         for mask_kind in ("on", "off", "all_masked"):
             for thr in (0.0, 1e-4):
-                sig, rgb, dt, ts, mask = k3_edge_inputs(dev, 515, S, mask_kind)
+                sig, rgb, dt, ts, mask = (None if v is None else torch.from_numpy(v).to(dev)
+                                          for v in k3_edge_inputs(515, S, mask_kind))
                 k = t_comp.composite_rays(sig, rgb, dt, ts, mask=mask, T_thresh=thr)
                 p = t_comp.composite_rays_plain(sig, rgb, dt, ts, mask=mask, T_thresh=thr)
                 ef = max(float((k[n] - p[n]).abs().max()) for n in k)
@@ -1277,21 +1271,23 @@ def wm_kernels(dev, results, fp32_counts):
 # ---------------------------------------------------------------- phase 5
 def phase_geometry(dev):
     """The other table geometries at full table size (2^19 rows a level):
-    8 x 2 (K4 at encoding width 16), 8 x 4 (K1 with 4 features a row) and
-    16 x 4 (K4 at width 64, K1 with 4 features at 16 levels).
+    8 x 2 (K4 at encoding width 16), 8 x 4 (K1 with 4 features a row),
+    16 x 4 (K4 at width 64, K1 with 4 features at 16 levels) and 32 x 2 (K4
+    at width 64, K1 at its 32-level limit).
     For each: K1's forward (bit-exact) and K4's forward on the serving
     chunk's samples, K1's and K4's full backward at the train step's shapes,
     K4's feature-only backward at the watermark step's, each kernel against
     its plain version on both of K4's routes; one whole clean step and one
     whole watermark step through the kernels against the plain versions (bf16
-    and fp32, the existing limits); Trainer.train for GEO_ITERS steps on the
-    radius-0.7 ball, the quality limit checked at 8 x 4 and 16 x 4; and the
-    refusal of 12 x 2 (width 24) before a model is built.  Then each geometry's
-    watermark stage on the backbone its Trainer.train run trained: the
-    README stage-2 recipe for GEO_WM_ITERS steps through the CLI's setup
-    (``wm_train``).  Returns the rows of K1 at F = 4 and K4 at widths 16 and 64,
-    each geometry's launches (under "train" its Trainer.train run's, under
-    "wm" its WatermarkTrainer.train run's) and its training numbers."""
+    and fp32, the existing limits).  For each of GEO_TRAINED: Trainer.train
+    for GEO_ITERS steps on the radius-0.7 ball, the quality limit checked at
+    GEO_QUALITY, then the watermark stage on the backbone that run trained:
+    the README stage-2 recipe for GEO_WM_ITERS steps through the CLI's setup
+    (``wm_train``).  And the refusal of 12 x 2 (width 24) before a model is
+    built.  Returns each kernel's row at each geometry (keyed (kernel,
+    geometry); K1's forward is timed only where VARIANTS has a row for it),
+    each trained geometry's launches (under "train" its Trainer.train run's,
+    under "wm" its WatermarkTrainer.train run's) and its training numbers."""
     from nerf_signature_tpu_torch.api import NGPModel
     from nerf_signature_tpu_torch.models import ngp as t_ngp
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
@@ -1330,11 +1326,11 @@ def phase_geometry(dev):
             f"plain version bit for bit: {same} (limit: equal)")
         if not same:
             raise AssertionError(f"K1 ({geo}) differs from its plain version")
-        fwd = {"K4_field": k4_forward(fp, cfg, feat, dirs)[0],
+        krows = {"K4_field": k4_forward(fp, cfg, feat, dirs)[0],
                "K4_field_f32": k4_forward(fp32, cfg32, feat, dirs)[0]}
-        if geo in K1_ROWS:
-            rows["K1_hash_encode" + K1_ROWS[geo]] = dict(
-                k1_timing(x01, fp, cfg.resolutions, S_log2), max_abs_err=0.0)
+        if ("K1_hash_encode", geo, None) in VARIANTS.values():
+            krows["K1_hash_encode"] = dict(k1_timing(x01, fp, cfg.resolutions, S_log2),
+                                         max_abs_err=0.0)
         del feat, x01, dirs
         # train step shapes: K1's and K4's full backward
         ro, rd = train_rays(dev)
@@ -1345,16 +1341,15 @@ def phase_geometry(dev):
         x01 = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
         dirs = mk["dirs"].reshape(-1, 3).contiguous()
         del mk
-        bwd = k1_bwd(x01, live, fp["hash_table"].shape[0], cfg.resolutions, S_log2, F, gen)
-        if geo in K1_ROWS:
-            rows["K1_hash_encode_bwd" + K1_ROWS[geo]] = bwd
+        krows["K1_hash_encode_bwd"] = k1_bwd(x01, live, fp["hash_table"].shape[0],
+                                             cfg.resolutions, S_log2, F, gen)
         with torch.no_grad():
             feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions, S_log2,
                                       table_g=fp["hash_table_g"])
         g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
         g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
-        fwd["K4_field_bwd"] = k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb)
-        fwd["K4_field_bwd_f32"] = k4_bwd(fp32, cfg32, feat, dirs, g_sigma, g_rgb)
+        krows["K4_field_bwd"] = k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb)
+        krows["K4_field_bwd_f32"] = k4_bwd(fp32, cfg32, feat, dirs, g_sigma, g_rgb)
         del feat, x01, dirs, g_sigma, g_rgb, live
         bg = torch.rand((TRAIN_RAYS, 3), generator=gen, device=dev)
         clean_steps(dev, ro, rd, bg, noise, L, F)
@@ -1376,14 +1371,14 @@ def phase_geometry(dev):
                                       table_g=fpw["hash_table_g"])
         g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
         g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
-        fwd["K4_field_bwd_feat"] = k4_bwd_feat(fpw, cfg, feat, dirs, g_sigma, g_rgb)
-        fwd["K4_field_bwd_feat_f32"] = k4_bwd_feat(fpw32, cfg32, feat, dirs, g_sigma, g_rgb)
+        krows["K4_field_bwd_feat"] = k4_bwd_feat(fpw, cfg, feat, dirs, g_sigma, g_rgb)
+        krows["K4_field_bwd_feat_f32"] = k4_bwd_feat(fpw32, cfg32, feat, dirs, g_sigma, g_rgb)
         del feat, x01, dirs, g_sigma, g_rgb, live, mw, fpw, fpw32, m, fp, fp32
         wm_steps(dev, x, L, F)
-        if geo in K4_ROWS:  # K4 at this geometry's encoding width: its rows
-            w = K4_ROWS[geo]
-            rows.update({(k[:-4] + w + "_f32" if k.endswith("_f32") else k + w): r
-                         for k, r in fwd.items()})
+        rows.update({(k, geo): r for k, r in krows.items()})
+        if geo not in GEO_TRAINED:
+            gc.collect()
+            continue
         # the main path: Trainer.train with this geometry
         r = train_case(dev, TRAIN_BALL, GEO_ITERS, levels=L, features=F)
         stats[geo] = {k: r[k] for k in ("seconds", "psnr0", "psnr1")}
@@ -1914,57 +1909,38 @@ SOURCES = {
                          "nerf_signature_tpu/models/message.py:45"),
     "P1_gather": ("nerf_signature_tpu_torch/csrc/gather.cu",
                   "scripts_dev/pallas_gather_probe.py:46"),
+}
+# rows of a kernel of SOURCES at another table geometry (the geometry phase's
+# shapes, launches of that geometry's runs) or at another step's shapes
+# (launches of that step's run): name -> (kernel, geometry, step run)
+VARIANTS = {
     # the 8-level geometries: K1 with 4 features a row (8 x 4), K4 at
     # encoding width 16 (8 x 2) on each route
-    "K1_hash_encode_f4": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
-                          "nerf_signature_tpu/ops/hashenc.py:250"),
-    "K1_hash_encode_bwd_f4": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
-                              "nerf_signature_tpu/ops/hashenc.py:124"),
-    "K4_field_in16": ("nerf_signature_tpu_torch/csrc/field_mma.cu",
-                      "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_in16_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
-                          "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_in16": ("nerf_signature_tpu_torch/csrc/field_mma_bwd_full.cu",
-                          "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_in16_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
-                              "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_feat_in16": ("nerf_signature_tpu_torch/csrc/field_mma_bwd.cu",
-                               "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_feat_in16_f32": ("nerf_signature_tpu_torch/csrc/field_feat.cu",
-                                   "nerf_signature_tpu/models/mlp.py:30"),
+    "K1_hash_encode_f4": ("K1_hash_encode", "8x4", None),
+    "K1_hash_encode_bwd_f4": ("K1_hash_encode_bwd", "8x4", None),
+    "K4_field_in16": ("K4_field", "8x2", None),
+    "K4_field_in16_f32": ("K4_field_f32", "8x2", None),
+    "K4_field_bwd_in16": ("K4_field_bwd", "8x2", None),
+    "K4_field_bwd_in16_f32": ("K4_field_bwd_f32", "8x2", None),
+    "K4_field_bwd_feat_in16": ("K4_field_bwd_feat", "8x2", None),
+    "K4_field_bwd_feat_in16_f32": ("K4_field_bwd_feat_f32", "8x2", None),
     # 16 x 4: K1 with 4 features a row at 16 levels, K4 at encoding width 64
     # on each route
-    "K1_hash_encode_16x4": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
-                            "nerf_signature_tpu/ops/hashenc.py:250"),
-    "K1_hash_encode_bwd_16x4": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
-                                "nerf_signature_tpu/ops/hashenc.py:124"),
-    "K4_field_in64": ("nerf_signature_tpu_torch/csrc/field_mma.cu",
-                      "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_in64_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
-                          "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_in64": ("nerf_signature_tpu_torch/csrc/field_mma_bwd_full.cu",
-                          "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_in64_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
-                              "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_feat_in64": ("nerf_signature_tpu_torch/csrc/field_mma_bwd.cu",
-                               "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_feat_in64_f32": ("nerf_signature_tpu_torch/csrc/field_feat.cu",
-                                   "nerf_signature_tpu/models/mlp.py:30"),
+    "K1_hash_encode_16x4": ("K1_hash_encode", "16x4", None),
+    "K1_hash_encode_bwd_16x4": ("K1_hash_encode_bwd", "16x4", None),
+    "K4_field_in64": ("K4_field", "16x4", None),
+    "K4_field_in64_f32": ("K4_field_f32", "16x4", None),
+    "K4_field_bwd_in64": ("K4_field_bwd", "16x4", None),
+    "K4_field_bwd_in64_f32": ("K4_field_bwd_f32", "16x4", None),
+    "K4_field_bwd_feat_in64": ("K4_field_bwd_feat", "16x4", None),
+    "K4_field_bwd_feat_in64_f32": ("K4_field_bwd_feat_f32", "16x4", None),
     # K1's backward into the message's effective table (the watermark step)
-    "K1_hash_encode_bwd_wm": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
-                              "nerf_signature_tpu/ops/hashenc.py:124"),
+    "K1_hash_encode_bwd_wm": ("K1_hash_encode_bwd", None, "wm"),
     # K3 at the clean step's and the watermark step's shapes
-    "K3_composite_clean": ("nerf_signature_tpu_torch/csrc/composite.cu",
-                           "nerf_signature_tpu/ops/composite.py:25"),
-    "K3_composite_wm": ("nerf_signature_tpu_torch/csrc/composite.cu",
-                        "nerf_signature_tpu/ops/composite.py:25"),
-    "K3_composite_bwd_wm": ("nerf_signature_tpu_torch/csrc/composite.cu",
-                            "nerf_signature_tpu/ops/composite.py:25"),
+    "K3_composite_clean": ("K3_composite", None, "train"),
+    "K3_composite_wm": ("K3_composite", None, "wm"),
+    "K3_composite_bwd_wm": ("K3_composite_bwd", None, "wm"),
 }
-# a geometry row's suffix (in its name, before any "_f32") and its geometry
-GEOMETRY_SUFFIXES = {v: k for rows in (K1_ROWS, K4_ROWS) for k, v in rows.items()}
-# a row at another step's shapes: its suffix and the run whose launches it takes
-SHAPE_SUFFIXES = {"_clean": "train", "_wm": "wm"}
 FORWARD = ("K1_hash_encode", "K2_march", "K3_composite", "K4_field")
 CLEAN_TRAIN = FORWARD + ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd")
 # the watermark step: the forward kernels, K9 both ways, K1's and K3's
@@ -1998,24 +1974,23 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         wm = phase_wm(dev, train.pop("model"), workdir)
     rows = []
-    for name, (src, replaces) in SOURCES.items():
+    entries = [(name, name, None, None) for name in SOURCES] + [
+        (name,) + v for name, v in VARIANTS.items()]
+    for name, base, geo, run in entries:
         # forward kernels: the serving path's numbers and launches (slice 1);
         # backward kernels: the train step's shapes and Trainer.train's
         # launches (slice 2); the watermark kernels: the watermark step's
         # shapes and WatermarkTrainer.train's launches (slice 3); P1 is on no
         # entry point's path (0 launches there), timed at the probe's shapes;
-        # K4's SIMT kernels are the fp32 route, off the bf16 main path; K1
-        # at F = 4 and K4 at widths 16 and 64: the geometry phase's shapes,
-        # launches of Trainer.train at that geometry (K4's feature-only
-        # backward: of WatermarkTrainer.train there); K3 at the clean and
-        # watermark steps' shapes: launches of that step's run.  Every row
-        # also carries the train and watermark runs' launches.
-        suffix = next((k for k in GEOMETRY_SUFFIXES if k in name), None)
-        shape = next((k for k in SHAPE_SUFFIXES if name.endswith(k)), None)
-        base = name.replace(suffix or shape or "", "")
-        if suffix:
-            geo = GEOMETRY_SUFFIXES[suffix]
-            r = geometry[name]
+        # K4's SIMT kernels are the fp32 route, off the bf16 main path; a
+        # geometry's rows: the geometry phase's shapes, launches of
+        # Trainer.train at that geometry (K4's feature-only backward: of
+        # WatermarkTrainer.train there); a row at another step's shapes:
+        # launches of that step's run.  Every row also carries the train
+        # and watermark runs' launches.
+        src, replaces = SOURCES[base]
+        if geo:
+            r = geometry[(base, geo)]
             train_n, wm_n = (geometry_launches[geo][k][base] for k in ("train", "wm"))
             if base in FP32_ROUTE:
                 n, path = 0, f"fp32 route at {geo} (the fp32 whole-step checks)"
@@ -2026,9 +2001,8 @@ def main():
         else:
             r = kernels[name] if name in KERNEL_PHASE else train_kernels[name]
             train_n, wm_n = train["launches"][base], wm["launches"][base]
-            if shape:
-                n, path = {"train": train_n, "wm": wm_n}[SHAPE_SUFFIXES[shape]], \
-                    SHAPE_SUFFIXES[shape]
+            if run:
+                n, path = {"train": train_n, "wm": wm_n}[run], run
             elif name in FORWARD:
                 n, path = launches[name], "serve"
             elif name in CLEAN_TRAIN:
@@ -2044,7 +2018,7 @@ def main():
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "train_launches": train_n, "wm_launches": wm_n}
         for extra in ("device_ms", "plain_device_ms", "library_device_ms", "rel_l2", "full_bwd_ms",
-                      "share_not_equal", "rel_l2_vs_full_bwd"):
+                      "share_not_equal", "rel_l2_vs_full_bwd", "needs"):
             if extra in r:
                 row[extra] = r[extra]
         if name in FP32_ROUTE:

@@ -5,10 +5,10 @@
 // w = (1 - exp(-tau)) * T_in, zero where T_in < T_thresh or masked) and,
 // in composite_bwd below, JAX's autodiff of that closed form.
 //
-// What bounds it on the H100: memory.  Per slot it reads sigma, delta, t,
-// three colours and the mask (25 B) and writes the weight (4 B); per ray it
-// writes 20 B of image, depth and weight sum.  The arithmetic is two exps a
-// slot.
+// What bounds it on the H100: memory.  Of the slots before a ray's stop it
+// needs the mask byte, and of the live ones among them sigma, delta, t and
+// three colours (24 B); it writes every slot's weight (4 B) and 20 B a ray
+// of image, depth and weight sum.  The arithmetic is two exps a live slot.
 //
 // Design: one warp a ray, RAYS rays a block, the slots in chunks of 32 with
 // lane = slot, so every load and store of a chunk is one coalesced
@@ -120,6 +120,45 @@ __device__ __forceinline__ void store_rgb(float* __restrict__ dst, int n3, const
   __syncwarp();
 }
 
+// One chunk of a ray's walk, the same in the forward and both backward
+// passes: this chunk's tau (0 unless live), its entering T (cum carried
+// from the last chunk), the lanes kept (live and before the ray's stop, the
+// first slot whose entering T is below T_thresh: it and every later slot
+// get no weight) and, if any is kept, their colours.  The forward and the
+// backward's first pass find the stop by a ballot (stop: its bit, if it
+// lies in this chunk); the second pass knows it (stop_at) and so issues the
+// colour loads before the serial chain.
+struct Chunk {
+  float tau, T_in, c[3];
+  unsigned stop;
+  bool keep;
+};
+
+template <bool KNOWN_STOP>
+__device__ __forceinline__ Chunk walk_chunk(const Slot& cur, float& cum,
+                                            const float* __restrict__ rgbs, long long base,
+                                            int c0, int S, float T_thresh, int stop_at,
+                                            float* buf, int lane) {
+  Chunk ch;
+  ch.c[0] = ch.c[1] = ch.c[2] = 0.0f;
+  ch.stop = 0u;
+  ch.tau = cur.live ? __fmul_rn(cur.sigma, cur.delta) : 0.0f;
+  if (KNOWN_STOP) {
+    ch.keep = cur.live && c0 + lane < stop_at;
+    const unsigned want = __ballot_sync(FULL, ch.keep);
+    if (want) load_rgb(rgbs + 3 * (base + c0), 3 * min(32, S - c0), want, buf, lane, ch.c);
+  }
+  const float cum_i = __any_sync(FULL, cur.live) ? serial_cumsum(cum, ch.tau, lane) : cum;
+  ch.T_in = expf(-__fsub_rn(cum_i, ch.tau));
+  if (!KNOWN_STOP) {
+    ch.stop = __ballot_sync(FULL, c0 + lane < S && !(ch.T_in >= T_thresh));
+    ch.keep = cur.live && ((lanes_before(ch.stop) >> lane) & 1u);
+    const unsigned want = __ballot_sync(FULL, ch.keep);
+    if (want) load_rgb(rgbs + 3 * (base + c0), 3 * min(32, S - c0), want, buf, lane, ch.c);
+  }
+  return ch;
+}
+
 __global__ void __launch_bounds__(32 * RAYS)
     composite_fwd(const float* __restrict__ sigmas, const float* __restrict__ rgbs,
                   const float* __restrict__ deltas, const float* __restrict__ ts,
@@ -136,31 +175,20 @@ __global__ void __launch_bounds__(32 * RAYS)
   Slot cur = load_slot(sigmas, deltas, mask, base + lane, lane < S);
   int c0 = 0;
   while (c0 < S) {
-    const int i = c0 + lane, next = c0 + 32;
-    const bool valid = i < S;
-    const long long k = base + i;
-    const Slot nxt = load_slot(sigmas, deltas, mask, base + next + lane, next + lane < S);
-    const float tau = cur.live ? __fmul_rn(cur.sigma, cur.delta) : 0.0f;
-    const float cum_i = __any_sync(FULL, cur.live) ? serial_cumsum(cum, tau, lane) : cum;
-    const float T_in = expf(-__fsub_rn(cum_i, tau));
-    const unsigned stop = __ballot_sync(FULL, valid && !(T_in >= T_thresh));
-    const bool keep = cur.live && ((lanes_before(stop) >> lane) & 1u);
-    const unsigned want = __ballot_sync(FULL, keep);
+    const long long k = base + c0 + lane;
+    const Slot nxt = load_slot(sigmas, deltas, mask, k + 32, c0 + 32 + lane < S);
+    const Chunk ch = walk_chunk<false>(cur, cum, rgbs, base, c0, S, T_thresh, S, buf, lane);
     float w = 0.0f;
-    if (want) {
-      float c[3];
-      load_rgb(rgbs + 3 * (base + c0), 3 * min(32, S - c0), want, buf, lane, c);
-      if (keep) {
-        w = __fmul_rn(__fsub_rn(1.0f, expf(-tau)), T_in);
-        ws = __fadd_rn(ws, w);
-        dep = __fadd_rn(dep, __fmul_rn(w, ts[k]));
+    if (ch.keep) {
+      w = __fmul_rn(__fsub_rn(1.0f, expf(-ch.tau)), ch.T_in);
+      ws = __fadd_rn(ws, w);
+      dep = __fadd_rn(dep, __fmul_rn(w, ts[k]));
 #pragma unroll
-        for (int q = 0; q < 3; ++q) col[q] = __fadd_rn(col[q], __fmul_rn(w, c[q]));
-      }
+      for (int q = 0; q < 3; ++q) col[q] = __fadd_rn(col[q], __fmul_rn(w, ch.c[q]));
     }
-    if (valid) weights[k] = w;
-    c0 = next;
-    if (stop) break;
+    if (c0 + lane < S) weights[k] = w;
+    c0 += 32;
+    if (ch.stop) break;
     cur = nxt;
   }
   for (int i = c0 + lane; i < S; i += 32) weights[base + i] = 0.0f;
@@ -189,19 +217,19 @@ __global__ void __launch_bounds__(32 * RAYS)
 // under autodiff (cum_i - tau_i only holds tau_j for j < i), so no tau_k
 // term of T_in_k appears above.
 //
-// What bounds it on the H100: memory, like the forward.  Per slot read
-// before termination it reads sigma, delta, t, three colours and the mask
-// (25 B, twice) and writes 16 B of gradients; slots past termination are
-// only written (zeros).
+// What bounds it on the H100: memory, like the forward.  It needs the
+// forward's inputs (the second pass finds them in L2) and 20 B a ray of
+// cotangents, and writes 16 B of gradients for every slot (zeros past the
+// stop and on masked slots).
 //
 // Design: the forward's layout (a warp a ray, chunks of 32, lane = slot,
 // coalesced loads and stores, the serial chain for cum, the ballot stop), in
-// two passes.  Pass 1 replays the forward's chunks up to the stop and sums
-// R = sum_live w_i e_i (per lane, then the xor tree).  Pass 2 replays them
-// again, takes the prefix P_k of w_i e_i by a warp scan carried from chunk
-// to chunk, and writes the gradients with the suffix sum as R - P_k; masked
-// slots and slots past the stop get zeros.  No atomics: repeats are
-// bit-equal.
+// two passes, each a walk of the forward's chunks (walk_chunk) up to the
+// stop.  Pass 1 finds the stop and sums R = sum_live w_i e_i (per lane,
+// then the xor tree).  Pass 2, which knows the stop, takes the prefix P_k
+// of w_i e_i by a warp scan carried from chunk to chunk, and writes the
+// gradients with the suffix sum as R - P_k; masked slots and slots past
+// the stop get zeros.  No atomics: repeats are bit-equal.
 __global__ void __launch_bounds__(32 * RAYS)
     composite_bwd(const float* __restrict__ sigmas, const float* __restrict__ rgbs,
                   const float* __restrict__ deltas, const float* __restrict__ ts,
@@ -229,74 +257,55 @@ __global__ void __launch_bounds__(32 * RAYS)
     return g_weights ? __fadd_rn(e, g_weights[k]) : e;
   };
 
-  // pass 1: the forward's walk, summing w_i * e_i; stop = the first slot
-  // whose entering T is below T_thresh (S if none)
+  // pass 1: the forward's walk, summing w_i * e_i over the kept slots; stop
+  // = the first slot whose entering T is below T_thresh (S if none)
   float cum = 0.0f, r_lane = 0.0f;
   int stop = S;
   Slot cur = load_slot(sigmas, deltas, mask, base + lane, lane < S);
   for (int c0 = 0; c0 < S; c0 += 32) {
-    const int i = c0 + lane, next = c0 + 32;
-    const bool valid = i < S;
-    const long long k = base + i;
-    const Slot nxt = load_slot(sigmas, deltas, mask, base + next + lane, next + lane < S);
-    const float tau = cur.live ? __fmul_rn(cur.sigma, cur.delta) : 0.0f;
-    const float cum_i = __any_sync(FULL, cur.live) ? serial_cumsum(cum, tau, lane) : cum;
-    const float T_in = expf(-__fsub_rn(cum_i, tau));
-    const unsigned stop_bits = __ballot_sync(FULL, valid && !(T_in >= T_thresh));
-    const bool keep = cur.live && ((lanes_before(stop_bits) >> lane) & 1u);
-    const unsigned want = __ballot_sync(FULL, keep);
-    if (want) {
-      float c[3];
-      load_rgb(rgbs + 3 * (base + c0), 3 * min(32, S - c0), want, buf, lane, c);
-      if (keep) {
-        const float w = __fmul_rn(__fsub_rn(1.0f, expf(-tau)), T_in);
-        r_lane = __fadd_rn(r_lane, __fmul_rn(w, slot_e(c, k)));
-      }
+    const long long k = base + c0 + lane;
+    const Slot nxt = load_slot(sigmas, deltas, mask, k + 32, c0 + 32 + lane < S);
+    const Chunk ch = walk_chunk<false>(cur, cum, rgbs, base, c0, S, T_thresh, S, buf, lane);
+    if (ch.keep) {
+      const float w = __fmul_rn(__fsub_rn(1.0f, expf(-ch.tau)), ch.T_in);
+      r_lane = __fadd_rn(r_lane, __fmul_rn(w, slot_e(ch.c, k)));
     }
-    if (stop_bits) {
-      stop = c0 + __ffs(stop_bits) - 1;
+    if (ch.stop) {
+      stop = c0 + __ffs(ch.stop) - 1;
       break;
     }
     cur = nxt;
   }
   const float R = warp_sum(r_lane);
 
-  // pass 2: the gradients of the slots before the stop, the suffix sum as
-  // R - prefix
+  // pass 2: the same walk up to the stop, the gradients of the kept slots
+  // with the suffix sum as R - prefix, zeros elsewhere
   cum = 0.0f;
   float P = 0.0f;
   int c0 = 0;
-  if (stop > 0) cur = load_slot(sigmas, deltas, mask, base + lane, lane < stop);
+  cur = load_slot(sigmas, deltas, mask, base + lane, lane < stop);
   for (; c0 < stop; c0 += 32) {
-    const int i = c0 + lane, next = c0 + 32;
-    const bool valid = i < S;
-    const long long k = base + i;
-    const Slot nxt = load_slot(sigmas, deltas, mask, base + next + lane, next + lane < stop);
-    const float tau = cur.live ? __fmul_rn(cur.sigma, cur.delta) : 0.0f;
-    const float cum_i = __any_sync(FULL, cur.live) ? serial_cumsum(cum, tau, lane) : cum;
-    const float T_in = expf(-__fsub_rn(cum_i, tau));
-    const bool keep = cur.live && i < stop;
-    const unsigned want = __ballot_sync(FULL, keep);
+    const long long k = base + c0 + lane;
+    const Slot nxt = load_slot(sigmas, deltas, mask, k + 32, c0 + 32 + lane < stop);
+    const Chunk ch = walk_chunk<true>(cur, cum, rgbs, base, c0, S, T_thresh, stop, buf, lane);
     float gs = 0.0f, gr[3] = {0.0f, 0.0f, 0.0f};
-    if (want) {
-      float c[3];
-      load_rgb(rgbs + 3 * (base + c0), 3 * min(32, S - c0), want, buf, lane, c);
+    if (__any_sync(FULL, ch.keep)) {
       float w = 0.0f, e = 0.0f, e_tau = 0.0f;
-      if (keep) {
-        e_tau = expf(-tau);
-        w = __fmul_rn(__fsub_rn(1.0f, e_tau), T_in);
-        e = slot_e(c, k);
+      if (ch.keep) {
+        e_tau = expf(-ch.tau);
+        w = __fmul_rn(__fsub_rn(1.0f, e_tau), ch.T_in);
+        e = slot_e(ch.c, k);
       }
-      const float Pk = __fadd_rn(P, inclusive_scan(keep ? __fmul_rn(w, e) : 0.0f, lane));
+      const float Pk = __fadd_rn(P, inclusive_scan(ch.keep ? __fmul_rn(w, e) : 0.0f, lane));
       P = __shfl_sync(FULL, Pk, 31);
-      if (keep) {
-        const float dtau = __fsub_rn(__fmul_rn(__fmul_rn(e, e_tau), T_in), __fsub_rn(R, Pk));
+      if (ch.keep) {
+        const float dtau = __fsub_rn(__fmul_rn(__fmul_rn(e, e_tau), ch.T_in), __fsub_rn(R, Pk));
         gs = __fmul_rn(dtau, cur.delta);
 #pragma unroll
         for (int q = 0; q < 3; ++q) gr[q] = __fmul_rn(w, gc[q]);
       }
     }
-    if (valid) g_sigmas[k] = gs;
+    if (c0 + lane < S) g_sigmas[k] = gs;
     store_rgb(g_rgbs + 3 * (base + c0), 3 * min(32, S - c0), gr, buf, lane);
     cur = nxt;
   }

@@ -27,19 +27,74 @@ backbone (watermark rays/s), each followed by 16 profiled steps (wall and
 device busy ms a step, idle share).  Prints one JSON line (also to
 ``--out``).  Run each tree in its own process, in turns (parent, change,
 change, parent), all in one call to the card.
+
+Where the tree's ``composite.cu`` has the serial chain of 32 shuffles (the
+cumulative sum of tau in slot order), each K3 row also has a ``K3_scan``
+twin: that source built alone with the chain swapped for a warp scan of 5
+steps, the same loads, stores and stop but other roundings (so it is
+timed, never used).  The gap between the two is what the chain costs.
 """
 
 import argparse
+import ctypes
 import dataclasses
 import importlib.util
 import json
 import os
+import re
+import subprocess
 import sys
 import tempfile
 
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# the body of composite.cu's serial chain, and a warp scan in its place
+CHAIN = re.compile(r"(__device__ __forceinline__ float serial_cumsum\(float& carry, float tau, "
+                   r"int lane\) \{\n).*?\n\}\n", re.S)
+SCAN = """  float v = tau;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(FULL, v, off);
+    if (lane >= off) v = __fadd_rn(y, v);
+  }
+  v = __fadd_rn(carry, v);
+  carry = __shfl_sync(FULL, v, 31);
+  return v;
+}
+"""
+
+
+def scan_variant(tree):
+    """The tree's composite.cu with the serial chain swapped for a warp scan,
+    built alone (the flags of the package's build) into its _build
+    directory and loaded: (forward, backward) C entry points; None if the
+    source has no such chain."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    with open(os.path.join(_cuda.CSRC, "composite.cu")) as f:
+        src, n = CHAIN.subn(lambda mt: mt.group(1) + SCAN, f.read())
+    if n == 0:
+        return None
+    out = os.path.join(tree, "nerf_signature_tpu_torch", "_build", "k3_scan")
+    os.makedirs(out, exist_ok=True)
+    cu, so = os.path.join(out, "composite_scan.cu"), os.path.join(out, "libk3_scan.so")
+    with open(cu, "w") as f:
+        f.write(src)
+    cmd = ([_cuda._nvcc()] + _cuda._ARCH + _cuda._COMMON + _cuda.SOURCES["composite.cu"] +
+           ["-I", _cuda.CSRC, "-shared", cu, "-o", so])
+    r = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the scan variant:\n{r.stdout}")
+    lib = ctypes.CDLL(so)
+    fns = []
+    for sym in ("ngp_composite", "ngp_composite_bwd"):
+        fn = getattr(lib, sym)
+        fn.argtypes, fn.restype = _cuda._SIGNATURES[sym], ctypes.c_int
+        fns.append(fn)
+    return fns
 
 
 def main():
@@ -74,8 +129,11 @@ def main():
     def timed(name, run, reps=30):
         out[name] = {"ms": cs.median_ms(run, reps), "device_ms": cs.device_ms(run, reps)}
 
+    scan = scan_variant(tree)
+
     def k3(tag, fpx, cfg, mk, f, ds, gen, backward=True):
-        """K3 forward (and backward) on the field's output at these samples."""
+        """K3 forward (and backward) on the field's output at these samples,
+        and the scan variant, if any, on the same inputs."""
         N_, S_ = mk["mask"].shape
         with torch.no_grad():
             sig, _, rgb = t_ngp.field_heads(fpx, cfg, f, ds)
@@ -83,11 +141,23 @@ def main():
         rgb = rgb.reshape(N_, S_, 3).contiguous()
         args = (sig, rgb, mk["deltas"], mk["ts"])
         timed("K3_" + tag, lambda: t_comp.composite_rays(*args, mask=mk["mask"]))
+        ptrs = [t.data_ptr() for t in args[:4]] + [mk["mask"].data_ptr(), 1e-4, N_, S_]
+        stream = lambda: torch.cuda.current_stream().cuda_stream
+        if scan:
+            outs = [torch.empty((N_,), device=dev), torch.empty((N_,), device=dev),
+                    torch.empty((N_, 3), device=dev), torch.empty((N_, S_), device=dev)]
+            timed("K3_scan_" + tag, lambda: scan[0](*ptrs, *(o.data_ptr() for o in outs),
+                                                    stream()))
         if backward:
             g_img = torch.randn((N_, 3), generator=gen, device=dev) * 1e-4
             g_ws = -(g_img * torch.rand((N_, 3), generator=gen, device=dev)).sum(-1)
             timed("K3_bwd_" + tag, lambda: t_comp.composite_rays_bwd(
                 *args, mk["mask"], 1e-4, g_ws=g_ws, g_image=g_img))
+            if scan:
+                gsig, grgb = torch.empty_like(sig), torch.empty_like(rgb)
+                timed("K3_scan_bwd_" + tag, lambda: scan[1](
+                    *ptrs, g_ws.data_ptr(), None, g_img.data_ptr(), None, gsig.data_ptr(),
+                    grgb.data_ptr(), stream()))
 
     m = cs.make_model(dev)
     grid, aabb = m.occ.occupancy, default_aabb(m.rc)

@@ -29,8 +29,8 @@ import pytest
 import torch
 
 from nerf_signature_tpu.ops import composite as j_comp
+from nerf_signature_tpu_torch.kernel_cases import k3_edge_inputs
 from nerf_signature_tpu_torch.ops import composite as t_comp
-from test_torch_kernels import k3_edge_inputs
 from test_torch_train_ops import rel_l2
 
 LANES = 32

@@ -6,15 +6,19 @@ what the card lacks.
 
 Sizes: levels of 2^12 rows, the default MLP widths (64), inputs from numpy
 seeds; 8 levels at resolutions 16, 32, ..., 2048, 16 levels at 1, 2, ...,
-2^15 and 32 levels all at 16 (``RESOLUTIONS``).  The resolutions are powers
-of two, so ``x * res`` is exact: at other resolutions (8 levels from 16 to
-128, say) XLA on the CPU contracts ``x * res - floor(x * res)`` into an FMA
-and a corner weight moves by an ulp of ``x * res`` (~7.6e-6 below 128), the
-known FMA difference of ROADMAP queue 3.  (16 levels from 16 to 2^19 put
-four levels of 2^16 cells or more on a 2^12-row table: pure hash noise,
-where one bf16 rounding flip in a 64-term sum moves the bf16 gradients by up
-to 1e-2 relative L2 between any two sum orders; PyTorch against itself with
-the MLP's inputs permuted moves them by 2e-3.  fp32 agrees there to 4e-7.)
+2^15 (``RESOLUTIONS``) and 32 levels at 1, 1, 2, 2, ..., 2^15, 2^15, every
+octave at two levels (``LEVEL_RESOLUTIONS``; 32 distinct powers of two would
+reach 2^31).  The resolutions are powers of two, so ``x * res`` is exact:
+at other resolutions XLA on the CPU contracts ``x * res - floor(x * res)``
+into an FMA and a corner weight moves by an ulp of ``x * res``, the known
+FMA difference of ROADMAP queue 3 (~7.6e-6 below 128, up to 2^-5 of a
+cell below 2^19).  16 x 4 at 16, 32, ...,
+2^19, the finest levels pure hash noise on a 2^12-row table, has a test of
+its own (``test_clean_step_to_2_19_matches_jax_given_the_same_bf16_features``):
+there the two fp32 encodings, apart on ~6% of the features (within the
+forward's tolerance), round a few features to neighbouring bf16 values, and
+that alone moves the bf16 gradients by up to 1.06e-2 (``python
+tests/test_torch_geometry.py`` prints the readings seed by seed).
 Tolerances and why:
   * hash encoding, fp32 and bf16 gathers: rtol 1e-5 / atol 1e-6 forward
     (the same rows and corner order; weight products may differ by an ulp),
@@ -29,6 +33,8 @@ Tolerances and why:
   * the message feature at F = 4: rtol 1e-5 / atol 1e-6, gradient 1e-6, as
     in test_torch_wm_ops.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -57,18 +63,31 @@ T = torch.from_numpy
 DT = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4), "32x2": (32, 2)}
 # (base, finest) resolution by level count: every level's a power of two
-RESOLUTIONS = {8: (16, 2048), 16: (1, 1 << 15), 32: (16, 16)}
+RESOLUTIONS = {8: (16, 2048), 16: (1, 1 << 15)}
+# level counts whose resolutions no (base, finest) pair gives as powers of two
+LEVEL_RESOLUTIONS = {32: tuple(float(1 << (level // 2)) for level in range(32))}
 SMALL = dict(log2_hashmap_size=12)
 
 
-def cfgs(geometry, dtype, **kw):
-    """(JAX NGPConfig, port NGPConfig) of a geometry at the small size."""
+def _at_resolutions(cfg, resolutions):
+    """cfg with its ``resolutions`` property replaced by a fixed tuple."""
+    cls = type(cfg)
+    sub = type(cls.__name__, (cls,), {"resolutions": property(lambda self: resolutions)})
+    return sub(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+
+def cfgs(geometry, dtype, resolutions=None, **kw):
+    """(JAX NGPConfig, port NGPConfig) of a geometry at the small size;
+    ``resolutions``: another (base, finest) pair."""
     L, F = GEOMETRIES[geometry]
     jd, td = DT[dtype]
-    base, finest = RESOLUTIONS[L]
+    base, finest = resolutions or RESOLUTIONS.get(L, (16, 16))
     kw = dict(SMALL, base_resolution=base, finest_resolution=finest, bound=1.0, n_levels=L,
               n_features=F, **kw)
-    return j_ngp.NGPConfig(compute_dtype=jd, **kw), t_ngp.NGPConfig(compute_dtype=td, **kw)
+    jcfg, tcfg = j_ngp.NGPConfig(compute_dtype=jd, **kw), t_ngp.NGPConfig(compute_dtype=td, **kw)
+    if L in LEVEL_RESOLUTIONS and resolutions is None:
+        jcfg, tcfg = (_at_resolutions(c, LEVEL_RESOLUTIONS[L]) for c in (jcfg, tcfg))
+    return jcfg, tcfg
 
 
 def jax_params(jcfg, seed=0):
@@ -138,18 +157,20 @@ def test_field_heads_match_jax(geometry, dtype):
 
 
 # ------------------------------------------------- a clean step, same samples
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("geometry", list(GEOMETRIES))
-def test_clean_step_loss_and_grads_match_jax(geometry, dtype):
-    """The train step's loss (MSE over a random background) and every
-    leaf's gradient, on the samples of the JAX march with noise."""
-    jcfg, tcfg = cfgs(geometry, dtype)
-    pj = jax_params(jcfg, seed=1)
+def clean_step(jcfg, tcfg, seed=0, same_bf16_features=False):
+    """The train step's loss (MSE over a random background) and every leaf's
+    gradient in both packages, on the samples of the JAX march with noise:
+    (JAX loss, JAX leaves, port loss, port leaves, the two fp32 encodings,
+    samples whose features round to other bf16 values in the two packages).  Given
+    ``same_bf16_features``, JAX's field heads take the port's fp32 features
+    at those samples (values only: the gradients still flow through JAX's
+    encoder)."""
+    pj = jax_params(jcfg, seed=1 + seed)
     pt = t_ckpt.params_from_jax(pj)
     occ = ball_occupancy(1.0)
-    ro, rd, images = batch(seed=2)
+    ro, rd, images = batch(seed=2 + seed)
     N = ro.shape[0]
-    kperturb, bg, _ = draws(jax.random.PRNGKey(7), N)
+    kperturb, bg, _ = draws(jax.random.PRNGKey(7 + seed), N)
     nj, fj = j_int.near_far_from_aabb(jnp.asarray(ro), jnp.asarray(rd),
                                       jnp.asarray([-1.0] * 3 + [1.0] * 3), 0.2)
     m = j_march.march_rays(jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(occ), nj, fj,
@@ -159,10 +180,19 @@ def test_clean_step_loss_and_grads_match_jax(geometry, dtype):
                                                                "mask"))
     assert mask.sum() > 100
     gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
+    xyz, dirs = xyz.reshape(-1, 3), dirs.reshape(-1, 3)
+    feat_j = np.array(j_ngp._encode_pos(pj, jcfg, jnp.asarray(xyz)))
+    feat_t = t_ngp._encode_pos(pt, tcfg, T(xyz)).detach().numpy()
+    flipped = np.unique(np.nonzero((T(feat_j).bfloat16() != T(feat_t).bfloat16()).numpy())[0])
+    swap = np.array(feat_j)
+    swap[flipped] = feat_t[flipped]
 
     def loss_j(p):
-        s, r = j_ngp.ngp_field(p, jcfg, jnp.asarray(xyz.reshape(-1, 3)),
-                               jnp.asarray(dirs.reshape(-1, 3)))
+        feat = j_ngp._encode_pos(p, jcfg, jnp.asarray(xyz))
+        if same_bf16_features:
+            feat = feat + jax.lax.stop_gradient(jnp.asarray(swap) - feat)
+        s, geo = j_ngp._sigma_head(p, jcfg, feat)
+        r = j_ngp.ngp_color(p, jcfg, jnp.asarray(dirs), geo)
         o = j_comp.composite_rays(s.reshape(N, -1), r.reshape(N, -1, 3), jnp.asarray(deltas),
                                   jnp.asarray(ts), mask=jnp.asarray(mask))
         img = o["image"] + (1.0 - o["weights_sum"])[:, None] * bg
@@ -171,16 +201,50 @@ def test_clean_step_loss_and_grads_match_jax(geometry, dtype):
     lj, gj = jax.value_and_grad(loss_j)(jax.tree_util.tree_map(jnp.asarray, pj))
     for p in t_trainer.param_leaves(pt):
         p.requires_grad_(True)
-    s, r = t_ngp.ngp_field(t_ngp.field_params(pt, tcfg), tcfg, T(xyz.reshape(-1, 3)),
-                           T(dirs.reshape(-1, 3)))
+    s, r = t_ngp.ngp_field(t_ngp.field_params(pt, tcfg), tcfg, T(xyz), T(dirs))
     o = t_comp.composite_rays(s.reshape(N, -1), r.reshape(N, -1, 3), T(deltas), T(ts),
                               mask=T(mask))
     img = o["image"] + (1.0 - o["weights_sum"])[:, None] * T(bg)
     lt = torch.mean(torch.mean((img - T(gt)) ** 2, dim=-1))
     lt.backward()
-    assert abs(float(lt) - float(lj)) <= 1e-5 * abs(float(lj))
+    return (float(lj), leaves_j(gj), float(lt.detach()), leaves_t(pt, grad=True),
+            (feat_j, feat_t), flipped)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_clean_step_loss_and_grads_match_jax(geometry, dtype):
+    """The train step's loss (MSE over a random background) and every
+    leaf's gradient, on the samples of the JAX march with noise."""
+    lj, gj, lt, gt, _, _ = clean_step(*cfgs(geometry, dtype))
+    assert abs(lt - lj) <= 1e-5 * abs(lj)
     bound = {"fp32": 1e-5, "bf16": 1e-3}[dtype]
-    for name, a, b in zip(LEAVES, leaves_j(gj), leaves_t(pt, grad=True)):
+    for name, a, b in zip(LEAVES, gj, gt):
+        assert rel_l2(b, a) <= bound, (name, rel_l2(b, a))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_clean_step_to_2_19_matches_jax_given_the_same_bf16_features(seed, dtype):
+    """16 x 4 at resolutions 16, 32, ..., 2^19.  The two packages' fp32
+    encodings agree within the forward's tolerance (rtol 1e-5 / atol 1e-6)
+    but not bit for bit: apart on ~6% of the features.  The few of those
+    that sit on a bf16 rounding boundary (3 samples at seed 0)
+    round to neighbouring bf16 values, and that alone moves the bf16 step's
+    gradients by up to 1.06e-2 relative L2 at seed 0 (below 1e-3 at seeds 1
+    to 5).  So in bf16 JAX's field heads take the port's fp32 features at
+    those samples, and the step then matches under the same-samples limits
+    (loss 1e-5 relative; per-leaf 1e-3); in fp32 it matches as it stands
+    (1e-5)."""
+    jcfg, tcfg = cfgs("16x4", dtype, resolutions=(16, 1 << 19))
+    assert jcfg.resolutions[-1] == tcfg.resolutions[-1] == 1 << 19
+    lj, gj, lt, gt, (feat_j, feat_t), flipped = clean_step(
+        jcfg, tcfg, seed, same_bf16_features=dtype == "bf16")
+    np.testing.assert_allclose(feat_t, feat_j, rtol=1e-5, atol=1e-6)
+    assert len(flipped) <= 16
+    assert abs(lt - lj) <= 1e-5 * abs(lj)
+    bound = {"fp32": 1e-5, "bf16": 1e-3}[dtype]
+    for name, a, b in zip(LEAVES, gj, gt):
         assert rel_l2(b, a) <= bound, (name, rel_l2(b, a))
 
 
@@ -284,3 +348,42 @@ def test_clis_refuse_twelve_by_two_before_reading_the_scene(tmp_path, cli):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
         main(argv)
     assert not (tmp_path / "ws").exists()
+
+
+def _permuted(mlp_apply, seed):
+    """``mlp_apply`` with the MLP's inputs and hidden units in another order
+    (the same function, other sum orders)."""
+    def run(params, x, **kw):
+        rng = np.random.default_rng(seed)
+        perms = [rng.permutation(params[0].shape[0])] + [
+            rng.permutation(w.shape[1]) for w in params[:-1]]
+        ws = [w[perms[i]] if i == len(params) - 1 else w[perms[i]][:, perms[i + 1]]
+              for i, w in enumerate(params)]
+        return mlp_apply(ws, x[:, perms[0]], **kw)
+    return run
+
+
+if __name__ == "__main__":
+    # The bf16 gap at 16 x 4 up to resolution 2^19, seed by seed: the port
+    # against JAX as they stand, how many fp32 features are apart and how
+    # many round to other bf16 values, JAX with the port's features at
+    # those samples, and each package against itself with its MLPs' sum
+    # orders permuted.  JAX_PLATFORMS=cpu python tests/test_torch_geometry.py
+    import sys
+
+    def worst(a, b):
+        return max((rel_l2(x, y), n) for n, x, y in zip(LEAVES, a, b))
+
+    for seed in range(int(sys.argv[1]) if len(sys.argv) > 1 else 6):
+        jcfg, tcfg = cfgs("16x4", "bf16", resolutions=(16, 1 << 19))
+        _, gj, _, gt, (fj, ft), flipped = clean_step(jcfg, tcfg, seed)
+        _, gs, _, _, _, _ = clean_step(jcfg, tcfg, seed, same_bf16_features=True)
+        mj, mt = j_ngp.mlp_apply, t_ngp.mlp_apply
+        j_ngp.mlp_apply, t_ngp.mlp_apply = _permuted(mj, 100 + seed), _permuted(mt, 100 + seed)
+        _, gjp, _, gtp, _, _ = clean_step(jcfg, tcfg, seed)
+        j_ngp.mlp_apply, t_ngp.mlp_apply = mj, mt
+        print(f"seed {seed}: port vs JAX {worst(gt, gj)}; fp32 features apart "
+              f"{int((fj != ft).sum())} of {fj.size}, bf16 roundings apart at {len(flipped)} "
+              f"samples; port vs JAX given those {worst(gt, gs)}, JAX vs itself given them "
+              f"{worst(gs, gj)}; permuted MLPs: JAX {worst(gjp, gj)}, port {worst(gtp, gt)}",
+              flush=True)

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from nerf_signature_tpu_torch.kernel_cases import k3_edge_inputs
 from nerf_signature_tpu_torch.models import ngp as t_ngp
 from nerf_signature_tpu_torch.ops import composite as t_comp
 from nerf_signature_tpu_torch.ops import hashenc as t_hash
@@ -387,11 +388,12 @@ def test_hash_encode_kernel_one_level_and_shared_table(cuda, shared):
 
 
 @pytest.mark.parametrize("gather", ["bf16", "fp32", "dense"])
-@pytest.mark.parametrize("L,F", [(16, 2), (8, 2), (8, 4), (5, 2), (5, 4)])
+@pytest.mark.parametrize("L,F", [(16, 2), (8, 2), (8, 4), (16, 4), (32, 2), (5, 2),
+                                 (5, 4)])
 def test_hash_encode_kernel_is_bit_exact(cuda, L, F, gather):
     """The level-major forward: equal to the plain version bit for bit, for
-    rows of 2 and 4 features, an odd level count (8-byte stores) and a
-    ragged last tile; its backward within 1e-5 relative L2 (atomic order)."""
+    rows of 2 and 4 features, at 16 x 4 and at 32 x 2 (NGP_MAX_LEVELS), an
+    odd level count (8-byte stores) and a ragged last tile; its backward within 1e-5 relative L2 (atomic order)."""
     g = torch.Generator().manual_seed(15)
     res = t_hash.level_resolutions(L, 16, 2048)
     sides = t_hash.level_sides(res, 19, True) if gather == "dense" else None
@@ -433,28 +435,6 @@ def test_march_kernel_group_budget_and_group_sizes_match_plain(cuda, bound, gamm
     assert k["mask"].any() and (p["n_groups_occ"] > group_budget).any()
     for name in p:
         assert torch.equal(k[name], p[name]), name
-
-
-def k3_edge_inputs(N, S, mask_kind, seed=8):
-    """numpy compositor inputs with rays that stop inside the first chunk, at
-    slot 31 and at slot 32 (an opaque slot of tau = 20 just before: a larger
-    tau would lose T_in's precision in cum - tau, in every version), opaque
-    rays, and the mask random, absent or all off."""
-    rng = np.random.default_rng(seed + S)
-    sig = rng.exponential(3.0, size=(N, S)).astype(np.float32)
-    sig[N // 2:] *= 60.0
-    rgb = rng.uniform(size=(N, S, 3)).astype(np.float32)
-    dt = rng.uniform(0.005, 0.05, size=(N, S)).astype(np.float32)
-    mask = rng.uniform(size=(N, S)) < 0.8
-    for row, slot in ((0, 0), (1, 30), (2, 31), (3, 5)):
-        if slot < S:
-            sig[row, :slot] = 0.01
-            sig[row, slot], dt[row, slot] = 400.0, 0.05
-            mask[row, :slot + 1] = True
-    ts = np.cumsum(dt, axis=-1).astype(np.float32)
-    if mask_kind == "all_masked":
-        mask[:] = False
-    return sig, rgb, dt, ts, (None if mask_kind == "off" else mask)
 
 
 @pytest.mark.parametrize("T_thresh", [0.0, 1e-4])
