@@ -204,24 +204,73 @@ def device_events(prof):
     return by_name
 
 
+# torch.profiler now and then returns a trace without its device events
+# (once twice in a row); a traced measurement is retried this many times
+TRACE_TRIES = 4
+# device_ms calls that fell back to CUDA events (every try came back empty)
+EVENT_FALLBACKS = []
+
+
+def traced(work, what):
+    """Run ``work()`` under torch.profiler and return (its device events by
+    name, its result), retrying while a trace comes back without device
+    events; the events are None when every try did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, TRACE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = work()
+            torch.cuda.synchronize()
+        by_name = device_events(prof)
+        if by_name:
+            return by_name, out
+        log(f"[trace] {what}: torch.profiler's trace holds no device events "
+            f"(try {attempt} of {TRACE_TRIES})")
+        time.sleep(0.5)
+    return None, out
+
+
+def events_ms(fn, reps):
+    """Device time of one call of ``fn`` from CUDA events around ``reps``
+    calls queued behind a spin kernel that outlasts their dispatch, so the
+    host's launch gaps do not show (unless ``fn`` waits for the device)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10 ** 6)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 10 ** 6 / a.elapsed_time(b)
+    torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 1)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def device_ms(fn, reps=20):
     """Device time of one call of ``fn``: the durations of the device work
     that ``reps`` calls launch, summed from a torch.profiler trace, over
     ``reps`` (the host's dispatch and the gaps between launches left out,
-    which CUDA events around a call count)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    which CUDA events around a call count).  Where every trace comes back
+    empty, ``events_ms`` measures it instead (counted in EVENT_FALLBACKS)."""
     fn()
-    torch.cuda.synchronize()
-    for _ in range(2):  # now and then a trace comes back without its device events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name = device_events(prof)
-        if by_name:
-            return sum(by_name.values()) / reps / 1e3
-    raise AssertionError("torch.profiler recorded no device work")
+    by_name, _ = traced(lambda: [fn() for _ in range(reps)], "device_ms")
+    if by_name:
+        return sum(by_name.values()) / reps / 1e3
+    ms = events_ms(fn, reps)
+    EVENT_FALLBACKS.append(ms)
+    log(f"[trace] device_ms from CUDA events instead: {ms:.4f} ms a call")
+    return ms
 
 
 # the forward kernels a served view runs, by a substring of their names
@@ -232,16 +281,16 @@ VIEW_KERNELS = {"K1": "hash_encode_fwd", "K2": "march_fwd", "K3": "composite_fwd
 def view_profile(render):
     """One served view under torch.profiler: the device ms of K1-K4's
     forward kernels, their sum, all device work, and the render's wall clock
-    (profiler on)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    (profiler on); None where every trace came back empty."""
+    def work():
         t0 = time.time()
         render()
         torch.cuda.synchronize()
-        wall = time.time() - t0
-    by_name = device_events(prof)
+        return time.time() - t0
+
+    by_name, wall = traced(work, "served view")
+    if by_name is None:
+        return None
     out = {k: sum(us for n, us in by_name.items() if pat in n) / 1e3
            for k, pat in VIEW_KERNELS.items()}
     out.update(kernels_ms=sum(out.values()), device_ms=sum(by_name.values()) / 1e3,
@@ -1471,9 +1520,13 @@ def phase_serve(dev, workdir):
         torch.cuda.synchronize()
         t_kernel = time.time() - t0
         view = view_profile(lambda: m.render(rays["rays_o"][0], rays["rays_d"][0], staged=True))
-        log(f"[serve] view 0 under torch.profiler: device ms by kernel "
-            f"{ {k: round(view[k], 3) for k in VIEW_KERNELS} }, K1-K4 {view['kernels_ms']:.2f} ms, "
-            f"all device work {view['device_ms']:.2f} ms, wall {view['wall_ms']:.1f} ms")
+        if view is None:
+            log("[serve] view 0 under torch.profiler: not measured (no trace held device events)")
+        else:
+            log(f"[serve] view 0 under torch.profiler: device ms by kernel "
+                f"{ {k: round(view[k], 3) for k in VIEW_KERNELS} }, K1-K4 "
+                f"{view['kernels_ms']:.2f} ms, all device work {view['device_ms']:.2f} ms, "
+                f"wall {view['wall_ms']:.1f} ms")
         t0 = time.time()
         img_p = m.render(rays["rays_o"][0], rays["rays_d"][0], staged=True, plain=True)["image"]
         torch.cuda.synchronize()
@@ -1681,18 +1734,21 @@ def profile_steps(trainer, loader, n=16, tag="profile", step=None):
     Returns the wall and busy ms a step and the idle share."""
     from itertools import islice
 
-    from torch.profiler import ProfilerActivity, profile
-
     step = step or trainer.train_step_data
     batches = list(islice(iter(loader), n))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def work():
         t0 = time.time()
         for data in batches:
             step(data)
         torch.cuda.synchronize()
-        wall_us = (time.time() - t0) * 1e6
-    by_name = device_events(prof)
+        return (time.time() - t0) * 1e6
+
+    by_name, wall_us = traced(work, tag)
+    if by_name is None:
+        log(f"[{tag}] {n} train steps: device busy time not measured (no trace held "
+            f"device events)")
+        return {"wall_ms": wall_us / n / 1e3, "busy_ms": None, "idle_share": None}
     busy_us = sum(by_name.values())
     log(f"[{tag}] {n} train steps: wall {wall_us / n / 1e3:.3f} ms a step, device busy "
         f"{busy_us / n / 1e3:.3f} ms a step (idle share {1 - busy_us / wall_us:.1%}), "
@@ -2035,7 +2091,8 @@ def main():
     wm.pop("launches")
     print(json.dumps({"kernels": rows, "build_s": build_s, "view": view, "train": {
         k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1")},
-        "geometry": geometry_stats, "wm": wm}, default=float))
+        "geometry": geometry_stats, "wm": wm,
+        "device_ms_from_events": len(EVENT_FALLBACKS)}, default=float))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
