@@ -47,16 +47,19 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                whole step must run K4 on its dtype's route alone;
   5. geometry — the other table geometries at 2^19 rows a level: 8 x 2
                (K4 at encoding width 16), 8 x 4 (K1 with 4 features a row),
-               16 x 4 (K4 at width 64, K1 with 4 features at 16 levels) and
-               32 x 2 (K4 at width 64, K1 at 32 levels): K1 forward
-               (bit-exact) and backward, K4 forward, full and feature-only
-               backward on both routes, each against its plain version; a
-               whole clean and a whole watermark step through the kernels
-               against the plain versions (bf16, fp32); but for 32 x 2,
-               Trainer.train for 128 steps on the radius-0.7 ball (launches;
-               at 8 x 4 and 16 x 4 the held-out PSNR must rise 6 dB), then
-               64 watermark steps on that backbone; 12 x 2 (width 24) must be
-               refused before a model is built;
+               16 x 4 (K4 at width 64, K1 with 4 features at 16 levels), 32 x 2
+               (K4 at width 64, K1 at 32 levels), 12 x 2 (width 24: K4 at 32,
+               the features zero-padded by K1), 24 x 1 (K1 with 1 feature a
+               row, width 24) and 8 x 8 (K1 with 8 features a row, width 64):
+               K1 forward (bit-exact; the padded columns exactly 0) and
+               backward (its atomics modelled), K4 forward, full and
+               feature-only backward on both routes, each against its plain
+               version; a whole clean and a whole watermark step through the
+               kernels against the plain versions (bf16, fp32); but for
+               32 x 2, Trainer.train for 128 steps on the radius-0.7 ball
+               (launches; at 8 x 4, 16 x 4 and 12 x 2 the held-out PSNR must
+               rise 6 dB), then 64 watermark steps on that backbone; 16 x 8
+               (width 128) must be refused before a model is built;
   6. serve   — a full-width model (README Blender recipe: -O --bound 1.0
                --scale 0.8 --dt_gamma 0, NGPConfig defaults, grid 128^3,
                max_steps 1024, budget 256) with random weights from a seed
@@ -141,12 +144,13 @@ ADAPT_BALL = 0.4
 ADAPT_ITERS = 384
 # the table geometries (levels, features a row) the card takes besides
 # 16 x 2, and the length of their Trainer.train runs
-GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4), "32x2": (32, 2)}
+GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4), "32x2": (32, 2), "12x2": (12, 2),
+              "24x1": (24, 1), "8x8": (8, 8)}
 # the geometries that also train and run the watermark stage (32 x 2, K4 at
 # width 64 as 16 x 4 is: its kernels and whole steps only)
-GEO_TRAINED = ("8x2", "8x4", "16x4")
+GEO_TRAINED = ("8x2", "8x4", "16x4", "12x2", "24x1", "8x8")
 # the geometries whose held-out PSNR must rise 6 dB in GEO_ITERS steps
-GEO_QUALITY = ("8x4", "16x4")
+GEO_QUALITY = ("8x4", "16x4", "12x2")
 GEO_ITERS = 128
 # the watermark stage's length on each geometry's trained backbone (two
 # epochs of the recipe's 32 views)
@@ -571,23 +575,25 @@ def p1_gather(dev):
                 bound_ms=bms, bound_by=bby, library_ms=lib, library_device_ms=ldms)
 
 
-def k1_timing(x01, fp, res, log2_size):
-    """K1's forward row at these positions (the gather in bf16): per call
-    (CUDA events) and on the device (torch.profiler), its plain version,
-    and the bound."""
+def k1_timing(x01, fp, res, log2_size, pitch=None):
+    """K1's forward row at these positions (the gather in bf16; output rows
+    of ``pitch`` floats, the main path's at a padded width): per call (CUDA
+    events) and on the device (torch.profiler), its plain version, and the
+    bound."""
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
 
     run = lambda: t_hash.hash_encode(x01, fp["hash_table"], res, log2_size,
-                                     table_g=fp["hash_table_g"])
+                                     table_g=fp["hash_table_g"], pitch=pitch)
     ms, dms = median_ms(run, 20), device_ms(run, 20)
     pms = median_ms(lambda: t_hash.hash_encode_plain(x01, fp["hash_table"], res, log2_size,
                                                      table_g=fp["hash_table_g"]), 3, 1)
     rows = touched_rows(x01, res, log2_size)
     M, L, F = x01.shape[0], len(res), fp["hash_table"].shape[1]
-    # positions read, features written, each touched bf16 row read once; per
+    # positions read, features written (L*F of them a sample: the padded
+    # columns are not the function's), each touched bf16 row read once; per
     # (sample, level) 25 flops of weights and 8 corners x F multiply-adds
     bms, bby = bound_of(M * 12 + M * L * F * 4 + rows * F * 2, M * L * (25 + 16 * F), PEAK_FP32)
-    log(f"[K1] M={M} L={L} F={F}: {rows} distinct table rows touched "
+    log(f"[K1] M={M} L={L} F={F} pitch {pitch or L * F}: {rows} distinct table rows touched "
         f"({rows * F * 2 / 1e6:.1f} MB bf16); per call {ms:.4f} ms, device {dms:.4f} ms")
     return dict(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=None)
 
@@ -618,9 +624,10 @@ def k4_forward(fp, cfg, feat, dirs):
 
     bf16 = cfg.compute_dtype == torch.bfloat16
     tag = "K4" if bf16 else "K4 f32"
+    fw = feat[:, :cfg.enc_dim]  # the plain versions read the encoding width
     sk, gk, rk = t_ngp.field_heads(fp, cfg, feat, dirs, want_geo=True)
     sd, gd, _ = t_ngp.field_heads(fp, cfg, feat, None, want_geo=True)
-    sp, gp, rp = t_ngp.field_heads_plain(fp, cfg, feat, dirs)
+    sp, gp, rp = t_ngp.field_heads_plain(fp, cfg, fw, dirs)
     e_rgb = float((rk - rp).abs().max())
     e_sig = float(((sk - sp).abs() / sp.abs().clamp_min(1e-6)).max())
     # geo: |k - p| <= atol + rtol |p|, reported as the worst ratio to that
@@ -636,8 +643,8 @@ def k4_forward(fp, cfg, feat, dirs):
     if not (e_rgb <= lim_rgb and e_sig <= lim_sig and e_geo <= 1.0 and same):
         raise AssertionError(f"{tag} differs from its plain version beyond its limits")
     ms = median_ms(lambda: t_ngp.field_heads(fp, cfg, feat, dirs), 20)
-    pms = median_ms(lambda: t_ngp.field_heads_plain(fp, cfg, feat, dirs), 5, 1)
-    lib = library_mlp_ms(fp, feat, dirs, cfg.compute_dtype)
+    pms = median_ms(lambda: t_ngp.field_heads_plain(fp, cfg, fw, dirs), 5, 1)
+    lib = library_mlp_ms(fp, fw, dirs, cfg.compute_dtype)
     M = feat.shape[0]
     n_w = sum(w.numel() for w in fp["sigma_net"] + fp["color_net"])
     bms, bby = bound_of(M * (cfg.enc_dim * 4 + 12 + 4 + 12), M * 2 * n_w,
@@ -959,30 +966,40 @@ def wm_steps(dev, x, levels=16, features=2):
     return counts
 
 
-def k1_bwd(x01, live, n_rows, res, log2_size, F, gen):
+def k1_bwd(x01, live, n_rows, res, log2_size, F, gen, pitch=None):
     """K1's backward (bf16 gather) against its plain version on random
     cotangents of the live samples (zero on padded ones, as in a train
-    step); its row, with index_add_ of the same corner contributions as the
-    yardstick."""
+    step; at ``pitch`` > L*F the padded columns zero, as K4's g_feat has
+    them); its row, with its device time and index_add_ of the same corner
+    contributions as the yardstick, and (``atomics_modelled``, kept out of
+    the ``kernels`` line) the atomics its design issues on these inputs as
+    ``kernel_cases.k1_bwd_atomics`` models them in plain PyTorch: a count
+    of the algorithm, not a measurement of the kernel."""
+    from nerf_signature_tpu_torch.kernel_cases import k1_bwd_atomics
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
 
     M, L = x01.shape[0], len(res)
     dev = x01.device
-    g_feat = torch.randn((M, L * F), generator=gen, device=dev) * 1e-4 * live[:, None]
+    pitch = pitch or L * F
+    g_feat = torch.zeros((M, pitch), device=dev)
+    g_feat[:, :L * F] = torch.randn((M, L * F), generator=gen, device=dev) * 1e-4 * live[:, None]
+    g_w = g_feat[:, :L * F].contiguous()
     run = lambda: t_hash._hash_encode_bwd_kernel(x01, g_feat, n_rows, res, log2_size,
-                                                 torch.bfloat16, False, None)
+                                                 torch.bfloat16, False, None, F)
     gk = run()
-    gp = t_hash.hash_encode_bwd_plain(x01, g_feat, n_rows, res, log2_size, torch.bfloat16)
+    gp = t_hash.hash_encode_bwd_plain(x01, g_w, n_rows, res, log2_size, torch.bfloat16)
     e1, a1 = rel_l2(gk, gp), float((gk - gp).abs().max())
-    log(f"[K1 bwd] F={F}: rel L2 {e1:.3g} (limit 1e-5), max abs err {a1:.3g}")
+    log(f"[K1 bwd] F={F} L={L} pitch {pitch}: rel L2 {e1:.3g} (limit 1e-5), max abs err "
+        f"{a1:.3g}")
     if not e1 <= 1e-5:
         raise AssertionError(f"K1 backward (F={F}) differs from its plain version: rel L2 {e1}")
     del gk, gp
-    ms = median_ms(run, 20)
+    ms, dms = median_ms(run, 20), device_ms(run, 20)
     pms = median_ms(lambda: t_hash.hash_encode_bwd_plain(
-        x01, g_feat, n_rows, res, log2_size, torch.bfloat16), 3, 1)
+        x01, g_w, n_rows, res, log2_size, torch.bfloat16), 3, 1)
+    atomics = k1_bwd_atomics(x01, g_w, F, res, log2_size, torch.bfloat16)
     idx, val = [], []
-    g3 = g_feat.reshape(M, L, F).permute(1, 0, 2)
+    g3 = g_w.reshape(M, L, F).permute(1, 0, 2)
     for ci, cw in t_hash._corners(x01, res, log2_size, False, None, torch.float32):
         ct = (cw[..., None] * g3).to(torch.bfloat16).float()
         for f in range(F):
@@ -995,10 +1012,13 @@ def k1_bwd(x01, live, n_rows, res, log2_size, F, gen):
     del idx, val, buf
     # bound: the cotangent read and the grad table written whole; x read only
     # for samples with a nonzero cotangent; one add for each nonzero value
-    n_hot = int((g_feat != 0).any(-1).sum())
+    n_hot = int((g_w != 0).any(-1).sum())
     bms, bby = bound_of(M * L * F * 4 + n_hot * 12 + n_rows * F * 4, n_adds, PEAK_FP32)
-    return dict(max_abs_err=a1, rel_l2=e1, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                library_ms=lib)
+    log(f"[K1 bwd] F={F} L={L}: {n_hot} of {M} samples hot; per call {ms:.4f} ms, device "
+        f"{dms:.4f} ms, bound {bms:.4f} ms ({bby}); atomics {atomics} (modelled, not "
+        f"measured); index_add_ {lib:.4f} ms")
+    return dict(max_abs_err=a1, rel_l2=e1, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                bound_by=bby, library_ms=lib, atomics_modelled=atomics)
 
 
 def k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb):
@@ -1017,14 +1037,20 @@ def k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb):
     nets = [w.clone().requires_grad_(True) for w in fp["sigma_net"] + fp["color_net"]]
     pp = dict(fp, sigma_net=nets[:2], color_net=nets[2:])
     f_p = feat.clone().requires_grad_(True)
-    s_p, _, r_p = t_ngp.field_heads_plain(pp, cfg, f_p, dirs)
+    s_p, _, r_p = t_ngp.field_heads_plain(pp, cfg, f_p[:, :cfg.enc_dim], dirs)
     plain_bwd = lambda: torch.autograd.grad([s_p, r_p], [f_p] + nets, [g_sigma, g_rgb],
                                             retain_graph=True)
     gp4 = plain_bwd()
     gw_p = torch.cat([g.reshape(-1) for g in gp4[1:]])
+    # at a padded width (IN > W) Ws0's rows W..IN-1 face zero features: their
+    # gradient is 0, and field_params' cat drops it on the way to the params
+    W, IN, hid = cfg.enc_dim, widths[0], widths[1]
+    if bool(gw_k[W * hid:IN * hid].any()):
+        raise AssertionError(f"{tag}: Ws0's padded rows have a nonzero gradient")
+    gw_w = torch.cat([gw_k[:W * hid], gw_k[IN * hid:]])
     e4 = max(rel_l2(gf_k, gp4[0]), max(rel_l2(a, b.reshape(-1)) for a, b in zip(
-        torch.split(gw_k, [w.numel() for w in nets]), gp4[1:])))
-    a4 = max(float((gf_k - gp4[0]).abs().max()), float((gw_k - gw_p).abs().max()))
+        torch.split(gw_w, [w.numel() for w in nets]), gp4[1:])))
+    a4 = max(float((gf_k - gp4[0]).abs().max()), float((gw_w - gw_p).abs().max()))
     lim = 1e-2 if bf16 else 1e-5
     log(f"[{tag}] worst rel L2 over g_feat and the 5 weight leaves {e4:.3g} (limit {lim:g}), "
         f"max abs err {a4:.3g}")
@@ -1038,13 +1064,14 @@ def k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb):
     dms = device_ms(run)
     pms = median_ms(plain_bwd, 5, 1)
     del plain_bwd, f_p, s_p, r_p
-    lib_run = library_mlp_bwd(fp, feat, dirs, g_sigma, g_rgb, dtype=cfg.compute_dtype)
+    lib_run = library_mlp_bwd(fp, feat[:, :cfg.enc_dim], dirs, g_sigma, g_rgb,
+                              dtype=cfg.compute_dtype)
     lib, ldms = median_ms(lib_run, 10), device_ms(lib_run, 10)
     # bound: every sample's cotangents read and g_feat written; feat and dirs
     # read, and the forward and both products done (6 flops a weight), only
     # for samples with a nonzero cotangent; the weights read, g_weights written
     M = feat.shape[0]
-    n_w = flat.numel()
+    n_w = sum(w.numel() for w in nets)
     n_hot = int(((g_sigma != 0) | (g_rgb != 0).any(-1)).sum())
     bms, bby = bound_of(M * (4 + 12 + cfg.enc_dim * 4) + n_hot * (cfg.enc_dim * 4 + 12)
                         + n_w * 8, n_hot * 6 * n_w, PEAK_BF16 if bf16 else PEAK_FP32)
@@ -1169,7 +1196,7 @@ def k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb):
     gf_k = t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma)
     gf_full = t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma)[0]
     f_p = feat.clone().requires_grad_(True)
-    s_p, _, r_p = t_ngp.field_heads_plain(fp, cfg, f_p, dirs)
+    s_p, _, r_p = t_ngp.field_heads_plain(fp, cfg, f_p[:, :cfg.enc_dim], dirs)
     plain_bwd = lambda: torch.autograd.grad([s_p, r_p], [f_p], [g_sigma, g_rgb],
                                             retain_graph=True)
     (gf_p,) = plain_bwd()
@@ -1190,8 +1217,8 @@ def k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb):
     log(f"[{tag}] {ms:.4f} ms; the full backward (with the weight gradient) on the same "
         f"inputs {full_ms:.4f} ms")
     pms = median_ms(plain_bwd, 5, 1)
-    lib = median_ms(library_mlp_bwd(fp, feat, dirs, g_sigma, g_rgb, weights_grad=False,
-                                    dtype=cfg.compute_dtype), 10)
+    lib = median_ms(library_mlp_bwd(fp, feat[:, :cfg.enc_dim], dirs, g_sigma, g_rgb,
+                                    weights_grad=False, dtype=cfg.compute_dtype), 10)
     # bound: cotangents read and g_feat written for every sample; feat and
     # dirs read, the forward and the transposed products done (4 flops a
     # weight) only for samples with a nonzero cotangent; no weight gradient
@@ -1248,12 +1275,14 @@ def wm_kernels(dev, results, fp32_counts):
         f"(max abs err {e9}, limit 0)")
     rows = torch.arange(D, device=dev) * 2 + bits.long()
     flat = tables.reshape(2 * D, T * F)
-    ms9 = median_ms(lambda: t_msg._msg_table_kernel(tables, bits, torch.bfloat16), 30)
+    run9 = lambda: t_msg._msg_table_kernel(tables, bits, torch.bfloat16)
+    ms9, dms9 = median_ms(run9, 30), device_ms(run9, 30)
     pms9 = median_ms(lambda: t_msg.msg_table_plain(tables, bits, torch.bfloat16), 10)
     lib9 = median_ms(lambda: flat.index_select(0, rows).sum(0), 30)
     bms9, bby9 = bound_of(D * T * F * 4 + D * 4 + T * F * (4 + 2), D * T * F, PEAK_FP32)
-    results["K9_msg_table"] = dict(max_abs_err=e9, ms=ms9, plain_ms=pms9, bound_ms=bms9,
-                                   bound_by=bby9, library_ms=lib9)
+    log(f"[K9] per call {ms9:.4f} ms, device {dms9:.4f} ms, bound {bms9:.4f} ms ({bby9})")
+    results["K9_msg_table"] = dict(max_abs_err=e9, ms=ms9, device_ms=dms9, plain_ms=pms9,
+                                   bound_ms=bms9, bound_by=bby9, library_ms=lib9)
 
     # ---- K9 backward: exact (g_eff into the selected tables, zeros elsewhere)
     g_eff = torch.randn((T, F), generator=gen, device=dev)
@@ -1263,12 +1292,23 @@ def wm_kernels(dev, results, fp32_counts):
     if not torch.equal(gk, gp):
         raise AssertionError("K9 backward differs from its plain version")
     log(f"[K9 bwd] g_tables [{D}, 2, {T}, {F}] equal to the plain version (limit 0)")
-    ms9b = median_ms(lambda: t_msg._msg_table_bwd_kernel(g_eff, bits, D), 30)
+    run9b = lambda: t_msg._msg_table_bwd_kernel(g_eff, bits, D)
+    ms9b, dms9b = median_ms(run9b, 30), device_ms(run9b, 30)
     pms9b = median_ms(lambda: t_msg.msg_table_bwd_plain(g_eff, bits, D), 10)
+    # the yardstick: one torch.where of the bits' one-hot (made outside the
+    # timing, as K9's rows are) over g_eff, the same [D, 2, T, F] tensor
+    sel = (torch.arange(2, device=dev)[None, :] == bits.long()[:, None]).view(D, 2, 1, 1)
+    run9l = lambda: torch.where(sel, g_eff, 0.0)
+    if not torch.equal(run9l(), gp):
+        raise AssertionError("K9 backward's library call differs from the plain version")
+    lib9b, ldms9b = median_ms(run9l, 30), device_ms(run9l, 30)
     bms9b, bby9b = bound_of(2 * D * T * F * 4 + T * F * 4 + D * 4, 0, PEAK_FP32)
-    results["K9_msg_table_bwd"] = dict(max_abs_err=0.0, ms=ms9b, plain_ms=pms9b,
-                                       bound_ms=bms9b, bound_by=bby9b, library_ms=None)
-    del gk, gp
+    log(f"[K9 bwd] per call {ms9b:.4f} ms, device {dms9b:.4f} ms, bound {bms9b:.4f} ms "
+        f"({bby9b}); torch.where {lib9b:.4f} / {ldms9b:.4f} ms")
+    results["K9_msg_table_bwd"] = dict(max_abs_err=0.0, ms=ms9b, device_ms=dms9b,
+                                       plain_ms=pms9b, bound_ms=bms9b, bound_by=bby9b,
+                                       library_ms=lib9b, library_device_ms=ldms9b)
+    del gk, gp, sel
 
     # ---- K4 backward, features only, on the step's uncompacted samples
     ro = torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]])
@@ -1321,8 +1361,10 @@ def wm_kernels(dev, results, fp32_counts):
 def phase_geometry(dev):
     """The other table geometries at full table size (2^19 rows a level):
     8 x 2 (K4 at encoding width 16), 8 x 4 (K1 with 4 features a row),
-    16 x 4 (K4 at width 64, K1 with 4 features at 16 levels) and 32 x 2 (K4
-    at width 64, K1 at its 32-level limit).
+    16 x 4 (K4 at width 64, K1 with 4 features at 16 levels), 32 x 2 (K4
+    at width 64, K1 at its 32-level limit), 12 x 2 (width 24, K4 at 32 on
+    features K1 writes zero-padded), 24 x 1 (K1 with 1 feature a row, width
+    24) and 8 x 8 (K1 with 8 features a row, width 64).
     For each: K1's forward (bit-exact) and K4's forward on the serving
     chunk's samples, K1's and K4's full backward at the train step's shapes,
     K4's feature-only backward at the watermark step's, each kernel against
@@ -1332,7 +1374,7 @@ def phase_geometry(dev):
     for GEO_ITERS steps on the radius-0.7 ball, the quality limit checked at
     GEO_QUALITY, then the watermark stage on the backbone that run trained:
     the README stage-2 recipe for GEO_WM_ITERS steps through the CLI's setup
-    (``wm_train``).  And the refusal of 12 x 2 (width 24) before a model is
+    (``wm_train``).  And the refusal of 16 x 8 (width 128) before a model is
     built.  Returns each kernel's row at each geometry (keyed (kernel,
     geometry); K1's forward is timed only where VARIANTS has a row for it),
     each trained geometry's launches (under "train" its Trainer.train run's,
@@ -1344,13 +1386,13 @@ def phase_geometry(dev):
     from nerf_signature_tpu_torch.render.renderer import default_aabb
 
     try:
-        NGPModel(t_ngp.NGPConfig(n_levels=12, n_features=2), device=dev)
+        NGPModel(t_ngp.NGPConfig(n_levels=16, n_features=8), device=dev)
     except NotImplementedError as e:
         if "ROADMAP queue 3" not in str(e):
             raise
-        log(f"[geometry] 12 x 2 refused up front: {str(e)[:120]}...")
+        log(f"[geometry] 16 x 8 refused up front: {str(e)[:120]}...")
     else:
-        raise AssertionError("12 x 2 (encoding width 24) was not refused on the card")
+        raise AssertionError("16 x 8 (encoding width 128) was not refused on the card")
 
     rows, launches, stats = {}, {}, {}
     for geo, (L, F) in GEOMETRIES.items():
@@ -1361,6 +1403,9 @@ def phase_geometry(dev):
         cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
         fp32 = t_ngp.field_params(m.params, cfg32)
         aabb, grid = default_aabb(m.rc), m.occ.occupancy
+        # K4's built input width: the rows K1 writes and K4 reads (the
+        # columns past L*F zero)
+        pitch = t_ngp.feature_pitch(cfg)
         # serving shapes: K1 bit-exact, then K4 on both routes
         ro, rd, _ = serve_chunk(dev)
         mk = t_march.march_rays_aabb(ro, rd, aabb, grid, **march_kwargs(m, None))
@@ -1368,18 +1413,20 @@ def phase_geometry(dev):
         dirs = mk["dirs"].reshape(-1, 3).contiguous()
         del mk
         feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions, S_log2,
-                                  table_g=fp["hash_table_g"])
-        same = torch.equal(feat, t_hash.hash_encode_plain(x01, fp["hash_table"], cfg.resolutions,
-                                                          S_log2, table_g=fp["hash_table_g"]))
-        log(f"[geometry] {geo}: K1 forward at M={x01.shape[0]}, L={L}, F={F} equal to its "
-            f"plain version bit for bit: {same} (limit: equal)")
-        if not same:
+                                  table_g=fp["hash_table_g"], pitch=pitch)
+        same = torch.equal(feat[:, :L * F], t_hash.hash_encode_plain(
+            x01, fp["hash_table"], cfg.resolutions, S_log2, table_g=fp["hash_table_g"]))
+        pad_zero = not bool(feat[:, L * F:].any())
+        log(f"[geometry] {geo}: K1 forward at M={x01.shape[0]}, L={L}, F={F}, pitch {pitch} "
+            f"equal to its plain version bit for bit: {same} (limit: equal); the "
+            f"{pitch - L * F} padded columns exactly 0: {pad_zero}")
+        if not (same and pad_zero):
             raise AssertionError(f"K1 ({geo}) differs from its plain version")
         krows = {"K4_field": k4_forward(fp, cfg, feat, dirs)[0],
                "K4_field_f32": k4_forward(fp32, cfg32, feat, dirs)[0]}
         if ("K1_hash_encode", geo, None) in VARIANTS.values():
-            krows["K1_hash_encode"] = dict(k1_timing(x01, fp, cfg.resolutions, S_log2),
-                                         max_abs_err=0.0)
+            krows["K1_hash_encode"] = dict(k1_timing(x01, fp, cfg.resolutions, S_log2, pitch),
+                                           max_abs_err=0.0)
         del feat, x01, dirs
         # train step shapes: K1's and K4's full backward
         ro, rd = train_rays(dev)
@@ -1391,10 +1438,10 @@ def phase_geometry(dev):
         dirs = mk["dirs"].reshape(-1, 3).contiguous()
         del mk
         krows["K1_hash_encode_bwd"] = k1_bwd(x01, live, fp["hash_table"].shape[0],
-                                             cfg.resolutions, S_log2, F, gen)
+                                             cfg.resolutions, S_log2, F, gen, pitch)
         with torch.no_grad():
             feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions, S_log2,
-                                      table_g=fp["hash_table_g"])
+                                      table_g=fp["hash_table_g"], pitch=pitch)
         g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
         g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
         krows["K4_field_bwd"] = k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb)
@@ -1417,7 +1464,7 @@ def phase_geometry(dev):
         del mk
         with torch.no_grad():
             feat = t_hash.hash_encode(x01, fpw["hash_table"], cfg.resolutions, S_log2,
-                                      table_g=fpw["hash_table_g"])
+                                      table_g=fpw["hash_table_g"], pitch=pitch)
         g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
         g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
         krows["K4_field_bwd_feat"] = k4_bwd_feat(fpw, cfg, feat, dirs, g_sigma, g_rgb)
@@ -1990,6 +2037,19 @@ VARIANTS = {
     "K4_field_bwd_in64_f32": ("K4_field_bwd_f32", "16x4", None),
     "K4_field_bwd_feat_in64": ("K4_field_bwd_feat", "16x4", None),
     "K4_field_bwd_feat_in64_f32": ("K4_field_bwd_feat_f32", "16x4", None),
+    # 12 x 2: K4 at encoding width 24, run at the built 32 on features K1
+    # writes zero-padded, on each route
+    "K4_field_in24": ("K4_field", "12x2", None),
+    "K4_field_in24_f32": ("K4_field_f32", "12x2", None),
+    "K4_field_bwd_in24": ("K4_field_bwd", "12x2", None),
+    "K4_field_bwd_in24_f32": ("K4_field_bwd_f32", "12x2", None),
+    "K4_field_bwd_feat_in24": ("K4_field_bwd_feat", "12x2", None),
+    "K4_field_bwd_feat_in24_f32": ("K4_field_bwd_feat_f32", "12x2", None),
+    # K1 with rows of 1 feature (24 x 1, output pitch 32) and of 8 (8 x 8)
+    "K1_hash_encode_f1": ("K1_hash_encode", "24x1", None),
+    "K1_hash_encode_bwd_f1": ("K1_hash_encode_bwd", "24x1", None),
+    "K1_hash_encode_f8": ("K1_hash_encode", "8x8", None),
+    "K1_hash_encode_bwd_f8": ("K1_hash_encode_bwd", "8x8", None),
     # K1's backward into the message's effective table (the watermark step)
     "K1_hash_encode_bwd_wm": ("K1_hash_encode_bwd", None, "wm"),
     # K3 at the clean step's and the watermark step's shapes
@@ -2029,7 +2089,7 @@ def main():
     train = phase_train(dev)
     with tempfile.TemporaryDirectory() as workdir:
         wm = phase_wm(dev, train.pop("model"), workdir)
-    rows = []
+    rows, modelled = [], {}
     entries = [(name, name, None, None) for name in SOURCES] + [
         (name,) + v for name, v in VARIANTS.items()]
     for name, base, geo, run in entries:
@@ -2088,7 +2148,12 @@ def main():
                        train_plain_ms=t["plain_ms"], train_bound_ms=t["bound_ms"],
                        train_max_abs_err=t["max_abs_err"])
         rows.append(row)
+        if "atomics_modelled" in r:
+            modelled[name] = r["atomics_modelled"]
     wm.pop("launches")
+    # K1 backward's atomics as kernel_cases.k1_bwd_atomics counts them from
+    # the design on each row's inputs: a model, not a reading of the card
+    print(json.dumps({"k1_bwd_atomics_modelled": modelled}))
     print(json.dumps({"kernels": rows, "build_s": build_s, "view": view, "train": {
         k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1")},
         "geometry": geometry_stats, "wm": wm,

@@ -19,15 +19,20 @@
 // What bounds it on the H100: bytes.  At D = 32, T = 2^19, F = 2 the forward
 // reads 32 selected tables of 4 MB and writes 4 MB + 2 MB (0.042 ms at
 // 3.35 TB/s); it does one add per read element.  The backward writes the
-// whole 268 MB gradient (0.08 ms) and reads g_eff (4 MB, from L2 after the
-// first bit).
+// whole 268 MB gradient (0.08 ms) and reads g_eff (4 MB).
 //
-// Design: one thread per table entry e, so a warp's loads and stores are
-// 128 consecutive bytes for every bit; the message (D int32) is staged in
-// shared memory.  The backward runs a 2-D grid: blockIdx.y is the table
-// (i, b), each thread writes g_eff[e] or 0.  A message bit that is not 0
-// counts as 1.  The file is compiled with -fmad=false (there is no product
-// to contract; the flag keeps the build rules of the other sources).
+// Forward design: one thread per table entry e, so a warp's loads and
+// stores are 128 consecutive bytes for every bit; the message (D int32) is
+// staged in shared memory.  Backward design: one thread per 4 consecutive
+// entries of g_eff (one 16-byte load, held in registers), which it writes,
+// or zeros, into all 2D tables as 16-byte streaming stores (a warp's store
+// covers 512 contiguous bytes of one table); the message is staged as a bit
+// mask in shared memory, 32 bits a word.  So g_eff is read once, not 2D
+// times, and each thread's 2D stores are independent.  Where T * F is not
+// a multiple of 4 (or a pointer is not 16-byte aligned) the same loop runs
+// one entry a thread.  A message bit that is not 0 counts as 1.  The file
+// is compiled with -fmad=false (there is no product to contract; the flag
+// keeps the build rules of the other sources).
 
 #include <cuda_bf16.h>
 
@@ -53,14 +58,34 @@ __global__ void msg_table_fwd(const float* __restrict__ tables, const int* __res
   }
 }
 
-__global__ void msg_table_bwd(const float* __restrict__ g_eff, const int* __restrict__ message,
-                              long long TF, float* __restrict__ g_tables) {
-  const int table = blockIdx.y;  // = 2 * bit + value
-  const int bit = table >> 1, value = table & 1;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= TF) return;
-  const int m = message[bit] != 0;
-  g_tables[(long long)table * TF + e] = (m == value) ? g_eff[e] : 0.0f;
+#define NGP_MSG_BWD_MAX_BITS 32768
+
+// V floats of g_eff a thread (V = 4: one float4), n = TF / V of them
+template <typename Vec>
+__global__ void msg_table_bwd(const Vec* __restrict__ g_eff, const int* __restrict__ message,
+                              int D, long long n, Vec* __restrict__ g_tables) {
+  __shared__ unsigned int sel[NGP_MSG_BWD_MAX_BITS / 32];
+  const int words = (D + 31) >> 5;
+  for (int w = threadIdx.x; w < words; w += blockDim.x) {
+    unsigned int bits = 0u;
+    for (int b = 0; b < 32 && 32 * w + b < D; ++b)
+      bits |= (unsigned int)(message[32 * w + b] != 0) << b;
+    sel[w] = bits;
+  }
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Vec v = __ldg(g_eff + i), z{};
+  for (int w = 0; w < words; ++w) {
+    const unsigned int bits = sel[w];
+    const int nb = min(32, D - 32 * w);
+    for (int b = 0; b < nb; ++b) {
+      const long long bit = 32 * w + b;
+      const int m = (bits >> b) & 1u;
+      __stcs(g_tables + (2 * bit + m) * n + i, v);
+      __stcs(g_tables + (2 * bit + 1 - m) * n + i, z);
+    }
+  }
 }
 
 // tables [D, 2, T, F] fp32; message [D] int32 on the device; eff [T, F] fp32;
@@ -78,10 +103,16 @@ extern "C" int ngp_msg_table(const void* tables, const void* message, int D, lon
 // entry written).
 extern "C" int ngp_msg_table_bwd(const void* g_eff, const void* message, int D, long long TF,
                                  void* g_tables, void* stream) {
-  if (D < 1 || D > 32767 || TF < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > NGP_MSG_BWD_MAX_BITS - 1 || TF < 1) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  dim3 grid(ngp_blocks(TF, threads), 2 * D);
-  msg_table_bwd<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)g_eff, (const int*)message, TF, (float*)g_tables);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (TF % 4 == 0 && (unsigned long long)g_eff % 16 == 0 &&
+      (unsigned long long)g_tables % 16 == 0) {
+    msg_table_bwd<float4><<<ngp_blocks(TF / 4, threads), threads, 0, s>>>(
+        (const float4*)g_eff, (const int*)message, D, TF / 4, (float4*)g_tables);
+  } else {
+    msg_table_bwd<float><<<ngp_blocks(TF, threads), threads, 0, s>>>(
+        (const float*)g_eff, (const int*)message, D, TF, (float*)g_tables);
+  }
   NGP_RETURN_LAST_ERROR();
 }

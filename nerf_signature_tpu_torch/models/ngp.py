@@ -27,6 +27,7 @@ from ..ops import _cuda
 from ..ops.activation import trunc_exp
 from ..ops.hashenc import (
     KERNEL_FEATURES,
+    KERNEL_MAX_LEVELS,
     hash_encode,
     hash_encode_2d,
     init_hash_table,
@@ -129,14 +130,22 @@ def init_ngp_params(generator, cfg: NGPConfig, device="cpu"):
 def field_params(params, cfg: NGPConfig):
     """``params`` plus the per-render derived buffers: ``hash_table_g`` (the
     table in the gather dtype, cast once), ``mlp_flat`` (all MLP weights in
-    one fp32 buffer, the SIMT kernels' layout) and, in bf16 on the card,
-    ``mlp_mma`` (the tensor-core kernels' packed bf16 weights)."""
+    one fp32 buffer at K4's built widths, the SIMT kernels' layout) and, in
+    bf16 on the card, ``mlp_mma`` (the tensor-core kernels' packed bf16
+    weights).  Where K4 runs an encoding width W at a wider built input
+    width IN (24 at 32, 48 at 64), ``mlp_flat``'s Ws0 has IN rows, the last
+    IN - W zero: the same ``torch.cat`` appends them, and its backward drops
+    their gradients on the way to ``sigma_net[0]``."""
     table = params["hash_table"]
     gd = cfg.compute_dtype
     out = dict(params)
     out["hash_table_g"] = table.detach().to(gd) if gd != table.dtype else table.detach()
-    out["mlp_flat"] = torch.cat(
-        [w.reshape(-1) for w in list(params["sigma_net"]) + list(params["color_net"])])
+    nets = list(params["sigma_net"]) + list(params["color_net"])
+    ws0 = nets[0]
+    built = _built_widths((ws0.shape[0], ws0.shape[1], nets[1].shape[1], nets[2].shape[1]))
+    pad = [] if built is None or built[0] == ws0.shape[0] else [
+        ws0.new_zeros(((built[0] - ws0.shape[0]) * ws0.shape[1],))]
+    out["mlp_flat"] = torch.cat([ws0.reshape(-1)] + pad + [w.reshape(-1) for w in nets[1:]])
     if _tensor_cores(cfg) and table.is_cuda:
         out["mlp_mma"] = pack_mlp_mma(out["mlp_flat"].detach(),
                                       _kernel_widths(params, cfg)).to(torch.bfloat16)
@@ -225,10 +234,19 @@ def pack_mlp_mma(flat, widths):
     return torch.nn.functional.pad(flat, (0, 1))[idx]
 
 
+def feature_pitch(cfg: NGPConfig):
+    """The row width of the hash features K4 reads on the card: its built
+    input width for cfg's encoding width (the columns past ``enc_dim``
+    zero), or ``enc_dim`` where K4 lacks one."""
+    built = _built_widths(_cfg_widths(cfg))
+    return cfg.enc_dim if built is None else built[0]
+
+
 def _encode_pos(params, cfg: NGPConfig, x, plain=False):
-    """x in [-bound, bound] -> hash features [M, enc_dim] (K1, or its plain
-    version when ``plain``), differentiable in the master table; the rows
-    are gathered in the compute dtype."""
+    """x in [-bound, bound] -> hash features (K1, or its plain version when
+    ``plain``), differentiable in the master table; the rows are gathered in
+    the compute dtype.  [M, enc_dim], or on the kernel path [M,
+    feature_pitch(cfg)] (K1 writes the padded columns as zeros)."""
     bound = torch.tensor(cfg.bound, dtype=torch.float32, device=x.device)
     x01 = (x + bound) / (2.0 * bound)
     return hash_encode(
@@ -237,7 +255,7 @@ def _encode_pos(params, cfg: NGPConfig, x, plain=False):
         table_g=params.get("hash_table_g"),
         stochastic_grad=cfg.stochastic_hash_grad,
         level_stride=cfg.hash_level_stride, fwd_corners=cfg.hash_fwd_corners,
-        plain=plain,
+        plain=plain, pitch=None if plain or not x.is_cuda else feature_pitch(cfg),
     )
 
 
@@ -261,48 +279,70 @@ def field_heads_plain(params, cfg: NGPConfig, feat, dirs=None):
     return sigma, geo, rgb
 
 
-GEOMETRY_TODO = ("ROADMAP queue 3 item 'table geometries on the card beyond encoding widths 16, "
-                 "32 and 64 with rows of 2 or 4 features'")
+GEOMETRY_TODO = ("ROADMAP queue 3 item 'table geometries on the card with an encoding width "
+                 "above 64, rows of F not in {1, 2, 4, 8} or more than 32 levels'")
 
 
-def _check_field(widths, sh_degree, layers, n_features=None, geometry=""):
-    """The one rule of what the card's field kernels run: K4's widths (IN,
-    hidden, 1 + geo, colour hidden) in FIELD_WIDTHS with SH degree 4, a
-    2-layer sigma MLP and a 3-layer colour MLP, and, where given, K1's rows
-    of ``n_features`` in KERNEL_FEATURES.  Raises naming the ROADMAP item."""
-    if (widths in _cuda.FIELD_WIDTHS and (sh_degree, *layers) == (4, 2, 3)
-            and n_features in (None, *KERNEL_FEATURES)):
-        return
+def _cfg_widths(cfg: NGPConfig):
+    return (cfg.enc_dim, cfg.hidden_dim, 1 + cfg.geo_feat_dim, cfg.hidden_dim_color)
+
+
+def _built_widths(widths):
+    """The K4 build (IN, hidden, 1 + geo, colour hidden) of FIELD_WIDTHS
+    that runs a field of these widths: the same hidden widths and the
+    smallest built input width IN >= W (the features and Ws0 zero-padded
+    from W to IN), or None."""
+    w, rest = widths[0], tuple(widths[1:])
+    ins = [b[0] for b in _cuda.FIELD_WIDTHS if b[1:] == rest and b[0] >= w]
+    return (min(ins),) + rest if ins else None
+
+
+def _check_field(widths, sh_degree, layers, n_features=None, n_levels=None, geometry=""):
+    """The one rule of what the card's field kernels run: K4's hidden widths
+    built in FIELD_WIDTHS with an input width at least the encoding width
+    (``_built_widths``: up to 64) with SH degree 4, a 2-layer sigma MLP and a
+    3-layer colour MLP, and, where given, K1's rows of ``n_features`` in
+    KERNEL_FEATURES and at most KERNEL_MAX_LEVELS levels.  Returns the built
+    widths; raises naming the ROADMAP item."""
+    built = _built_widths(widths)
+    if (built is not None and (sh_degree, *layers) == (4, 2, 3)
+            and n_features in (None, *KERNEL_FEATURES)
+            and (n_levels is None or n_levels <= KERNEL_MAX_LEVELS)):
+        return built
     raise NotImplementedError(
         f"the card's field kernels do not run {geometry}MLP widths {widths}, SH degree "
         f"{sh_degree}, {layers[0]} + {layers[1]} layers yet ({GEOMETRY_TODO}; K1 takes rows "
-        f"of F in {KERNEL_FEATURES} features, K4 the widths {_cuda.FIELD_WIDTHS} with SH "
-        f"degree 4, a 2-layer sigma MLP and a 3-layer colour MLP); on the CPU (--cpu, "
-        f"device='cpu') every geometry runs through the plain versions")
+        f"of F in {KERNEL_FEATURES} features at up to {KERNEL_MAX_LEVELS} levels, K4 an "
+        f"encoding width up to the built widths {_cuda.FIELD_WIDTHS} with SH degree 4, a "
+        f"2-layer sigma MLP and a 3-layer colour MLP); on the CPU (--cpu, device='cpu') "
+        f"every geometry runs through the plain versions")
 
 
 def check_kernel_geometry(cfg: NGPConfig):
     """Refuse up front, before a model is built on the card, a config
-    whose field the kernels cannot run: a row width F that K1 lacks or an
-    encoding width (n_levels x F) that K4 lacks, e.g. 12 x 2 (width 24)."""
-    _check_field((cfg.enc_dim, cfg.hidden_dim, 1 + cfg.geo_feat_dim, cfg.hidden_dim_color),
-                 cfg.sh_degree, (cfg.num_layers, cfg.num_layers_color), cfg.n_features,
-                 f"{cfg.n_levels} levels x {cfg.n_features} features, ")
+    whose field the kernels cannot run: a row width F that K1 lacks, more
+    levels than it takes, or an encoding width (n_levels x F) above K4's
+    widest build, e.g. 16 x 8 (width 128)."""
+    _check_field(_cfg_widths(cfg), cfg.sh_degree, (cfg.num_layers, cfg.num_layers_color),
+                 cfg.n_features, cfg.n_levels, f"{cfg.n_levels} levels x {cfg.n_features} "
+                 "features, ")
 
 
 def _kernel_widths(params, cfg: NGPConfig):
-    """K4's widths (IN, hidden, 1 + geo, colour hidden) read from the
-    params; raises where the kernels lack them (``_check_field``)."""
+    """K4's built widths (IN, hidden, 1 + geo, colour hidden) for the
+    widths read from the params (an encoding width W runs at the smallest
+    built IN >= W); raises where the kernels lack them (``_check_field``)."""
     s, c = params["sigma_net"], params["color_net"]
     widths = (s[0].shape[0], s[0].shape[1], s[-1].shape[1], c[0].shape[1])
-    _check_field(widths, cfg.sh_degree, (len(s), len(c)))
+    widths = _check_field(widths, cfg.sh_degree, (len(s), len(c)))
     if cfg.compute_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"compute dtype {cfg.compute_dtype}")
     return widths
 
 
 def field_heads(params, cfg: NGPConfig, feat, dirs=None, want_geo=False):
-    """K4: fused sigma head, SH, colour head.  feat [M, enc_dim] fp32,
+    """K4: fused sigma head, SH, colour head.  feat [M, enc_dim] fp32 (on the
+    card [M, IN] at K4's built input width, ``feature_pitch``),
     dirs [M, 3] or None (no colour).  Returns (sigma [M], geo [M, G] or None,
     rgb [M, 3] or None); geo is returned when ``want_geo`` (always on the
     plain path).  Under autograd (training) the CUDA path is
@@ -343,7 +383,7 @@ def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma=None):
     M = feat.shape[0]
     dev = feat.device
     _cuda.check(feat, "feat", torch.float32, (M, in_dim), dev)
-    _cuda.check(flat, "mlp_flat", torch.float32, None, dev)
+    _cuda.check(flat, "mlp_flat", torch.float32, (_n_weights(widths),), dev)
     if dirs is not None:
         _cuda.check(dirs, "dirs", torch.float32, (M, 3), dev)
     sigma = torch.empty((M,), dtype=torch.float32, device=dev)
@@ -394,7 +434,7 @@ def field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None
     dev = feat.device
     _cuda.check(feat, "feat", torch.float32, (M, in_dim), dev)
     _cuda.check(dirs, "dirs", torch.float32, (M, 3), dev)
-    _cuda.check(flat, "mlp_flat", torch.float32, None, dev)
+    _cuda.check(flat, "mlp_flat", torch.float32, (_n_weights(widths),), dev)
     _cuda.check(g_sigma, "g_sigma", torch.float32, (M,), dev)
     _cuda.check(g_rgb, "g_rgb", torch.float32, (M, 3), dev)
     g_feat = torch.empty((M, in_dim), dtype=torch.float32, device=dev)
@@ -421,7 +461,7 @@ def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None):
     dev = feat.device
     _cuda.check(feat, "feat", torch.float32, (M, in_dim), dev)
     _cuda.check(dirs, "dirs", torch.float32, (M, 3), dev)
-    _cuda.check(flat, "mlp_flat", torch.float32, None, dev)
+    _cuda.check(flat, "mlp_flat", torch.float32, (_n_weights(widths),), dev)
     _cuda.check(g_sigma, "g_sigma", torch.float32, (M,), dev)
     _cuda.check(g_rgb, "g_rgb", torch.float32, (M, 3), dev)
     g_feat = torch.empty((M, in_dim), dtype=torch.float32, device=dev)

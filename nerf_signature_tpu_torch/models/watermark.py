@@ -103,11 +103,11 @@ def wtmk_field_params(backbone, trainable, cfg: WatermarkConfig, message, plain=
     return fp
 
 
-def _msg_feature_from(fp, cfg: WatermarkConfig, x01, plain=False):
+def _msg_feature_from(fp, cfg: WatermarkConfig, x01, plain=False, pitch=None):
     resolutions, shared, _ = msg_encode_placement(cfg)
     return hash_encode(x01, fp["msg_eff"], resolutions, cfg.msg_log2_hashmap_size,
                        gather_dtype=cfg.ngp.compute_dtype, shared_table=shared,
-                       table_g=fp["msg_eff_g"], plain=plain)
+                       table_g=fp["msg_eff_g"], plain=plain, pitch=pitch)
 
 
 def _msg_feature(trainable, cfg: WatermarkConfig, x01, message, plain=False):
@@ -119,16 +119,19 @@ def _msg_feature(trainable, cfg: WatermarkConfig, x01, message, plain=False):
 
 
 def _encode_with_message(fp, cfg: WatermarkConfig, x, plain=False):
-    """Backbone hash features [M, enc_dim] with the message feature added
-    (no message: the backbone's alone)."""
+    """Backbone hash features [M, enc_dim] (on the kernel path at
+    ``feature_pitch``, the padded columns zero) with the message feature
+    added (no message: the backbone's alone)."""
     feat = _encode_pos(fp, cfg.ngp, x, plain)
     if fp.get("msg_eff") is None:
         return feat
     ngp = cfg.ngp
     bound = torch.tensor(ngp.bound, dtype=torch.float32, device=x.device)
     x01 = (x + bound) / (2.0 * bound)
-    msg = _msg_feature_from(fp, cfg, x01, plain)
     _, _, off = msg_encode_placement(cfg)
+    # all levels: the message feature at the backbone's pitch, its padded
+    # columns zero like the backbone's
+    msg = _msg_feature_from(fp, cfg, x01, plain, feat.shape[1] if off is None else None)
     if off is None:
         return feat + msg
     F = msg.shape[-1]

@@ -58,14 +58,15 @@ SPLIT_BY_WIDTH = ("field.cu", "field_feat.cu")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 _F = ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)
 _UP = ctypes.POINTER(ctypes.c_uint)
 
 # symbol -> argtypes, the stream (last argument) included
 _SIGNATURES = {
-    "ngp_hash_encode": [_P, _P, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
-    "ngp_hash_encode_bwd": [_P, _P, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _P],
+    "ngp_hash_encode": [_P, _P, _I, _I, _P, _I, _L, _I, _FP, _UP, _UP, _I, _P],
+    "ngp_hash_encode_bwd": [_P, _P, _I, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _U, _P],
     "ngp_field": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_P],
     "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 5 + [_P],

@@ -12,7 +12,10 @@ forward and backward (or raises); on a CPU tensor it runs
 ``hash_encode_plain`` and ``hash_encode_bwd_plain``.  The backward is an fp32
 scatter-add of the corner contributions into the master table, rounded to
 bf16 first when the rows are gathered in bf16, like JAX.  No gradient flows
-to the positions.  The stochastic estimators (K7) and the 2D background
+to the positions.  ``pitch`` asks for output rows wider than L*F, the extra
+columns zero: K4 reads its features at its built input width, so on the
+card an encoding width it lacks (24, 48) reaches it zero-padded, written so
+by K1 itself.  The stochastic estimators (K7) and the 2D background
 encoder (K8) are not ported yet.
 """
 
@@ -22,9 +25,19 @@ import torch
 from . import _cuda
 
 _PRIMES = (1, 2654435761, 805459861)
-# the row widths (features a row) the kernels take; any other F runs only
-# through the plain versions
-KERNEL_FEATURES = (2, 4)
+# the row widths (features a row) and level counts the kernels take
+# (csrc/hashenc.cu: NGP_MAX_LEVELS); anything else runs only through the
+# plain versions
+KERNEL_FEATURES = (1, 2, 4, 8)
+KERNEL_MAX_LEVELS = 32
+# K1's backward groups a warp's adds into one row (__match_any_sync, one
+# atomic a group) at the levels of at most this resolution, where the
+# samples of a ray share corner rows (32 samples a march step apart span
+# ~14 cells at 256); at finer levels the groups are mostly single lanes and
+# the match is not run.  On an H100 at the clean step's shape
+# (scripts_port/kernel_ab.py) the limits 0, 128, 256, 512 and 2^20 read
+# 1.31, 0.95, 0.97, 1 and 1.08 times the device time at 512
+COMBINE_MAX_RES = 256
 _CORNERS = [(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)]
 _U32 = 0xFFFFFFFF
 
@@ -183,9 +196,11 @@ def hash_encode_bwd_plain(x, g_feat, n_rows, resolutions, log2_hashmap_size,
 
 def hash_encode(x, table, resolutions, log2_hashmap_size, gather_dtype=None,
                 shared_table=False, dense_sides=None, table_g=None,
-                stochastic_grad=False, level_stride=1, fwd_corners=8, plain=False):
+                stochastic_grad=False, level_stride=1, fwd_corners=8, plain=False,
+                pitch=None):
     """Encode positions x in [0, 1]^3 -> [M, L*F] fp32 features (K1),
-    differentiable in ``table`` (the fp32 master).
+    differentiable in ``table`` (the fp32 master); on the kernels, [M, pitch]
+    with the columns past L*F zero when ``pitch`` is given.
 
     CUDA tensors go through the kernels (forward and backward); CPU tensors,
     or ``plain=True``, through ``hash_encode_plain`` and
@@ -199,39 +214,43 @@ def hash_encode(x, table, resolutions, log2_hashmap_size, gather_dtype=None,
     if table_g is None:
         gd = gather_dtype or table.dtype
         table_g = table.detach().to(gd) if gd != table.dtype else table.detach()
-    meta = (tuple(resolutions), log2_hashmap_size, shared_table, dense_sides,
-            plain or not x.is_cuda)
+    LF = len(resolutions) * table.shape[-1]
+    plain = plain or not x.is_cuda
+    if pitch is not None and (pitch < LF or plain and pitch != LF):
+        raise ValueError(f"pitch {pitch} with L*F = {LF}: the kernels take a pitch of at "
+                         f"least L*F, the plain versions none but L*F")
+    meta = (tuple(resolutions), log2_hashmap_size, shared_table, dense_sides, plain, pitch)
     return HashEncodeFn.apply(x, table, table_g, meta)
 
 
 class HashEncodeFn(torch.autograd.Function):
     """K1 with its backward.  Inputs: x [M, 3], the fp32 master table (the
     gradient's target), the table in the gather dtype (no gradient), and
-    (resolutions, log2 size, shared_table, dense_sides, plain)."""
+    (resolutions, log2 size, shared_table, dense_sides, plain, pitch)."""
 
     @staticmethod
     def forward(ctx, x, table, table_g, meta):
-        res, log2, shared, sides, plain = meta
+        res, log2, shared, sides, plain, pitch = meta
         ctx.save_for_backward(x)
-        ctx.meta, ctx.n_rows, ctx.gather_dtype = meta, table.shape[0], table_g.dtype
+        ctx.meta, ctx.gather_dtype = meta, table_g.dtype
+        ctx.n_rows, ctx.F = table.shape
         if plain:
             return hash_encode_plain(x, table, res, log2, shared_table=shared,
                                      dense_sides=sides, table_g=table_g)
-        return _hash_encode_kernel(x, table_g, table.shape[0], res, log2, shared, sides)
+        return _hash_encode_kernel(x, table_g, table.shape[0], res, log2, shared, sides, pitch)
 
     @staticmethod
     def backward(ctx, g_feat):
         (x,) = ctx.saved_tensors
-        res, log2, shared, sides, plain = ctx.meta
+        res, log2, shared, sides, plain, _ = ctx.meta
         if not ctx.needs_input_grad[1]:
             return None, None, None, None
-        g_feat = g_feat.contiguous()
         if plain:
-            g = hash_encode_bwd_plain(x, g_feat, ctx.n_rows, res, log2, ctx.gather_dtype,
-                                      shared, sides)
+            g = hash_encode_bwd_plain(x, g_feat.contiguous(), ctx.n_rows, res, log2,
+                                      ctx.gather_dtype, shared, sides)
         else:
-            g = _hash_encode_bwd_kernel(x, g_feat, ctx.n_rows, res, log2,
-                                        ctx.gather_dtype, shared, sides)
+            g = _hash_encode_bwd_kernel(x, g_feat.contiguous(), ctx.n_rows, res, log2,
+                                        ctx.gather_dtype, shared, sides, ctx.F)
         return None, g, None, None
 
 
@@ -243,47 +262,64 @@ def _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides):
     return res, offs, sides
 
 
-def _kernel_features(F):
-    """The row widths K1's kernels take: F = 2 or 4 features a row."""
+def combine_mask(resolutions):
+    """The levels whose adds K1's backward groups by row: bit l set where
+    level l's resolution is at most COMBINE_MAX_RES."""
+    return sum(1 << lv for lv, r in enumerate(resolutions) if r <= COMBINE_MAX_RES)
+
+
+def _kernel_features(F, L):
+    """The row widths and level counts K1's kernels take: F in
+    KERNEL_FEATURES, 1 to KERNEL_MAX_LEVELS levels."""
     if F not in KERNEL_FEATURES:
         raise ValueError(f"the hash-encode kernels take rows of F in {KERNEL_FEATURES} "
                          f"features, got F = {F}")
+    if not 1 <= L <= KERNEL_MAX_LEVELS:
+        raise ValueError(f"the hash-encode kernels take 1 to {KERNEL_MAX_LEVELS} levels, "
+                         f"got L = {L}")
     return F
 
 
 def _hash_encode_kernel(x, table_g, n_rows, resolutions, log2_hashmap_size, shared_table,
-                        dense_sides):
+                        dense_sides, pitch=None):
     L = len(resolutions)
-    F = _kernel_features(table_g.shape[-1])
+    F = _kernel_features(table_g.shape[-1], L)
     if table_g.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"gather dtype must be bfloat16 or float32, got {table_g.dtype}")
+    pitch = L * F if pitch is None else pitch
+    if pitch < L * F:
+        raise ValueError(f"pitch {pitch} < L*F = {L * F}")
     M = x.shape[0]
     _cuda.check(x, "x", torch.float32, (M, 3))
     _cuda.check(table_g, "table_g", table_g.dtype, (n_rows, F), x.device)
-    out = torch.empty((M, L * F), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, pitch), dtype=torch.float32, device=x.device)
     res, offs, sides = _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides)
     _cuda.HASH_ENCODE(
         x.data_ptr(), table_g.data_ptr(), int(table_g.dtype == torch.bfloat16), F,
-        out.data_ptr(), M, L,
+        out.data_ptr(), pitch, M, L,
         res.ctypes.data_as(_cuda._FP), offs.ctypes.data_as(_cuda._UP),
         sides.ctypes.data_as(_cuda._UP), log2_hashmap_size)
     return out
 
 
 def _hash_encode_bwd_kernel(x, g_feat, n_rows, resolutions, log2_hashmap_size, gather_dtype,
-                            shared_table, dense_sides):
+                            shared_table, dense_sides, n_features=None):
+    """K1's backward: g_feat [M, pitch] (its first L*F columns; F =
+    ``n_features``, or pitch // L) -> the table's gradient [n_rows, F]."""
     L = len(resolutions)
-    M = x.shape[0]
-    F = _kernel_features(g_feat.shape[-1] // L)
+    M, pitch = x.shape[0], g_feat.shape[-1]
+    F = _kernel_features(n_features or pitch // L, L)
+    if pitch < L * F:
+        raise ValueError(f"g_feat: {pitch} columns < L*F = {L * F}")
     _cuda.check(x, "x", torch.float32, (M, 3))
-    _cuda.check(g_feat, "g_feat", torch.float32, (M, L * F), x.device)
+    _cuda.check(g_feat, "g_feat", torch.float32, (M, pitch), x.device)
     g_table = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
     res, offs, sides = _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides)
     _cuda.HASH_ENCODE_BWD(
-        x.data_ptr(), g_feat.data_ptr(), int(gather_dtype == torch.bfloat16), F,
+        x.data_ptr(), g_feat.data_ptr(), pitch, int(gather_dtype == torch.bfloat16), F,
         g_table.data_ptr(), M, L,
         res.ctypes.data_as(_cuda._FP), offs.ctypes.data_as(_cuda._UP),
-        sides.ctypes.data_as(_cuda._UP), log2_hashmap_size)
+        sides.ctypes.data_as(_cuda._UP), log2_hashmap_size, combine_mask(resolutions))
     return g_table
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time K2 (the marcher), K2 with noise, K1's forward, K4 on both routes, K3
-forward and backward, a served view's kernels, the clean train step and the
-watermark step for one tree of the repository, on one NVIDIA GPU: the way
-to put two commits side by side on one card.
+"""Time K2 (the marcher), K2 with noise, K1's forward and backward, K4 on
+both routes, K3 forward and backward, K9 forward and backward, a served
+view's kernels, the clean train step and the watermark step for one tree of
+the repository, on one NVIDIA GPU: the way to put two commits side by side
+on one card.
 
     python3 scripts_port/kernel_ab.py <tree> [--out FILE]
 
@@ -18,9 +19,15 @@ train step's samples and its feature-only backward at the watermark step's
 (chip_smoke.py's shapes and cotangents).  K3's forward on the field's
 output at the serving chunk, the train step's samples and the watermark
 step's, and its backward at the last two (the loss's cotangents of
-weights_sum and image, as chip_smoke.py draws them).  Each kernel: per call (CUDA
-events around one call, median) and on the device (torch.profiler, the
-durations of its device work).  Then the end-to-end rates: Trainer.train
+weights_sum and image, as chip_smoke.py draws them).  K1's backward at the
+train step's samples (16 x 2, and 16 x 4) and into the message's one-level
+table at the watermark step's (chip_smoke.py's cotangents); where the
+tree's K1 backward groups the adds of coarse levels by row
+(``ops/hashenc.py:COMBINE_MAX_RES``), also with that resolution limit at 0
+(never), 128, 256, 1024 and 2^20 (always).  K9 forward and backward at the
+recipe's 32-bit message tables.  Each kernel: per call (CUDA events around
+one call, median) and on the device (torch.profiler, the durations of its
+device work).  Then the end-to-end rates: Trainer.train
 for 512 steps on the radius-0.7 ball (train rays/s) and
 WatermarkTrainer.train for 1000 steps of the README stage-2 recipe on that
 backbone (watermark rays/s), each followed by 16 profiled steps (wall and
@@ -211,33 +218,67 @@ def main():
         k3(tag, fpx, cfg, mk, f, ds, gen)
         gs = torch.randn((xs.shape[0],), generator=gen, device=dev) * 1e-4 * live
         gr = torch.randn((xs.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
-        return f, ds, gs, gr
+        return f, ds, gs, gr, xs, live
 
-    # K4's full backward at the train step's samples
-    f, ds, gs, gr = backward_inputs(fp, m.cfg, "clean", ro_t, rd_t, aabb, grid,
-                                    torch.Generator(device=dev).manual_seed(7),
-                                    coarse=coarse_t, **kw_t)
+    def k1_bwd(tag, xs, live, n_rows, res_, log2, F, gen):
+        """K1's backward on chip_smoke.py's cotangents (zero on the dead
+        samples), and with the grouping's resolution limit swept."""
+        g_feat = torch.randn((xs.shape[0], len(res_) * F), generator=gen, device=dev) * 1e-4
+        g_feat *= live[:, None]
+        run = lambda: t_hash._hash_encode_bwd_kernel(xs, g_feat, n_rows, res_, log2,
+                                                     torch.bfloat16, False, None)
+        timed("K1_bwd_" + tag, run, 20)
+        if hasattr(t_hash, "COMBINE_MAX_RES"):
+            keep = t_hash.COMBINE_MAX_RES
+            for limit in (0, 128, 256, 1024, 1 << 20):
+                t_hash.COMBINE_MAX_RES = limit
+                timed(f"K1_bwd_{tag}_combine_{limit}", run, 20)
+            t_hash.COMBINE_MAX_RES = keep
+
+    # K4's full backward and K1's backward at the train step's samples
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f, ds, gs, gr, xs, live = backward_inputs(fp, m.cfg, "clean", ro_t, rd_t, aabb, grid, gen,
+                                              coarse=coarse_t, **kw_t)
     for name, fpx, cfg in (("K4_bwd", fp, m.cfg), ("K4_bwd_f32", fp32, cfg32)):
         w = t_ngp._kernel_widths(fpx, cfg)
         timed(name, lambda: t_ngp.field_heads_bwd(cfg, w, f, ds, fpx["mlp_flat"], gs, gr,
                                                   fpx.get("mlp_mma")), 10)
-    del f, ds, gs, gr
+    k1_bwd("clean", xs, live, fp["hash_table"].shape[0], res, S, 2, gen)
+    del f, ds, gs, gr, xs, live
+    # K1's backward at 16 x 4 (rows of 4 features), the train step's samples
+    m4 = cs.make_model(dev, levels=16, features=4)
+    mk = t_march.march_rays_aabb(ro_t, rd_t, aabb, m4.occ.occupancy, coarse=coarse_t, **kw_t)
+    xs = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+    k1_bwd("16x4", xs, mk["mask"].reshape(-1).float(), m4.params["hash_table"].shape[0],
+           m4.cfg.resolutions, S, 4, gen)
+    del m4, mk, xs
     # K4's feature-only backward at the watermark step's samples
     mw = cs.make_wm_model(dev)
     x = cs.wm_step_inputs(dev)
     fpw = t_ngp.field_params(mw.backbone, mw.cfg)
     cfgw32 = dataclasses.replace(mw.cfg, compute_dtype=torch.float32)
     fpw32 = t_ngp.field_params(mw.backbone, cfgw32)
-    f, ds, gs, gr = backward_inputs(
+    gen = torch.Generator(device=dev).manual_seed(17)
+    f, ds, gs, gr, xs, live = backward_inputs(
         fpw, mw.cfg, "wm", torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]]),
         torch.cat([x["rd_b"].reshape(-1, 3), x["ct_d"]]), default_aabb(mw.rc),
-        mw.occ.occupancy, torch.Generator(device=dev).manual_seed(17), min_near=0.2,
-        bound=1.0, max_steps=1024, budget=256)
+        mw.occ.occupancy, gen, min_near=0.2, bound=1.0, max_steps=1024, budget=256)
     for name, fpx, cfg in (("K4_bwd_feat", fpw, mw.cfg), ("K4_bwd_feat_f32", fpw32, cfgw32)):
         w = t_ngp._kernel_widths(fpx, cfg)
         timed(name, lambda: t_ngp.field_heads_bwd_feat(cfg, w, f, ds, fpx["mlp_flat"], gs, gr,
                                                        fpx.get("mlp_mma")), 10)
-    del f, ds, gs, gr, mw, x, fpw, fpw32, fp32
+    # K1's backward into the message's one-level table; K9 both ways
+    from nerf_signature_tpu_torch.models import message as t_msg
+    from nerf_signature_tpu_torch.models import watermark as t_wm
+
+    tables, bits = mw.trainable["msg_tables"], x["bits"]
+    D, _, T, F = tables.shape
+    res_m, _, _ = t_wm.msg_encode_placement(mw.wcfg)
+    k1_bwd("wm", xs, live, T, res_m, mw.wcfg.msg_log2_hashmap_size, F, gen)
+    timed("K9", lambda: t_msg._msg_table_kernel(tables, bits, torch.bfloat16))
+    g_eff = torch.randn((T, F), generator=gen, device=dev)
+    timed("K9_bwd", lambda: t_msg._msg_table_bwd_kernel(g_eff, bits, D))
+    del f, ds, gs, gr, xs, live, mw, x, fpw, fpw32, fp32, tables, g_eff
 
     rays = cs.view_rays(cs.orbit_poses(cs.N_VIEWS, cs.ORBIT_RADIUS)[:1])
     render = lambda: m.render(rays["rays_o"][0], rays["rays_d"][0], staged=True)

@@ -12,8 +12,11 @@ padded places; the sums run in another order, which moves values near zero
 by a few 1e-7).  The full backward sums the weight gradient in the packed
 layout and reads it back through ``mma_grad_to_flat``: the map is the
 adjoint of the pack, and autograd through the packed heads, then the map,
-is JAX's VJP.  The kernels themselves run on the card
-(``test_torch_kernels.py``).
+is JAX's VJP.  An encoding width K4 lacks (24 at 12 x 2, 48 at 12 x 4)
+runs at the next built input width: ``field_params``' ``mlp_flat`` appends
+zero rows to Ws0, the pack carries them, and the way back (the map, then
+the cat's backward) drops their gradients.  The kernels themselves run on
+the card (``test_torch_kernels.py``).
 """
 
 import os
@@ -31,12 +34,14 @@ from nerf_signature_tpu_torch.ops import _cuda
 from nerf_signature_tpu_torch.ops.activation import trunc_exp
 from nerf_signature_tpu_torch.ops.sh import sh_encode
 
-# "full": 16 levels x 2 features (and 8 x 4, the same widths); "8x2": IN = 16;
-# "16x4": IN = 64 (and 32 x 2)
+# the params' widths: "full": 16 levels x 2 features (and 8 x 4, the same
+# widths); "8x2": IN = 16; "16x4": IN = 64 (and 32 x 2); "w24" (12 x 2) and
+# "w48" (12 x 4): encoding widths 24 and 48, run at the built 32 and 64
 WIDTHS = {"full": (32, 64, 16, 64), "8x2": (16, 64, 16, 64), "16x4": (64, 64, 16, 64),
-          "narrow": (8, 16, 16, 16)}
+          "narrow": (8, 16, 16, 16), "w24": (24, 64, 16, 64), "w48": (48, 64, 16, 64)}
 CFGS = {"full": {}, "8x2": dict(n_levels=8), "16x4": dict(n_features=4),
-        "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12)}
+        "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12),
+        "w24": dict(n_levels=12), "w48": dict(n_levels=12, n_features=4)}
 
 
 def _cfg(widths, dtype=torch.float32):
@@ -57,10 +62,38 @@ def _unpack(packed, widths):
     return mats
 
 
+def _built(widths):
+    """K4's built widths for these params' widths: IN the next built width."""
+    return t_ngp._built_widths(WIDTHS[widths])
+
+
 def _pack(widths, seed=0):
     p = _params(widths, seed)
     flat = t_ngp.field_params(p, _cfg(widths))["mlp_flat"]
-    return p, _unpack(t_ngp.pack_mlp_mma(flat, WIDTHS[widths]), WIDTHS[widths])
+    return p, _unpack(t_ngp.pack_mlp_mma(flat, _built(widths)), _built(widths))
+
+
+def _shapes(w):
+    in_dim, hidden, out1, hc = w
+    return [(in_dim, hidden), (hidden, out1), (16 + out1 - 1, hc), (hc, hc), (hc, 3)]
+
+
+def _mlp_flat(x, widths):
+    """The weights in ``x`` (mlp_flat at the params' widths) -> the card's
+    ``mlp_flat`` at the built widths, by ``field_params`` itself."""
+    ws = [v.reshape(shape) for v, shape in zip(
+        torch.split(x, [a * b for a, b in _shapes(WIDTHS[widths])]), _shapes(WIDTHS[widths]))]
+    p = {"hash_table": torch.zeros((1, 2)), "sigma_net": ws[:2], "color_net": ws[2:]}
+    return t_ngp.field_params(p, _cfg(widths))["mlp_flat"]
+
+
+def _params_grad(g_flat, widths):
+    """A gradient of the card's ``mlp_flat`` -> the params' (``mlp_flat``
+    at their widths): autograd through ``field_params``' cat, which drops
+    the padded rows of Ws0."""
+    x = torch.zeros(t_ngp._n_weights(WIDTHS[widths]), dtype=g_flat.dtype, requires_grad=True)
+    (g,) = torch.autograd.grad(_mlp_flat(x, widths), x, g_flat)
+    return g
 
 
 def _padded(w, rows, ld):
@@ -76,7 +109,8 @@ def test_packed_buffer_rebuilds_each_matrix(widths):
     wc0, wc1, wc2 = p["color_net"]
     wc0p = torch.cat([wc0[:16], torch.zeros((1, wc0.shape[1])), wc0[16:]])
     want = {"s0": ws0, "s1": ws1, "c0": wc0p, "c1": wc1, "c2": wc2}
-    for name, rows, cols, ld in t_ngp.mma_layout(WIDTHS[widths]):
+    # Ws0's rows past the params' width (and past IN, up to 16) are zero
+    for name, rows, cols, ld in t_ngp.mma_layout(_built(widths)):
         assert rows % 16 == 0 and cols % 8 == 0 and (ld * 2) % 16 == 0, name
         assert (ld * 2 // 16) % 2 == 1, f"{name}: an even row stride in 16-byte units"
         assert torch.equal(mats[name], _padded(want[name], rows, ld)), name
@@ -139,7 +173,7 @@ def test_packed_heads_match_jax(widths):
     pj = {k: [jnp.asarray(w.numpy()) for w in p[k]] for k in ("sigma_net", "color_net")}
     sj, gj = j_ngp._sigma_head(pj, jcfg, jnp.asarray(feat))
     rj = j_ngp.ngp_color(pj, jcfg, jnp.asarray(d), gj)
-    st, gt, rt = _packed_heads(mats, WIDTHS[widths], torch.from_numpy(feat), torch.from_numpy(d))
+    st, gt, rt = _packed_heads(mats, _built(widths), torch.from_numpy(feat), torch.from_numpy(d))
     for a, b in ((st, sj), (gt, gj), (rt, rj)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-6)
 
@@ -204,21 +238,28 @@ def _n_pack(widths):
 @pytest.mark.parametrize("widths", list(WIDTHS))
 def test_packed_grad_map_is_the_adjoint_of_the_pack(widths):
     """<pack(x), y> == <x, map(y)>, and the map drops Wc0' row 16 and every
-    padded place: a packed gradient there reaches no weight."""
-    w = WIDTHS[widths]
-    n_w, n_pack = t_ngp._n_weights(w), _n_pack(w)
+    padded place: a packed gradient there reaches no weight.  pack is
+    ``field_params``' mlp_flat (Ws0 with zero rows up to the built input
+    width) then ``pack_mlp_mma``; map is ``mma_grad_to_flat`` then the
+    cat's backward."""
+    w, b = WIDTHS[widths], _built(widths)
+    n_w, n_pack = t_ngp._n_weights(w), _n_pack(b)
     assert n_w == sum(v.numel() for v in _params(widths)["sigma_net"] + _params(widths)["color_net"])
+    assert _mlp_flat(torch.zeros(n_w), widths).numel() == t_ngp._n_weights(b)
+    pack = lambda x: t_ngp.pack_mlp_mma(_mlp_flat(x, widths), b)
+    grad_map = lambda y: _params_grad(t_ngp.mma_grad_to_flat(y, b), widths)
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.normal(size=n_w))
     y = torch.from_numpy(rng.normal(size=n_pack))
-    lhs = float((t_ngp.pack_mlp_mma(x, w) * y).sum())
-    rhs = float((x * t_ngp.mma_grad_to_flat(y, w)).sum())
+    lhs = float((pack(x) * y).sum())
+    rhs = float((x * grad_map(y)).sum())
     assert lhs == pytest.approx(rhs, rel=1e-12)
-    extras = t_ngp.pack_mlp_mma(torch.ones(n_w, dtype=torch.float64), w) == 0
-    assert bool(_unpack(extras, w)["c0"][16].all())
+    extras = pack(torch.ones(n_w, dtype=torch.float64)) == 0
+    assert bool(_unpack(extras, b)["c0"][16].all())
+    assert bool(_unpack(extras, b)["s0"][w[0]:].all())
     assert int(extras.sum()) == n_pack - n_w
-    assert not bool(t_ngp.mma_grad_to_flat(torch.where(extras, y, 0.0), w).any())
-    assert bool(t_ngp.mma_grad_to_flat(torch.where(extras, 0.0, y), w).ne(0).all())
+    assert not bool(grad_map(torch.where(extras, y, 0.0)).any())
+    assert bool(grad_map(torch.where(extras, 0.0, y)).ne(0).all())
 
 
 def _rel_l2(a, b):
@@ -242,7 +283,7 @@ def test_full_bwd_emulation_matches_jax_vjp(widths, dtype):
     the map reads back in mlp_flat order; with g_feat it is JAX's VJP of
     ``_sigma_head`` + ``ngp_color`` on the same seeded cotangents (fp32:
     elementwise rtol 1e-5; bf16: BF16_REL_L2 a leaf)."""
-    w = WIDTHS[widths]
+    w, bw = WIDTHS[widths], _built(widths)
     p = _params(widths, seed=6)
     flat = t_ngp.field_params(p, _cfg(widths))["mlp_flat"]
     rng = np.random.default_rng(7)
@@ -268,14 +309,16 @@ def test_full_bwd_emulation_matches_jax_vjp(widths, dtype):
     gws, gwc, gf_j = vjp((jnp.asarray(g_sigma), jnp.asarray(g_rgb)))
     leaves_j = [np.asarray(g, np.float32) for g in gws + gwc]
 
-    packed = t_ngp.pack_mlp_mma(flat, w).requires_grad_(True)
+    packed = t_ngp.pack_mlp_mma(flat, bw).requires_grad_(True)
     f_t = torch.from_numpy(feat).requires_grad_(True)
-    s_t, _, r_t = _packed_heads(_unpack(packed, w), w, f_t, torch.from_numpy(d), dtype)
+    s_t, _, r_t = _packed_heads(_unpack(packed, bw), bw, f_t, torch.from_numpy(d), dtype)
     g_packed, gf_t = torch.autograd.grad([s_t, r_t], [packed, f_t],
                                          [torch.from_numpy(g_sigma), torch.from_numpy(g_rgb)])
-    assert bool(_unpack(g_packed, w)["c0"][16].ne(0).any())  # o[0]'s row: a gradient, dropped
-    g_flat = t_ngp.mma_grad_to_flat(g_packed, w)
-    leaves_t = torch.split(g_flat, [v.size for v in leaves_j])
+    assert bool(_unpack(g_packed, bw)["c0"][16].ne(0).any())  # o[0]'s row: a gradient, dropped
+    g_flat = t_ngp.mma_grad_to_flat(g_packed, bw)
+    # Ws0's padded rows face zero features: their gradient is 0 before it is dropped
+    assert not bool(g_flat[:bw[0] * bw[1]].reshape(bw[0], bw[1])[w[0]:].any())
+    leaves_t = torch.split(_params_grad(g_flat, widths), [v.size for v in leaves_j])
     pairs = [(gf_t, np.asarray(gf_j, np.float32))] + [
         (a.reshape(b.shape), b) for a, b in zip(leaves_t, leaves_j)]
     for a, b in pairs:

@@ -1,19 +1,20 @@
 """The table geometries the card takes besides the default 16 x 2: 8
 levels x 2 features (K4 at encoding width 16), 8 x 4 (K1 with 4 features a
-row, K4 at width 32), 16 x 4 and 32 x 2 (K4 at width 64), held against the
-JAX package on the CPU (the plain versions), plus the up-front refusal of
-what the card lacks.
+row, K4 at width 32), 16 x 4 and 32 x 2 (K4 at width 64), 12 x 2 and 24 x 1
+(width 24: K4 at 32, zero-padded; 24 x 1 with rows of 1 feature) and 8 x 8
+(rows of 8 features, width 64), held against the JAX package on the CPU
+(the plain versions), plus the up-front refusal of what the card lacks.
 
 Sizes: levels of 2^12 rows, the default MLP widths (64), inputs from numpy
-seeds; 8 levels at resolutions 16, 32, ..., 2048, 16 levels at 1, 2, ...,
-2^15 (``RESOLUTIONS``) and 32 levels at 1, 1, 2, 2, ..., 2^15, 2^15, every
-octave at two levels (``LEVEL_RESOLUTIONS``; 32 distinct powers of two would
-reach 2^31).  The resolutions are powers of two, so ``x * res`` is exact:
-at other resolutions XLA on the CPU contracts ``x * res - floor(x * res)``
-into an FMA and a corner weight moves by an ulp of ``x * res``, the known
-FMA difference of ROADMAP queue 3 (~7.6e-6 below 128, up to 2^-5 of a
-cell below 2^19).  16 x 4 at 16, 32, ...,
-2^19, the finest levels pure hash noise on a 2^12-row table, has a test of
+seeds; 8 levels at resolutions 16, 32, ..., 2048, 12 levels at 1, 2, ...,
+2048, 16 levels at 1, 2, ..., 2^15 (``RESOLUTIONS``), 24 and 32 levels at
+1, 1, 2, 2, ..., every octave at two levels (``LEVEL_RESOLUTIONS``; 32
+distinct powers of two would reach 2^31).  The resolutions are powers of
+two, so ``x * res`` is exact: at other resolutions XLA on the CPU
+contracts ``x * res - floor(x * res)`` into an FMA and a corner weight
+moves by an ulp of ``x * res``, the known FMA difference of ROADMAP queue 3
+(~7.6e-6 below 128, up to 2^-5 of a cell below 2^19).  16 x 4 at 16, 32,
+..., 2^19, the finest levels pure hash noise on a 2^12-row table, has a test of
 its own (``test_clean_step_to_2_19_matches_jax_given_the_same_bf16_features``):
 there the two fp32 encodings, apart on ~6% of the features (within the
 forward's tolerance), round a few features to neighbouring bf16 values, and
@@ -30,8 +31,8 @@ Tolerances and why:
     in test_torch_field.
   * a clean step on the same samples: loss 1e-5 relative; per-leaf
     gradients 1e-5 (fp32) and 1e-3 (bf16) relative L2, as in test_torch_train.
-  * the message feature at F = 4: rtol 1e-5 / atol 1e-6, gradient 1e-6, as
-    in test_torch_wm_ops.
+  * the message feature at F = 1, 4 and 8: rtol 1e-5 / atol 1e-6, gradient
+    1e-6, as in test_torch_wm_ops.
 """
 
 import dataclasses
@@ -61,11 +62,14 @@ from test_torch_train_ops import rel_l2
 
 T = torch.from_numpy
 DT = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
-GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4), "32x2": (32, 2)}
+GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4), "32x2": (32, 2), "12x2": (12, 2),
+              "24x1": (24, 1), "8x8": (8, 8)}
 # (base, finest) resolution by level count: every level's a power of two
-RESOLUTIONS = {8: (16, 2048), 16: (1, 1 << 15)}
+RESOLUTIONS = {8: (16, 2048), 12: (1, 2048), 16: (1, 1 << 15)}
 # level counts whose resolutions no (base, finest) pair gives as powers of two
-LEVEL_RESOLUTIONS = {32: tuple(float(1 << (level // 2)) for level in range(32))}
+LEVEL_RESOLUTIONS = {L: tuple(float(1 << (level // 2)) for level in range(L)) for L in (24, 32)}
+# K4's built input width for each geometry's encoding width
+BUILT_IN = {"8x2": 16, "8x4": 32, "16x4": 64, "32x2": 64, "12x2": 32, "24x1": 32, "8x8": 64}
 SMALL = dict(log2_hashmap_size=12)
 
 
@@ -97,16 +101,46 @@ def jax_params(jcfg, seed=0):
     return p
 
 
-# ------------------------------------------------------------- K1, F = 4
+# ------------------------------------------------------- K1, F = 1, 4, 8
 HASH_CASES = {"fp32_hashed": (None, False, False), "bf16_hashed": ("bf16", False, False),
               "bf16_dense": ("bf16", True, False), "bf16_shared": ("bf16", False, True)}
 
 
 @pytest.mark.parametrize("name", list(HASH_CASES))
 def test_hash_encode_four_features_and_vjp_match_jax(name):
+    _hash_encode_and_vjp_match_jax(name, 4)
+
+
+@pytest.mark.parametrize("name", list(HASH_CASES))
+@pytest.mark.parametrize("F", [1, 8])
+def test_hash_encode_one_and_eight_features_and_vjp_match_jax(F, name):
+    _hash_encode_and_vjp_match_jax(name, F)
+
+
+def test_hash_encode_takes_a_wider_pitch_only_on_the_kernels():
+    """The plain versions (the CPU) refuse a ``pitch`` past L*F, and any
+    version one below it (the zero-padded pitch is the kernels',
+    tests/test_torch_kernels.py); a pitch of L*F is the unpadded output."""
+    rng = np.random.default_rng(45)
+    res = t_hash.level_resolutions(12, 16, 2048)
+    x = T(rng.uniform(size=(300, 3)).astype(np.float32))
+    table = T(rng.uniform(-1, 1, size=(12 << 10, 2)).astype(np.float32))
+    for pitch in (32, 23):
+        with pytest.raises(ValueError, match="pitch"):
+            t_hash.hash_encode(x, table, res, 10, gather_dtype=torch.bfloat16, pitch=pitch)
+    tt = table.clone().requires_grad_(True)
+    out = t_hash.hash_encode(x, tt, res, 10, gather_dtype=torch.bfloat16, pitch=24)
+    g = T(rng.normal(size=(300, 24)).astype(np.float32))
+    out.backward(g)
+    assert torch.equal(out, t_hash.hash_encode_plain(x, table, res, 10, torch.bfloat16))
+    assert torch.equal(tt.grad, t_hash.hash_encode_bwd_plain(
+        x, g, 12 << 10, res, 10, torch.bfloat16))
+
+
+def _hash_encode_and_vjp_match_jax(name, F):
     gather, dense, shared = HASH_CASES[name]
     rng = np.random.default_rng(40)
-    L, S, F, M = 8, 12, 4, 512
+    L, S, M = 8, 12, 512
     res = j_hash.level_resolutions(L, 16, 2048)
     sides = j_hash.level_sides(res, S, True) if dense else None
     rows = (int(j_hash.level_row_counts(sides, S).sum()) if sides
@@ -135,7 +169,7 @@ def test_hash_encode_four_features_and_vjp_match_jax(name):
 def test_field_heads_match_jax(geometry, dtype):
     jcfg, tcfg = cfgs(geometry, dtype)
     assert t_ngp._kernel_widths(t_ngp.init_ngp_params(torch.Generator(), tcfg), tcfg) == (
-        {"8x2": 16, "8x4": 32, "16x4": 64, "32x2": 64}[geometry], 64, 16, 64)
+        BUILT_IN[geometry], 64, 16, 64)
     pj = jax_params(jcfg)
     pt = t_ckpt.params_from_jax(pj)
     rng = np.random.default_rng(41)
@@ -252,6 +286,18 @@ def test_clean_step_to_2_19_matches_jax_given_the_same_bf16_features(seed, dtype
 @pytest.mark.parametrize("geometry", ["8x4", "16x4"])
 @pytest.mark.parametrize("hash_select", [1, 0])
 def test_msg_feature_four_features_matches_jax(hash_select, geometry):
+    _msg_feature_matches_jax(hash_select, geometry)
+
+
+@pytest.mark.parametrize("geometry", ["24x1", "8x8"])
+@pytest.mark.parametrize("hash_select", [1, 0])
+def test_msg_feature_one_and_eight_features_matches_jax(hash_select, geometry):
+    """K9's tables and the message's K1 at rows of 1 and 8 features."""
+    _msg_feature_matches_jax(hash_select, geometry)
+
+
+def _msg_feature_matches_jax(hash_select, geometry):
+    L, F = GEOMETRIES[geometry]
     jn, tn = cfgs(geometry, "fp32")
     wkw = dict(message_dim=3, msg_resolution=64, msg_log2_hashmap_size=10,
                hash_select=hash_select)
@@ -259,7 +305,7 @@ def test_msg_feature_four_features_matches_jax(hash_select, geometry):
     p = jax.tree_util.tree_map(np.asarray,
                                j_wm.init_watermark_params(jax.random.PRNGKey(3), jcfg))
     tables = (p["trainable"]["msg_tables"] * 1e3).astype(np.float32)
-    assert tables.shape[-1] == 4
+    assert tables.shape[-1] == F
     message = np.array([0, 1, 1], np.int32)
     x01 = np.random.default_rng(42).uniform(size=(512, 3)).astype(np.float32)
     trj = jax.tree_util.tree_map(jnp.asarray, dict(p["trainable"], msg_tables=tables))
@@ -271,19 +317,18 @@ def test_msg_feature_four_features_matches_jax(hash_select, geometry):
     tt = T(tables).requires_grad_(True)
     ft = t_wm._msg_feature({"msg_tables": tt}, tcfg, T(x01), message)
     ft.backward(T(g))
-    L = GEOMETRIES[geometry][0]
-    assert ft.shape == np.asarray(fj).shape == (512, 4 * L if hash_select == 0 else 4)
+    assert ft.shape == np.asarray(fj).shape == (512, F * L if hash_select == 0 else F)
     np.testing.assert_allclose(ft.detach().numpy(), np.asarray(fj), rtol=1e-5, atol=1e-6)
     assert rel_l2(tt.grad.numpy(), gj) <= 1e-6
 
 
 # ------------------------------------------- what the kernels take, up front
 @pytest.mark.parametrize("F", [1, 2, 3, 4, 8])
-def test_hash_kernels_take_two_or_four_features(F):
+def test_hash_kernels_take_one_two_four_or_eight_features(F):
     x = torch.rand((64, 3))
     table = torch.rand((1 << 10, F))
     res = t_hash.level_resolutions(2, 16, 64)
-    if F in (2, 4):
+    if F in (1, 2, 4, 8):
         # past the row-width check, the wrapper asks for a CUDA tensor
         with pytest.raises(ValueError, match="CUDA tensor"):
             t_hash._hash_encode_kernel(x, table, 1 << 10, res, 10, True, None)
@@ -299,29 +344,37 @@ def test_hash_kernels_take_two_or_four_features(F):
 
 
 @pytest.mark.parametrize("levels,features", [(16, 2), (8, 2), (8, 4), (16, 4), (8, 1), (8, 3),
-                                             (4, 4), (12, 2), (32, 2), (8, 8)])
+                                             (4, 4), (12, 2), (32, 2), (8, 8), (24, 1), (16, 8),
+                                             (40, 1)])
 def test_kernel_geometry_accepts_exactly_the_built_widths(levels, features):
+    """F in {1, 2, 4, 8}, at most 32 levels and an encoding width up to 64,
+    run at the smallest built K4 input width at least as wide (8 x 1 at 16,
+    12 x 2 at 32, 8 x 8 at 64); F = 3, 16 x 8 (width 128) and 40 levels are
+    refused."""
     cfg = t_ngp.NGPConfig(n_levels=levels, n_features=features, log2_hashmap_size=10)
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(0), cfg)
-    # widths 32, 16, 32, 64, 16, 64
-    ok = (levels, features) in ((16, 2), (8, 2), (8, 4), (16, 4), (4, 4), (32, 2))
+    width = levels * features
+    ok = features in (1, 2, 4, 8) and levels <= 32 and width <= 64
     if ok:
         t_ngp.check_kernel_geometry(cfg)
-        assert t_ngp._kernel_widths(params, cfg) in _cuda.FIELD_WIDTHS
+        built = t_ngp._kernel_widths(params, cfg)
+        assert built in _cuda.FIELD_WIDTHS
+        assert built[0] == min(w for w in (16, 32, 64) if w >= width)
+        assert t_ngp.feature_pitch(cfg) == built[0]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
         t_ngp.check_kernel_geometry(cfg)
-    if levels * features not in (16, 32, 64):
+    if width > 64:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
             t_ngp._kernel_widths(params, cfg)
 
 
-def test_cuda_models_refuse_twelve_by_two_up_front():
+def test_cuda_models_refuse_sixteen_by_eight_up_front():
     """On a CUDA device string, before anything is built (no card needed):
-    12 x 2, encoding width 24, which K4 lacks."""
+    16 x 8, encoding width 128, above K4's widest build."""
     from nerf_signature_tpu_torch.api import NGPModel, WatermarkModel
 
-    cfg = t_ngp.NGPConfig(n_levels=12, n_features=2, log2_hashmap_size=10)
+    cfg = t_ngp.NGPConfig(n_levels=16, n_features=8, log2_hashmap_size=10)
     for device in ("cuda", None, "cuda:0"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
             NGPModel(cfg, grid_size=16, device=device)
@@ -337,12 +390,12 @@ def test_cuda_models_refuse_twelve_by_two_up_front():
 
 
 @pytest.mark.parametrize("cli", ["main_nerf", "main_nerf_wtmk"])
-def test_clis_refuse_twelve_by_two_before_reading_the_scene(tmp_path, cli):
+def test_clis_refuse_sixteen_by_eight_before_reading_the_scene(tmp_path, cli):
     import importlib
 
     main = importlib.import_module(f"nerf_signature_tpu_torch.{cli}").main
     argv = [str(tmp_path / "no_scene"), "--workspace", str(tmp_path / "ws"), "-O",
-            "--n_levels", "12", "--n_features", "2"]
+            "--n_levels", "16", "--n_features", "8"]
     if cli == "main_nerf_wtmk":
         argv += ["--wtmk_tcnn", "--ckpt", str(tmp_path / "none.ckpt")]
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):

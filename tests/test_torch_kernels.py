@@ -20,7 +20,12 @@ bit (the same adds in bit order, the same bf16 rounding) and its backward
 exactly (a copy); the feature-only K4 backward equals the full one's g_feat
 bit for bit (fp32: the same SIMT products; bf16: the same tensor-core
 chain); the full K4 backward's weight gradient is deterministic (bit-equal
-repeats); P1 equals ``table[idx]`` for any N and unaligned views.  K3 is
+repeats); P1 equals ``table[idx]`` for any N and unaligned views.  K1 is
+also held at rows of 1 and 8 features, at a padded output pitch (the
+columns past L*F exactly 0; the backward reads the same pitch) and on its
+backward's edges (M = 0, all-zero cotangents, one level of 2^19 rows, the
+shared table); K4 at encoding widths 24 and 48 (run at 32 and 64); K9's
+backward at any T * F and more than 32 bits.  K3 is
 also held at its warp walk's edges (S not a multiple of the 32-slot chunk,
 stops inside the first chunk and at its boundary, the mask absent or all
 off, T_thresh 0, N = 0), its backward repeats bit-equal (no atomics).
@@ -40,9 +45,11 @@ pytestmark = pytest.mark.cuda
 
 # K4's widths: "full" is 16 levels x 2 features (8 x 4 has the same widths),
 # "8x2" encoding width 16, "16x4" width 64 (32 x 2 has the same), "narrow"
-# the 8-wide test model
+# the 8-wide test model; "12x2" (width 24) and "12x4" (width 48) run at the
+# built 32 and 64, their features zero-padded by K1
 WIDTHS = {"full": {}, "8x2": dict(n_levels=8), "16x4": dict(n_features=4),
-          "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12)}
+          "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12),
+          "12x2": dict(n_levels=12), "12x4": dict(n_levels=12, n_features=4)}
 
 
 @pytest.fixture
@@ -126,12 +133,15 @@ def test_field_kernel_matches_plain(cuda, dtype, widths, query):
     d = torch.nn.functional.normalize(torch.randn((M, 3), generator=g), dim=-1).to(cuda)
     d = d if query == "colour" else None  # density only: grid updates, meshing
     feat = t_ngp._encode_pos(fp, cfg, x)
+    # K4's built input width; the columns past the encoding width are zeros
+    assert feat.shape[1] == t_ngp._kernel_widths(params, cfg)[0]
+    assert not bool(feat[:, cfg.enc_dim:].any())
     _cuda.reset_launch_counts()
     sk, gk, rk = t_ngp.field_heads(fp, cfg, feat, d, want_geo=True)
     route = "K4_field" if dtype == torch.bfloat16 else "K4_field_f32"
     counts = _cuda.launch_counts()
     assert counts[route] == 1 and counts["K4_field"] + counts["K4_field_f32"] == 1
-    sp, gp, rp = t_ngp.field_heads_plain(fp, cfg, feat, d)
+    sp, gp, rp = t_ngp.field_heads_plain(fp, cfg, feat[:, :cfg.enc_dim], d)
     assert (rk is None) == (d is None)
     pairs = ((sk, sp), (gk, gp)) + (((rk, rp),) if d is not None else ())
     if dtype == torch.float32:
@@ -234,7 +244,10 @@ def test_field_bwd_kernel_matches_plain(cuda, dtype, widths):
     g_sigma[dead] = 0.0
     g_rgb[dead] = 0.0
     grads = []
-    for heads in (t_ngp.field_heads, lambda p, c, f, dd: t_ngp.field_heads_plain(p, c, f, dd)):
+    # the plain version reads the encoding width; its g_feat is 0 past it,
+    # as the kernel's is (Ws0's padded rows are zero)
+    for heads in (t_ngp.field_heads,
+                  lambda p, c, f, dd: t_ngp.field_heads_plain(p, c, f[:, :c.enc_dim], dd)):
         nets = [w.clone().requires_grad_(True) for w in params["sigma_net"] + params["color_net"]]
         p = dict(params, sigma_net=nets[:2], color_net=nets[2:])
         f = feat.clone().requires_grad_(True)
@@ -271,13 +284,14 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                                 min_near=0.2, bound=1.0)
 
 
+@pytest.mark.parametrize("F", [1, 2, 8])
 @pytest.mark.parametrize("gather", [torch.bfloat16, torch.float32])
-def test_msg_table_kernel_matches_plain(cuda, gather):
+def test_msg_table_kernel_matches_plain(cuda, gather, F):
     from nerf_signature_tpu_torch.models import message as t_msg
 
     g = torch.Generator().manual_seed(9)
     D = 32
-    tables = t_msg.init_msg_tables(g, D, 2, 19, cuda)
+    tables = t_msg.init_msg_tables(g, D, F, 19, cuda)
     bits = torch.randint(0, 2, (D,), generator=g, dtype=torch.int32).to(cuda)
     k_eff, k_g = t_msg.effective_table(tables, bits, gather)
     p_eff, p_g = t_msg.effective_table(tables, bits, gather, plain=True)
@@ -330,7 +344,7 @@ def test_field_bwd_feat_kernel_matches_plain(cuda, dtype, widths):
     counts = _cuda.launch_counts()
     assert counts[route] == 1 and counts["K4_field_bwd"] + counts["K4_field_bwd_f32"] == 0
     fp_ = feat.clone().requires_grad_(True)
-    sp, _, rp = t_ngp.field_heads_plain(fp, cfg, fp_, d)
+    sp, _, rp = t_ngp.field_heads_plain(fp, cfg, fp_[:, :cfg.enc_dim], d)
     torch.autograd.backward([sp, rp], [g_sigma, g_rgb])
     assert rel_l2(only, fp_.grad) <= (1e-5 if dtype == torch.float32 else 1e-2)
 
@@ -389,11 +403,13 @@ def test_hash_encode_kernel_one_level_and_shared_table(cuda, shared):
 
 @pytest.mark.parametrize("gather", ["bf16", "fp32", "dense"])
 @pytest.mark.parametrize("L,F", [(16, 2), (8, 2), (8, 4), (16, 4), (32, 2), (5, 2),
-                                 (5, 4)])
+                                 (5, 4), (24, 1), (5, 1), (8, 8), (5, 8)])
 def test_hash_encode_kernel_is_bit_exact(cuda, L, F, gather):
     """The level-major forward: equal to the plain version bit for bit, for
-    rows of 2 and 4 features, at 16 x 4 and at 32 x 2 (NGP_MAX_LEVELS), an
-    odd level count (8-byte stores) and a ragged last tile; its backward within 1e-5 relative L2 (atomic order)."""
+    rows of 1, 2, 4 and 8 features, at 16 x 4 and at 32 x 2
+    (NGP_MAX_LEVELS), odd level counts (8-byte stores at F = 2, 4-byte ones
+    at F = 1) and a ragged last tile; its backward within 1e-5 relative L2
+    (atomic order)."""
     g = torch.Generator().manual_seed(15)
     res = t_hash.level_resolutions(L, 16, 2048)
     sides = t_hash.level_sides(res, 19, True) if gather == "dense" else None
@@ -486,3 +502,105 @@ def test_composite_kernels_empty_and_tiny(cuda, N, S):
     cts = (torch.ones((N,), device=cuda), None, torch.ones((N, 3), device=cuda), None)
     gs, gr = t_comp.composite_rays_bwd(sig, rgb, dt, ts, None, 1e-4, *cts)
     assert gs.shape == (N, S) and gr.shape == (N, S, 3) and bool(torch.isfinite(gs).all())
+
+
+@pytest.mark.parametrize("L,F,pitch", [(12, 2, 32), (24, 1, 32), (6, 8, 64), (5, 1, 8)])
+def test_hash_encode_kernels_at_a_padded_pitch(cuda, L, F, pitch):
+    """K1 writing K4's built input width: the first L*F columns equal to
+    the plain version bit for bit, the rest exactly 0; the backward reads
+    the same pitch and ignores what the padded columns hold."""
+    g = torch.Generator().manual_seed(16)
+    res = t_hash.level_resolutions(L, 16, 2048)
+    rows = L << 19
+    table = (torch.rand((rows, F), generator=g) * 2 - 1).to(cuda)
+    M = (1 << 16) + 77
+    x = torch.rand((M, 3), generator=g).to(cuda)
+    tg = table.to(torch.bfloat16)
+    k = t_hash._hash_encode_kernel(x, tg, rows, res, 19, False, None, pitch)
+    p = t_hash.hash_encode_plain(x, table, res, 19, table_g=tg)
+    assert k.shape == (M, pitch) and torch.equal(k[:, :L * F], p)
+    assert not bool(k[:, L * F:].any())
+    g_feat = torch.randn((M, pitch), generator=g).to(cuda)
+    g_feat[::3] = 0.0
+    kb = t_hash._hash_encode_bwd_kernel(x, g_feat, rows, res, 19, torch.bfloat16, False, None, F)
+    pb = t_hash.hash_encode_bwd_plain(x, g_feat[:, :L * F].contiguous(), rows, res, 19,
+                                      torch.bfloat16)
+    assert rel_l2(kb, pb) <= 1e-5
+    # through autograd
+    tt = torch.zeros((rows, F), device=cuda, requires_grad=True)
+    feat = t_hash.hash_encode(x, tt, res, 19, gather_dtype=torch.bfloat16, table_g=tg,
+                              pitch=pitch)
+    assert feat.shape == (M, pitch)
+    feat.backward(g_feat)
+    assert rel_l2(tt.grad, pb) <= 1e-5
+
+
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_hash_encode_bwd_kernel_edge_cases(cuda, F):
+    """M = 0; all-zero cotangents (every warp task skipped: the gradient
+    exactly 0); the message's shape, one level at resolution 2048 on 2^19
+    rows, with live samples in runs like a ray's and a ragged end; the
+    shared table of every level (hash_select 0)."""
+    g = torch.Generator().manual_seed(17)
+    res16 = t_hash.level_resolutions(16, 16, 2048)
+    x0 = torch.zeros((0, 3), device=cuda)
+    out = t_hash._hash_encode_bwd_kernel(x0, torch.zeros((0, 16 * F), device=cuda), 1 << 10,
+                                         res16, 10, torch.bfloat16, False, None)
+    assert out.shape == (1 << 10, F) and not bool(out.any())
+    M = 100_003
+    x = torch.rand((M, 3), generator=g).to(cuda)
+    zero = t_hash._hash_encode_bwd_kernel(x, torch.zeros((M, 16 * F), device=cuda), 16 << 19,
+                                          res16, 19, torch.bfloat16, False, None)
+    assert not bool(zero.any())
+    one = np.array([2048.0])
+    g1 = torch.randn((M, F), generator=g).to(cuda)
+    g1[(torch.arange(M, device=cuda) % 256) >= 120] = 0.0  # a ray's dead slots
+    for gd in (torch.bfloat16, torch.float32):
+        k = t_hash._hash_encode_bwd_kernel(x, g1, 1 << 19, one, 19, gd, False, None)
+        p = t_hash.hash_encode_bwd_plain(x, g1, 1 << 19, one, 19, gd)
+        assert rel_l2(k, p) <= 1e-5
+    gs = torch.randn((M, 16 * F), generator=g).to(cuda)
+    gs[::4] = 0.0
+    k = t_hash._hash_encode_bwd_kernel(x, gs, 1 << 19, res16, 19, torch.bfloat16, True, None)
+    p = t_hash.hash_encode_bwd_plain(x, gs, 1 << 19, res16, 19, torch.bfloat16,
+                                     shared_table=True)
+    assert rel_l2(k, p) <= 1e-5
+
+
+@pytest.mark.parametrize("D,T,F", [(1, 1001, 1), (40, 1023, 2), (3, 1 << 10, 8), (33, 5, 4)])
+def test_msg_table_bwd_kernel_any_shape(cuda, D, T, F):
+    """K9's backward equal to its plain version where T * F is not a
+    multiple of 4 (one entry a thread), with more than 32 bits (two words
+    of the staged mask) and at F = 8 (16-byte loads and stores)."""
+    from nerf_signature_tpu_torch.models import message as t_msg
+
+    g = torch.Generator().manual_seed(19)
+    bits = torch.randint(0, 2, (D,), generator=g, dtype=torch.int32).to(cuda)
+    g_eff = torch.randn((T, F), generator=g).to(cuda)
+    k = t_msg._msg_table_bwd_kernel(g_eff, bits, D)
+    assert torch.equal(k, t_msg.msg_table_bwd_plain(g_eff, bits, D))
+
+
+@pytest.mark.parametrize("hash_select", [0, 1])
+def test_message_feature_at_a_padded_width(cuda, hash_select):
+    """12 x 2 (width 24, K4 at 32): the watermarked field through the
+    kernels, the message feature added at the backbone's pitch (every level
+    through the shared table, or the finest level's), against the plain
+    versions in fp32 (1e-5)."""
+    from nerf_signature_tpu_torch.models import watermark as t_wm
+
+    wcfg = t_wm.WatermarkConfig(ngp=t_ngp.NGPConfig(compute_dtype=torch.float32, n_levels=12),
+                                message_dim=4, hash_select=hash_select)
+    p = t_wm.init_watermark_params(torch.Generator().manual_seed(20), wcfg, cuda)
+    p["backbone"]["hash_table"].mul_(1e4)
+    p["trainable"]["msg_tables"].mul_(1e3)
+    g = torch.Generator().manual_seed(21)
+    M = 50_001
+    x = (torch.rand((M, 3), generator=g) * 2 - 1).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn((M, 3), generator=g), dim=-1).to(cuda)
+    out = []
+    for plain in (False, True):
+        fp = t_wm.wtmk_field_params(p["backbone"], p["trainable"], wcfg, [0, 1, 1, 0], plain)
+        out.append(t_wm.wtmk_field(fp, wcfg, x, d, plain))
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
