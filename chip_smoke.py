@@ -94,7 +94,23 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                accuracy, log10 p, seconds a message), test_image on 2 views,
                a profile of 16 more steps; it fails unless lossw halves, bit
                accuracy >= 0.95 with no distortion and the test image PSNR
-               >= 30 dB.
+               >= 30 dB.  Then, on that model: test_bitacc with --distortion
+               jpeg, jpeg_dct's time at the key blocks' shape and one whole
+               jpeg step against the plain versions (the quantiser's
+               rounding flips between the two paths counted and held to 1%
+               of the 8x8 blocks); the attack suites as
+               the CLI's --test calls them, each run's launches counted
+               (``attack_launches``): the 13-attack sweep at 50 messages
+               (one ``{"attacks": ...}`` line; ``none`` >= 0.95), the
+               parameter attack at epsilon 1e-3 for 100 steps (every leaf in
+               the ball, the decoder bit-identical; test_bitacc after), the
+               finetuning attack for 100 steps on the hash table (only it
+               moves; test_bitacc and test_image after) and 20 on every
+               backbone leaf (K4's full backward), each profiled over 16
+               more steps and one step of each against its plain version;
+               finally a second WatermarkTrainer.train at the recipe with
+               --n_views 2 (lossw halves; bit accuracy, watermark rays/s;
+               one whole two-view step against the plain versions).
 
 The last lines are one JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -951,19 +967,45 @@ def wm_steps(dev, x, levels=16, features=2):
         n = _cuda.launch_counts()
         k4_route(n, dtype, ("K4_field", "K4_field_bwd_feat"), "wm step")
         counts[str(dtype)[6:]] = n
-        el = abs(float(lk) - float(lp)) / abs(float(lp))
-        scale = max(float(g.norm()) for g in gp_)
-        kept = [(a, b) for a, b in zip(gk_, gp_) if float(b.norm()) > 1e-5 * scale]
-        worst = max(rel_l2(a, b) for a, b in kept)
-        log(f"[wm step] {levels} x {features}, {str(dtype)[6:]}: loss {float(lk):.6g} vs plain "
-            f"{float(lp):.6g} (rel {el:.3g}, limit {lim_loss:g}); {len(kept)} of {len(gp_)} "
-            f"trainable leaves' grads, worst rel L2 {worst:.3g} (limit {lim_rel:g}); message "
-            f"tables {rel_l2(gk_[0], gp_[0]):.3g}")
-        if not (el <= lim_loss and worst <= lim_rel):
-            raise AssertionError(f"watermark step through the kernels differs from the plain "
-                                 f"one ({levels} x {features}, {str(dtype)})")
+        check_step(f"wm step {levels} x {features}, {str(dtype)[6:]}", lk, gk_, lp, gp_,
+                   lim_rel, lim_loss)
         del mt, gk_, gp_
     return counts
+
+
+def step_errors(lk, gk_, lp, gp_):
+    """A whole step through the kernels (loss lk, gradients gk_) against one
+    through the plain versions: the loss's relative error, the worst
+    leaf's gradient rel L2, leaving out leaves whose plain gradient is below
+    1e-5 of the largest (a conv bias before a batch norm: zero in exact
+    arithmetic), and how many leaves were kept."""
+    scale = max(float(g.norm()) for g in gp_)
+    kept = [(a, b) for a, b in zip(gk_, gp_) if float(b.norm()) > 1e-5 * scale]
+    return {"loss_rel": abs(float(lk) - float(lp)) / abs(float(lp)),
+            "worst_rel_l2": max(rel_l2(a, b) for a, b in kept), "kept": len(kept)}
+
+
+def check_step(tag, lk, gk_, lp, gp_, lim_rel, lim_loss=1e-6):
+    """``step_errors``, logged; fails past the limits."""
+    e = step_errors(lk, gk_, lp, gp_)
+    log(f"[{tag}] loss {float(lk):.6g} vs plain {float(lp):.6g} (rel {e['loss_rel']:.3g}, "
+        f"limit {lim_loss:g}); {e['kept']} of {len(gp_)} leaves' grads, worst rel L2 "
+        f"{e['worst_rel_l2']:.3g} (limit {lim_rel:g}); first leaf {rel_l2(gk_[0], gp_[0]):.3g}")
+    if not (e["loss_rel"] <= lim_loss and e["worst_rel_l2"] <= lim_rel):
+        raise AssertionError(f"{tag}: the step through the kernels differs from the plain one")
+    return e
+
+
+# Whole steps of the trained model (the jpeg, attack and two-view checks of
+# the wm phase): the watermark step's per-leaf limit, and a loss limit of
+# 1e-5 relative.  The trained model's losses are small residuals (a
+# watermark step's 2.8e-4, against ~0.1 on the random model of wm_steps),
+# which the two paths' bf16 differences move by up to 1.52e-6 relative
+# (H100, the finetune step); at check_step's 1e-6 one run failed on a
+# reading of 1.04e-6.  The per-leaf gradient limit (rel L2 5e-3; readings
+# 4e-5 to 2.6e-4) is the check that fails a wrong kernel: it reads every
+# leaf's gradient, which a wrong product moves far more than the loss.
+TRAINED_LOSS_LIM = 1e-5
 
 
 def k1_bwd(x01, live, n_rows, res, log2_size, F, gen, pitch=None):
@@ -1166,10 +1208,11 @@ def wm_step_inputs(dev, seed=4):
                 bits=torch.from_numpy(rng.integers(0, 2, WM_BITS).astype(np.int32)).to(dev))
 
 
-def wm_step_grads(m, x, plain):
+def wm_step_grads(m, x, plain, distortion="none", draws=None):
     """The watermark step's loss (trainer_wtmk._wm_step_loss at the recipe's
     lambdas, one render at budget 256) and the trainable leaves' gradients,
-    through the kernels or the plain versions."""
+    through the kernels or the plain versions; the distortion at the given
+    draws."""
     from nerf_signature_tpu_torch.train import trainer_wtmk as t_twm
 
     leaves = t_twm.trainable_leaves(m.trainable)
@@ -1177,7 +1220,7 @@ def wm_step_grads(m, x, plain):
         p.requires_grad_(True)
     loss, _ = t_twm._wm_step_loss(
         m.backbone, m.trainable, m.occ.occupancy, x["ro_b"], x["rd_b"], x["ct_o"], x["ct_d"],
-        x["ct_gt"], x["bits"], None, 0.005, 1.0, m.wcfg, m.rc, 256, 256, "none",
+        x["ct_gt"], x["bits"], draws, 0.005, 1.0, m.wcfg, m.rc, 256, 256, distortion,
         t_twm.make_loss_w("bce"), plain=plain)
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
@@ -1844,16 +1887,16 @@ def write_scene(root, scale=0.8):
     return root
 
 
-def pick_key_blocks(model, ws, seed):
-    """The key pose (a random orbit pose, as the provider draws it) and the
-    32 key blocks of its render with the largest pixel variance, saved where
-    the CLI loads them (the JPEG-ratio picker needs PIL, which this machine
-    may lack)."""
+def pick_key_blocks(model, ws, seed, n_views=1):
+    """The key poses (``n_views`` random orbit poses, as the provider draws
+    them) and the 32 key blocks of view 0's render with the largest pixel
+    variance, saved where the CLI loads them (the JPEG-ratio picker needs
+    PIL, which this machine may lack)."""
     from nerf_signature_tpu_torch.data.rays import get_rays, rand_poses
 
-    pose = rand_poses(np.random.default_rng(seed), 1, radius=ORBIT_RADIUS)
+    pose = rand_poses(np.random.default_rng(seed), n_views, radius=ORBIT_RADIUS)
     fl = WM_RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
-    r = get_rays(pose, (fl, fl, WM_RES / 2, WM_RES / 2), WM_RES, WM_RES, -1)
+    r = get_rays(pose[:1], (fl, fl, WM_RES / 2, WM_RES / 2), WM_RES, WM_RES, -1)
     img = model.render(r["rays_o"][0], r["rays_d"][0], None, staged=True)["image"]
     img = img.float().cpu().numpy().reshape(WM_RES, WM_RES, 3)
     B = WM_BLOCK
@@ -1874,7 +1917,8 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm"):
     flags), the key blocks, resolve_auto_compaction, then
     WatermarkTrainer.train with the launch counts set to 0 just before it,
     its epochs timed (no checkpoint I/O).  Returns the model, trainer,
-    loader factory, the run's launches, steps, seconds and peak memory."""
+    loader factory, the run's launches, steps, rays a step, seconds and peak
+    memory."""
     from nerf_signature_tpu_torch import main_nerf_wtmk
     from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.train.checkpoint import save_checkpoint
@@ -1892,8 +1936,9 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm"):
     t0 = time.time()
     model, trainer, make_loader = main_nerf_wtmk.setup(opt)
     os.makedirs(ws, exist_ok=True)
-    var_min = pick_key_blocks(model, ws, opt.seed)
-    loader = make_loader("train", 1, 100)
+    var_min = pick_key_blocks(model, ws, opt.seed, opt.n_views)
+    loader = make_loader("train", opt.n_views, 100)
+    step_rays = TRAIN_RAYS + WM_BITS * WM_BLOCK**2 * opt.n_views
     set_up = time.time() - t0
     trainer.resolve_auto_compaction(loader)
     log(f"[{tag}] set-up {set_up:.2f} s (checkpoint load, key render, {len(loader)} pseudo-GT "
@@ -1921,8 +1966,8 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm"):
     peak = torch.cuda.max_memory_allocated() / 2**30
     trainer.train_one_epoch = run_epoch
     steps, seconds = trainer.global_step, sum(epoch_s)
-    log(f"[{tag}] {steps} steps of {WM_STEP_RAYS} rays in {seconds:.2f} s: "
-        f"{steps * WM_STEP_RAYS / seconds:.0f} watermark rays/s, {seconds / steps * 1e3:.2f} ms "
+    log(f"[{tag}] {steps} steps of {step_rays} rays in {seconds:.2f} s: "
+        f"{steps * step_rays / seconds:.0f} watermark rays/s, {seconds / steps * 1e3:.2f} ms "
         f"a step; peak memory {peak:.2f} GiB")
     log(f"[{tag}] epoch lossw {[round(v, 5) for v in trainer.stats['lossw']]}")
     log(f"[{tag}] launches during WatermarkTrainer.train: {launches}")
@@ -1936,7 +1981,261 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm"):
     k4_route(launches, torch.bfloat16, ("K4_field", "K4_field_bwd_feat"),
              f"WatermarkTrainer.train ({tag})")
     return dict(model=model, trainer=trainer, make_loader=make_loader, loader=loader,
-                launches=launches, steps=steps, seconds=seconds, peak=peak)
+                launches=launches, steps=steps, step_rays=step_rays, seconds=seconds, peak=peak)
+
+
+ATTACK_TRIALS = 50       # --n_test_attack
+ATTACK_STEPS = 100       # --adv_steps, --finetune_attack_steps
+ATTACK_FULL_STEPS = 20   # the finetuning attack with --finetune_attack_full
+ADV_EPSILON = 1e-3       # --adv_epsilon
+BACKWARD = ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd", "K4_field_bwd_feat",
+            "K9_msg_table_bwd")
+
+
+def loader_step_inputs(trainer, data):
+    """A watermark step's inputs from a train batch of the provider: its
+    key-block bundles, content rays and pseudo-GT, and a fresh message."""
+    m = trainer.model
+    ro_b, rd_b = trainer._device_rays(data["watermark"])
+    ct = data["content"]
+    t = lambda k: torch.as_tensor(np.asarray(ct[k], np.float32), device=m.device).reshape(-1, 3)
+    return dict(ro_b=ro_b, rd_b=rd_b, ct_o=t("rays_o"), ct_d=t("rays_d"), ct_gt=t("images"),
+                bits=torch.as_tensor(trainer.random_message(), device=m.device))
+
+
+# The jpeg step's quantiser may round a coefficient apart on the two paths
+# where their bf16 renders differ by an ulp at a level's .5: the share of
+# the key blocks' 8x8 blocks that hold such a flip (a flip moves its block's
+# 64 pixels) is held to the CPU parity test's bound on the share of pixels
+# moved (tests/test_torch_jpeg.py), 1%.  Readings on the H100: 0 of 24576
+# coefficients in each of two runs.
+JPEG_FLIP_BLOCKS_MAX = 0.01
+
+
+def jpeg_levels(m, x, plain, quality):
+    """The levels that one watermark step's jpeg distortion rounds the key
+    blocks' DCT coefficients to (one view): the blocks rendered as
+    ``wm_step_grads`` renders them (one march with the content rays at
+    budget 256), through the kernels or the plain versions."""
+    from nerf_signature_tpu_torch.train import trainer_wtmk as t_twm
+    from nerf_signature_tpu_torch.utils import jpeg as t_jpeg
+
+    with torch.no_grad():
+        fp = t_twm.wtmk_field_params(m.backbone, m.trainable, m.wcfg, x["bits"], plain)
+        n_b = x["ro_b"].numel() // 3
+        out = t_twm.render_rays_occ(
+            lambda p, d: t_twm.wtmk_field(fp, m.wcfg, p, d, plain=plain), m.occ.occupancy,
+            torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]], 0),
+            torch.cat([x["rd_b"].reshape(-1, 3), x["ct_d"]], 0), m.rc, budget=256,
+            bg_color=1.0, plain=plain)
+        blocks = t_twm._blocks(out["image"][:n_b], x["ro_b"].shape)
+        coef, _ = t_jpeg.dct_coefficients(blocks)
+        return torch.round(coef / t_jpeg.quant_table(quality, blocks.device))
+
+
+def wm_jpeg(trainer, make_loader, loader):
+    """``--distortion jpeg`` on the trained model: test_bitacc over
+    WM_TRIALS messages; jpeg_dct's time at the key blocks' shape; one whole
+    step through the kernels against the plain versions at the same draws,
+    each path rounding its own coefficients.  The quantiser's rounding
+    turns the two paths' bf16 differences into whole steps at coefficients
+    near .5: their count is reported and the share of 8x8 blocks holding
+    one is held to JPEG_FLIP_BLOCKS_MAX."""
+    from nerf_signature_tpu_torch.train.trainer_wtmk import view_batch_shape
+    from nerf_signature_tpu_torch.utils import jpeg as t_jpeg
+    from nerf_signature_tpu_torch.utils.image import distortion_draws
+
+    m = trainer.model
+    meter = trainer.metrics_message[0]
+    trainer.distortion = "jpeg"
+    try:
+        acc = trainer.test_bitacc(make_loader("test", 1, WM_TRIALS))
+    finally:
+        trainer.distortion = "none"
+    out = {"bitacc": acc, "log10p": meter.pvalue(),
+           "s_per_message": trainer.bitacc_seconds / WM_TRIALS}
+    log(f"[wm jpeg] test_bitacc --distortion jpeg: bit accuracy {acc:.4f} over {meter.N} "
+        f"messages, log10 p {meter.pvalue():.1f}; {out['s_per_message']:.4f} s a message")
+
+    x = loader_step_inputs(trainer, next(iter(loader)))
+    shape = view_batch_shape(x["ro_b"].shape)
+    blocks = torch.rand(shape, generator=m.generator, device=m.device)
+    run = lambda: t_jpeg.jpeg_dct(blocks, 60.0)
+    out.update(jpeg_dct_ms=median_ms(run, 20), jpeg_dct_device_ms=device_ms(run, 20))
+    log(f"[wm jpeg] jpeg_dct at {list(shape)}: {out['jpeg_dct_ms']:.4f} ms a call, device "
+        f"{out['jpeg_dct_device_ms']:.4f} ms")
+
+    draws = distortion_draws("jpeg", shape, m.generator, m.device)
+    quality = 40.0 + 10.0 * int(draws)
+    (lk, gk), (lp, gp) = (wm_step_grads(m, x, plain, "jpeg", draws) for plain in (False, True))
+    lv_k, lv_p = (jpeg_levels(m, x, plain, quality) for plain in (False, True))
+    flips = lv_k != lv_p
+    n_flips = int(flips.sum())
+    block_share = float(flips.flatten(3).any(-1).to(torch.float32).mean())
+    log(f"[wm jpeg] quality {quality:g}: {n_flips} of {lv_k.numel()} quantised coefficients "
+        f"round apart between the kernel and the plain paths; share of 8x8 blocks holding one "
+        f"{block_share:.3g} (limit {JPEG_FLIP_BLOCKS_MAX:g})")
+    if block_share > JPEG_FLIP_BLOCKS_MAX:
+        raise AssertionError(f"wm jpeg: {block_share:.3g} of the 8x8 blocks round apart between "
+                             f"the kernel and the plain paths (limit {JPEG_FLIP_BLOCKS_MAX:g})")
+    out.update(quality=quality, rounding_flips=n_flips, n_coefficients=lv_k.numel(),
+               flip_block_share=block_share,
+               step=check_step("wm step jpeg", lk, gk, lp, gp, 5e-3, TRAINED_LOSS_LIM))
+    return out
+
+
+def attack_run(fn, required, absent, what):
+    """``fn()`` with the launch counts set to 0 just before it; fails unless
+    every kernel in ``required`` launched (K4 on the bf16 route alone) and
+    none in ``absent``.  Returns (its result, seconds, launches)."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    n = _cuda.launch_counts()
+    for name in required:
+        if n[name] == 0:
+            raise AssertionError(f"{name} was not launched by {what}")
+    for name in absent:
+        if n[name]:
+            raise AssertionError(f"{name} was launched {n[name]} times by {what}")
+    k4_route(n, torch.bfloat16, [k for k in ("K4_field", "K4_field_bwd", "K4_field_bwd_feat")
+                                 if k in required], what)
+    launches = {k: v for k, v in n.items() if v}
+    log(f"[{what}] {seconds:.2f} s; launches {launches}")
+    return out, seconds, launches
+
+
+def wm_attacks(trainer, make_loader, loader):
+    """The attack suites on the trained model, through the functions the
+    CLI's ``--test`` calls: the 13-attack sweep at ``--n_test_attack 50``;
+    the parameter attack at the CLI defaults (epsilon 1e-3, 100 steps), then
+    test_bitacc on the attacked weights; the finetuning attack (100 steps,
+    the hash table), then test_bitacc and test_image; 20 steps of it with
+    every backbone leaf.  Each run's launches, its seconds, a profile of 16
+    more steps (wall and busy ms a step, idle share) and one step through
+    the kernels against the plain versions."""
+    from nerf_signature_tpu_torch.train import attack as t_atk
+    from nerf_signature_tpu_torch.train.trainer_wtmk import trainable_leaves
+
+    m = trainer.model
+    dev = m.device
+    res, launches = {}, {}
+
+    sweep_loader = make_loader("test", 1, ATTACK_TRIALS)
+    sweep, seconds, launches["sweep"] = attack_run(
+        lambda: t_atk.attack_sweep(trainer, sweep_loader, n_test=ATTACK_TRIALS),
+        FORWARD + ("K9_msg_table",), BACKWARD, "attack_sweep")
+    per_msg = seconds / (len(sweep) * ATTACK_TRIALS)
+    print(json.dumps({"attacks": sweep, "s_per_message": per_msg}))
+    res["sweep"] = {"bitacc": sweep, "s_per_message": per_msg, "seconds": seconds}
+    if not sweep["none"] >= 0.95:
+        raise AssertionError(f"attack sweep: bit accuracy {sweep['none']:.4f} < 0.95 with no "
+                             "attack")
+
+    # ---- the epsilon-ball parameter attack
+    attacked, seconds, launches["parameter"] = attack_run(
+        lambda: t_atk.parameter_attack(trainer, loader, epsilon=ADV_EPSILON, steps=ATTACK_STEPS,
+                                       num_rays=TRAIN_RAYS),
+        WM_TRAIN, ("K4_field_bwd",), "parameter_attack")
+    a_leaves, o_leaves = trainable_leaves(attacked), trainable_leaves(m.trainable)
+    dev_max = [float((a - o).abs().max()) for a, o in zip(a_leaves, o_leaves)]
+    inside = all(bool(((a >= o - ADV_EPSILON) & (a <= o + ADV_EPSILON)).all())
+                 for a, o in zip(a_leaves, o_leaves))
+    dec_same = all(torch.equal(a, o) for a, o in zip(a_leaves[1:], o_leaves[1:]))
+    log(f"[parameter attack] max |p - o|: message tables {dev_max[0]:.6g}, decoder "
+        f"{max(dev_max[1:]):.3g} (epsilon {ADV_EPSILON:g}); every leaf inside the ball: "
+        f"{inside}; decoder bit-identical: {dec_same}")
+    if not (inside and dec_same and dev_max[0] > 0):
+        raise AssertionError("parameter attack: a leaf left the epsilon ball, the decoder "
+                             "moved, or the message tables did not")
+    original, m.trainable = m.trainable, attacked
+    try:
+        acc = trainer.test_bitacc(make_loader("test", 1, WM_TRIALS), save_best=False)
+    finally:
+        m.trainable = original
+    atk = t_atk.ParameterAttack(trainer, loader, ADV_EPSILON, num_rays=TRAIN_RAYS)
+    rng = np.random.default_rng(1)
+    msg = lambda: rng.integers(0, 2, WM_BITS).astype(np.int32)
+    prof = profile_steps(trainer, loader, tag="parameter attack profile",
+                         step=lambda data: atk.step(msg()))
+    bits = torch.as_tensor(msg(), device=dev)
+    (lk, gk), (lp, gp) = ((l.detach(), torch.autograd.grad(l, atk.leaves[:1]))
+                          for l in (atk.loss(bits, plain) for plain in (False, True)))
+    res["parameter"] = dict(bitacc_after=acc, seconds=seconds, steps=ATTACK_STEPS,
+                            max_abs_change=dev_max[0], epsilon=ADV_EPSILON, profile=prof,
+                            step=check_step("parameter attack step", lk, gk, lp, gp, 5e-3,
+                                            TRAINED_LOSS_LIM))
+    del attacked, atk, a_leaves, gk, gp
+
+    # ---- the backbone finetuning attack: the hash table, then every leaf
+    for full, steps in ((False, ATTACK_STEPS), (True, ATTACK_FULL_STEPS)):
+        key = "finetune_full" if full else "finetune"
+        k4 = ("K4_field_bwd",) if full else ("K4_field_bwd_feat",)
+        attacked, seconds, launches[key] = attack_run(
+            lambda: t_atk.finetune_attack(trainer, loader, steps=steps, num_rays=TRAIN_RAYS,
+                                          full_backbone=full),
+            FORWARD + ("K9_msg_table", "K1_hash_encode_bwd", "K3_composite_bwd") + k4,
+            ("K9_msg_table_bwd", "K4_field_bwd_feat" if full else "K4_field_bwd"), key)
+        moved = {k: [not torch.equal(a, b) for a, b in zip(t_atk._leaves({k: attacked[k]}),
+                                                           t_atk._leaves({k: m.backbone[k]}))]
+                 for k in m.backbone}
+        log(f"[{key}] backbone leaves changed: {moved}")
+        if not all(all(v) if (full or k == "hash_table") else not any(v)
+                   for k, v in moved.items()):
+            raise AssertionError(f"{key}: a trained leaf did not move, or another one did")
+        out = dict(seconds=seconds, steps=steps,
+                   table_max_abs_change=float((attacked["hash_table"]
+                                               - m.backbone["hash_table"]).abs().max()))
+        if not full:
+            original, m.backbone = m.backbone, attacked
+            try:
+                out["bitacc_after"] = trainer.test_bitacc(make_loader("test", 1, WM_TRIALS),
+                                                          save_best=False)
+                out["test_image_psnr"] = float(trainer.test_image(
+                    make_loader("test_image", 2, 4),
+                    name="test_image_after_finetune_attack")["PSNR"])
+            finally:
+                m.backbone = original
+        atk = t_atk.FinetuneAttack(trainer, num_rays=TRAIN_RAYS, full_backbone=full)
+        out["profile"] = profile_steps(trainer, loader, tag=f"{key} profile", step=atk.step)
+        ro, rd, target = t_atk._content(next(iter(loader)), TRAIN_RAYS, dev)
+        t_leaves = t_atk._leaves(atk.train_part)
+        (lk, gk), (lp, gp) = ((l.detach(), torch.autograd.grad(l, t_leaves))
+                              for l in (atk.loss(ro, rd, target, plain) for plain in (False, True)))
+        out["step"] = check_step(f"{key} step", lk, gk, lp, gp, 5e-3, TRAINED_LOSS_LIM)
+        res[key] = out
+        del attacked, atk, t_leaves, gk, gp
+    res["attack_launches"] = launches
+    return res
+
+
+def wm_views2(dev, backbone_model, workdir):
+    """``--n_views 2`` at the README recipe on the same backbone: the key
+    blocks render from two key poses and reach the decoder
+    channel-concatenated.  Fails unless lossw halves and one whole
+    two-view step through the kernels matches the plain versions."""
+    w = wm_train(dev, backbone_model, workdir, extra=["--n_views", "2"], tag="wm V=2")
+    trainer, lossw = w["trainer"], w["trainer"].stats["lossw"]
+    if not lossw[-1] <= 0.5 * lossw[0]:
+        raise AssertionError(f"V = 2: lossw did not halve: first epoch {lossw[0]}, last "
+                             f"{lossw[-1]}")
+    acc = trainer.test_bitacc(w["make_loader"]("test", 2, WM_TRIALS))
+    x = loader_step_inputs(trainer, next(iter(w["loader"])))
+    (lk, gk), (lp, gp) = (wm_step_grads(w["model"], x, plain) for plain in (False, True))
+    out = dict(steps=w["steps"], seconds=w["seconds"], step_rays=w["step_rays"],
+               rays_per_s=w["steps"] * w["step_rays"] / w["seconds"],
+               step_ms=w["seconds"] / w["steps"] * 1e3, peak_gib=w["peak"], bitacc=acc,
+               lossw_first=lossw[0], lossw_last=lossw[-1], launches=w["launches"],
+               block_rays=list(x["ro_b"].shape),
+               step=check_step("wm step V=2", lk, gk, lp, gp, 5e-3, TRAINED_LOSS_LIM))
+    log(f"[wm V=2] bit accuracy {acc:.4f} over {WM_TRIALS} messages; "
+        f"{out['rays_per_s']:.0f} watermark rays/s")
+    return out
 
 
 def phase_wm(dev, backbone_model, workdir):
@@ -1980,6 +2279,11 @@ def phase_wm(dev, backbone_model, workdir):
         raise AssertionError(f"bit accuracy {res['bitacc_none']:.4f} < 0.95")
     if not images["PSNR"] >= 30.0:
         raise AssertionError(f"test_image PSNR {images['PSNR']:.2f} dB < 30 dB")
+    res["jpeg"] = wm_jpeg(trainer, make_loader, loader)
+    res.update(wm_attacks(trainer, make_loader, loader))
+    del w, m, trainer, loader, make_loader
+    gc.collect()  # the trainers hold cycles: free the first model before the second
+    res["views2"] = wm_views2(dev, backbone_model, os.path.join(workdir, "views2"))
     return res
 
 

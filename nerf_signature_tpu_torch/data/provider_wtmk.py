@@ -6,18 +6,21 @@ the port's model.
     photo is read: every ground truth is RENDERED by the frozen model
     (pseudo-GT), cached in ``--pseudo_gt_cache`` (an npz fingerprinted
     against the backbone, the poses, the intrinsics, H, W and the budget);
-  * the key pose: one random orbit pose (or the first train pose with
-    ``use_existset``), loaded from or saved to ``key_poses.npy``;
-  * the key blocks: the key render cut into num_rows x num_cols blocks, the
-    ``message_dim`` least JPEG-compressible (PIL, q = 75) or random ones,
-    loaded from or saved to ``key_blocks.npy``;
-  * the [D, bh, bw, 3] block ray bundles;
+  * the key poses: ``n_views`` random orbit poses (or as many copies of the
+    first train pose with ``use_existset``), loaded from or saved to
+    ``key_poses.npy`` (a file of V rows sets V);
+  * the key blocks: view 0's key render cut into num_rows x num_cols blocks,
+    the ``message_dim`` least JPEG-compressible (PIL, q = 75) or random
+    ones, loaded from or saved to ``key_blocks.npy``;
+  * the block ray bundles and crops, [D, bh, bw, 3] with one key view and
+    [D, V, bh, bw, 3] with V (the same blocks cut from every view's render:
+    the multi-view decoder reads them channel-concatenated);
   * modes train / test (bit accuracy) / test_image (random slerp poses) /
     test_image_testviews (the test split's poses).
 
 A transforms file that carries ``h``/``w`` needs no image at all; otherwise
 the first frame's size is read with OpenCV.  PIL is imported only to score
-blocks by JPEG ratio.  Only ``n_views == 1`` is ported.
+blocks by JPEG ratio.
 """
 
 import io
@@ -30,9 +33,6 @@ import torch
 
 from .provider import _slerp_poses
 from .rays import get_rays, nerf_matrix_to_ngp, rand_poses
-
-N_VIEWS_TODO = ("n_views > 1 (multi-view key blocks) is ROADMAP queue 1 item "
-                "'n_views > 1', not ported yet")
 
 
 def calculate_compression_ratio(blocks):
@@ -106,8 +106,6 @@ class NeRFDatasetDisen:
                  keyblocks_save_dir, pretrained_model, downscale=1, type="train",
                  n_views=1, n_test=48, message_dim=16, num_rows=16, num_cols=16,
                  use_existset=False, seed=None):
-        if n_views > 1 and type in ("train", "test"):
-            raise NotImplementedError(N_VIEWS_TODO)
         self.opt = opt
         self.type = type
         self.downscale = downscale
@@ -181,11 +179,12 @@ class NeRFDatasetDisen:
 
         # ---- secret key material
         if type in ("train", "test"):
+            V = max(1, n_views)
             if keyposes_dir is None:
                 if use_existset:
-                    wp = self.poses[0:1].copy()
+                    wp = np.repeat(self.poses[0:1], V, axis=0)
                 else:
-                    wp = rand_poses(self.rng, 1, radius=self.radius)
+                    wp = rand_poses(self.rng, V, radius=self.radius)
                 self.watermark_poses = wp
                 if keyposes_save_dir is not None:
                     if os.path.exists(keyposes_save_dir):
@@ -193,19 +192,20 @@ class NeRFDatasetDisen:
                     np.save(keyposes_save_dir, wp)
             else:
                 self.watermark_poses = np.load(keyposes_dir)
-                if self.watermark_poses.shape[0] != 1:
-                    raise NotImplementedError(N_VIEWS_TODO)
+                V = self.watermark_poses.shape[0]
 
             rays = get_rays(self.watermark_poses, self.intrinsics, self.H, self.W, -1)
-            img = self._render_rays(rays["rays_o"][0], rays["rays_d"][0]).reshape(
-                self.H, self.W, 3)
-            self.watermark_images = img[None]
-            self.rays = {"rays_o": rays["rays_o"].reshape(1, self.H, self.W, 3),
-                         "rays_d": rays["rays_d"].reshape(1, self.H, self.W, 3)}
+            imgs = np.stack([self._render_rays(rays["rays_o"][v], rays["rays_d"][v]).reshape(
+                self.H, self.W, 3) for v in range(V)])  # [V, H, W, 3]
+            self.watermark_images = imgs[:1]  # view 0
+            self.watermark_images_views = imgs
+            self.rays = {"rays_o": rays["rays_o"].reshape(V, self.H, self.W, 3),
+                         "rays_d": rays["rays_d"].reshape(V, self.H, self.W, 3)}
 
             if keyblocks_dir is None:
+                # scored and selected on view 0
                 coords, bh, bw = select_key_blocks(
-                    img, num_rows, num_cols, message_dim,
+                    imgs[0], num_rows, num_cols, message_dim,
                     selection=getattr(opt, "block_selection", "jpeg"), rng=self.rng)
                 self.block_coordinates = coords
                 if keyblocks_save_dir is not None:
@@ -220,12 +220,14 @@ class NeRFDatasetDisen:
             blocks, ro_b, rd_b = [], [], []
             for i in range(message_dim):
                 x0, y0, x1, y1 = self.block_coordinates[i]
-                blocks.append(img[x0:x1, y0:y1])
-                ro_b.append(self.rays["rays_o"][0, x0:x1, y0:y1])
-                rd_b.append(self.rays["rays_d"][0, x0:x1, y0:y1])
-            self.images_block = np.stack(blocks)      # [D, bh, bw, 3]
-            self.rays_o_block = np.stack(ro_b)        # [D, bh, bw, 3]
-            self.rays_d_block = np.stack(rd_b)
+                blocks.append(imgs[:, x0:x1, y0:y1])  # [V, bh, bw, 3]
+                ro_b.append(self.rays["rays_o"][:, x0:x1, y0:y1])
+                rd_b.append(self.rays["rays_d"][:, x0:x1, y0:y1])
+            self.images_block_views = np.stack(blocks)  # [D, V, bh, bw, 3]
+            self.images_block = self.images_block_views[:, 0]  # [D, bh, bw, 3]
+            ro_b, rd_b = np.stack(ro_b), np.stack(rd_b)  # [D, V, bh, bw, 3]
+            self.rays_o_block = ro_b[:, 0] if V == 1 else ro_b
+            self.rays_d_block = rd_b[:, 0] if V == 1 else rd_b
             self.patch_H, self.patch_W = bh, bw
         else:
             if type == "test_image":

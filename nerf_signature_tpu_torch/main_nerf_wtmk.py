@@ -2,7 +2,11 @@
 ``main_nerf_wtmk.py`` (same flags).  Embeds a codebook message into a frozen
 clean model and trains the HiDDeN bit extractor; ``--test`` verifies
 ownership (bit accuracy and its p-value over ``--n_test_bitacc`` random
-messages) and renders test images against the pseudo-GT.
+messages), runs the attack suites it is asked for (``--attack_suite``: the
+13-attack sweep; ``--adv_attack``: the epsilon-ball parameter attack;
+``--finetune_attack [--finetune_attack_full]``: the backbone finetuning
+attack; bit accuracy again after each, with the original weights put back
+afterwards) and renders test images against the pseudo-GT.
 
     python -m nerf_signature_tpu_torch.main_nerf_wtmk <scene> -O --wtmk_tcnn \\
         --workspace ws_wm --ckpt ws/checkpoints/ngp_ep0300.ckpt \\
@@ -16,8 +20,8 @@ Checkpoints are the JAX package's format both ways.  Not ported yet (each
 raises ``NotImplementedError`` naming its ROADMAP item):
 ``--steps_per_dispatch``, ``--devices > 1``, ``--patch_size`` /
 ``--lambda_ssim``, ``--finetune_decoder``, ``--copyrnerf``,
-``--whole_image_wm``, ``--n_views > 1``, ``--distortion jpeg``, the attack
-flags, ``--stochastic_hash_grad``, ``--bg_radius > 0``, ``--t_cull > 0``.
+``--whole_image_wm``, ``--stochastic_hash_grad``, ``--bg_radius > 0``,
+``--t_cull > 0``.
 """
 
 import argparse
@@ -29,8 +33,6 @@ import torch
 
 from .utils.config import add_common_args, add_wtmk_args, apply_O_macro
 
-ATTACKS_TODO = ("the attack suites (--attack_suite, --adv_attack, --finetune_attack) are "
-                "ROADMAP queue 1 item 'attacks', not ported yet")
 DEVICE_LOOP_TODO = ("--steps_per_dispatch (the on-device K-step loop) is ROADMAP queue 1 "
                     "item 'the wm and clean device loops', not ported yet")
 
@@ -46,8 +48,6 @@ def setup(opt):
     """The watermark model, its trainer (checkpoint resolved) and the loader
     factory ``make_loader(type, n_views, n_test, fresh_keys=False)``, as the
     CLI builds them from ``opt``."""
-    if opt.attack_suite or opt.adv_attack or opt.finetune_attack:
-        raise NotImplementedError(ATTACKS_TODO)
     if not opt.test and opt.steps_per_dispatch > 0:
         raise NotImplementedError(DEVICE_LOOP_TODO)
 
@@ -119,6 +119,47 @@ def setup(opt):
     return model, trainer, make_loader
 
 
+def run_attacks(opt, model, trainer, make_loader):
+    """The attack suites of ``--test``, as the repo's ``main_nerf_wtmk.py``
+    runs them: the sweep, then the parameter-space attacks on one shared
+    train loader, each followed by ``test_bitacc`` on the attacked weights
+    (and, after the finetuning attack, the test images); the original
+    weights are put back after each.  The attacked weights' verification
+    saves no best checkpoint, whatever it scores."""
+    from .train.attack import attack_sweep, finetune_attack, parameter_attack
+
+    if opt.attack_suite:
+        attack_sweep(trainer, make_loader("test", opt.n_views, opt.n_test_attack),
+                     n_test=opt.n_test_attack)
+    if not (opt.adv_attack or opt.finetune_attack):
+        return
+    attack_loader = make_loader("train", opt.n_views, 100)
+    if opt.adv_attack:
+        attacked = parameter_attack(trainer, attack_loader, epsilon=opt.adv_epsilon,
+                                    steps=opt.adv_steps, num_rays=opt.num_rays)
+        original, model.trainable = model.trainable, attacked
+        try:
+            trainer.log("[adv_attack] bit accuracy AFTER epsilon-ball attack:")
+            trainer.test_bitacc(make_loader("test", opt.n_views, opt.n_test_bitacc),
+                                save_best=False)
+        finally:
+            model.trainable = original
+    if opt.finetune_attack:
+        attacked_bb = finetune_attack(trainer, attack_loader, steps=opt.finetune_attack_steps,
+                                      lr=opt.finetune_attack_lr, num_rays=opt.num_rays,
+                                      full_backbone=opt.finetune_attack_full)
+        original_bb, model.backbone = model.backbone, attacked_bb
+        try:
+            trainer.log("[finetune_attack] bit accuracy AFTER backbone finetuning attack:")
+            trainer.test_bitacc(make_loader("test", opt.n_views, opt.n_test_bitacc),
+                                save_best=False)
+            if opt.num_images_test > 0:
+                trainer.test_image(make_loader("test_image", opt.num_images_test, 4),
+                                   name="test_image_after_finetune_attack")
+        finally:
+            model.backbone = original_bb
+
+
 def main(argv=None):
     opt = parse(argv)
     print(opt)
@@ -130,6 +171,7 @@ def main(argv=None):
                   "--ckpt latest (or point --ckpt at a watermark-stage checkpoint).",
                   flush=True)
         trainer.test_bitacc(make_loader("test", opt.n_views, opt.n_test_bitacc))
+        run_attacks(opt, model, trainer, make_loader)
         if opt.num_images_test > 0:
             trainer.test_image(make_loader("test_image", opt.num_images_test, 4),
                                name="test_image_from_randomviews")

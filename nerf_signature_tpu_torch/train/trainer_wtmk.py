@@ -16,11 +16,16 @@ The occupancy grid is the clean model's, frozen; only
 
 Randomness is explicit: messages come from a numpy generator seeded like
 JAX's (the same seed gives the same messages in both packages), the
-distortions' draws from the model's ``torch.Generator``.  Not ported yet
-(each raises ``NotImplementedError`` naming its ROADMAP item):
-``--steps_per_dispatch``, ``--devices > 1``, ``--patch_size`` /
-``--lambda_ssim``, ``--finetune_decoder``, the stochastic hash estimators
-and the jpeg distortion.
+distortions' draws from the model's ``torch.Generator``.
+
+Multi-view keys (``--n_views V > 1``): the key blocks render from V key
+poses ([D, V, bh, bw, 3] ray bundles) and reach the decoder
+channel-concatenated, [D, bh, bw, V*3]; distortions and the normalisation
+run per view (``_per_view``), their draws made at the per-view batch shape
+[D*V, bh, bw, 3].  Not ported yet (each raises ``NotImplementedError``
+naming its ROADMAP item): ``--steps_per_dispatch``, ``--devices > 1``,
+``--patch_size`` / ``--lambda_ssim``, ``--finetune_decoder`` and the
+stochastic hash estimators.
 """
 
 import dataclasses
@@ -41,7 +46,7 @@ from ..models.watermark import wtmk_field, wtmk_field_params
 from ..ops.grid import render_grid
 from ..ops.marching import num_candidates
 from ..render.renderer import render_rays_occ
-from ..utils.image import JPEG_TODO, distortion_draws, distortion_layer
+from ..utils.image import distortion_draws, distortion_layer
 from .checkpoint import (
     check_params_like,
     checkpoint_candidates,
@@ -89,20 +94,56 @@ def _tree_map(fn, tree):
 
 def wm_rays(wcfg, wm):
     """The decoder's ray bundles from a watermark data dict: the key blocks
-    [D, bh, bw, 3] (the whole-image modes are not ported)."""
+    [D, bh, bw, 3], or [D, V, bh, bw, 3] with V key views (the whole-image
+    modes are not ported)."""
     return wm["rays_o_block"], wm["rays_d_block"]
 
 
+def _blocks(image, rays_shape):
+    """The rendered pixels of ray bundles of ``rays_shape`` -> the decoder's
+    blocks in [0, 1]: [D, bh, bw, 3], or from [D, V, bh, bw, 3] the views
+    channel-concatenated, [D, bh, bw, V*3]."""
+    img = torch.clamp(image.reshape(rays_shape), 0.0, 1.0)
+    if img.dim() == 4:
+        return img
+    D, V, bh, bw, _ = img.shape
+    return img.permute(0, 2, 3, 1, 4).reshape(D, bh, bw, V * 3)
+
+
+def _per_view(fn, blocks):
+    """Apply an RGB-image fn to blocks [D, bh, bw, 3] directly, or to
+    channel-concatenated views [D, bh, bw, V*3] as one batch [D*V, bh, bw, 3]
+    (view-major within a block)."""
+    C = blocks.shape[-1]
+    if C == 3:
+        return fn(blocks)
+    D, bh, bw, _ = blocks.shape
+    V = C // 3
+    x = blocks.reshape(D, bh, bw, V, 3).permute(0, 3, 1, 2, 4).reshape(D * V, bh, bw, 3)
+    x = fn(x).reshape(D, V, bh, bw, 3)
+    return x.permute(0, 2, 3, 1, 4).reshape(D, bh, bw, C)
+
+
+def view_batch_shape(rays_shape):
+    """The per-view batch shape [D*V, bh, bw, 3] of the blocks that ray
+    bundles [D, bh, bw, 3] or [D, V, bh, bw, 3] render: the shape
+    distortions and attacks see, and their draws take."""
+    return (int(np.prod(rays_shape[:-3])), rays_shape[-3], rays_shape[-2], 3)
+
+
 def _distort_and_normalize(blocks, kind, draws):
-    return normalize_img(distortion_layer(blocks, kind, draws))
+    """Distort and ImageNet-normalise each view (draws at
+    ``view_batch_shape``)."""
+    return _per_view(lambda x: normalize_img(distortion_layer(x, kind, draws)), blocks)
 
 
 def _render_blocks(fp, grid, rays_o_b, rays_d_b, wcfg, rc, budget, plain=False):
-    """Render the key blocks with the message: [D, bh, bw, 3] in [0, 1]."""
+    """Render the key blocks with the message: [D, bh, bw, 3] (or, with V
+    key views, [D, bh, bw, V*3]) in [0, 1]."""
     out = render_rays_occ(lambda x, d: wtmk_field(fp, wcfg, x, d, plain=plain), grid,
                           rays_o_b.reshape(-1, 3), rays_d_b.reshape(-1, 3), rc,
                           budget=budget, bg_color=1.0, plain=plain)
-    return torch.clamp(out["image"].reshape(rays_o_b.shape), 0.0, 1.0)
+    return _blocks(out["image"], rays_o_b.shape)
 
 
 def _wm_step_loss(backbone, tr, grid, rays_o_b, rays_d_b, ct_o, ct_d, ct_gt, message, draws,
@@ -113,8 +154,8 @@ def _wm_step_loss(backbone, tr, grid, rays_o_b, rays_d_b, ct_o, ct_d, ct_gt, mes
     Key blocks render at the extraction budget ``block_budget``, content
     rays at the pseudo-GT budget ``budget``; when the two are equal (the
     default) both render in ONE march + field + composite.  ``message`` is
-    [D] int32 on the device, ``draws`` the distortion's random inputs.
-    Returns (loss, (lossw, lossi, decoded [D, 1]))."""
+    [D] int32 on the device, ``draws`` the distortion's random inputs at the
+    per-view batch shape.  Returns (loss, (lossw, lossi, decoded [D, 1]))."""
     fp = wtmk_field_params(backbone, tr, wcfg, message, plain)
     field = lambda x, d: wtmk_field(fp, wcfg, x, d, plain=plain)
     if budget == block_budget:
@@ -123,7 +164,7 @@ def _wm_step_loss(backbone, tr, grid, rays_o_b, rays_d_b, ct_o, ct_d, ct_gt, mes
             field, grid, torch.cat([rays_o_b.reshape(-1, 3), ct_o], 0),
             torch.cat([rays_d_b.reshape(-1, 3), ct_d], 0), rc, budget=block_budget,
             bg_color=1.0, plain=plain)
-        blocks = torch.clamp(out["image"][:n_b].reshape(rays_o_b.shape), 0.0, 1.0)
+        blocks = _blocks(out["image"][:n_b], rays_o_b.shape)
         content_img = out["image"][n_b:]
     else:  # --wm_content_budget: two renders
         blocks = _render_blocks(fp, grid, rays_o_b, rays_d_b, wcfg, rc, block_budget, plain)
@@ -161,8 +202,6 @@ class WatermarkTrainer:
         self.loss_kind = getattr(opt, "loss_w", "bce")
         self.loss_w_fn = make_loss_w(self.loss_kind)
         self.distortion = getattr(opt, "distortion", "none")
-        if self.distortion == "jpeg":
-            raise NotImplementedError(JPEG_TODO)
         self.message_dim = opt.message_dim
         # --wm_polish_iters: extra iterations after the main schedule with
         # lambda_w dropped to --wm_polish_lambda_w (content recovers, the
@@ -300,7 +339,7 @@ class WatermarkTrainer:
         ct_d = torch.as_tensor(np.asarray(ct["rays_d"], np.float32), device=dev).reshape(-1, 3)
         ct_gt = torch.as_tensor(np.asarray(ct["images"], np.float32), device=dev).reshape(-1, 3)
         bits = torch.as_tensor(np.asarray(message, np.int32), device=dev)
-        draws = distortion_draws(self.distortion, ro_b.shape, m.generator, dev)
+        draws = distortion_draws(self.distortion, view_batch_shape(ro_b.shape), m.generator, dev)
         return self._train_step(ro_b, rd_b, ct_o, ct_d, ct_gt, bits, draws, m.rc)
 
     def train_one_epoch(self, loader):
@@ -417,7 +456,8 @@ class WatermarkTrainer:
         fp = wtmk_field_params(m.backbone, m.trainable, m.wcfg, bits)
         blocks = _render_blocks(fp, m.occ.occupancy, ro_b, rd_b, m.wcfg, self._rc_eval(),
                                 m.infer_budget)
-        draws = distortion_draws(distortion, blocks.shape, m.generator, m.device)
+        draws = distortion_draws(distortion, view_batch_shape(ro_b.shape), m.generator,
+                                 m.device)
         decoded = hidden_decoder_apply(m.trainable["decoder"], m.wcfg.decoder,
                                        _distort_and_normalize(blocks, distortion, draws))
         return blocks, decoded
@@ -427,9 +467,13 @@ class WatermarkTrainer:
         blocks, decoded = self._decode(ro_b, rd_b, message, distortion or self.distortion)
         return blocks.cpu().numpy(), decoded.cpu().numpy()
 
-    def test_bitacc(self, loader, record_path=None, batch=None):
+    def test_bitacc(self, loader, record_path=None, batch=None, save_best=True):
         """Random messages -> sign-agreement bit accuracy and its p-value
         (ref ``test_bitacc`` / ``test_bitacc_record``, ``:935-1085``).
+
+        A score above the best so far saves the best checkpoint; a
+        verification of weights that are not the model's own (an attack's)
+        passes ``save_best=False`` so that they never take its place.
 
         Each message renders and decodes on its own, so the decoder's batch
         statistics are per message, as in JAX's message-vmapped decode.
@@ -464,8 +508,8 @@ class WatermarkTrainer:
             with open(path, "a") as f:
                 for r in meter.records:
                     f.write(f"{r}\n")
-        if acc is not None and (self.stats["best_result"] is None
-                                or acc > self.stats["best_result"]):
+        if save_best and acc is not None and (self.stats["best_result"] is None
+                                              or acc > self.stats["best_result"]):
             self.stats["best_result"] = acc
             if self.workspace:
                 self.save_checkpoint(best=True)
@@ -592,7 +636,5 @@ def _refuse_unported(opt, model):
                     "finetune_decoder)")
     if model.cfg.stochastic_hash_grad or getattr(opt, "hash_fwd_corners", 8) != 8:
         todo.append("--stochastic_hash_grad / --hash_fwd_corners 1 (ROADMAP queue 2 K7)")
-    if model.wcfg.n_views != 1:
-        todo.append("--n_views > 1 (ROADMAP queue 1: n_views > 1)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))

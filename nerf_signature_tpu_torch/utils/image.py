@@ -2,7 +2,8 @@
 (counterpart of ``nerf_signature_tpu/utils/image.py``): none / noise
 (sigma^2 = 0.1) / rotation (+-30 deg) / scaling (0.75-1.25) / blurring
 (gaussian k = 3, sigma U(0.01, 0.5)) / brightness (multiply U(0.5, 1.5)) /
-crop (central keep-area U(0.3, 0.9)).
+crop (central keep-area U(0.3, 0.9)) / jpeg (the DCT model at a quality
+drawn from {40, 50, ..., 90}).
 
 Randomness is explicit: ``distortion_draws`` draws a kind's random inputs
 from a ``torch.Generator`` and ``distortion_layer`` takes them as tensors (a
@@ -10,8 +11,7 @@ test hands over JAX's draws instead).  Images are [B, h, w, 3] in [0, 1],
 channel-last.  Rotation and scaling are affine warps with bilinear sampling
 where every corner outside the image counts as 0, like JAX's
 ``map_coordinates(order=1, mode="constant", cval=0)``: ``grid_sample`` with
-``align_corners=True`` and zero padding, in pixel coordinates.  ``jpeg``
-needs the differentiable JPEG (``utils/jpeg.py``), not ported yet.
+``align_corners=True`` and zero padding, in pixel coordinates.
 """
 
 import math
@@ -19,10 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .attacks import center_crop
-
-JPEG_TODO = ("the jpeg distortion needs utils/jpeg.py (ROADMAP queue 1: utils/jpeg.py + the "
-             "jpeg distortion), not ported yet")
+from .jpeg import jpeg_quality_index, random_diff_jpeg
 
 
 def _grid(h, w, device):
@@ -97,7 +94,7 @@ def distortion_draws(kind, shape, generator, device):
     if kind == "crop":
         return uniform((), 0.3, 0.9)
     if kind == "jpeg":
-        raise NotImplementedError(JPEG_TODO)
+        return jpeg_quality_index(generator, device, low=40)
     raise ValueError(f"unknown distortion: {kind}")
 
 
@@ -117,7 +114,9 @@ def distortion_layer(images, kind="none", draws=None):
     if kind == "brightness":
         return images * draws
     if kind == "crop":
+        from .attacks import center_crop  # attacks imports this module
+
         return center_crop(images, draws)
     if kind == "jpeg":
-        raise NotImplementedError(JPEG_TODO)
+        return random_diff_jpeg(images, draws, low=40, use_dct=True)
     raise ValueError(f"unknown distortion: {kind}")

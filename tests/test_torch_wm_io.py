@@ -118,8 +118,14 @@ def test_provider_key_material_and_block_bundles_match_jax(tmp_path):
         it = _provider(t_prov, tm, opt, ws_j, type=ptype)
         ij = _provider(j_prov, jm, opt, ws_j, type=ptype)
         np.testing.assert_allclose(it.content_images, np.asarray(ij.content_images), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="n_views"):
-        t_prov.NeRFDatasetDisen(opt, None, None, None, None, tm, type="train", n_views=2)
+    # two key views drawn afresh, the JAX-written blocks cut from both renders
+    p2 = t_prov.NeRFDatasetDisen(opt, None, None, os.path.join(ws_j, "key_blocks.npy"), None,
+                                 tm, type="train", n_views=2, message_dim=3, num_rows=4,
+                                 num_cols=4)
+    assert p2.watermark_poses.shape == (2, 4, 4)
+    assert p2.rays_o_block.shape == (3, 2, RES // 4, RES // 4, 3)
+    assert p2.images_block_views.shape == (3, 2, RES // 4, RES // 4, 3)
+    assert np.array_equal(p2.images_block, p2.images_block_views[:, 0])
 
 
 def test_pseudo_gt_cache_round_trip(tmp_path, capsys):

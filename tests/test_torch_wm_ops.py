@@ -259,9 +259,26 @@ def test_rotation_borders_count_outside_corners_as_zero():
     assert (yj == 0).any() and (yj == 1).any()
 
 
-def test_jpeg_distortion_is_not_ported():
-    with pytest.raises(NotImplementedError, match="jpeg"):
-        t_image.distortion_draws("jpeg", (1, 4, 4, 3), torch.Generator(), "cpu")
+def test_jpeg_distortion_matches_jax():
+    """The jpeg distortion at JAX's draw (a quality index into {40, ..., 90})
+    and its straight-through gradient; atol 1e-5 as the other distortions
+    (a rounding flip of the quantiser would show here: see test_torch_jpeg,
+    which bounds them; these inputs have none)."""
+    rng = np.random.default_rng(11)
+    img = rng.uniform(size=(2, 12, 12, 3)).astype(np.float32)
+    ct = rng.normal(size=img.shape).astype(np.float32)
+    for seed in range(3):
+        key = jax.random.PRNGKey(seed)
+        yj, vjp = jax.vjp(lambda x: j_image.distortion_layer(key, x, "jpeg"), jnp.asarray(img))
+        (gj,) = vjp(jnp.asarray(ct))
+        draws = torch.tensor(int(jax.random.randint(key, (), 0, 6)))
+        xt = T(img).requires_grad_(True)
+        yt = t_image.distortion_layer(xt, "jpeg", draws)
+        yt.backward(T(ct))
+        np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gj), rtol=0, atol=1e-5)
+    own = t_image.distortion_draws("jpeg", img.shape, torch.Generator().manual_seed(0), "cpu")
+    assert own.dim() == 0 and own.dtype == torch.int64 and 0 <= int(own) < 6
 
 
 @pytest.mark.parametrize("kind", ["bce", "mse"])

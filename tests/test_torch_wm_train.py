@@ -336,8 +336,7 @@ def test_test_bitacc_draws_the_messages_jax_draws(monkeypatch):
 def test_trainer_refuses_unported_paths():
     _, tm = make_wm_models("fp32")
     for kw in (dict(devices=2), dict(patch_size=4), dict(lambda_ssim=0.1),
-               dict(finetune_decoder=True), dict(hash_fwd_corners=1),
-               dict(distortion="jpeg")):
+               dict(finetune_decoder=True), dict(hash_fwd_corners=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_twm.WatermarkTrainer("wm", _opt(**kw), tm, workspace=None, mute=True)
     tt = t_twm.WatermarkTrainer("wm", _opt(), tm, workspace=None, mute=True)
