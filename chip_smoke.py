@@ -110,7 +110,31 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                more steps and one step of each against its plain version;
                finally a second WatermarkTrainer.train at the recipe with
                --n_views 2 (lossw halves; bit accuracy, watermark rays/s;
-               one whole two-view step against the plain versions).
+               one whole two-view step against the plain versions);
+  9. device loop — K5 (sample compaction, csrc/compact.cu): pack, unpack
+               and unpack backward bit-exact against their plain versions
+               on kernel_cases' edges and at the clean step's (4096 x 128)
+               and the watermark step's (8,704 x 256) shapes on the trained
+               grid, Mc from the auto compaction, with times (device times
+               with the L2 flushed before each call), bounds and the plain
+               chain (cumsum, index_put_, the gather, indexing_backward) as
+               the library yardstick; the replayed CUDA graph of a step
+               against eager steps (16 clean on RGBA and RGB views, 8
+               watermark; bf16 and fp32; the losses over the run, and every
+               step from the graph's own state -- its loss and Adam's
+               moments, at the last step the grads and leaves -- within the
+               whole-step limits; the final leaves' drift a reading; one
+               launch of each kernel a step counted through the replays);
+               Trainer.train_device with --steps_per_dispatch 64
+               on the train phase's recipe (512 steps: the loss falls, the
+               held-out PSNR rises >= 6 dB) and
+               WatermarkTrainer.train_device at the README stage-2 recipe
+               on phase 7's backbone (1000 steps: lossw halves, bit accuracy
+               >= 0.95 over 200 messages), each with rays/s, peak memory,
+               launches and one more dispatch profiled (busy ms a step, idle
+               share).  Every per-step profile (train, wm, attacks) must
+               hold K5's kernels where the step compacts and no
+               indexing_backward.
 
 The last lines are one JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -277,16 +301,35 @@ def events_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps=20):
+# what a cold device_ms rewrites between calls to evict the L2 (four times
+# the H100's 50 MB), and the name its device work carries, left out of the sum
+L2_FLUSH_BYTES = 200 * 2**20
+L2_FLUSH_KERNEL = "bitwise_not"
+
+
+def device_ms(fn, reps=20, cold=False):
     """Device time of one call of ``fn``: the durations of the device work
     that ``reps`` calls launch, summed from a torch.profiler trace, over
     ``reps`` (the host's dispatch and the gaps between launches left out,
-    which CUDA events around a call count).  Where every trace comes back
-    empty, ``events_ms`` measures it instead (counted in EVENT_FALLBACKS)."""
+    which CUDA events around a call count).  ``cold``: the L2 cache flushed
+    before each call (a buffer four times its size rewritten, that work left
+    out of the sum; the buffer freed on return, so no later peak memory
+    reading holds it), so that inputs the calls share come from memory each
+    time, as they do in a step.  Where every trace comes back empty,
+    ``events_ms`` measures it instead, warm (counted in EVENT_FALLBACKS)."""
     fn()
-    by_name, _ = traced(lambda: [fn() for _ in range(reps)], "device_ms")
+    flush = torch.zeros((L2_FLUSH_BYTES // 4,), dtype=torch.int32, device="cuda") if cold else None
+
+    def work():
+        for _ in range(reps):
+            if cold:
+                flush.bitwise_not_()
+            fn()
+
+    by_name, _ = traced(work, "device_ms")
     if by_name:
-        return sum(by_name.values()) / reps / 1e3
+        return sum(us for name, us in by_name.items()
+                   if not (cold and L2_FLUSH_KERNEL in name)) / reps / 1e3
     ms = events_ms(fn, reps)
     EVENT_FALLBACKS.append(ms)
     log(f"[trace] device_ms from CUDA events instead: {ms:.4f} ms a call")
@@ -814,13 +857,13 @@ def k3_edges(dev):
         f"(limit 1e-5), backward worst rel L2 {worst_b:.3g} (limit 1e-5), repeats equal")
 
 
-def train_rays(dev, seed=3):
-    """TRAIN_RAYS random pixels of an orbit view (the train sampler's draw)."""
+def train_rays(dev, seed=3, n=TRAIN_RAYS):
+    """n random pixels of an orbit view (the train sampler's draw)."""
     from nerf_signature_tpu_torch.data.rays import get_rays
 
     fl = RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
     r = get_rays(orbit_poses(1, ORBIT_RADIUS, seed=seed), (fl, fl, RES / 2, RES / 2), RES,
-                 RES, TRAIN_RAYS, rng=np.random.default_rng(seed))
+                 RES, n, rng=np.random.default_rng(seed))
     return (torch.from_numpy(r["rays_o"][0]).to(dev).contiguous(),
             torch.from_numpy(r["rays_d"][0]).to(dev).contiguous())
 
@@ -1685,6 +1728,21 @@ class BallViews:
             yield {"H": RES, "W": RES, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
                    "images": ball_rgba(r["rays_o"], r["rays_d"], radius=self.radius)}
 
+    # what the device loop preloads: every view's pixels, made once
+    H = W = RES
+
+    @property
+    def images(self):
+        """[TRAIN_VIEWS, RES, RES, 4] RGBA of every pixel (327 MB)."""
+        if getattr(self, "_images", None) is None:
+            views = []
+            for v in range(TRAIN_VIEWS):
+                r = view_rays(self.poses[v:v + 1])
+                views.append(ball_rgba(r["rays_o"][0], r["rays_d"][0], radius=self.radius)
+                             .reshape(RES, RES, 4))
+            self._images = np.stack(views)
+        return self._images
+
 
 def held_out_psnr(m, params, rays, gt):
     backup, m.params = m.params, params
@@ -1721,10 +1779,13 @@ def watch_adaptations(trainer):
     return moves, note
 
 
-def train_case(dev, radius, iters, group_budget=-1, levels=16, features=2):
+def train_case(dev, radius, iters, group_budget=-1, levels=16, features=2,
+               steps_per_dispatch=0):
     """A fresh full-width model (standard init; ``levels`` x ``features``
     table geometry) trained by the port's Trainer.train with the CLI's train
-    defaults on BallViews(radius).
+    defaults on BallViews(radius), or with ``steps_per_dispatch`` K by
+    Trainer.train_device (the views preloaded to the card, a replayed CUDA
+    graph of the step).
     Returns the trainer, its loader, the loop's wall seconds, the kernels'
     launches, peak memory, the held-out view's PSNR before and after, and the
     adaptations' moves."""
@@ -1751,12 +1812,17 @@ def train_case(dev, radius, iters, group_budget=-1, levels=16, features=2):
     trainer = Trainer("ngp", opt, model, workspace=None, use_checkpoint="scratch")
     moves, note = watch_adaptations(trainer)
     psnr0 = held_out_psnr(model, trainer.eval_params(), held, gt)
+    if steps_per_dispatch:
+        loader.images  # made before the timed run, as a dataset is loaded
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     t0 = time.time()
-    trainer.train(loader, None, max_epochs=math.ceil(iters / TRAIN_VIEWS))
+    if steps_per_dispatch:
+        trainer.train_device(loader, iters, steps_per_dispatch=steps_per_dispatch)
+    else:
+        trainer.train(loader, None, max_epochs=math.ceil(iters / TRAIN_VIEWS))
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = _cuda.launch_counts()
@@ -1789,7 +1855,8 @@ def phase_train(dev):
     log(f"[train] held-out view PSNR vs the analytic ball: untrained {psnr0:.2f} dB, "
         f"trained {psnr1:.2f} dB (limit: +6 dB)")
     log(f"[train] launches during Trainer.train: {launches}")
-    profile_steps(trainer, r["loader"])
+    prof = profile_steps(trainer, r["loader"])
+    peak = r["peak"]
     if steps != TRAIN_ITERS:
         raise AssertionError(f"Trainer.train ran {steps} steps, expected {TRAIN_ITERS}")
     if not losses[-1] < 0.5 * losses[0]:
@@ -1800,6 +1867,9 @@ def phase_train(dev):
         if name in CLEAN_TRAIN and launches[name] == 0:
             raise AssertionError(f"{name} was not launched by Trainer.train")
     k4_route(launches, torch.bfloat16, ("K4_field", "K4_field_bwd"), "Trainer.train")
+    for name in K5_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched by Trainer.train")
     trained = trainer.model  # the wm phase's frozen backbone
     del r, trainer
 
@@ -1813,7 +1883,25 @@ def phase_train(dev):
             raise AssertionError(f"the {name} adaptation never moved in {ADAPT_ITERS} steps")
     return dict(launches=launches, seconds=seconds, steps=steps,
                 rays_per_s=steps * TRAIN_RAYS / seconds, psnr0=psnr0, psnr1=psnr1,
-                model=trained)
+                peak_gib=peak, profile=prof, model=trained)
+
+
+# K5's kernels by a substring of their names in a trace, and the plain
+# compaction's backward, which no step may run any more
+K5_TRACE = ("k5_pack", "k5_unpack")
+PLAIN_K5_BWD = "indexing_backward"
+
+
+def check_k5_trace(by_name, tag, compacting=True):
+    """Fail if a train step's trace runs ``indexing_backward`` (the plain
+    compaction's backward), or, where the step compacts, no K5 kernels."""
+    plain = [n for n in by_name if PLAIN_K5_BWD in n]
+    if plain:
+        raise AssertionError(f"[{tag}] the trace runs {plain[0][:80]}: the plain "
+                             "compaction's backward, where K5's gather belongs")
+    for pat in K5_TRACE if compacting else ():
+        if not any(pat in n for n in by_name):
+            raise AssertionError(f"[{tag}] the trace holds no {pat} kernel (K5)")
 
 
 def profile_steps(trainer, loader, n=16, tag="profile", step=None):
@@ -1840,6 +1928,7 @@ def profile_steps(trainer, loader, n=16, tag="profile", step=None):
             f"device events)")
         return {"wall_ms": wall_us / n / 1e3, "busy_ms": None, "idle_share": None}
     busy_us = sum(by_name.values())
+    check_k5_trace(by_name, tag, trainer.model.rc.compact_frac > 0)
     log(f"[{tag}] {n} train steps: wall {wall_us / n / 1e3:.3f} ms a step, device busy "
         f"{busy_us / n / 1e3:.3f} ms a step (idle share {1 - busy_us / wall_us:.1%}), "
         f"{len(by_name)} distinct device functions")
@@ -1910,13 +1999,15 @@ def pick_key_blocks(model, ws, seed, n_views=1):
     return float(var[sel].min())
 
 
-def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm"):
+def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm",
+             steps_per_dispatch=0):
     """The watermark stage's main path as its CLI drives it, on
     ``backbone_model`` saved as the clean checkpoint: main_nerf_wtmk's parser
     and setup (the README stage-2 recipe for ``iters`` steps, plus ``extra``
     flags), the key blocks, resolve_auto_compaction, then
     WatermarkTrainer.train with the launch counts set to 0 just before it,
-    its epochs timed (no checkpoint I/O).  Returns the model, trainer,
+    its epochs timed (no checkpoint I/O), or, with ``steps_per_dispatch`` K,
+    WatermarkTrainer.train_device, its dispatches timed.  Returns the model, trainer,
     loader factory, the run's launches, steps, rays a step, seconds and peak
     memory."""
     from nerf_signature_tpu_torch import main_nerf_wtmk
@@ -1956,11 +2047,28 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm"):
         return out
 
     trainer.train_one_epoch = timed_epoch
+    from nerf_signature_tpu_torch.train import trainer_wtmk as t_twm
+
+    run_dispatch = t_twm.wm_device_loop
+
+    def timed_dispatch(*a, **k):
+        t = time.time()
+        out = run_dispatch(*a, **k)  # ends in a host sync (the dispatch's losses)
+        epoch_s.append(time.time() - t)
+        return out
+
+    t_twm.wm_device_loop = timed_dispatch
     max_epochs = math.ceil(iters / len(loader))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
-    trainer.train(loader, None, None, max_epochs)
+    try:
+        if steps_per_dispatch:
+            trainer.train_device(loader, iters, steps_per_dispatch=steps_per_dispatch)
+        else:
+            trainer.train(loader, None, None, max_epochs)
+    finally:
+        t_twm.wm_device_loop = run_dispatch
     torch.cuda.synchronize()
     launches = _cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1969,11 +2077,13 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm"):
     log(f"[{tag}] {steps} steps of {step_rays} rays in {seconds:.2f} s: "
         f"{steps * step_rays / seconds:.0f} watermark rays/s, {seconds / steps * 1e3:.2f} ms "
         f"a step; peak memory {peak:.2f} GiB")
-    log(f"[{tag}] epoch lossw {[round(v, 5) for v in trainer.stats['lossw']]}")
-    log(f"[{tag}] launches during WatermarkTrainer.train: {launches}")
+    log(f"[{tag}] {'dispatch' if steps_per_dispatch else 'epoch'} lossw "
+        f"{[round(v, 5) for v in trainer.stats['lossw']]}")
+    log(f"[{tag}] launches during WatermarkTrainer."
+        f"{'train_device' if steps_per_dispatch else 'train'}: {launches}")
     if steps != iters:
         raise AssertionError(f"WatermarkTrainer.train ran {steps} steps, expected {iters}")
-    for name in WM_TRAIN:
+    for name in WM_TRAIN + K5_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched by WatermarkTrainer.train ({tag})")
     if launches["K4_field_bwd"] + launches["K4_field_bwd_f32"] != 0:
@@ -2270,8 +2380,9 @@ def phase_wm(dev, backbone_model, workdir):
     trainer.distortion = "none"
     images = trainer.test_image(make_loader("test_image", 2, 4))
     res["test_image_psnr"] = float(images["PSNR"])
-    profile_steps(trainer, loader, tag="wm profile",
-                  step=lambda data: trainer.train_step_data(data, trainer.random_message()))
+    res["profile"] = profile_steps(
+        trainer, loader, tag="wm profile",
+        step=lambda data: trainer.train_step_data(data, trainer.random_message()))
 
     if not lossw[-1] <= 0.5 * lossw[0]:
         raise AssertionError(f"lossw did not halve: first epoch {lossw[0]}, last {lossw[-1]}")
@@ -2284,6 +2395,607 @@ def phase_wm(dev, backbone_model, workdir):
     del w, m, trainer, loader, make_loader
     gc.collect()  # the trainers hold cycles: free the first model before the second
     res["views2"] = wm_views2(dev, backbone_model, os.path.join(workdir, "views2"))
+    return res
+
+
+# ---------------------------------------------------------------- phase 9
+DL_K = 64            # --steps_per_dispatch of the device-loop runs
+DL_CHECK_CLEAN = 16  # graph against eager: clean steps
+DL_CHECK_WM = 8      # and watermark steps
+# the per-step limits of the whole-step checks (clean_steps, wm_steps) by dtype
+DL_LIMITS = {"clean": {torch.bfloat16: 2e-3, torch.float32: 1e-5},
+             "wm": {torch.bfloat16: 5e-3, torch.float32: 1e-4}}
+
+
+def auto_mc(n_occupied, N, S):
+    """Mc as the auto compaction sizes it from a batch's occupancy
+    (Trainer._adapt_compaction's target: ceil(1.3 x fill x 16) / 16 of the
+    slots, 1024-slot buckets), and that fraction."""
+    fill = min(float(n_occupied.float().mean()), S) / S
+    frac = min(1.0, math.ceil(1.3 * fill * 16.0) / 16.0)
+    return min(int(math.ceil(N * S * frac / 1024.0)) * 1024, N * S), frac
+
+
+def k5_march(m, n_rays, budget, seed):
+    """The trained model's march at a step's shapes (n_rays random pixels of
+    an orbit view, perturbation noise): (mask, xyzs, rays_d, n_occupied)."""
+    from nerf_signature_tpu_torch.ops.marching import march_rays_aabb
+    from nerf_signature_tpu_torch.render.renderer import default_aabb
+
+    dev, rc = m.device, m.rc
+    ro, rd = train_rays(dev, seed, n_rays)
+    noise = torch.rand((n_rays,), generator=torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+    out = march_rays_aabb(ro, rd, default_aabb(rc), m.occ.occupancy, min_near=rc.min_near,
+                          bound=rc.bound, dt_gamma=rc.dt_gamma, max_steps=rc.max_steps,
+                          budget=budget, prefilter=rc.prefilter,
+                          group_budget=rc.group_budget or None, noise=noise)
+    return out["mask"], out["xyzs"], rd, out["n_occupied"]
+
+
+def k5_check(mask, xyzs, rays_d, Mc, sig_c, rgb_c, g_sig, g_rgb, what):
+    """K5's pack, unpack and unpack backward against their plain versions
+    on one input: every output bit for bit.  Returns what k5_case times."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    comp = t_compact.compact(mask, xyzs, rays_d, Mc)
+    plain = t_compact.compact_plain(mask, xyzs, rays_d, Mc)
+    so, sa = t_compact.slot_maps_plain(plain)
+    sk, rk = t_compact._unpack_kernel(sig_c, rgb_c, comp.slot_of)
+    leaves = [sig_c.clone().requires_grad_(), rgb_c.clone().requires_grad_()]
+    sp, rp = t_compact.uncompact_plain(*leaves, plain)
+    pairs = {"K5_compact_pack": [(comp.xyz_c, plain.xyz_c), (comp.dir_c, plain.dir_c),
+                                 (comp.slot_of, so), (comp.sample_of, sa)],
+             "K5_compact_unpack": [(sk, sp), (rk, rp)]}
+    if mask.numel():
+        gp = torch.autograd.grad((sp, rp), leaves, (g_sig, g_rgb), retain_graph=True)
+        gk = t_compact.unpack_bwd(g_sig, g_rgb, comp.sample_of)
+        pairs["K5_compact_unpack_bwd"] = [(gk[0], gp[0]), (gk[1], gp[1])]
+    torch.cuda.synchronize()
+    for name, ab in pairs.items():
+        if not all(torch.equal(a, b.detach()) for a, b in ab):
+            raise AssertionError(f"{name} differs from its plain version ({what})")
+    return comp, plain, leaves, (sp, rp)
+
+
+def k5_case(dev, mask, xyzs, rays_d, Mc, what, reps=50):
+    """K5 at one step's shapes: bit-exact against the plain versions
+    (k5_check), then each kernel's time a call (CUDA events) and device time
+    (cold: the L2 flushed before each call), the plain version's, the plain
+    chain's (``library``: cumsum and
+    index_put_ for the pack, the gather for the unpack, indexing_backward --
+    index_put_ with accumulate -- for its backward) and the bound.  Bytes
+    the function must move: pack 1 B of mask and 4 B of slot map a sample,
+    12 B of rays_d a ray, 12 B of position a kept sample, 28 B a slot
+    (position, direction, sample index); unpack 4 B of slot map and 16 B of
+    output a sample, 16 B of field output a kept sample; unpack backward 4 B
+    of sample index and 16 B of gradient a slot, 16 B of cotangent a kept
+    sample.  Returns {kernel: row}."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    N, S = mask.shape
+    M = N * S
+    g = torch.Generator(device=dev).manual_seed(M + Mc)
+    sig_c = torch.randn((Mc,), generator=g, device=dev)
+    rgb_c = torch.rand((Mc, 3), generator=g, device=dev)
+    g_sig = torch.randn((M,), generator=g, device=dev)
+    g_rgb = torch.randn((M, 3), generator=g, device=dev)
+    comp, plain, leaves, outs = k5_check(mask, xyzs, rays_d, Mc, sig_c, rgb_c, g_sig, g_rgb,
+                                         what)
+    K = int(plain.keep.sum())
+    flat = mask.reshape(-1)
+    rank = torch.cumsum(flat.to(torch.int64), 0) - 1
+    dst = torch.where(plain.keep, rank, Mc)
+    src = torch.clamp(rank, 0, Mc - 1)
+    gs_live = torch.where(plain.keep, g_sig, 0.0)
+    gr_live = torch.where(plain.keep[:, None], g_rgb, 0.0)
+    slots = torch.zeros((Mc + 1, 3), device=dev)
+    xyz_flat = xyzs.reshape(-1, 3)
+    dirs = rays_d[:, None, :].expand(N, S, 3).reshape(-1, 3)
+
+    def lib_pack():
+        torch.cumsum(flat.to(torch.int64), 0)
+        slots.index_put_((dst,), xyz_flat)
+        slots.index_put_((dst,), dirs)
+
+    def lib_bwd():
+        torch.zeros((Mc,), device=dev).index_put_((src,), gs_live, accumulate=True)
+        torch.zeros((Mc, 3), device=dev).index_put_((src,), gr_live, accumulate=True)
+
+    fns = {
+        "K5_compact_pack": (lambda: t_compact.compact(mask, xyzs, rays_d, Mc),
+                            lambda: t_compact.compact_plain(mask, xyzs, rays_d, Mc), lib_pack,
+                            M + 4 * M + 12 * N + 12 * K + 28 * Mc),
+        "K5_compact_unpack": (lambda: t_compact._unpack_kernel(sig_c, rgb_c, comp.slot_of),
+                              lambda: t_compact.uncompact_plain(sig_c, rgb_c, plain),
+                              lambda: (sig_c[src], rgb_c[src]), 4 * M + 16 * M + 16 * K),
+        "K5_compact_unpack_bwd": (
+            lambda: t_compact.unpack_bwd(g_sig, g_rgb, comp.sample_of),
+            lambda: torch.autograd.grad(outs, leaves, (g_sig, g_rgb), retain_graph=True),
+            lib_bwd, 4 * Mc + 16 * Mc + 16 * K),
+    }
+    rows = {}
+    for name, (kernel, plain_fn, lib, n_bytes) in fns.items():
+        b_ms, b_by = bound_of(n_bytes, 0, PEAK_FP32)
+        rows[name] = {"ms": median_ms(kernel, reps), "device_ms": device_ms(kernel, cold=True),
+                      "plain_ms": median_ms(plain_fn, reps),
+                      "library_ms": median_ms(lib, reps),
+                      "library_device_ms": device_ms(lib, cold=True),
+                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+                      "shape": f"{N} x {S}, Mc {Mc}, kept {K}"}
+        r = rows[name]
+        log(f"[k5] {name} at {r['shape']}: bit-exact; {r['ms']:.4f} ms a call, device "
+            f"{r['device_ms']:.4f} (bound {b_ms:.4f}, {b_by}); plain {r['plain_ms']:.4f}; "
+            f"plain chain {r['library_ms']:.4f}, device {r['library_device_ms']:.4f}")
+    return rows
+
+
+def k5_phase(dev, m):
+    """K5 on kernel_cases' edges, then at the clean step's shapes (4096 rays
+    x the train budget 128, Mc from the auto compaction) and the watermark
+    step's (8,704 x 256) on the trained model's grid."""
+    from nerf_signature_tpu_torch.kernel_cases import k5_edge_inputs
+
+    for name, *case in k5_edge_inputs():
+        mask, xyzs, rd, Mc, sig_c, rgb_c, g_sig, g_rgb = (
+            torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v for v in case)
+        k5_check(mask, xyzs, rd, Mc, sig_c, rgb_c, g_sig, g_rgb, f"edge {name}")
+    log(f"[k5] edge cases bit-exact: {[c[0] for c in k5_edge_inputs()]}")
+    rows = {}
+    for tag, n_rays, budget in (("", TRAIN_RAYS, TRAIN_BUDGET), ("_wm", WM_STEP_RAYS, 256)):
+        mask, xyzs, rd, n_occ = k5_march(m, n_rays, budget, seed=41)
+        Mc, frac = auto_mc(n_occ, n_rays, budget)
+        if Mc >= n_rays * budget:
+            raise AssertionError(f"K5 at {n_rays} x {budget}: the auto compaction packs nothing "
+                                 f"(fraction {frac})")
+        for name, row in k5_case(dev, mask, xyzs, rd, Mc, f"{n_rays} x {budget}").items():
+            rows[name + tag] = dict(row, compact_frac=frac)
+    return rows
+
+
+def dl_clean_trainer(dev, dtype, compact_frac=0.5):
+    """A fresh full-width clean model (the train phase's settings, compaction
+    at ``compact_frac``) and its Trainer (no workspace)."""
+    from types import SimpleNamespace
+
+    from nerf_signature_tpu_torch.api import NGPModel
+    from nerf_signature_tpu_torch.models.ngp import NGPConfig
+    from nerf_signature_tpu_torch.train.trainer import Trainer
+
+    opt = SimpleNamespace(lr=1e-2, iters=TRAIN_ITERS, num_rays=TRAIN_RAYS, max_steps=1024,
+                          update_extra_interval=16, compact_frac=-1, group_budget=-1,
+                          max_ray_batch=CHUNK, patch_size=1, color_space="srgb")
+    model = NGPModel(NGPConfig(bound=1.0, compute_dtype=dtype), min_near=0.2,
+                     density_thresh=10.0, dt_gamma=0.0, max_steps=1024, grid_size=128, seed=2,
+                     train_budget=TRAIN_BUDGET, infer_budget=256, compact_frac=compact_frac,
+                     device=dev)
+    return Trainer("ngp", opt, model, workspace=None, use_checkpoint="scratch", mute=True)
+
+
+def dl_wm_trainer(dev, dtype, distortion="noise", compact_frac=0.5):
+    """The recipe's watermarked model with random weights (make_wm_model),
+    compaction at ``compact_frac``, and its WatermarkTrainer (no
+    workspace)."""
+    from types import SimpleNamespace
+
+    from nerf_signature_tpu_torch.train.trainer_wtmk import WatermarkTrainer
+
+    m = make_wm_model(dev, dtype=dtype)
+    m.rc = dataclasses.replace(m.rc, compact_frac=compact_frac)
+    opt = SimpleNamespace(seed=0, iters=WM_ITERS, lr=1e-2, lambda_w=0.005, lambda_i=1.0,
+                          loss_w="bce", distortion=distortion, message_dim=WM_BITS,
+                          num_rays=TRAIN_RAYS, max_ray_batch=CHUNK, compact_frac=0,
+                          group_budget=0, bitacc_batch=8)
+    return WatermarkTrainer("wm", opt, m, workspace=None, use_checkpoint="scratch", mute=True)
+
+
+def _rows(draws, lo, hi):
+    """Rows [lo, hi) of a dispatch's draws."""
+    return type(draws)(*(None if t is None else t[lo:hi] for t in draws))
+
+
+def dl_check(tag, dtype, traj, steps, last_grads, final, lim):
+    """A graph run against eager steps on the same draws.  ``traj``: the
+    graph's and an eager run's losses over every step (each run on its own:
+    the losses' worst relative gap).  ``steps``: for every step, one eager
+    step (Adam on the host's lr) from the state the graph held before it,
+    against the graph's step -- the loss (1e-6) and Adam's two moments after
+    it, per leaf (rel L2 at the limit; leaves whose gradient is below 1e-5
+    of the largest left out: a conv bias before a batch norm), so a replay
+    that reads state of another step fails at that step.  The leaves after
+    Adam are held to the limit at the last step, with the gradients
+    (``last_grads``: the graph's and the eager step's); at the first steps
+    Adam moves every entry by about lr whatever its gradient's size, so an
+    entry whose gradient sits at the atomics' rounding can step either way
+    (their worst per-step gap is a reading).  ``final``: the final leaves'
+    worst rel L2 between the graph run and an eager run, two eager runs, and
+    the eager run and the loop's body run eagerly (Adam capturable):
+    readings, not checked (an ulp at one step grows over the run: bf16
+    roundings flip, and Adam steps by about lr on any gradient)."""
+    lg, le = traj
+    traj_rel = float(np.max(np.abs(np.asarray(lg) - np.asarray(le)) / np.abs(np.asarray(le))))
+    worst_loss, worst_m, worst_p = 0.0, 0.0, 0.0
+    for lgj, le_j, ge, pg, pe, ag, ae in steps:
+        worst_loss = max(worst_loss, abs(lgj - float(le_j)) / abs(float(le_j)))
+        scale = max(float(g.norm()) for g in ge)
+        live = [float(g.norm()) > 1e-5 * scale for g in ge]
+        worst_m = max([worst_m] + [rel_l2(x[k], y[k]) for x, y, ok in zip(ag, ae, live) if ok
+                                   for k in ("exp_avg", "exp_avg_sq")])
+        worst_p = max([worst_p] + [rel_l2(x, y) for x, y, ok in zip(pg, pe, live) if ok])
+    _, le_n, ge_n, pg_n, pe_n, _, _ = steps[-1]
+    scale = max(float(g.norm()) for g in ge_n)
+    last_p = max(rel_l2(x, y) for x, y, g in zip(pg_n, pe_n, ge_n)
+                 if float(g.norm()) > 1e-5 * scale)
+    e = step_errors(torch.tensor(lg[-1]), last_grads[0], le_n, last_grads[1])
+    log(f"[graph vs eager] {tag} {str(dtype)[6:]}: {len(lg)} steps each, losses worst rel "
+        f"{traj_rel:.3g}; each step from the graph's own state: loss rel {worst_loss:.3g}, "
+        f"Adam's moments worst rel L2 {worst_m:.3g} (leaves after Adam {worst_p:.3g}, a "
+        f"reading); the last step: {e['kept']} leaves' grads worst rel L2 "
+        f"{e['worst_rel_l2']:.3g}, leaves after Adam {last_p:.3g} (limit {lim:g}, loss 1e-6); "
+        f"final leaves worst rel L2 (readings): graph vs eager {final['graph_vs_eager']:.3g}, "
+        f"eager vs eager {final['eager_vs_eager']:.3g}, eager capturable Adam vs eager "
+        f"{final['capturable_vs_eager']:.3g}, graph vs eager capturable "
+        f"{final['graph_vs_capturable']:.3g}")
+    if not (traj_rel <= lim and worst_loss <= 1e-6 and worst_m <= lim
+            and e["worst_rel_l2"] <= lim and last_p <= lim):
+        raise AssertionError(f"graph vs eager, {tag} {dtype}: a replayed step differs")
+    return dict({"traj_loss_rel": traj_rel, "loss_rel": worst_loss, "adam_rel_l2": worst_m,
+                 "grad_rel_l2": e["worst_rel_l2"], "leaf_rel_l2": last_p,
+                 "leaf_rel_l2_any_step": worst_p},
+                **{f"final_{k}": v for k, v in final.items()})
+
+
+class EagerSteps:
+    """In a trainer's ``step_graph`` slot: the loop's steps run eagerly on
+    the card (the same body and capturable Adam, no graph)."""
+
+    captures = 0
+
+    def drop(self):
+        pass
+
+    def run(self, body, key, held, n, before_step=None):
+        for j in range(n):
+            if before_step is not None:
+                before_step(j)
+            body()
+
+
+def graph_vs_eager(dev, views):
+    """device_train_loop (a replayed CUDA graph) against per-step
+    Trainer._train_step calls through the kernels (Adam on the host's lr),
+    on the same draws and grid updates: DL_CHECK_CLEAN clean steps on the
+    RGBA views in bf16 and fp32 and on their RGB pixels (a white background)
+    in fp32, and DL_CHECK_WM watermark steps the same way (noise
+    distortion) in bf16 and fp32, compaction on (dl_check, the whole-step
+    limits DL_LIMITS).  The graph runs in two dispatches, all steps but the
+    last, then the last alone (a pure replay); the state before every step
+    (after the grid update) is kept, and one eager step from it is held
+    against the graph's step.  Fails unless each run counts one launch of
+    K2, K3, K1's and K3's backward and K5 a step."""
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+    from nerf_signature_tpu_torch.train.trainer import param_leaves
+    from nerf_signature_tpu_torch.train.trainer_wtmk import trainable_leaves, view_batch_shape
+
+    out = {}
+    rgba = views.images
+    P = len(views.poses)
+    clean_leaves = lambda t: param_leaves(t.model.params)
+    wm_leaves = lambda t: trainable_leaves(t.model.trainable)
+
+    def state_of(t, leaves_of):
+        return {"leaves": [p.detach().clone() for p in leaves_of(t)],
+                "ema": ([p.detach().clone() for p in param_leaves(t.ema_params)]
+                        if getattr(t, "ema_params", None) is not None else None),
+                "adam": [{k: v.clone() for k, v in t.optimizer.state[p].items()}
+                         for p in leaves_of(t)],
+                "occ": [None if x is None else x.clone() for x in t.model.occ]}
+
+    def graph_run(t, leaves_of, n, loop):
+        """n steps in two dispatches: (losses, the state before each step and
+        after the last, the last step's grads, the launch counts)."""
+        states = []
+        run_steps = t_dl.run_steps
+
+        def keeping(owner, body, key, held, k, device, before_step=None):
+            def before(j):
+                if before_step is not None:
+                    before_step(j)
+                states.append(state_of(owner, leaves_of))
+            return run_steps(owner, body, key, held, k, device, before)
+
+        _cuda.reset_launch_counts()
+        t_dl.run_steps = keeping
+        try:
+            losses = list(loop(t, 0, n - 1))
+            captures = t.step_graph.captures
+            losses += list(loop(t, n - 1, n))
+        finally:
+            t_dl.run_steps = run_steps
+        if t.step_graph.captures != captures:
+            raise AssertionError("the last dispatch captured the step again")
+        counts = _cuda.launch_counts()
+        states.append(state_of(t, leaves_of))
+        return losses, states, [p.grad.clone() for p in leaves_of(t)], counts
+
+    def per_step(make, leaves_of, states, lg, step):
+        """One eager step from the graph's state before each step: (graph's
+        loss, eager loss, eager grads, graph's leaves after, eager's, graph's
+        Adam state after, eager's)."""
+        t1 = make()
+        rows = []
+        for j in range(len(lg)):
+            _copy_state(t1, states[j], leaves_of, j)
+            l1 = step(t1, j)
+            rows.append((lg[j], l1, [p.grad.clone() for p in leaves_of(t1)],
+                         states[j + 1]["leaves"], [p.detach().clone() for p in leaves_of(t1)],
+                         states[j + 1]["adam"],
+                         [{k: v.clone() for k, v in t1.optimizer.state[p].items()}
+                          for p in leaves_of(t1)]))
+        return rows
+
+    def eager_run(make, leaves_of, n, step, grid_updates):
+        """n eager steps of a fresh trainer: (losses, final leaves)."""
+        t = make()
+        losses = []
+        for j in range(n):
+            if grid_updates and j % 16 == 0:
+                t.model.update_extra_state(full=True)
+            losses.append(float(step(t, j)))
+        return losses, [p.detach().clone() for p in leaves_of(t)]
+
+    def capturable_run(make, leaves_of, loop, n):
+        """The loop's body run eagerly on a fresh trainer: final leaves."""
+        t = make()
+        t_dl.prepare_device_loop(t, leaves_of(t))
+        t.step_graph = EagerSteps()
+        loop(t, 0, n)
+        return [p.detach().clone() for p in leaves_of(t)]
+
+    def finals(pg, make, leaves_of, n, step, grid_updates, loop, grads):
+        """Final-leaf readings (leaves whose last gradient is below 1e-5 of
+        the largest left out) and the eager run's losses."""
+        le, pe = eager_run(make, leaves_of, n, step, grid_updates)
+        _, pe2 = eager_run(make, leaves_of, n, step, grid_updates)
+        pc = capturable_run(make, leaves_of, loop, n)
+        scale = max(float(g.norm()) for g in grads)
+        live = [float(g.norm()) > 1e-5 * scale for g in grads]
+        gap = lambda a, b: max(rel_l2(x, y) for x, y, ok in zip(a, b, live) if ok)
+        return le, {"graph_vs_eager": gap(pg, pe), "eager_vs_eager": gap(pe2, pe),
+                    "capturable_vs_eager": gap(pc, pe), "graph_vs_capturable": gap(pg, pc)}
+
+    for dtype, C in ((torch.bfloat16, 4), (torch.float32, 4), (torch.float32, 3)):
+        lim = DL_LIMITS["clean"][dtype]
+        n = DL_CHECK_CLEAN
+        data = t_dl.preload(views.poses, rgba[..., :C], views.intrinsics, RES, RES, dev)
+        draws = t_dl.draw_clean(torch.Generator(device=dev).manual_seed(17), n, P, TRAIN_RAYS,
+                                RES * RES, C == 4, dev)
+        make = lambda: dl_clean_trainer(dev, dtype)
+        tg = make()
+        t_dl.prepare_device_loop(tg, clean_leaves(tg))
+
+        def clean_loop(t, lo, hi):
+            t.global_step = lo
+            return t_dl.device_train_loop(t, data, hi - lo, draws=_rows(draws, lo, hi)).losses
+
+        lg, states, grads, counts = graph_run(tg, clean_leaves, n, clean_loop)
+        k4_route(counts, dtype, ("K4_field", "K4_field_bwd"), "graph of the clean step")
+        for name in ("K2_march", "K3_composite", "K1_hash_encode_bwd", "K3_composite_bwd",
+                     "K5_compact_pack", "K5_compact_unpack", "K5_compact_unpack_bwd"):
+            if counts[name] != n:
+                raise AssertionError(f"graph of the clean step: {name} counted {counts[name]} "
+                                     f"launches in {n} steps")
+        captures = tg.step_graph.captures
+        del tg
+        gc.collect()
+        white = torch.ones((1, 3), device=dev)
+
+        def clean_eager(t, j):
+            pidx, pix = int(draws.pidx[j]), draws.pix[j]
+            ro, rd = t_dl.rays_from_pixels(data.poses[pidx], data.intrinsics, pix, RES, RES)
+            bg = draws.bg[j] if draws.bg is not None else white
+            return t._train_step(ro, rd, data.images[pidx][pix], bg, draws.noise[j],
+                                 t._rc_train(), t.model.train_budget)[0]
+
+        steps = per_step(make, clean_leaves, states, lg, clean_eager)
+        le, final = finals(states[-1]["leaves"], make, clean_leaves, n, clean_eager, True,
+                           clean_loop, steps[-1][2])
+        tag = "clean" if C == 4 else "clean rgb"
+        out[f"{tag.replace(' ', '_')}_{str(dtype)[6:]}"] = dict(
+            dl_check(tag, dtype, (lg, le), steps, (grads, steps[-1][2]), final, lim),
+            captures=captures)
+        del data, states, steps
+        gc.collect()
+
+    x = wm_step_inputs(dev)
+    fl = WM_RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
+    poses = orbit_poses(4, ORBIT_RADIUS, seed=44)
+    rng = np.random.default_rng(44)
+    wdata = t_dl.preload(poses, rng.uniform(size=(4, WM_RES * WM_RES, 3)),
+                         (fl, fl, WM_RES / 2, WM_RES / 2), WM_RES, WM_RES, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        lim = DL_LIMITS["wm"][dtype]
+        n = DL_CHECK_WM
+        wdraws = t_dl.draw_wm(torch.Generator(device=dev).manual_seed(18), n, WM_BITS, 4,
+                              TRAIN_RAYS, WM_RES**2, "noise", view_batch_shape(x["ro_b"].shape),
+                              dev)
+        make = lambda: dl_wm_trainer(dev, dtype)
+        wg = make()
+        t_dl.prepare_device_loop(wg, wm_leaves(wg))
+
+        def wm_loop(t, lo, hi):
+            return t_dl.wm_device_loop(t, wdata, x["ro_b"], x["rd_b"], hi - lo,
+                                       draws=_rows(wdraws, lo, hi))[0]
+
+        lg, states, grads, counts = graph_run(wg, wm_leaves, n, wm_loop)
+        k4_route(counts, dtype, ("K4_field", "K4_field_bwd_feat"), "graph of the wm step")
+        for name in ("K2_march", "K9_msg_table", "K9_msg_table_bwd", "K5_compact_unpack_bwd"):
+            if counts[name] != n:
+                raise AssertionError(f"graph of the wm step: {name} counted {counts[name]} "
+                                     f"launches in {n} steps")
+        captures = wg.step_graph.captures
+        del wg
+        gc.collect()
+
+        def wm_eager(t, j):
+            pidx, pix = int(wdraws.pidx[j]), wdraws.pix[j]
+            ct_o, ct_d = t_dl.rays_from_pixels(wdata.poses[pidx], wdata.intrinsics, pix, WM_RES,
+                                               WM_RES)
+            return t._train_step(x["ro_b"], x["rd_b"], ct_o, ct_d, wdata.images[pidx][pix],
+                                 wdraws.message[j], wdraws.distortion[j], t.model.rc)[0]
+
+        steps = per_step(make, wm_leaves, states, lg, wm_eager)
+        le, final = finals(states[-1]["leaves"], make, wm_leaves, n, wm_eager, False, wm_loop,
+                           steps[-1][2])
+        out[f"wm_{str(dtype)[6:]}"] = dict(
+            dl_check("wm", dtype, (lg, le), steps, (grads, steps[-1][2]), final, lim),
+            captures=captures)
+        del states, steps
+        gc.collect()
+    return out
+
+
+def _copy_state(dst, before, leaves_of, step_count):
+    """The trainer ``dst`` (per-step Adam) put in a graph run's saved state:
+    its leaves (and EMA), Adam's moments and count, and the grid."""
+    with torch.no_grad():
+        for a, b in zip(leaves_of(dst), before["leaves"]):
+            a.copy_(b)
+        if before["ema"] is not None:
+            from nerf_signature_tpu_torch.train.trainer import param_leaves
+
+            for a, b in zip(param_leaves(dst.ema_params), before["ema"]):
+                a.copy_(b)
+        for a, st in zip(leaves_of(dst), before["adam"]):
+            dst.optimizer.state[a] = {"step": torch.tensor(float(step_count)),
+                                      "exp_avg": st["exp_avg"].clone(),
+                                      "exp_avg_sq": st["exp_avg_sq"].clone()}
+        for a, b in zip(dst.model.occ, before["occ"]):
+            if a is not None:
+                a.copy_(b)
+
+
+def profile_dispatch(run, n, tag, compacting):
+    """torch.profiler over one more dispatch of n steps: wall and device busy
+    ms a step and the idle share (as profile_steps reads them)."""
+    def work():
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e6
+
+    run()  # a dispatch first: a new shape or data is captured outside the trace
+    by_name, wall_us = traced(work, tag)
+    if by_name is None:
+        log(f"[{tag}] device busy time not measured (no trace held device events)")
+        return {"wall_ms": wall_us / n / 1e3, "busy_ms": None, "idle_share": None}
+    check_k5_trace(by_name, tag, compacting)
+    busy_us = sum(by_name.values())
+    log(f"[{tag}] one dispatch of {n} steps: wall {wall_us / n / 1e3:.3f} ms a step, device "
+        f"busy {busy_us / n / 1e3:.3f} ms a step (idle share {1 - busy_us / wall_us:.1%})")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name[:90]}")
+    return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
+            "idle_share": 1 - busy_us / wall_us}
+
+
+def phase_device_loop(dev, backbone_model, workdir):
+    """The on-device K-step loops (``--steps_per_dispatch``): K5 against its
+    plain version (edges; the clean and watermark steps' shapes, on the
+    trained backbone's grid), the replayed graph against eager steps, the
+    clean loop (Trainer.train_device, 512 steps at K = 64 on the radius-0.7
+    ball: the loss falls, the held-out PSNR rises >= 6 dB) and the
+    watermark loop (WatermarkTrainer.train_device, the recipe's 1000 steps
+    at K = 64 on the train phase's backbone: lossw halves, bit accuracy >=
+    0.95 over 200 messages), each with its launches (graph replays
+    counted), rays/s, peak memory and one more dispatch profiled."""
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+    from nerf_signature_tpu_torch.train.trainer_wtmk import wm_device_loop
+
+    res = {"k5": k5_phase(dev, backbone_model)}
+    views = BallViews(TRAIN_BALL)
+    res["graph_vs_eager"] = graph_vs_eager(dev, views)
+
+    # ---- the clean loop: the train phase's run through Trainer.train_device
+    r = train_case(dev, TRAIN_BALL, TRAIN_ITERS, steps_per_dispatch=DL_K)
+    tr, seconds, launches = r["trainer"], r["seconds"], r["launches"]
+    steps, losses = tr.global_step, tr.stats["loss"]
+    clean = {"steps": steps, "seconds": seconds, "rays_per_s": steps * TRAIN_RAYS / seconds,
+             "step_ms": seconds / steps * 1e3, "peak_gib": r["peak"], "psnr0": r["psnr0"],
+             "psnr1": r["psnr1"], "captures": tr.step_graph.captures, "launches": launches}
+    log(f"[device loop] {steps} steps of {TRAIN_RAYS} rays in dispatches of {DL_K}: {seconds:.2f} "
+        f"s (preload, grid updates, captures included), {clean['rays_per_s']:.0f} train rays/s, "
+        f"{clean['step_ms']:.3f} ms a step; peak memory {r['peak']:.2f} GiB; "
+        f"{clean['captures']} captures; dispatch losses {[round(v, 6) for v in losses]}")
+    log(f"[device loop] {adaptation_state(tr.model)}; moves {r['moves']}")
+    log(f"[device loop] held-out view PSNR: untrained {r['psnr0']:.2f} dB, trained "
+        f"{r['psnr1']:.2f} dB (limit: +6 dB)")
+    log(f"[device loop] launches during Trainer.train_device: {launches}")
+    if steps != TRAIN_ITERS:
+        raise AssertionError(f"Trainer.train_device ran {steps} steps, expected {TRAIN_ITERS}")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"the device loop's loss did not fall: {losses}")
+    if not r["psnr1"] >= r["psnr0"] + 6.0:
+        raise AssertionError(f"device loop: held-out PSNR {r['psnr1']:.2f} dB < untrained "
+                             f"{r['psnr0']:.2f} + 6 dB")
+    k4_route(launches, torch.bfloat16, ("K4_field", "K4_field_bwd"), "Trainer.train_device")
+    for name in ("K2_march", "K3_composite", "K1_hash_encode_bwd", "K3_composite_bwd",
+                 "K4_field_bwd"):
+        if launches[name] != steps:
+            raise AssertionError(f"Trainer.train_device: {name} counted {launches[name]} "
+                                 f"launches in {steps} steps")
+    for name in K5_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched by Trainer.train_device")
+    data = t_dl.preload(views.poses, r["loader"].images, views.intrinsics, RES, RES, dev)
+    clean["profile"] = profile_dispatch(
+        lambda: t_dl.device_train_loop(tr, data, DL_K), DL_K, "device loop profile",
+        tr.model.rc.compact_frac > 0)
+    res["clean"] = clean
+    # K6, the grid update (plain torch; its queries through K1 + K4), on the
+    # trained grid: 32 a 512-step run (every 16 steps), full for the first 16
+    m = tr.model
+    res["k6"] = {kind: {"ms": median_ms(lambda: m.update_extra_state(full=full), 5, 1),
+                        "device_ms": device_ms(lambda: m.update_extra_state(full=full), 3)}
+                 for kind, full in (("full", True), ("partial", False))}
+    log(f"[k6] grid update: full {res['k6']['full']['ms']:.3f} ms a call (device "
+        f"{res['k6']['full']['device_ms']:.3f}), partial {res['k6']['partial']['ms']:.3f} "
+        f"(device {res['k6']['partial']['device_ms']:.3f}); {TRAIN_ITERS // 16} a "
+        f"{TRAIN_ITERS}-step run")
+    del r, tr, m, data
+    gc.collect()
+
+    # ---- the watermark loop: WatermarkTrainer.train_device at the recipe
+    w = wm_train(dev, backbone_model, workdir, tag="wm device loop", steps_per_dispatch=DL_K)
+    trainer, loader, make_loader = w["trainer"], w["loader"], w["make_loader"]
+    lossw = trainer.stats["lossw"]
+    wm = {"steps": w["steps"], "seconds": w["seconds"],
+          "rays_per_s": w["steps"] * w["step_rays"] / w["seconds"],
+          "step_ms": w["seconds"] / w["steps"] * 1e3, "peak_gib": w["peak"],
+          "captures": trainer.step_graph.captures, "launches": w["launches"],
+          "lossw_first": lossw[0], "lossw_last": lossw[-1]}
+    for name in ("K2_march", "K9_msg_table", "K9_msg_table_bwd", "K4_field_bwd_feat"):
+        if w["launches"][name] != w["steps"]:
+            raise AssertionError(f"WatermarkTrainer.train_device: {name} counted "
+                                 f"{w['launches'][name]} launches in {w['steps']} steps")
+    trials = make_loader("test", 1, WM_TRIALS)
+    wm["bitacc"] = trainer.test_bitacc(trials)
+    log(f"[wm device loop] {wm['captures']} captures; lossw {lossw[0]:.5f} -> {lossw[-1]:.5f}; "
+        f"bit accuracy {wm['bitacc']:.4f} over {WM_TRIALS} messages")
+    if not lossw[-1] <= 0.5 * lossw[0]:
+        raise AssertionError(f"the wm device loop's lossw did not halve: {lossw}")
+    if not wm["bitacc"] >= 0.95:
+        raise AssertionError(f"wm device loop: bit accuracy {wm['bitacc']:.4f} < 0.95")
+    ro_b, rd_b = trainer._device_rays(next(iter(loader))["watermark"])
+    wdata = t_dl.preload(loader.poses, loader.train_images, loader.intrinsics, loader.H,
+                         loader.W, dev)
+    wm["profile"] = profile_dispatch(
+        lambda: wm_device_loop(trainer, wdata, ro_b, rd_b, DL_K), DL_K,
+        "wm device loop profile", trainer.model.rc.compact_frac > 0)
+    res["wm"] = wm
+    del w, trainer, loader, make_loader, wdata
+    gc.collect()
     return res
 
 
@@ -2371,6 +3083,11 @@ WM_TRAIN = FORWARD + ("K1_hash_encode_bwd", "K3_composite_bwd", "K4_field_bwd_fe
 KERNEL_PHASE = FORWARD + ("K4_field_f32", "P1_gather")
 # K4's fp32 route (SIMT): off the bf16 main path, run by the fp32 whole-step checks
 FP32_ROUTE = ("K4_field_f32", "K4_field_bwd_f32", "K4_field_bwd_feat_f32")
+# K5, sample compaction (slice 10): its rows at the clean and the watermark
+# steps' shapes, launches of the device-loop runs
+K5_KERNELS = ("K5_compact_pack", "K5_compact_unpack", "K5_compact_unpack_bwd")
+K5_SOURCE = ("nerf_signature_tpu_torch/csrc/compact.cu",
+             "nerf_signature_tpu/render/renderer.py:123")
 # the sources of the tensor-core kernels, which must build without spills
 TENSOR_CORE_SOURCES = ("field_mma.cu", "field_mma_bwd.cu", "field_mma_bwd_full.cu")
 
@@ -2391,8 +3108,13 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         launches, view = phase_serve(dev, workdir)
     train = phase_train(dev)
+    backbone = train.pop("model")
     with tempfile.TemporaryDirectory() as workdir:
-        wm = phase_wm(dev, train.pop("model"), workdir)
+        wm = phase_wm(dev, backbone, workdir)
+    gc.collect()
+    with tempfile.TemporaryDirectory() as workdir:
+        dl = phase_device_loop(dev, backbone, workdir)
+    dl_launches = {"clean": dl["clean"].pop("launches"), "wm": dl["wm"].pop("launches")}
     rows, modelled = [], {}
     entries = [(name, name, None, None) for name in SOURCES] + [
         (name,) + v for name, v in VARIANTS.items()]
@@ -2451,16 +3173,34 @@ def main():
             row.update(train_ms=t["ms"], train_device_ms=t["device_ms"],
                        train_plain_ms=t["plain_ms"], train_bound_ms=t["bound_ms"],
                        train_max_abs_err=t["max_abs_err"])
+        row["device_loop_launches"] = {k: v[base] for k, v in dl_launches.items()}
         rows.append(row)
         if "atomics_modelled" in r:
             modelled[name] = r["atomics_modelled"]
+    # K5 (slice 10) at the clean step's shapes and the watermark step's; its
+    # launches: the device loops' runs (this slice's main path), besides the
+    # per-step train and watermark runs'
+    for name, r in dl["k5"].items():
+        base, run = (name[:-3], "wm") if name.endswith("_wm") else (name, "clean")
+        rows.append({"name": name, "route": "cuda", "source": K5_SOURCE[0],
+                     "replaces": K5_SOURCE[1], "path": f"device loop ({run})",
+                     "launches": dl_launches[run][base], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                     "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
+                     "shape": r["shape"], "compact_frac": r["compact_frac"],
+                     "train_launches": train["launches"][base],
+                     "wm_launches": wm["launches"][base],
+                     "device_loop_launches": {k: v[base] for k, v in dl_launches.items()}})
     wm.pop("launches")
     # K1 backward's atomics as kernel_cases.k1_bwd_atomics counts them from
     # the design on each row's inputs: a model, not a reading of the card
     print(json.dumps({"k1_bwd_atomics_modelled": modelled}))
     print(json.dumps({"kernels": rows, "build_s": build_s, "view": view, "train": {
-        k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1")},
+        k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1", "peak_gib",
+                              "profile")},
         "geometry": geometry_stats, "wm": wm,
+        "device_loop": {k: dl[k] for k in ("graph_vs_eager", "clean", "wm", "k6")},
         "device_ms_from_events": len(EVENT_FALLBACKS)}, default=float))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

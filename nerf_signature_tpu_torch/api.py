@@ -38,7 +38,7 @@ from .ops.grid import (
     mark_untrained_grid,
     num_cascades,
     render_grid,
-    update_occupancy_grid,
+    update_occupancy_grid_,
 )
 from .ops.marching import coarse_grid, march_plan
 from .render.renderer import RenderConfig, render_rays_occ
@@ -92,11 +92,15 @@ class _BaseModel:
         self.occ = init_occupancy_grid(self.rc.bound, self.rc.grid_size, self.device)
 
     @torch.no_grad()
-    def update_extra_state(self, decay=0.95, draws=None):
-        """Full update for the first 16 updates, partial after.  Random draws
-        come from ``self.generator`` unless ``draws`` is given."""
-        full = int(self.occ.iter_density) < 16
-        self.occ = update_occupancy_grid(
+    def update_extra_state(self, decay=0.95, draws=None, full=None):
+        """Full update for the first 16 updates, partial after (``full``
+        given by a caller that counts them, so nothing is read back).  Random
+        draws come from ``self.generator`` unless ``draws`` is given.  The
+        grid's tensors are updated in place: a captured train step reads
+        them."""
+        if full is None:
+            full = int(self.occ.iter_density) < 16
+        update_occupancy_grid_(
             self.occ, self._density_query(), bound=self.rc.bound,
             grid_size=self.rc.grid_size, density_scale=self.rc.density_scale,
             density_thresh=self.density_thresh, decay=decay, full=full,

@@ -67,3 +67,34 @@ def k1_bwd_atomics(x01, g_feat, n_features, resolutions, log2_hashmap_size, gath
                                device=x01.device)
         after += int(torch.where(grouped, distinct, lanes).sum())
     return after * (2 if F == 8 else 1)
+
+
+def k5_edge_inputs(seed=5):
+    """K5's edge cases: a list of (name, mask [N, S] bool, xyzs [N, S, 3],
+    rays_d [N, 3], Mc, sig_c [Mc], rgb_c [Mc, 3], g_sigmas [M], g_rgbs [M,
+    3]) as numpy arrays: M not a multiple of the 1024-sample tile, every
+    mask off, every mask on with Mc < M (rank >= Mc drops samples), Mc = M,
+    a single live sample at the last index, and N = 0."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def case(name, N, S, mask, Mc):
+        xyzs = np.where(mask[..., None], rng.uniform(-1, 1, (N, S, 3)), 0.0).astype(np.float32)
+        rays_d = rng.normal(size=(N, 3)).astype(np.float32)
+        M = N * S
+        cases.append((name, mask, xyzs, rays_d, Mc,
+                      rng.normal(size=(Mc,)).astype(np.float32),
+                      rng.uniform(size=(Mc, 3)).astype(np.float32),
+                      rng.normal(size=(M,)).astype(np.float32),
+                      rng.normal(size=(M, 3)).astype(np.float32)))
+
+    case("ragged", 37, 29, rng.uniform(size=(37, 29)) < 0.3, 1024)
+    case("all_off", 16, 128, np.zeros((16, 128), bool), 1024)
+    case("all_on_drop", 24, 128, np.ones((24, 128), bool), 2048)
+    mask = rng.uniform(size=(8, 256)) < 0.5
+    case("mc_eq_m", 8, 256, mask, 8 * 256)
+    last = np.zeros((5, 300), bool)
+    last[-1, -1] = True
+    case("last_only", 5, 300, last, 1024)
+    case("empty", 0, 64, np.zeros((0, 64), bool), 0)
+    return cases

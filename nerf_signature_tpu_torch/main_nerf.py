@@ -7,10 +7,13 @@
         --bound 1.0 --scale 0.8 --dt_gamma 0            # evaluate, render, mesh
 
 runs on the CUDA GPU; ``--cpu`` runs the plain PyTorch versions on the CPU.
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``--steps_per_dispatch``, ``--error_map``, ``--patch_size`` with
-LPIPS/SSIM, ``--clip_text``, ``--stochastic_hash_grad``, ``--bg_radius > 0``,
-``--devices > 1``, ``--t_cull > 0``; ``--gui`` and ``--prewatermark`` exit 2.
+``--steps_per_dispatch K`` trains K steps a dispatch on the device
+(``Trainer.train_device``: on the card a replayed CUDA graph of the step,
+on the CPU the same step eagerly).  Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP item): ``--error_map``,
+``--patch_size`` with LPIPS/SSIM, ``--clip_text``, ``--stochastic_hash_grad``,
+``--bg_radius > 0``, ``--devices > 1``, ``--t_cull > 0``; ``--gui`` and
+``--prewatermark`` exit 2.
 """
 
 import argparse
@@ -32,11 +35,6 @@ def main(argv=None):
             print(f"nerf_signature_tpu_torch: --{flag} is not ported yet",
                   file=sys.stderr)
             return 2
-    if not opt.test and opt.steps_per_dispatch > 0:
-        raise NotImplementedError(
-            "--steps_per_dispatch (the on-device K-step loop) is ROADMAP queue 1 "
-            "item 'device loop / CUDA graph of the step', not ported yet")
-
     from .api import NGPModel
     from .data.provider import NeRFDataset
     from .meshing.extract import save_mesh
@@ -73,8 +71,12 @@ def main(argv=None):
         valid_loader = NeRFDataset(opt, type="val", downscale=1).dataloader()
         trainer = Trainer("ngp", opt, model, workspace=opt.workspace, ema_decay=0.95,
                           metrics=metrics, use_checkpoint=opt.ckpt, eval_interval=50)
-        max_epoch = int(np.ceil(opt.iters / len(train_loader)))
-        trainer.train(train_loader, valid_loader, max_epoch)
+        if opt.steps_per_dispatch > 0:
+            trainer.train_device(train_loader, opt.iters,
+                                 steps_per_dispatch=opt.steps_per_dispatch)
+        else:
+            max_epoch = int(np.ceil(opt.iters / len(train_loader)))
+            trainer.train(train_loader, valid_loader, max_epoch)
         trainer.evaluate_one_epoch(valid_loader)
         return 0
     trainer = Trainer("ngp", opt, model, workspace=opt.workspace,

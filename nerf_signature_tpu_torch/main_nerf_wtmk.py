@@ -16,9 +16,11 @@ afterwards) and renders test images against the pseudo-GT.
     python -m nerf_signature_tpu_torch.main_nerf_wtmk ... --ckpt latest --test
 
 runs on the CUDA GPU; ``--cpu`` runs the plain PyTorch versions on the CPU.
-Checkpoints are the JAX package's format both ways.  Not ported yet (each
-raises ``NotImplementedError`` naming its ROADMAP item):
-``--steps_per_dispatch``, ``--devices > 1``, ``--patch_size`` /
+``--steps_per_dispatch K`` trains K steps a dispatch on the device
+(``WatermarkTrainer.train_device``: on the card a replayed CUDA graph of the
+step).  Checkpoints are the JAX package's format both ways.  Not ported yet
+(each raises ``NotImplementedError`` naming its ROADMAP item):
+``--devices > 1``, ``--patch_size`` /
 ``--lambda_ssim``, ``--finetune_decoder``, ``--copyrnerf``,
 ``--whole_image_wm``, ``--stochastic_hash_grad``, ``--bg_radius > 0``,
 ``--t_cull > 0``.
@@ -33,10 +35,6 @@ import torch
 
 from .utils.config import add_common_args, add_wtmk_args, apply_O_macro
 
-DEVICE_LOOP_TODO = ("--steps_per_dispatch (the on-device K-step loop) is ROADMAP queue 1 "
-                    "item 'the wm and clean device loops', not ported yet")
-
-
 def parse(argv=None):
     parser = argparse.ArgumentParser()
     add_common_args(parser)
@@ -48,9 +46,6 @@ def setup(opt):
     """The watermark model, its trainer (checkpoint resolved) and the loader
     factory ``make_loader(type, n_views, n_test, fresh_keys=False)``, as the
     CLI builds them from ``opt``."""
-    if not opt.test and opt.steps_per_dispatch > 0:
-        raise NotImplementedError(DEVICE_LOOP_TODO)
-
     from .api import WatermarkModel
     from .data.provider_wtmk import NeRFDatasetDisen
     from .models.ngp import NGPConfig
@@ -185,9 +180,14 @@ def main(argv=None):
     trainer.resolve_auto_compaction(train_loader)
     test_bitacc_loader = make_loader("test", opt.n_views, opt.n_test_bitacc)
     test_image_loader = make_loader("test_image", opt.num_images_test, 4)
-    total = opt.iters + opt.wm_polish_iters
-    trainer.train(train_loader, test_image_loader, test_bitacc_loader,
-                  int(np.ceil(total / len(train_loader))))
+    if opt.steps_per_dispatch > 0:
+        trainer.train_device(train_loader, opt.iters, steps_per_dispatch=opt.steps_per_dispatch,
+                             test_image_loader=test_image_loader,
+                             test_bitacc_loader=test_bitacc_loader)
+    else:
+        total = opt.iters + opt.wm_polish_iters
+        trainer.train(train_loader, test_image_loader, test_bitacc_loader,
+                      int(np.ceil(total / len(train_loader))))
     trainer.test_image(make_loader("test_image_testviews", opt.num_images_test, 4),
                        name="test_image_from_testviews")
     return 0

@@ -17,6 +17,7 @@ prewatermark variant (ROADMAP queue 1) and are not ported.
 """
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -27,16 +28,22 @@ _IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 _IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device):
+    """(mean, std) on ``device``, copied there once: a copy from the host
+    cannot run inside a captured train step."""
+    return (torch.as_tensor(_IMAGENET_MEAN, device=device),
+            torch.as_tensor(_IMAGENET_STD, device=device))
+
+
 def normalize_img(x):
     """x: [..., 3] in [0, 1] -> ImageNet-normalised (channel-last)."""
-    mean = torch.as_tensor(_IMAGENET_MEAN, device=x.device)
-    std = torch.as_tensor(_IMAGENET_STD, device=x.device)
+    mean, std = _imagenet_stats(x.device)
     return (x - mean) / std
 
 
 def unnormalize_img(x):
-    mean = torch.as_tensor(_IMAGENET_MEAN, device=x.device)
-    std = torch.as_tensor(_IMAGENET_STD, device=x.device)
+    mean, std = _imagenet_stats(x.device)
     return x * std + mean
 
 

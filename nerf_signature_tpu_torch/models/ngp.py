@@ -247,7 +247,7 @@ def _encode_pos(params, cfg: NGPConfig, x, plain=False):
     ``plain``), differentiable in the master table; the rows are gathered in
     the compute dtype.  [M, enc_dim], or on the kernel path [M,
     feature_pitch(cfg)] (K1 writes the padded columns as zeros)."""
-    bound = torch.tensor(cfg.bound, dtype=torch.float32, device=x.device)
+    bound = torch.full((), cfg.bound, dtype=torch.float32, device=x.device)
     x01 = (x + bound) / (2.0 * bound)
     return hash_encode(
         x01, params["hash_table"], cfg.resolutions, cfg.log2_hashmap_size,

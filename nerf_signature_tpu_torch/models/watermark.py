@@ -126,7 +126,7 @@ def _encode_with_message(fp, cfg: WatermarkConfig, x, plain=False):
     if fp.get("msg_eff") is None:
         return feat
     ngp = cfg.ngp
-    bound = torch.tensor(ngp.bound, dtype=torch.float32, device=x.device)
+    bound = torch.full((), ngp.bound, dtype=torch.float32, device=x.device)
     x01 = (x + bound) / (2.0 * bound)
     _, _, off = msg_encode_placement(cfg)
     # all levels: the message feature at the backbone's pitch, its padded

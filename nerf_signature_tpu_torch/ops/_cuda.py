@@ -15,6 +15,7 @@ start (too many threads, too much shared memory) raises here instead of
 being lost.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -45,6 +46,7 @@ SOURCES = {
     "field_mma_bwd_full.cu": ["-fmad=false"],
     "msgtable.cu": ["-fmad=false"],
     "gather.cu": [],
+    "compact.cu": [],
 }
 # K4's widths (IN, hidden, 1 + geo, colour hidden), the list
 # csrc/field_common.cuh:NGP_FIELD_WIDTHS instantiates: 16 levels x 2
@@ -79,6 +81,9 @@ _SIGNATURES = {
     "ngp_composite": [_P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
     "ngp_composite_bwd": [_P] * 5 + [_F, _I, _I] + [_P] * 7,
     "ngp_march": ([_P, _P, _FP, _P, _P, _P] + [_I] * 9 + [_F] * 6 + [_P] * 9 + [_P]),
+    "ngp_compact_pack": [_P, _P, _P, _L, _I, _L] + [_P] * 5 + [_P],
+    "ngp_compact_unpack": [_P, _P, _P, _L, _P, _P, _P],
+    "ngp_compact_unpack_bwd": [_P, _P, _P, _L, _P, _P, _P],
 }
 
 _lib = None
@@ -222,6 +227,9 @@ FIELD_BWD_FEAT_MMA = CudaKernel("ngp_field_mma_bwd_feat")
 MSG_TABLE = CudaKernel("ngp_msg_table")
 MSG_TABLE_BWD = CudaKernel("ngp_msg_table_bwd")
 TABLE_GATHER = CudaKernel("ngp_table_gather")
+COMPACT_PACK = CudaKernel("ngp_compact_pack")
+COMPACT_UNPACK = CudaKernel("ngp_compact_unpack")
+COMPACT_UNPACK_BWD = CudaKernel("ngp_compact_unpack_bwd")
 
 # K4's forward, full backward and feature-only backward have two routes
 # each, counted apart: the tensor-core kernels (bf16) and the SIMT ones
@@ -232,7 +240,8 @@ KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH,
            "K4_field_bwd": FIELD_BWD_MMA, "K4_field_bwd_f32": FIELD_BWD,
            "K4_field_bwd_feat": FIELD_BWD_FEAT_MMA, "K4_field_bwd_feat_f32": FIELD_BWD_FEAT,
            "K9_msg_table": MSG_TABLE, "K9_msg_table_bwd": MSG_TABLE_BWD,
-           "P1_gather": TABLE_GATHER}
+           "P1_gather": TABLE_GATHER, "K5_compact_pack": COMPACT_PACK,
+           "K5_compact_unpack": COMPACT_UNPACK, "K5_compact_unpack_bwd": COMPACT_UNPACK_BWD}
 
 
 def reset_launch_counts():
@@ -242,6 +251,30 @@ def reset_launch_counts():
 
 def launch_counts():
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around the capture of a CUDA graph: the wrappers run and count, but
+    a capture launches nothing, so the counts go back to what they were;
+    the context's dict gets the captured launches by kernel, which
+    ``count_replay`` adds once a replay."""
+    before = launch_counts()
+    captured = {}
+    try:
+        yield captured
+    finally:
+        for name, k in KERNELS.items():
+            n = k.launches - before[name]
+            k.launches = before[name]
+            if n:
+                captured[name] = n
+
+
+def count_replay(captured, replays=1):
+    """Add a graph's captured launches (``capturing``) for its replays."""
+    for name, n in captured.items():
+        KERNELS[name].launches += n * replays
 
 
 @functools.lru_cache(maxsize=None)

@@ -96,12 +96,17 @@ def draw_grid_randomness(generator, C, H, full, device):
 
 def _set_last_wins(tmp_row, indices, values):
     """tmp_row[indices] = values where, for a repeated index, the LAST
-    occurrence wins (what a sequential scatter does), on any device."""
+    occurrence wins (what a sequential scatter does), on any device, with
+    no host sync: the earlier occurrences are written to a spare slot past
+    the row's end, which is dropped."""
+    n = tmp_row.shape[0]
     pos = torch.arange(indices.shape[0], device=indices.device)
-    last = torch.full((tmp_row.shape[0],), -1, dtype=torch.int64, device=indices.device)
+    last = torch.full((n,), -1, dtype=torch.int64, device=indices.device)
     last.scatter_reduce_(0, indices, pos, reduce="amax")
-    keep = last[indices] == pos
-    tmp_row[indices[keep]] = values[keep]
+    dst = torch.where(last[indices] == pos, indices, n)
+    padded = torch.cat([tmp_row, tmp_row.new_zeros((1,))])
+    padded[dst] = values
+    tmp_row.copy_(padded[:n])
 
 
 @torch.no_grad()
@@ -116,7 +121,8 @@ def update_occupancy_grid(grid: OccupancyGrid, density_fn, *, bound,
     cell; otherwise H^3/4 random cells plus H^3/4 occupied cells resampled
     uniformly with replacement by inverse CDF.  ``draws``: one ``GridDraws``
     per cascade; drawn from ``generator`` when None.  Queries run in chunks
-    of ``chunk`` points."""
+    of ``chunk`` points.  No step reads a value back to the host, so an
+    update can run between the replays of a captured train step."""
     C = grid.density.shape[0]
     H = grid_size
     dev = grid.density.device
@@ -133,7 +139,7 @@ def update_occupancy_grid(grid: OccupancyGrid, density_fn, *, bound,
             rand_coords = dr.rand_coords.to(device=dev, dtype=torch.int64)
             rand_idx = (rand_coords[:, 0] * H + rand_coords[:, 1]) * H + rand_coords[:, 2]
             occ_mask = (grid.density[cas] > 0).to(torch.float32)
-            weights = occ_mask if bool(occ_mask.any()) else torch.ones_like(occ_mask)
+            weights = torch.where(occ_mask.any(), occ_mask, torch.ones_like(occ_mask))
             cdf = torch.cumsum(weights, dim=0)
             u = dr.occ_u.to(dev) * cdf[-1]
             occ_idx = torch.clamp(torch.searchsorted(cdf, u), 0, H**3 - 1)
@@ -164,6 +170,18 @@ def update_occupancy_grid(grid: OccupancyGrid, density_fn, *, bound,
         iter_density=grid.iter_density + 1,
         density_live=density_live,
     )
+
+
+@torch.no_grad()
+def update_occupancy_grid_(grid: OccupancyGrid, density_fn, **kwargs):
+    """``update_occupancy_grid`` written into ``grid``'s own tensors, which
+    a captured train step reads by address; returns ``grid``."""
+    if grid.density_live is None:
+        raise ValueError("an in-place grid update needs the grid's density_live tensor")
+    new = update_occupancy_grid(grid, density_fn, **kwargs)
+    for old_t, new_t in zip(grid, new):
+        old_t.copy_(new_t)
+    return grid
 
 
 @torch.no_grad()

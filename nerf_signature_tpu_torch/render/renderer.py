@@ -1,10 +1,10 @@
 """Occupancy-grid volume renderer (counterpart of
 ``nerf_signature_tpu/render/renderer.py:render_rays_occ``).
 
-One chunk of rays: slab test + march (K2) -> field (K1 + K4, through
-``field_fn``) -> composite (K3) -> background blend and normalised depth.
-Training differentiates through it (the kernels' autograd Functions, and
-autograd through the compaction's gathers).  The fixed-step path
+One chunk of rays: slab test + march (K2) -> sample compaction (K5, with
+``compact_frac``) -> field (K1 + K4, through ``field_fn``) -> composite
+(K3) -> background blend and normalised depth.  Training differentiates
+through it (the kernels' autograd Functions).  The fixed-step path
 (``render_rays_fixed``) is not ported yet.
 """
 
@@ -14,6 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.compact import compact, uncompact
 from ..ops.composite import composite_rays, composite_rays_plain
 from ..ops.marching import march_rays_aabb
 
@@ -56,7 +57,8 @@ def render_rays_occ(field_fn: Callable, occupancy, rays_o, rays_d,
     ``perturb_key``).  ``aabb``: optional [6] crop box (default: the scene
     bound).  ``coarse``: the prefilter's dilated coarse grid, built once per
     render by the caller (built here when None).  ``plain=True`` runs the
-    plain versions of the marcher and compositor whatever the device.
+    plain versions of the marcher, the compaction and the compositor
+    whatever the device.
     Returns dict(image [N, 3], depth [N], weights_sum [N], n_occupied,
     n_occupied_raw, n_groups_occ [N])."""
     if rc.t_cull > 0:
@@ -78,20 +80,11 @@ def render_rays_occ(field_fn: Callable, occupancy, rays_o, rays_d,
     if rc.compact_frac > 0:
         Mc = min(int(math.ceil(N * S * rc.compact_frac / 1024.0)) * 1024, N * S)
     if 0 < Mc < N * S:
-        # pack the occupied samples of the whole batch into Mc slots (cumsum
-        # rank + one scatter), run the field there, gather the results back
-        flat_mask = m["mask"].reshape(-1)
-        rank = torch.cumsum(flat_mask.to(torch.int64), dim=0) - 1
-        keep = flat_mask & (rank < Mc)
-        dst = torch.where(keep, rank, Mc)
-        xyz_c = torch.zeros((Mc + 1, 3), dtype=m["xyzs"].dtype, device=rays_o.device)
-        xyz_c[dst] = m["xyzs"].reshape(-1, 3)
-        dir_c = torch.zeros((Mc + 1, 3), dtype=rays_d.dtype, device=rays_o.device)
-        dir_c[dst] = m["dirs"].reshape(-1, 3)
-        sig_c, rgb_c = field_fn(xyz_c[:Mc].contiguous(), dir_c[:Mc].contiguous())
-        src = torch.clamp(rank, 0, Mc - 1)
-        sigmas = torch.where(keep, sig_c[src], 0.0)
-        rgbs = torch.where(keep[:, None], rgb_c[src], 0.0)
+        # pack the occupied samples of the whole batch into Mc slots (K5),
+        # run the field there, scatter the results back
+        comp = compact(m["mask"], m["xyzs"], rays_d, Mc, plain=plain)
+        sig_c, rgb_c = field_fn(comp.xyz_c, comp.dir_c)
+        sigmas, rgbs = uncompact(sig_c, rgb_c, comp)
     else:
         sigmas, rgbs = field_fn(m["xyzs"].reshape(-1, 3), m["dirs"].reshape(-1, 3))
     sigmas = sigmas.reshape(N, S) * rc.density_scale

@@ -7,11 +7,12 @@ checkpoint, evaluation and the test render.
 
 Randomness is explicit: the per-step random background and march noise are
 drawn from the model's ``torch.Generator`` and handed to the renderer as
-tensors (JAX splits a key into the same two draws).  Paths not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item: the device loop
-(``--steps_per_dispatch``), ``--error_map``, the patch LPIPS/SSIM losses,
-``--clip_text``, the stochastic hash estimators (K7), ``--devices > 1`` and
-training with ``t_cull > 0``.
+tensors (JAX splits a key into the same two draws).  ``train_device`` runs
+K steps a dispatch on the device (``train/device_loop.py``; on the card a
+replayed CUDA graph of the step).  Paths not ported yet raise
+``NotImplementedError`` naming their ROADMAP item: ``--error_map``, the
+patch LPIPS/SSIM losses, ``--clip_text``, the stochastic hash estimators
+(K7), ``--devices > 1`` and training with ``t_cull > 0``.
 """
 
 import dataclasses
@@ -40,6 +41,14 @@ from .checkpoint import (
     params_from_jax,
     prune_checkpoints,
     save_checkpoint,
+)
+from .device_loop import (
+    adam_step,
+    device_train_loop,
+    drop_graph,
+    preload,
+    prepare_device_loop,
+    set_lr,
 )
 from .metrics import PSNRMeter
 
@@ -122,6 +131,11 @@ class Trainer:
         self._budget_hysteresis = 0
         self._group_hysteresis = 0
         self._compact_pending = None
+        # the device loop: the grid's updates counted on the host, the
+        # device lr schedule (card), the live CUDA graph of the step
+        self.grid_updates = None
+        self.device_schedule = None
+        self.step_graph = None
 
         if workspace is not None:
             os.makedirs(workspace, exist_ok=True)
@@ -270,13 +284,15 @@ class Trainer:
         loss = torch.mean(per_ray)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(self.opt_count())
+        set_lr(self.optimizer, param_leaves(m.params)[0], self.lr_schedule,
+               self.device_schedule)
         self.optimizer.step()
         if self.ema_decay is not None:
             with torch.no_grad():
-                for e, p in zip(param_leaves(self.ema_params), param_leaves(m.params)):
-                    e.mul_(self.ema_decay).add_(p * (1.0 - self.ema_decay))
+                ema = param_leaves(self.ema_params)
+                torch._foreach_mul_(ema, self.ema_decay)
+                torch._foreach_add_(ema, torch._foreach_mul(param_leaves(m.params),
+                                                            1.0 - self.ema_decay))
         return (loss.detach(), per_ray.detach(), out["n_occupied"],
                 out["n_occupied_raw"], out["n_groups_occ"])
 
@@ -347,10 +363,60 @@ class Trainer:
                          train_budget=m.train_budget)
         return avg
 
-    def train_device(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the on-device K-step loop (--steps_per_dispatch) is ROADMAP queue 1 "
-            "item 'device loop / CUDA graph of the step', not ported yet")
+    def train_device(self, loader, max_steps=None, steps_per_dispatch=256):
+        """On-device training (``train/device_loop.py``): dispatches of K
+        steps on the preloaded dataset, and between them, in JAX's order, the
+        compaction, march-budget and group-budget adaptations, the metrics
+        line, and every ``save_interval`` dispatches a checkpoint and the
+        fog-deadlock guard."""
+        if self.model.rc.t_cull > 0:
+            raise NotImplementedError(T_CULL_TODO)
+        m = self.model
+        max_steps = max_steps or self.opt.iters
+        data = preload(loader.poses, loader.images, loader.intrinsics, loader.H, loader.W,
+                       m.device)
+        m.mark_untrained_grid(loader.poses, loader.intrinsics)
+        prepare_device_loop(self, param_leaves(m.params))
+        update_interval = getattr(self.opt, "update_extra_interval", 16)
+        start = time.time()
+        while self.global_step < max_steps:
+            k = min(steps_per_dispatch, max_steps - self.global_step)
+            st = device_train_loop(self, data, k, update_interval=update_interval)
+            self.global_step += k
+            loss = float(st.losses.mean())
+            self.stats["loss"].append(loss)
+            rays_s = k * self.opt.num_rays / max(time.time() - start, 1e-9)
+            self.log(f"[device loop] step={self.global_step}/{max_steps} "
+                     f"loss={st.losses[-1]:.6f} mean_occ={st.mean_occupied:.1f} "
+                     f"({rays_s / 1e6:.2f}M rays/s)")
+            self.log_metrics(loss=loss, rays_per_sec=rays_s, mean_occ=st.mean_occupied,
+                             occ_p95=st.occ_p95, train_budget=m.train_budget)
+            self._adapt_compaction(st.mean_occupied)
+            self._adapt_budget(st.mean_occupied_raw)
+            self._adapt_group_budget(st.mean_groups_occ)
+            start = time.time()
+            self.epoch += 1
+            if self.workspace and self.epoch % max(1, getattr(self.opt, "save_interval", 10)) == 0:
+                self.save_checkpoint(full=True)
+                prune_checkpoints(self.ckpt_path, self.name, self.max_keep_ckpt)
+                self._fog_guard()
+        if self.workspace:
+            self.save_checkpoint(full=True)
+            prune_checkpoints(self.ckpt_path, self.name, self.max_keep_ckpt)
+
+    def _fog_guard(self):
+        """Warn once when the grid stays >90% occupied past step 500: the
+        march budget is spent on unpruned fog (almost always a too-low
+        --density_thresh)."""
+        m = self.model
+        occ_frac = float(m.occ.occupancy.float().mean())
+        self.log(f"[grid] occupancy frac {occ_frac:.3f} "
+                 f"mean_density {float(m.occ.mean_density):.3f}")
+        if occ_frac > 0.9 and self.global_step > 500 and not getattr(self, "_warned_fog", False):
+            self._warned_fog = True
+            self.log("[grid] WARNING: occupancy grid is >90% occupied after 500 steps — the "
+                     "march budget is being spent on unpruned fog. Raise --density_thresh "
+                     "(the torch-ngp Blender recipe uses 10) or check the scene scale.")
 
     def train(self, train_loader, valid_loader=None, max_epochs=1):
         if getattr(train_loader, "poses", None) is not None:
@@ -449,8 +515,8 @@ class Trainer:
         check_params_like(self.model.params, mu)
         check_params_like(self.model.params, nu)
         for p, a, b in zip(param_leaves(self.model.params), param_leaves(mu), param_leaves(nu)):
-            self.optimizer.state[p] = {"step": torch.tensor(float(count)), "exp_avg": a,
-                                       "exp_avg_sq": b}
+            self.optimizer.state[p] = {"step": adam_step(self.optimizer, count, p.device),
+                                       "exp_avg": a, "exp_avg_sq": b}
 
     def _state(self, full=True):
         state = {
@@ -483,6 +549,7 @@ class Trainer:
         into the existing tensors, so the optimizer keeps its references."""
         raw = load_checkpoint(path)
         m = self.model
+        drop_graph(self)
         params = params_from_jax(raw["params"], m.device)
         check_params_like(m.params, params)
         _copy_into(m.params, params)
@@ -501,6 +568,7 @@ class Trainer:
                     self._load_opt_state(raw["opt_state"])
                 except (KeyError, ValueError, TypeError) as e:
                     self.log(f"[ckpt] optimizer restore failed (soft): {e}")
+        self.grid_updates = None
         self.log(f"[ckpt] loaded {path}")
         ensure_occupancy(m, path, self.log)
 

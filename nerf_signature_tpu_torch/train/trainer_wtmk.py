@@ -22,10 +22,12 @@ Multi-view keys (``--n_views V > 1``): the key blocks render from V key
 poses ([D, V, bh, bw, 3] ray bundles) and reach the decoder
 channel-concatenated, [D, bh, bw, V*3]; distortions and the normalisation
 run per view (``_per_view``), their draws made at the per-view batch shape
-[D*V, bh, bw, 3].  Not ported yet (each raises ``NotImplementedError``
-naming its ROADMAP item): ``--steps_per_dispatch``, ``--devices > 1``,
-``--patch_size`` / ``--lambda_ssim``, ``--finetune_decoder`` and the
-stochastic hash estimators.
+[D*V, bh, bw, 3].  ``train_device`` runs K steps a dispatch on the device
+(``train/device_loop.py:wm_device_loop``; on the card a replayed CUDA graph
+of the step), its messages and distortion draws made on the device.  Not
+ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
+``--devices > 1``, ``--patch_size`` / ``--lambda_ssim``,
+``--finetune_decoder`` and the stochastic hash estimators.
 """
 
 import dataclasses
@@ -59,6 +61,14 @@ from .checkpoint import (
     to_state_dict,
     trainable_from_jax,
     trainable_to_jax,
+)
+from .device_loop import (
+    adam_step,
+    drop_graph,
+    preload,
+    prepare_device_loop,
+    set_lr,
+    wm_device_loop,
 )
 from .metrics import BitAccMeter, PSNRMeter, SSIMMeter
 from .trainer import T_CULL_TODO, ensure_occupancy, make_lr_schedule, restore_occupancy, write_png
@@ -225,6 +235,13 @@ class WatermarkTrainer:
         self.stats = {"loss": [], "lossi": [], "lossw": [], "results": [],
                       "checkpoints": [], "best_result": None}
         self.rng = np.random.default_rng(opt.seed)
+        # the device loop: lambda_w as a device scalar (the polish phase
+        # changes it between dispatches), the device lr schedule (card),
+        # the live CUDA graph of the step
+        self.lambda_w_t = None
+        self.grid_updates = None
+        self.device_schedule = None
+        self.step_graph = None
 
         if workspace is not None:
             os.makedirs(workspace, exist_ok=True)
@@ -311,20 +328,22 @@ class WatermarkTrainer:
                 torch.as_tensor(np.asarray(rd_b, np.float32), device=dev))
 
     def _train_step(self, rays_o_b, rays_d_b, ct_o, ct_d, ct_gt, message, draws, rc,
-                    plain=False):
+                    plain=False, lambda_w=None):
         """One optimisation step with the given message ([D] int32 tensor)
-        and distortion draws.  Returns (loss, lossw, lossi, decoded),
+        and distortion draws; ``lambda_w`` (default ``self.lambda_w``) may
+        be a device scalar.  Returns (loss, lossw, lossi, decoded),
         detached."""
         m = self.model
         loss, (lossw, lossi, decoded) = _wm_step_loss(
             m.backbone, m.trainable, render_grid(m.occ, rc.t_cull), rays_o_b, rays_d_b,
-            ct_o, ct_d, ct_gt, message, draws, self.lambda_w, self.lambda_i, m.wcfg, rc,
+            ct_o, ct_d, ct_gt, message, draws,
+            self.lambda_w if lambda_w is None else lambda_w, self.lambda_i, m.wcfg, rc,
             self.content_budget, m.infer_budget, self.distortion, self.loss_w_fn,
             lambda_msg_reg=self.lambda_msg_reg or None, plain=plain)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(self.opt_count())
+        set_lr(self.optimizer, m.trainable["msg_tables"], self.lr_schedule,
+               self.device_schedule)
         self.optimizer.step()
         return loss.detach(), lossw.detach(), lossi.detach(), decoded.detach()
 
@@ -386,10 +405,55 @@ class WatermarkTrainer:
         if self.workspace:
             self.save_checkpoint(full=True)
 
-    def train_device(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the on-device K-step loop (--steps_per_dispatch) is ROADMAP queue 1 "
-            "item 'the wm and clean device loops', not ported yet")
+    def train_device(self, train_loader, max_steps=None, steps_per_dispatch=256,
+                     test_image_loader=None, test_bitacc_loader=None):
+        """On-device watermark training (``device_loop.wm_device_loop``):
+        dispatches of K steps on the preloaded pseudo-GT pool and the static
+        key-block bundles; a dispatch never straddles the polish boundary
+        (its lambda_w is set at launch); between dispatches, every
+        ``eval_interval`` of them ``test_bitacc`` and ``test_image``, every
+        ``save_interval`` a checkpoint."""
+        m = self.model
+        if m.rc.t_cull > 0:
+            raise NotImplementedError(T_CULL_TODO)
+        max_steps = max_steps or self.opt.iters
+        if getattr(train_loader, "poses", None) is not None:
+            m.mark_untrained_grid(train_loader.poses, train_loader.intrinsics)
+        if self.workspace and getattr(train_loader, "images_block", None) is not None:
+            self._save_gt_blocks(train_loader)
+        ro_b, rd_b = self._device_rays(next(iter(train_loader))["watermark"])
+        data = preload(train_loader.poses, train_loader.train_images, train_loader.intrinsics,
+                       train_loader.H, train_loader.W, m.device)
+        rays_per_step = self.opt.num_rays + int(np.prod(ro_b.shape[:-1]))
+        prepare_device_loop(self, trainable_leaves(m.trainable))
+        total = max_steps + self.polish_iters
+        start = time.time()
+        while self.global_step < total:
+            self._maybe_enter_polish(max_steps)
+            k = min(steps_per_dispatch, total - self.global_step)
+            if self.polish_iters and not self._polishing and self.global_step < max_steps:
+                k = min(k, max_steps - self.global_step)
+            losses, lossws, lossis = wm_device_loop(self, data, ro_b, rd_b, k)
+            self.global_step += k
+            self.epoch += 1
+            rays_s = k * rays_per_step / max(time.time() - start, 1e-9)
+            self.log(f"[wm device loop] step={self.global_step}/{max_steps} "
+                     f"loss={losses[-1]:.6f} lossw={lossws[-1]:.6f} lossi={lossis[-1]:.6f} "
+                     f"({rays_s / 1e6:.2f}M rays/s)")
+            for key, v in (("loss", losses), ("lossw", lossws), ("lossi", lossis)):
+                self.stats[key].append(float(v.mean()))
+            self.log_metrics(loss=float(losses.mean()), lossw=float(lossws.mean()),
+                             lossi=float(lossis.mean()), rays_per_sec=rays_s)
+            start = time.time()
+            if test_bitacc_loader is not None and self.epoch % self.eval_interval == 0:
+                self.test_bitacc(test_bitacc_loader)
+            if test_image_loader is not None and self.epoch % self.eval_interval == 0:
+                self.test_image(test_image_loader)
+            if self.workspace and self.epoch % self.save_interval == 0:
+                self.save_checkpoint(full=True)
+                prune_checkpoints(self.ckpt_path, self.name, self.max_keep_ckpt)
+        if self.workspace:
+            self.save_checkpoint(full=True)
 
     def resolve_auto_compaction(self, loader):
         """``--compact_frac -1`` (and ``--group_budget -1``) in the wm stage:
@@ -559,8 +623,8 @@ class WatermarkTrainer:
             if a.shape != p.shape or b.shape != p.shape:
                 raise ValueError(f"optimizer moment shape {tuple(a.shape)} vs {tuple(p.shape)}")
         for p, a, b in zip(leaves, trainable_leaves(mu), trainable_leaves(nu)):
-            self.optimizer.state[p] = {"step": torch.tensor(float(count)), "exp_avg": a,
-                                       "exp_avg_sq": b}
+            self.optimizer.state[p] = {"step": adam_step(self.optimizer, count, p.device),
+                                       "exp_avg": a, "exp_avg_sq": b}
 
     def _state(self, full=True):
         state = {
@@ -593,6 +657,7 @@ class WatermarkTrainer:
         init), ref ``:1474-1479``."""
         raw = load_checkpoint(path)
         m = self.model
+        drop_graph(self)
         backbone = raw.get("backbone", raw.get("params"))
         if backbone is None:
             raise KeyError(f"{path} holds neither 'backbone' nor 'params'")

@@ -14,6 +14,7 @@ where every corner outside the image counts as 0, like JAX's
 ``align_corners=True`` and zero padding, in pixel coordinates.
 """
 
+import functools
 import math
 
 import torch
@@ -59,9 +60,16 @@ def scale(images, factors):
     return _warp(images, (rr - cy) / s + cy, (cc - cx) / s + cx)
 
 
+@functools.lru_cache(maxsize=None)
+def _taps(device):
+    """The 3-tap offsets on ``device``, copied there once (no host copy
+    inside a captured step)."""
+    return torch.tensor([-1.0, 0.0, 1.0], device=device)
+
+
 def gaussian_blur3(images, sigmas):
     """3x3 gaussian blur with a sigma per image, edges replicated."""
-    x = torch.tensor([-1.0, 0.0, 1.0], device=images.device)
+    x = _taps(images.device)
     k = torch.exp(-(x**2) / (2 * sigmas[:, None] ** 2))
     k = (k / k.sum(-1, keepdim=True))[:, :, None, None, None]  # [B, 3, 1, 1, 1]
     p = torch.cat([images[:, :1], images, images[:, -1:]], 1)

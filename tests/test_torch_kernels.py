@@ -29,13 +29,17 @@ backward at any T * F and more than 32 bits.  K3 is
 also held at its warp walk's edges (S not a multiple of the 32-slot chunk,
 stops inside the first chunk and at its boundary, the mask absent or all
 off, T_thresh 0, N = 0), its backward repeats bit-equal (no atomics).
+K5 (sample compaction) pack, unpack and unpack backward bit for bit
+against the plain versions on ``kernel_cases.k5_edge_inputs`` and at the
+clean and watermark steps' shapes; a clean step captured as a CUDA graph
+and replayed against the same steps run eagerly (1e-5: K1's atomics).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nerf_signature_tpu_torch.kernel_cases import k3_edge_inputs
+from nerf_signature_tpu_torch.kernel_cases import k3_edge_inputs, k5_edge_inputs
 from nerf_signature_tpu_torch.models import ngp as t_ngp
 from nerf_signature_tpu_torch.ops import composite as t_comp
 from nerf_signature_tpu_torch.ops import hashenc as t_hash
@@ -604,3 +608,116 @@ def test_message_feature_at_a_padded_width(cuda, hash_select):
         out.append(t_wm.wtmk_field(fp, wcfg, x, d, plain))
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------ K5
+K5_CASES = [c[0] for c in k5_edge_inputs()]
+
+
+def _k5_check(cuda, mask, xyzs, rd, Mc, sig_c, rgb_c, g_sig, g_rgb):
+    """K5's pack, unpack and unpack backward against the plain versions:
+    bit-exact (every value is a copy)."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    args = [torch.as_tensor(v) for v in (mask, xyzs, rd)]
+    plain = t_compact.compact_plain(*args, Mc)
+    comp = t_compact.compact(*(a.to(cuda) for a in args), Mc)
+    so, sa = t_compact.slot_maps_plain(plain)
+    for a, b in ((comp.xyz_c, plain.xyz_c), (comp.dir_c, plain.dir_c),
+                 (comp.slot_of, so), (comp.sample_of, sa)):
+        assert torch.equal(a.cpu(), b)
+    leaves = [torch.as_tensor(v).requires_grad_() for v in (sig_c, rgb_c)]
+    s, r = t_compact.uncompact_plain(*leaves, plain)
+    kl = [t.detach().to(cuda).requires_grad_() for t in leaves]
+    sk, rk = t_compact.uncompact(*kl, comp)
+    assert torch.equal(sk.detach().cpu(), s.detach()) and torch.equal(rk.detach().cpu(),
+                                                                      r.detach())
+    gs, gr = torch.as_tensor(g_sig), torch.as_tensor(g_rgb)
+    if s.numel():
+        ((s * gs).sum() + (r * gr).sum()).backward()
+        ((sk * gs.to(cuda)).sum() + (rk * gr.to(cuda)).sum()).backward()
+        assert torch.equal(kl[0].grad.cpu(), leaves[0].grad)
+        assert torch.equal(kl[1].grad.cpu(), leaves[1].grad)
+
+
+@pytest.mark.parametrize("name", K5_CASES)
+def test_compact_kernels_edge_cases(cuda, name):
+    case = {c[0]: c for c in k5_edge_inputs()}[name]
+    _k5_check(cuda, *case[1:])
+
+
+@pytest.mark.parametrize("N,S,frac", [(4096, 128, 0.25), (8704, 256, 0.5)])
+def test_compact_kernels_at_the_step_shapes(cuda, N, S, frac):
+    rng = np.random.default_rng(N)
+    mask = rng.uniform(size=(N, S)) < 0.2
+    mask[:, S // 2:] = False
+    Mc = int(np.ceil(N * S * frac / 1024)) * 1024
+    xyzs = np.where(mask[..., None], rng.uniform(-1, 1, (N, S, 3)), 0).astype(np.float32)
+    _k5_check(cuda, mask, xyzs, rng.normal(size=(N, 3)).astype(np.float32), Mc,
+              rng.normal(size=Mc).astype(np.float32), rng.uniform(size=(Mc, 3)).astype(np.float32),
+              rng.normal(size=N * S).astype(np.float32),
+              rng.normal(size=(N * S, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("C", [4, 3])
+def test_captured_step_replays_match_eager(cuda, monkeypatch, C):
+    """One clean step captured as a CUDA graph and replayed over two
+    dispatches of 3 steps (the first: two warm-up steps, the capture, one
+    replay; the second: three replays, the buffers reloaded) against the
+    same six steps run eagerly, on the same draws, for RGBA images and for
+    RGB ones (the white background a tensor the graph reads): fp32 losses
+    and params within 1e-5 relative (K1's backward adds by atomics); the
+    replays count their launches."""
+    import types
+
+    from nerf_signature_tpu_torch.api import NGPModel
+    from nerf_signature_tpu_torch.models.ngp import NGPConfig
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+    from nerf_signature_tpu_torch.train import trainer as t_trainer
+
+    rng = np.random.default_rng(0)
+    P, H, W, N, k, n = 4, 64, 64, 1024, 3, 6
+    poses = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
+    poses[:, 2, 3] = 2.5
+    poses[:, :3, :3] = np.diag([1.0, -1.0, -1.0])
+    images = rng.uniform(size=(P, H, W, C)).astype(np.float32)
+    intr = np.array([60.0, 60.0, 32.0, 32.0], np.float32)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    draws = t_dl.draw_clean(gen, n, P, N, H * W, C == 4, cuda)
+    runs = []
+    for graph in (True, False):
+        model = NGPModel(NGPConfig(bound=1.0, compute_dtype=torch.float32, **WIDTHS["narrow"]),
+                         grid_size=32, train_budget=64, compact_frac=0.5, seed=2, device=cuda)
+        model.params["hash_table"].data.mul_(1e4)
+        opt = types.SimpleNamespace(lr=1e-2, iters=100, num_rays=N, max_steps=128,
+                                    compact_frac=0.5, group_budget=0, update_extra_interval=16)
+        tr = t_trainer.Trainer("ngp", opt, model, workspace=None, use_checkpoint="scratch",
+                               mute=True)
+        data = t_dl.preload(poses, images, intr, H, W, cuda)
+        t_dl.prepare_device_loop(tr, t_trainer.param_leaves(model.params))
+        if not graph:
+            def eager(self, body, key, held, steps, before_step=None):
+                for j in range(steps):
+                    before_step(j)
+                    body()
+            monkeypatch.setattr(t_dl.StepGraph, "run", eager)
+        _cuda.reset_launch_counts()
+        losses = []
+        for lo in range(0, n, k):
+            tr.global_step = lo
+            rows = type(draws)(*(None if t is None else t[lo:lo + k] for t in draws))
+            losses += list(t_dl.device_train_loop(tr, data, k, draws=rows).losses)
+            # what the next dispatch allocates may land where a freed tensor was
+            torch.empty((N,), dtype=torch.int64, device=cuda).fill_(7)
+        torch.cuda.synchronize()
+        runs.append((losses, [p.detach().cpu() for p in t_trainer.param_leaves(model.params)],
+                     _cuda.launch_counts(), tr.step_graph))
+    (lg, pg, cg, sg), (le, pe, ce, _) = runs
+    assert sg.captures == 1
+    np.testing.assert_allclose(lg, le, rtol=1e-5)
+    for a, b in zip(pg, pe):
+        assert rel_l2(a, b) <= 1e-5
+    for name in ("K5_compact_pack", "K5_compact_unpack", "K5_compact_unpack_bwd",
+                 "K2_march", "K1_hash_encode_bwd"):
+        assert cg[name] == ce[name] >= n, name

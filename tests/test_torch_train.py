@@ -370,9 +370,8 @@ def test_trainer_refuses_unported_paths():
                dict(patch_size=4, lambda_ssim=0.1), dict(hash_fwd_corners=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_trainer.Trainer("ngp", _opt(**kw), tm, workspace=None, mute=True)
-    tt = t_trainer.Trainer("ngp", _opt(), tm, workspace=None, mute=True)
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        tt.train_device(None)
+    # the options the port runs construct
+    t_trainer.Trainer("ngp", _opt(), tm, workspace=None, mute=True)
 
 
 def test_training_with_t_cull_is_refused_at_the_start(tmp_path):
