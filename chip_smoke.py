@@ -118,7 +118,11 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                grid, Mc from the auto compaction, with times (device times
                with the L2 flushed before each call), bounds and the plain
                chain (cumsum, index_put_, the gather, indexing_backward) as
-               the library yardstick; the replayed CUDA graph of a step
+               the library yardstick; at the watermark step's shape the
+               pack 200 times over and, captured once in a CUDA graph,
+               replayed on 3 other marches, bit-exact each time (the
+               look-back's order, the scratch's reset); the replayed CUDA
+               graph of a step
                against eager steps (16 clean on RGBA and RGB views, 8
                watermark; bf16 and fp32; the losses over the run, and every
                step from the graph's own state -- its loss and Adam's
@@ -2530,10 +2534,77 @@ def k5_case(dev, mask, xyzs, rays_d, Mc, what, reps=50):
     return rows
 
 
+# K5's pack at the watermark step's shape: packs of one input, each held bit
+# for bit against the plain version, and replays of one captured pack on the
+# masks of other marches
+K5_REPEATS = 200
+K5_REPLAYS = 3
+
+
+def k5_same(comp, plain):
+    """Whether the kernel's pack equals the plain version's, bit for bit."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    so, sa = t_compact.slot_maps_plain(plain)
+    return all(torch.equal(a, b) for a, b in ((comp.xyz_c, plain.xyz_c),
+                                              (comp.dir_c, plain.dir_c),
+                                              (comp.slot_of, so), (comp.sample_of, sa)))
+
+
+def k5_repeats(mask, xyzs, rays_d, Mc, what):
+    """K5_REPEATS packs of one input, each bit-equal to the plain version: a
+    look-back that read a status word out of order would show as a rare
+    wrong offset."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    plain = t_compact.compact_plain(mask, xyzs, rays_d, Mc)
+    bad = sum(not k5_same(t_compact.compact(mask, xyzs, rays_d, Mc), plain)
+              for _ in range(K5_REPEATS))
+    if bad:
+        raise AssertionError(f"K5_compact_pack differs from its plain version in {bad} of "
+                             f"{K5_REPEATS} packs ({what})")
+    log(f"[k5] {K5_REPEATS} packs at {what}: every one bit-exact")
+    return K5_REPEATS
+
+
+def k5_graph(m, n_rays, budget, Mc):
+    """The pack captured once in a CUDA graph, then replayed K5_REPLAYS times
+    on the masks of other marches copied into its inputs: bit-exact each
+    time, so the tile counter and the status words start clean on every
+    replay.  Returns the kept counts of the replays."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    inputs = [t.clone() for t in k5_march(m, n_rays, budget, seed=50)[:3]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        t_compact.compact(*inputs, Mc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        comp = t_compact.compact(*inputs, Mc)
+    kept = []
+    for seed in range(51, 51 + K5_REPLAYS):
+        new = k5_march(m, n_rays, budget, seed=seed)[:3]
+        for dst, src in zip(inputs, new):
+            dst.copy_(src)
+        graph.replay()
+        plain = t_compact.compact_plain(*new, Mc)
+        if not k5_same(comp, plain):
+            raise AssertionError(f"K5_compact_pack replayed from a CUDA graph differs from its "
+                                 f"plain version (replay {len(kept)}, {n_rays} x {budget})")
+        kept.append(int(plain.keep.sum()))
+    del graph
+    log(f"[k5] the pack captured once, replayed on {K5_REPLAYS} other marches at {n_rays} x "
+        f"{budget} (kept {kept} of Mc {Mc}): bit-exact each time")
+    return kept
+
+
 def k5_phase(dev, m):
     """K5 on kernel_cases' edges, then at the clean step's shapes (4096 rays
     x the train budget 128, Mc from the auto compaction) and the watermark
-    step's (8,704 x 256) on the trained model's grid."""
+    step's (8,704 x 256) on the trained model's grid; at the latter also
+    the pack's repeats and graph replays."""
     from nerf_signature_tpu_torch.kernel_cases import k5_edge_inputs
 
     for name, *case in k5_edge_inputs():
@@ -2550,6 +2621,9 @@ def k5_phase(dev, m):
                                  f"(fraction {frac})")
         for name, row in k5_case(dev, mask, xyzs, rd, Mc, f"{n_rays} x {budget}").items():
             rows[name + tag] = dict(row, compact_frac=frac)
+    rows["K5_compact_pack_wm"].update(
+        repeats_bit_exact=k5_repeats(mask, xyzs, rd, Mc, f"{n_rays} x {budget}"),
+        graph_replays_kept=k5_graph(m, n_rays, budget, Mc))
     return rows
 
 
@@ -2876,9 +2950,17 @@ def _copy_state(dst, before, leaves_of, step_count):
                 a.copy_(b)
 
 
+# the kernels of K5's pack in a trace, by a substring of their names (an
+# earlier design, still timed against this one, launched k5_count and
+# k5_scan before its k5_pack)
+K5_PACK_TRACE = ("k5_pack", "k5_count", "k5_scan")
+
+
 def profile_dispatch(run, n, tag, compacting):
     """torch.profiler over one more dispatch of n steps: wall and device busy
-    ms a step and the idle share (as profile_steps reads them)."""
+    ms a step and the idle share (as profile_steps reads them), and the
+    device ms a step of K5's pack kernels and of memsets (the pack's reset
+    of its scratch among them)."""
     def work():
         t0 = time.time()
         run()
@@ -2892,12 +2974,17 @@ def profile_dispatch(run, n, tag, compacting):
         return {"wall_ms": wall_us / n / 1e3, "busy_ms": None, "idle_share": None}
     check_k5_trace(by_name, tag, compacting)
     busy_us = sum(by_name.values())
+    pack_us = sum(us for name, us in by_name.items() if any(p in name for p in K5_PACK_TRACE))
+    memset_us = sum(us for name, us in by_name.items() if "Memset" in name)
     log(f"[{tag}] one dispatch of {n} steps: wall {wall_us / n / 1e3:.3f} ms a step, device "
         f"busy {busy_us / n / 1e3:.3f} ms a step (idle share {1 - busy_us / wall_us:.1%})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name[:90]}")
+    log(f"[{tag}] K5 pack {pack_us / n / 1e3:.4f} ms a step, memsets "
+        f"{memset_us / n / 1e3:.4f}")
     return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
-            "idle_share": 1 - busy_us / wall_us}
+            "idle_share": 1 - busy_us / wall_us, "k5_pack_ms": pack_us / n / 1e3,
+            "memset_ms": memset_us / n / 1e3}
 
 
 def phase_device_loop(dev, backbone_model, workdir):
@@ -3189,6 +3276,7 @@ def main():
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
                      "shape": r["shape"], "compact_frac": r["compact_frac"],
+                     **{k: r[k] for k in ("repeats_bit_exact", "graph_replays_kept") if k in r},
                      "train_launches": train["launches"][base],
                      "wm_launches": wm["launches"][base],
                      "device_loop_launches": {k: v[base] for k, v in dl_launches.items()}})

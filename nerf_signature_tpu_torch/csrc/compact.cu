@@ -26,24 +26,112 @@
 // B a slot; unpack reads 4 B of slot map a sample and writes 16 B, reading
 // 16 B a kept sample; there is no arithmetic to speak of.
 //
-// Design: the scan is the simple three-pass one.  A tile is 1024 samples,
-// 4 consecutive ones a thread (256 threads): (1) each block counts its
-// tile's set bytes; (2) one block of 1024 threads scans the tile counts
-// (a chunk of 1024 tiles a step, carrying the sum); (3) each block scans
-// its threads' counts again (warp shuffles, then the warp sums), adds its
-// tile's offset and writes its samples; the same pass clears the empty
-// slots [min(total, Mc), Mc).  All three launch on the caller's stream and
-// allocate nothing, so a CUDA graph can capture them.
+// Design: the pack is a single-pass stream compaction with a decoupled
+// look-back scan (Merrill & Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", 2016), then one small launch for the empty slots.
+// * A block takes a tile of PACK_TILE = 2048 samples, 16 a thread, read as
+//   one uint4 of mask (bytes, scalar where the tile is ragged or the
+//   pointer unaligned), and its tile id from a counter in the scratch
+//   (atomicAdd), so ids follow the order in which blocks start: a tile waits
+//   only on tiles that are already running, whatever the grid's size.
+// * The block ranks its set samples (popc of each thread's 16 bits, a warp
+//   shuffle scan, the warp sums) and publishes its tile's count in its
+//   status word (flag and value in one 64-bit word, st.release.gpu; tile 0
+//   its inclusive prefix).  It then starts asynchronous copies (cp.async)
+//   of the tile's rays and of the 16-byte groups of its positions that
+//   touch a set sample into shared memory, side by side, and stages the
+//   set samples' indices in rank order.  Meanwhile its first warp looks
+//   back over the predecessors' status words (ld.acquire.gpu), 32 at a
+//   time, summing counts until it meets an inclusive prefix, and publishes
+//   its own inclusive prefix (st.release.gpu).
+// * With its offset known, the block writes slot_of for its samples as
+//   int4 (groups of 4 samples side by side), and the contiguous slot range
+//   [offset, offset + kept) of xyz_c, dir_c and sample_of as float4 / int4
+//   streams (a scalar head and tail) from shared memory.  A ray's
+//   direction is read once a tile: K2 writes a ray's samples as a prefix
+//   of its S slots, so a tile of 2048 samples spans at most 2048 / S + 1
+//   rays, staged where that is at most RAY_CAP (S >= 9; shorter rays read
+//   rays_d in place).  Nothing assumes the prefix: any mask packs the same.
+// * k5_pack_fill then clears the empty slots [min(total, Mc), Mc): the
+//   total is the last tile's inclusive prefix, known only once every tile
+//   is done.  It is a grid-stride launch of its own: left to the last
+//   block, a third of the slots or more would be written by one SM.
+// * The counter and the status words are cleared by a cudaMemsetAsync on
+//   the caller's stream at every call, so every replay of a CUDA graph that
+//   captured the pack starts clean.  A memset and two launches, all on the
+//   caller's stream, allocating nothing: a CUDA graph can capture them.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 4;
-constexpr int TILE = THREADS * ITEMS;
-constexpr int SCAN_THREADS = 1024;
+constexpr int PACK_THREADS = 128;
+constexpr int PACK_ITEMS = 16;  // one uint4 of mask a thread
+constexpr int PACK_TILE = PACK_THREADS * PACK_ITEMS;
+constexpr int RAY_CAP = 256;    // rays a tile stages (S >= 9); more: read in place
 constexpr unsigned FULL = 0xffffffffu;
+// a tile's status word: flag << 32 | value (a count or prefix below 2^31)
+constexpr unsigned long long FLAG_AGGREGATE = 1ull << 32;
+constexpr unsigned long long FLAG_INCLUSIVE = 2ull << 32;
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// asynchronous copies from global to shared memory (no registers held):
+// 16 bytes (both addresses 16-byte aligned) or 4; cp_async_wait() waits
+// for this thread's copies
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// p[q] = val(q) for q in [q0, q1), by the threads t = 0 .. nt - 1 of a
+// stride: vectors of 4 (V4: float4 or int4) over the 16-byte aligned groups
+// inside the range, scalars for the head and tail around them (and for the
+// whole range where p is unaligned).
+template <typename V4, typename T, typename F>
+__device__ __forceinline__ void store_run(T* p, long long q0, long long q1, long long t,
+                                          long long nt, F val) {
+  const long long a0 = (q0 + 3) & ~3LL, a1 = q1 & ~3LL;
+  if (!aligned16(p) || a0 >= a1) {
+    for (long long q = q0 + t; q < q1; q += nt) p[q] = val(q);
+    return;
+  }
+  for (long long q = q0 + t; q < a0; q += nt) p[q] = val(q);
+  for (long long q = a1 + t; q < q1; q += nt) p[q] = val(q);
+  for (long long g = (a0 >> 2) + t; g < (a1 >> 2); g += nt) {
+    const long long q = g << 2;
+    V4 w;
+    w.x = val(q);
+    w.y = val(q + 1);
+    w.z = val(q + 2);
+    w.w = val(q + 3);
+    reinterpret_cast<V4*>(p)[g] = w;
+  }
+}
 
 // Exclusive scan of one int a thread over the block; *total gets the sum.
 // ws holds one int a warp.  Ends with a barrier, so ws may be reused.
@@ -76,86 +164,174 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* ws, int* total) 
   return ex;
 }
 
-__global__ void __launch_bounds__(THREADS)
-    k5_count(const unsigned char* __restrict__ mask, long long M, int* __restrict__ counts) {
-  __shared__ int ws[THREADS / 32];
-  const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
-  int c = 0;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) c += (base + k < M && mask[base + k]) ? 1 : 0;
-  c = __reduce_add_sync(FULL, c);
-  if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = c;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int s = threadIdx.x < THREADS / 32 ? ws[threadIdx.x] : 0;
-    s = __reduce_add_sync(FULL, s);
-    if (threadIdx.x == 0) counts[blockIdx.x] = s;
+// The exclusive prefix of tile ``tile`` (> 0), by one warp: lane l reads
+// the status word of tile top - l, top = tile - 1 first.  The window is read
+// again until every lane up to the nearest inclusive prefix (all 32 where
+// there is none) has published; their values are summed, and the window
+// moves 32 tiles back until an inclusive prefix ends the walk.  Before tile
+// 0 reads as an inclusive prefix of 0.
+__device__ __forceinline__ long long look_back(const unsigned long long* status, int tile,
+                                               int lane) {
+  long long excl = 0;
+  int top = tile - 1;
+  while (true) {
+    const int p = top - lane;
+    const unsigned long long s = p >= 0 ? load_acquire(status + p) : FLAG_INCLUSIVE;
+    const unsigned incl = __ballot_sync(FULL, (s >> 32) == 2);
+    const unsigned ready = __ballot_sync(FULL, (s >> 32) != 0);
+    // lanes 0 .. the nearest inclusive prefix's
+    const unsigned need = incl ? ((incl & (0u - incl)) << 1) - 1u : FULL;
+    if ((ready & need) != need) continue;
+    excl += __reduce_add_sync(FULL, (need >> lane) & 1u ? (unsigned)s : 0u);
+    if (incl) return excl;
+    top -= 32;
   }
 }
 
-// offsets[b] <- sum of counts[0..b) in place; offsets[nb] <- the total.
-__global__ void __launch_bounds__(SCAN_THREADS) k5_scan(int* __restrict__ offsets, int nb) {
-  __shared__ int ws[SCAN_THREADS / 32];
-  int carry = 0;
-  for (int start = 0; start < nb; start += SCAN_THREADS) {
-    const int b = start + threadIdx.x;
-    const int v = b < nb ? offsets[b] : 0;
-    int total;
-    const int ex = block_exclusive_scan<SCAN_THREADS>(v, ws, &total);
-    if (b < nb) offsets[b] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) offsets[nb] = carry;
-}
-
-__global__ void __launch_bounds__(THREADS)
+// scratch: [0] the tile counter, [1 + b] tile b's status word; zero at launch
+__global__ void __launch_bounds__(PACK_THREADS)
     k5_pack(const unsigned char* __restrict__ mask, const float* __restrict__ xyzs,
             const float* __restrict__ rays_d, long long M, int S, long long Mc,
-            const int* __restrict__ offsets, int nb, float* __restrict__ xyz_c,
+            unsigned long long* __restrict__ scratch, float* __restrict__ xyz_c,
             float* __restrict__ dir_c, int* __restrict__ slot_of, int* __restrict__ sample_of) {
-  __shared__ int ws[THREADS / 32];
-  const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
-  bool on[ITEMS];
-  int c = 0;
+  constexpr int GROUPS = 3 * PACK_TILE / 4 / PACK_THREADS;  // float4s of xyzs a thread
+  __shared__ int sidx[PACK_TILE];                      // the set samples in rank order
+  __shared__ __align__(16) float sxyz[3 * PACK_TILE];  // the tile's positions, where set
+  __shared__ float sray[3 * RAY_CAP];                  // the tile's rays
+  __shared__ unsigned son[PACK_THREADS];               // each thread's mask bits
+  __shared__ int slr[PACK_THREADS];                    // and its first rank
+  __shared__ int ws[PACK_THREADS / 32];
+  __shared__ int s_tile;
+  __shared__ long long s_off;
+  unsigned long long* status = scratch + 1;
+  if (threadIdx.x == 0) s_tile = (int)atomicAdd(reinterpret_cast<unsigned int*>(scratch), 1u);
+  __syncthreads();
+  const int tile = s_tile;
+  const long long start = (long long)tile * PACK_TILE;
+  const int len = (int)(start + PACK_TILE < M ? PACK_TILE : M - start);
+  const int first = threadIdx.x * PACK_ITEMS;
+
+  // one read of the mask: bit k of on <- sample start + first + k is set
+  unsigned on = 0;
+  if (first + PACK_ITEMS <= len && aligned16(mask + start)) {
+    const uint4 mv = *reinterpret_cast<const uint4*>(mask + start + first);
+    const unsigned w[4] = {mv.x, mv.y, mv.z, mv.w};
 #pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    on[k] = base + k < M && mask[base + k];
-    c += on[k] ? 1 : 0;
+    for (int q = 0; q < 4; ++q) {
+      const unsigned b = __vcmpne4(w[q], 0u);  // 0xff in each set byte
+      on |= ((b & 1u) | ((b >> 7) & 2u) | ((b >> 14) & 4u) | ((b >> 21) & 8u)) << (4 * q);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < PACK_ITEMS; ++k)
+      if (first + k < len && mask[start + first + k]) on |= 1u << k;
   }
-  int tile_total;
-  long long rank = block_exclusive_scan<THREADS>(c, ws, &tile_total);
-  if ((int)blockIdx.x < nb) rank += offsets[blockIdx.x];
-  const long long total = offsets[nb];
+  son[threadIdx.x] = on;
+  int agg;
+  const int lr = block_exclusive_scan<PACK_THREADS>(__popc(on), ws, &agg);  // son visible
+  if (threadIdx.x == 0)
+    store_release(status + tile, (tile == 0 ? FLAG_INCLUSIVE : FLAG_AGGREGATE) | (unsigned)agg);
+  slr[threadIdx.x] = lr;
+
+  // copies into shared memory, in flight through the look-back: the tile's
+  // rays [r0, r0 + nr), where they fit, and the float4s g = t +
+  // PACK_THREADS u of the tile's 3 * len position floats that touch a set
+  // sample (side by side; scalars at a ragged end or an unaligned xyzs)
+  const long long r0 = start / S;
+  const int nr = (int)((start + len - 1) / S - r0 + 1);
+  const bool rays_staged = nr <= RAY_CAP;
+  if (rays_staged)
+    for (int e = threadIdx.x; e < 3 * nr; e += PACK_THREADS)
+      cp_async4(sray + e, rays_d + 3 * r0 + e);
+  const float* xt = xyzs + 3 * start;
+  const bool xyz_vec = aligned16(xt);
+#pragma unroll
+  for (int u = 0; u < GROUPS; ++u) {
+    const int g = threadIdx.x + PACK_THREADS * u, s0 = 4 * g / 3, s1 = (4 * g + 3) / 3;
+    if (((son[s0 / PACK_ITEMS] >> (s0 % PACK_ITEMS)) & 1u) |
+        ((son[s1 / PACK_ITEMS] >> (s1 % PACK_ITEMS)) & 1u)) {
+      if (xyz_vec && 4 * g + 4 <= 3 * len) {
+        cp_async16(sxyz + 4 * g, xt + 4 * g);
+      } else {
+        for (int c = 0; c < 4 && 4 * g + c < 3 * len; ++c)
+          cp_async4(sxyz + 4 * g + c, xt + 4 * g + c);
+      }
+    }
+  }
+
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    long long excl = 0;
+    if (tile > 0) {
+      excl = look_back(status, tile, lane);
+      if (lane == 0)
+        store_release(status + tile, FLAG_INCLUSIVE | (unsigned long long)(excl + agg));
+    }
+    if (lane == 0) s_off = excl;
+  }
+  // the set samples' indices in rank order
+  for (unsigned bits = on, r = lr; bits; bits &= bits - 1, ++r)
+    sidx[r] = (int)(start + first + __ffs(bits) - 1);
+  cp_async_wait();
+  __syncthreads();
+  const long long off = s_off;
+  const long long room = Mc - off;
+  const long long kept = room <= 0 ? 0 : (room < agg ? room : agg);
+
+  // slot_of (the slot, -1 where not kept) by groups of 4 samples, g = t +
+  // PACK_THREADS u: int4 stores side by side
+#pragma unroll
+  for (int u = 0; u < PACK_ITEMS / 4; ++u) {
+    const int g = threadIdx.x + PACK_THREADS * u, owner = g / 4, b0 = 4 * (g % 4);
+    const unsigned bits = son[owner];
+    long long r = off + slr[owner] + __popc(bits & ((1u << b0) - 1u));
+    int slot[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      slot[c] = -1;
+      if ((bits >> (b0 + c)) & 1u) {
+        if (r < Mc) slot[c] = (int)r;
+        ++r;
+      }
+    }
+    if (4 * g + 4 <= len && aligned16(slot_of + start)) {
+      reinterpret_cast<int4*>(slot_of + start)[g] = make_int4(slot[0], slot[1], slot[2], slot[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4 * g + c < len) slot_of[start + 4 * g + c] = slot[c];
+    }
+  }
+
+  // the slots [off, off + kept): positions, directions, sample indices
+  const long long t = threadIdx.x, q0 = 3 * off, q1 = 3 * (off + kept);
+  store_run<float4>(xyz_c, q0, q1, t, PACK_THREADS, [&](long long q) {
+    const int e = (int)(q - q0), j = e / 3;
+    return sxyz[3 * (sidx[j] - start) + (e - 3 * j)];
+  });
+  store_run<float4>(dir_c, q0, q1, t, PACK_THREADS, [&](long long q) {
+    const int e = (int)(q - q0), j = e / 3, a = e - 3 * j;
+    const long long n = sidx[j] / S;
+    return rays_staged ? sray[3 * (n - r0) + a] : rays_d[3 * n + a];
+  });
+  store_run<int4>(sample_of, off, off + kept, t, PACK_THREADS,
+                  [&](long long q) { return sidx[q - off]; });
+}
+
+// The empty slots [min(total, Mc), Mc): zero position and direction,
+// sample -1.  last: the last tile's status word (its inclusive prefix, the
+// total), or null for M = 0.
+__global__ void __launch_bounds__(THREADS)
+    k5_pack_fill(const unsigned long long* __restrict__ last, long long Mc,
+                 float* __restrict__ xyz_c, float* __restrict__ dir_c,
+                 int* __restrict__ sample_of) {
+  const long long total = last ? (long long)(unsigned)*last : 0;
   const long long n_kept = total < Mc ? total : Mc;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const long long i = base + k;
-    if (i < M) {
-      int slot = -1;
-      if (on[k]) {
-        if (rank < Mc) {
-          slot = (int)rank;
-          const long long n = i / S;
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            xyz_c[3 * rank + a] = xyzs[3 * i + a];
-            dir_c[3 * rank + a] = rays_d[3 * n + a];
-          }
-          sample_of[rank] = (int)i;
-        }
-        ++rank;
-      }
-      slot_of[i] = slot;
-    }
-    if (i < Mc && i >= n_kept) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        xyz_c[3 * i + a] = 0.0f;
-        dir_c[3 * i + a] = 0.0f;
-      }
-      sample_of[i] = -1;
-    }
-  }
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long nt = (long long)gridDim.x * THREADS;
+  store_run<float4>(xyz_c, 3 * n_kept, 3 * Mc, t, nt, [](long long) { return 0.0f; });
+  store_run<float4>(dir_c, 3 * n_kept, 3 * Mc, t, nt, [](long long) { return 0.0f; });
+  store_run<int4>(sample_of, n_kept, Mc, t, nt, [](long long) { return -1; });
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -204,25 +380,27 @@ inline unsigned int stride_blocks(long long n) {
 
 }  // namespace
 
-// scratch: nb + 1 ints, nb = ceil(M / 1024).  M and Mc below 2^31.
+// scratch: nt + 1 64-bit words, nt = ceil(M / PACK_TILE).  M and Mc below
+// 2^31.
 extern "C" int ngp_compact_pack(const void* mask, const void* xyzs, const void* rays_d,
                                 long long M, int S, long long Mc, void* scratch, void* xyz_c,
                                 void* dir_c, void* slot_of, void* sample_of, cudaStream_t s) {
-  const int nb = (int)ngp_blocks(M, TILE);
-  int* offsets = (int*)scratch;
-  if (nb > 0) {
-    k5_count<<<nb, THREADS, 0, s>>>((const unsigned char*)mask, M, offsets);
-    cudaError_t err = cudaGetLastError();
+  const long long nt = (M + PACK_TILE - 1) / PACK_TILE;
+  unsigned long long* words = (unsigned long long*)scratch;
+  if (nt > 0) {
+    cudaError_t err = cudaMemsetAsync(words, 0, (nt + 1) * sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return (int)err;
+    k5_pack<<<(unsigned int)nt, PACK_THREADS, 0, s>>>(
+        (const unsigned char*)mask, (const float*)xyzs, (const float*)rays_d, M, S, Mc, words,
+        (float*)xyz_c, (float*)dir_c, (int*)slot_of, (int*)sample_of);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  k5_scan<<<1, SCAN_THREADS, 0, s>>>(offsets, nb);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long n = M > Mc ? M : Mc;
-  if (n > 0) {
-    k5_pack<<<ngp_blocks(n, TILE), THREADS, 0, s>>>(
-        (const unsigned char*)mask, (const float*)xyzs, (const float*)rays_d, M, S, Mc, offsets,
-        nb, (float*)xyz_c, (float*)dir_c, (int*)slot_of, (int*)sample_of);
+  if (Mc > 0) {
+    // at most 4 blocks an SM's worth: most slots are full
+    const unsigned int b = ngp_blocks((3 * Mc + 3) / 4, THREADS);
+    k5_pack_fill<<<b < 132u * 4u ? b : 132u * 4u, THREADS, 0, s>>>(
+        nt > 0 ? words + nt : nullptr, Mc, (float*)xyz_c, (float*)dir_c, (int*)sample_of);
   }
   NGP_RETURN_LAST_ERROR();
 }

@@ -72,9 +72,14 @@ def k1_bwd_atomics(x01, g_feat, n_features, resolutions, log2_hashmap_size, gath
 def k5_edge_inputs(seed=5):
     """K5's edge cases: a list of (name, mask [N, S] bool, xyzs [N, S, 3],
     rays_d [N, 3], Mc, sig_c [Mc], rgb_c [Mc, 3], g_sigmas [M], g_rgbs [M,
-    3]) as numpy arrays: M not a multiple of the 1024-sample tile, every
+    3]) as numpy arrays: M not a multiple of 16 or of the pack's tile, every
     mask off, every mask on with Mc < M (rank >= Mc drops samples), Mc = M,
-    a single live sample at the last index, and N = 0."""
+    a single live sample at the last index, N = 0, rays of 5 samples (a
+    pack's tile spans more rays than it stages), and many tiles (137 of the
+    pack's 2048 samples, more than its look-back's window of 32: rays whose
+    samples are a prefix of their slots, as K2 writes them, beside rays of
+    scattered samples; five tiles all off; Mc cutting inside the 133rd
+    tile, so later tiles keep nothing)."""
     rng = np.random.default_rng(seed)
     cases = []
 
@@ -97,4 +102,10 @@ def k5_edge_inputs(seed=5):
     last[-1, -1] = True
     case("last_only", 5, 300, last, 1024)
     case("empty", 0, 64, np.zeros((0, 64), bool), 0)
+    case("short_rays", 700, 5, rng.uniform(size=(700, 5)) < 0.6, 2048)
+    N, S = 2200, 127
+    runs = np.arange(S)[None, :] < rng.integers(0, S + 1, size=(N, 1))
+    mask = np.where(np.arange(N)[:, None] % 2 == 0, runs, rng.uniform(size=(N, S)) < 0.5)
+    mask.reshape(-1)[3 * 2048:8 * 2048] = False
+    case("many_tiles", N, S, mask, 128 * 1024)
     return cases

@@ -25,6 +25,10 @@ import torch
 
 from . import _cuda
 
+# samples a block of the pack takes (csrc/compact.cu:PACK_TILE); its scratch
+# holds a tile counter and one status word a tile
+PACK_TILE = 2048
+
 
 class Compaction(NamedTuple):
     """The packed samples and the maps between samples and slots.  Plain
@@ -93,7 +97,7 @@ def compact(mask, xyzs, rays_d, Mc, plain=False):
     _cuda.check(xyzs, "xyzs", torch.float32, (N, S, 3), dev)
     _cuda.check(rays_d, "rays_d", torch.float32, (N, 3), dev)
     f32, i32 = torch.float32, torch.int32
-    scratch = torch.empty((-(-M // 1024) + 1,), dtype=i32, device=dev)
+    scratch = torch.empty((-(-M // PACK_TILE) + 1,), dtype=torch.int64, device=dev)
     xyz_c = torch.empty((Mc, 3), dtype=f32, device=dev)
     dir_c = torch.empty((Mc, 3), dtype=f32, device=dev)
     slot_of = torch.empty((M,), dtype=i32, device=dev)

@@ -1,8 +1,9 @@
 """K5, sample compaction: the port's plain version against the JAX
 package's inline compaction (``render/renderer.py:render_rays_occ``), the
 wrapper's CPU route, and the kernel's design emulated on the CPU (its
-three-pass tile scan and its gather backward through the inverse slot map)
-against the plain version on ``kernel_cases.k5_edge_inputs``.  The kernel
+single-pass pack with a decoupled look-back, under several orders of its
+tiles, and its gather backward through the inverse slot map) against the
+plain version on ``kernel_cases.k5_edge_inputs``.  The kernel
 itself runs on the card (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
 
 Tolerances and why:
@@ -18,6 +19,9 @@ Tolerances and why:
     occupied count, samples of rank >= Mc are dropped by both.
   * everything else is a copy: bit-equal (``torch.equal``).
 """
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -150,59 +154,180 @@ def test_cpu_wrapper_is_the_plain_version_with_autograds_backward(name):
         assert torch.equal(leaves[1].grad, old[1].grad)
 
 
-def emulate_pack(mask, xyzs, rays_d, Mc, tile=1024, items=4):
-    """``csrc/compact.cu``'s pack step by step in numpy: per-tile counts,
-    their exclusive scan, each thread's ``items`` consecutive samples ranked
-    by the block's scan of its threads' counts, the empty slots [min(total,
-    Mc), Mc) cleared by the threads of the same index."""
+# csrc/compact.cu's pack: threads a block, samples a thread (one uint4 of
+# mask), rays a tile stages, and a tile's status flags
+PACK_THREADS, PACK_ITEMS, RAY_CAP = 128, 16, 256
+AGGREGATE, INCLUSIVE = 1, 2
+
+
+def store_run(q0, q1):
+    """The positions ``csrc/compact.cu:store_run`` writes over [q0, q1) of
+    a 16-byte aligned array: a scalar head up to the first group of 4, the
+    groups of 4 (one float4 / int4 each), a scalar tail; all scalars where
+    the range holds no whole group."""
+    a0, a1 = (q0 + 3) & ~3, q1 & ~3
+    if a0 >= a1:
+        return np.arange(q0, q1)
+    groups = (np.arange(a0 // 4, a1 // 4)[:, None] * 4 + np.arange(4)).reshape(-1)
+    return np.concatenate([np.arange(q0, a0), np.arange(a1, q1), groups])
+
+
+def emulate_pack(mask, xyzs, rays_d, Mc, order):
+    """``csrc/compact.cu``'s pack step by step in numpy: the single pass
+    over tiles of ``PACK_TILE`` samples (positions and rays staged as the
+    kernel stages them, slot_of by groups of 4 samples) with a decoupled
+    look-back, then the launch that clears the empty slots.  Tiles start in the order of their
+    ids (the atomicAdd counter) and then run interleaved as ``order`` picks:
+    ``("seed", k)`` a random runnable tile from a generator seeded with k,
+    ``"newest_first"`` the runnable tile of highest id (every tile publishes
+    its count before tile 0's prefix, so the look-backs walk whole windows
+    of 32 counts).  A tile whose look-back finds a needed predecessor
+    unpublished waits until some status word changes.  Every output element
+    is counted as it is written; returns the outputs and those counts."""
     N, S = mask.shape
     M = N * S
-    flat = mask.reshape(-1)
-    nb = -(-M // tile)
-    counts = np.array([flat[b * tile:(b + 1) * tile].sum() for b in range(nb)], np.int64)
-    offsets = np.concatenate([[0], np.cumsum(counts)])
-    xyz_c = np.full((Mc, 3), np.nan, np.float32)
-    dir_c = np.full((Mc, 3), np.nan, np.float32)
-    slot_of = np.full((M,), -7, np.int32)
-    sample_of = np.full((Mc,), -7, np.int32)
-    n_kept = min(int(offsets[nb]), Mc)
-    for b in range(-(-max(M, Mc) // tile)):
-        base = b * tile + np.arange(tile // items)[:, None] * items + np.arange(items)
-        on = (base < M) & flat[np.minimum(base, max(M - 1, 0))] if M else np.zeros_like(base,
-                                                                                   bool)
+    tile = t_compact.PACK_TILE
+    flat, xyz_flat, rd_flat = mask.reshape(-1), xyzs.reshape(-1), rays_d.reshape(-1)
+    nt = -(-M // tile)
+    flag = np.zeros((nt,), np.int64)
+    value = np.zeros((nt,), np.int64)
+    out = {"xyz_c": np.full((3 * Mc,), np.nan, np.float32),
+           "dir_c": np.full((3 * Mc,), np.nan, np.float32),
+           "slot_of": np.full((M,), -7, np.int32), "sample_of": np.full((Mc,), -7, np.int32)}
+    writes = {k: np.zeros(v.shape, np.int64) for k, v in out.items()}
+    changed = [False]
+
+    def write(name, pos, vals):
+        out[name][pos] = vals
+        np.add.at(writes[name], pos, 1)
+
+    def publish(b, f, v):
+        flag[b], value[b] = f, v
+        changed[0] = True
+
+    def run_tile(b):
+        """One block's steps; yields whether the step got anywhere."""
+        base = b * tile + np.arange(PACK_THREADS)[:, None] * PACK_ITEMS + np.arange(PACK_ITEMS)
+        on = (base < M) & flat[np.minimum(base, M - 1)]
         c = on.sum(1)
-        rank = np.cumsum(c) - c + (offsets[b] if b < nb else 0)
-        for t in range(tile // items):
-            r = rank[t]
-            for k in range(items):
-                i = base[t, k]
-                if i < M:
-                    slot = -1
-                    if on[t, k]:
-                        if r < Mc:
-                            slot = r
-                            xyz_c[r] = xyzs.reshape(-1, 3)[i]
-                            dir_c[r] = rays_d[i // S]
-                            sample_of[r] = i
-                        r += 1
-                    slot_of[i] = slot
-                if n_kept <= i < Mc:
-                    xyz_c[i] = 0.0
-                    dir_c[i] = 0.0
-                    sample_of[i] = -1
-    return xyz_c, dir_c, slot_of, sample_of
+        lr = np.cumsum(c) - c  # the block's exclusive scan of the threads' counts
+        agg = int(c.sum())
+        sidx = base[on]  # staged in rank order
+        # the staged positions: each float4 of the tile's positions that
+        # touches a set sample (the rest never read: NaN here), and the
+        # tile's rays where they fit (RAY_CAP)
+        start, length = b * tile, min(tile, M - b * tile)
+        g = np.arange(3 * tile // 4)
+        touch = on.reshape(-1)[4 * g // 3] | on.reshape(-1)[(4 * g + 3) // 3]
+        q = (g[touch][:, None] * 4 + np.arange(4)).reshape(-1)
+        q = q[q < 3 * length]
+        sxyz = np.full((3 * tile,), np.nan, np.float32)
+        sxyz[q] = xyz_flat[3 * start + q]
+        r0, nr = start // S, (start + length - 1) // S - start // S + 1
+        sray = rd_flat[3 * r0:3 * (r0 + nr)] if nr <= RAY_CAP else None
+        yield True
+        excl = 0
+        if b == 0:
+            publish(0, INCLUSIVE, agg)
+        else:
+            publish(b, AGGREGATE, agg)
+            yield True
+            top = b - 1
+            while True:  # one warp: lane l reads tile top - l
+                p = top - np.arange(32)
+                f = np.where(p >= 0, flag[np.maximum(p, 0)], INCLUSIVE)
+                v = np.where(p >= 0, value[np.maximum(p, 0)], 0)
+                incl = f == INCLUSIVE
+                need = np.arange(32) <= (np.argmax(incl) if incl.any() else 31)
+                if not (f[need] != 0).all():
+                    yield False
+                    continue
+                excl += int(v[need].sum())
+                if incl.any():
+                    break
+                top -= 32
+                yield True
+            publish(b, INCLUSIVE, excl + agg)
+        yield True
+        kept = max(0, min(agg, Mc - excl))
+        # slot_of by groups of 4 samples: group g's owner thread g // 4, its
+        # bits from 4 (g % 4)
+        g = np.arange(tile // 4)
+        owner, b0 = g // 4, 4 * (g % 4)
+        bits = on[owner][:, None, :]  # [groups, 1, PACK_ITEMS]
+        below = np.arange(PACK_ITEMS)[None, None, :] < (b0[:, None] + np.arange(4))[:, :, None]
+        r = excl + lr[owner][:, None] + (bits & below).sum(-1)
+        sample = start + 4 * g[:, None] + np.arange(4)
+        set_ = on[owner][np.arange(len(g))[:, None], b0[:, None] + np.arange(4)]
+        live = sample < M
+        write("slot_of", sample[live], np.where(set_ & (r < Mc), r, -1)[live])
+        q = store_run(3 * excl, 3 * (excl + kept))
+        j, a = (q - 3 * excl) // 3, (q - 3 * excl) % 3
+        write("xyz_c", q, sxyz[3 * (sidx[j] - start) + a])
+        n = sidx[j] // S
+        write("dir_c", q, rd_flat[3 * n + a] if sray is None else sray[3 * (n - r0) + a])
+        q = store_run(excl, excl + kept)
+        write("sample_of", q, sidx[q - excl])
+
+    rng = np.random.default_rng(order[1]) if order != "newest_first" else None
+    running, blocked, started = {}, set(), 0
+    while running or started < nt:
+        runnable = [b for b in running if b not in blocked] + ([started] if started < nt else [])
+        assert runnable, "every running tile waits: the look-back deadlocked"
+        b = max(runnable) if rng is None else runnable[rng.integers(len(runnable))]
+        if b == started:
+            running[b] = run_tile(b)
+            started += 1
+        changed[0] = False
+        moved = next(running[b], None)
+        if moved is None:
+            del running[b]
+        elif not moved:
+            blocked.add(b)
+        if changed[0]:
+            blocked.clear()
+    # the second launch: the empty slots, from the last tile's prefix
+    assert (flag == INCLUSIVE).all()
+    n_kept = min(int(value[-1]) if nt else 0, Mc)
+    q = store_run(3 * n_kept, 3 * Mc)
+    write("xyz_c", q, 0.0)
+    write("dir_c", q, 0.0)
+    write("sample_of", store_run(n_kept, Mc), -1)
+    return out, writes
 
 
+ORDERS = [("seed", 0), ("seed", 1), ("seed", 2), "newest_first"]
+
+
+@pytest.mark.parametrize("order", ORDERS, ids=lambda o: o if isinstance(o, str) else f"seed{o[1]}")
 @pytest.mark.parametrize("name", list(CASES))
-def test_kernel_pack_design_matches_the_plain_version(name):
-    """The emulated tile scan writes every slot and every sample, and agrees
-    bit for bit with the plain version's slots and maps."""
+def test_kernel_pack_design_matches_the_plain_version(name, order):
+    """The emulated single pass writes every slot and every sample exactly
+    once, whatever order its tiles run in, and agrees bit for bit with the
+    plain version's slots and maps."""
     _, mask, xyzs, rd, Mc, *_ = CASES[name]
-    xyz_c, dir_c, slot_of, sample_of = emulate_pack(mask, xyzs, rd, Mc)
+    out, writes = emulate_pack(mask, xyzs, rd, Mc, order)
+    assert all((w == 1).all() for w in writes.values())
     comp = t_compact.compact_plain(T(mask), T(xyzs), T(rd), Mc)
     so, sa = t_compact.slot_maps_plain(comp)
-    assert np.array_equal(slot_of, so.numpy()) and np.array_equal(sample_of, sa.numpy())
-    assert np.array_equal(xyz_c, comp.xyz_c.numpy()) and np.array_equal(dir_c, comp.dir_c.numpy())
+    assert np.array_equal(out["slot_of"], so.numpy())
+    assert np.array_equal(out["sample_of"], sa.numpy())
+    assert np.array_equal(out["xyz_c"], comp.xyz_c.numpy().reshape(-1))
+    assert np.array_equal(out["dir_c"], comp.dir_c.numpy().reshape(-1))
+
+
+def test_pack_tile_is_the_kernels():
+    """The wrapper sizes the pack's scratch by the tile the kernel takes, and
+    the emulation runs the kernel's threads, samples a thread and staged
+    rays."""
+    with open(os.path.join(os.path.dirname(t_compact.__file__), "..", "csrc",
+                           "compact.cu")) as f:
+        src = f.read()
+    const = dict(re.findall(r"constexpr int (PACK_THREADS|PACK_ITEMS|RAY_CAP) = (\d+);", src))
+    assert tuple(int(const[k]) for k in ("PACK_THREADS", "PACK_ITEMS", "RAY_CAP")) == (
+        PACK_THREADS, PACK_ITEMS, RAY_CAP)
+    assert "PACK_TILE = PACK_THREADS * PACK_ITEMS;" in src
+    assert t_compact.PACK_TILE == PACK_THREADS * PACK_ITEMS
 
 
 @pytest.mark.parametrize("name", list(CASES))

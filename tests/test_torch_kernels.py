@@ -31,8 +31,11 @@ stops inside the first chunk and at its boundary, the mask absent or all
 off, T_thresh 0, N = 0), its backward repeats bit-equal (no atomics).
 K5 (sample compaction) pack, unpack and unpack backward bit for bit
 against the plain versions on ``kernel_cases.k5_edge_inputs`` and at the
-clean and watermark steps' shapes; a clean step captured as a CUDA graph
-and replayed against the same steps run eagerly (1e-5: K1's atomics).
+clean and watermark steps' shapes; the pack also on a mask one byte off
+its alignment, repeated (its look-back's order), and captured in a CUDA
+graph and replayed on other masks (its scratch reset); a clean step
+captured as a CUDA graph and replayed against the same steps run eagerly
+(1e-5: K1's atomics).
 """
 
 import numpy as np
@@ -657,6 +660,76 @@ def test_compact_kernels_at_the_step_shapes(cuda, N, S, frac):
               rng.normal(size=Mc).astype(np.float32), rng.uniform(size=(Mc, 3)).astype(np.float32),
               rng.normal(size=N * S).astype(np.float32),
               rng.normal(size=(N * S, 3)).astype(np.float32))
+
+
+def _k5_step_inputs(cuda, N, S, seed):
+    """A mask of rays whose samples are a prefix of their S slots (as K2
+    writes them), positions zero where masked, directions."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = torch.randint(0, S + 1, (N, 1), generator=g, device=cuda)
+    mask = torch.arange(S, device=cuda)[None] < n
+    xyzs = torch.where(mask[..., None], torch.rand((N, S, 3), generator=g, device=cuda), 0.0)
+    return mask, xyzs, torch.randn((N, 3), generator=g, device=cuda)
+
+
+def _k5_pack_equal(comp, plain):
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    so, sa = t_compact.slot_maps_plain(plain)
+    return all(torch.equal(a, b) for a, b in ((comp.xyz_c, plain.xyz_c),
+                                              (comp.dir_c, plain.dir_c),
+                                              (comp.slot_of, so), (comp.sample_of, sa)))
+
+
+@pytest.mark.parametrize("name", K5_CASES)
+def test_compact_pack_unaligned_mask(cuda, name):
+    """The pack reads a mask one byte off its 16-byte alignment (scalar
+    loads) bit for bit like the plain version."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    _, mask, xyzs, rd, Mc, *_ = {c[0]: c for c in k5_edge_inputs()}[name]
+    buf = torch.zeros((mask.size + 1,), dtype=torch.bool, device=cuda)
+    buf[1:] = torch.from_numpy(mask.reshape(-1)).to(cuda)
+    m = buf[1:].view(mask.shape)
+    x, r = torch.from_numpy(xyzs).to(cuda), torch.from_numpy(rd).to(cuda)
+    assert _k5_pack_equal(t_compact.compact(m, x, r, Mc), t_compact.compact_plain(m, x, r, Mc))
+
+
+def test_compact_pack_repeats_bit_exact(cuda):
+    """100 packs of one input at the watermark step's shape, each bit-equal to
+    the plain version (a look-back that read out of order would show as a
+    rare wrong offset)."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    mask, xyzs, rd = _k5_step_inputs(cuda, 8704, 256, 3)
+    plain = t_compact.compact_plain(mask, xyzs, rd, 835_584)
+    bad = sum(not _k5_pack_equal(t_compact.compact(mask, xyzs, rd, 835_584), plain)
+              for _ in range(100))
+    assert bad == 0
+
+
+def test_compact_pack_graph_replays(cuda):
+    """The pack captured once in a CUDA graph and replayed on three other
+    masks copied into its inputs: bit-exact each time (its tile counter and
+    status words start clean on every replay)."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    N, S, Mc = 4096, 128, 196_608
+    inputs = list(_k5_step_inputs(cuda, N, S, 10))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        t_compact.compact(*inputs, Mc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        comp = t_compact.compact(*inputs, Mc)
+    for seed in (11, 12, 13):
+        new = _k5_step_inputs(cuda, N, S, seed)
+        for dst, src in zip(inputs, new):
+            dst.copy_(src)
+        graph.replay()
+        assert _k5_pack_equal(comp, t_compact.compact_plain(*new, Mc)), seed
 
 
 @pytest.mark.parametrize("C", [4, 3])
