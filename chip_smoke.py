@@ -138,7 +138,23 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                launches and one more dispatch profiled (busy ms a step, idle
                share).  Every per-step profile (train, wm, attacks) must
                hold K5's kernels where the step compacts and no
-               indexing_backward.
+               indexing_backward;
+ 10. train options — K2's cull route (the float render grid of phase 7's
+               trained grid) against its plain version at the serving
+               (4096 x 256) and clean step's (4096 x 128, with noise) shapes
+               at t_cull 1e-3 and 1e-5: equal on every ray but those at the
+               cull's margin (counted), its time, device time (and the bool
+               route's on the same rays), plain time and bound;
+               Trainer.train_device with --t_cull 1e-5 on phase 9's recipe
+               (512 steps at K = 64: the fog gate opens at step 256, the step
+               is captured again exactly once, the cull route launched every
+               step after it; rays/s, the culled share, one more dispatch
+               profiled; the held-out PSNR no worse than 0.5 dB below the
+               exact run's); --error_map for 64 steps of Trainer.train and
+               128 of Trainer.train_device (the map changes; the loop's
+               step captured); --patch_size 8 --lambda_ssim 0.1 for 128
+               clean loop steps and, with --t_cull 1e-5, 64 watermark steps
+               on each path (the loss falls; the cull route every step).
 
 The last lines are one JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -1707,18 +1723,25 @@ def phase_serve(dev, workdir):
 
 
 # ---------------------------------------------------------------- phase 7
+# every view's pixels by ball radius, made once (the loaders' preload)
+_BALL_IMAGES = {}
+
+
 class BallViews:
     """The train loader: TRAIN_VIEWS orbit views of the analytic ball of
     ``radius`` at RES x RES; each step draws TRAIN_RAYS random pixels of one
     view (shuffled per epoch) and colours them analytically (no images are
-    stored)."""
+    stored).  ``error_map``: carry the provider's [views, 128 * 128] map of
+    ones (``--error_map``), importance-sample each step's pixels from it and
+    hand the trainer the view's index and cells."""
 
-    def __init__(self, radius, seed=5):
+    def __init__(self, radius, seed=5, error_map=False):
         self.radius = radius
         self.poses = orbit_poses(TRAIN_VIEWS, ORBIT_RADIUS, seed=seed)
         fl = RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
         self.intrinsics = np.array([fl, fl, RES / 2, RES / 2])
         self.rng = np.random.default_rng(seed)
+        self.error_map = np.ones((TRAIN_VIEWS, 128 * 128), np.float32) if error_map else None
 
     def __len__(self):
         return TRAIN_VIEWS
@@ -1727,10 +1750,14 @@ class BallViews:
         from nerf_signature_tpu_torch.data.rays import get_rays
 
         for v in self.rng.permutation(TRAIN_VIEWS):
+            em = None if self.error_map is None else self.error_map[v:v + 1]
             r = get_rays(self.poses[v:v + 1], self.intrinsics, RES, RES, TRAIN_RAYS,
-                         rng=self.rng)
-            yield {"H": RES, "W": RES, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
-                   "images": ball_rgba(r["rays_o"], r["rays_d"], radius=self.radius)}
+                         rng=self.rng, error_map=em)
+            batch = {"H": RES, "W": RES, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
+                     "images": ball_rgba(r["rays_o"], r["rays_d"], radius=self.radius)}
+            if em is not None:
+                batch.update(index=int(v), inds_coarse=r["inds_coarse"])
+            yield batch
 
     # what the device loop preloads: every view's pixels, made once
     H = W = RES
@@ -1738,14 +1765,14 @@ class BallViews:
     @property
     def images(self):
         """[TRAIN_VIEWS, RES, RES, 4] RGBA of every pixel (327 MB)."""
-        if getattr(self, "_images", None) is None:
+        if self.radius not in _BALL_IMAGES:
             views = []
             for v in range(TRAIN_VIEWS):
                 r = view_rays(self.poses[v:v + 1])
                 views.append(ball_rgba(r["rays_o"][0], r["rays_d"][0], radius=self.radius)
                              .reshape(RES, RES, 4))
-            self._images = np.stack(views)
-        return self._images
+            _BALL_IMAGES[self.radius] = np.stack(views)
+        return _BALL_IMAGES[self.radius]
 
 
 def held_out_psnr(m, params, rays, gt):
@@ -1784,12 +1811,14 @@ def watch_adaptations(trainer):
 
 
 def train_case(dev, radius, iters, group_budget=-1, levels=16, features=2,
-               steps_per_dispatch=0):
+               steps_per_dispatch=0, t_cull=0.0, error_map=False, patch_size=1,
+               lambda_ssim=0.0):
     """A fresh full-width model (standard init; ``levels`` x ``features``
     table geometry) trained by the port's Trainer.train with the CLI's train
     defaults on BallViews(radius), or with ``steps_per_dispatch`` K by
     Trainer.train_device (the views preloaded to the card, a replayed CUDA
-    graph of the step).
+    graph of the step).  ``t_cull``, ``error_map``, ``patch_size`` and
+    ``lambda_ssim``: the train-step options of those names.
     Returns the trainer, its loader, the loop's wall seconds, the kernels'
     launches, peak memory, the held-out view's PSNR before and after, and the
     adaptations' moves."""
@@ -1802,12 +1831,13 @@ def train_case(dev, radius, iters, group_budget=-1, levels=16, features=2,
 
     opt = SimpleNamespace(lr=1e-2, iters=iters, num_rays=TRAIN_RAYS, max_steps=1024,
                           update_extra_interval=16, compact_frac=-1, group_budget=group_budget,
-                          max_ray_batch=CHUNK, patch_size=1, color_space="srgb")
+                          max_ray_batch=CHUNK, patch_size=patch_size, lambda_ssim=lambda_ssim,
+                          color_space="srgb")
     model = NGPModel(NGPConfig(bound=1.0, n_levels=levels, n_features=features),
                      min_near=0.2, density_thresh=10.0, dt_gamma=0.0, max_steps=1024,
                      grid_size=128, seed=2, train_budget=TRAIN_BUDGET, infer_budget=256,
-                     device=dev)
-    loader = BallViews(radius)
+                     t_cull=t_cull, device=dev)
+    loader = BallViews(radius, error_map=error_map)
     held = view_rays(orbit_poses(1, ORBIT_RADIUS, seed=9))
     rgba = ball_rgba(held["rays_o"][0], held["rays_d"][0], radius=radius)
     gt = torch.from_numpy(rgba[:, :3] * rgba[:, 3:] + (1.0 - rgba[:, 3:])).to(dev)
@@ -2004,14 +2034,16 @@ def pick_key_blocks(model, ws, seed, n_views=1):
 
 
 def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm",
-             steps_per_dispatch=0):
+             steps_per_dispatch=0, step_losses=None):
     """The watermark stage's main path as its CLI drives it, on
     ``backbone_model`` saved as the clean checkpoint: main_nerf_wtmk's parser
     and setup (the README stage-2 recipe for ``iters`` steps, plus ``extra``
     flags), the key blocks, resolve_auto_compaction, then
     WatermarkTrainer.train with the launch counts set to 0 just before it,
     its epochs timed (no checkpoint I/O), or, with ``steps_per_dispatch`` K,
-    WatermarkTrainer.train_device, its dispatches timed.  Returns the model, trainer,
+    WatermarkTrainer.train_device, its dispatches timed.  ``step_losses``: a
+    list that takes each per-step step's loss (a read-back a step).  With
+    ``--t_cull`` in ``extra`` K2 runs its cull route.  Returns the model, trainer,
     loader factory, the run's launches, steps, rays a step, seconds and peak
     memory."""
     from nerf_signature_tpu_torch import main_nerf_wtmk
@@ -2051,6 +2083,15 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm",
         return out
 
     trainer.train_one_epoch = timed_epoch
+    if step_losses is not None:
+        run_step = trainer.train_step_data
+
+        def recorded(data, message):
+            out = run_step(data, message)
+            step_losses.append(float(out[0]))
+            return out
+
+        trainer.train_step_data = recorded
     from nerf_signature_tpu_torch.train import trainer_wtmk as t_twm
 
     run_dispatch = t_twm.wm_device_loop
@@ -2087,7 +2128,10 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm",
         f"{'train_device' if steps_per_dispatch else 'train'}: {launches}")
     if steps != iters:
         raise AssertionError(f"WatermarkTrainer.train ran {steps} steps, expected {iters}")
+    culled = model.rc.t_cull > 0
     for name in WM_TRAIN + K5_KERNELS:
+        if culled and name == "K2_march":
+            name = "K2_march_cull"
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched by WatermarkTrainer.train ({tag})")
     if launches["K4_field_bwd"] + launches["K4_field_bwd_f32"] != 0:
@@ -2956,6 +3000,20 @@ def _copy_state(dst, before, leaves_of, step_count):
 K5_PACK_TRACE = ("k5_pack", "k5_count", "k5_scan")
 
 
+def k6_bytes(m, full):
+    """The bytes one grid update must move: the grid's decayed-max and live
+    densities read and written (4 B each a cell), its bitfield written (1 B),
+    each queried cell's jitter read (12 B; a partial update also its 12 B
+    coordinates and 4 B uniform), and the hash table and MLP weights the
+    density queries read once."""
+    cells = m.occ.density.numel()
+    queried = cells if full else 2 * (cells // 4)
+    draws = queried * 12 + (0 if full else (cells // 4) * 16)
+    params = sum(t.numel() * t.element_size() for t in
+                 [m.params["hash_table"], *m.params["sigma_net"]])
+    return cells * (4 + 4) * 2 + cells + draws + params
+
+
 def profile_dispatch(run, n, tag, compacting):
     """torch.profiler over one more dispatch of n steps: wall and device busy
     ms a step and the idle share (as profile_steps reads them), and the
@@ -3044,12 +3102,15 @@ def phase_device_loop(dev, backbone_model, workdir):
     # trained grid: 32 a 512-step run (every 16 steps), full for the first 16
     m = tr.model
     res["k6"] = {kind: {"ms": median_ms(lambda: m.update_extra_state(full=full), 5, 1),
-                        "device_ms": device_ms(lambda: m.update_extra_state(full=full), 3)}
+                        "device_ms": device_ms(lambda: m.update_extra_state(full=full), 3),
+                        **dict(zip(("bound_ms", "bound_by"),
+                                   bound_of(k6_bytes(m, full), 0, PEAK_FP32)))}
                  for kind, full in (("full", True), ("partial", False))}
     log(f"[k6] grid update: full {res['k6']['full']['ms']:.3f} ms a call (device "
-        f"{res['k6']['full']['device_ms']:.3f}), partial {res['k6']['partial']['ms']:.3f} "
-        f"(device {res['k6']['partial']['device_ms']:.3f}); {TRAIN_ITERS // 16} a "
-        f"{TRAIN_ITERS}-step run")
+        f"{res['k6']['full']['device_ms']:.3f}, bound {res['k6']['full']['bound_ms']:.4f}), "
+        f"partial {res['k6']['partial']['ms']:.3f} (device "
+        f"{res['k6']['partial']['device_ms']:.3f}, bound "
+        f"{res['k6']['partial']['bound_ms']:.4f}); {TRAIN_ITERS // 16} a {TRAIN_ITERS}-step run")
     del r, tr, m, data
     gc.collect()
 
@@ -3082,6 +3143,279 @@ def phase_device_loop(dev, backbone_model, workdir):
         "wm device loop profile", trainer.model.rc.compact_frac > 0)
     res["wm"] = wm
     del w, trainer, loader, make_loader, wdata
+    gc.collect()
+    return res
+
+
+# ---------------------------------------------------------------- phase 10
+CULL_T = 1e-5                  # --t_cull of the train-options run
+CULL_THRESHOLDS = (1e-3, 1e-5)  # K2's cull route against its plain version
+OPT_EM_STEPS = 64              # --error_map: Trainer.train steps
+OPT_EM_LOOP = 128              # and Trainer.train_device steps
+OPT_SSIM_LOOP = 128            # --patch_size 8 --lambda_ssim 0.1: clean loop steps
+OPT_SSIM_K = 32                # (4 dispatches: the loss must fall across them)
+OPT_WM_STEPS = 64              # and watermark steps on each path
+OPT_WM_K = 16
+SSIM_FLAGS = ["--patch_size", "8", "--lambda_ssim", "0.1"]
+K2_CULL_SOURCE = ("nerf_signature_tpu_torch/csrc/marcher.cu",
+                  "nerf_signature_tpu/ops/marching.py:494")
+
+
+def k2_cull_case(grid, ro, rd, budget, noise, t_cull, tag, time_it):
+    """K2's cull route (the float render grid ``grid``) against its plain
+    version on one chunk: equal on every ray but those at the cull's margin
+    (counted: a candidate's entering transmittance within CULL_MARGIN of
+    t_cull, where the two sums of tau may round apart); with ``time_it``
+    its times, the bool route's on the same rays, and its bound."""
+    from nerf_signature_tpu_torch.ops import marching as t_march
+
+    aabb = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
+    kw = dict(min_near=0.2, bound=1.0, dt_gamma=0.0, max_steps=1024, budget=budget,
+              noise=noise, t_cull=t_cull)
+    plan = t_march.march_plan(grid.shape[0], grid.shape[1], bound=1.0, max_steps=1024,
+                              budget=budget)
+    coarse = t_march.coarse_grid(grid, plan)
+    k = t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse, **kw)
+    p = t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse, plain=True, audit=True, **kw)
+    torch.cuda.synchronize()
+    keep = ~p.pop("cull_margin")
+    tested = p.pop("n_tested")
+    err = 0.0
+    for name in ("mask", "xyzs", "ts", "deltas", "nears", "fars", "n_occupied",
+                 "n_occupied_raw", "n_groups_occ"):
+        a, b = k[name][keep], p[name][keep]
+        if name == "mask":
+            if not torch.equal(a, b):
+                raise AssertionError(f"K2 cull {tag}: mask differs off the margin")
+            continue
+        err = max(err, float((a.float() - b.float()).abs().max()) if a.numel() else 0.0)
+    if err != 0.0:
+        raise AssertionError(f"K2 cull {tag}: outputs differ by {err} off the margin; limit 0")
+    N, S = k["mask"].shape
+    raw, surv = int(k["n_occupied_raw"].sum()), int(k["n_occupied"].sum())
+    r = {"max_abs_err": err, "margin_rays": int((~keep).sum()), "rays": N, "budget": S,
+         "culled_share": 1.0 - surv / max(raw, 1), "samples": int(k["mask"].sum()),
+         "tested": int(tested.sum())}
+    log(f"[K2 cull] {tag} t_cull={t_cull:g}: {N} rays x {S}, equal off the margin (max abs "
+        f"err {err}, limit 0), {r['margin_rays']} rays at the margin excepted; "
+        f"{r['culled_share']:.1%} of {raw} occupied candidates culled, {r['samples']} samples "
+        f"kept, {r['tested']} candidates tested")
+    if time_it:
+        run = lambda: t_march.march_rays_aabb(ro, rd, aabb, grid, coarse=coarse, **kw)
+        boolean = grid > 0
+        exact = lambda: t_march.march_rays_aabb(ro, rd, aabb, boolean, coarse=coarse,
+                                                **dict(kw, t_cull=0.0))
+        # the cull route against the bool route on the same rays, in turns
+        # (bool, cull, cull, bool) after a warm-up of both: single readings
+        # of a ~0.01 ms kernel spread by 2x between runs; the fastest of
+        # each route's readings is its time
+        for _ in range(100):
+            run()
+            exact()
+        reads = {"bool": [], "cull": []}
+        for which in ("bool", "cull", "cull", "bool"):
+            reads[which].append(device_ms(exact if which == "bool" else run, 30))
+        r.update(ms=median_ms(run, 30), device_ms=min(reads["cull"]),
+                 bool_device_ms=min(reads["bool"]), device_ms_reads=reads,
+                 plain_ms=median_ms(lambda: t_march.march_rays_aabb(
+                     ro, rd, aabb, grid, coarse=coarse, plain=True, **kw), 5, 1))
+        # each ray read once (24 B, 4 B of noise), a 4 B cell value for each
+        # candidate tested, the coarse grid once, the outputs written once
+        n_bytes = (N * (24 + (4 if noise is not None else 0)) + 4 * r["tested"]
+                   + coarse.numel() + N * S * 21 + N * 20)
+        r["bound_ms"], r["bound_by"] = bound_of(n_bytes, 0, PEAK_FP32)
+        r["library_ms"] = None
+        log(f"[K2 cull] {tag}: ms {r['ms']:.4f} | device {r['device_ms']:.4f} (bool grid, same "
+            f"rays: {r['bool_device_ms']:.4f}; readings in turns {reads}) | plain "
+            f"{r['plain_ms']:.4f} | bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    return r
+
+
+def record_captures():
+    """Wrap StepGraph.run to list the keys it captured under; returns the
+    list and the function that restores it."""
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+
+    keys, run = [], t_dl.StepGraph.run
+
+    def recorded(self, body, key, held, n, before_step=None):
+        before = self.captures
+        run(self, body, key, held, n, before_step)
+        if self.captures != before:
+            keys.append(key)
+
+    t_dl.StepGraph.run = recorded
+    return keys, lambda: setattr(t_dl.StepGraph, "run", run)
+
+
+def record_dispatches():
+    """Wrap the trainer's device_train_loop to keep each dispatch's (first
+    step, the t_cull its march runs at, LoopStats); returns the list and the
+    restore function."""
+    from nerf_signature_tpu_torch.train import trainer as t_trainer
+
+    seen, loop = [], t_trainer.device_train_loop
+
+    def recorded(trainer, data, n, **kw):
+        step0, t_cull = trainer.global_step, trainer._rc_train().t_cull
+        st = loop(trainer, data, n, **kw)
+        seen.append((step0, t_cull, st))
+        return st
+
+    t_trainer.device_train_loop = recorded
+    return seen, lambda: setattr(t_trainer, "device_train_loop", loop)
+
+
+def phase_train_options(dev, backbone_model, exact_psnr, workdir):
+    """The train-step options of slice 12: K2's cull route against its plain
+    version at the serving and clean steps' shapes on the trained grid's
+    float render grid (two thresholds); Trainer.train_device with --t_cull
+    (the device loop's recipe: the gate opens at step 256, one recapture,
+    the cull route launched every step after it; the held-out PSNR within
+    0.5 dB of the exact run's); --error_map per step and in the loop (the
+    map changes; the loop's capture holds no read-back); the SSIM patch
+    guard in the clean loop and, with --t_cull, the watermark stage on each
+    path (the loss falls)."""
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.ops.grid import render_grid
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+
+    res = {}
+    # ---- K2's cull route on the trained backbone's grid (real densities)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ro_s, rd_s, _ = serve_chunk(dev)
+    ro_t, rd_t = train_rays(dev)
+    noise = torch.rand((TRAIN_RAYS,), generator=gen, device=dev)
+    cases = {}
+    for t_cull in CULL_THRESHOLDS:
+        grid = render_grid(backbone_model.occ, t_cull)
+        for shape, (ro, rd, S, nz) in (("serve", (ro_s, rd_s, 256, None)),
+                                       ("clean", (ro_t, rd_t, TRAIN_BUDGET, noise))):
+            cases[(shape, t_cull)] = k2_cull_case(grid, ro, rd, S, nz, t_cull,
+                                                  f"{shape} {TRAIN_RAYS} x {S}", True)
+    res["k2_cull"] = {f"{shape} {t:g}": r for (shape, t), r in cases.items()}
+
+    # ---- --t_cull 1e-5 through Trainer.train_device (K = 64, 512 steps)
+    keys, restore_graph = record_captures()
+    seen, restore_loop = record_dispatches()
+    try:
+        r = train_case(dev, TRAIN_BALL, TRAIN_ITERS, steps_per_dispatch=DL_K, t_cull=CULL_T)
+    finally:
+        restore_graph()
+        restore_loop()
+    tr, seconds, launches = r["trainer"], r["seconds"], r["launches"]
+    steps = tr.global_step
+    culls = [k[1].t_cull for k in keys]
+    gate = next((s0 for s0, t, _ in seen if t > 0), None)
+    after = [st for _, t, st in seen if t > 0]
+    if gate is None:
+        raise AssertionError("t_cull: the fog gate never opened")
+    occ = sum(st.mean_occupied for st in after)
+    raw = sum(st.mean_occupied_raw for st in after)
+    cull = {"steps": steps, "seconds": seconds, "rays_per_s": steps * TRAIN_RAYS / seconds,
+            "step_ms": seconds / steps * 1e3, "psnr0": r["psnr0"], "psnr1": r["psnr1"],
+            "exact_psnr1": exact_psnr, "captures": tr.step_graph.captures,
+            "captured_t_cull": culls, "gate_step": gate, "culled_share": 1.0 - occ / raw,
+            "launches_after_gate": launches["K2_march_cull"], "launches": launches,
+            "peak_gib": r["peak"]}
+    log(f"[t_cull] {steps} steps at t_cull {CULL_T:g} in dispatches of {DL_K}: {seconds:.2f} s, "
+        f"{cull['rays_per_s']:.0f} train rays/s, {cull['step_ms']:.3f} ms a step; captures "
+        f"{cull['captures']} (t_cull of each: {culls}); the gate opened at step {gate}; "
+        f"{cull['culled_share']:.1%} of the occupied candidates culled after it (mean "
+        f"survivors {occ / len(after):.1f} of {raw / len(after):.1f} a ray)")
+    log(f"[t_cull] held-out PSNR {r['psnr0']:.2f} -> {r['psnr1']:.2f} dB; the exact run's "
+        f"{exact_psnr:.2f} dB (limit: no worse than 0.5 dB below); launches {launches}")
+    switches = sum(1 for a, b in zip(culls, culls[1:]) if a == 0.0 and b > 0.0)
+    if switches != 1 or culls[-1] != CULL_T or any(
+            c == 0.0 for c in culls[culls.index(CULL_T):]):
+        raise AssertionError(f"t_cull: the step was not captured again exactly once when the "
+                             f"gate opened: {culls}")
+    # the gate opens after the grid's 16 full updates (every 16 steps: 256)
+    if gate != 256 or launches["K2_march_cull"] != steps - gate or launches["K2_march"] != gate:
+        raise AssertionError(f"t_cull: K2's routes {launches['K2_march']} / "
+                             f"{launches['K2_march_cull']} launches, gate at {gate}")
+    if not r["psnr1"] >= exact_psnr - 0.5:
+        raise AssertionError(f"t_cull: held-out PSNR {r['psnr1']:.2f} dB more than 0.5 dB "
+                             f"below the exact run's {exact_psnr:.2f}")
+    if not cull["culled_share"] > 0.0:
+        raise AssertionError("t_cull: the cull never bit after the gate")
+    data = t_dl.preload(r["loader"].poses, r["loader"].images, r["loader"].intrinsics, RES,
+                        RES, dev)
+    cull["profile"] = profile_dispatch(
+        lambda: t_dl.device_train_loop(tr, data, DL_K), DL_K, "t_cull loop profile",
+        tr.model.rc.compact_frac > 0)
+    res["t_cull"] = cull
+    del r, tr, data
+    gc.collect()
+
+    # ---- --error_map: per step, then in the loop
+    em = {}
+    for path, iters, k in (("per_step", OPT_EM_STEPS, 0), ("loop", OPT_EM_LOOP, DL_K)):
+        r = train_case(dev, TRAIN_BALL, iters, steps_per_dispatch=k, error_map=True)
+        emap = r["loader"].error_map
+        moved = int((emap != 1.0).sum())
+        em[path] = {"steps": r["trainer"].global_step, "seconds": r["seconds"],
+                    "cells_moved": moved, "map_min": float(emap.min()),
+                    "captures": getattr(r["trainer"].step_graph, "captures", 0) if k else None}
+        log(f"[error_map] {path}: {em[path]['steps']} steps in {r['seconds']:.2f} s; "
+            f"{moved} of {emap.size} cells moved (min {emap.min():.4g}); held-out PSNR "
+            f"{r['psnr0']:.2f} -> {r['psnr1']:.2f} dB")
+        if moved == 0 or not np.isfinite(emap).all():
+            raise AssertionError(f"error_map {path}: the map did not change or is not finite")
+        if k and em[path]["captures"] < 1:
+            raise AssertionError("error_map loop: the step was never captured")
+        del r
+        gc.collect()
+    res["error_map"] = em
+
+    # ---- the SSIM patch guard: 128 clean loop steps
+    r = train_case(dev, TRAIN_BALL, OPT_SSIM_LOOP, steps_per_dispatch=OPT_SSIM_K,
+                   patch_size=8, lambda_ssim=0.1)
+    losses = r["trainer"].stats["loss"]
+    res["ssim_clean_loop"] = {"steps": r["trainer"].global_step, "seconds": r["seconds"],
+                              "dispatch_losses": losses}
+    log(f"[ssim] clean loop: {r['trainer'].global_step} steps with 8 x 8 patches, dispatch "
+        f"losses {[round(v, 6) for v in losses]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ssim clean loop: the loss did not fall: {losses}")
+    del r
+    gc.collect()
+
+    # ---- the SSIM patch guard with --t_cull: watermark steps per step, then looped
+    step_losses = []
+    w = wm_train(dev, backbone_model, workdir, iters=OPT_WM_STEPS,
+                 extra=SSIM_FLAGS + ["--t_cull", str(CULL_T)], tag="wm ssim t_cull",
+                 step_losses=step_losses)
+    trainer, loader = w["trainer"], w["loader"]
+    q = OPT_WM_STEPS // 4
+    wm_per_step = {"steps": w["steps"], "seconds": w["seconds"],
+                   "loss_first_quarter": float(np.mean(step_losses[:q])),
+                   "loss_last_quarter": float(np.mean(step_losses[-q:])),
+                   "k2_cull_launches": w["launches"]["K2_march_cull"]}
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    trainer.train_device(loader, 2 * OPT_WM_STEPS, steps_per_dispatch=OPT_WM_K)
+    torch.cuda.synchronize()
+    n = _cuda.launch_counts()
+    dl_losses = trainer.stats["loss"][-OPT_WM_STEPS // OPT_WM_K:]
+    wm_loop = {"steps": trainer.global_step - OPT_WM_STEPS, "seconds": time.time() - t0,
+               "dispatch_losses": dl_losses, "k2_cull_launches": n["K2_march_cull"],
+               "k2_launches": n["K2_march"]}
+    log(f"[wm ssim t_cull] per step: loss {wm_per_step['loss_first_quarter']:.5f} (first "
+        f"{q}) -> {wm_per_step['loss_last_quarter']:.5f} (last {q}); loop: dispatch losses "
+        f"{[round(v, 5) for v in dl_losses]}; K2 cull launches {wm_per_step['k2_cull_launches']}"
+        f" / {n['K2_march_cull']}")
+    if not wm_per_step["loss_last_quarter"] < wm_per_step["loss_first_quarter"]:
+        raise AssertionError(f"wm ssim per step: the loss did not fall: {step_losses}")
+    if not dl_losses[-1] < dl_losses[0]:
+        raise AssertionError(f"wm ssim loop: the loss did not fall: {dl_losses}")
+    if (wm_per_step["k2_cull_launches"] != OPT_WM_STEPS or n["K2_march_cull"] != OPT_WM_STEPS
+            or n["K2_march"] != 0):
+        raise AssertionError(f"wm ssim t_cull: K2's cull route launched "
+                             f"{wm_per_step['k2_cull_launches']} / {n['K2_march_cull']} "
+                             f"times (bool route {n['K2_march']}) in {OPT_WM_STEPS} steps each")
+    res["ssim_wm"] = {"per_step": wm_per_step, "loop": wm_loop}
+    del w, trainer, loader
     gc.collect()
     return res
 
@@ -3201,6 +3535,9 @@ def main():
     gc.collect()
     with tempfile.TemporaryDirectory() as workdir:
         dl = phase_device_loop(dev, backbone, workdir)
+    gc.collect()
+    with tempfile.TemporaryDirectory() as workdir:
+        opts = phase_train_options(dev, backbone, dl["clean"]["psnr1"], workdir)
     dl_launches = {"clean": dl["clean"].pop("launches"), "wm": dl["wm"].pop("launches")}
     rows, modelled = [], {}
     entries = [(name, name, None, None) for name in SOURCES] + [
@@ -3280,6 +3617,24 @@ def main():
                      "train_launches": train["launches"][base],
                      "wm_launches": wm["launches"][base],
                      "device_loop_launches": {k: v[base] for k, v in dl_launches.items()}})
+    # K2's cull route (slice 12): the clean step's shape at the train run's
+    # t_cull is the row's headline, the serving shape and the other threshold
+    # beside it; its launches: the --t_cull device loop's run (after the
+    # gate), then the per-step train, watermark and device loops' runs (exact)
+    cull_launches = opts["t_cull"].pop("launches")
+    head = opts["k2_cull"][f"clean {CULL_T:g}"]
+    rows.append({"name": "K2_march_cull", "route": "cuda", "source": K2_CULL_SOURCE[0],
+                 "replaces": K2_CULL_SOURCE[1], "path": "device loop with --t_cull (clean)",
+                 "launches": cull_launches["K2_march_cull"],
+                 "max_abs_err": max(r["max_abs_err"] for r in opts["k2_cull"].values()),
+                 **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "device_ms", "bool_device_ms",
+                                         "device_ms_reads", "culled_share", "margin_rays")},
+                 "shapes": opts["k2_cull"],
+                 "train_launches": train["launches"]["K2_march_cull"],
+                 "wm_launches": wm["launches"]["K2_march_cull"],
+                 "wm_ssim_t_cull_launches": opts["ssim_wm"]["per_step"]["k2_cull_launches"],
+                 "device_loop_launches": {k: v["K2_march_cull"] for k, v in dl_launches.items()}})
     wm.pop("launches")
     # K1 backward's atomics as kernel_cases.k1_bwd_atomics counts them from
     # the design on each row's inputs: a model, not a reading of the card
@@ -3289,6 +3644,8 @@ def main():
                               "profile")},
         "geometry": geometry_stats, "wm": wm,
         "device_loop": {k: dl[k] for k in ("graph_vs_eager", "clean", "wm", "k6")},
+        "train_options": {k: opts[k] for k in ("t_cull", "error_map", "ssim_clean_loop",
+                                               "ssim_wm")},
         "device_ms_from_events": len(EVENT_FALLBACKS)}, default=float))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,22 @@
 // file is compiled with -fmad=false), so every candidate lands in the same
 // cell as in the plain version: a flipped cell at a boundary would change
 // which samples a ray keeps.
+//
+// The float render grid (ops/grid.py:render_grid; the transmittance cull,
+// marching.py:494-502): the same walk reads a float32 cell value at the
+// same flat index (4 B a tested candidate from an 8 MB table, in L2) and a
+// candidate is occupied iff v > 0 (a cell occupied with a live density of 0
+// is empty, as in JAX).  With t_cull > 0 each candidate's
+// tau = occ ? v * dt : 0 enters a running fp32 sum along the ray: a warp
+// inclusive scan (shuffles) over the chunk plus the carry from the chunks
+// before it (lane 31's sum), over the admitted groups' candidates on the
+// prefilter path as JAX does.  A candidate survives iff
+// expf(tau - cum) >= t_cull; every candidate is tested (tau - cum need not
+// be monotone at the last ulp).  n_occupied counts the survivors (their
+// ranks give the slots), n_occupied_raw and n_groups_occ the pre-cull
+// occupancy.  The scan adds in another order than torch.cumsum, so cum may
+// differ from the plain version's in the last ulp: only a candidate whose
+// t_in lies that close to t_cull can be kept by one and culled by the other.
 
 #include "common.cuh"
 
@@ -54,7 +70,7 @@
 struct MarchParams {
   float aabb[6];
   int N, C, H, Hc, n_cand, budget, group, group_budget, prefilter;
-  float bound, min_near, dt_min, dt_max, dt_gamma, mip0;
+  float bound, min_near, dt_min, dt_max, dt_gamma, mip0, t_cull;
 };
 
 // clip(0.5 * (p / mb + 1.0) * H, 0, H - 1).astype(int32)
@@ -87,13 +103,21 @@ __device__ __forceinline__ void position(const float* o, const float* d, float t
   for (int a = 0; a < 3; ++a) p[a] = ngp_clip(__fadd_rn(o[a], __fmul_rn(t, d[a])), -bound, bound);
 }
 
-// Fine-grid occupancy at position p (already clipped) with step dt.
-__device__ __forceinline__ bool fine_occupied(const unsigned char* __restrict__ grid,
-                                              const MarchParams& q, const float* p, float dt) {
-  if (q.C == 1) return grid[flat_cell(p, q.mip0, q.H)] != 0;
+// Flat fine-grid index at position p (already clipped) with step dt.
+__device__ __forceinline__ long long fine_index(const MarchParams& q, const float* p, float dt) {
+  if (q.C == 1) return flat_cell(p, q.mip0, q.H);
   int lv = mip_level(p, dt, q.H, q.C);
-  long long idx = (long long)lv * q.H * q.H * q.H + flat_cell(p, mip_bound(lv, q.bound), q.H);
-  return grid[idx] != 0;
+  return (long long)lv * q.H * q.H * q.H + flat_cell(p, mip_bound(lv, q.bound), q.H);
+}
+
+// The fine grid's value at a flat index: 1 / 0 for the bool grid, the cell
+// density (0 where unoccupied) for the float render grid; occupied iff > 0.
+__device__ __forceinline__ float grid_value(const unsigned char* __restrict__ grid,
+                                            long long idx) {
+  return grid[idx] != 0 ? 1.0f : 0.0f;
+}
+__device__ __forceinline__ float grid_value(const float* __restrict__ grid, long long idx) {
+  return grid[idx];
 }
 
 // Dilated coarse-grid occupancy at a group midpoint.
@@ -119,21 +143,42 @@ __device__ __forceinline__ float next_dt(float t, const MarchParams& q) {
 #define NGP_MARCH_WARPS 4
 
 // The ray's output row and the warp's running counts; every lane holds the
-// same counts.
+// same counts and the same running sum of tau.
 struct RayRow {
   float* xyzs;
   float* deltas;
   float* ts;
   unsigned char* mask;
   int budget, kept, occ_raw;
+  float t_cull;     // > 0: the cull is on (float grid only)
+  float cum = 0.0f;  // sum of tau over the ray's candidates so far (the cull)
 
-  // Keep the sample of each lane with `occ`, in lane order, after the
-  // samples kept so far; returns the ballot.
-  __device__ __forceinline__ unsigned keep(bool occ, float t, float dt, const float* p,
-                                           unsigned lanes_below) {
+  // Whether each lane's candidate survives the cull: tau = occ ? v * dt : 0,
+  // cum = the running sum through this lane (warp inclusive scan + carry),
+  // occ && exp(tau - cum) >= t_cull.  Warp-uniform call.
+  __device__ __forceinline__ bool survives(bool occ, float v, float dt, int lane) {
+    const float tau = occ ? __fmul_rn(v, dt) : 0.0f;
+    float c = tau;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_up_sync(NGP_FULL, c, off);
+      if (lane >= off) c = __fadd_rn(y, c);
+    }
+    c = __fadd_rn(cum, c);
+    cum = __shfl_sync(NGP_FULL, c, 31);
+    return occ && expf(__fsub_rn(tau, c)) >= t_cull;
+  }
+
+  // Keep the sample of each lane with `occ` (and, with the cull on, `v`
+  // surviving it), in lane order, after the samples kept so far; returns
+  // the ballot of `occ` (the pre-cull occupancy).  Warp-uniform call.
+  __device__ __forceinline__ unsigned keep(bool occ, float v, float t, float dt, const float* p,
+                                           unsigned lanes_below, int lane) {
     const unsigned b = __ballot_sync(NGP_FULL, occ);
-    if (occ) {
-      const int s = kept + __popc(b & lanes_below);
+    const bool surv = t_cull > 0.0f ? survives(occ, v, dt, lane) : occ;
+    const unsigned bs = t_cull > 0.0f ? __ballot_sync(NGP_FULL, surv) : b;
+    if (surv) {
+      const int s = kept + __popc(bs & lanes_below);
       if (s < budget) {
         ts[s] = t;
         deltas[s] = dt;
@@ -143,7 +188,7 @@ struct RayRow {
         mask[s] = 1;
       }
     }
-    kept += __popc(b);
+    kept += __popc(bs);
     occ_raw += __popc(b);
     return b;
   }
@@ -155,9 +200,11 @@ __device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
   return mask ? __ffs(mask) - 1 : -1;
 }
 
+// GridT: unsigned char (the bool grid) or float (the float render grid).
+template <typename GridT>
 __global__ void __launch_bounds__(32 * NGP_MARCH_WARPS)
     march_fwd(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
-              const unsigned char* __restrict__ grid, const unsigned char* __restrict__ coarse,
+              const GridT* __restrict__ grid, const unsigned char* __restrict__ coarse,
               const float* __restrict__ noise, MarchParams q, float* __restrict__ xyzs,
               float* __restrict__ deltas, float* __restrict__ ts,
               unsigned char* __restrict__ mask, float* __restrict__ nears,
@@ -193,7 +240,7 @@ __global__ void __launch_bounds__(32 * NGP_MARCH_WARPS)
   }
 
   const long long row = (long long)n * q.budget;
-  RayRow out{xyzs + row * 3, deltas + row, ts + row, mask + row, q.budget, 0, 0};
+  RayRow out{xyzs + row * 3, deltas + row, ts + row, mask + row, q.budget, 0, 0, q.t_cull};
   int groups_occ = 0;
   float p[3] = {0.0f, 0.0f, 0.0f};
   const bool closed = q.dt_gamma == 0.0f;  // closed-form candidates
@@ -251,12 +298,12 @@ __global__ void __launch_bounds__(32 * NGP_MARCH_WARPS)
           for (int c = 0; c < j; ++c) t = __fadd_rn(t, next_dt(t, q));
           dt = next_dt(t, q);
         }
-        bool occ = false;
+        float v = 0.0f;
         if (src >= 0 && t < far) {
           position(o, d, t, q.bound, p);
-          occ = fine_occupied(grid, q, p, dt);
+          v = grid_value(grid, fine_index(q, p, dt));
         }
-        out.keep(occ, t, dt, p, below);
+        out.keep(v > 0.0f, v, t, dt, p, below, lane);
         for (int k = 0; k < per_pass && rest; ++k) rest &= rest - 1u;
       }
       if (!__all_sync(NGP_FULL, gvalid)) break;
@@ -281,12 +328,13 @@ __global__ void __launch_bounds__(32 * NGP_MARCH_WARPS)
         }
       }
       const bool valid = i < q.n_cand && t < far;
-      bool occ = false;
+      float v = 0.0f;
       if (valid) {
         position(o, d, t, q.bound, p);
-        occ = fine_occupied(grid, q, p, dt);
+        v = grid_value(grid, fine_index(q, p, dt));
       }
-      const unsigned b = out.keep(occ, t, dt, p, below);
+      const bool occ = v > 0.0f;
+      const unsigned b = out.keep(occ, v, t, dt, p, below, lane);
       // an occupied candidate opens a group unless the occupied one before
       // it lies in the same group
       const int prev = (b & below) ? base + 31 - __clz(b & below) : last_occ;
@@ -306,22 +354,25 @@ __global__ void __launch_bounds__(32 * NGP_MARCH_WARPS)
   }
   for (int f = 3 * k0 + lane; f < 3 * q.budget; f += 32) out.xyzs[f] = 0.0f;
   if (lane == 0) {
-    n_occupied[n] = out.occ_raw;
+    n_occupied[n] = out.kept;
     n_occupied_raw[n] = out.occ_raw;
     n_groups_occ[n] = groups_occ;
   }
 }
 
+// grid_float: 0 = the bool grid (1 byte a cell), 1 = the float render grid
+// (4 B a cell); t_cull > 0 needs the float grid.
 extern "C" int ngp_march(const void* rays_o, const void* rays_d, const float* aabb,
                          const void* grid, const void* coarse, const void* noise, int N, int C,
                          int H, int Hc,
                          int n_cand, int budget, int group, int group_budget, int prefilter,
-                         float bound, float min_near, float dt_min, float dt_max, float dt_gamma,
-                         float mip0, void* xyzs, void* deltas, void* ts, void* mask, void* nears,
-                         void* fars, void* n_occupied, void* n_occupied_raw, void* n_groups_occ,
-                         void* stream) {
+                         int grid_float, float bound, float min_near, float dt_min, float dt_max,
+                         float dt_gamma, float mip0, float t_cull, void* xyzs, void* deltas,
+                         void* ts, void* mask, void* nears, void* fars, void* n_occupied,
+                         void* n_occupied_raw, void* n_groups_occ, void* stream) {
   if (group < 1 || group > NGP_MAX_GROUP) return (int)cudaErrorInvalidValue;
   if (prefilter && coarse == nullptr) return (int)cudaErrorInvalidValue;
+  if (t_cull > 0.0f && !grid_float) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   MarchParams q;
   for (int i = 0; i < 6; ++i) q.aabb[i] = aabb[i];
@@ -340,11 +391,20 @@ extern "C" int ngp_march(const void* rays_o, const void* rays_d, const float* aa
   q.dt_max = dt_max;
   q.dt_gamma = dt_gamma;
   q.mip0 = mip0;
-  march_fwd<<<ngp_blocks(N, NGP_MARCH_WARPS), 32 * NGP_MARCH_WARPS, 0,
-              (cudaStream_t)stream>>>(
-      (const float*)rays_o, (const float*)rays_d, (const unsigned char*)grid,
-      (const unsigned char*)coarse, (const float*)noise, q, (float*)xyzs, (float*)deltas, (float*)ts,
-      (unsigned char*)mask, (float*)nears, (float*)fars, (int*)n_occupied,
-      (int*)n_occupied_raw, (int*)n_groups_occ);
+  q.t_cull = grid_float ? t_cull : 0.0f;
+  const unsigned blocks = ngp_blocks(N, NGP_MARCH_WARPS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (grid_float)
+    march_fwd<float><<<blocks, 32 * NGP_MARCH_WARPS, 0, s>>>(
+        (const float*)rays_o, (const float*)rays_d, (const float*)grid,
+        (const unsigned char*)coarse, (const float*)noise, q, (float*)xyzs, (float*)deltas,
+        (float*)ts, (unsigned char*)mask, (float*)nears, (float*)fars, (int*)n_occupied,
+        (int*)n_occupied_raw, (int*)n_groups_occ);
+  else
+    march_fwd<unsigned char><<<blocks, 32 * NGP_MARCH_WARPS, 0, s>>>(
+        (const float*)rays_o, (const float*)rays_d, (const unsigned char*)grid,
+        (const unsigned char*)coarse, (const float*)noise, q, (float*)xyzs, (float*)deltas,
+        (float*)ts, (unsigned char*)mask, (float*)nears, (float*)fars, (int*)n_occupied,
+        (int*)n_occupied_raw, (int*)n_groups_occ);
   NGP_RETURN_LAST_ERROR();
 }

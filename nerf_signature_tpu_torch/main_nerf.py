@@ -9,11 +9,13 @@
 runs on the CUDA GPU; ``--cpu`` runs the plain PyTorch versions on the CPU.
 ``--steps_per_dispatch K`` trains K steps a dispatch on the device
 (``Trainer.train_device``: on the card a replayed CUDA graph of the step,
-on the CPU the same step eagerly).  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): ``--error_map``,
-``--patch_size`` with LPIPS/SSIM, ``--clip_text``, ``--stochastic_hash_grad``,
-``--bg_radius > 0``, ``--devices > 1``, ``--t_cull > 0``; ``--gui`` and
-``--prewatermark`` exit 2.
+on the CPU the same step eagerly).  ``--t_cull``, ``--error_map`` and
+``--patch_size N --lambda_ssim w`` run on both paths (``--lambda_ssim`` with
+``--error_map`` only per step, as in JAX).  Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP item): ``--patch_size`` with
+LPIPS weights, ``--clip_text``, ``--stochastic_hash_grad``,
+``--bg_radius > 0``, ``--devices > 1``; ``--gui`` and ``--prewatermark``
+exit 2.
 """
 
 import argparse
@@ -28,6 +30,11 @@ from .utils.config import add_common_args, apply_O_macro
 def main(argv=None):
     parser = argparse.ArgumentParser()
     add_common_args(parser)
+    # the clean stage's SSIM patch guard (the JAX package's Trainer reads the
+    # option, its clean CLI only the watermark CLI's flag of the same name)
+    parser.add_argument("--lambda_ssim", type=float, default=0.0,
+                        help="add lambda_ssim * (1 - SSIM) over the batch's "
+                             "--patch_size patches (requires --patch_size > 1)")
     opt = apply_O_macro(parser.parse_args(argv))
     print(opt)
     for flag in ("gui", "prewatermark"):
@@ -40,10 +47,8 @@ def main(argv=None):
     from .meshing.extract import save_mesh
     from .models.ngp import NGPConfig
     from .train.metrics import LPIPSMeter, PSNRMeter
-    from .train.trainer import T_CULL_TODO, Trainer
+    from .train.trainer import Trainer
 
-    if not opt.test and opt.t_cull > 0:
-        raise NotImplementedError(T_CULL_TODO)
     device = "cpu" if opt.cpu else None
     cfg = NGPConfig(
         bound=opt.bound,

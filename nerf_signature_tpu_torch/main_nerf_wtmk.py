@@ -18,12 +18,11 @@ afterwards) and renders test images against the pseudo-GT.
 runs on the CUDA GPU; ``--cpu`` runs the plain PyTorch versions on the CPU.
 ``--steps_per_dispatch K`` trains K steps a dispatch on the device
 (``WatermarkTrainer.train_device``: on the card a replayed CUDA graph of the
-step).  Checkpoints are the JAX package's format both ways.  Not ported yet
+step).  Checkpoints are the JAX package's format both ways.  ``--t_cull``
+and ``--patch_size N --lambda_ssim w`` train on both paths.  Not ported yet
 (each raises ``NotImplementedError`` naming its ROADMAP item):
-``--devices > 1``, ``--patch_size`` /
-``--lambda_ssim``, ``--finetune_decoder``, ``--copyrnerf``,
-``--whole_image_wm``, ``--stochastic_hash_grad``, ``--bg_radius > 0``,
-``--t_cull > 0``.
+``--devices > 1``, ``--finetune_decoder``, ``--copyrnerf``,
+``--whole_image_wm``, ``--stochastic_hash_grad``, ``--bg_radius > 0``.
 """
 
 import argparse
@@ -51,11 +50,8 @@ def setup(opt):
     from .models.ngp import NGPConfig
     from .models.watermark import WatermarkConfig
     from .train.metrics import BitAccMeter, LPIPSMeter, PSNRMeter, SSIMMeter
-    from .train.trainer import T_CULL_TODO
     from .train.trainer_wtmk import WatermarkTrainer
 
-    if not opt.test and opt.t_cull > 0:
-        raise NotImplementedError(T_CULL_TODO)
     wcfg = WatermarkConfig(
         ngp=NGPConfig(
             bound=opt.bound,

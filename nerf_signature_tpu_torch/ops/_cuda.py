@@ -80,7 +80,7 @@ _SIGNATURES = {
     "ngp_table_gather": [_P, _P, _L, _L, _P, _P],
     "ngp_composite": [_P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
     "ngp_composite_bwd": [_P] * 5 + [_F, _I, _I] + [_P] * 7,
-    "ngp_march": ([_P, _P, _FP, _P, _P, _P] + [_I] * 9 + [_F] * 6 + [_P] * 9 + [_P]),
+    "ngp_march": ([_P, _P, _FP, _P, _P, _P] + [_I] * 10 + [_F] * 7 + [_P] * 9 + [_P]),
     "ngp_compact_pack": [_P, _P, _P, _L, _I, _L] + [_P] * 5 + [_P],
     "ngp_compact_unpack": [_P, _P, _P, _L, _P, _P, _P],
     "ngp_compact_unpack_bwd": [_P, _P, _P, _L, _P, _P, _P],
@@ -222,6 +222,7 @@ FIELD_BWD_MMA = CudaKernel("ngp_field_mma_bwd")
 COMPOSITE = CudaKernel("ngp_composite")
 COMPOSITE_BWD = CudaKernel("ngp_composite_bwd")
 MARCH = CudaKernel("ngp_march")
+MARCH_CULL = CudaKernel("ngp_march")  # the same entry point on the float render grid
 FIELD_BWD_FEAT = CudaKernel("ngp_field_bwd_feat")
 FIELD_BWD_FEAT_MMA = CudaKernel("ngp_field_mma_bwd_feat")
 MSG_TABLE = CudaKernel("ngp_msg_table")
@@ -233,8 +234,9 @@ COMPACT_UNPACK_BWD = CudaKernel("ngp_compact_unpack_bwd")
 
 # K4's forward, full backward and feature-only backward have two routes
 # each, counted apart: the tensor-core kernels (bf16) and the SIMT ones
-# (fp32, ``_f32``)
-KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH,
+# (fp32, ``_f32``); K2 on the bool grid and on the float render grid (the
+# transmittance cull, ``_cull``)
+KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH, "K2_march_cull": MARCH_CULL,
            "K3_composite": COMPOSITE, "K4_field": FIELD_MMA, "K4_field_f32": FIELD,
            "K1_hash_encode_bwd": HASH_ENCODE_BWD, "K3_composite_bwd": COMPOSITE_BWD,
            "K4_field_bwd": FIELD_BWD_MMA, "K4_field_bwd_f32": FIELD_BWD,

@@ -10,8 +10,12 @@ and tests fine cells only inside the first ``group_budget`` occupied groups.
 ``march_rays`` is the plain version with the JAX signature (near/far given).
 ``march_rays_aabb`` is the kernel wrapper: the kernel (``csrc/marcher.cu``)
 runs the AABB slab test as its prologue, so it takes the box and returns
-``nears``/``fars`` beside the samples.  The JAX package's ``NGP_MARCH_*``
-environment overrides are not carried over; the same values are arguments.
+``nears``/``fars`` beside the samples.  It takes the bool occupancy grid or
+the float render grid (``ops/grid.py:render_grid``), on which ``t_cull > 0``
+drops the candidates whose entering transmittance, estimated from the cell
+densities along the ray, falls below ``t_cull``.  The JAX package's
+``NGP_MARCH_*`` environment overrides are not carried over; the same values
+are arguments.
 """
 
 import dataclasses
@@ -206,8 +210,18 @@ def march_rays(rays_o, rays_d, occupancy, nears, fars, *, bound, dt_gamma=0.0,
                         bound, dt_gamma, noise, t_cull)
 
 
+CULL_MARGIN = 1e-5  # relative: a candidate's t_in this close to t_cull is at the margin
+
+
 def _march_plain(rays_o, rays_d, occupancy, coarse, nears, fars, plan, bound,
-                 dt_gamma, noise, t_cull):
+                 dt_gamma, noise, t_cull, audit=False):
+    """The march in plain PyTorch.  ``audit``: also return ``n_tested`` [N],
+    the candidates each ray tests against the fine grid (the ones before
+    ``far``, inside the admitted groups with the prefilter), and, with the
+    cull, ``cull_margin`` [N] bool: the rays where some occupied candidate's
+    entering transmittance, recomputed in fp64, lies within ``CULL_MARGIN``
+    relative of ``t_cull`` (where a sum of tau in another order may keep
+    or cull it)."""
     C, H = occupancy.shape[0], occupancy.shape[1]
     N = rays_o.shape[0]
     dev = rays_o.device
@@ -288,7 +302,15 @@ def _march_plain(rays_o, rays_d, occupancy, coarse, nears, fars, plan, bound,
         og = F.pad(occ, (0, pad)) if pad else occ
         n_groups_occ = og.reshape(N, -1, group).any(dim=-1).sum(dim=-1, dtype=torch.int32)
 
+    extra = {}
+    if audit:
+        extra["n_tested"] = valid.sum(dim=-1, dtype=torch.int32)
     if t_cull > 0 and vals.dtype != torch.bool:
+        if audit:
+            tau64 = torch.where(occ, vals.double() * dts.double(), 0.0)
+            t_in64 = torch.exp(tau64 - torch.cumsum(tau64, dim=-1))
+            extra["cull_margin"] = (
+                occ & ((t_in64 - t_cull).abs() <= CULL_MARGIN * t_cull)).any(dim=-1)
         tau = torch.where(occ, vals * dts, 0.0)
         t_in = torch.exp(tau - torch.cumsum(tau, dim=-1))
         occ = occ & (t_in >= t_cull)
@@ -310,20 +332,28 @@ def _march_plain(rays_o, rays_d, occupancy, coarse, nears, fars, plan, bound,
         "n_occupied": n_occupied,
         "n_occupied_raw": n_occ_raw,
         "n_groups_occ": n_groups_occ,
+        **extra,
     }
 
 
 def march_rays_aabb(rays_o, rays_d, aabb, occupancy, *, min_near, bound,
                     dt_gamma=0.0, max_steps=1024, n_cand=None, budget=128,
                     prefilter=None, group=4, coarse_factor=2,
-                    group_budget=None, coarse=None, noise=None, plain=False):
+                    group_budget=None, coarse=None, noise=None, t_cull=0.0,
+                    plain=False, audit=False):
     """K2 wrapper: slab test against ``aabb`` ([6] floats) + march.
 
     CPU tensors (or ``plain=True``) run ``near_far_from_aabb`` and
-    ``march_rays``; CUDA tensors launch the marcher kernel, which takes the
-    bool grid.  ``noise``: optional [N] U[0, 1) perturbation of t0 (training;
-    the JAX version draws it from ``perturb_key``), bit-exact between the
-    two.  Returns the ``march_rays`` dict plus ``nears`` and ``fars`` [N]."""
+    ``march_rays``; CUDA tensors launch the marcher kernel, on the bool grid
+    or (its ``_cull`` route) the float render grid.  ``noise``: optional [N]
+    U[0, 1) perturbation of t0 (training; the JAX version draws it from
+    ``perturb_key``), bit-exact between the two.  ``t_cull > 0`` needs the
+    float grid.  ``audit`` (plain only): also ``n_tested`` and
+    ``cull_margin`` (``_march_plain``).  Returns the ``march_rays`` dict plus
+    ``nears`` and ``fars`` [N]."""
+    if t_cull > 0 and occupancy.dtype == torch.bool:
+        raise ValueError("t_cull > 0 needs the float density render grid "
+                         "(ops.grid.render_grid), not the bool occupancy field")
     C, H = occupancy.shape[0], occupancy.shape[1]
     plan = march_plan(C, H, bound=bound, dt_gamma=dt_gamma, max_steps=max_steps,
                       n_cand=n_cand, budget=budget, prefilter=prefilter,
@@ -334,19 +364,19 @@ def march_rays_aabb(rays_o, rays_d, aabb, occupancy, *, min_near, bound,
     if plain or not rays_o.is_cuda:
         nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
         out = _march_plain(rays_o, rays_d, occupancy, coarse, nears, fars, plan,
-                           bound, dt_gamma, noise, 0.0)
+                           bound, dt_gamma, noise, t_cull, audit)
         out.update(nears=nears, fars=fars)
         return out
-    if occupancy.dtype != torch.bool:
-        raise NotImplementedError(
-            "the marcher kernel takes the bool occupancy grid; the float "
-            "render grid (t_cull > 0) is ROADMAP queue 2 item K2 (t_cull)")
+    if audit:
+        raise ValueError("the audit counts run in the plain version only (plain=True)")
+    grid_float = occupancy.dtype == torch.float32
     N = rays_o.shape[0]
     S = plan.budget
     dev = rays_o.device
     _cuda.check(rays_o, "rays_o", torch.float32, (N, 3))
     _cuda.check(rays_d, "rays_d", torch.float32, (N, 3), dev)
-    _cuda.check(occupancy, "occupancy", torch.bool, (C, H, H, H), dev)
+    _cuda.check(occupancy, "occupancy", torch.float32 if grid_float else torch.bool,
+                (C, H, H, H), dev)
     if coarse is not None:
         Hc = H // plan.coarse_factor
         _cuda.check(coarse, "coarse", torch.bool, (C, Hc, Hc, Hc), dev)
@@ -366,13 +396,14 @@ def march_rays_aabb(rays_o, rays_d, aabb, occupancy, *, min_near, bound,
         "n_occupied_raw": torch.empty((N,), dtype=torch.int32, device=dev),
         "n_groups_occ": torch.empty((N,), dtype=torch.int32, device=dev),
     }
-    _cuda.MARCH(
+    kernel = _cuda.MARCH_CULL if grid_float else _cuda.MARCH
+    kernel(
         rays_o.data_ptr(), rays_d.data_ptr(), aabb_host.ctypes.data_as(_cuda._FP),
         occupancy.data_ptr(), _cuda.ptr(coarse), _cuda.ptr(noise),
         N, C, H, H // plan.coarse_factor, plan.n_cand, S, plan.group,
-        plan.group_budget, int(plan.prefilter),
+        plan.group_budget, int(plan.prefilter), int(grid_float),
         float(bound), float(min_near), plan.dt_min, plan.dt_max, float(dt_gamma),
-        float(min(1.0, bound)),
+        float(min(1.0, bound)), float(t_cull),
         out["xyzs"].data_ptr(), out["deltas"].data_ptr(), out["ts"].data_ptr(),
         out["mask"].data_ptr(), out["nears"].data_ptr(), out["fars"].data_ptr(),
         out["n_occupied"].data_ptr(), out["n_occupied_raw"].data_ptr(),

@@ -52,6 +52,8 @@ def render_rays_occ(field_fn: Callable, occupancy, rays_o, rays_d,
     ``field_fn`` closes over (the train step's params).
 
     ``field_fn(xyzs [M, 3], dirs [M, 3]) -> (sigma [M], rgb [M, 3])``.
+    ``occupancy``: the bool grid, or with ``rc.t_cull > 0`` the float render
+    grid (``ops/grid.py:render_grid``).
     ``bg_color``: a scalar, [1, 3] or a per-ray [N, 3] tensor.  ``noise``:
     optional [N] U[0, 1) march perturbation (training; JAX draws it from
     ``perturb_key``).  ``aabb``: optional [6] crop box (default: the scene
@@ -61,17 +63,14 @@ def render_rays_occ(field_fn: Callable, occupancy, rays_o, rays_d,
     whatever the device.
     Returns dict(image [N, 3], depth [N], weights_sum [N], n_occupied,
     n_occupied_raw, n_groups_occ [N])."""
-    if rc.t_cull > 0:
-        raise NotImplementedError(
-            "t_cull > 0 needs the float render grid in the marcher kernel: "
-            "ROADMAP queue 2 item K2 (t_cull), not ported yet")
     if aabb is None:
         aabb = default_aabb(rc)
     m = march_rays_aabb(
         rays_o, rays_d, aabb, occupancy, min_near=rc.min_near, bound=rc.bound,
         dt_gamma=rc.dt_gamma, max_steps=rc.max_steps, n_cand=n_cand,
         budget=budget, prefilter=rc.prefilter,
-        group_budget=rc.group_budget or None, coarse=coarse, noise=noise, plain=plain,
+        group_budget=rc.group_budget or None, coarse=coarse, noise=noise,
+        t_cull=rc.t_cull, plain=plain,
     )
     nears, fars = m["nears"], m["fars"]
     N, S = m["mask"].shape

@@ -10,10 +10,15 @@ value read back to the host inside a dispatch.
 
 Randomness: each dispatch draws its steps' random numbers up front into
 static [K, ...] device buffers from the model's ``torch.Generator`` (pose
-index, pixels, background, march noise; in the watermark stage the message
-and the distortion's draws), and step i reads row i through a step counter
-that lives on the device.  A test can fill the buffers with JAX's draws
-instead.  The grid update draws its own, as ``update_extra_state`` does.
+index, pixels -- patch-structured with a uniform tail under the SSIM patch
+guard --, background, march noise, the error map's three uniforms; in the
+watermark stage the message and the distortion's draws), and step i reads
+row i through a step counter that lives on the device.  A test can fill the
+buffers with JAX's draws instead.  The grid update draws its own, as
+``update_extra_state`` does.  With ``--error_map`` a step samples its pixels
+from its pose's row of the coarse error map (``sample_error_map``) and
+writes the row's EMA back, both on the device: the map is a static
+[P, 128*128] tensor the step reads and writes.
 
 On the card a dispatch replays a CUDA graph of one whole step (``StepGraph``):
 two eager warm-up steps on a side stream (the one-time set-up a capture may
@@ -40,8 +45,11 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
+from ..ops.grid import _set_last_wins
 
 WARMUP_STEPS = 2
+SSIM_WITH_ERROR_MAP = ("--lambda_ssim patch sampling and --error_map importance "
+                       "sampling are mutually exclusive in the scan loop")
 
 
 class DeviceData(NamedTuple):
@@ -252,24 +260,84 @@ def run_steps(owner, body, key, held, n, device, before_step=None):
 
 
 # ------------------------------------------------------------- clean stage
+EM_RES = 128  # the error map's side: [P, EM_RES**2] coarse cells
+
+
+def sample_error_map(em_row, u, H, W, coarse=EM_RES):
+    """Importance sampling over one pose's coarse error map (JAX's
+    ``sample_error_map``): cells drawn in proportion to their error by
+    inverse CDF, with replacement, then jittered into full resolution.
+    em_row [coarse**2]; u [3, N] U[0, 1) (the CDF draw, the row and column
+    jitter).  Returns (pix [N], inds_coarse [N]) int64."""
+    cdf = torch.cumsum(em_row, dim=0)
+    inds = torch.clamp(torch.searchsorted(cdf, u[0] * cdf[-1]), 0, coarse * coarse - 1)
+    ix = torch.div(inds, coarse, rounding_mode="floor").to(torch.float32)
+    iy = torch.remainder(inds, coarse).to(torch.float32)
+    sx, sy = H / coarse, W / coarse
+    ix = torch.clamp_max((ix * sx + u[1] * sx).to(torch.int64), H - 1)
+    iy = torch.clamp_max((iy * sy + u[2] * sy).to(torch.int64), W - 1)
+    return ix * W + iy, inds
+
+
+def update_error_map_(em, pidx, inds, err):
+    """The EMA at the sampled cells of pose ``pidx`` ([1] int64):
+    ``0.1 * em + 0.9 * err``, a repeated cell taking its last sample's
+    error (last-wins, as a sequential scatter), in place, no read-back."""
+    row = em.index_select(0, pidx)[0]
+    _set_last_wins(row, inds, 0.1 * row[inds] + 0.9 * err)
+    em.index_copy_(0, pidx, row[None])
+
+
+def patch_pixels(k, N, pp, H, W, generator, device):
+    """[k, N] pixels: N // pp**2 patches of pp x pp at corners drawn in
+    [0, H - pp) x [0, W - pp), the rest uniform over the image (JAX's
+    patch-structured draws, ``device_loop.py:150-165``)."""
+    g = dict(generator=generator, device=device)
+    npatch = N // (pp * pp)
+    tx = torch.randint(0, H - pp, (k, npatch), **g)
+    ty = torch.randint(0, W - pp, (k, npatch), **g)
+    rest = torch.randint(0, H * W, (k, N - npatch * pp * pp), **g)
+    return patch_grid(tx, ty, pp, W, rest)
+
+
+def patch_grid(tx, ty, pp, W, rest):
+    """Flat pixels of patches at corners (tx, ty) [k, npatch], row-major
+    within a patch, followed by the tail ``rest`` [k, r]."""
+    pi, pj = torch.meshgrid(torch.arange(pp), torch.arange(pp), indexing="ij")
+    off = (pi.reshape(-1) * W + pj.reshape(-1)).to(tx.device)
+    pix = ((tx * W + ty)[..., None] + off).reshape(tx.shape[0], -1)
+    return torch.cat([pix, rest.to(pix.dtype)], dim=-1)
+
+
 class CleanDraws(NamedTuple):
-    """One dispatch's draws: pose index [K], pixels [K, N] (int64), the
-    random background [K, N, 3] (None without alpha) and the march noise
-    [K, N]."""
+    """One dispatch's draws: pose index [K], pixels [K, N] (int64; None when
+    the error map draws them), the random background [K, N, 3] (None
+    without alpha), the march noise [K, N] and the error map's uniforms
+    [K, 3, N] (None without the map)."""
 
     pidx: torch.Tensor
-    pix: torch.Tensor
+    pix: Optional[torch.Tensor]
     bg: Optional[torch.Tensor]
     noise: torch.Tensor
+    em_u: Optional[torch.Tensor] = None
 
 
-def draw_clean(generator, k, P, N, HW, has_alpha, device):
-    """``CleanDraws`` of k steps from ``generator``."""
+def draw_clean(generator, k, P, N, HW, has_alpha, device, *, patch=None, error_map=False):
+    """``CleanDraws`` of k steps from ``generator``.  ``patch``: (pp, H, W)
+    for patch-structured pixels; ``error_map``: draw the map's uniforms
+    instead of pixels."""
     g = dict(generator=generator, device=device)
     pidx = torch.randint(0, P, (k,), **g)
-    pix = torch.randint(0, HW, (k, N), **g)
+    em_u = None
+    if error_map:
+        pix = None
+        em_u = torch.rand((k, 3, N), **g)
+    elif patch is not None:
+        pix = patch_pixels(k, N, *patch, generator, device)
+    else:
+        pix = torch.randint(0, HW, (k, N), **g)
     bg = torch.rand((k, N, 3), **g) if has_alpha else None
-    return CleanDraws(pidx, pix, bg, torch.rand((k, N), **g))
+    return CleanDraws(pidx, pix, bg, torch.rand((k, N), **g), em_u)
 
 
 class LoopStats(NamedTuple):
@@ -345,22 +413,30 @@ def _grid_update_hook(trainer, step0, update_interval, grid_full_until, grid_dra
 
 
 def device_train_loop(trainer, data: DeviceData, n_steps, *, draws=None, grid_draws=None,
-                      update_interval=16, grid_full_until=16):
+                      update_interval=16, grid_full_until=16, error_map=None):
     """``n_steps`` clean train steps of ``trainer`` (``Trainer``) on
     ``data``, from step ``trainer.global_step``.  ``draws``: the steps'
     ``CleanDraws`` (drawn from the model's generator when None);
     ``grid_draws(step, full)``: a grid update's ``GridDraws`` (drawn from the
-    generator when None).  ``trainer.grid_updates`` counts the grid's updates
-    on the host.  Returns ``LoopStats``; the params, EMA, Adam state and the
-    grid are updated in place."""
+    generator when None).  ``error_map``: the [P, 128*128] device map to
+    sample pixels from and EMA-update, in place (``--error_map``).  With
+    the SSIM patch guard on (``trainer.lambda_ssim``) the pixels are
+    patch-structured.  ``trainer.grid_updates`` counts the grid's updates
+    on the host.  Returns ``LoopStats``; the params, EMA, Adam state, the
+    grid and the error map are updated in place."""
     m = trainer.model
     dev = m.device
     N = trainer.opt.num_rays
     P, HW, C = data.images.shape
     if trainer.grid_updates is None:
         trainer.grid_updates = int(m.occ.iter_density)
+    pp = trainer.patch_size if trainer.lambda_ssim > 0 else 1
+    if pp > 1 and error_map is not None:
+        raise RuntimeError(SSIM_WITH_ERROR_MAP)
     if draws is None:
-        draws = draw_clean(m.generator, n_steps, P, N, HW, C == 4, dev)
+        draws = draw_clean(m.generator, n_steps, P, N, HW, C == 4, dev,
+                           patch=(pp, data.H, data.W) if pp > 1 else None,
+                           error_map=error_map is not None)
     buf = _buffers(trainer, "_loop_buffers", draws, 5, dev)
     buf.load(draws, n_steps)
     rc, budget = trainer._rc_train(), m.train_budget
@@ -369,19 +445,26 @@ def device_train_loop(trainer, data: DeviceData, n_steps, *, draws=None, grid_dr
     def body():
         i = buf.i
         pidx = buf.draws.pidx.index_select(0, i)
-        pix = buf.row("pix")
+        if error_map is not None:
+            pix, inds = sample_error_map(error_map.index_select(0, pidx)[0], buf.row("em_u"),
+                                         data.H, data.W)
+        else:
+            pix = buf.row("pix")
         rays_o, rays_d = rays_from_pixels(data.poses.index_select(0, pidx)[0], data.intrinsics,
                                           pix, data.H, data.W)
         images = flat_images.index_select(0, pidx * HW + pix)
         bg = buf.row("bg") if buf.draws.bg is not None else buf.ones
-        loss, _, n_occ, n_raw, n_groups = trainer._train_step(
+        loss, per_ray, n_occ, n_raw, n_groups = trainer._train_step(
             rays_o, rays_d, images, bg, buf.row("noise"), rc, budget)
+        if error_map is not None:
+            update_error_map_(error_map, pidx, inds, per_ray)
         row = torch.stack([loss, n_occ.float().mean(), p95(n_raw), n_groups.float().mean(),
                            n_raw.float().mean()])
         buf.stats.index_copy_(0, i, row[None])
         i.add_(1)
 
-    run_steps(trainer, body, (budget, rc, N), (data, buf, m.occ), n_steps, dev,
+    held = (data, buf, m.occ) + (() if error_map is None else (error_map,))
+    run_steps(trainer, body, (budget, rc, N), held, n_steps, dev,
               _grid_update_hook(trainer, trainer.global_step, update_interval,
                                 grid_full_until, grid_draws))
     stats = buf.stats[:n_steps].cpu().numpy()
@@ -402,14 +485,18 @@ class WmDraws(NamedTuple):
     distortion: Optional[torch.Tensor]
 
 
-def draw_wm(generator, k, D, P, N, HW, distortion, view_shape, device):
-    """``WmDraws`` of k steps from ``generator``."""
+def draw_wm(generator, k, D, P, N, HW, distortion, view_shape, device, *, patch=None):
+    """``WmDraws`` of k steps from ``generator``; ``patch``: (pp, H, W) for
+    patch-structured content pixels."""
     from ..utils.image import distortion_draws
 
     g = dict(generator=generator, device=device)
     message = torch.randint(0, 2, (k, D), **g).to(torch.int32)
     pidx = torch.randint(0, P, (k,), **g)
-    pix = torch.randint(0, HW, (k, N), **g)
+    if patch is not None:
+        pix = patch_pixels(k, N, *patch, generator, device)
+    else:
+        pix = torch.randint(0, HW, (k, N), **g)
     dist = [distortion_draws(distortion, view_shape, generator, device) for _ in range(k)]
     return WmDraws(message, pidx, pix, None if dist[0] is None else torch.stack(dist))
 
@@ -419,8 +506,9 @@ def wm_device_loop(trainer, data: DeviceData, rays_o_b, rays_d_b, n_steps, *, dr
     the key blocks ``rays_*_b`` (static bundles on the device) and content
     rays sampled from the pseudo-GT pool ``data``.  lambda_w is the device
     scalar ``trainer.lambda_w_t`` (set before the dispatch), so the polish
-    phase changes it without a new capture.  Returns (losses, lossws,
-    lossis), numpy [n_steps]."""
+    phase changes it without a new capture.  With ``--patch_size`` the
+    content pixels are patch-structured (JAX's ``trainer_wtmk.py:290-306``).
+    Returns (losses, lossws, lossis), numpy [n_steps]."""
     from .trainer_wtmk import view_batch_shape
 
     m = trainer.model
@@ -428,8 +516,10 @@ def wm_device_loop(trainer, data: DeviceData, rays_o_b, rays_d_b, n_steps, *, dr
     N = trainer.opt.num_rays
     P, HW, _ = data.images.shape
     if draws is None:
+        pp = trainer.patch_size
         draws = draw_wm(m.generator, n_steps, m.wcfg.message_dim, P, N, HW,
-                        trainer.distortion, view_batch_shape(rays_o_b.shape), dev)
+                        trainer.distortion, view_batch_shape(rays_o_b.shape), dev,
+                        patch=(pp, data.H, data.W) if pp > 1 else None)
     buf = _buffers(trainer, "_loop_buffers", draws, 3, dev)
     buf.load(draws, n_steps)
     if trainer.lambda_w_t is None:

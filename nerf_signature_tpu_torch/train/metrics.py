@@ -1,13 +1,17 @@
 """Evaluation metric meters: PSNR, SSIM, an inert LPIPS and the watermark's
 bit accuracy with its binomial p-value (numpy copies of
-``nerf_signature_tpu/train/metrics.py``).
+``nerf_signature_tpu/train/metrics.py``), and ``ssim_torch``, the
+differentiable SSIM of the patch guard (``--lambda_ssim``).
 
 Equivalents of ``nerf/utils_wtmk_disen.py:211-319`` (PSNRMeter / SSIMMeter /
 LPIPSMeter).  SSIM is gaussian 11x11, sigma 1.5 (the torchmetrics default
 the reference uses).
 """
 
+import functools
+
 import numpy as np
+import torch
 
 
 class _Meter:
@@ -70,6 +74,47 @@ def ssim(img1, img2, data_range=1.0, size=11, sigma=1.5):
         (mu1_sq + mu2_sq + C1) * (s1 + s2 + C2)
     )
     return float(m.mean())
+
+
+@functools.lru_cache(maxsize=None)
+def _valid_window(n, size, sigma, device):
+    """[n - size + 1, n] float32 on ``device``: row r holds the gaussian
+    window at columns r..r + size - 1 (the 'valid' convolution as a
+    matrix).  Made once a device: a captured step copies nothing from the
+    host."""
+    k = _gaussian_kernel(size, sigma)
+    m = np.zeros((n - size + 1, n), np.float32)
+    for r in range(n - size + 1):
+        m[r, r:r + size] = k
+    return torch.from_numpy(m).to(device)
+
+
+def ssim_torch(img1, img2, data_range=1.0, size=11, sigma=1.5):
+    """Differentiable SSIM over [B, H, W, C] tensors, the mean over every
+    window (JAX's ``ssim_jnp``): the gaussian blur as two 'valid'
+    convolution matrices applied by einsum, the window shrunk to the
+    largest odd size that fits a patch smaller than 11.  Plain PyTorch: two
+    small products a term."""
+    H, W = int(img1.shape[-3]), int(img1.shape[-2])
+    size = min(size, H - (1 - H % 2), W - (1 - W % 2))
+    KH = _valid_window(H, size, sigma, img1.device)
+    KW = _valid_window(W, size, sigma, img1.device)
+
+    def blur(x):
+        x = torch.einsum("oh,...hwc->...owc", KH, x)
+        return torch.einsum("ow,...hwc->...hoc", KW, x)
+
+    img1 = img1.to(torch.float32)
+    img2 = img2.to(torch.float32)
+    C1 = (0.01 * data_range) ** 2
+    C2 = (0.03 * data_range) ** 2
+    mu1, mu2 = blur(img1), blur(img2)
+    mu1_sq, mu2_sq, mu12 = mu1**2, mu2**2, mu1 * mu2
+    s1 = blur(img1**2) - mu1_sq
+    s2 = blur(img2**2) - mu2_sq
+    s12 = blur(img1 * img2) - mu12
+    m = ((2 * mu12 + C1) * (2 * s12 + C2)) / ((mu1_sq + mu2_sq + C1) * (s1 + s2 + C2))
+    return m.mean()
 
 
 class SSIMMeter(_Meter):

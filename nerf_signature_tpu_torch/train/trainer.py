@@ -9,10 +9,17 @@ Randomness is explicit: the per-step random background and march noise are
 drawn from the model's ``torch.Generator`` and handed to the renderer as
 tensors (JAX splits a key into the same two draws).  ``train_device`` runs
 K steps a dispatch on the device (``train/device_loop.py``; on the card a
-replayed CUDA graph of the step).  Paths not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: ``--error_map``, the
-patch LPIPS/SSIM losses, ``--clip_text``, the stochastic hash estimators
-(K7), ``--devices > 1`` and training with ``t_cull > 0``.
+replayed CUDA graph of the step).
+
+Train-step options: ``--t_cull`` marches the float render grid (K2's cull
+route) once the grid's 16 full updates are done (the fog gate); the
+evaluation and test renders stay exact.  ``--error_map`` samples pixels
+from a per-view coarse error map and EMA-updates it (on the host per step,
+on the device in the loop).  ``--patch_size N --lambda_ssim w`` adds
+``w * (1 - SSIM)`` over the batch's N x N patches.  Paths not ported yet
+raise ``NotImplementedError`` naming their ROADMAP item: the patch LPIPS
+loss (its weights), ``--clip_text``, the stochastic hash estimators (K7)
+and ``--devices > 1``.
 """
 
 import dataclasses
@@ -43,6 +50,7 @@ from .checkpoint import (
     save_checkpoint,
 )
 from .device_loop import (
+    SSIM_WITH_ERROR_MAP,
     adam_step,
     device_train_loop,
     drop_graph,
@@ -50,10 +58,7 @@ from .device_loop import (
     prepare_device_loop,
     set_lr,
 )
-from .metrics import PSNRMeter
-
-T_CULL_TODO = ("training with --t_cull > 0 needs the float render grid in the marcher "
-               "kernel: ROADMAP queue 2 item K2 (t_cull), not ported yet")
+from .metrics import PSNRMeter, ssim_torch
 
 
 def srgb_to_linear(x):
@@ -118,6 +123,13 @@ class Trainer:
         self.max_keep_ckpt = max_keep_ckpt
         self.mute = mute
         _refuse_unported(opt, model)
+        # the weight-free structural patch guard (shared with the watermark
+        # stage): lambda_ssim * (1 - SSIM) over patch-structured batches
+        self.patch_size = int(getattr(opt, "patch_size", 1) or 1)
+        self.lambda_ssim = float(getattr(opt, "lambda_ssim", 0.0) or 0.0)
+        if self.lambda_ssim > 0 and self.patch_size <= 1:
+            raise ValueError("--lambda_ssim needs --patch_size > 1 "
+                             "(patch-structured ray batches)")
 
         for p in param_leaves(model.params):
             p.requires_grad_(True)
@@ -162,6 +174,11 @@ class Trainer:
                     self.log(f"[ckpt] {path} unreadable ({e}); falling back to previous")
         elif use_checkpoint and os.path.exists(use_checkpoint):
             self.load_checkpoint(use_checkpoint, model_only=True)
+        if self.patch_size > 1:
+            self.log("[lpips] patch LPIPS loss skipped: no weights "
+                     "(set --lpips_weights or install lpips)")
+        if self.lambda_ssim > 0:
+            self.log(f"[ssim] patch SSIM guard active (lambda={self.lambda_ssim}, in-graph)")
 
     # ------------------------------------------------------------------ util
     def log(self, *args):
@@ -282,6 +299,9 @@ class Trainer:
             rays_o, rays_d, rc, budget=budget, bg_color=bg, noise=noise)
         per_ray = torch.mean((out["image"] - gt) ** 2, dim=-1)
         loss = torch.mean(per_ray)
+        if self.lambda_ssim > 0:
+            loss = loss + self.lambda_ssim * (1.0 - patch_ssim(out["image"], gt,
+                                                               self.patch_size))
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         set_lr(self.optimizer, param_leaves(m.params)[0], self.lr_schedule,
@@ -312,9 +332,6 @@ class Trainer:
         return bg, torch.rand((n,), generator=m.generator, device=m.device)
 
     def train_step_data(self, data):
-        if self.model.rc.t_cull > 0:
-            # refused before the first step, not once _rc_train lets it through
-            raise NotImplementedError(T_CULL_TODO)
         if "images" not in data:
             # GT-free rand_pose batch: no CLIP guidance in the port, skip it
             if not getattr(self, "_warned_gt_free", False):
@@ -338,6 +355,7 @@ class Trainer:
         m = self.model
         total_loss, nsteps = 0.0, 0
         t_epoch = time.time()
+        error_map = getattr(loader, "error_map", None)
         update_interval = getattr(self.opt, "update_extra_interval", 16)
         for data in loader:
             if (self.global_step % update_interval == 0
@@ -347,6 +365,11 @@ class Trainer:
             loss, per_ray, n_occ, n_occ_raw, n_groups = self.train_step_data(data)
             if loss is None:
                 continue
+            if error_map is not None and "inds_coarse" in data:
+                # the EMA at the sampled cells, on the host (ref utils.py:549-556);
+                # a patch batch carries no inds_coarse and leaves the map as it is
+                update_error_map(error_map, data["index"], data["inds_coarse"],
+                                 per_ray.cpu().numpy())
             if self.global_step % update_interval == update_interval - 1:
                 self._adapt_budget(n_occ_raw.cpu().numpy())
                 self._adapt_compaction(float(n_occ.float().mean()))
@@ -368,20 +391,27 @@ class Trainer:
         steps on the preloaded dataset, and between them, in JAX's order, the
         compaction, march-budget and group-budget adaptations, the metrics
         line, and every ``save_interval`` dispatches a checkpoint and the
-        fog-deadlock guard."""
-        if self.model.rc.t_cull > 0:
-            raise NotImplementedError(T_CULL_TODO)
+        fog-deadlock guard.  With ``--error_map`` the loader's map goes to
+        the device, is sampled and updated there, and comes back to the
+        loader after every dispatch."""
         m = self.model
         max_steps = max_steps or self.opt.iters
+        em_host = getattr(loader, "error_map", None)
+        if self.lambda_ssim > 0 and em_host is not None:
+            raise RuntimeError(SSIM_WITH_ERROR_MAP)
         data = preload(loader.poses, loader.images, loader.intrinsics, loader.H, loader.W,
                        m.device)
+        em = (None if em_host is None else
+              torch.as_tensor(np.asarray(em_host, np.float32), device=m.device))
         m.mark_untrained_grid(loader.poses, loader.intrinsics)
         prepare_device_loop(self, param_leaves(m.params))
         update_interval = getattr(self.opt, "update_extra_interval", 16)
         start = time.time()
         while self.global_step < max_steps:
             k = min(steps_per_dispatch, max_steps - self.global_step)
-            st = device_train_loop(self, data, k, update_interval=update_interval)
+            st = device_train_loop(self, data, k, update_interval=update_interval, error_map=em)
+            if em is not None:
+                em_host[...] = em.cpu().numpy()
             self.global_step += k
             loss = float(st.losses.mean())
             self.stats["loss"].append(loss)
@@ -573,6 +603,25 @@ class Trainer:
         ensure_occupancy(m, path, self.log)
 
 
+def patch_ssim(image, gt, patch_size):
+    """SSIM of the batch's leading patches: [N, 3] rays whose first
+    N // patch_size**2 * patch_size**2 are row-major patch_size**2 grids."""
+    pp = patch_size
+    n = image.shape[0] // (pp * pp)
+    return ssim_torch(image[:n * pp * pp].reshape(n, pp, pp, 3),
+                      gt[:n * pp * pp].reshape(n, pp, pp, 3))
+
+
+def update_error_map(error_map, index, inds_coarse, per_ray):
+    """The per-step error-map EMA on the host: cells ``inds_coarse`` of
+    view ``index`` take ``0.1 * map + 0.9 * per-ray error`` (numpy, a
+    repeated cell its last ray's)."""
+    inds = np.asarray(inds_coarse).reshape(-1)
+    em = error_map[index]
+    em[inds] = 0.1 * em[inds] + 0.9 * np.asarray(per_ray).reshape(-1)
+    error_map[index] = em
+
+
 def restore_occupancy(model, occ_state):
     """Load a checkpoint's grid fields into ``model.occ``, checking shapes."""
     fields = {}
@@ -627,14 +676,11 @@ def _refuse_unported(opt, model):
     todo = []
     if getattr(opt, "devices", 0) > 1:
         todo.append("--devices > 1 (ROADMAP: parallel/ as DDP over NCCL)")
-    if getattr(opt, "error_map", False):
-        todo.append("--error_map (ROADMAP queue 1: error map, patch losses, CLIP)")
     if getattr(opt, "clip_text", ""):
-        todo.append("--clip_text (ROADMAP queue 1: error map, patch losses, CLIP)")
-    if getattr(opt, "patch_size", 1) > 1 and (
-            getattr(opt, "lpips_weights", None) or getattr(opt, "lambda_ssim", 0)):
-        todo.append("--patch_size with LPIPS/SSIM (ROADMAP queue 1: error map, "
-                    "patch losses, CLIP)")
+        todo.append("--clip_text (ROADMAP queue 1: LPIPS and CLIP weights)")
+    if getattr(opt, "patch_size", 1) > 1 and getattr(opt, "lpips_weights", None):
+        todo.append("--patch_size with LPIPS weights (ROADMAP queue 1: LPIPS and CLIP "
+                    "weights)")
     if model.cfg.stochastic_hash_grad or getattr(opt, "hash_fwd_corners", 8) != 8:
         todo.append("--stochastic_hash_grad / --hash_fwd_corners 1 (ROADMAP queue 2 K7)")
     if todo:

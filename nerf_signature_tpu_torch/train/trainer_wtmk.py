@@ -26,8 +26,8 @@ run per view (``_per_view``), their draws made at the per-view batch shape
 (``train/device_loop.py:wm_device_loop``; on the card a replayed CUDA graph
 of the step), its messages and distortion draws made on the device.  Not
 ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-``--devices > 1``, ``--patch_size`` / ``--lambda_ssim``,
-``--finetune_decoder`` and the stochastic hash estimators.
+``--devices > 1``, ``--finetune_decoder`` and the stochastic hash
+estimators.
 """
 
 import dataclasses
@@ -71,7 +71,7 @@ from .device_loop import (
     wm_device_loop,
 )
 from .metrics import BitAccMeter, PSNRMeter, SSIMMeter
-from .trainer import T_CULL_TODO, ensure_occupancy, make_lr_schedule, restore_occupancy, write_png
+from .trainer import ensure_occupancy, make_lr_schedule, patch_ssim, restore_occupancy, write_png
 
 _CKPT_ERRORS = (OSError, EOFError, ValueError, KeyError, pickle.UnpicklingError)
 
@@ -158,14 +158,16 @@ def _render_blocks(fp, grid, rays_o_b, rays_d_b, wcfg, rc, budget, plain=False):
 
 def _wm_step_loss(backbone, tr, grid, rays_o_b, rays_d_b, ct_o, ct_d, ct_gt, message, draws,
                   lambda_w, lambda_i, wcfg, rc, budget, block_budget, distortion, loss_w_fn,
-                  lambda_msg_reg=None, plain=False):
+                  lambda_msg_reg=None, plain=False, patch_size=1, lambda_ssim=None):
     """The watermark training objective (ref ``utils_wtmk_disen.py:579-646``).
 
     Key blocks render at the extraction budget ``block_budget``, content
     rays at the pseudo-GT budget ``budget``; when the two are equal (the
     default) both render in ONE march + field + composite.  ``message`` is
     [D] int32 on the device, ``draws`` the distortion's random inputs at the
-    per-view batch shape.  Returns (loss, (lossw, lossi, decoded [D, 1]))."""
+    per-view batch shape.  With ``patch_size > 1`` and ``lambda_ssim``, the
+    content rays' leading patches add ``lambda_ssim * (1 - SSIM)``.
+    Returns (loss, (lossw, lossi, decoded [D, 1]))."""
     fp = wtmk_field_params(backbone, tr, wcfg, message, plain)
     field = lambda x, d: wtmk_field(fp, wcfg, x, d, plain=plain)
     if budget == block_budget:
@@ -185,6 +187,8 @@ def _wm_step_loss(backbone, tr, grid, rays_o_b, rays_d_b, ct_o, ct_d, ct_gt, mes
     lossw = loss_w_fn(decoded.reshape(-1), message.to(torch.float32).reshape(-1))
     lossi = torch.mean((content_img - ct_gt) ** 2)
     loss = lambda_w * lossw + lambda_i * lossi
+    if patch_size > 1 and lambda_ssim is not None:
+        loss = loss + lambda_ssim * (1.0 - patch_ssim(content_img, ct_gt, patch_size))
     if lambda_msg_reg is not None:
         loss = loss + lambda_msg_reg * torch.mean(torch.square(fp["msg_eff"]))
     return loss, (lossw, lossi, decoded)
@@ -222,6 +226,13 @@ class WatermarkTrainer:
         # content rays render at the pseudo-GT budget unless
         # --wm_content_budget says otherwise
         self.content_budget = getattr(opt, "wm_content_budget", 0) or model.infer_budget
+        # --patch_size + --lambda_ssim: the structural content guard on
+        # patch-shaped content rays
+        self.patch_size = int(getattr(opt, "patch_size", 1) or 1)
+        self.lambda_ssim = float(getattr(opt, "lambda_ssim", 0.0) or 0.0)
+        if self.lambda_ssim > 0 and self.patch_size <= 1:
+            raise ValueError("--lambda_ssim needs patch-structured content rays: "
+                             "set --patch_size > 1 (num_rays divisible by patch_size**2)")
         self.lambda_msg_reg = float(getattr(opt, "lambda_msg_reg", 0.0) or 0.0)
 
         for p in trainable_leaves(model.trainable):
@@ -339,7 +350,8 @@ class WatermarkTrainer:
             ct_o, ct_d, ct_gt, message, draws,
             self.lambda_w if lambda_w is None else lambda_w, self.lambda_i, m.wcfg, rc,
             self.content_budget, m.infer_budget, self.distortion, self.loss_w_fn,
-            lambda_msg_reg=self.lambda_msg_reg or None, plain=plain)
+            lambda_msg_reg=self.lambda_msg_reg or None, plain=plain,
+            patch_size=self.patch_size, lambda_ssim=self.lambda_ssim or None)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         set_lr(self.optimizer, m.trainable["msg_tables"], self.lr_schedule,
@@ -349,8 +361,6 @@ class WatermarkTrainer:
 
     def train_step_data(self, data, message):
         m = self.model
-        if m.rc.t_cull > 0:
-            raise NotImplementedError(T_CULL_TODO)
         dev = m.device
         ro_b, rd_b = self._device_rays(data["watermark"])
         ct = data["content"]
@@ -414,8 +424,6 @@ class WatermarkTrainer:
         ``eval_interval`` of them ``test_bitacc`` and ``test_image``, every
         ``save_interval`` a checkpoint."""
         m = self.model
-        if m.rc.t_cull > 0:
-            raise NotImplementedError(T_CULL_TODO)
         max_steps = max_steps or self.opt.iters
         if getattr(train_loader, "poses", None) is not None:
             m.mark_untrained_grid(train_loader.poses, train_loader.intrinsics)
@@ -694,8 +702,6 @@ def _refuse_unported(opt, model):
     todo = []
     if getattr(opt, "devices", 0) > 1:
         todo.append("--devices > 1 (ROADMAP queue 1: --devices > 1)")
-    if getattr(opt, "patch_size", 1) > 1 or getattr(opt, "lambda_ssim", 0):
-        todo.append("--patch_size / --lambda_ssim (ROADMAP queue 1: patch losses)")
     if model.wcfg.finetune_decoder or getattr(opt, "finetune_decoder", False):
         todo.append("--finetune_decoder (ROADMAP queue 1: whole_image/copyrnerf/film/"
                     "finetune_decoder)")

@@ -29,6 +29,11 @@ backward at any T * F and more than 32 bits.  K3 is
 also held at its warp walk's edges (S not a multiple of the 32-slot chunk,
 stops inside the first chunk and at its boundary, the mask absent or all
 off, T_thresh 0, N = 0), its backward repeats bit-equal (no atomics).
+K2 on the float render grid (the transmittance cull) against its plain
+version: bit for bit at t_cull 0, and with the cull on every ray that no
+candidate puts at the cull's margin (none on the inputs); the device loop
+with --t_cull captures its step again once, when the fog gate opens, and
+then launches the cull route every step.
 K5 (sample compaction) pack, unpack and unpack backward bit for bit
 against the plain versions on ``kernel_cases.k5_edge_inputs`` and at the
 clean and watermark steps' shapes; the pack also on a mask one byte off
@@ -119,6 +124,43 @@ def test_march_kernel_matches_plain(cuda, bound, prefilter, gamma):
     k = t_march.march_rays_aabb(o, d, aabb, occ, **kw)
     p = t_march.march_rays_aabb(o, d, aabb, occ, plain=True, **kw)
     assert k["mask"].any()
+    for name in p:
+        assert torch.equal(k[name], p[name]), name
+
+
+def _density_grid(rng, C, H=128):
+    """A float render grid: densities U(0, 300) on 5% of the cells, a few
+    of them at exactly 0 (occupied in the bool grid, empty here)."""
+    occ = rng.uniform(size=(C, H, H, H)) < 0.05
+    dens = rng.uniform(0.0, 300.0, size=occ.shape) * (rng.uniform(size=occ.shape) > 0.05)
+    return torch.tensor(np.where(occ, dens, 0.0).astype(np.float32))
+
+
+@pytest.mark.parametrize("t_cull", [1e-3, 1e-5, 0.0])
+@pytest.mark.parametrize("bound,prefilter,gamma", [
+    (b, pf, g) for b in (1.0, 2.0) for pf in (True, False) for g in (0.0, 1 / 128)])
+def test_march_cull_kernel_matches_plain(cuda, bound, prefilter, gamma, t_cull):
+    """K2 on the float render grid: with the cull, equal to the plain
+    version on every ray but those at the cull's margin (a candidate's
+    entering transmittance within CULL_MARGIN of t_cull: the warp scan adds
+    tau in another order than torch.cumsum), which are counted and must be
+    none here; at t_cull 0 bit for bit."""
+    rng = np.random.default_rng(5)
+    C = 1 if bound <= 1 else 2
+    grid = _density_grid(rng, C).to(cuda)
+    o, d = (v.to(cuda) for v in _rays(rng, 4096, bound))
+    nz = torch.rand(4096, generator=torch.Generator().manual_seed(6)).to(cuda)
+    aabb = (-bound,) * 3 + (bound,) * 3
+    kw = dict(min_near=0.2, bound=bound, dt_gamma=gamma, max_steps=1024, budget=128,
+              prefilter=prefilter, noise=nz, t_cull=t_cull)
+    k = t_march.march_rays_aabb(o, d, aabb, grid, **kw)
+    p = t_march.march_rays_aabb(o, d, aabb, grid, plain=True, audit=True, **kw)
+    margin = p.pop("cull_margin", torch.zeros(4096, dtype=torch.bool, device=cuda))
+    p.pop("n_tested")
+    assert int(margin.sum()) == 0
+    assert k["mask"].any()
+    if t_cull > 0:
+        assert (p["n_occupied"] < p["n_occupied_raw"]).any()
     for name in p:
         assert torch.equal(k[name], p[name]), name
 
@@ -286,9 +328,13 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         t_march.march_rays_aabb(o, torch.ones((3, 8), device=cuda).t(), (-1, -1, -1, 1, 1, 1),
                                 occ, min_near=0.2, bound=1.0)
-    with pytest.raises(NotImplementedError, match="bool occupancy"):
-        t_march.march_rays_aabb(o, o + 1, (-1, -1, -1, 1, 1, 1), occ.float(),
+    # the marcher takes the bool grid or the float32 render grid, nothing else
+    with pytest.raises(TypeError, match="float64"):
+        t_march.march_rays_aabb(o, o + 1, (-1, -1, -1, 1, 1, 1), occ.double(),
                                 min_near=0.2, bound=1.0)
+    with pytest.raises(ValueError, match="t_cull"):
+        t_march.march_rays_aabb(o, o + 1, (-1, -1, -1, 1, 1, 1), occ, min_near=0.2,
+                                bound=1.0, t_cull=1e-3)
 
 
 @pytest.mark.parametrize("F", [1, 2, 8])
@@ -794,3 +840,47 @@ def test_captured_step_replays_match_eager(cuda, monkeypatch, C):
     for name in ("K5_compact_pack", "K5_compact_unpack", "K5_compact_unpack_bwd",
                  "K2_march", "K1_hash_encode_bwd"):
         assert cg[name] == ce[name] >= n, name
+
+
+def test_loop_recaptures_once_when_the_cull_gate_opens(cuda):
+    """A clean device loop with --t_cull from a grid one update short of the
+    fog gate: the first dispatch captures the exact march (the bool grid),
+    the update before its first step opens the gate, the second dispatch
+    captures the float grid's march, and every later one replays it: two
+    captures in four dispatches, K2's cull route launched once a step
+    after the gate and its bool route once a step before."""
+    import types
+
+    from nerf_signature_tpu_torch.api import NGPModel
+    from nerf_signature_tpu_torch.models.ngp import NGPConfig
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+    from nerf_signature_tpu_torch.train import trainer as t_trainer
+
+    rng = np.random.default_rng(1)
+    P, H, W, N, K = 4, 64, 64, 1024, 4
+    poses = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
+    poses[:, 2, 3] = 2.5
+    poses[:, :3, :3] = np.diag([1.0, -1.0, -1.0])
+    images = rng.uniform(size=(P, H, W, 4)).astype(np.float32)
+    intr = np.array([60.0, 60.0, 32.0, 32.0], np.float32)
+    model = NGPModel(NGPConfig(bound=1.0, compute_dtype=torch.float32, **WIDTHS["narrow"]),
+                     grid_size=32, train_budget=64, seed=2, t_cull=1e-3, device=cuda)
+    model.params["hash_table"].data.mul_(1e4)
+    for _ in range(15):
+        model.update_extra_state(full=True)
+    opt = types.SimpleNamespace(lr=1e-2, iters=100, num_rays=N, max_steps=128,
+                                compact_frac=0, group_budget=0, update_extra_interval=K)
+    tr = t_trainer.Trainer("ngp", opt, model, workspace=None, use_checkpoint="scratch",
+                           mute=True)
+    data = t_dl.preload(poses, images, intr, H, W, cuda)
+    t_dl.prepare_device_loop(tr, t_trainer.param_leaves(model.params))
+    _cuda.reset_launch_counts()
+    for d in range(4):
+        tr.global_step = d * K
+        t_dl.device_train_loop(tr, data, K, update_interval=opt.update_extra_interval)
+    torch.cuda.synchronize()
+    n = _cuda.launch_counts()
+    assert tr.step_graph.captures == 2
+    assert tr._rc_train().t_cull == 1e-3
+    assert n["K2_march"] == K and n["K2_march_cull"] == 3 * K, n

@@ -12,6 +12,14 @@ first chunk with a lane at or past ``far``.  The emulation uses the plain
 version's own cell and level arithmetic, so everything must be equal:
 masks, samples and all three counts (the kernel is held bit for bit against
 the plain version on the card, ``tests/test_torch_kernels.py``).
+
+On the float render grid with ``t_cull > 0`` the walk also keeps the
+kernel's running sum of tau: a Hillis-Steele scan over each chunk's 32
+lanes (``__shfl_up_sync``) plus the carry from lane 31 of the chunk
+before.  That adds in another order than the plain version's cumsum, so
+the two are held equal on every ray but those where some candidate's
+entering transmittance lies within ``CULL_MARGIN`` of ``t_cull``
+(``cull_margin``), and those are counted: none on these inputs.
 """
 
 import numpy as np
@@ -41,8 +49,10 @@ def _exclusive_count(m):
 class _Walk:
     """The kernel's per-ray state, one entry a ray (a warp)."""
 
-    def __init__(self, o, d, occ, coarse, near, far, t_start, plan, bound, gamma):
+    def __init__(self, o, d, occ, coarse, near, far, t_start, plan, bound, gamma, t_cull):
         N = o.shape[0]
+        self.t_cull = t_cull
+        self.cum = torch.zeros(N)  # the running sum of tau (the cull)
         self.o, self.d, self.occ, self.coarse = o, d, occ, coarse
         self.far, self.t_start, self.plan, self.bound, self.gamma = far, t_start, plan, bound, gamma
         self.C, self.H = occ.shape[0], occ.shape[1]
@@ -63,8 +73,24 @@ class _Walk:
         return t_march._positions(self.o, self.d, t, self.bound)
 
     def fine(self, t, dt):
+        """The grid's value at each candidate as a float: 1 / 0 on the bool
+        grid, the cell density on the float one (occupied iff > 0)."""
         idx, _ = t_march._cells_and_levels(self.positions(t), dt, self.C, self.H, self.bound)
-        return self.occ.reshape(-1)[idx]
+        return self.occ.reshape(-1)[idx].to(torch.float32)
+
+    def survives(self, occ, v, dt):
+        """The cull over one chunk of 32 lanes: the warp's inclusive scan
+        of tau in the kernel's order, plus the carry."""
+        tau = torch.where(occ, v * dt, 0.0)
+        lane = torch.arange(LANES)
+        c, off = tau, 1
+        while off < LANES:
+            y = torch.cat([torch.zeros((c.shape[0], off)), c[:, :-off]], -1)
+            c = torch.where(lane[None, :] >= off, y + c, c)
+            off *= 2
+        c = self.cum[:, None] + c
+        self.cum = c[:, -1]
+        return occ & (torch.exp(tau - c) >= self.t_cull)
 
     def coarse_at(self, t, dt):
         pos = self.positions(t)
@@ -81,11 +107,14 @@ class _Walk:
             hit = hit | flat[lv * Hc**3 + t_march._cells(pos, mb, Hc)]
         return hit
 
-    def keep(self, occ, t, dt):
+    def keep(self, valid, v, t, dt):
         """The lanes' ballot rank after the samples kept so far; stores the
-        kept samples (lane order) below the budget."""
-        slot = self.kept[:, None] + _exclusive_count(occ)
-        ok = occ & (slot < self.plan.budget)
+        kept samples (lane order) below the budget.  Returns the pre-cull
+        occupancy."""
+        occ = valid & (v > 0)
+        surv = self.survives(occ, v, dt) if self.t_cull > 0 else occ
+        slot = self.kept[:, None] + _exclusive_count(surv)
+        ok = surv & (slot < self.plan.budget)
         r, c = torch.nonzero(ok, as_tuple=True)
         s = slot[r, c]
         self.ts[r, s] = t[r, c]
@@ -94,9 +123,9 @@ class _Walk:
         for a in range(3):
             self.xyzs[r, s, a] = pos[a][r, c]
         self.mask[r, s] = True
-        n = occ.sum(-1)
-        self.kept += n
-        self.occ_raw += n
+        self.kept += surv.sum(-1)
+        self.occ_raw += occ.sum(-1)
+        return occ
 
     def chunk_ts(self, t_run, count):
         """Every lane runs the chunk's serial recurrence (dt_gamma > 0):
@@ -112,7 +141,7 @@ class _Walk:
 
 def warp_walk(o, d, aabb, occ, *, min_near, bound, dt_gamma=0.0, max_steps=1024,
               n_cand=None, budget=128, prefilter=None, group=4, group_budget=None,
-              noise=None):
+              noise=None, t_cull=0.0):
     """The kernel's walk: returns the ``march_rays_aabb`` dict (no dirs)."""
     C, H = occ.shape[0], occ.shape[1]
     plan = t_march.march_plan(C, H, bound=bound, dt_gamma=dt_gamma, max_steps=max_steps,
@@ -123,7 +152,7 @@ def warp_walk(o, d, aabb, occ, *, min_near, bound, dt_gamma=0.0, max_steps=1024,
     t_start = near
     if noise is not None:
         t_start = near + torch.clamp(near * dt_gamma, plan.dt_min, plan.dt_max) * noise
-    w = _Walk(o, d, occ, coarse, near, far, t_start, plan, bound, dt_gamma)
+    w = _Walk(o, d, occ, coarse, near, far, t_start, plan, bound, dt_gamma, t_cull)
     closed = dt_gamma == 0
     lane = torch.arange(LANES)
     t_run = t_start.clone()
@@ -163,7 +192,7 @@ def warp_walk(o, d, aabb, occ, *, min_near, bound, dt_gamma=0.0, max_steps=1024,
                         t = torch.where(j[None, :] > c, t + w.step(t), t)
                     dt = w.step(t)
                 fvalid = (src >= 0) & (t < far[:, None])
-                w.keep(fvalid & w.fine(t, dt), t, dt)
+                w.keep(fvalid, w.fine(t, dt), t, dt)
             w.done |= ~gvalid.all(-1)
     else:
         last = torch.full((o.shape[0],), -1, dtype=torch.int64)
@@ -175,8 +204,7 @@ def warp_walk(o, d, aabb, occ, *, min_near, bound, dt_gamma=0.0, max_steps=1024,
             else:
                 t, dt, t_run = w.chunk_ts(t_run, LANES)
             valid = (i < plan.n_cand)[None, :] & (t < far[:, None]) & ~w.done[:, None]
-            occ_c = valid & w.fine(t, dt)
-            w.keep(occ_c, t, dt)
+            occ_c = w.keep(valid, w.fine(t, dt), t, dt)
             # an occupied candidate opens a group unless the occupied one
             # before it (in this chunk, or the last one before it) is in its group
             at = torch.where(occ_c, i[None, :], -1)
@@ -185,9 +213,9 @@ def warp_walk(o, d, aabb, occ, *, min_near, bound, dt_gamma=0.0, max_steps=1024,
             w.groups += opens.sum(-1)
             last = torch.maximum(last, at.max(-1).values)
             w.done |= ~valid.all(-1)
-    n = w.occ_raw.to(torch.int32)
     return {"xyzs": w.xyzs, "deltas": w.deltas, "ts": w.ts, "mask": w.mask,
-            "nears": near, "fars": far, "n_occupied": n, "n_occupied_raw": n,
+            "nears": near, "fars": far, "n_occupied": w.kept.to(torch.int32),
+            "n_occupied_raw": w.occ_raw.to(torch.int32),
             "n_groups_occ": w.groups.to(torch.int32)}
 
 
@@ -235,3 +263,45 @@ def test_warp_walk_matches_plain(bound, prefilter, gamma, group, group_budget, n
         assert (p["n_occupied"] > 16).any()  # some rays overflow S
     else:
         assert (p["n_groups_occ"] > plan.group_budget).any()  # the budget truncates
+
+
+def _density_grid(rng, C, H):
+    """A float render grid: a dense ball of densities U(0, 300) (a few
+    occupied cells at exactly 0, which count as empty), sparse outside."""
+    c = (np.arange(H) + 0.5) / H * 2 - 1
+    r2 = sum(a**2 for a in np.meshgrid(c, c, c, indexing="ij"))
+    occ = rng.uniform(size=(C, H, H, H)) < np.where(r2 < 0.5, 0.7, 0.02)
+    dens = rng.uniform(0.0, 300.0, size=occ.shape) * (rng.uniform(size=occ.shape) > 0.05)
+    return torch.from_numpy(np.where(occ, dens, 0.0).astype(np.float32))
+
+
+CULL_CASES = [(b, pf, g, tc) for b in (1.0, 2.0) for pf in (True, False)
+              for g in (0.0, 1 / 128) for tc in (1e-3, 1e-5)]
+
+
+@pytest.mark.parametrize("bound,prefilter,gamma,t_cull", CULL_CASES)
+def test_warp_walk_cull_matches_plain(bound, prefilter, gamma, t_cull):
+    """The float grid's walk with the cull: the running sum's warp scan and
+    carry, the survivors' slots, n_occupied (survivors) apart from
+    n_occupied_raw and n_groups_occ (pre-cull)."""
+    rng = np.random.default_rng(47)
+    C = 1 if bound <= 1 else 2
+    grid = _density_grid(rng, C, 32)
+    o, d = _rays(rng, 48, bound)
+    aabb = (-bound,) * 3 + (bound,) * 3
+    nz = torch.from_numpy(rng.uniform(size=48).astype(np.float32))
+    kw = dict(min_near=0.2, bound=bound, dt_gamma=gamma, max_steps=128, budget=16,
+              prefilter=prefilter, noise=nz, t_cull=t_cull)
+    e = warp_walk(o, d, aabb, grid, **kw)
+    p = t_march.march_rays_aabb(o, d, aabb, grid, plain=True, audit=True, **kw)
+    margin = p.pop("cull_margin")
+    p.pop("n_tested")
+    assert int(margin.sum()) == 0, "rays at the cull's margin on these inputs"
+    for name in e:
+        assert torch.equal(e[name], p[name]), name
+    # the cull bites, and the pre-cull counts do not see it
+    assert (p["n_occupied"] < p["n_occupied_raw"]).any()
+    exact = t_march.march_rays_aabb(o, d, aabb, grid, plain=True, **dict(kw, t_cull=0.0))
+    assert torch.equal(exact["n_occupied_raw"], p["n_occupied_raw"])
+    assert torch.equal(exact["n_groups_occ"], p["n_groups_occ"])
+    assert torch.equal(exact["n_occupied"], exact["n_occupied_raw"])

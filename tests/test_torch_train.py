@@ -366,31 +366,56 @@ def test_adaptation_rules_match_jax():
 
 def test_trainer_refuses_unported_paths():
     _, tm = make_models("fp32", 1.0)
-    for kw in (dict(devices=2), dict(error_map=True), dict(clip_text="a chair"),
-               dict(patch_size=4, lambda_ssim=0.1), dict(hash_fwd_corners=1)):
+    for kw in (dict(devices=2), dict(clip_text="a chair"),
+               dict(patch_size=4, lpips_weights="alex.pth"), dict(hash_fwd_corners=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_trainer.Trainer("ngp", _opt(**kw), tm, workspace=None, mute=True)
-    # the options the port runs construct
-    t_trainer.Trainer("ngp", _opt(), tm, workspace=None, mute=True)
+    # the options the port runs construct (the error map and the SSIM patch
+    # guard since they were ported)
+    for kw in ({}, dict(error_map=True), dict(patch_size=4, lambda_ssim=0.1)):
+        t_trainer.Trainer("ngp", _opt(**kw), tm, workspace=None, mute=True)
 
 
 def test_training_with_t_cull_is_refused_at_the_start(tmp_path):
-    """--t_cull > 0 trains through the float render grid the marcher kernel
-    lacks: the CLI refuses it before reading the scene, and the Trainer
-    before its first step."""
+    """--t_cull > 0 is no longer refused at the start: the CLI takes the
+    flag (and fails only on the missing scene), and the Trainer trains with
+    it, exact (the bool grid) behind the fog gate and on the float render
+    grid after it.  A march of the bool grid with t_cull > 0 is still
+    refused."""
     import dataclasses
 
     from nerf_signature_tpu_torch import main_nerf as t_main
+    from nerf_signature_tpu_torch.ops import marching as t_march
 
-    with pytest.raises(NotImplementedError, match="t_cull"):
-        t_main.main([str(tmp_path / "no_scene"), "--cpu", "--t_cull", "1e-3"])
+    with pytest.raises(Exception) as err:
+        t_main.main([str(tmp_path / "no_scene"), "--cpu", "-O", "--t_cull", "1e-3"])
+    assert "no transforms" in str(err.value) and "ROADMAP" not in str(err.value)
     _, tm = make_models("fp32", 1.0)
     tm.rc = dataclasses.replace(tm.rc, t_cull=1e-3)
     tt = t_trainer.Trainer("ngp", _opt(), tm, workspace=None, mute=True)
     ro, rd, images = batch()
-    with pytest.raises(NotImplementedError, match="t_cull"):
-        tt.train_step_data({"rays_o": ro, "rays_d": rd, "images": images})
-    assert tt.global_step == 0 and tt.opt_count() == 0
+    grids = []
+    render_grid = t_trainer.render_grid
+
+    def spy(occ, t_cull=0.0):
+        grid = render_grid(occ, t_cull)
+        grids.append(grid.dtype)
+        return grid
+
+    t_trainer.render_grid = spy
+    try:
+        for it_density in (3, 16):
+            tm.occ.iter_density.fill_(it_density)
+            loss = tt.train_step_data({"rays_o": ro, "rays_d": rd, "images": images})[0]
+            assert np.isfinite(float(loss))
+    finally:
+        t_trainer.render_grid = render_grid
+    assert grids == [torch.bool, torch.float32]
+    assert tt.opt_count() == 2
+    o, d = T(ro.reshape(-1, 3)), T(rd.reshape(-1, 3))
+    with pytest.raises(ValueError, match="t_cull"):
+        t_march.march_rays_aabb(o, d, (-1, -1, -1, 1, 1, 1), tm.occ.occupancy, min_near=0.2,
+                                bound=1.0, t_cull=1e-3)
 
 
 def test_trainer_train_runs_grid_maintenance_and_lowers_the_loss(tmp_path):

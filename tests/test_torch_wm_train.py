@@ -98,14 +98,14 @@ def jax_march_into_port(monkeypatch):
     """Make the port's renderer march with JAX's ``march_rays``."""
     def march(rays_o, rays_d, aabb, occupancy, *, min_near, bound, dt_gamma=0.0,
               max_steps=1024, n_cand=None, budget=128, prefilter=None, group_budget=None,
-              coarse=None, noise=None, plain=False):
+              coarse=None, noise=None, t_cull=0.0, plain=False):
         ro, rd = jnp.asarray(rays_o.detach().numpy()), jnp.asarray(rays_d.detach().numpy())
         nears, fars = j_int.near_far_from_aabb(ro, rd, jnp.asarray(np.asarray(aabb, np.float32)),
                                                min_near)
         m = j_march.march_rays(ro, rd, jnp.asarray(occupancy.numpy()), nears, fars,
                                bound=bound, dt_gamma=dt_gamma, max_steps=max_steps,
                                n_cand=n_cand, budget=budget, grid_size=occupancy.shape[-1],
-                               prefilter=prefilter, group_budget=group_budget)
+                               prefilter=prefilter, group_budget=group_budget, t_cull=t_cull)
         out = {k: T(np.array(v)) for k, v in m.items()}
         out.update(nears=T(np.array(nears)), fars=T(np.array(fars)))
         return out
@@ -335,12 +335,16 @@ def test_test_bitacc_draws_the_messages_jax_draws(monkeypatch):
 
 def test_trainer_refuses_unported_paths():
     _, tm = make_wm_models("fp32")
-    for kw in (dict(devices=2), dict(patch_size=4), dict(lambda_ssim=0.1),
-               dict(finetune_decoder=True), dict(hash_fwd_corners=1)):
+    for kw in (dict(devices=2), dict(finetune_decoder=True), dict(hash_fwd_corners=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_twm.WatermarkTrainer("wm", _opt(**kw), tm, workspace=None, mute=True)
-    # the options the port runs construct
-    t_twm.WatermarkTrainer("wm", _opt(), tm, workspace=None, mute=True)
+    # --lambda_ssim without patches: JAX's ValueError
+    with pytest.raises(ValueError, match="patch_size > 1"):
+        t_twm.WatermarkTrainer("wm", _opt(lambda_ssim=0.1), tm, workspace=None, mute=True)
+    # the options the port runs construct (the SSIM patch guard since it was
+    # ported)
+    for kw in ({}, dict(patch_size=4), dict(patch_size=4, lambda_ssim=0.1)):
+        t_twm.WatermarkTrainer("wm", _opt(**kw), tm, workspace=None, mute=True)
     jcfg, tcfg = wm_cfgs()
     for kw in (dict(copyrnerf=True), dict(whole_image=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
