@@ -154,7 +154,30 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                128 of Trainer.train_device (the map changes; the loop's
                step captured); --patch_size 8 --lambda_ssim 0.1 for 128
                clean loop steps and, with --t_cull 1e-5, 64 watermark steps
-               on each path (the loss falls; the cull route every step).
+               on each path (the loss falls; the cull route every step);
+ 11. K7 and K8 — K7 (csrc/hashenc_stoch.cu) at the clean step's shapes on
+               phase 7's trained backbone (the noisy march of 4096 rays at
+               budget 128): the one-corner forward bit-exact against its
+               plain version, the backward at level strides 1 and 2 within
+               1e-6 relative L2 with no row chosen differently, each with
+               its times, bound, plain time, library yardstick (a gather of
+               the chosen rows; index_add_ of their cotangents) and its
+               atomics as modelled beside K1's; Trainer.train_device on
+               phase 9's recipe with --stochastic_hash_grad, then with
+               --hash_fwd_corners 1 --hash_level_stride 2 (512 steps each:
+               +6 dB; rays/s, busy ms a step and the PSNR gap beside the
+               exact loop's); the watermark recipe with
+               --stochastic_hash_grad --hash_fwd_corners 1 for 64 steps and
+               64 looped (lossw falls); then --bg_radius 8 on views of the
+               ball over a sky that varies with the direction (no alpha):
+               512 loop steps with the bg model and 512 without (the
+               held-out PSNR must be higher with it, a gradient must reach
+               the bg table), K8 (csrc/hashenc_bg.cu) forward and backward
+               on its trained table at 4096 rays and at a served chunk
+               against the plain versions (rays at phi's branch cut left out
+               and counted), one 800x800 view served through the kernels
+               against the plain versions (>= 45 dB), and 64 watermark
+               steps on that backbone (lossw falls).
 
 The last lines are one JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -1754,25 +1777,52 @@ class BallViews:
             r = get_rays(self.poses[v:v + 1], self.intrinsics, RES, RES, TRAIN_RAYS,
                          rng=self.rng, error_map=em)
             batch = {"H": RES, "W": RES, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
-                     "images": ball_rgba(r["rays_o"], r["rays_d"], radius=self.radius)}
+                     "images": self.pixels(r["rays_o"], r["rays_d"])}
             if em is not None:
                 batch.update(index=int(v), inds_coarse=r["inds_coarse"])
             yield batch
+
+    def pixels(self, rays_o, rays_d):
+        """The views' pixels of these rays: the ball's RGBA."""
+        return ball_rgba(rays_o, rays_d, radius=self.radius)
+
+    def ground_truth(self, rays_o, rays_d):
+        """[n, 3] what an evaluation compares a render with: the pixels,
+        composited over white where they have alpha."""
+        px = self.pixels(rays_o, rays_d)
+        return px[:, :3] * px[:, 3:] + (1.0 - px[:, 3:]) if px.shape[-1] == 4 else px
 
     # what the device loop preloads: every view's pixels, made once
     H = W = RES
 
     @property
     def images(self):
-        """[TRAIN_VIEWS, RES, RES, 4] RGBA of every pixel (327 MB)."""
-        if self.radius not in _BALL_IMAGES:
+        """[TRAIN_VIEWS, RES, RES, C] every pixel (RGBA: 327 MB)."""
+        key = (type(self).__name__, self.radius)
+        if key not in _BALL_IMAGES:
             views = []
             for v in range(TRAIN_VIEWS):
                 r = view_rays(self.poses[v:v + 1])
-                views.append(ball_rgba(r["rays_o"][0], r["rays_d"][0], radius=self.radius)
-                             .reshape(RES, RES, 4))
-            _BALL_IMAGES[self.radius] = np.stack(views)
-        return _BALL_IMAGES[self.radius]
+                px = self.pixels(r["rays_o"][0], r["rays_d"][0])
+                views.append(px.reshape(RES, RES, px.shape[-1]))
+            _BALL_IMAGES[key] = np.stack(views)
+        return _BALL_IMAGES[key]
+
+
+def sky(rays_d):
+    """A background that varies with the ray's direction (what the bg-sphere
+    model can learn): 0.5 + 0.4 * the unit direction, per channel."""
+    d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    return (0.5 + 0.4 * d).astype(np.float32)
+
+
+class SkyBallViews(BallViews):
+    """BallViews of RGB pixels with no alpha: the ball over ``sky``, so the
+    misses show a colour that varies with the direction."""
+
+    def pixels(self, rays_o, rays_d):
+        rgba = ball_rgba(rays_o, rays_d, radius=self.radius)
+        return rgba[..., :3] * rgba[..., 3:] + sky(rays_d) * (1.0 - rgba[..., 3:])
 
 
 def held_out_psnr(m, params, rays, gt):
@@ -1812,13 +1862,16 @@ def watch_adaptations(trainer):
 
 def train_case(dev, radius, iters, group_budget=-1, levels=16, features=2,
                steps_per_dispatch=0, t_cull=0.0, error_map=False, patch_size=1,
-               lambda_ssim=0.0):
+               lambda_ssim=0.0, stochastic=False, level_stride=1, fwd_corners=8,
+               bg_radius=-1.0, views=BallViews):
     """A fresh full-width model (standard init; ``levels`` x ``features``
     table geometry) trained by the port's Trainer.train with the CLI's train
-    defaults on BallViews(radius), or with ``steps_per_dispatch`` K by
-    Trainer.train_device (the views preloaded to the card, a replayed CUDA
-    graph of the step).  ``t_cull``, ``error_map``, ``patch_size`` and
-    ``lambda_ssim``: the train-step options of those names.
+    defaults on ``views``(radius) (BallViews), or with ``steps_per_dispatch``
+    K by Trainer.train_device (the views preloaded to the card, a replayed
+    CUDA graph of the step).  ``t_cull``, ``error_map``, ``patch_size`` and
+    ``lambda_ssim``, ``stochastic`` (--stochastic_hash_grad),
+    ``level_stride``, ``fwd_corners`` and ``bg_radius``: the train-step
+    options of those names.
     Returns the trainer, its loader, the loop's wall seconds, the kernels'
     launches, peak memory, the held-out view's PSNR before and after, and the
     adaptations' moves."""
@@ -1832,15 +1885,16 @@ def train_case(dev, radius, iters, group_budget=-1, levels=16, features=2,
     opt = SimpleNamespace(lr=1e-2, iters=iters, num_rays=TRAIN_RAYS, max_steps=1024,
                           update_extra_interval=16, compact_frac=-1, group_budget=group_budget,
                           max_ray_batch=CHUNK, patch_size=patch_size, lambda_ssim=lambda_ssim,
-                          color_space="srgb")
-    model = NGPModel(NGPConfig(bound=1.0, n_levels=levels, n_features=features),
-                     min_near=0.2, density_thresh=10.0, dt_gamma=0.0, max_steps=1024,
+                          color_space="srgb", hash_fwd_corners=fwd_corners)
+    cfg = NGPConfig(bound=1.0, n_levels=levels, n_features=features,
+                    stochastic_hash_grad=stochastic, hash_level_stride=level_stride,
+                    bg_radius=bg_radius)
+    model = NGPModel(cfg, min_near=0.2, density_thresh=10.0, dt_gamma=0.0, max_steps=1024,
                      grid_size=128, seed=2, train_budget=TRAIN_BUDGET, infer_budget=256,
                      t_cull=t_cull, device=dev)
-    loader = BallViews(radius, error_map=error_map)
+    loader = views(radius, error_map=error_map)
     held = view_rays(orbit_poses(1, ORBIT_RADIUS, seed=9))
-    rgba = ball_rgba(held["rays_o"][0], held["rays_d"][0], radius=radius)
-    gt = torch.from_numpy(rgba[:, :3] * rgba[:, 3:] + (1.0 - rgba[:, 3:])).to(dev)
+    gt = torch.from_numpy(loader.ground_truth(held["rays_o"][0], held["rays_d"][0])).to(dev)
     # no workspace: no per-epoch checkpoint (params, EMA and Adam's moments,
     # ~270 MB each) inside the timed loop; the CPU tests cover the ring buffer
     trainer = Trainer("ngp", opt, model, workspace=None, use_checkpoint="scratch")
@@ -1864,7 +1918,7 @@ def train_case(dev, radius, iters, group_budget=-1, levels=16, features=2,
     note()
     psnr1 = held_out_psnr(model, trainer.eval_params(), held, gt)
     return dict(trainer=trainer, loader=loader, seconds=seconds, launches=launches,
-                peak=peak, psnr0=psnr0, psnr1=psnr1, moves=moves)
+                peak=peak, psnr0=psnr0, psnr1=psnr1, moves=moves, held=held, gt=gt)
 
 
 def adaptation_state(model):
@@ -2034,15 +2088,16 @@ def pick_key_blocks(model, ws, seed, n_views=1):
 
 
 def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm",
-             steps_per_dispatch=0, step_losses=None):
+             steps_per_dispatch=0, step_losses=None, step_lossw=None):
     """The watermark stage's main path as its CLI drives it, on
     ``backbone_model`` saved as the clean checkpoint: main_nerf_wtmk's parser
     and setup (the README stage-2 recipe for ``iters`` steps, plus ``extra``
     flags), the key blocks, resolve_auto_compaction, then
     WatermarkTrainer.train with the launch counts set to 0 just before it,
     its epochs timed (no checkpoint I/O), or, with ``steps_per_dispatch`` K,
-    WatermarkTrainer.train_device, its dispatches timed.  ``step_losses``: a
-    list that takes each per-step step's loss (a read-back a step).  With
+    WatermarkTrainer.train_device, its dispatches timed.  ``step_losses`` /
+    ``step_lossw``: lists that take each per-step step's loss / lossw (a
+    read-back a step).  With
     ``--t_cull`` in ``extra`` K2 runs its cull route.  Returns the model, trainer,
     loader factory, the run's launches, steps, rays a step, seconds and peak
     memory."""
@@ -2083,12 +2138,14 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm",
         return out
 
     trainer.train_one_epoch = timed_epoch
-    if step_losses is not None:
+    if step_losses is not None or step_lossw is not None:
         run_step = trainer.train_step_data
 
         def recorded(data, message):
             out = run_step(data, message)
-            step_losses.append(float(out[0]))
+            for lst, v in ((step_losses, out[0]), (step_lossw, out[1])):
+                if lst is not None:
+                    lst.append(float(v))
             return out
 
         trainer.train_step_data = recorded
@@ -3420,6 +3477,365 @@ def phase_train_options(dev, backbone_model, exact_psnr, workdir):
     return res
 
 
+
+# ---------------------------------------------------------------- phase 11
+K7_STRIDES = (1, 2)        # --hash_level_stride of K7's backward rows
+K7_FLAGS = ["--stochastic_hash_grad", "--hash_fwd_corners", "1"]
+OPT11_WM_STEPS = 64        # watermark steps with K7 (per step, then looped) and on the bg backbone
+OPT11_WM_K = 16
+BG_RADIUS = 8.0            # --bg_radius (the JAX tests'; the cameras orbit at 3.2)
+# K8 on rays against sph_from_ray + the plain encoder: atan2f and the
+# division differ from PyTorch's by ulps, and an ulp of the sphere point
+# moves a weight by up to res * 1.2e-7 (2.4e-4 at 2048)
+K8_FWD_LIM = 1e-3
+K8_BWD_LIM = 1e-3
+K7_SOURCE = "nerf_signature_tpu_torch/csrc/hashenc_stoch.cu"
+K8_SOURCE = "nerf_signature_tpu_torch/csrc/hashenc_bg.cu"
+
+
+def k7_rows(dev, backbone_model):
+    """K7 at the clean step's shapes on phase 7's trained backbone (the noisy
+    march of 4096 rays at budget 128): the one-corner forward bit-exact
+    against its plain version, the backward at strides 1 and 2 within 1e-6
+    relative L2 (the atomics' order) with no row chosen differently; each
+    with its time, device time, bound (bytes), plain time and the library
+    yardstick (a gather of the chosen rows; index_add_ of their
+    cotangents), and K7's atomics as its design issues them (modelled,
+    beside K1's on the same cotangents)."""
+    from nerf_signature_tpu_torch.kernel_cases import k1_bwd_atomics, k7_bwd_atomics
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+    from nerf_signature_tpu_torch.ops import marching as t_march
+    from nerf_signature_tpu_torch.render.renderer import default_aabb
+
+    m = backbone_model
+    cfg = m.cfg
+    ro, rd = train_rays(dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    noise = torch.rand((TRAIN_RAYS,), generator=gen, device=dev)
+    march = t_march.march_rays_aabb(ro, rd, default_aabb(m.rc), m.occ.occupancy,
+                                    **{**march_kwargs(m, None), "budget": TRAIN_BUDGET},
+                                    noise=noise)
+    N, S = march["mask"].shape
+    M = N * S
+    live = march["mask"].reshape(-1).float()
+    x01 = ((march["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+    fp = t_ngp.field_params(m.params, cfg)
+    table, tg = fp["hash_table"].detach(), fp["hash_table_g"]
+    res, log2, F, L = cfg.resolutions, cfg.log2_hashmap_size, cfg.n_features, cfg.n_levels
+    n_rows, pitch = table.shape[0], t_ngp.feature_pitch(cfg)
+    chosen, phase_bits = t_hash.stochastic_choice(x01, res, log2)
+    out = {}
+
+    # ---- the one-corner forward
+    run = lambda: t_hash._hash_encode_1c_kernel(x01, tg, n_rows, res, log2, False, None, pitch)
+    k = run()
+    p = t_hash.hash_encode_1c_plain(x01, table, res, log2, table_g=tg)
+    err = float((k[:, :L * F] - p).abs().max())
+    log(f"[K7 fwd 1c] M={M} ({int(live.sum())} live) L={L} F={F} pitch {pitch}: max abs err "
+        f"{err} (limit 0); padded columns zero: {not bool(k[:, L * F:].any())}")
+    if not (torch.equal(k[:, :L * F], p) and not bool(k[:, L * F:].any())):
+        raise AssertionError("K7's one-corner forward differs from its plain version")
+    del k, p
+    flat = chosen.reshape(-1)
+    distinct = int(torch.unique(flat).numel())
+    bms, bby = bound_of(M * 12 + M * L * F * 4 + distinct * F * 2, 0, PEAK_FP32)
+    out["K7_hash_encode_1c"] = dict(
+        max_abs_err=err, ms=median_ms(run, 20), device_ms=device_ms(run, 20),
+        plain_ms=median_ms(lambda: t_hash.hash_encode_1c_plain(x01, table, res, log2,
+                                                               table_g=tg), 3, 1),
+        bound_ms=bms, bound_by=bby,
+        library_ms=median_ms(lambda: tg.index_select(0, flat), 20),
+        library_device_ms=device_ms(lambda: tg.index_select(0, flat), 20),
+        distinct_rows=distinct)
+    r = out["K7_hash_encode_1c"]
+    log(f"[K7 fwd 1c] {distinct} distinct rows chosen; per call {r['ms']:.4f} ms, device "
+        f"{r['device_ms']:.4f} ms, bound {bms:.4f} ms ({bby}); plain {r['plain_ms']:.4f} ms; "
+        f"the gather of the chosen rows {r['library_ms']:.4f} ms (device "
+        f"{r['library_device_ms']:.4f})")
+
+    # ---- the backward at strides 1 and 2, on cotangents of the live samples
+    g_feat = torch.zeros((M, pitch), device=dev)
+    g_feat[:, :L * F] = torch.randn((M, L * F), generator=gen, device=dev) * 1e-4 * live[:, None]
+    g_w = g_feat[:, :L * F].contiguous()
+    n_hot = int((g_w != 0).any(-1).sum())
+    modelled = {"K1_hash_encode_bwd (same cotangents)":
+                k1_bwd_atomics(x01, g_w, F, res, log2, torch.bfloat16)}
+    for stride in K7_STRIDES:
+        name = "K7_hash_encode_bwd_stoch" + ("" if stride == 1 else f"_s{stride}")
+        run = lambda: t_hash._hash_encode_stoch_bwd_kernel(x01, g_feat, n_rows, res, log2,
+                                                           False, None, F, stride)
+        gk = run()
+        gp = t_hash.hash_encode_stoch_bwd_plain(x01, g_w, n_rows, res, log2, stride)
+        e, a = rel_l2(gk, gp), float((gk - gp).abs().max())
+        moved = int((gk.ne(0).any(-1) != gp.ne(0).any(-1)).sum())
+        log(f"[K7 bwd] stride {stride}: rel L2 {e:.3g} (limit 1e-6), max abs err {a:.3g}, rows "
+            f"chosen differently {moved} (limit 0)")
+        if not (e <= 1e-6 and moved == 0):
+            raise AssertionError(f"K7's backward (stride {stride}) differs from its plain "
+                                 f"version: rel L2 {e}, {moved} rows")
+        del gk, gp
+        g3 = g_w.reshape(M, L, F).permute(1, 0, 2)
+        keep = (t_hash.level_keep(phase_bits, L, stride) if stride > 1
+                else torch.ones((L, M), dtype=torch.bool, device=dev))
+        vals = torch.where(keep[..., None], g3 * float(stride), 0.0)
+        idx = torch.cat([(chosen * F + f).reshape(-1) for f in range(F)])
+        val = torch.cat([vals[..., f].reshape(-1) for f in range(F)])
+        n_adds = int((val != 0).sum())
+        buf = torch.zeros(n_rows * F, device=dev)
+        lib = median_ms(lambda: buf.index_add_(0, idx, val), 10)
+        del idx, val, buf
+        bms, bby = bound_of(M * L * F * 4 + n_hot * 12 + n_rows * F * 4, n_adds, PEAK_FP32)
+        modelled[name] = k7_bwd_atomics(x01, g_w, F, res, log2, level_stride=stride)
+        out[name] = dict(max_abs_err=a, rel_l2=e, rows_chosen_differently=moved,
+                         ms=median_ms(run, 20), device_ms=device_ms(run, 20),
+                         plain_ms=median_ms(lambda: t_hash.hash_encode_stoch_bwd_plain(
+                             x01, g_w, n_rows, res, log2, stride), 3, 1),
+                         bound_ms=bms, bound_by=bby, library_ms=lib, n_adds=n_adds)
+        log(f"[K7 bwd] stride {stride}: {n_hot} of {M} samples hot, {n_adds} adds; per call "
+            f"{out[name]['ms']:.4f} ms, device {out[name]['device_ms']:.4f} ms, bound {bms:.4f} "
+            f"ms ({bby}); index_add_ {lib:.4f} ms; atomics {modelled[name]} (modelled; K1's on "
+            f"these cotangents {modelled['K1_hash_encode_bwd (same cotangents)']})")
+    return out, modelled
+
+
+def k8_rows(dev, bg_model):
+    """K8 on ``bg_model``'s trained background table at the clean step's
+    4096 rays and at a served chunk: forward and backward from the rays (the
+    sphere point inside the kernels) against sph_from_ray and the plain
+    encoder, the rays at phi's branch cut (within 1e-6) left out and
+    counted; times, device times, bounds (bytes), plain times and the
+    library yardsticks (a gather of the 4 L corner rows; index_add_ of
+    their cotangents)."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+
+    cfg = bg_model.cfg
+    bp = t_ngp.bg_params(bg_model.params, cfg)
+    table, tg = bp["bg_table"].detach(), bp["bg_table_g"]
+    res, log2, F, L = cfg.bg_resolutions, cfg.bg_log2_hashmap_size, cfg.n_features, \
+        cfg.bg_n_levels
+    n_rows = table.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    ro_s, rd_s, _ = serve_chunk(dev)
+    for shape, (ro, rd) in (("train", train_rays(dev)), ("serve", (ro_s, rd_s))):
+        N = ro.shape[0]
+        cut = t_hash.sphere_cut(ro, rd, cfg.bg_radius)
+        x = t_hash.sphere_x01(ro, rd, cfg.bg_radius)
+        run = lambda: t_hash._hash_encode_2d_kernel(None, ro, rd, cfg.bg_radius, tg, res, log2)
+        k = run()
+        p = t_hash.hash_encode_2d_plain(x, table, res, log2, table_g=tg)
+        err = float((k - p)[~cut].abs().max())
+        idx = torch.stack([i for i, _ in t_hash._corners_2d(x, res, log2, torch.float32)])
+        distinct = int(torch.unique(idx).numel())
+        bms, bby = bound_of(N * 24 + N * L * F * 4 + distinct * F * 2, 0, PEAK_FP32)
+        flat = idx.reshape(-1)
+        name = "K8_hash_encode_2d" + ("" if shape == "train" else "_serve")
+        out[name] = dict(
+            max_abs_err=err, cut_rays=int(cut.sum()), ms=median_ms(run, 20),
+            device_ms=device_ms(run, 20),
+            plain_ms=median_ms(lambda: t_hash.hash_encode_2d_plain(
+                t_hash.sphere_x01(ro, rd, cfg.bg_radius), table, res, log2, table_g=tg), 5, 1),
+            bound_ms=bms, bound_by=bby, library_ms=median_ms(lambda: tg.index_select(0, flat), 20),
+            library_device_ms=device_ms(lambda: tg.index_select(0, flat), 20), rays=N)
+        log(f"[K8 fwd] {shape} {N} rays ({int(cut.sum())} at phi's cut, left out): max abs err "
+            f"{err:.3g} (limit {K8_FWD_LIM:g}); {distinct} rows touched; per call "
+            f"{out[name]['ms']:.4f} ms, device {out[name]['device_ms']:.4f}, bound {bms:.5f} "
+            f"({bby}); the gather {out[name]['library_ms']:.4f} ms")
+        if not err <= K8_FWD_LIM:
+            raise AssertionError(f"K8's forward ({shape}) differs from its plain version: {err}")
+        if shape != "train":
+            continue
+        g = torch.randn((N, L * F), generator=gen, device=dev) * 1e-3
+        g[cut] = 0.0
+        run = lambda: t_hash._hash_encode_2d_bwd_kernel(None, ro, rd, cfg.bg_radius, g, n_rows,
+                                                        res, log2, tg.dtype, F)
+        gk = run()
+        gp = t_hash.hash_encode_2d_bwd_plain(x, g, n_rows, res, log2, tg.dtype)
+        e, a = rel_l2(gk, gp), float((gk - gp).abs().max())
+        log(f"[K8 bwd] {shape} {N} rays: rel L2 {e:.3g} (limit {K8_BWD_LIM:g}), max abs err "
+            f"{a:.3g}")
+        if not e <= K8_BWD_LIM:
+            raise AssertionError(f"K8's backward differs from its plain version: rel L2 {e}")
+        gi = torch.cat([(idx * F + f).reshape(-1) for f in range(F)])
+        vals = []
+        g3 = g.reshape(N, L, F).permute(1, 0, 2)
+        for _, cw in t_hash._corners_2d(x, res, log2, torch.float32):
+            vals.append((cw[..., None] * g3).to(tg.dtype).float())
+        gv = torch.cat([torch.stack(vals)[..., f].reshape(-1) for f in range(F)])
+        buf = torch.zeros(n_rows * F, device=dev)
+        bms, bby = bound_of(N * L * F * 4 + N * 24 + n_rows * F * 4, int((gv != 0).sum()),
+                            PEAK_FP32)
+        out["K8_hash_encode_2d_bwd"] = dict(
+            max_abs_err=a, rel_l2=e, ms=median_ms(run, 20), device_ms=device_ms(run, 20),
+            plain_ms=median_ms(lambda: t_hash.hash_encode_2d_bwd_plain(x, g, n_rows, res, log2,
+                                                                       tg.dtype), 5, 1),
+            bound_ms=bms, bound_by=bby, library_ms=median_ms(lambda: buf.index_add_(0, gi, gv),
+                                                             20), rays=N)
+        log(f"[K8 bwd] per call {out['K8_hash_encode_2d_bwd']['ms']:.4f} ms, device "
+            f"{out['K8_hash_encode_2d_bwd']['device_ms']:.4f}, bound {bms:.5f} ({bby}); "
+            f"index_add_ {out['K8_hash_encode_2d_bwd']['library_ms']:.4f} ms")
+    return out
+
+
+def k7_loop(dev, exact, tag, **k7):
+    """Trainer.train_device at K = 64 on phase 7's recipe with K7's options:
+    rays/s, busy ms a step (one more dispatch profiled) beside the exact
+    loop's of phase 9, held-out PSNR (gate: +6 dB over untrained; its gap to
+    the exact run's reported, not gated), launches (K7's backward every
+    step, K1's never; the one-corner forward every step where asked)."""
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+
+    r = train_case(dev, TRAIN_BALL, TRAIN_ITERS, steps_per_dispatch=DL_K, stochastic=True, **k7)
+    tr, seconds, launches = r["trainer"], r["seconds"], r["launches"]
+    steps = tr.global_step
+    data = t_dl.preload(r["loader"].poses, r["loader"].images, r["loader"].intrinsics, RES,
+                        RES, dev)
+    prof = profile_dispatch(lambda: t_dl.device_train_loop(tr, data, DL_K), DL_K,
+                            f"{tag} profile", tr.model.rc.compact_frac > 0)
+    res = {"steps": steps, "seconds": seconds, "rays_per_s": steps * TRAIN_RAYS / seconds,
+           "step_ms": seconds / steps * 1e3, "psnr0": r["psnr0"], "psnr1": r["psnr1"],
+           "exact_psnr1": exact["psnr1"], "psnr_gap": exact["psnr1"] - r["psnr1"],
+           "exact_busy_ms": exact["profile"]["busy_ms"], "profile": prof,
+           "captures": tr.step_graph.captures, "launches": launches, "peak_gib": r["peak"]}
+    log(f"[{tag}] {steps} steps at K = {DL_K}: {seconds:.2f} s, {res['rays_per_s']:.0f} train "
+        f"rays/s; busy {prof['busy_ms']} ms a step (the exact loop's {res['exact_busy_ms']}); "
+        f"held-out PSNR {r['psnr0']:.2f} -> {r['psnr1']:.2f} dB (the exact run's "
+        f"{exact['psnr1']:.2f}: gap {res['psnr_gap']:.2f} dB, not gated); launches {launches}")
+    if not r["psnr1"] >= r["psnr0"] + 6.0:
+        raise AssertionError(f"{tag}: held-out PSNR {r['psnr1']:.2f} dB < untrained "
+                             f"{r['psnr0']:.2f} + 6 dB")
+    one_corner = steps if k7.get("fwd_corners", 8) == 1 else 0
+    if (launches["K7_hash_encode_bwd_stoch"] != steps or launches["K1_hash_encode_bwd"] != 0
+            or launches["K7_hash_encode_1c"] != one_corner):
+        raise AssertionError(f"{tag}: K7 launched {launches['K7_hash_encode_1c']} forward and "
+                             f"{launches['K7_hash_encode_bwd_stoch']} backward, K1's backward "
+                             f"{launches['K1_hash_encode_bwd']}, in {steps} steps")
+    del r, tr, data
+    gc.collect()
+    return res
+
+
+def wm_falls(dev, backbone_model, workdir, extra, tag, loop):
+    """``extra`` flags on the watermark recipe for OPT11_WM_STEPS per-step
+    steps (lossw falls: the last quarter's mean below the first's) and, with
+    ``loop``, as many again through train_device in dispatches of OPT11_WM_K
+    (the last dispatch's lossw below the first's).  Returns the numbers and
+    the runs' launches."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    lossws = []
+    # a workspace of its own: a watermark workspace holding another run's
+    # checkpoints would be resumed
+    w = wm_train(dev, backbone_model, os.path.join(workdir, tag.replace(" ", "_")),
+                 iters=OPT11_WM_STEPS, extra=extra, tag=tag, step_lossw=lossws)
+    trainer, loader = w["trainer"], w["loader"]
+    q = OPT11_WM_STEPS // 4
+    res = {"steps": w["steps"], "seconds": w["seconds"],
+           "lossw_first_quarter": float(np.mean(lossws[:q])),
+           "lossw_last_quarter": float(np.mean(lossws[-q:])), "launches": w["launches"]}
+    log(f"[{tag}] per step: lossw {res['lossw_first_quarter']:.5f} (first {q}) -> "
+        f"{res['lossw_last_quarter']:.5f} (last {q})")
+    if not res["lossw_last_quarter"] < res["lossw_first_quarter"]:
+        raise AssertionError(f"{tag} per step: lossw did not fall: {lossws}")
+    if loop:
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        trainer.train_device(loader, 2 * OPT11_WM_STEPS, steps_per_dispatch=OPT11_WM_K)
+        torch.cuda.synchronize()
+        dl = trainer.stats["lossw"][-OPT11_WM_STEPS // OPT11_WM_K:]
+        res["loop"] = {"steps": trainer.global_step - OPT11_WM_STEPS, "seconds": time.time() - t0,
+                       "dispatch_lossw": dl, "launches": _cuda.launch_counts()}
+        log(f"[{tag}] loop: dispatch lossw {[round(v, 5) for v in dl]}")
+        if not dl[-1] < dl[0]:
+            raise AssertionError(f"{tag} loop: lossw did not fall: {dl}")
+    del w, trainer, loader
+    gc.collect()
+    return res
+
+
+def phase_k7_k8(dev, backbone_model, exact, workdir):
+    """K7 and K8 (slice 13): K7's kernels at the clean step's shapes on the
+    trained backbone; the clean loop with --stochastic_hash_grad, then with
+    --hash_fwd_corners 1 --hash_level_stride 2 (against the exact loop of
+    phase 9); the watermark stage with --stochastic_hash_grad
+    --hash_fwd_corners 1 (64 steps per step and 64 looped: lossw falls);
+    then --bg_radius 8 on views whose misses show a sky: 512 loop steps with
+    the bg model against the same run without it (the held-out PSNR above;
+    the bg table moved), K8's kernels on its trained table, one 800x800 view
+    served through the kernels against the plain versions (>= 45 dB), and
+    64 watermark steps on that backbone (lossw falls)."""
+    res = {}
+    res["k7_rows"], res["k7_atomics_modelled"] = k7_rows(dev, backbone_model)
+    res["k7_loop"] = k7_loop(dev, exact, "k7 loop")
+    res["k7_1c_s2_loop"] = k7_loop(dev, exact, "k7 1c stride 2 loop", fwd_corners=1,
+                                   level_stride=2)
+    w = wm_falls(dev, backbone_model, workdir, K7_FLAGS, "wm k7", loop=True)
+    for run, n in (("per step", w["launches"]), ("loop", w["loop"]["launches"])):
+        if n["K7_hash_encode_1c"] == 0 or n["K7_hash_encode_bwd_stoch"] != 0:
+            raise AssertionError(f"wm k7 {run}: K7's one-corner forward launched "
+                                 f"{n['K7_hash_encode_1c']} times, its backward "
+                                 f"{n['K7_hash_encode_bwd_stoch']} (the backbone is frozen)")
+    res["wm_k7"] = w
+
+    # ---- --bg_radius 8 on the sky views, against the same run without it
+    runs = {}
+    for name, radius in (("bg", BG_RADIUS), ("no_bg", -1.0)):
+        r = train_case(dev, TRAIN_BALL, TRAIN_ITERS, steps_per_dispatch=DL_K, bg_radius=radius,
+                       views=SkyBallViews)
+        tr = r["trainer"]
+        runs[name] = {"steps": tr.global_step, "seconds": r["seconds"],
+                      "rays_per_s": tr.global_step * TRAIN_RAYS / r["seconds"],
+                      "psnr0": r["psnr0"], "psnr1": r["psnr1"], "launches": r["launches"]}
+        log(f"[bg {name}] {tr.global_step} steps on the sky views: {r['seconds']:.2f} s, "
+            f"{runs[name]['rays_per_s']:.0f} train rays/s, held-out PSNR {r['psnr0']:.2f} -> "
+            f"{r['psnr1']:.2f} dB; launches {r['launches']}")
+        if name == "bg":
+            m = tr.model
+            # rows of the bg table whose gradient was ever nonzero (Adam's
+            # second moment)
+            nu = tr.optimizer.state[m.params["bg_table"]]["exp_avg_sq"]
+            hot = int((nu > 0).any(-1).sum())
+            runs[name]["bg_table_rows_with_gradient"] = hot
+            n = r["launches"]
+            if hot == 0 or n["K8_hash_encode_2d"] == 0 or n["K8_hash_encode_2d_bwd"] == 0:
+                raise AssertionError(f"bg: no gradient reached the bg table ({hot} rows; K8 "
+                                     f"{n['K8_hash_encode_2d']} / {n['K8_hash_encode_2d_bwd']})")
+            # one 800x800 view served through the kernels and through the plain versions
+            from nerf_signature_tpu_torch.ops import _cuda
+
+            _cuda.reset_launch_counts()
+            held = r["held"]
+            img_k = m.render(held["rays_o"][0], held["rays_d"][0], staged=True)["image"]
+            serve_launches = _cuda.launch_counts()
+            img_p = m.render(held["rays_o"][0], held["rays_d"][0], staged=True,
+                             plain=True)["image"]
+            runs[name]["serve_kernel_vs_plain_db"] = psnr(img_k, img_p)
+            runs[name]["serve_k8_launches"] = serve_launches["K8_hash_encode_2d"]
+            log(f"[bg] an 800x800 view served: kernels vs plain {psnr(img_k, img_p):.2f} dB "
+                f"(limit 45); K8 launched {serve_launches['K8_hash_encode_2d']} times")
+            if not (psnr(img_k, img_p) >= 45.0 and serve_launches["K8_hash_encode_2d"] > 0):
+                raise AssertionError("bg: the served view through the kernels differs from "
+                                     "the plain versions (or K8 did not run)")
+            res["k8_rows"] = k8_rows(dev, m)
+            bg_model = m
+        del r, tr
+        gc.collect()
+    res["bg"] = runs
+    if not runs["bg"]["psnr1"] > runs["no_bg"]["psnr1"]:
+        raise AssertionError(f"bg: held-out PSNR with the bg model {runs['bg']['psnr1']:.2f} dB "
+                             f"not above the run without it ({runs['no_bg']['psnr1']:.2f})")
+    w = wm_falls(dev, bg_model, workdir, ["--bg_radius", str(BG_RADIUS)], "wm bg", loop=False)
+    if w["launches"]["K8_hash_encode_2d"] == 0 or w["launches"]["K8_hash_encode_2d_bwd"] != 0:
+        raise AssertionError(f"wm bg: K8 launched {w['launches']['K8_hash_encode_2d']} forward, "
+                             f"{w['launches']['K8_hash_encode_2d_bwd']} backward (frozen)")
+    res["wm_bg"] = w
+    del bg_model
+    gc.collect()
+    return res
+
+
 SOURCES = {
     "K1_hash_encode": ("nerf_signature_tpu_torch/csrc/hashenc.cu",
                        "nerf_signature_tpu/ops/hashenc.py:250"),
@@ -3538,6 +3954,9 @@ def main():
     gc.collect()
     with tempfile.TemporaryDirectory() as workdir:
         opts = phase_train_options(dev, backbone, dl["clean"]["psnr1"], workdir)
+    gc.collect()
+    with tempfile.TemporaryDirectory() as workdir:
+        k78 = phase_k7_k8(dev, backbone, dl["clean"], workdir)
     dl_launches = {"clean": dl["clean"].pop("launches"), "wm": dl["wm"].pop("launches")}
     rows, modelled = [], {}
     entries = [(name, name, None, None) for name in SOURCES] + [
@@ -3635,9 +4054,42 @@ def main():
                  "wm_launches": wm["launches"]["K2_march_cull"],
                  "wm_ssim_t_cull_launches": opts["ssim_wm"]["per_step"]["k2_cull_launches"],
                  "device_loop_launches": {k: v["K2_march_cull"] for k, v in dl_launches.items()}})
+    # K7 and K8 (slice 13): K7 at the clean step's shapes, its launches those
+    # of the device-loop runs with its options (the one-corner forward and
+    # the stride-2 backward: --hash_fwd_corners 1 --hash_level_stride 2; the
+    # stride-1 backward: --stochastic_hash_grad alone); K8 at the clean
+    # step's rays and a served chunk, its launches those of the --bg_radius
+    # loop run
+    runs11 = {"K7_hash_encode_1c": ("k7_1c_s2_loop", "K7_hash_encode_1c"),
+              "K7_hash_encode_bwd_stoch": ("k7_loop", "K7_hash_encode_bwd_stoch"),
+              "K7_hash_encode_bwd_stoch_s2": ("k7_1c_s2_loop", "K7_hash_encode_bwd_stoch"),
+              "K8_hash_encode_2d": ("bg", "K8_hash_encode_2d"),
+              "K8_hash_encode_2d_serve": ("bg", "K8_hash_encode_2d"),
+              "K8_hash_encode_2d_bwd": ("bg", "K8_hash_encode_2d_bwd")}
+    k78_rows = {**k78["k7_rows"], **k78["k8_rows"]}
+    for name, (run, counter) in runs11.items():
+        r = k78_rows[name]
+        launched = (k78["bg"]["bg"] if run == "bg" else k78[run])["launches"]
+        k7 = name.startswith("K7")
+        rows.append({"name": name, "route": "cuda", "source": K7_SOURCE if k7 else K8_SOURCE,
+                     "replaces": ("nerf_signature_tpu/ops/hashenc.py:355" if "1c" in name else
+                                  "nerf_signature_tpu/ops/hashenc.py:178" if k7 else
+                                  "nerf_signature_tpu/ops/hashenc.py:448"),
+                     "path": f"device loop ({run})", "launches": launched[counter],
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+                     **{k: r[k] for k in ("device_ms", "library_device_ms", "rel_l2",
+                                          "rows_chosen_differently", "cut_rays", "rays",
+                                          "distinct_rows", "n_adds") if k in r},
+                     "train_launches": train["launches"][counter],
+                     "wm_launches": wm["launches"][counter],
+                     "device_loop_launches": {k: v[counter] for k, v in dl_launches.items()}})
+    modelled.update(k78.pop("k7_atomics_modelled"))
+    for run in ("k7_loop", "k7_1c_s2_loop"):
+        k78[run].pop("launches")
     wm.pop("launches")
-    # K1 backward's atomics as kernel_cases.k1_bwd_atomics counts them from
-    # the design on each row's inputs: a model, not a reading of the card
+    # K1's and K7's backward atomics as kernel_cases counts them from each
+    # design on each row's inputs: a model, not a reading of the card
     print(json.dumps({"k1_bwd_atomics_modelled": modelled}))
     print(json.dumps({"kernels": rows, "build_s": build_s, "view": view, "train": {
         k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1", "peak_gib",
@@ -3646,6 +4098,7 @@ def main():
         "device_loop": {k: dl[k] for k in ("graph_vs_eager", "clean", "wm", "k6")},
         "train_options": {k: opts[k] for k in ("t_cull", "error_map", "ssim_clean_loop",
                                                "ssim_wm")},
+        "k7_k8": {k: k78[k] for k in ("k7_loop", "k7_1c_s2_loop", "wm_k7", "bg", "wm_bg")},
         "device_ms_from_events": len(EVENT_FALLBACKS)}, default=float))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

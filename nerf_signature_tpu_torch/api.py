@@ -6,11 +6,11 @@ The model lives on one device, ``"cuda"`` unless the caller passes
 On the card a table geometry the kernels lack (``check_kernel_geometry``,
 e.g. 16 levels x 4 features) is refused before anything is built.
 On the card every chunk goes through the kernels (K2 marcher, K1 hash
-encoder, K4 field heads, K3 compositor, and K9's effective table under a
-message); on the CPU through their plain versions.  ``NGPModel`` is the
-clean model; ``WatermarkModel`` holds a frozen ``backbone`` and the
-``trainable`` message tables and decoder, and renders with or without a
-message.
+encoder, K4 field heads, K3 compositor, K9's effective table under a
+message, and with ``bg_radius > 0`` K8's background sphere); on the CPU
+through their plain versions.  ``NGPModel`` is the clean model;
+``WatermarkModel`` holds a frozen ``backbone`` and the ``trainable``
+message tables and decoder, and renders with or without a message.
 """
 
 import dataclasses
@@ -20,6 +20,8 @@ import torch
 
 from .models.ngp import (
     NGPConfig,
+    background_fn,
+    bg_params,
     check_kernel_geometry,
     field_params,
     init_ngp_params,
@@ -48,17 +50,13 @@ from .utils.device import resolve_device
 class _BaseModel:
     """Occupancy grid, render options, random generator and the staged
     render, shared by the clean and the watermarked model.  A subclass
-    supplies ``_density_query`` and ``_render_field``."""
+    supplies ``_density_query``, ``_render_field`` and ``_bg_tree``."""
 
     def __init__(self, cfg: NGPConfig, rc: RenderConfig, *, device, seed, density_thresh,
-                 train_budget, infer_budget, cuda_ray, bg_radius):
+                 train_budget, infer_budget, cuda_ray):
         if device is None or torch.device(device).type == "cuda":
             check_kernel_geometry(cfg)  # before anything is built
         self.device = resolve_device(device)
-        if bg_radius > 0:
-            raise NotImplementedError(
-                "bg_radius > 0 needs the 2D hash encoder (ROADMAP queue 2 item "
-                "K8), not ported yet")
         if not cuda_ray:
             raise NotImplementedError(
                 "the fixed-step renderer (cuda_ray off) is not ported yet; the "
@@ -81,6 +79,17 @@ class _BaseModel:
     def _render_field(self, message, plain):
         """field_fn(x, d) -> (sigma, rgb) for one render."""
         raise NotImplementedError
+
+    def _bg_tree(self):
+        """The params holding the bg-sphere model's leaves."""
+        raise NotImplementedError
+
+    def _render_bg(self, plain):
+        """bg_fn(rays_o, rays_d) -> [N, 3] of the bg-sphere model for one
+        render (its table cast once), or None without one."""
+        if self.cfg.bg_radius <= 0:
+            return None
+        return background_fn(bg_params(self._bg_tree(), self.cfg), self.cfg, plain)
 
     # -- occupancy maintenance -------------------------------------------
     @torch.no_grad()
@@ -155,6 +164,7 @@ class _BaseModel:
         # the bool grid and the prefilter's dilated coarse grid
         rc = self.rc_eval
         field = self._render_field(message, plain)
+        bg_fn = self._render_bg(plain)
         grid = render_grid(self.occ, rc.t_cull)
         plan = march_plan(grid.shape[0], grid.shape[1], bound=rc.bound,
                           dt_gamma=rc.dt_gamma, max_steps=rc.max_steps,
@@ -167,7 +177,7 @@ class _BaseModel:
                      if perturb else None)
             return render_rays_occ(field, grid, ro, rd, rc, budget=budget, bg_color=bg_c,
                                    aabb=self.aabb_infer, coarse=coarse, noise=noise,
-                                   plain=plain)
+                                   plain=plain, bg_fn=bg_fn)
 
         if staged and N > max_ray_batch:
             pad = (-N) % max_ray_batch
@@ -214,7 +224,7 @@ class NGPModel(_BaseModel):
             bg_radius=bg_radius, compact_frac=compact_frac, t_cull=t_cull)
         super().__init__(self.cfg, rc, device=device, seed=seed, density_thresh=density_thresh,
                          train_budget=train_budget, infer_budget=infer_budget,
-                         cuda_ray=cuda_ray, bg_radius=max(bg_radius, self.cfg.bg_radius))
+                         cuda_ray=cuda_ray)
         self.params = init_ngp_params(torch.Generator().manual_seed(seed), self.cfg,
                                       self.device)
 
@@ -225,6 +235,9 @@ class NGPModel(_BaseModel):
     def _render_field(self, message, plain):
         fp = field_params(self.params, self.cfg)
         return lambda x, d: ngp_field(fp, self.cfg, x, d, plain=plain)
+
+    def _bg_tree(self):
+        return self.params
 
 
 class WatermarkModel(_BaseModel):
@@ -245,8 +258,7 @@ class WatermarkModel(_BaseModel):
             bg_radius=bg_radius, compact_frac=compact_frac, t_cull=t_cull)
         super().__init__(self.wcfg.ngp, rc, device=device, seed=seed,
                          density_thresh=density_thresh, train_budget=train_budget,
-                         infer_budget=infer_budget, cuda_ray=cuda_ray,
-                         bg_radius=max(bg_radius, self.wcfg.ngp.bg_radius))
+                         infer_budget=infer_budget, cuda_ray=cuda_ray)
         p = init_watermark_params(torch.Generator().manual_seed(seed), self.wcfg, self.device)
         self.backbone = p["backbone"]
         self.trainable = p["trainable"]
@@ -267,3 +279,6 @@ class WatermarkModel(_BaseModel):
     def _render_field(self, message, plain):
         fp = self.field_params(message, plain)
         return lambda x, d: wtmk_field(fp, self.wcfg, x, d, plain=plain)
+
+    def _bg_tree(self):
+        return self.backbone

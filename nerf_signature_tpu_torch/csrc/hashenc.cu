@@ -36,152 +36,7 @@
 // weights as (wx|1-wx)*(wy|1-wy)*(wz|1-wz)), so the kernel rounds exactly
 // where the plain version does.
 
-#include <cuda_bf16.h>
-
-#include "common.cuh"
-
-#define NGP_MAX_LEVELS 32
-#define NGP_ENC_TILE 128
-#define NGP_ENC_WARPS 8
-#define NGP_BWD_TILE 256
-#define NGP_FULL 0xffffffffu
-
-struct HashLevels {
-  int L;
-  int log2_size;
-  float res[NGP_MAX_LEVELS];
-  unsigned int offset[NGP_MAX_LEVELS];
-  unsigned int side[NGP_MAX_LEVELS];  // 0 = hashed level
-};
-
-__device__ __forceinline__ float2 bf2(unsigned int u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-template <int F>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* table, unsigned int row,
-                                         float (&r)[F]) {
-  static_assert(F == 1 || F == 2 || F == 4 || F == 8, "rows of 1, 2, 4 or 8 features");
-  if constexpr (F == 1) {
-    r[0] = __bfloat162float(table[row]);
-  } else if constexpr (F == 2) {
-    const float2 v = bf2(reinterpret_cast<const unsigned int*>(table)[row]);
-    r[0] = v.x;
-    r[1] = v.y;
-  } else if constexpr (F == 4) {
-    const uint2 u = reinterpret_cast<const uint2*>(table)[row];
-    const float2 lo = bf2(u.x), hi = bf2(u.y);
-    r[0] = lo.x;
-    r[1] = lo.y;
-    r[2] = hi.x;
-    r[3] = hi.y;
-  } else {
-    const uint4 u = reinterpret_cast<const uint4*>(table)[row];
-    const unsigned int w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 v = bf2(w[q]);
-      r[2 * q] = v.x;
-      r[2 * q + 1] = v.y;
-    }
-  }
-}
-
-template <int F>
-__device__ __forceinline__ void load_row(const float* table, unsigned int row, float (&r)[F]) {
-  static_assert(F == 1 || F == 2 || F == 4 || F == 8, "rows of 1, 2, 4 or 8 features");
-  if constexpr (F == 1) {
-    r[0] = table[row];
-  } else if constexpr (F == 2) {
-    const float2 v = reinterpret_cast<const float2*>(table)[row];
-    r[0] = v.x;
-    r[1] = v.y;
-  } else {
-#pragma unroll
-    for (int q = 0; q < F / 4; ++q) {
-      const float4 v =
-          reinterpret_cast<const float4*>(table)[(unsigned long long)row * (F / 4) + q];
-      r[4 * q] = v.x;
-      r[4 * q + 1] = v.y;
-      r[4 * q + 2] = v.z;
-      r[4 * q + 3] = v.w;
-    }
-  }
-}
-
-// F floats at p (shared memory, aligned to the access: stage_pitch keeps it)
-template <int F>
-__device__ __forceinline__ void store_f(float* p, const float (&v)[F]) {
-  if constexpr (F == 1) {
-    p[0] = v[0];
-  } else if constexpr (F == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int q = 0; q < F / 4; ++q)
-      reinterpret_cast<float4*>(p)[q] =
-          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  }
-}
-
-template <int F>
-__device__ __forceinline__ void load_f(const float* p, float (&v)[F]) {
-  if constexpr (F == 1) {
-    v[0] = p[0];
-  } else if constexpr (F == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    v[0] = a.x;
-    v[1] = a.y;
-  } else {
-#pragma unroll
-    for (int q = 0; q < F / 4; ++q) {
-      const float4 a = reinterpret_cast<const float4*>(p)[q];
-      v[4 * q] = a.x;
-      v[4 * q + 1] = a.y;
-      v[4 * q + 2] = a.z;
-      v[4 * q + 3] = a.w;
-    }
-  }
-}
-
-// Row pitch (floats) of a tile of [L*F] rows staged in shared memory: the
-// F-wide accesses of a warp's 32 lanes (one sample each) fall in distinct
-// banks, one phase at a time.  F = 1: an odd pitch; F = 2 and 4: L*F + F;
-// F = 8 (two 16-byte accesses a lane, 8 lanes a phase): L*F + 4, 4 mod 8.
-template <int F>
-__host__ __device__ __forceinline__ int stage_pitch(int LF) {
-  return F == 1 ? (LF | 1) : F == 8 ? LF + 4 : LF + F;
-}
-
-// The 8 corners of one (sample, level): rows (level offset added) and
-// trilinear weights, in the JAX corner order and with its roundings.
-__device__ __forceinline__ void corners(const float (&xc)[3], float res, unsigned int side,
-                                        unsigned int mask, unsigned int off,
-                                        unsigned int (&idx)[8], float (&cw)[8]) {
-  float w[3];
-  unsigned int cell[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float s = __fmul_rn(xc[a], res);
-    const float f = floorf(s);
-    w[a] = __fsub_rn(s, f);
-    cell[a] = (unsigned int)f;
-  }
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const unsigned int di = (c >> 2) & 1u, dj = (c >> 1) & 1u, dk = c & 1u;
-    const unsigned int cx = cell[0] + di, cy = cell[1] + dj, cz = cell[2] + dk;
-    if (side) {
-      idx[c] = (cx * side + cy) * side + cz + off;
-    } else {
-      idx[c] = (((cx * 1u) ^ (cy * 2654435761u) ^ (cz * 805459861u)) & mask) + off;
-    }
-    const float wx = di ? w[0] : __fsub_rn(1.0f, w[0]);
-    const float wy = dj ? w[1] : __fsub_rn(1.0f, w[1]);
-    const float wz = dk ? w[2] : __fsub_rn(1.0f, w[2]);
-    cw[c] = __fmul_rn(__fmul_rn(wx, wy), wz);
-  }
-}
+#include "hashenc.cuh"
 
 template <typename T, int F>
 __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
@@ -193,8 +48,7 @@ __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
   float* so = smem + 3 * NGP_ENC_TILE;     // [TILE][P] outputs
   const long long m0 = (long long)blockIdx.x * NGP_ENC_TILE;
   const int rows = (int)min((long long)NGP_ENC_TILE, M - m0);
-  for (int i = threadIdx.x; i < 3 * rows; i += blockDim.x)
-    sx[i] = ngp_clip(x[m0 * 3 + i], 0.0f, 1.0f);
+  stage_x(sx, x, m0, rows);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -224,32 +78,7 @@ __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
     }
   }
   __syncthreads();
-
-  // the tile's outputs are rows * pitch contiguous floats of out, written
-  // vec floats a store (16-byte stores when the pitch allows); the columns
-  // past L*F are zeros
-  float* dst = out + m0 * pitch;
-  const int n = rows * pitch / vec;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int e = vec * i, s = e / pitch, c = e - s * pitch;
-    const float* src = so + s * P + c;
-    float v[4];
-    if (F >= 2 && vec == 4 && c + 4 <= LF) {  // P and c even: two 8-byte loads
-      const float2 a = reinterpret_cast<const float2*>(src)[0];
-      const float2 b = reinterpret_cast<const float2*>(src)[1];
-      v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = (q < vec && c + q < LF) ? src[q] : 0.0f;
-    }
-    if (vec == 4) {
-      reinterpret_cast<float4*>(dst)[i] = make_float4(v[0], v[1], v[2], v[3]);
-    } else if (vec == 2) {
-      reinterpret_cast<float2*>(dst)[i] = make_float2(v[0], v[1]);
-    } else {
-      dst[i] = v[0];
-    }
-  }
+  store_tile<F>(out, so, m0, rows, pitch, vec, LF, P);
 }
 
 // K1 backward: the gradient of the fp32 master table [rows, F] from the
@@ -286,43 +115,6 @@ __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
 // the positions.  The order of the adds varies from run to run, so the
 // result matches the plain version to fp32 rounding, not bit for bit.
 template <int F>
-__device__ __forceinline__ void add_row(float* g_table, unsigned int row, const float (&v)[F]) {
-  float* dst = g_table + (unsigned long long)F * row;
-  if constexpr (F == 1) {
-    atomicAdd(dst, v[0]);
-  } else if constexpr (F == 2) {
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
-  } else {
-#pragma unroll
-    for (int q = 0; q < F / 4; ++q)
-      atomicAdd(reinterpret_cast<float4*>(dst) + q,
-                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
-  }
-}
-
-// Sum v over each group of ``peers`` (the lanes adding into one row, this
-// lane included; 0 for a lane that adds nothing) into the group's lowest
-// lane: each round, every lane still in the tree adds the value of the next
-// one above it in its group, then the lanes at odd ranks leave.  So the sum
-// is pairwise by rank, ((v0 + v1) + (v2 + v3)) + v4.  Every lane of the warp
-// takes part.
-template <int F>
-__device__ __forceinline__ void reduce_peers(unsigned int peers, int lane, float (&v)[F]) {
-  unsigned int rank = __popc(peers & ((1u << lane) - 1u));
-  peers &= 0xfffffffeu << lane;  // the peers above this lane
-  while (__any_sync(NGP_FULL, peers != 0u)) {
-    const int next = __ffs(peers);  // 1 + the next peer above still in the tree, or 0
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const float t = __shfl_sync(NGP_FULL, v[f], (next - 1) & 31);
-      if (next) v[f] = __fadd_rn(v[f], t);
-    }
-    peers &= ~__ballot_sync(NGP_FULL, rank & 1u);
-    rank >>= 1;
-  }
-}
-
-template <int F>
 __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
     hash_encode_bwd(const float* __restrict__ x, const float* __restrict__ g_feat, int pitch,
                     int vec, float* __restrict__ g_table, long long M, int tile, HashLevels p,
@@ -333,33 +125,12 @@ __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
   float* sg = smem + 3 * tile;  // [tile][P] cotangents
   const long long m0 = (long long)blockIdx.x * tile;
   const int rows = (int)min((long long)tile, M - m0);
-  for (int i = threadIdx.x; i < 3 * rows; i += blockDim.x)
-    sx[i] = ngp_clip(x[m0 * 3 + i], 0.0f, 1.0f);
-  // the tile's cotangents: rows * pitch contiguous floats, vec a load
-  const float* src = g_feat + m0 * pitch;
-  const int n = rows * pitch / vec;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int e = vec * i, s = e / pitch, c = e - s * pitch;
-    if (c >= LF) continue;  // the padded columns
-    float v[4];
-    if (vec == 4) {
-      const float4 a = reinterpret_cast<const float4*>(src)[i];
-      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    } else if (vec == 2) {
-      const float2 a = reinterpret_cast<const float2*>(src)[i];
-      v[0] = a.x, v[1] = a.y;
-    } else {
-      v[0] = src[i];
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (q < vec && c + q < LF) sg[s * P + c + q] = v[q];
-  }
+  stage_x(sx, x, m0, rows);
+  stage_g(sg, g_feat, m0, rows, pitch, vec, LF, P);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned int mask = (1u << p.log2_size) - 1u;
-  const unsigned int below = (1u << lane) - 1u;
   const int groups = (rows + 31) >> 5;
   for (int t = warp; t < p.L * groups; t += NGP_ENC_WARPS) {
     const int l = t / groups, s = (t - l * groups) * 32 + lane;
@@ -391,40 +162,9 @@ __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
         if (round_bf16) v[f] = __bfloat162float(__float2bfloat16_rn(v[f]));
         any = any || v[f] != 0.0f;
       }
-      if (grouped) {
-        const unsigned int adding = __ballot_sync(NGP_FULL, any);
-        if (adding == 0u) continue;
-        unsigned int peers = 0u;
-        if (any) peers = __match_any_sync(adding, idx[c]);
-        reduce_peers<F>(peers, lane, v);
-        if (any && (peers & below) == 0u) add_row<F>(g_table, idx[c], v);
-      } else if (any) {
-        add_row<F>(g_table, idx[c], v);
-      }
+      warp_add<F>(g_table, idx[c], v, any, grouped, lane);
     }
   }
-}
-
-static int fill_levels(HashLevels& p, int L, const float* res, const unsigned int* offset,
-                       const unsigned int* side, int log2_size) {
-  if (L < 1 || L > NGP_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  p.L = L;
-  p.log2_size = log2_size;
-  for (int l = 0; l < L; ++l) {
-    p.res[l] = res[l];
-    p.offset[l] = offset[l];
-    p.side[l] = side[l];
-  }
-  return 0;
-}
-
-// floats a vector access to rows of ``pitch`` floats at ptr: 4 (16-byte
-// accesses) where the pitch and the pointer allow it, else 2, else 1
-static int vec_width(const void* ptr, int pitch) {
-  const unsigned long long a = (unsigned long long)ptr;
-  if (pitch % 4 == 0 && a % 16 == 0) return 4;
-  if (pitch % 2 == 0 && a % 8 == 0) return 2;
-  return 1;
 }
 
 template <typename T, int F>
@@ -475,12 +215,8 @@ template <int F>
 static int launch_bwd(const void* x, const void* g_feat, int pitch, void* g_table, long long M,
                       const HashLevels& p, int round_bf16, unsigned int combine,
                       cudaStream_t s) {
-  // the largest tile (a multiple of 32 samples) whose staging fits 48 KB
-  // (32 samples at 32 levels x 8 features take 33.7 KB)
-  const int P = stage_pitch<F>(p.L * F);
-  int tile = NGP_BWD_TILE;
-  while (tile > 32 && sizeof(float) * tile * (3 + P) > 48 * 1024) tile >>= 1;
-  const size_t smem = sizeof(float) * tile * (3 + P);
+  const int tile = bwd_tile(stage_pitch<F>(p.L * F));
+  const size_t smem = sizeof(float) * tile * (3 + stage_pitch<F>(p.L * F));
   hash_encode_bwd<F><<<ngp_blocks(M, tile), 32 * NGP_ENC_WARPS, smem, s>>>(
       (const float*)x, (const float*)g_feat, pitch, vec_width(g_feat, pitch), (float*)g_table, M,
       tile, p, round_bf16, combine);

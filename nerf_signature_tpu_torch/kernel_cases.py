@@ -1,5 +1,6 @@
 """Inputs that drive a kernel to the edges of its design, and counts of
-what a kernel issues on given inputs: one maker for the card tests
+what a kernel issues on given inputs (K1's and K7's backward atomics): one
+maker for the card tests
 (``tests/test_torch_kernels.py``), the CPU emulations
 (``tests/test_torch_composite_warp.py``, ``tests/test_torch_hashenc_bwd_warp.py``)
 and ``chip_smoke.py``."""
@@ -30,6 +31,27 @@ def k3_edge_inputs(N, S, mask_kind, seed=8):
     return sig, rgb, dt, ts, (None if mask_kind == "off" else mask)
 
 
+def _warp_atomics(rows, adding, combine):
+    """The atomics of one corner's adds over warp tasks (a level, 32
+    consecutive samples): rows [M, L] int64, adding [M, L] bool; one atomic
+    for each distinct row among the adding lanes at the levels in
+    ``combine``, one for each adding lane elsewhere."""
+    import torch
+
+    M, L = rows.shape
+    G = -(-M // 32)
+    r = torch.full((G * 32, L), -1, dtype=torch.int64, device=rows.device)
+    r[:M] = torch.where(adding, rows, -1)
+    r = r.reshape(G, 32, L).transpose(1, 2)  # [G, L, 32]
+    s = torch.sort(r, dim=-1).values
+    distinct = ((s[..., :1] >= 0).sum(-1)
+                + ((s[..., 1:] != s[..., :-1]) & (s[..., 1:] >= 0)).sum(-1))
+    lanes = (r >= 0).sum(-1)
+    grouped = torch.tensor([(combine >> lv) & 1 for lv in range(L)], dtype=torch.bool,
+                           device=rows.device)
+    return int(torch.where(grouped, distinct, lanes).sum())
+
+
 def k1_bwd_atomics(x01, g_feat, n_features, resolutions, log2_hashmap_size, gather_dtype,
                    shared_table=False, dense_sides=None, combine=None):
     """The atomic instructions K1's backward (``csrc/hashenc.cu``) issues on
@@ -45,28 +67,35 @@ def k1_bwd_atomics(x01, g_feat, n_features, resolutions, log2_hashmap_size, gath
 
     M, L, F = x01.shape[0], len(resolutions), n_features
     combine = t_hash.combine_mask(resolutions) if combine is None else combine
-    G = -(-M // 32)
-    g = torch.zeros((G * 32, L, F), dtype=torch.float32, device=x01.device)
-    g[:M] = g_feat[:, :L * F].reshape(M, L, F)
+    g = g_feat[:, :L * F].reshape(M, L, F)
     after = 0
     for idx, cw in t_hash._corners(x01, resolutions, log2_hashmap_size, shared_table,
                                    dense_sides, torch.float32):
-        v = cw.t()[..., None] * g[:M]  # [M, L, F]
+        v = cw.t()[..., None] * g  # [M, L, F]
         if gather_dtype != torch.float32:
             v = v.to(gather_dtype).float()
-        adding = torch.zeros((G * 32, L), dtype=torch.bool, device=x01.device)
-        adding[:M] = (v != 0).any(-1)
-        rows = torch.full((G * 32, L), -1, dtype=torch.int64, device=x01.device)
-        rows[:M] = idx.t()
-        rows = torch.where(adding, rows, -1).reshape(G, 32, L).transpose(1, 2)  # [G, L, 32]
-        s = torch.sort(rows, dim=-1).values
-        distinct = ((s[..., :1] >= 0).sum(-1)
-                    + ((s[..., 1:] != s[..., :-1]) & (s[..., 1:] >= 0)).sum(-1))
-        lanes = (rows >= 0).sum(-1)
-        grouped = torch.tensor([(combine >> lv) & 1 for lv in range(L)], dtype=torch.bool,
-                               device=x01.device)
-        after += int(torch.where(grouped, distinct, lanes).sum())
+        after += _warp_atomics(idx.t(), (v != 0).any(-1), combine)
     return after * (2 if F == 8 else 1)
+
+
+def k7_bwd_atomics(x01, g_feat, n_features, resolutions, log2_hashmap_size, level_stride=1,
+                   shared_table=False, dense_sides=None, combine=None):
+    """The atomic instructions K7's backward (``csrc/hashenc_stoch.cu``)
+    issues on these inputs by its design, counted as ``k1_bwd_atomics``
+    counts K1's: one add per (level, sample) with a nonzero cotangent at a
+    level it keeps (the effective ``level_stride``), into its chosen row,
+    grouped by row at the levels in ``combine``; two at F = 8."""
+    from .ops import hashenc as t_hash
+
+    M, L, F = x01.shape[0], len(resolutions), n_features
+    combine = t_hash.combine_mask(resolutions) if combine is None else combine
+    rows, phase_bits = t_hash.stochastic_choice(x01, resolutions, log2_hashmap_size,
+                                                shared_table, dense_sides)
+    adding = (g_feat[:, :L * F].reshape(M, L, F) != 0).any(-1)
+    stride = t_hash.effective_stride(L, level_stride)
+    if stride > 1:
+        adding &= t_hash.level_keep(phase_bits, L, stride).t()
+    return _warp_atomics(rows.t(), adding, combine) * (2 if F == 8 else 1)
 
 
 def k5_edge_inputs(seed=5):

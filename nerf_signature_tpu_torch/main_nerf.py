@@ -11,11 +11,13 @@ runs on the CUDA GPU; ``--cpu`` runs the plain PyTorch versions on the CPU.
 (``Trainer.train_device``: on the card a replayed CUDA graph of the step,
 on the CPU the same step eagerly).  ``--t_cull``, ``--error_map`` and
 ``--patch_size N --lambda_ssim w`` run on both paths (``--lambda_ssim`` with
-``--error_map`` only per step, as in JAX).  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): ``--patch_size`` with
-LPIPS weights, ``--clip_text``, ``--stochastic_hash_grad``,
-``--bg_radius > 0``, ``--devices > 1``; ``--gui`` and ``--prewatermark``
-exit 2.
+``--error_map`` only per step, as in JAX), and so do the stochastic hash
+estimators (``--stochastic_hash_grad [--hash_level_stride N]
+[--hash_fwd_corners 1]``, K7, in the train step only) and the bg-sphere
+model (``--bg_radius R``, K8).
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): ``--patch_size`` with LPIPS weights, ``--clip_text``, ``--devices >
+1``; ``--gui`` and ``--prewatermark`` exit 2.
 """
 
 import argparse

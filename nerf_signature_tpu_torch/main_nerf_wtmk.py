@@ -18,11 +18,14 @@ afterwards) and renders test images against the pseudo-GT.
 runs on the CUDA GPU; ``--cpu`` runs the plain PyTorch versions on the CPU.
 ``--steps_per_dispatch K`` trains K steps a dispatch on the device
 (``WatermarkTrainer.train_device``: on the card a replayed CUDA graph of the
-step).  Checkpoints are the JAX package's format both ways.  ``--t_cull``
-and ``--patch_size N --lambda_ssim w`` train on both paths.  Not ported yet
-(each raises ``NotImplementedError`` naming its ROADMAP item):
-``--devices > 1``, ``--finetune_decoder``, ``--copyrnerf``,
-``--whole_image_wm``, ``--stochastic_hash_grad``, ``--bg_radius > 0``.
+step).  Checkpoints are the JAX package's format both ways.  ``--t_cull``,
+``--patch_size N --lambda_ssim w`` and ``--stochastic_hash_grad
+[--hash_fwd_corners 1]`` (K7, the step's backbone encode) train on both
+paths; a backbone trained with ``--bg_radius R`` renders its background
+sphere (K8) in every watermark render.
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): ``--devices > 1``, ``--finetune_decoder``, ``--copyrnerf``,
+``--whole_image_wm``.
 """
 
 import argparse

@@ -8,9 +8,15 @@ the direction, concatenated with the 15 geo features -> colour MLP
 (``csrc/field_mma*.cu``), on the SIMT units in fp32 (``csrc/field.cu``,
 ``csrc/field_feat.cu``).
 
+With ``bg_radius > 0`` the background-sphere model colours each ray's
+background (``ngp_background``: K8's 2D encoding of the ray's exit point on
+the sphere, SH of the direction, ``bg_net``, a sigmoid), as JAX completes
+the reference's missing ``bg_net``.
+
 Params are a plain dict, laid out like the JAX tree: ``hash_table``
 [rows, F] fp32, ``sigma_net`` / ``color_net`` lists of ``[in, out]`` fp32
-weights.  ``field_params`` adds what a render computes once and reuses for
+weights, and with the background model ``bg_table`` [4 * 2^15, F] and
+``bg_net``.  ``field_params`` adds what a render computes once and reuses for
 every chunk: the table cast to the gather dtype, the MLP weights packed
 into one flat buffer and, for the tensor-core kernels, into their bf16
 layout (``mma_layout``).
@@ -28,8 +34,8 @@ from ..ops.activation import trunc_exp
 from ..ops.hashenc import (
     KERNEL_FEATURES,
     KERNEL_MAX_LEVELS,
+    bg_encode,
     hash_encode,
-    hash_encode_2d,
     init_hash_table,
     init_hash_table_sized,
     level_resolutions,
@@ -129,7 +135,8 @@ def init_ngp_params(generator, cfg: NGPConfig, device="cpu"):
 
 def field_params(params, cfg: NGPConfig):
     """``params`` plus the per-render derived buffers: ``hash_table_g`` (the
-    table in the gather dtype, cast once), ``mlp_flat`` (all MLP weights in
+    table in the gather dtype, cast once; ``bg_table_g`` likewise with the
+    background model), ``mlp_flat`` (all MLP weights in
     one fp32 buffer at K4's built widths, the SIMT kernels' layout) and, in
     bf16 on the card, ``mlp_mma`` (the tensor-core kernels' packed bf16
     weights).  Where K4 runs an encoding width W at a wider built input
@@ -146,6 +153,8 @@ def field_params(params, cfg: NGPConfig):
     pad = [] if built is None or built[0] == ws0.shape[0] else [
         ws0.new_zeros(((built[0] - ws0.shape[0]) * ws0.shape[1],))]
     out["mlp_flat"] = torch.cat([ws0.reshape(-1)] + pad + [w.reshape(-1) for w in nets[1:]])
+    if "bg_table" in params:
+        out.update(bg_params(params, cfg))
     if _tensor_cores(cfg) and table.is_cuda:
         out["mlp_mma"] = pack_mlp_mma(out["mlp_flat"].detach(),
                                       _kernel_widths(params, cfg)).to(torch.bfloat16)
@@ -504,6 +513,39 @@ def ngp_field(params, cfg: NGPConfig, x, d, plain=False):
     return sigma, rgb
 
 
-def ngp_background(params, cfg: NGPConfig, rays_o, rays_d):
-    """The bg-sphere model needs the 2D hash encoder (K8)."""
-    return hash_encode_2d()
+def bg_params(params, cfg: NGPConfig):
+    """The background model's leaves of ``params`` (``bg_table``,
+    ``bg_net``) and ``bg_table_g``, the table in the gather dtype, cast once
+    per render or step."""
+    table = params["bg_table"]
+    gd = cfg.compute_dtype
+    return {"bg_table": table, "bg_net": params["bg_net"],
+            "bg_table_g": table.detach().to(gd) if gd != table.dtype else table.detach()}
+
+
+def ngp_background(params, cfg: NGPConfig, rays_o, rays_d, plain=False):
+    """Per-ray background colour of the bg-sphere model: rays [N, 3] -> rgb
+    [N, 3] in [0, 1].  The 2D encoding of each ray's exit point on the
+    sphere of ``cfg.bg_radius`` (K8, or its plain version when ``plain``),
+    concatenated with the SH of the normalised direction, through
+    ``bg_net`` ([4F + 16 -> 64 -> 3]) and a sigmoid.  The MLP runs once a
+    ray, not once a sample: it stays ``mlp_apply`` (torch.matmul), as JAX
+    leaves it to XLA outside any kernel."""
+    table_g = params.get("bg_table_g")
+    if table_g is None:
+        table_g = bg_params(params, cfg)["bg_table_g"]
+    h2 = bg_encode(rays_o, rays_d, cfg.bg_radius, params["bg_table"], cfg.bg_resolutions,
+                   cfg.bg_log2_hashmap_size, table_g=table_g, plain=plain)
+    d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    h = mlp_apply(params["bg_net"], torch.cat([h2, sh_encode(d, cfg.sh_degree)], dim=-1),
+                  compute_dtype=cfg.compute_dtype)
+    return torch.sigmoid(h)
+
+
+def background_fn(params, cfg: NGPConfig, plain=False):
+    """The renderer's ``bg_fn(rays_o, rays_d)`` of the bg-sphere model on
+    ``params`` (``field_params`` or ``bg_params``), or None without one
+    (``bg_radius <= 0``)."""
+    if cfg.bg_radius <= 0:
+        return None
+    return lambda o, d: ngp_background(params, cfg, o, d, plain=plain)

@@ -121,7 +121,10 @@ def _msg_feature(trainable, cfg: WatermarkConfig, x01, message, plain=False):
 def _encode_with_message(fp, cfg: WatermarkConfig, x, plain=False):
     """Backbone hash features [M, enc_dim] (on the kernel path at
     ``feature_pitch``, the padded columns zero) with the message feature
-    added (no message: the backbone's alone)."""
+    added (no message: the backbone's alone).  The backbone's encode honours
+    cfg.ngp's K7 knobs (the step's ``hash_fwd_corners=1`` through
+    ``WatermarkTrainer.wcfg_train``); the message's encode is always K1's
+    exact one, as in JAX."""
     feat = _encode_pos(fp, cfg.ngp, x, plain)
     if fp.get("msg_eff") is None:
         return feat

@@ -38,6 +38,8 @@ _COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 SOURCES = {
     "marcher.cu": ["-fmad=false"],
     "hashenc.cu": ["-fmad=false"],
+    "hashenc_stoch.cu": ["-fmad=false"],
+    "hashenc_bg.cu": ["-fmad=false"],
     "composite.cu": ["-fmad=false"],
     "field.cu": ["-fmad=false"],
     "field_feat.cu": ["-fmad=false"],
@@ -69,6 +71,10 @@ _UP = ctypes.POINTER(ctypes.c_uint)
 _SIGNATURES = {
     "ngp_hash_encode": [_P, _P, _I, _I, _P, _I, _L, _I, _FP, _UP, _UP, _I, _P],
     "ngp_hash_encode_bwd": [_P, _P, _I, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _U, _P],
+    "ngp_hash_encode_1c": [_P, _P, _I, _I, _P, _I, _L, _I, _FP, _UP, _UP, _I, _P],
+    "ngp_hash_encode_bwd_stoch": [_P, _P, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _U, _I, _P],
+    "ngp_hash_encode_2d": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _P],
+    "ngp_hash_encode_2d_bwd": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _U, _P],
     "ngp_field": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_P],
     "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 5 + [_P],
@@ -215,6 +221,10 @@ class CudaKernel:
 
 HASH_ENCODE = CudaKernel("ngp_hash_encode")
 HASH_ENCODE_BWD = CudaKernel("ngp_hash_encode_bwd")
+HASH_ENCODE_1C = CudaKernel("ngp_hash_encode_1c")
+HASH_ENCODE_BWD_STOCH = CudaKernel("ngp_hash_encode_bwd_stoch")
+HASH_ENCODE_2D = CudaKernel("ngp_hash_encode_2d")
+HASH_ENCODE_2D_BWD = CudaKernel("ngp_hash_encode_2d_bwd")
 FIELD = CudaKernel("ngp_field")
 FIELD_MMA = CudaKernel("ngp_field_mma")
 FIELD_BWD = CudaKernel("ngp_field_bwd")
@@ -235,7 +245,9 @@ COMPACT_UNPACK_BWD = CudaKernel("ngp_compact_unpack_bwd")
 # K4's forward, full backward and feature-only backward have two routes
 # each, counted apart: the tensor-core kernels (bf16) and the SIMT ones
 # (fp32, ``_f32``); K2 on the bool grid and on the float render grid (the
-# transmittance cull, ``_cull``)
+# transmittance cull, ``_cull``); K7, the stochastic hash estimators (the
+# one-corner forward and the one-corner backward); K8, the background
+# sphere's 2D encoding
 KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH, "K2_march_cull": MARCH_CULL,
            "K3_composite": COMPOSITE, "K4_field": FIELD_MMA, "K4_field_f32": FIELD,
            "K1_hash_encode_bwd": HASH_ENCODE_BWD, "K3_composite_bwd": COMPOSITE_BWD,
@@ -243,7 +255,9 @@ KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH, "K2_march_cull": MA
            "K4_field_bwd_feat": FIELD_BWD_FEAT_MMA, "K4_field_bwd_feat_f32": FIELD_BWD_FEAT,
            "K9_msg_table": MSG_TABLE, "K9_msg_table_bwd": MSG_TABLE_BWD,
            "P1_gather": TABLE_GATHER, "K5_compact_pack": COMPACT_PACK,
-           "K5_compact_unpack": COMPACT_UNPACK, "K5_compact_unpack_bwd": COMPACT_UNPACK_BWD}
+           "K5_compact_unpack": COMPACT_UNPACK, "K5_compact_unpack_bwd": COMPACT_UNPACK_BWD,
+           "K7_hash_encode_1c": HASH_ENCODE_1C, "K7_hash_encode_bwd_stoch": HASH_ENCODE_BWD_STOCH,
+           "K8_hash_encode_2d": HASH_ENCODE_2D, "K8_hash_encode_2d_bwd": HASH_ENCODE_2D_BWD}
 
 
 def reset_launch_counts():

@@ -2,7 +2,8 @@
 
 Counterpart of ``nerf_signature_tpu/ops/intersect.py``.  On the render path
 the slab test runs as the prologue of the marcher kernel
-(``ops.marching.march_rays_aabb``); this is its plain version.
+(``ops.marching.march_rays_aabb``) and the sphere's exit point inside K8
+(``ops.hashenc.bg_encode``); these are their plain versions.
 """
 
 import math
@@ -30,7 +31,9 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near=0.2):
 
 
 def sph_from_ray(rays_o, rays_d, radius):
-    """Far ray/sphere(radius) intersection -> (theta, phi) scaled to [-1, 1]."""
+    """Far ray/sphere(radius) intersection -> (theta, phi) scaled to [-1, 1]
+    (the discriminant clamped at 0).  The plain twin of the sphere point K8
+    computes inside its kernels (``csrc/hashenc_bg.cu:bg_position``)."""
     a = torch.sum(rays_d * rays_d, dim=-1)
     b = 2.0 * torch.sum(rays_o * rays_d, dim=-1)
     c = torch.sum(rays_o * rays_o, dim=-1) - radius * radius

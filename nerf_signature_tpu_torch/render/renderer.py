@@ -3,7 +3,8 @@
 
 One chunk of rays: slab test + march (K2) -> sample compaction (K5, with
 ``compact_frac``) -> field (K1 + K4, through ``field_fn``) -> composite
-(K3) -> background blend and normalised depth.  Training differentiates
+(K3) -> background blend (a colour, or the bg-sphere model's ``bg_fn``) and
+normalised depth.  Training differentiates
 through it (the kernels' autograd Functions).  The fixed-step path
 (``render_rays_fixed``) is not ported yet.
 """
@@ -47,14 +48,16 @@ def default_aabb(rc: RenderConfig):
 def render_rays_occ(field_fn: Callable, occupancy, rays_o, rays_d,
                     rc: RenderConfig, *, budget: int, bg_color=1.0,
                     n_cand: Optional[int] = None, aabb=None, coarse=None,
-                    noise=None, plain=False):
+                    noise=None, plain=False, bg_fn: Optional[Callable] = None):
     """Occupancy-grid render of [N, 3] rays, differentiable in what
     ``field_fn`` closes over (the train step's params).
 
     ``field_fn(xyzs [M, 3], dirs [M, 3]) -> (sigma [M], rgb [M, 3])``.
     ``occupancy``: the bool grid, or with ``rc.t_cull > 0`` the float render
     grid (``ops/grid.py:render_grid``).
-    ``bg_color``: a scalar, [1, 3] or a per-ray [N, 3] tensor.  ``noise``:
+    ``bg_color``: a scalar, [1, 3] or a per-ray [N, 3] tensor;
+    ``bg_fn(rays_o, rays_d) -> [N, 3]``, when given, overrides it (the
+    bg-sphere model, ``models/ngp.py:background_fn``).  ``noise``:
     optional [N] U[0, 1) march perturbation (training; JAX draws it from
     ``perturb_key``).  ``aabb``: optional [6] crop box (default: the scene
     bound).  ``coarse``: the prefilter's dilated coarse grid, built once per
@@ -93,6 +96,8 @@ def render_rays_occ(field_fn: Callable, occupancy, rays_o, rays_d,
     out = composite(sigmas, rgbs, m["deltas"], m["ts"], mask=m["mask"],
                     T_thresh=rc.T_thresh)
     ws = out["weights_sum"]
+    if bg_fn is not None:
+        bg_color = bg_fn(rays_o, rays_d)
     image = out["image"] + (1.0 - ws)[..., None] * bg_color
     hit = nears < _MISS
     span = torch.where(hit, torch.clamp_min(fars - nears, 1e-6), 1.0)

@@ -11,8 +11,9 @@ value read back to the host inside a dispatch.
 Randomness: each dispatch draws its steps' random numbers up front into
 static [K, ...] device buffers from the model's ``torch.Generator`` (pose
 index, pixels -- patch-structured with a uniform tail under the SSIM patch
-guard --, background, march noise, the error map's three uniforms; in the
-watermark stage the message and the distortion's draws), and step i reads
+guard --, background (none with the bg-sphere model), march noise, the
+error map's three uniforms; in the watermark stage the message and the
+distortion's draws), and step i reads
 row i through a step counter that lives on the device.  A test can fill the
 buffers with JAX's draws instead.  The grid update draws its own, as
 ``update_extra_state`` does.  With ``--error_map`` a step samples its pixels
@@ -434,8 +435,9 @@ def device_train_loop(trainer, data: DeviceData, n_steps, *, draws=None, grid_dr
     if pp > 1 and error_map is not None:
         raise RuntimeError(SSIM_WITH_ERROR_MAP)
     if draws is None:
-        draws = draw_clean(m.generator, n_steps, P, N, HW, C == 4, dev,
-                           patch=(pp, data.H, data.W) if pp > 1 else None,
+        # the bg-sphere model draws no random background (JAX's loop)
+        draws = draw_clean(m.generator, n_steps, P, N, HW, C == 4 and not m.cfg.bg_radius > 0,
+                           dev, patch=(pp, data.H, data.W) if pp > 1 else None,
                            error_map=error_map is not None)
     buf = _buffers(trainer, "_loop_buffers", draws, 5, dev)
     buf.load(draws, n_steps)

@@ -16,10 +16,16 @@ route) once the grid's 16 full updates are done (the fog gate); the
 evaluation and test renders stay exact.  ``--error_map`` samples pixels
 from a per-view coarse error map and EMA-updates it (on the host per step,
 on the device in the loop).  ``--patch_size N --lambda_ssim w`` adds
-``w * (1 - SSIM)`` over the batch's N x N patches.  Paths not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item: the patch LPIPS
-loss (its weights), ``--clip_text``, the stochastic hash estimators (K7)
-and ``--devices > 1``.
+``w * (1 - SSIM)`` over the batch's N x N patches.  ``--stochastic_hash_grad``
+(with ``--hash_level_stride N``) takes K7's one-corner backward for the
+hash table, and ``--hash_fwd_corners 1`` its one-corner forward, inside the
+optimisation step only (``cfg_train``): evaluation, the test render and the
+grid updates stay exact.  With ``--bg_radius > 0`` the bg-sphere model
+(K8 and ``bg_net``) colours each ray's background and trains with the
+field: the ground truth composites over white and no random background is
+drawn.  Paths not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item: the patch LPIPS loss (its weights), ``--clip_text`` and
+``--devices > 1``.
 """
 
 import dataclasses
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from ..api import NGPModel
-from ..models.ngp import field_params, ngp_field
+from ..models.ngp import background_fn, field_params, ngp_field
 from ..ops.grid import render_grid, update_occupancy_grid
 from ..ops.marching import num_candidates
 from ..render.renderer import render_rays_occ
@@ -79,8 +85,23 @@ def make_lr_schedule(lr, iters):
 
 
 def param_leaves(params):
-    """The params dict's tensors in a fixed order (the optimizer's order)."""
-    return [params["hash_table"], *params["sigma_net"], *params["color_net"]]
+    """The params dict's tensors in a fixed order (the optimizer's order),
+    the bg-sphere model's last where there is one."""
+    bg = [params["bg_table"], *params["bg_net"]] if "bg_table" in params else []
+    return [params["hash_table"], *params["sigma_net"], *params["color_net"], *bg]
+
+
+def train_cfg(cfg, opt):
+    """The field config of the optimisation step: cfg with ``--hash_fwd_corners``
+    (JAX's ``Trainer.cfg_train``); every other path keeps cfg's exact
+    8-corner interpolation.  ``--hash_fwd_corners 1`` needs
+    ``--stochastic_hash_grad`` (checked on cfg, the field's own config)."""
+    fwd_corners = int(getattr(opt, "hash_fwd_corners", 8) or 8)
+    if fwd_corners != 8 and not cfg.stochastic_hash_grad:
+        raise ValueError("--hash_fwd_corners 1 requires --stochastic_hash_grad")
+    if fwd_corners == cfg.hash_fwd_corners:
+        return cfg
+    return dataclasses.replace(cfg, hash_fwd_corners=fwd_corners)
 
 
 def make_optimizer(params, lr):
@@ -123,6 +144,7 @@ class Trainer:
         self.max_keep_ckpt = max_keep_ckpt
         self.mute = mute
         _refuse_unported(opt, model)
+        self.cfg_train = train_cfg(model.cfg, opt)
         # the weight-free structural patch guard (shared with the watermark
         # stage): lambda_ssim * (1 - SSIM) over patch-structured batches
         self.patch_size = int(getattr(opt, "patch_size", 1) or 1)
@@ -286,17 +308,21 @@ class Trainer:
     # ----------------------------------------------------------------- train
     def _train_step(self, rays_o, rays_d, images, bg, noise, rc, budget):
         """One optimisation step on [N, 3] rays and [N, 3 or 4] images with
-        the given draws (bg [N, 3] or [1, 3], noise [N]).  Returns (loss,
+        the given draws (bg [N, 3] or [1, 3], noise [N]), the field at
+        ``cfg_train``; with the bg-sphere model its colour replaces ``bg`` in
+        the render (``bg`` then white, for the ground truth).  Returns (loss,
         per_ray, n_occupied, n_occupied_raw, n_groups_occ), detached."""
         m = self.model
+        cfg = self.cfg_train
         if images.shape[-1] == 4:
             gt = images[..., :3] * images[..., 3:] + bg * (1.0 - images[..., 3:])
         else:
             gt = images
-        fp = field_params(m.params, m.cfg)
+        fp = field_params(m.params, cfg)
         out = render_rays_occ(
-            lambda x, d: ngp_field(fp, m.cfg, x, d), render_grid(m.occ, rc.t_cull),
-            rays_o, rays_d, rc, budget=budget, bg_color=bg, noise=noise)
+            lambda x, d: ngp_field(fp, cfg, x, d), render_grid(m.occ, rc.t_cull),
+            rays_o, rays_d, rc, budget=budget, bg_color=bg, noise=noise,
+            bg_fn=background_fn(fp, cfg))
         per_ray = torch.mean((out["image"] - gt) ** 2, dim=-1)
         loss = torch.mean(per_ray)
         if self.lambda_ssim > 0:
@@ -322,10 +348,11 @@ class Trainer:
         return int(state["step"]) if state else 0
 
     def draws(self, n, has_alpha):
-        """The step's random background [n, 3] (ones without alpha) and
-        march noise [n], from the model's generator."""
+        """The step's random background [n, 3] (ones without alpha, and with
+        the bg-sphere model, as JAX draws none) and march noise [n], from
+        the model's generator."""
         m = self.model
-        if has_alpha:
+        if has_alpha and not m.cfg.bg_radius > 0:
             bg = torch.rand((n, 3), generator=m.generator, device=m.device)
         else:
             bg = torch.ones((1, 3), device=m.device)
@@ -681,7 +708,5 @@ def _refuse_unported(opt, model):
     if getattr(opt, "patch_size", 1) > 1 and getattr(opt, "lpips_weights", None):
         todo.append("--patch_size with LPIPS weights (ROADMAP queue 1: LPIPS and CLIP "
                     "weights)")
-    if model.cfg.stochastic_hash_grad or getattr(opt, "hash_fwd_corners", 8) != 8:
-        todo.append("--stochastic_hash_grad / --hash_fwd_corners 1 (ROADMAP queue 2 K7)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))

@@ -24,10 +24,16 @@ channel-concatenated, [D, bh, bw, V*3]; distortions and the normalisation
 run per view (``_per_view``), their draws made at the per-view batch shape
 [D*V, bh, bw, 3].  ``train_device`` runs K steps a dispatch on the device
 (``train/device_loop.py:wm_device_loop``; on the card a replayed CUDA graph
-of the step), its messages and distortion draws made on the device.  Not
-ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-``--devices > 1``, ``--finetune_decoder`` and the stochastic hash
-estimators.
+of the step), its messages and distortion draws made on the device.
+
+``--stochastic_hash_grad --hash_fwd_corners 1`` (``wcfg_train``) makes the
+step's backbone encode K7's one-corner forward; the message encode, the
+decodes of verification, the test images and the pseudo-GT stay exact.
+With a backbone that has the bg-sphere model (``--bg_radius > 0``), every
+render of key blocks, content rays and pseudo-GT takes the frozen
+backbone's background (``_bg_fn``).  Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP item): ``--devices > 1`` and
+``--finetune_decoder``.
 """
 
 import dataclasses
@@ -44,6 +50,7 @@ import torch.nn.functional as F
 from ..api import WatermarkModel
 from ..data.rays import get_rays
 from ..models.hidden import decoder_leaves, hidden_decoder_apply, normalize_img
+from ..models.ngp import background_fn
 from ..models.watermark import wtmk_field, wtmk_field_params
 from ..ops.grid import render_grid
 from ..ops.marching import num_candidates
@@ -71,7 +78,14 @@ from .device_loop import (
     wm_device_loop,
 )
 from .metrics import BitAccMeter, PSNRMeter, SSIMMeter
-from .trainer import ensure_occupancy, make_lr_schedule, patch_ssim, restore_occupancy, write_png
+from .trainer import (
+    ensure_occupancy,
+    make_lr_schedule,
+    patch_ssim,
+    restore_occupancy,
+    train_cfg,
+    write_png,
+)
 
 _CKPT_ERRORS = (OSError, EOFError, ValueError, KeyError, pickle.UnpicklingError)
 
@@ -149,10 +163,13 @@ def _distort_and_normalize(blocks, kind, draws):
 
 def _render_blocks(fp, grid, rays_o_b, rays_d_b, wcfg, rc, budget, plain=False):
     """Render the key blocks with the message: [D, bh, bw, 3] (or, with V
-    key views, [D, bh, bw, V*3]) in [0, 1]."""
+    key views, [D, bh, bw, V*3]) in [0, 1].  Misses take the frozen
+    backbone's bg-sphere colour where it has one (``fp`` holds its leaves),
+    as the pseudo-GT that ``model.render`` makes does."""
     out = render_rays_occ(lambda x, d: wtmk_field(fp, wcfg, x, d, plain=plain), grid,
                           rays_o_b.reshape(-1, 3), rays_d_b.reshape(-1, 3), rc,
-                          budget=budget, bg_color=1.0, plain=plain)
+                          budget=budget, bg_color=1.0, plain=plain,
+                          bg_fn=background_fn(fp, wcfg.ngp, plain))
     return _blocks(out["image"], rays_o_b.shape)
 
 
@@ -175,13 +192,14 @@ def _wm_step_loss(backbone, tr, grid, rays_o_b, rays_d_b, ct_o, ct_d, ct_gt, mes
         out = render_rays_occ(
             field, grid, torch.cat([rays_o_b.reshape(-1, 3), ct_o], 0),
             torch.cat([rays_d_b.reshape(-1, 3), ct_d], 0), rc, budget=block_budget,
-            bg_color=1.0, plain=plain)
+            bg_color=1.0, plain=plain, bg_fn=background_fn(fp, wcfg.ngp, plain))
         blocks = _blocks(out["image"][:n_b], rays_o_b.shape)
         content_img = out["image"][n_b:]
     else:  # --wm_content_budget: two renders
         blocks = _render_blocks(fp, grid, rays_o_b, rays_d_b, wcfg, rc, block_budget, plain)
         content_img = render_rays_occ(field, grid, ct_o, ct_d, rc, budget=budget,
-                                      bg_color=1.0, plain=plain)["image"]
+                                      bg_color=1.0, plain=plain,
+                                      bg_fn=background_fn(fp, wcfg.ngp, plain))["image"]
     decoded = hidden_decoder_apply(tr["decoder"], wcfg.decoder,
                                    _distort_and_normalize(blocks, distortion, draws))
     lossw = loss_w_fn(decoded.reshape(-1), message.to(torch.float32).reshape(-1))
@@ -210,6 +228,11 @@ class WatermarkTrainer:
         self.max_keep_ckpt = max_keep_ckpt
         self.mute = mute
         _refuse_unported(opt, model)
+        # the step's field config (JAX's wcfg_train): --hash_fwd_corners 1
+        # makes the in-step block and content renders one-corner estimates;
+        # every decode, test image and pseudo-GT keeps model.wcfg, exact
+        self.wcfg_train = dataclasses.replace(model.wcfg,
+                                              ngp=train_cfg(model.wcfg.ngp, opt))
 
         self.lambda_w = opt.lambda_w
         self.lambda_i = opt.lambda_i
@@ -348,7 +371,8 @@ class WatermarkTrainer:
         loss, (lossw, lossi, decoded) = _wm_step_loss(
             m.backbone, m.trainable, render_grid(m.occ, rc.t_cull), rays_o_b, rays_d_b,
             ct_o, ct_d, ct_gt, message, draws,
-            self.lambda_w if lambda_w is None else lambda_w, self.lambda_i, m.wcfg, rc,
+            self.lambda_w if lambda_w is None else lambda_w, self.lambda_i, self.wcfg_train,
+            rc,
             self.content_budget, m.infer_budget, self.distortion, self.loss_w_fn,
             lambda_msg_reg=self.lambda_msg_reg or None, plain=plain,
             patch_size=self.patch_size, lambda_ssim=self.lambda_ssim or None)
@@ -705,7 +729,5 @@ def _refuse_unported(opt, model):
     if model.wcfg.finetune_decoder or getattr(opt, "finetune_decoder", False):
         todo.append("--finetune_decoder (ROADMAP queue 1: whole_image/copyrnerf/film/"
                     "finetune_decoder)")
-    if model.cfg.stochastic_hash_grad or getattr(opt, "hash_fwd_corners", 8) != 8:
-        todo.append("--stochastic_hash_grad / --hash_fwd_corners 1 (ROADMAP queue 2 K7)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))

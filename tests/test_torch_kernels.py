@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1-K4 forward and backward, K9 forward and
-backward, the feature-only K4 backward, P1) against their plain PyTorch
-versions on the same inputs, on the card.  Skipped where no GPU is
-visible.
+backward, the feature-only K4 backward, P1, K5, K7 and K8) against their
+plain PyTorch versions on the same inputs, on the card.  Skipped where no
+GPU is visible.
 
 This file imports torch and the port only, so it runs where JAX is not
 installed, without the repo's JAX conftest:
@@ -41,6 +41,12 @@ its alignment, repeated (its look-back's order), and captured in a CUDA
 graph and replayed on other masks (its scratch reset); a clean step
 captured as a CUDA graph and replayed against the same steps run eagerly
 (1e-5: K1's atomics).
+K7's one-corner forward bit for bit (the same corner choice) at every row
+width, pitch and addressing; its backward within 1e-6 relative L2 (atomic
+order) touching the same rows, at level strides 1, 2 and 3 (3 runs at 1);
+K8 on given positions bit for bit (backward 1e-5), and from the rays within
+1e-3 (atan2f's ulps at resolution 2048) with the rays at phi's branch cut
+left out.
 """
 
 import numpy as np
@@ -884,3 +890,171 @@ def test_loop_recaptures_once_when_the_cull_gate_opens(cuda):
     assert tr.step_graph.captures == 2
     assert tr._rc_train().t_cull == 1e-3
     assert n["K2_march"] == K and n["K2_march_cull"] == 3 * K, n
+
+
+# ------------------------------------------------- K7: the stochastic estimators
+K7_GEOMETRIES = [(16, 2, 32), (8, 4, 32), (24, 1, 32), (8, 8, 64), (12, 2, 32), (5, 2, 10)]
+
+
+def _k7_inputs(cuda, L, F, gather, seed):
+    g = torch.Generator().manual_seed(seed)
+    res = t_hash.level_resolutions(L, 16, 2048)
+    sides = t_hash.level_sides(res, 19, True) if gather == "dense" else None
+    rows = int(t_hash.level_row_counts(sides, 19).sum()) if sides else L << 19
+    table = (torch.rand((rows, F), generator=g) * 2 - 1).to(cuda)
+    x = (torch.rand(((1 << 16) + 77, 3), generator=g) * 1.1 - 0.05).to(cuda)
+    gd = torch.float32 if gather == "fp32" else torch.bfloat16
+    return g, res, sides, rows, table, x, gd
+
+
+@pytest.mark.parametrize("gather", ["bf16", "fp32", "dense"])
+@pytest.mark.parametrize("L,F,pitch", K7_GEOMETRIES)
+def test_k7_fwd_1c_kernel_is_bit_exact(cuda, L, F, pitch, gather):
+    """K7's one-corner forward: the chosen row of every (level, sample),
+    bit for bit as its plain version chooses it (the same roundings of the
+    scaled position, the weights and their running sum), the columns past
+    L*F exactly 0."""
+    _, res, sides, rows, table, x, gd = _k7_inputs(cuda, L, F, gather, 21)
+    tg = table.to(gd)
+    k = t_hash._hash_encode_1c_kernel(x, tg, rows, res, 19, False, sides, pitch)
+    p = t_hash.hash_encode_1c_plain(x, table, res, 19, dense_sides=sides, table_g=tg)
+    assert k.shape == (x.shape[0], pitch) and torch.equal(k[:, :L * F], p)
+    assert not bool(k[:, L * F:].any())
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("gather", ["bf16", "fp32", "dense"])
+@pytest.mark.parametrize("L,F,pitch", K7_GEOMETRIES)
+def test_k7_bwd_kernel_matches_plain(cuda, L, F, pitch, gather, stride):
+    """K7's backward: each kept (level, sample)'s cotangent, unrounded, in
+    its chosen row; within 1e-6 relative L2 (the atomics' order), and the
+    same rows touched (none chosen differently).  A stride that does not
+    divide L runs at 1, as in JAX; through autograd the same."""
+    g, res, sides, rows, table, x, gd = _k7_inputs(cuda, L, F, gather, 22 + stride)
+    M = x.shape[0]
+    g_feat = torch.zeros((M, pitch), device=cuda)
+    g_feat[:, :L * F] = torch.randn((M, L * F), generator=g).to(cuda)
+    g_feat[::3] = 0.0  # padded samples
+    eff = t_hash.effective_stride(L, stride)
+    k = t_hash._hash_encode_stoch_bwd_kernel(x, g_feat, rows, res, 19, False, sides, F, eff)
+    p = t_hash.hash_encode_stoch_bwd_plain(x, g_feat[:, :L * F].contiguous(), rows, res, 19,
+                                           eff, dense_sides=sides)
+    assert rel_l2(k, p) <= 1e-6
+    assert torch.equal(k.ne(0).any(-1), p.ne(0).any(-1))
+    tt = torch.zeros((rows, F), device=cuda, requires_grad=True)
+    feat = t_hash.hash_encode(x, tt, res, 19, gather_dtype=gd, table_g=table.to(gd),
+                              dense_sides=sides, stochastic_grad=True, level_stride=stride,
+                              pitch=pitch)
+    feat.backward(g_feat)
+    assert rel_l2(tt.grad, p) <= 1e-6
+
+
+def test_k7_bwd_kernel_edges(cuda):
+    """M = 0, all-zero cotangents (every task skipped), the shared table of
+    every level, and the count of launches through autograd: one K1
+    forward and one K7 backward (8 corners forward), or one K7 forward."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    g = torch.Generator().manual_seed(25)
+    res = t_hash.level_resolutions(16, 16, 2048)
+    out = t_hash._hash_encode_stoch_bwd_kernel(torch.zeros((0, 3), device=cuda),
+                                               torch.zeros((0, 32), device=cuda), 1 << 10,
+                                               res, 10, False, None, 2, 2)
+    assert out.shape == (1 << 10, 2) and not bool(out.any())
+    x = torch.rand((50_001, 3), generator=g).to(cuda)
+    zero = t_hash._hash_encode_stoch_bwd_kernel(x, torch.zeros((50_001, 32), device=cuda),
+                                                16 << 19, res, 19, False, None, 2, 2)
+    assert not bool(zero.any())
+    gs = torch.randn((50_001, 32), generator=g).to(cuda)
+    k = t_hash._hash_encode_stoch_bwd_kernel(x, gs, 1 << 19, res, 19, True, None, 2, 1)
+    p = t_hash.hash_encode_stoch_bwd_plain(x, gs, 1 << 19, res, 19, 1, shared_table=True)
+    assert rel_l2(k, p) <= 1e-6
+    table = torch.zeros((16 << 19, 2), device=cuda, requires_grad=True)
+    for corners, fwd in ((8, "K1_hash_encode"), (1, "K7_hash_encode_1c")):
+        _cuda.reset_launch_counts()
+        t_hash.hash_encode(x, table, res, 19, gather_dtype=torch.bfloat16, stochastic_grad=True,
+                           fwd_corners=corners).backward(gs)
+        n = _cuda.launch_counts()
+        assert n[fwd] == 1 and n["K7_hash_encode_bwd_stoch"] == 1 and n["K1_hash_encode_bwd"] == 0
+
+
+# ------------------------------------------------ K8: the background sphere
+def _bg_inputs(cuda, N, seed, radius=8.0):
+    """Rays from inside the sphere (the cameras' orbit, 3.2), and a [4 * 2^15,
+    F] table."""
+    g = torch.Generator().manual_seed(seed)
+    o = torch.randn((N, 3), generator=g) * 1.5
+    d = torch.randn((N, 3), generator=g)
+    return g, o.to(cuda), d.to(cuda)
+
+
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+@pytest.mark.parametrize("gather", [torch.bfloat16, torch.float32])
+def test_k8_kernels_on_positions_match_plain(cuda, gather, F):
+    """K8 on given 2D positions: the forward bit for bit (the same corner
+    order and roundings), the backward within 1e-5 relative L2 (atomic
+    order), each corner's cw * g rounded to bf16 under a bf16 gather as the
+    plain version rounds it."""
+    g = torch.Generator().manual_seed(30 + F)
+    res = t_hash.level_resolutions(4, 16, 2048)
+    rows = 4 << 15
+    table = (torch.rand((rows, F), generator=g) * 2 - 1).to(cuda)
+    x = (torch.rand((40_003, 2), generator=g) * 1.1 - 0.05).to(cuda)
+    tg = table.to(gather)
+    k = t_hash._hash_encode_2d_kernel(x, None, None, 0.0, tg, res, 15)
+    p = t_hash.hash_encode_2d_plain(x, table, res, 15, table_g=tg)
+    assert torch.equal(k, p)
+    g_feat = torch.randn((40_003, 4 * F), generator=g).to(cuda)
+    g_feat[::5] = 0.0
+    kb = t_hash._hash_encode_2d_bwd_kernel(x, None, None, 0.0, g_feat, rows, res, 15, gather, F)
+    pb = t_hash.hash_encode_2d_bwd_plain(x, g_feat, rows, res, 15, gather)
+    assert rel_l2(kb, pb) <= 1e-5
+
+
+def test_k8_kernels_on_rays_match_plain(cuda):
+    """K8 from the rays (the sphere point computed in the kernels) against
+    sph_from_ray then the plain encoder: atan2f and the division differ
+    from PyTorch's by ulps, and an ulp of the position moves a weight by up
+    to res * 6e-8 (1.2e-4 at 2048), so features within 1e-3 absolute and
+    the gradient within 1e-3 relative L2; the rays at phi's branch cut
+    (within 1e-6) are left out and counted (a ray there may land at either
+    end of the map)."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    g, o, d = _bg_inputs(cuda, 65_537, 40)
+    res = t_hash.level_resolutions(4, 16, 2048)
+    rows = 4 << 15
+    table = (torch.rand((rows, 2), generator=g) * 2 - 1).to(cuda)
+    tg = table.to(torch.bfloat16)
+    cut = t_hash.sphere_cut(o, d, 8.0)
+    k = t_hash._hash_encode_2d_kernel(None, o, d, 8.0, tg, res, 15)
+    x = t_hash.sphere_x01(o, d, 8.0)
+    p = t_hash.hash_encode_2d_plain(x, table, res, 15, table_g=tg)
+    assert float((k - p)[~cut].abs().max()) <= 1e-3
+    g_feat = torch.randn((65_537, 8), generator=g).to(cuda)
+    g_feat[cut] = 0.0
+    kb = t_hash._hash_encode_2d_bwd_kernel(None, o, d, 8.0, g_feat, rows, res, 15,
+                                           torch.bfloat16, 2)
+    pb = t_hash.hash_encode_2d_bwd_plain(x, g_feat, rows, res, 15, torch.bfloat16)
+    assert rel_l2(kb, pb) <= 1e-3
+    # through autograd, counted
+    _cuda.reset_launch_counts()
+    tt = table.clone().requires_grad_(True)
+    t_hash.bg_encode(o, d, 8.0, tt, res, 15, gather_dtype=torch.bfloat16).backward(g_feat)
+    n = _cuda.launch_counts()
+    assert n["K8_hash_encode_2d"] == 1 and n["K8_hash_encode_2d_bwd"] == 1
+    assert rel_l2(tt.grad, kb) <= 1e-6
+
+
+def test_k7_k8_wrappers_raise_instead_of_falling_back(cuda):
+    res = t_hash.level_resolutions(4, 16, 2048)
+    tg = torch.zeros((4 << 15, 2), dtype=torch.bfloat16, device=cuda)
+    bad = torch.zeros((3, 8), device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        t_hash._hash_encode_2d_kernel(None, bad, bad, 8.0, tg, res, 15)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_hash._hash_encode_1c_kernel(bad, tg, 4 << 15, res, 15, False, None)
+    with pytest.raises(ValueError, match="divide"):
+        t_hash._hash_encode_stoch_bwd_kernel(torch.zeros((8, 3), device=cuda),
+                                             torch.zeros((8, 8), device=cuda), 4 << 15, res, 15,
+                                             False, None, 2, 3)

@@ -137,13 +137,16 @@ def test_hash_encode_matches_jax(name):
 
 
 def test_hash_encode_unported_paths_raise():
+    """What JAX's hash_encode refuses the port refuses too (the stochastic
+    estimators and the 2D encoder are ported: tests/test_torch_stochastic_hash.py,
+    tests/test_torch_background.py)."""
     x, table, res, S, _ = _hash_inputs(HASH_CASES["fp32_hashed"])
-    with pytest.raises(NotImplementedError, match="K7"):
-        t_hash.hash_encode(T(x), T(table), res, S, stochastic_grad=True)
-    with pytest.raises(NotImplementedError, match="K8"):
-        t_hash.hash_encode_2d(T(x[:, :2]), T(table), res, S)
     with pytest.raises(ValueError):
         t_hash.hash_encode(T(x), T(table), res, S, shared_table=True, dense_sides=(0,) * 4)
+    with pytest.raises(ValueError, match="requires stochastic_grad"):
+        t_hash.hash_encode(T(x), T(table), res, S, fwd_corners=1)
+    with pytest.raises(ValueError, match="1 or 8"):
+        t_hash.hash_encode(T(x), T(table), res, S, stochastic_grad=True, fwd_corners=4)
 
 
 # ----------------------------------------------------------------- composite

@@ -367,9 +367,13 @@ def test_adaptation_rules_match_jax():
 def test_trainer_refuses_unported_paths():
     _, tm = make_models("fp32", 1.0)
     for kw in (dict(devices=2), dict(clip_text="a chair"),
-               dict(patch_size=4, lpips_weights="alex.pth"), dict(hash_fwd_corners=1)):
+               dict(patch_size=4, lpips_weights="alex.pth")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_trainer.Trainer("ngp", _opt(**kw), tm, workspace=None, mute=True)
+    # --hash_fwd_corners 1 is ported (K7) and, as in JAX, needs
+    # --stochastic_hash_grad on the model's config
+    with pytest.raises(ValueError, match="requires --stochastic_hash_grad"):
+        t_trainer.Trainer("ngp", _opt(hash_fwd_corners=1), tm, workspace=None, mute=True)
     # the options the port runs construct (the error map and the SSIM patch
     # guard since they were ported)
     for kw in ({}, dict(error_map=True), dict(patch_size=4, lambda_ssim=0.1)):

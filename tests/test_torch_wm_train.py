@@ -335,9 +335,13 @@ def test_test_bitacc_draws_the_messages_jax_draws(monkeypatch):
 
 def test_trainer_refuses_unported_paths():
     _, tm = make_wm_models("fp32")
-    for kw in (dict(devices=2), dict(finetune_decoder=True), dict(hash_fwd_corners=1)):
+    for kw in (dict(devices=2), dict(finetune_decoder=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_twm.WatermarkTrainer("wm", _opt(**kw), tm, workspace=None, mute=True)
+    # --hash_fwd_corners 1 is ported (K7) and, as in JAX, needs
+    # --stochastic_hash_grad on the backbone's config
+    with pytest.raises(ValueError, match="requires --stochastic_hash_grad"):
+        t_twm.WatermarkTrainer("wm", _opt(hash_fwd_corners=1), tm, workspace=None, mute=True)
     # --lambda_ssim without patches: JAX's ValueError
     with pytest.raises(ValueError, match="patch_size > 1"):
         t_twm.WatermarkTrainer("wm", _opt(lambda_ssim=0.1), tm, workspace=None, mute=True)
