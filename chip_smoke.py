@@ -178,6 +178,23 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                and counted), one 800x800 view served through the kernels
                against the plain versions (>= 45 dB), and 64 watermark
                steps on that backbone (lossw falls).
+ 12. baselines — the paper's baselines on phase 7's backbone at the README
+               stage-2 recipe: --copyrnerf for 64 WatermarkTrainer.train
+               steps (every loss finite, lossw of the last 16 below the
+               first 16's) and 64 through train_device (K = 64), K10
+               (csrc/copyrnerf.cu) and K4's density-logit route on both
+               dtypes against their plain versions on a step's own samples
+               (times, device times, bounds), no launch of K9 or of K1's or
+               K4's backward; --whole_image_wm the same (64 + 64);
+               --finetune_decoder from phase 8's watermarked model, 64
+               looped steps in dispatches of 16 (the message tables
+               bit-equal after, no backward but the decoder's); each with
+               rays/s, one dispatch profiled (busy ms a step) and
+               test_bitacc over 50 whole-image or block decodes (reported,
+               not gated); --prewatermark: pretrain_hidden 200 steps on
+               phase 7's views, the views watermarked, 512 clean loop steps
+               on them, bit survival over 4 rendered views (reported);
+               the FiLM encoder once on the card against the CPU.
 
 The last lines are one JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -2088,7 +2105,8 @@ def pick_key_blocks(model, ws, seed, n_views=1):
 
 
 def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm",
-             steps_per_dispatch=0, step_losses=None, step_lossw=None):
+             steps_per_dispatch=0, step_losses=None, step_lossw=None,
+             required=None, k4_names=("K4_field", "K4_field_bwd_feat"), ckpt=None):
     """The watermark stage's main path as its CLI drives it, on
     ``backbone_model`` saved as the clean checkpoint: main_nerf_wtmk's parser
     and setup (the README stage-2 recipe for ``iters`` steps, plus ``extra``
@@ -2098,16 +2116,21 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm",
     WatermarkTrainer.train_device, its dispatches timed.  ``step_losses`` /
     ``step_lossw``: lists that take each per-step step's loss / lossw (a
     read-back a step).  With
-    ``--t_cull`` in ``extra`` K2 runs its cull route.  Returns the model, trainer,
+    ``--t_cull`` in ``extra`` K2 runs its cull route.  ``required``: the
+    kernels the run must launch (default: the watermark step's and K5's);
+    ``k4_names``: K4's kernels that must run on the tensor-core route;
+    ``ckpt``: the --ckpt to start from (default: the backbone, saved as a
+    clean checkpoint).  Returns the model, trainer,
     loader factory, the run's launches, steps, rays a step, seconds and peak
     memory."""
     from nerf_signature_tpu_torch import main_nerf_wtmk
     from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.train.checkpoint import save_checkpoint
 
-    clean = os.path.join(workdir, "clean", "ngp_ep0016.ckpt")
-    save_checkpoint(clean, {"params": backbone_model.params, "occ": backbone_model.occ,
-                            "epoch": 16, "global_step": TRAIN_ITERS})
+    clean = ckpt or os.path.join(workdir, "clean", "ngp_ep0016.ckpt")
+    if ckpt is None:
+        save_checkpoint(clean, {"params": backbone_model.params, "occ": backbone_model.occ,
+                                "epoch": 16, "global_step": TRAIN_ITERS})
     scene = write_scene(os.path.join(workdir, "scene"))
     ws = os.path.join(workdir, "ws_wm")
     # only the final checkpoint: per-epoch saves of params, tables and Adam's
@@ -2186,15 +2209,14 @@ def wm_train(dev, backbone_model, workdir, iters=WM_ITERS, extra=(), tag="wm",
     if steps != iters:
         raise AssertionError(f"WatermarkTrainer.train ran {steps} steps, expected {iters}")
     culled = model.rc.t_cull > 0
-    for name in WM_TRAIN + K5_KERNELS:
+    for name in WM_TRAIN + K5_KERNELS if required is None else required:
         if culled and name == "K2_march":
             name = "K2_march_cull"
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched by WatermarkTrainer.train ({tag})")
     if launches["K4_field_bwd"] + launches["K4_field_bwd_f32"] != 0:
         raise AssertionError(f"the frozen backbone's weight gradient was computed ({tag})")
-    k4_route(launches, torch.bfloat16, ("K4_field", "K4_field_bwd_feat"),
-             f"WatermarkTrainer.train ({tag})")
+    k4_route(launches, torch.bfloat16, k4_names, f"WatermarkTrainer.train ({tag})")
     return dict(model=model, trainer=trainer, make_loader=make_loader, loader=loader,
                 launches=launches, steps=steps, step_rays=step_rays, seconds=seconds, peak=peak)
 
@@ -2459,9 +2481,14 @@ def phase_wm(dev, backbone_model, workdir):
     verification and test images."""
     from nerf_signature_tpu_torch.ops import _cuda
 
+    from nerf_signature_tpu_torch.train.checkpoint import to_state_dict
+
     w = wm_train(dev, backbone_model, workdir)
     m, trainer, make_loader, loader = w["model"], w["trainer"], w["make_loader"], w["loader"]
     launches, steps, seconds, peak = w["launches"], w["steps"], w["seconds"], w["peak"]
+    # the trained watermark model as its checkpoint holds it (host numpy),
+    # which the baselines phase's --finetune_decoder run starts from
+    trained_state = to_state_dict(trainer._state(full=False))
     lossw, lossi = trainer.stats["lossw"], trainer.stats["lossi"]
     log(f"[wm] epoch lossi {[round(v, 7) for v in lossi]}")
 
@@ -2500,6 +2527,7 @@ def phase_wm(dev, backbone_model, workdir):
     del w, m, trainer, loader, make_loader
     gc.collect()  # the trainers hold cycles: free the first model before the second
     res["views2"] = wm_views2(dev, backbone_model, os.path.join(workdir, "views2"))
+    res["trained_state"] = trained_state
     return res
 
 
@@ -3929,6 +3957,324 @@ K5_SOURCE = ("nerf_signature_tpu_torch/csrc/compact.cu",
 TENSOR_CORE_SOURCES = ("field_mma.cu", "field_mma_bwd.cu", "field_mma_bwd_full.cu")
 
 
+# ---------------------------------------------------------------- phase 12
+BASE_STEPS = 64           # per-step watermark steps of a baseline, and as many looped
+BASE_K = 64               # their --steps_per_dispatch
+BASE_TRIALS = 50          # test_bitacc messages of a baseline
+FT_K = 16                 # --finetune_decoder: dispatches of 16 (lossw first 16 vs last 16)
+PRE_BITS = 16             # --prewatermark_bits (the CLI's default)
+PRE_STEPS = 200           # pretrain_hidden steps (--prewatermark_steps)
+PRE_VIEWS = 4             # rendered views bit_survival decodes
+K10_SOURCE = ("nerf_signature_tpu_torch/csrc/copyrnerf.cu",
+              "nerf_signature_tpu/models/copyrnerf.py:68")
+K4_RAW_SOURCES = {"K4_field_raw": "nerf_signature_tpu_torch/csrc/field_mma.cu",
+                  "K4_field_raw_f32": "nerf_signature_tpu_torch/csrc/field.cu"}
+# the backward kernels no CopyRNeRF step may launch (nothing upstream of the
+# colour MLP takes a gradient) and the message-table kernels it never needs
+COPYRNERF_ABSENT = ("K9_msg_table", "K9_msg_table_bwd", "K1_hash_encode_bwd",
+                    "K4_field_bwd", "K4_field_bwd_feat", "K4_field_bwd_f32",
+                    "K4_field_bwd_feat_f32")
+COPYRNERF_REQUIRED = ("K1_hash_encode", "K2_march", "K3_composite", "K3_composite_bwd",
+                      "K4_field_raw", "K10_copyrnerf_input") + K5_KERNELS
+# --finetune_decoder: only the decoder trains, so no backward reaches the field
+FINETUNE_ABSENT = ("K9_msg_table_bwd", "K1_hash_encode_bwd", "K4_field_bwd_feat",
+                   "K4_field_bwd", "K3_composite_bwd", "K5_compact_unpack_bwd")
+FINETUNE_REQUIRED = ("K1_hash_encode", "K2_march", "K3_composite", "K4_field",
+                     "K9_msg_table", "K5_compact_pack", "K5_compact_unpack")
+
+
+def record_field_inputs(trainer, data):
+    """One eager watermark step of ``trainer`` (the CopyRNeRF model) with the
+    inputs of its K4 (want_raw) and K10 calls recorded: the step's own
+    compacted samples."""
+    from nerf_signature_tpu_torch.models import copyrnerf as t_crn
+    from nerf_signature_tpu_torch.models import watermark as t_wm
+
+    rec = {}
+    heads, build = t_wm.field_heads, t_crn.copyrnerf_input
+
+    def heads_rec(params, cfg, feat, dirs=None, **kw):
+        if kw.get("want_raw") and "k4" not in rec:
+            rec["k4"] = (params, cfg, feat.detach().clone(), dirs.detach().clone())
+        return heads(params, cfg, feat, dirs, **kw)
+
+    def build_rec(*args):
+        if "k10" not in rec:
+            rec["k10"] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+        return build(*args)
+
+    t_wm.field_heads, t_crn.copyrnerf_input = heads_rec, build_rec
+    try:
+        trainer.train_step_data(data, trainer.random_message())
+    finally:
+        t_wm.field_heads, t_crn.copyrnerf_input = heads, build
+    torch.cuda.synchronize()
+    return rec
+
+
+def k10_row(args):
+    """K10 on a CopyRNeRF step's own samples against its plain version:
+    sines and cosines within 1e-6 absolute (sinf/cosf against torch's, a
+    few ulps of values in [-1, 1]), the rest bit for bit; its times, device
+    time (L2 flushed) and bound (bytes: M x (40 + (88 + D) x 4))."""
+    from nerf_signature_tpu_torch.ops import copyrnerf as t_k10
+
+    x, d, rgb, raw, msg, bound = args
+    k = t_k10.copyrnerf_input(x, d, rgb, raw, msg, bound)
+    p = t_k10.copyrnerf_input_plain(x, d, rgb, raw, msg, bound)
+    err = float((k[:, :84] - p[:, :84]).abs().max())
+    exact = torch.equal(k[:, 84:], p[:, 84:])
+    M, D = x.shape[0], msg.shape[0]
+    log(f"[K10] {M} samples, message {D} bits: sin/cos max abs err {err:.3g} (limit 1e-6), "
+        f"rgb/raw/message bit-equal: {exact}")
+    if not (err <= 1e-6 and exact and bool(torch.isfinite(k).all())):
+        raise AssertionError("K10 differs from its plain version beyond its limits")
+    ms = median_ms(lambda: t_k10.copyrnerf_input(x, d, rgb, raw, msg, bound), 20)
+    dms = device_ms(lambda: t_k10.copyrnerf_input(x, d, rgb, raw, msg, bound), cold=True)
+    pms = median_ms(lambda: t_k10.copyrnerf_input_plain(x, d, rgb, raw, msg, bound), 10)
+    pdms = device_ms(lambda: t_k10.copyrnerf_input_plain(x, d, rgb, raw, msg, bound), cold=True)
+    # a sample reads x, d, rgb and raw and writes 88 + D floats; its ops: x01
+    # and 2 x01 - 1 (12), 84 products and 84 sines or cosines (one op each)
+    bms, bby = bound_of(M * (40 + (88 + D) * 4) + D * 4, M * (12 + 84 + 84), PEAK_FP32)
+    log(f"[K10] {ms:.4f} ms ({dms:.4f} device), plain {pms:.4f} ms ({pdms:.4f} device), "
+        f"bound {bms:.4f} ms ({bby})")
+    return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, plain_device_ms=pdms,
+                bound_ms=bms, bound_by=bby, library_ms=None, samples=M, message_dim=D)
+
+
+def k4_raw_rows(params, cfg, feat, dirs):
+    """K4 with the density logit on both routes (bf16: the tensor-core
+    kernel; fp32: the SIMT one) on a CopyRNeRF step's samples: sigma, geo
+    and rgb bit-equal to the launch without it; the logit against the plain
+    version's (bf16 a bf16 step: rtol 2e-2, atol 1e-2; fp32 1e-5); times
+    and bound as K4's, plus the logit's 4 bytes a sample."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+
+    rows = {}
+    for name, dtype in (("K4_field_raw", torch.bfloat16), ("K4_field_raw_f32", torch.float32)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        fp = params if dtype == cfg.compute_dtype else t_ngp.field_params(
+            {k: params[k] for k in ("hash_table", "sigma_net", "color_net")}, c)
+        s0, g0, r0 = t_ngp.field_heads(fp, c, feat, dirs, want_geo=True)
+        s1, g1, r1, raw = t_ngp.field_heads(fp, c, feat, dirs, want_geo=True, want_raw=True)
+        same = torch.equal(s0, s1) and torch.equal(g0, g1) and torch.equal(r0, r1)
+        fw = feat[:, :c.enc_dim]
+        *_, raw_p = t_ngp.field_heads_plain(fp, c, fw, dirs, want_raw=True)
+        rtol, atol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+        share = float(((raw - raw_p).abs() / (atol + rtol * raw_p.abs())).max())
+        err = float((raw - raw_p).abs().max())
+        log(f"[{name}] logit max abs err {err:.3g}, worst share of its limit {share:.3g} "
+            f"(limit 1); other outputs equal to the launch without it: {same}")
+        if not (same and share <= 1.0 and bool(torch.isfinite(raw).all())):
+            raise AssertionError(f"{name} differs from its plain version beyond its limits")
+        ms = median_ms(lambda: t_ngp.field_heads(fp, c, feat, dirs, want_raw=True), 20)
+        dms = device_ms(lambda: t_ngp.field_heads(fp, c, feat, dirs, want_raw=True))
+        pms = median_ms(lambda: t_ngp.field_heads_plain(fp, c, fw, dirs, want_raw=True), 5, 1)
+        lib = library_mlp_ms(fp, fw, dirs, dtype)
+        M = feat.shape[0]
+        n_w = sum(w.numel() for w in fp["sigma_net"] + fp["color_net"])
+        bms, bby = bound_of(M * (c.enc_dim * 4 + 12 + 4 + 12 + 4), M * 2 * n_w,
+                            PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        rows[name] = dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                          bound_by=bby, library_ms=lib, samples=M)
+    return rows
+
+
+def baseline_run(dev, backbone_model, workdir, tag, extra, required, absent, k4_names,
+                 per_step=True, loop_steps=BASE_STEPS, loop_k=BASE_K, ckpt=None):
+    """One baseline through main_nerf_wtmk's setup (``wm_train``): with
+    ``per_step`` BASE_STEPS steps of WatermarkTrainer.train (each step's
+    lossw; every loss finite; lossw of the last 16 below the first 16's),
+    then ``loop_steps`` through train_device in dispatches of ``loop_k``
+    (finite; with several dispatches the last one's lossw below the
+    first's), one more dispatch profiled (busy ms a step), and test_bitacc
+    over BASE_TRIALS messages (reported, not gated).  Every run must launch
+    ``required`` and none of ``absent``."""
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+
+    losses, lossw = [], []
+    iters = BASE_STEPS if per_step else loop_steps
+    w = wm_train(dev, backbone_model, os.path.join(workdir, tag.replace(" ", "_")),
+                 iters=iters, extra=extra, tag=tag, step_losses=losses, step_lossw=lossw,
+                 required=required, k4_names=k4_names, ckpt=ckpt,
+                 steps_per_dispatch=0 if per_step else loop_k)
+    trainer, loader, make_loader = w["trainer"], w["loader"], w["make_loader"]
+    ro_b, rd_b = trainer._device_rays(next(iter(loader))["watermark"])
+    step_rays = TRAIN_RAYS + ro_b.numel() // 3  # content rays + the decoder's
+    res = {"launches": w["launches"], "steps": w["steps"], "seconds": w["seconds"],
+           "step_rays": step_rays, "rays_per_s": w["steps"] * step_rays / w["seconds"],
+           "step_ms": w["seconds"] / w["steps"] * 1e3, "peak_gib": w["peak"]}
+    runs = [("per step" if per_step else "loop", w["launches"])]
+    if per_step:
+        q = 16
+        res.update(lossw_first_16=float(np.mean(lossw[:q])), lossw_last_16=float(np.mean(lossw[-q:])))
+        log(f"[{tag}] per step: lossw {res['lossw_first_16']:.5f} (first {q}) -> "
+            f"{res['lossw_last_16']:.5f} (last {q})")
+        if not all(math.isfinite(v) for v in losses + lossw):
+            raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+        if not res["lossw_last_16"] < res["lossw_first_16"]:
+            raise AssertionError(f"{tag} per step: lossw did not fall: {lossw}")
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        trainer.train_device(loader, BASE_STEPS + loop_steps, steps_per_dispatch=loop_k)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        n = _cuda.launch_counts()
+        runs.append(("loop", n))
+        res["loop"] = {"steps": loop_steps, "seconds": seconds,
+                       "rays_per_s": loop_steps * step_rays / seconds, "launches": n}
+    dl = trainer.stats["lossw"][-max(1, loop_steps // loop_k):]
+    res["dispatch_lossw"] = dl
+    log(f"[{tag}] loop: dispatch lossw {[round(v, 5) for v in dl]}")
+    if not all(math.isfinite(v) for v in trainer.stats["loss"] + dl):
+        raise AssertionError(f"{tag} loop: a loss is not finite: {trainer.stats['loss']}")
+    if len(dl) > 1 and not dl[-1] < dl[0]:
+        raise AssertionError(f"{tag} loop: lossw did not fall: {dl}")
+    for run, n in runs:
+        bad = {k: n[k] for k in absent if n[k]}
+        missing = [k for k in required if n[k] == 0]
+        log(f"[{tag}] {run}: launches {n}")
+        if bad or missing:
+            raise AssertionError(f"{tag} {run}: launched what it must not {bad}, or not "
+                                 f"{missing}")
+    wdata = t_dl.preload(loader.poses, loader.train_images, loader.intrinsics, loader.H,
+                         loader.W, dev)
+    res["profile"] = profile_dispatch(
+        lambda: t_dl.wm_device_loop(trainer, wdata, ro_b, rd_b, loop_k), loop_k,
+        f"{tag} profile", trainer.model.rc.compact_frac > 0)
+    res["bitacc"] = trainer.test_bitacc(make_loader("test", 1, BASE_TRIALS))
+    res["decoded_shape"] = list(ro_b.shape)
+    log(f"[{tag}] {res['rays_per_s']:.0f} watermark rays/s; busy "
+        f"{res['profile']['busy_ms']} ms a step; bit accuracy {res['bitacc']:.4f} over "
+        f"{BASE_TRIALS} messages (decoder rays {tuple(ro_b.shape)})")
+    return res, w
+
+
+class PrewatermarkViews(BallViews):
+    """The train loader's views with their pixels replaced by the
+    watermarked copies (over white, three channels), as --prewatermark
+    replaces ``train_set.images``; a held-out view's ground truth stays the
+    analytic ball's."""
+
+    WATERMARKED = None
+
+    @property
+    def images(self):
+        return PrewatermarkViews.WATERMARKED
+
+
+def phase_baselines(dev, backbone_model, wm_state, workdir):
+    """The paper's baselines (slice 14) at the README recipe's full width on
+    phase 7's backbone: --copyrnerf (64 steps + 64 looped, K4's logit and
+    K10 against their plain versions on the step's own samples, no K9 and
+    no backward of K1 or K4), --whole_image_wm (64 + 64), --finetune_decoder
+    from phase 8's watermarked model (64 looped: the message tables
+    bit-equal after, no backward but the decoder's), --prewatermark
+    (pretrain_hidden 200 steps on phase 7's views, 512 clean loop steps on
+    the watermarked views, bit survival over 4 rendered views) and FiLM
+    once."""
+    from nerf_signature_tpu_torch.models import film as t_film
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+    from nerf_signature_tpu_torch.train import prewatermark as t_pre
+    from nerf_signature_tpu_torch.train.checkpoint import save_checkpoint
+
+    res = {}
+    t_phase = time.time()
+    # ---- CopyRNeRF: the colour MLP (K10's input) and whole-image decodes
+    r, w = baseline_run(dev, backbone_model, workdir, "copyrnerf", ["--copyrnerf"],
+                        COPYRNERF_REQUIRED, COPYRNERF_ABSENT, ("K4_field_raw",))
+    rec = record_field_inputs(w["trainer"], next(iter(w["loader"])))
+    res["k10"] = k10_row(rec["k10"])
+    res["k4_raw"] = k4_raw_rows(*rec["k4"])
+    res["copyrnerf"] = r
+    del r, w, rec
+    gc.collect()
+    # ---- the codebook tables with whole-image extraction
+    r, w = baseline_run(dev, backbone_model, workdir, "whole image", ["--whole_image_wm"],
+                        WM_TRAIN + K5_KERNELS, (), ("K4_field", "K4_field_bwd_feat"))
+    res["whole_image"] = r
+    del r, w
+    gc.collect()
+    # ---- --finetune_decoder from phase 8's watermarked model
+    ckpt = os.path.join(workdir, "wm_trained", "ngp_ep0001.ckpt")
+    save_checkpoint(ckpt, wm_state)
+    r, w = baseline_run(dev, backbone_model, workdir, "finetune decoder", ["--finetune_decoder"],
+                        FINETUNE_REQUIRED, FINETUNE_ABSENT, ("K4_field",), per_step=False,
+                        loop_k=FT_K, ckpt=ckpt)
+    tables = w["model"].trainable["msg_tables"].cpu().numpy()
+    r["msg_tables_bit_equal"] = bool(np.array_equal(tables, wm_state["trainable"]["msg_tables"]))
+    log(f"[finetune decoder] message tables bit-equal to phase 8's after {r['steps']} steps: "
+        f"{r['msg_tables_bit_equal']}")
+    if not r["msg_tables_bit_equal"]:
+        raise AssertionError("finetune decoder: the message tables moved")
+    res["finetune_decoder"] = r
+    del r, w, tables
+    gc.collect()
+    # ---- --prewatermark: watermark phase 7's views, train on them, decode renders
+    views = BallViews(TRAIN_BALL)
+    px = views.images
+    imgs = px[..., :3] * px[..., 3:] + (1.0 - px[..., 3:])
+    message = np.random.default_rng(0).integers(0, 2, PRE_BITS)
+    t0 = time.time()
+    enc, dec, enc_cfg, dec_cfg = t_pre.pretrain_hidden(imgs, PRE_BITS, steps=PRE_STEPS, seed=0,
+                                                       device=dev, log=log)
+    PrewatermarkViews.WATERMARKED = t_pre.watermark_images(enc, enc_cfg, imgs, message)
+    torch.cuda.synchronize()
+    pre = {"pretrain_and_embed_s": time.time() - t0}
+    pre["own_views_bitacc"], _ = t_pre.bit_survival(dec, dec_cfg,
+                                                    PrewatermarkViews.WATERMARKED[:PRE_VIEWS],
+                                                    message)
+    r = train_case(dev, TRAIN_BALL, TRAIN_ITERS, steps_per_dispatch=DL_K,
+                   views=lambda radius, error_map=False: PrewatermarkViews(radius))
+    tr = r["trainer"]
+    held = view_rays(orbit_poses(PRE_VIEWS, ORBIT_RADIUS, seed=11))
+    backup, tr.model.params = tr.model.params, tr.eval_params()
+    try:
+        renders = np.stack([tr.model.render(held["rays_o"][i], held["rays_d"][i],
+                                            staged=True)["image"].float().cpu().numpy()
+                            .reshape(RES, RES, 3) for i in range(PRE_VIEWS)])
+    finally:
+        tr.model.params = backup
+    pre["bit_survival"], pre["per_view"] = t_pre.bit_survival(dec, dec_cfg, renders, message)
+    data = t_dl.preload(r["loader"].poses, r["loader"].images, r["loader"].intrinsics, RES, RES,
+                        dev)
+    pre["profile"] = profile_dispatch(lambda: t_dl.device_train_loop(tr, data, DL_K), DL_K,
+                                      "prewatermark profile", tr.model.rc.compact_frac > 0)
+    pre.update(steps=tr.global_step, seconds=r["seconds"],
+               rays_per_s=tr.global_step * TRAIN_RAYS / r["seconds"], psnr0=r["psnr0"],
+               psnr1=r["psnr1"], launches=r["launches"])
+    log(f"[prewatermark] pretrain + embed {pre['pretrain_and_embed_s']:.2f} s; the decoder on "
+        f"its own watermarked views {pre['own_views_bitacc']:.4f}; {tr.global_step} loop steps: "
+        f"{pre['rays_per_s']:.0f} train rays/s, busy {pre['profile']['busy_ms']} ms a step, "
+        f"held-out PSNR {r['psnr0']:.2f} -> {r['psnr1']:.2f} dB; bit survival over "
+        f"{PRE_VIEWS} rendered views {pre['bit_survival']:.4f} {pre['per_view']}")
+    if not (all(math.isfinite(v) for v in tr.stats["loss"]) and r["psnr1"] > r["psnr0"]):
+        raise AssertionError(f"prewatermark: the clean loop did not train: {tr.stats['loss']}")
+    res["prewatermark"] = pre
+    PrewatermarkViews.WATERMARKED = None
+    del r, tr, data, renders, views, px, imgs
+    gc.collect()
+    # ---- FiLM, once on the card against the same call on the CPU
+    p = t_film.init_film_msg_encoder(torch.Generator().manual_seed(0), message_dim=WM_BITS)
+    feat = torch.randn((1 << 16, 2), generator=torch.Generator().manual_seed(1))
+    bits = torch.randint(0, 2, (WM_BITS,), generator=torch.Generator().manual_seed(2))
+    out_c = t_film.film_msg_encode(p, feat, bits)
+    p_dev = {k: ([{kk: vv.to(dev) for kk, vv in layer.items()} for layer in v]
+                 if isinstance(v, list) else {kk: vv.to(dev) for kk, vv in v.items()})
+             for k, v in p.items()}
+    out_d = t_film.film_msg_encode(p_dev, feat.to(dev), bits.to(dev))
+    err = float((out_d.cpu() - out_c).abs().max())
+    res["film"] = {"max_abs_err_vs_cpu": err, "shape": list(out_d.shape)}
+    log(f"[film] {tuple(out_d.shape)} on the card, max abs err against the CPU {err:.3g} "
+        f"(limit 1e-4)")
+    if not (err <= 1e-4 and bool(torch.isfinite(out_d).all())):
+        raise AssertionError("film: the card's output differs from the CPU's")
+    res["seconds"] = time.time() - t_phase
+    log(f"[baselines] phase {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible; this script runs on the card",
@@ -3948,6 +4294,7 @@ def main():
     backbone = train.pop("model")
     with tempfile.TemporaryDirectory() as workdir:
         wm = phase_wm(dev, backbone, workdir)
+    wm_state = wm.pop("trained_state")
     gc.collect()
     with tempfile.TemporaryDirectory() as workdir:
         dl = phase_device_loop(dev, backbone, workdir)
@@ -3957,6 +4304,10 @@ def main():
     gc.collect()
     with tempfile.TemporaryDirectory() as workdir:
         k78 = phase_k7_k8(dev, backbone, dl["clean"], workdir)
+    gc.collect()
+    with tempfile.TemporaryDirectory() as workdir:
+        baselines = phase_baselines(dev, backbone, wm_state, workdir)
+    del wm_state
     dl_launches = {"clean": dl["clean"].pop("launches"), "wm": dl["wm"].pop("launches")}
     rows, modelled = [], {}
     entries = [(name, name, None, None) for name in SOURCES] + [
@@ -4084,6 +4435,27 @@ def main():
                      "train_launches": train["launches"][counter],
                      "wm_launches": wm["launches"][counter],
                      "device_loop_launches": {k: v[counter] for k, v in dl_launches.items()}})
+    # K10 and K4 with the density logit (slice 14) on the CopyRNeRF step's own
+    # samples; their launches: the CopyRNeRF run's (WatermarkTrainer.train,
+    # then train_device); K4's SIMT route is off the bf16 main path
+    crn = baselines["copyrnerf"]
+    for name, r, src, replaces in (
+            ("K10_copyrnerf_input", baselines["k10"], K10_SOURCE[0], K10_SOURCE[1]),
+            *((n, baselines["k4_raw"][n], K4_RAW_SOURCES[n],
+               "nerf_signature_tpu/models/mlp.py:30")
+              for n in K4_RAW_SOURCES)):
+        fp32 = name.endswith("_f32")
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "path": "fp32 route (off the bf16 main path)" if fp32 else "copyrnerf",
+                     "launches": crn["launches"][name],
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "device_ms", "samples")},
+                     **({"plain_device_ms": r["plain_device_ms"]} if "plain_device_ms" in r
+                        else {}),
+                     "loop_launches": crn["loop"]["launches"][name],
+                     "train_launches": train["launches"][name],
+                     "wm_launches": wm["launches"][name],
+                     "device_loop_launches": {k: v[name] for k, v in dl_launches.items()}})
     modelled.update(k78.pop("k7_atomics_modelled"))
     for run in ("k7_loop", "k7_1c_s2_loop"):
         k78[run].pop("launches")
@@ -4099,6 +4471,8 @@ def main():
         "train_options": {k: opts[k] for k in ("t_cull", "error_map", "ssim_clean_loop",
                                                "ssim_wm")},
         "k7_k8": {k: k78[k] for k in ("k7_loop", "k7_1c_s2_loop", "wm_k7", "bg", "wm_bg")},
+        "baselines": {k: baselines[k] for k in ("copyrnerf", "whole_image", "finetune_decoder",
+                                                "prewatermark", "film", "seconds")},
         "device_ms_from_events": len(EVENT_FALLBACKS)}, default=float))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,12 @@ On the card a table geometry the kernels lack (``check_kernel_geometry``,
 e.g. 16 levels x 4 features) is refused before anything is built.
 On the card every chunk goes through the kernels (K2 marcher, K1 hash
 encoder, K4 field heads, K3 compositor, K9's effective table under a
-message, and with ``bg_radius > 0`` K8's background sphere); on the CPU
+message, or under ``--copyrnerf`` K4's density logit and K10's colour-MLP
+input, and with ``bg_radius > 0`` K8's background sphere); on the CPU
 through their plain versions.  ``NGPModel`` is the clean model;
 ``WatermarkModel`` holds a frozen ``backbone`` and the ``trainable``
-message tables and decoder, and renders with or without a message.
+message tables (or CopyRNeRF MLP) and decoder, and renders with or without
+a message.
 """
 
 import dataclasses
@@ -242,7 +244,9 @@ class NGPModel(_BaseModel):
 
 class WatermarkModel(_BaseModel):
     """Watermarked model: frozen ``backbone`` (NGP params) + ``trainable``
-    (``msg_tables`` and ``decoder``).  ``density_fn`` is message-free."""
+    (``msg_tables`` or, under ``copyrnerf``, ``msg_mlp``, and ``decoder``,
+    which under ``whole_image`` or ``copyrnerf`` decodes all D bits from one
+    image).  ``density_fn`` is message-free."""
 
     def __init__(self, wcfg: WatermarkConfig = None, *, bound=1.0, message_dim=16,
                  n_views=1, cuda_ray=True, density_scale=1.0, min_near=0.2,

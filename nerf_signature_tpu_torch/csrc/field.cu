@@ -5,6 +5,9 @@
 // (degree 4), ops/activation.py:trunc_exp (forward: exp) and the sigmoid.
 // Per sample: h = relu(feat @ Ws0) ; o = h @ Ws1 ; sigma = exp(o[0]) ;
 // geo = o[1:] ; c = [SH4(dir), geo] ; rgb = sigmoid(relu(relu(c @ Wc0) @ Wc1) @ Wc2).
+// Where ``raw`` is given, the density logit o[0] itself is written too (the
+// CopyRNeRF baseline's MLP reads it; log(sigma) would be -inf wherever
+// exp underflows).
 //
 // What bounds it on the H100: at the serving shapes (1,048,576 samples a
 // chunk) the function must move 163 MB (features in, directions in, sigma
@@ -36,7 +39,8 @@
 template <int IN, int HID, int OUT1, int HC>
 __global__ void field_fwd(const float* __restrict__ feat, const float* __restrict__ dirs,
                           const float* __restrict__ weights, float* __restrict__ sigma,
-                          float* __restrict__ geo, float* __restrict__ rgb, long long M) {
+                          float* __restrict__ geo, float* __restrict__ rgb,
+                          float* __restrict__ raw, long long M) {
   constexpr int CIN = SH_DIM + OUT1 - 1;
   constexpr int N_S0 = IN * HID, N_S1 = HID * OUT1;
   constexpr int N_C0 = CIN * HC, N_C1 = HC * HC, N_C2 = HC * 3;
@@ -61,6 +65,7 @@ __global__ void field_fwd(const float* __restrict__ feat, const float* __restric
     float o[OUT1];
     dense<HID, OUT1, false>(h, Ws1, o, bf16);
     sigma[m] = expf(o[0]);
+    if (raw != nullptr) raw[m] = o[0];
     if (geo != nullptr) {
 #pragma unroll
       for (int j = 1; j < OUT1; ++j) geo[m * (OUT1 - 1) + j - 1] = o[j];
@@ -83,35 +88,43 @@ __global__ void field_fwd(const float* __restrict__ feat, const float* __restric
 
 template <int IN, int HID, int OUT1, int HC>
 int launch_field(const void* feat, const void* dirs, const void* weights, void* sigma,
-                 void* geo, void* rgb, long long M, cudaStream_t s) {
+                 void* geo, void* rgb, void* raw, long long M, cudaStream_t s) {
   const int threads = 256;
   field_fwd<IN, HID, OUT1, HC><<<ngp_blocks(M, threads), threads, 0, s>>>(
       (const float*)feat, (const float*)dirs, (const float*)weights, (float*)sigma,
-      (float*)geo, (float*)rgb, M);
+      (float*)geo, (float*)rgb, (float*)raw, M);
   NGP_RETURN_LAST_ERROR();
 }
 
 #ifndef NGP_IN
 #define NGP_EXTERN(IN, HID, OUT1, HC) \
   extern template int launch_field<IN, HID, OUT1, HC>(const void*, const void*, const void*, \
-                                                      void*, void*, void*, long long,          \
+                                                      void*, void*, void*, void*, long long,   \
                                                       cudaStream_t);
 NGP_FIELD_WIDTHS(NGP_EXTERN)
 #undef NGP_EXTERN
 
 // Widths supported: NGP_FIELD_WIDTHS (field_common.cuh).  fp32 only.
-extern "C" int ngp_field(const void* feat, const void* dirs, const void* weights, void* sigma,
-                         void* geo, void* rgb, long long M, int in_dim, int hidden, int out1,
-                         int hidden_color, void* stream) {
+// raw: the density logit [M] fp32, or NULL.
+extern "C" int ngp_field_raw(const void* feat, const void* dirs, const void* weights,
+                             void* sigma, void* geo, void* rgb, void* raw, long long M,
+                             int in_dim, int hidden, int out1, int hidden_color, void* stream) {
   if (M == 0) return 0;
   if (rgb != nullptr && dirs == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
   if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
-    return launch_field<IN, HID, OUT1, HC>(feat, dirs, weights, sigma, geo, rgb, M, s);
+    return launch_field<IN, HID, OUT1, HC>(feat, dirs, weights, sigma, geo, rgb, raw, M, s);
   NGP_FIELD_WIDTHS(NGP_DISPATCH)
 #undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ngp_field(const void* feat, const void* dirs, const void* weights, void* sigma,
+                         void* geo, void* rgb, long long M, int in_dim, int hidden, int out1,
+                         int hidden_color, void* stream) {
+  return ngp_field_raw(feat, dirs, weights, sigma, geo, rgb, nullptr, M, in_dim, hidden, out1,
+                       hidden_color, stream);
 }
 #endif  // NGP_IN
 
@@ -362,7 +375,7 @@ extern "C" int ngp_field_bwd(const void* feat, const void* dirs, const void* wei
 #else
 template int launch_field<NGP_IN, NGP_HID, NGP_OUT1, NGP_HC>(const void*, const void*,
                                                              const void*, void*, void*, void*,
-                                                             long long, cudaStream_t);
+                                                             void*, long long, cudaStream_t);
 template int launch_field_bwd<NGP_IN, NGP_HID, NGP_OUT1, NGP_HC>(
     const void*, const void*, const void*, const void*, const void*, void*, void*, void*, long long,
     int, cudaStream_t);

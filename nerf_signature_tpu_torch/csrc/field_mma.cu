@@ -9,7 +9,8 @@ template <class D>
 __global__ void __launch_bounds__(D::THREADS, D::MIN_BLOCKS)
     field_mma_fwd(const float* __restrict__ feat, const float* __restrict__ dirs,
                   const __nv_bfloat16* __restrict__ wpack, float* __restrict__ sigma,
-                  float* __restrict__ geo, float* __restrict__ rgb, long long M) {
+                  float* __restrict__ geo, float* __restrict__ rgb, float* __restrict__ raw,
+                  long long M) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -44,6 +45,8 @@ __global__ void __launch_bounds__(D::THREADS, D::MIN_BLOCKS)
         const long long m = row0 + r * 16 + g + 8 * hh;
         if (m >= M) continue;
         if (t == 0) sigma[m] = expf(o[r][0][2 * hh]);  // trunc_exp's forward
+        // the density logit, already rounded to bf16 like the plain version's
+        if (t == 0 && raw != nullptr) raw[m] = o[r][0][2 * hh];
         if (geo != nullptr) {
 #pragma unroll
           for (int j = 0; j < 2; ++j)
@@ -77,7 +80,7 @@ __global__ void __launch_bounds__(D::THREADS, D::MIN_BLOCKS)
 
 template <int IN, int HID, int OUT1, int HC>
 int launch_fwd(const void* feat, const void* dirs, const void* wpack, void* sigma, void* geo,
-               void* rgb, long long M, cudaStream_t s) {
+               void* rgb, void* raw, long long M, cudaStream_t s) {
   using D = FwdDims<IN, HID, OUT1, HC>;
   auto kernel = field_mma_fwd<D>;
   int blocks = 0;
@@ -85,25 +88,34 @@ int launch_fwd(const void* feat, const void* dirs, const void* wpack, void* sigm
   if (rc != 0) return rc;
   kernel<<<blocks, D::THREADS, D::SMEM, s>>>((const float*)feat, (const float*)dirs,
                                              (const __nv_bfloat16*)wpack, (float*)sigma,
-                                             (float*)geo, (float*)rgb, M);
+                                             (float*)geo, (float*)rgb, (float*)raw, M);
   NGP_RETURN_LAST_ERROR();
 }
 
 }  // namespace
 
 // wpack: the packed bf16 weights (models/ngp.py:pack_mlp_mma), 16-byte
-// aligned.  Widths: NGP_FIELD_WIDTHS (field_common.cuh).
-extern "C" int ngp_field_mma(const void* feat, const void* dirs, const void* wpack, void* sigma,
-                             void* geo, void* rgb, long long M, int in_dim, int hidden, int out1,
-                             int hidden_color, void* stream) {
+// aligned.  raw: the density logit [M] fp32, or NULL.  Widths:
+// NGP_FIELD_WIDTHS (field_common.cuh).
+extern "C" int ngp_field_mma_raw(const void* feat, const void* dirs, const void* wpack,
+                                 void* sigma, void* geo, void* rgb, void* raw, long long M,
+                                 int in_dim, int hidden, int out1, int hidden_color,
+                                 void* stream) {
   if (M == 0) return 0;
   if (rgb != nullptr && dirs == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
   if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
-    return launch_fwd<IN, HID, OUT1, HC>(feat, dirs, wpack, sigma, geo, rgb, M, s);
+    return launch_fwd<IN, HID, OUT1, HC>(feat, dirs, wpack, sigma, geo, rgb, raw, M, s);
   NGP_FIELD_WIDTHS(NGP_DISPATCH)
 #undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ngp_field_mma(const void* feat, const void* dirs, const void* wpack, void* sigma,
+                             void* geo, void* rgb, long long M, int in_dim, int hidden, int out1,
+                             int hidden_color, void* stream) {
+  return ngp_field_mma_raw(feat, dirs, wpack, sigma, geo, rgb, nullptr, M, in_dim, hidden, out1,
+                           hidden_color, stream);
 }
 

@@ -22,10 +22,12 @@ step).  Checkpoints are the JAX package's format both ways.  ``--t_cull``,
 ``--patch_size N --lambda_ssim w`` and ``--stochastic_hash_grad
 [--hash_fwd_corners 1]`` (K7, the step's backbone encode) train on both
 paths; a backbone trained with ``--bg_radius R`` renders its background
-sphere (K8) in every watermark render.
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``--devices > 1``, ``--finetune_decoder``, ``--copyrnerf``,
-``--whole_image_wm``.
+sphere (K8) in every watermark render.  The paper's baselines run on both
+paths too: ``--copyrnerf [--copyrnerf_replace]`` (the colour-space MLP, K10,
+whole-image extraction), ``--whole_image_wm`` (the codebook tables with
+whole-image extraction) and ``--finetune_decoder`` (only the decoder
+trains).  Not ported yet (it raises ``NotImplementedError`` naming its
+ROADMAP item): ``--devices > 1``.
 """
 
 import argparse

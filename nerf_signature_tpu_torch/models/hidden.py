@@ -1,4 +1,4 @@
-"""HiDDeN-style CNN bit extractor (counterpart of the multi-view decoder in
+"""HiDDeN-style CNN bit extractor and watermark encoder (counterpart of
 ``nerf_signature_tpu/models/hidden.py``).
 
 ``ConvBNRelu`` = Conv3x3 (stride 1, pad 1) + BatchNorm (eps 1e-3, BATCH
@@ -12,8 +12,15 @@ are stored OIHW (torch's layout; JAX stores HWIO) and ``linear.w`` is
 ``[in, out]`` (``x @ w``).  ``train/checkpoint.py`` permutes at the
 checkpoint boundary.  The public functions take images channel-last
 ([B, H, W, C], the JAX layout); the convs run in NCHW through cuDNN, as JAX
-leaves them to XLA.  The single-view decoder and the encoder belong to the
-prewatermark variant (ROADMAP queue 1) and are not ported.
+leaves them to XLA.
+
+The prewatermark baseline (``train/prewatermark.py``) adds the encoder
+(``HiddenEncoder``: conv blocks, the message broadcast and concatenated
+with the features and the image, one more block, a 1x1 conv, tanh) and the
+single-view decoder, whose BatchNorm keeps RUNNING statistics: with
+``train=True`` it normalises by the batch's (biased variance, like
+``jnp.var``) and moves the running mean and variance by ``momentum``
+towards them; with ``train=False`` it normalises by the running ones.
 """
 
 import dataclasses
@@ -119,3 +126,100 @@ def hidden_decoder_apply(params, cfg: HiddenDecoderConfig, x):
     x = x.mean(dim=(2, 3))  # AdaptiveAvgPool2d((1, 1)) -> [B, out_ch]
     x = x @ params["linear"]["w"] + params["linear"]["b"]
     return x.reshape(-1, cfg.num_bits, cfg.redundancy).sum(-1)
+
+
+def _conv(p, x):
+    """Conv k x k (stride 1, 'SAME' padding) of x [N, C, H, W]."""
+    return F.conv2d(x, p["w"], p["b"], padding=p["w"].shape[-1] // 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class HiddenDecoderSingleConfig:
+    """The single-view decoder (BatchNorm with running statistics)."""
+
+    num_blocks: int = 7
+    num_bits: int = 16
+    channels: int = 64
+    bn_eps: float = 1e-3
+    momentum: float = 0.1
+
+
+def init_hidden_decoder_single(generator, cfg: HiddenDecoderSingleConfig, device="cpu"):
+    """(params {blocks, linear}, state {bn: [{mean, var}]}) from a (CPU)
+    ``torch.Generator``; the running stats start at mean 0, variance 1."""
+    blocks, state = [], []
+    cin = 3
+    for cout in [cfg.channels] * cfg.num_blocks + [cfg.num_bits]:
+        blocks.append({"conv": _conv_init(generator, 3, cin, cout, device),
+                       "bn": _bn_init(cout, device)})
+        state.append({"mean": torch.zeros((cout,), device=device),
+                      "var": torch.ones((cout,), device=device)})
+        cin = cout
+    bound = 1.0 / math.sqrt(cfg.num_bits)
+    linear = {"w": _uniform(generator, (cfg.num_bits, cfg.num_bits), bound, device),
+              "b": _uniform(generator, (cfg.num_bits,), bound, device)}
+    return {"blocks": blocks, "linear": linear}, {"bn": state}
+
+
+def hidden_decoder_single_apply(params, state, cfg: HiddenDecoderSingleConfig, x, train=False):
+    """x [B, H, W, 3] (normalised) -> (logits [B, num_bits], new state).
+    ``train``: batch statistics (biased variance), the running ones moved
+    by ``momentum``; else the running statistics.  The state is returned,
+    never written in place."""
+    x = x.permute(0, 3, 1, 2)
+    new_bn = []
+    for p, s in zip(params["blocks"], state["bn"]):
+        y = _conv(p["conv"], x)
+        if train:
+            mean = y.mean(dim=(0, 2, 3))
+            var = ((y - mean[None, :, None, None]) ** 2).mean(dim=(0, 2, 3))
+            new_bn.append({"mean": (1 - cfg.momentum) * s["mean"] + cfg.momentum * mean,
+                           "var": (1 - cfg.momentum) * s["var"] + cfg.momentum * var})
+        else:
+            mean, var = s["mean"], s["var"]
+            new_bn.append(s)
+        y = (y - mean[None, :, None, None]) * torch.rsqrt(var + cfg.bn_eps)[None, :, None, None]
+        x = F.gelu(y * p["bn"]["scale"][:, None, None] + p["bn"]["bias"][:, None, None],
+                   approximate="tanh")
+    x = x.mean(dim=(2, 3))
+    return x @ params["linear"]["w"] + params["linear"]["b"], {"bn": new_bn}
+
+
+@dataclasses.dataclass(frozen=True)
+class HiddenEncoderConfig:
+    num_blocks: int = 4
+    num_bits: int = 16
+    channels: int = 64
+    last_tanh: bool = True
+    bn_eps: float = 1e-3
+
+
+def init_hidden_encoder(generator, cfg: HiddenEncoderConfig, device="cpu"):
+    """Params {blocks, after, final} from a (CPU) ``torch.Generator``."""
+    blocks = []
+    cin = 3
+    for _ in range(cfg.num_blocks):
+        blocks.append({"conv": _conv_init(generator, 3, cin, cfg.channels, device),
+                       "bn": _bn_init(cfg.channels, device)})
+        cin = cfg.channels
+    after = {"conv": _conv_init(generator, 3, cfg.channels + 3 + cfg.num_bits, cfg.channels,
+                                device),
+             "bn": _bn_init(cfg.channels, device)}
+    return {"blocks": blocks, "after": after,
+            "final": _conv_init(generator, 1, cfg.channels, 3, device)}
+
+
+def hidden_encoder_apply(params, cfg: HiddenEncoderConfig, imgs, msgs):
+    """imgs [B, H, W, 3], msgs [B, num_bits] -> the watermark residual
+    [B, H, W, 3] (batch statistics in every BatchNorm)."""
+    x = imgs.permute(0, 3, 1, 2)
+    img = x
+    for p in params["blocks"]:
+        x = _conv_bn_gelu(p, x, cfg.bn_eps)
+    B, _, H, W = img.shape
+    m = msgs[:, :, None, None].expand(B, msgs.shape[-1], H, W)
+    x = _conv_bn_gelu(params["after"], torch.cat([m, x, img], dim=1), cfg.bn_eps)
+    x = _conv(params["final"], x)
+    if cfg.last_tanh:
+        x = torch.tanh(x)
+    return x.permute(0, 2, 3, 1)

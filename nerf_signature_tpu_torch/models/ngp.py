@@ -268,11 +268,6 @@ def _encode_pos(params, cfg: NGPConfig, x, plain=False):
     )
 
 
-def _sigma_head(params, cfg: NGPConfig, feat):
-    h = mlp_apply(params["sigma_net"], feat, compute_dtype=cfg.compute_dtype)
-    return trunc_exp(h[..., 0]), h[..., 1:]
-
-
 def ngp_color(params, cfg: NGPConfig, d, geo_feat):
     """dirs [M, 3] + geo_feat [M, 15] -> rgb [M, 3] (plain)."""
     sh = sh_encode(d, cfg.sh_degree)
@@ -281,11 +276,13 @@ def ngp_color(params, cfg: NGPConfig, d, geo_feat):
     return torch.sigmoid(h)
 
 
-def field_heads_plain(params, cfg: NGPConfig, feat, dirs=None):
-    """Plain version of K4: (sigma [M], geo_feat [M, G], rgb [M, 3] or None)."""
-    sigma, geo = _sigma_head(params, cfg, feat)
+def field_heads_plain(params, cfg: NGPConfig, feat, dirs=None, want_raw=False):
+    """Plain version of K4: (sigma [M], geo_feat [M, G], rgb [M, 3] or None),
+    and with ``want_raw`` the density logit h[..., 0] [M] fp32 fourth."""
+    h = mlp_apply(params["sigma_net"], feat, compute_dtype=cfg.compute_dtype)
+    sigma, geo = trunc_exp(h[..., 0]), h[..., 1:]
     rgb = None if dirs is None else ngp_color(params, cfg, dirs, geo)
-    return sigma, geo, rgb
+    return (sigma, geo, rgb, h[..., 0]) if want_raw else (sigma, geo, rgb)
 
 
 GEOMETRY_TODO = ("ROADMAP queue 3 item 'table geometries on the card with an encoding width "
@@ -349,16 +346,20 @@ def _kernel_widths(params, cfg: NGPConfig):
     return widths
 
 
-def field_heads(params, cfg: NGPConfig, feat, dirs=None, want_geo=False):
+def field_heads(params, cfg: NGPConfig, feat, dirs=None, want_geo=False, want_raw=False):
     """K4: fused sigma head, SH, colour head.  feat [M, enc_dim] fp32 (on the
     card [M, IN] at K4's built input width, ``feature_pitch``),
     dirs [M, 3] or None (no colour).  Returns (sigma [M], geo [M, G] or None,
     rgb [M, 3] or None); geo is returned when ``want_geo`` (always on the
-    plain path).  Under autograd (training) the CUDA path is
-    ``FieldHeadsFn``, whose backward is the K4 backward kernel; the CPU path
-    is autograd through ``field_heads_plain``."""
+    plain path).  With ``want_raw`` a fourth output, the density logit
+    h[..., 0] [M] fp32 before ``trunc_exp`` (the CopyRNeRF MLP's input),
+    which the kernels write beside sigma (counted as ``K4_field_raw``; never
+    ``log(sigma)``, which is -inf where exp underflows).  Under autograd
+    (training) the CUDA path is ``FieldHeadsFn`` (``FieldHeadsRawFn`` with
+    the logit), whose backward is the K4 backward kernel; the CPU path is
+    autograd through ``field_heads_plain``."""
     if not feat.is_cuda:
-        return field_heads_plain(params, cfg, feat, dirs)
+        return field_heads_plain(params, cfg, feat, dirs, want_raw)
     nets = list(params["sigma_net"]) + list(params["color_net"])
     if params.get("mlp_flat") is None:
         params = field_params(params, cfg)
@@ -370,9 +371,13 @@ def field_heads(params, cfg: NGPConfig, feat, dirs=None, want_geo=False):
                 "the field kernel's backward takes the (sigma, rgb) heads of a "
                 "train step; geo features and density-only queries run without "
                 "grad")
+        if want_raw:
+            sigma, rgb, raw = FieldHeadsRawFn.apply(feat, dirs, flat, mma, cfg, widths)
+            return sigma, None, rgb, raw
         sigma, rgb = FieldHeadsFn.apply(feat, dirs, flat, mma, cfg, widths)
         return sigma, None, rgb
-    return _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma)
+    out = _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma, want_raw)
+    return out if want_raw else out[:3]
 
 
 def _mma_weights(flat, mma, widths, dev):
@@ -387,7 +392,7 @@ def _mma_weights(flat, mma, widths, dev):
     return mma
 
 
-def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma=None):
+def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma=None, want_raw=False):
     in_dim, hidden, out1, hidden_c = widths
     M = feat.shape[0]
     dev = feat.device
@@ -398,13 +403,18 @@ def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma=None):
     sigma = torch.empty((M,), dtype=torch.float32, device=dev)
     geo = torch.empty((M, out1 - 1), dtype=torch.float32, device=dev) if want_geo else None
     rgb = torch.empty((M, 3), dtype=torch.float32, device=dev) if dirs is not None else None
-    outs = (sigma.data_ptr(), _cuda.ptr(geo), _cuda.ptr(rgb), M, in_dim, hidden, out1, hidden_c)
+    raw = torch.empty((M,), dtype=torch.float32, device=dev) if want_raw else None
+    outs = (sigma.data_ptr(), _cuda.ptr(geo), _cuda.ptr(rgb)) + ((raw.data_ptr(),) if want_raw
+                                                                 else ())
+    outs += (M, in_dim, hidden, out1, hidden_c)
     if _tensor_cores(cfg):
         mma = _mma_weights(flat, mma, widths, dev)
-        _cuda.FIELD_MMA(feat.data_ptr(), _cuda.ptr(dirs), mma.data_ptr(), *outs)
+        kernel = _cuda.FIELD_MMA_RAW if want_raw else _cuda.FIELD_MMA
+        kernel(feat.data_ptr(), _cuda.ptr(dirs), mma.data_ptr(), *outs)
     else:  # fp32: the SIMT kernel
-        _cuda.FIELD(feat.data_ptr(), _cuda.ptr(dirs), flat.data_ptr(), *outs)
-    return sigma, geo, rgb
+        kernel = _cuda.FIELD_RAW if want_raw else _cuda.FIELD
+        kernel(feat.data_ptr(), _cuda.ptr(dirs), flat.data_ptr(), *outs)
+    return sigma, geo, rgb, raw
 
 
 class FieldHeadsFn(torch.autograd.Function):
@@ -415,7 +425,7 @@ class FieldHeadsFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat, dirs, flat, mma, cfg, widths):
-        sigma, _, rgb = _field_heads_kernel(cfg, flat, feat, dirs, False, widths, mma)
+        sigma, _, rgb, _ = _field_heads_kernel(cfg, flat, feat, dirs, False, widths, mma)
         ctx.save_for_backward(feat, dirs, flat, mma)
         ctx.cfg, ctx.widths = cfg, widths
         return sigma, rgb
@@ -423,13 +433,39 @@ class FieldHeadsFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_sigma, g_rgb):
         feat, dirs, flat, mma = ctx.saved_tensors
-        args = (ctx.cfg, ctx.widths, feat, dirs, flat, g_sigma.contiguous(),
-                g_rgb.contiguous())
-        if not ctx.needs_input_grad[2]:
-            # frozen weights (the watermark stage's backbone): g_feat only
-            return field_heads_bwd_feat(*args, mma), None, None, None, None, None
-        g_feat, g_flat = field_heads_bwd(*args, mma)
-        return g_feat, None, g_flat, None, None, None
+        return _field_heads_vjp(ctx, feat, dirs, flat, mma, g_sigma, g_rgb) + (None,)
+
+
+class FieldHeadsRawFn(torch.autograd.Function):
+    """``FieldHeadsFn`` with the density logit h0 [M] as a third output.
+    Its cotangent joins sigma's before the backward kernel, which takes
+    ``g_sigma * exp(clip(h0, -15, 15))`` as h0's: ``g_sigma + g_raw *
+    exp(-clip(h0, -15, 15))`` gives h0 both (to a few ulps; the clip keeps
+    the factor finite)."""
+
+    @staticmethod
+    def forward(ctx, feat, dirs, flat, mma, cfg, widths):
+        sigma, _, rgb, raw = _field_heads_kernel(cfg, flat, feat, dirs, False, widths, mma,
+                                                 want_raw=True)
+        ctx.save_for_backward(feat, dirs, flat, mma, raw)
+        ctx.cfg, ctx.widths = cfg, widths
+        return sigma, rgb, raw
+
+    @staticmethod
+    def backward(ctx, g_sigma, g_rgb, g_raw):
+        feat, dirs, flat, mma, raw = ctx.saved_tensors
+        g_sigma = g_sigma + g_raw * torch.exp(-torch.clamp(raw, -15.0, 15.0))
+        return _field_heads_vjp(ctx, feat, dirs, flat, mma, g_sigma, g_rgb)
+
+
+def _field_heads_vjp(ctx, feat, dirs, flat, mma, g_sigma, g_rgb):
+    """The cotangents of FieldHeadsFn's six inputs, from K4's backward."""
+    args = (ctx.cfg, ctx.widths, feat, dirs, flat, g_sigma.contiguous(), g_rgb.contiguous())
+    if not ctx.needs_input_grad[2]:
+        # frozen weights (the watermark stage's backbone): g_feat only
+        return field_heads_bwd_feat(*args, mma), None, None, None, None, None
+    g_feat, g_flat = field_heads_bwd(*args, mma)
+    return g_feat, None, g_flat, None, None, None
 
 
 def field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None):
@@ -498,8 +534,7 @@ def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None):
 
 def ngp_density(params, cfg: NGPConfig, x):
     """x: [M, 3] in [-bound, bound] -> dict(sigma [M], geo_feat [M, 15])."""
-    sigma, geo, _ = field_heads(params, cfg, _encode_pos(params, cfg, x),
-                                want_geo=True)
+    sigma, geo, _ = field_heads(params, cfg, _encode_pos(params, cfg, x), want_geo=True)
     return {"sigma": sigma, "geo_feat": geo}
 
 

@@ -1,6 +1,6 @@
 """Watermarked NGP field: a frozen clean backbone, the codebook message
-encoder and the HiDDeN bit extractor (counterpart of
-``nerf_signature_tpu/models/watermark.py``).
+encoder (or the CopyRNeRF colour MLP) and the HiDDeN bit extractor
+(counterpart of ``nerf_signature_tpu/models/watermark.py``).
 
 The message feature (one single-level hash encode of the effective table,
 K9 then K1) is added to one level's 2 features of the backbone's 32
@@ -8,13 +8,20 @@ K9 then K1) is added to one level's 2 features of the backbone's 32
 (``hash_select`` 0).  The backbone takes no gradient: its tensors do not
 require grad, so K1's backward skips its table and K4 runs its feature-only
 backward.  Params: ``backbone`` is an NGP params dict; ``trainable`` is
-``{"msg_tables": [D, 2, T, F], "decoder": {...}}``.
+``{"msg_tables": [D, 2, T, F], "decoder": {...}}``, or under ``copyrnerf``
+``{"msg_mlp": {"layers": [...]}, "decoder": {...}}``.
 
 Like ``field_params`` for the clean model, ``wtmk_field_params`` computes
 once per render (or train step) what every chunk reuses: the backbone's
 gather-dtype table and packed MLP weights, and the message's effective
-table in fp32 and in the gather dtype.  The CopyRNeRF baseline and the
-whole-image mode are not ported yet.
+table in fp32 and in the gather dtype.
+
+The CopyRNeRF baseline (``copyrnerf``, ``models/copyrnerf.py``) builds no
+message table: K4 writes the density logit beside sigma and rgb, K10 makes
+the colour MLP's input of each sample, and the MLP's colour replaces rgb;
+sigma is untouched.  Its decoder, like the whole-image mode's
+(``whole_image``), reads all D bits from one strided whole key image
+(``train/trainer_wtmk.py:wm_rays``).
 """
 
 import dataclasses
@@ -23,15 +30,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .copyrnerf import copyrnerf_color_at, init_copyrnerf_mlp
 from .hidden import HiddenDecoderConfig, init_hidden_decoder
 from .message import effective_table, init_msg_tables
 from .ngp import NGPConfig, _encode_pos, field_heads, field_heads_plain, field_params, init_ngp_params
 from ..ops.hashenc import hash_encode
-
-COPYRNERF_TODO = ("--copyrnerf (the CopyRNeRF colour-space baseline) is ROADMAP queue 1 item "
-                  "'whole_image/copyrnerf/film/finetune_decoder', not ported yet")
-WHOLE_IMAGE_TODO = ("--whole_image_wm (whole-image extraction) is ROADMAP queue 1 item "
-                    "'whole_image/copyrnerf/film/finetune_decoder', not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,32 +47,37 @@ class WatermarkConfig:
     # where the message feature lives: 1 = the finest level (paper default),
     # 2 = the coarsest, 3 = the middle level, 0 = all levels (one shared table)
     hash_select: int = 1
+    # only the decoder trains; the message tables (or MLP) stay as loaded
     finetune_decoder: bool = False
+    # whole-image extraction: the decoder reads all message_dim bits from ONE
+    # strided whole key image instead of 1 bit a key block
     whole_image: bool = False
+    # the CopyRNeRF baseline: the message enters through a colour-space MLP
+    # instead of the codebook tables; extraction is whole-image
     copyrnerf: bool = False
+    # its upstream-exact variant: the MLP's sigmoid replaces the colour
+    # instead of the residual blend around it
     copyrnerf_replace: bool = False
-
-    def __post_init__(self):
-        if self.copyrnerf or self.copyrnerf_replace:
-            raise NotImplementedError(COPYRNERF_TODO)
-        if self.whole_image:
-            raise NotImplementedError(WHOLE_IMAGE_TODO)
 
     @property
     def decoder(self) -> HiddenDecoderConfig:
-        return HiddenDecoderConfig(num_blocks=8, num_bits=1, redundancy=1,
-                                   input_ch=self.n_views * 3, channels=64)
+        whole = self.whole_image or self.copyrnerf
+        return HiddenDecoderConfig(num_blocks=8, num_bits=self.message_dim if whole else 1,
+                                   redundancy=1, input_ch=self.n_views * 3, channels=64)
 
 
 def init_watermark_params(generator, cfg: WatermarkConfig, device="cpu") -> Dict[str, Any]:
-    """{'backbone': NGP params, 'trainable': {'msg_tables', 'decoder'}} from
-    a (CPU) ``torch.Generator``."""
+    """{'backbone': NGP params, 'trainable': {'msg_tables' (or under
+    ``copyrnerf`` 'msg_mlp'), 'decoder'}} from a (CPU) ``torch.Generator``."""
     backbone = init_ngp_params(generator, cfg.ngp, device)
-    tables = init_msg_tables(generator, cfg.message_dim, cfg.ngp.n_features,
-                             cfg.msg_log2_hashmap_size, device)
+    if cfg.copyrnerf:
+        msg_part = {"msg_mlp": init_copyrnerf_mlp(generator, cfg.message_dim, device=device)}
+    else:
+        msg_part = {"msg_tables": init_msg_tables(generator, cfg.message_dim, cfg.ngp.n_features,
+                                                  cfg.msg_log2_hashmap_size, device)}
     return {"backbone": backbone,
-            "trainable": {"msg_tables": tables,
-                          "decoder": init_hidden_decoder(generator, cfg.decoder, device)}}
+            "trainable": dict(msg_part,
+                              decoder=init_hidden_decoder(generator, cfg.decoder, device))}
 
 
 def msg_encode_placement(cfg: WatermarkConfig):
@@ -94,10 +102,16 @@ def wtmk_field_params(backbone, trainable, cfg: WatermarkConfig, message, plain=
     """The per-render buffers: ``field_params(backbone)`` (or the caller's
     cached ``backbone_fp``) plus, when ``message`` is given, ``msg_eff`` (the
     effective table, differentiable in the msg tables) and ``msg_eff_g``
-    (its gather-dtype copy), from K9 unless ``plain``."""
+    (its gather-dtype copy), from K9 unless ``plain``; under ``copyrnerf``
+    no table but ``msg_mlp`` and ``message`` themselves."""
     fp = dict(backbone_fp if backbone_fp is not None else field_params(backbone, cfg.ngp))
     fp["msg_eff"] = fp["msg_eff_g"] = None
-    if message is not None:
+    if cfg.copyrnerf:
+        if message is not None:
+            message = torch.as_tensor(message, dtype=torch.int32,
+                                      device=backbone["hash_table"].device)
+        fp["msg_mlp"], fp["message"] = trainable["msg_mlp"], message
+    elif message is not None:
         fp["msg_eff"], fp["msg_eff_g"] = effective_table(
             trainable["msg_tables"], message, cfg.ngp.compute_dtype, plain)
     return fp
@@ -153,8 +167,15 @@ def wtmk_density(fp, cfg: WatermarkConfig, x, plain=False):
 
 def wtmk_field(fp, cfg: WatermarkConfig, x, d, plain=False):
     """Fused forward (sigma [M], rgb [M, 3]) through K1 (twice), K9's table
-    and K4; ``plain=True`` runs the plain versions whatever the device."""
+    and K4; under ``copyrnerf`` with a message, K1, K4 (with the density
+    logit), K10 and the colour MLP.  ``plain=True`` runs the plain versions
+    whatever the device."""
     feat = _encode_with_message(fp, cfg, x, plain)
     heads = field_heads_plain if plain else field_heads
-    sigma, _, rgb = heads(fp, cfg.ngp, feat, d)
+    if not (cfg.copyrnerf and fp.get("message") is not None):
+        sigma, _, rgb = heads(fp, cfg.ngp, feat, d)
+        return sigma, rgb
+    sigma, _, rgb, raw = heads(fp, cfg.ngp, feat, d, want_raw=True)
+    rgb = copyrnerf_color_at(fp["msg_mlp"], x, d, rgb, raw, fp["message"], cfg.ngp.bound,
+                             cfg.copyrnerf_replace, plain)
     return sigma, rgb

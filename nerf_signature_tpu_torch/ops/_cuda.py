@@ -47,6 +47,7 @@ SOURCES = {
     "field_mma_bwd.cu": ["-fmad=false"],
     "field_mma_bwd_full.cu": ["-fmad=false"],
     "msgtable.cu": ["-fmad=false"],
+    "copyrnerf.cu": ["-fmad=false"],
     "gather.cu": [],
     "compact.cu": [],
 }
@@ -76,14 +77,17 @@ _SIGNATURES = {
     "ngp_hash_encode_2d": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _P],
     "ngp_hash_encode_2d_bwd": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _U, _P],
     "ngp_field": [_P] * 6 + [_L] + [_I] * 4 + [_P],
+    "ngp_field_raw": [_P] * 7 + [_L] + [_I] * 4 + [_P],
     "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_P],
     "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 5 + [_P],
     "ngp_field_mma": [_P] * 6 + [_L] + [_I] * 4 + [_P],
+    "ngp_field_mma_raw": [_P] * 7 + [_L] + [_I] * 4 + [_P],
     "ngp_field_mma_bwd_feat": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     "ngp_field_mma_bwd": [_P] * 9 + [_L] + [_I] * 5 + [_P],
     "ngp_msg_table": [_P, _P, _I, _L, _P, _P, _I, _P],
     "ngp_msg_table_bwd": [_P, _P, _I, _L, _P, _P],
     "ngp_table_gather": [_P, _P, _L, _L, _P, _P],
+    "ngp_copyrnerf_input": [_P] * 5 + [_I, _F, _P, _L, _P],
     "ngp_composite": [_P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
     "ngp_composite_bwd": [_P] * 5 + [_F, _I, _I] + [_P] * 7,
     "ngp_march": ([_P, _P, _FP, _P, _P, _P] + [_I] * 10 + [_F] * 7 + [_P] * 9 + [_P]),
@@ -228,6 +232,9 @@ HASH_ENCODE_2D_BWD = CudaKernel("ngp_hash_encode_2d_bwd")
 FIELD = CudaKernel("ngp_field")
 FIELD_MMA = CudaKernel("ngp_field_mma")
 FIELD_BWD = CudaKernel("ngp_field_bwd")
+# the same kernels writing the density logit too (the CopyRNeRF input)
+FIELD_MMA_RAW = CudaKernel("ngp_field_mma_raw")
+FIELD_RAW = CudaKernel("ngp_field_raw")
 FIELD_BWD_MMA = CudaKernel("ngp_field_mma_bwd")
 COMPOSITE = CudaKernel("ngp_composite")
 COMPOSITE_BWD = CudaKernel("ngp_composite_bwd")
@@ -241,23 +248,27 @@ TABLE_GATHER = CudaKernel("ngp_table_gather")
 COMPACT_PACK = CudaKernel("ngp_compact_pack")
 COMPACT_UNPACK = CudaKernel("ngp_compact_unpack")
 COMPACT_UNPACK_BWD = CudaKernel("ngp_compact_unpack_bwd")
+COPYRNERF_INPUT = CudaKernel("ngp_copyrnerf_input")
 
 # K4's forward, full backward and feature-only backward have two routes
 # each, counted apart: the tensor-core kernels (bf16) and the SIMT ones
 # (fp32, ``_f32``); K2 on the bool grid and on the float render grid (the
 # transmittance cull, ``_cull``); K7, the stochastic hash estimators (the
 # one-corner forward and the one-corner backward); K8, the background
-# sphere's 2D encoding
+# sphere's 2D encoding; K4's forward that also writes the density logit
+# (``_raw``); K10, the CopyRNeRF MLP's input
 KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH, "K2_march_cull": MARCH_CULL,
            "K3_composite": COMPOSITE, "K4_field": FIELD_MMA, "K4_field_f32": FIELD,
            "K1_hash_encode_bwd": HASH_ENCODE_BWD, "K3_composite_bwd": COMPOSITE_BWD,
+           "K4_field_raw": FIELD_MMA_RAW, "K4_field_raw_f32": FIELD_RAW,
            "K4_field_bwd": FIELD_BWD_MMA, "K4_field_bwd_f32": FIELD_BWD,
            "K4_field_bwd_feat": FIELD_BWD_FEAT_MMA, "K4_field_bwd_feat_f32": FIELD_BWD_FEAT,
            "K9_msg_table": MSG_TABLE, "K9_msg_table_bwd": MSG_TABLE_BWD,
            "P1_gather": TABLE_GATHER, "K5_compact_pack": COMPACT_PACK,
            "K5_compact_unpack": COMPACT_UNPACK, "K5_compact_unpack_bwd": COMPACT_UNPACK_BWD,
            "K7_hash_encode_1c": HASH_ENCODE_1C, "K7_hash_encode_bwd_stoch": HASH_ENCODE_BWD_STOCH,
-           "K8_hash_encode_2d": HASH_ENCODE_2D, "K8_hash_encode_2d_bwd": HASH_ENCODE_2D_BWD}
+           "K8_hash_encode_2d": HASH_ENCODE_2D, "K8_hash_encode_2d_bwd": HASH_ENCODE_2D_BWD,
+           "K10_copyrnerf_input": COPYRNERF_INPUT}
 
 
 def reset_launch_counts():

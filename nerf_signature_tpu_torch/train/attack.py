@@ -12,11 +12,13 @@ finetuning attack.
     renders with a message look like the message-free render of the
     original, by Adam on the image MSE, every leaf clamped to +-epsilon of
     its original after each step.  The gradient reaches the message tables
-    only (K1's backward into the effective table, then K9's); the decoder
-    takes none, so it stays bit-identical.
+    only (K1's backward into the effective table, then K9's), or under
+    ``--copyrnerf`` the colour MLP; the decoder takes none, so it stays
+    bit-identical.
   * ``finetune_attack``: the adversary re-fits the backbone (its hash table,
     or with ``full_backbone`` every leaf) to the pseudo-GT of the train
-    views with the all-ones message active.  The table's gradient is K1's
+    views with the all-ones message active, through the trainable tree it
+    finds (the message tables or the CopyRNeRF MLP, frozen).  The table's gradient is K1's
     backward into the 16-level backbone table; with ``full_backbone`` the
     MLP weights' is K4's full backward.  The field's buffers (the gather
     table, the packed weights) are rebuilt from the trained leaves every
@@ -205,7 +207,7 @@ class FinetuneAttack:
         self.train_part = {k: _tree_map(lambda t: t.detach().clone().requires_grad_(True),
                                         m.backbone[k]) for k in keys}
         self.optimizer = _adam(_leaves(self.train_part), lr)
-        self.tr = {"msg_tables": m.trainable["msg_tables"].detach()}  # no gradient
+        self.tr = _tree_map(lambda t: t.detach(), m.trainable)  # no gradient
         self.rc = dataclasses.replace(m.rc, t_cull=0.0)
 
     def loss(self, rays_o, rays_d, target, plain=False):

@@ -5,12 +5,19 @@ The JAX package writes ``pickle.dump(flax.serialization.to_state_dict(tree))``
 where a list becomes ``{"0": ..., "1": ...}`` and a NamedTuple a dict of its
 fields.  This module reads and writes exactly that, and converts the NGP
 params, the watermark stage's ``trainable`` tree (``trainable_from_jax`` /
-``trainable_to_jax``: conv weights HWIO there, OIHW here) and the optimizer
+``trainable_to_jax``: ``msg_tables`` or the CopyRNeRF ``msg_mlp``, and the
+decoder, whose conv weights are HWIO there, OIHW here; ``conv_tree_from_jax``
+/ ``conv_tree_to_jax`` do the same for any HiDDeN tree) and the optimizer
 state between that form and the port's tensors.  The optimizer state is
 optax's ``adam`` with a schedule:
 ``(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))``, i.e.
 ``{"0": {"count", "mu", "nu"}, "1": {"count"}}`` with ``mu``/``nu`` laid out
-like the params, so a port checkpoint resumes in JAX and back.
+like the params, so a port checkpoint resumes in JAX and back.  Under
+``--finetune_decoder`` JAX wraps it in ``optax.multi_transform`` (the
+decoder trains, the rest is frozen): ``{"inner_states": {"train":
+{"inner_state": <adam's>}, "freeze": {"inner_state": {}}}}``, where the
+moments hold the decoder's and an empty ``{}`` for each frozen subtree
+(``masked_opt_state_to_jax`` / ``masked_opt_state_from_jax``).
 """
 
 import glob
@@ -80,38 +87,57 @@ def params_to_jax(params):
     return to_state_dict(params)
 
 
-def _decoder_map(tree, conv_w, leaf):
-    """Apply ``conv_w`` to every conv weight and ``leaf`` to every other
-    leaf of a decoder tree (blocks as a list or {"0": ...})."""
-    def block(b):
-        return {"conv": {"w": conv_w(b["conv"]["w"]), "b": leaf(b["conv"]["b"])},
-                "bn": {"scale": leaf(b["bn"]["scale"]), "bias": leaf(b["bn"]["bias"])}}
+def _is_list(node):
+    return isinstance(node, (list, tuple)) or (
+        isinstance(node, dict) and len(node) > 0 and all(k.isdigit() for k in node))
 
-    return {"blocks": [block(b) for b in _as_list(tree["blocks"])],
-            "head": block(tree["head"]),
-            "linear": {"w": leaf(tree["linear"]["w"]), "b": leaf(tree["linear"]["b"])}}
+
+def conv_tree_from_jax(tree, device="cpu"):
+    """A JAX HiDDeN or MLP tree (numpy, list or state-dict form) -> the
+    port's fp32 tensors, every 4-D weight HWIO -> OIHW."""
+    if _is_list(tree):
+        return [conv_tree_from_jax(v, device) for v in _as_list(tree)]
+    if isinstance(tree, dict):
+        return {k: conv_tree_from_jax(v, device) for k, v in tree.items()}
+    a = np.asarray(tree, np.float32)
+    if a.ndim == 4:
+        a = np.transpose(a, (3, 2, 0, 1))
+    return torch.tensor(a, device=device)
+
+
+def conv_tree_to_jax(tree):
+    """The port's HiDDeN or MLP tree -> the JAX state-dict form, every 4-D
+    weight OIHW -> HWIO."""
+    if isinstance(tree, dict):
+        return {str(k): conv_tree_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): conv_tree_to_jax(v) for i, v in enumerate(tree)}
+    a = tree.detach().cpu().numpy()
+    return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a
 
 
 def trainable_from_jax(state_dict, device="cpu"):
-    """JAX watermark ``trainable`` ({msg_tables, decoder}, numpy, list or
-    state-dict form) -> the port's tensors; conv weights HWIO -> OIHW."""
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=device)
-
-    return {"msg_tables": t(state_dict["msg_tables"]),
-            "decoder": _decoder_map(state_dict["decoder"],
-                                    lambda w: t(np.transpose(np.asarray(w), (3, 2, 0, 1))), t)}
+    """JAX watermark ``trainable`` ({msg_tables or msg_mlp, decoder}, numpy,
+    list or state-dict form) -> the port's tensors; conv weights HWIO ->
+    OIHW.  A subtree stored empty (a frozen one in a ``multi_transform``
+    moment) is left out."""
+    out = {}
+    if len(np.shape(state_dict.get("msg_tables", {}))) > 0:
+        out["msg_tables"] = torch.tensor(np.asarray(state_dict["msg_tables"], np.float32),
+                                         device=device)
+    for k in ("msg_mlp", "decoder"):
+        if state_dict.get(k):
+            out[k] = conv_tree_from_jax(state_dict[k], device)
+    return out
 
 
 def trainable_to_jax(trainable):
     """The port's ``trainable`` -> the JAX checkpoint's state-dict form;
     conv weights OIHW -> HWIO."""
-    def a(x):
-        return x.detach().cpu().numpy()
-
-    dec = _decoder_map(trainable["decoder"],
-                       lambda w: np.ascontiguousarray(a(w).transpose(2, 3, 1, 0)), a)
-    return to_state_dict({"msg_tables": a(trainable["msg_tables"]), "decoder": dec})
+    out = {k: conv_tree_to_jax(v) for k, v in trainable.items() if k != "msg_tables"}
+    if "msg_tables" in trainable:
+        out["msg_tables"] = trainable["msg_tables"].detach().cpu().numpy()
+    return out
 
 
 def opt_state_to_jax(count, mu, nu, tree_to_jax=params_to_jax):
@@ -129,6 +155,25 @@ def opt_state_from_jax(state_dict, device="cpu", tree_from_jax=params_from_jax):
     adam = state_dict["0"]
     return (int(np.asarray(adam["count"])), tree_from_jax(adam["mu"], device),
             tree_from_jax(adam["nu"], device))
+
+
+def masked_opt_state_to_jax(count, mu, nu, frozen):
+    """``optax.multi_transform({"train": adam, "freeze": set_to_zero()})``'s
+    state in state-dict form: Adam's over the trained subtrees of the
+    moments ``mu``/``nu`` (watermark trainable trees), ``{}`` for each key
+    in ``frozen``."""
+    def tree(t):
+        return dict(trainable_to_jax(t), **{k: {} for k in frozen})
+
+    return {"inner_states": {"train": {"inner_state": opt_state_to_jax(count, mu, nu, tree)},
+                             "freeze": {"inner_state": {}}}}
+
+
+def masked_opt_state_from_jax(state_dict, device="cpu"):
+    """(count, mu, nu) of the trained subtrees from ``masked_opt_state_to_jax``'s
+    form (the frozen subtrees, stored empty, are left out)."""
+    return opt_state_from_jax(state_dict["inner_states"]["train"]["inner_state"], device,
+                              trainable_from_jax)
 
 
 def check_params_like(template, params):

@@ -14,6 +14,15 @@ cuDNN) -> Adam (0.9, 0.99, eps 1e-15) with ``lr * 0.1 ** min(t / T, 1)``.
 The occupancy grid is the clean model's, frozen; only
 ``mark_untrained_grid`` runs at the start.
 
+The paper's baselines: ``--whole_image_wm`` and ``--copyrnerf`` decode all D
+bits from one whole key image, strided to at most 96 pixels a side
+(``wm_rays``), as ``[1, D]``; under ``--copyrnerf`` the message reaches the
+colour through the CopyRNeRF MLP (K1, K4 with the density logit, K10, the
+MLP; no K9, and no backward of K1 or K4).  ``--finetune_decoder`` trains the
+decoder alone: the message tables (or MLP) take no gradient and stay as
+loaded, and the checkpoint's optimizer state is JAX's ``multi_transform``
+layout (``checkpoint.masked_opt_state_to_jax``).
+
 Randomness is explicit: messages come from a numpy generator seeded like
 JAX's (the same seed gives the same messages in both packages), the
 distortions' draws from the model's ``torch.Generator``.
@@ -31,9 +40,8 @@ step's backbone encode K7's one-corner forward; the message encode, the
 decodes of verification, the test images and the pseudo-GT stay exact.
 With a backbone that has the bg-sphere model (``--bg_radius > 0``), every
 render of key blocks, content rays and pseudo-GT takes the frozen
-backbone's background (``_bg_fn``).  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): ``--devices > 1`` and
-``--finetune_decoder``.
+backbone's background (``_bg_fn``).  Not ported yet (it raises
+``NotImplementedError`` naming its ROADMAP item): ``--devices > 1``.
 """
 
 import dataclasses
@@ -49,6 +57,7 @@ import torch.nn.functional as F
 
 from ..api import WatermarkModel
 from ..data.rays import get_rays
+from ..models.copyrnerf import mlp_leaves
 from ..models.hidden import decoder_leaves, hidden_decoder_apply, normalize_img
 from ..models.ngp import background_fn
 from ..models.watermark import wtmk_field, wtmk_field_params
@@ -60,6 +69,8 @@ from .checkpoint import (
     check_params_like,
     checkpoint_candidates,
     load_checkpoint,
+    masked_opt_state_from_jax,
+    masked_opt_state_to_jax,
     opt_state_from_jax,
     opt_state_to_jax,
     params_from_jax,
@@ -104,8 +115,19 @@ def make_loss_w(kind, temp=10.0):
 
 
 def trainable_leaves(trainable):
-    """The trainable tree's tensors in a fixed order (the optimizer's)."""
-    return [trainable["msg_tables"]] + decoder_leaves(trainable["decoder"])
+    """The trainable tree's tensors in a fixed order: the message tables (or
+    the CopyRNeRF MLP's leaves), then the decoder's."""
+    msg = ([trainable["msg_tables"]] if "msg_tables" in trainable
+           else mlp_leaves(trainable["msg_mlp"]))
+    return msg + decoder_leaves(trainable["decoder"])
+
+
+def optimized_leaves(trainable, finetune_decoder):
+    """The leaves Adam steps: the decoder's alone under
+    ``--finetune_decoder``, else every trainable leaf."""
+    if finetune_decoder:
+        return decoder_leaves(trainable["decoder"])
+    return trainable_leaves(trainable)
 
 
 def _tree_map(fn, tree):
@@ -118,9 +140,15 @@ def _tree_map(fn, tree):
 
 def wm_rays(wcfg, wm):
     """The decoder's ray bundles from a watermark data dict: the key blocks
-    [D, bh, bw, 3], or [D, V, bh, bw, 3] with V key views (the whole-image
-    modes are not ported)."""
-    return wm["rays_o_block"], wm["rays_d_block"]
+    [D, bh, bw, 3], or [D, V, bh, bw, 3] with V key views; in the
+    whole-image modes (``whole_image``, ``copyrnerf``) the whole key image
+    [1, H, W, 3] strided by ``ceil(max(H, W) / 96)``.  Shared by the
+    trainer and the attack suites, so every decode reads the same rays."""
+    if not (wcfg.whole_image or wcfg.copyrnerf):
+        return wm["rays_o_block"], wm["rays_d_block"]
+    ro, rd = wm["rays_o"], wm["rays_d"]
+    s = max(1, int(np.ceil(max(ro.shape[1], ro.shape[2]) / 96)))
+    return ro[:, ::s, ::s], rd[:, ::s, ::s]
 
 
 def _blocks(image, rays_shape):
@@ -227,7 +255,7 @@ class WatermarkTrainer:
         self.save_interval = save_interval
         self.max_keep_ckpt = max_keep_ckpt
         self.mute = mute
-        _refuse_unported(opt, model)
+        _refuse_unported(opt)
         # the step's field config (JAX's wcfg_train): --hash_fwd_corners 1
         # makes the in-step block and content renders one-corner estimates;
         # every decode, test image and pseudo-GT keeps model.wcfg, exact
@@ -257,12 +285,21 @@ class WatermarkTrainer:
             raise ValueError("--lambda_ssim needs patch-structured content rays: "
                              "set --patch_size > 1 (num_rays divisible by patch_size**2)")
         self.lambda_msg_reg = float(getattr(opt, "lambda_msg_reg", 0.0) or 0.0)
+        if self.lambda_msg_reg > 0 and "msg_tables" not in model.trainable:
+            raise ValueError("--lambda_msg_reg regularises the codebook msg tables; this "
+                             "model variant has no msg_tables in its trainable subtree")
 
+        # --finetune_decoder: the message part takes no gradient and is not
+        # in Adam (JAX zeroes its updates: the same tensors, bit for bit)
+        self.finetune_decoder = model.wcfg.finetune_decoder
+        self.opt_leaves = optimized_leaves(model.trainable, self.finetune_decoder)
         for p in trainable_leaves(model.trainable):
+            p.requires_grad_(False)
+        for p in self.opt_leaves:
             p.requires_grad_(True)
         self.lr_schedule = make_lr_schedule(opt.lr, opt.iters)
-        self.optimizer = torch.optim.Adam(trainable_leaves(model.trainable), lr=opt.lr,
-                                          betas=(0.9, 0.99), eps=1e-15)
+        self.optimizer = torch.optim.Adam(self.opt_leaves, lr=opt.lr, betas=(0.9, 0.99),
+                                          eps=1e-15)
         self.epoch = 0
         self.global_step = 0
         self._wm_state_loaded = False
@@ -351,7 +388,7 @@ class WatermarkTrainer:
 
     def opt_count(self):
         """Adam steps taken (optax's ``count``)."""
-        state = self.optimizer.state.get(self.model.trainable["msg_tables"])
+        state = self.optimizer.state.get(self.opt_leaves[0])
         return int(state["step"]) if state else 0
 
     # ----------------------------------------------------------------- train
@@ -378,8 +415,7 @@ class WatermarkTrainer:
             patch_size=self.patch_size, lambda_ssim=self.lambda_ssim or None)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        set_lr(self.optimizer, m.trainable["msg_tables"], self.lr_schedule,
-               self.device_schedule)
+        set_lr(self.optimizer, self.opt_leaves[0], self.lr_schedule, self.device_schedule)
         self.optimizer.step()
         return loss.detach(), lossw.detach(), lossi.detach(), decoded.detach()
 
@@ -457,7 +493,7 @@ class WatermarkTrainer:
         data = preload(train_loader.poses, train_loader.train_images, train_loader.intrinsics,
                        train_loader.H, train_loader.W, m.device)
         rays_per_step = self.opt.num_rays + int(np.prod(ro_b.shape[:-1]))
-        prepare_device_loop(self, trainable_leaves(m.trainable))
+        prepare_device_loop(self, self.opt_leaves)
         total = max_steps + self.polish_iters
         start = time.time()
         while self.global_step < total:
@@ -638,23 +674,37 @@ class WatermarkTrainer:
 
     # ------------------------------------------------------------ checkpoint
     def _opt_state(self):
-        """Adam's state in optax's layout (zeros before the first step)."""
+        """Adam's state in optax's layout (zeros before the first step);
+        under ``--finetune_decoder`` in ``multi_transform``'s."""
+        tr = self.model.trainable
+        trained = {"decoder": tr["decoder"]} if self.finetune_decoder else tr
+
         def moment(key):
             def leaf(p):
                 st = self.optimizer.state.get(p)
                 return st[key] if st else torch.zeros_like(p)
-            return _tree_map(leaf, self.model.trainable)
+            return _tree_map(leaf, trained)
 
-        return opt_state_to_jax(self.opt_count(), moment("exp_avg"), moment("exp_avg_sq"),
-                                trainable_to_jax)
+        mu, nu = moment("exp_avg"), moment("exp_avg_sq")
+        if self.finetune_decoder:
+            return masked_opt_state_to_jax(self.opt_count(), mu, nu,
+                                           [k for k in tr if k != "decoder"])
+        return opt_state_to_jax(self.opt_count(), mu, nu, trainable_to_jax)
 
     def _load_opt_state(self, state_dict):
-        count, mu, nu = opt_state_from_jax(state_dict, self.model.device, trainable_from_jax)
-        leaves = trainable_leaves(self.model.trainable)
-        for p, a, b in zip(leaves, trainable_leaves(mu), trainable_leaves(nu)):
+        if self.finetune_decoder:
+            count, mu, nu = masked_opt_state_from_jax(state_dict, self.model.device)
+        else:
+            count, mu, nu = opt_state_from_jax(state_dict, self.model.device, trainable_from_jax)
+        leaves = self.opt_leaves
+        mu, nu = (optimized_leaves(t, self.finetune_decoder) for t in (mu, nu))
+        if len(mu) != len(leaves) or len(nu) != len(leaves):
+            raise ValueError(f"optimizer state holds {len(mu)} leaves, the model trains "
+                             f"{len(leaves)}")
+        for p, a, b in zip(leaves, mu, nu):
             if a.shape != p.shape or b.shape != p.shape:
                 raise ValueError(f"optimizer moment shape {tuple(a.shape)} vs {tuple(p.shape)}")
-        for p, a, b in zip(leaves, trainable_leaves(mu), trainable_leaves(nu)):
+        for p, a, b in zip(leaves, mu, nu):
             self.optimizer.state[p] = {"step": adam_step(self.optimizer, count, p.device),
                                        "exp_avg": a, "exp_avg_sq": b}
 
@@ -697,6 +747,9 @@ class WatermarkTrainer:
         check_params_like(m.backbone, backbone)
         if "backbone" in raw and "trainable" in raw:
             tr = trainable_from_jax(raw["trainable"], m.device)
+            if set(tr) != set(m.trainable):
+                raise ValueError(f"checkpoint trainable holds {sorted(tr)}, the model "
+                                 f"{sorted(m.trainable)} (--copyrnerf differs?)")
             pairs = list(zip(trainable_leaves(m.trainable), trainable_leaves(tr)))
             for a, b in pairs:
                 if a.shape != b.shape:
@@ -721,13 +774,8 @@ class WatermarkTrainer:
         ensure_occupancy(m, path, self.log)
 
 
-def _refuse_unported(opt, model):
-    """Raise on the watermark-stage options this slice does not port."""
-    todo = []
+def _refuse_unported(opt):
+    """Raise on the watermark-stage options the port does not run yet."""
     if getattr(opt, "devices", 0) > 1:
-        todo.append("--devices > 1 (ROADMAP queue 1: --devices > 1)")
-    if model.wcfg.finetune_decoder or getattr(opt, "finetune_decoder", False):
-        todo.append("--finetune_decoder (ROADMAP queue 1: whole_image/copyrnerf/film/"
-                    "finetune_decoder)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+        raise NotImplementedError("not ported yet: --devices > 1 (ROADMAP queue 1: "
+                                  "--devices > 1)")

@@ -1058,3 +1058,79 @@ def test_k7_k8_wrappers_raise_instead_of_falling_back(cuda):
         t_hash._hash_encode_stoch_bwd_kernel(torch.zeros((8, 3), device=cuda),
                                              torch.zeros((8, 8), device=cuda), 4 << 15, res, 15,
                                              False, None, 2, 3)
+
+
+# --------------------------------------------- the CopyRNeRF input (K4 raw, K10)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", ["full", "16x4", "narrow"])
+def test_field_kernel_raw_logit(cuda, dtype, widths):
+    """K4 with ``want_raw``: sigma, geo and rgb bit-equal to the launch
+    without it; the logit within the route's limits of the plain version's
+    (fp32 1e-5, bf16 a bf16 step), finite where exp underflows; counted as
+    ``K4_field_raw`` / ``_f32``.  Under autograd its cotangent joins
+    sigma's (FieldHeadsRawFn): g_feat against the plain autograd within the
+    backward's limits (fp32 1e-5, bf16 1e-2 relative L2)."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    cfg = t_ngp.NGPConfig(compute_dtype=dtype, **WIDTHS[widths])
+    params = t_ngp.init_ngp_params(torch.Generator().manual_seed(3), cfg, cuda)
+    params["hash_table"].mul_(1e4)
+    params["sigma_net"][1][:, 0].mul_(100.0)  # logits far below exp's underflow at -87
+    fp = t_ngp.field_params(params, cfg)
+    g = torch.Generator().manual_seed(5)
+    M = (1 << 16) - 17
+    x = (torch.rand((M, 3), generator=g) * 2 - 1).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn((M, 3), generator=g), dim=-1).to(cuda)
+    feat = t_ngp._encode_pos(fp, cfg, x)
+    s0, g0, r0 = t_ngp.field_heads(fp, cfg, feat, d, want_geo=True)
+    _cuda.reset_launch_counts()
+    s1, g1, r1, raw = t_ngp.field_heads(fp, cfg, feat, d, want_geo=True, want_raw=True)
+    counts = _cuda.launch_counts()
+    route = "K4_field_raw" if dtype == torch.bfloat16 else "K4_field_raw_f32"
+    assert counts[route] == 1 and counts["K4_field"] + counts["K4_field_f32"] == 0
+    assert torch.equal(s0, s1) and torch.equal(g0, g1) and torch.equal(r0, r1)
+    *_, raw_p = t_ngp.field_heads_plain(fp, cfg, feat[:, :cfg.enc_dim], d, want_raw=True)
+    assert bool(torch.isfinite(raw).all()) and bool((raw < -87.0).any())
+    if dtype == torch.float32:
+        torch.testing.assert_close(raw, raw_p, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(raw, raw_p, rtol=2e-2, atol=1e-2)
+    g_sigma = torch.randn(M, generator=g).to(cuda) * 1e-3
+    g_rgb = torch.randn((M, 3), generator=g).to(cuda) * 1e-3
+    g_raw = torch.randn(M, generator=g).to(cuda) * 1e-3
+    grads = []
+    for kernel in (True, False):
+        f = (feat if kernel else feat[:, :cfg.enc_dim]).clone().requires_grad_(True)
+        heads = t_ngp.field_heads if kernel else t_ngp.field_heads_plain
+        sigma, _, rgb, lg = heads(fp, cfg, f, d, want_raw=True)
+        torch.autograd.backward([sigma, rgb, lg], [g_sigma, g_rgb, g_raw])
+        grads.append(f.grad[:, :cfg.enc_dim])
+    assert rel_l2(*grads) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("bound", [1.0, 2.0])
+@pytest.mark.parametrize("M,D", [(65_519, 32), (1000, 4), (3, 1), (0, 8), (77, 0)])
+def test_copyrnerf_input_kernel_matches_plain(cuda, M, D, bound):
+    """K10 against its plain version: sinf/cosf against torch.sin/cos of the
+    same fp32 products (1e-6 absolute: a few ulps of values in [-1, 1]),
+    everything else bit for bit."""
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.ops import copyrnerf as t_k10
+
+    g = torch.Generator().manual_seed(M + D)
+    x = ((torch.rand((M, 3), generator=g) * 2 - 1) * bound).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn((M, 3), generator=g), dim=-1).to(cuda)
+    rgb = torch.rand((M, 3), generator=g).to(cuda)
+    raw = (torch.randn((M,), generator=g) * 50).to(cuda)
+    msg = torch.randint(0, 2, (D,), generator=g).to(torch.int32).to(cuda)
+    _cuda.reset_launch_counts()
+    k = t_k10.copyrnerf_input(x, d, rgb, raw, msg, bound)
+    assert _cuda.launch_counts()["K10_copyrnerf_input"] == 1
+    p = t_k10.copyrnerf_input_plain(x, d, rgb, raw, msg, bound)
+    assert k.shape == p.shape == (M, 88 + D)
+    if M:
+        assert float((k[:, :84] - p[:, :84]).abs().max()) <= 1e-6
+    assert torch.equal(k[:, 84:], p[:, 84:])
+    with pytest.raises(ValueError, match="contiguous"):
+        t_k10.copyrnerf_input(torch.zeros((3, 8), device=cuda).t(), d[:8], rgb[:8], raw[:8],
+                              msg, bound)

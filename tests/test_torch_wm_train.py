@@ -335,9 +335,8 @@ def test_test_bitacc_draws_the_messages_jax_draws(monkeypatch):
 
 def test_trainer_refuses_unported_paths():
     _, tm = make_wm_models("fp32")
-    for kw in (dict(devices=2), dict(finetune_decoder=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_twm.WatermarkTrainer("wm", _opt(**kw), tm, workspace=None, mute=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_twm.WatermarkTrainer("wm", _opt(devices=2), tm, workspace=None, mute=True)
     # --hash_fwd_corners 1 is ported (K7) and, as in JAX, needs
     # --stochastic_hash_grad on the backbone's config
     with pytest.raises(ValueError, match="requires --stochastic_hash_grad"):
@@ -349,10 +348,23 @@ def test_trainer_refuses_unported_paths():
     # ported)
     for kw in ({}, dict(patch_size=4), dict(patch_size=4, lambda_ssim=0.1)):
         t_twm.WatermarkTrainer("wm", _opt(**kw), tm, workspace=None, mute=True)
+    # the paper's baselines are ported: --finetune_decoder, --copyrnerf and
+    # --whole_image_wm construct, each with its decoder width
     jcfg, tcfg = wm_cfgs()
-    for kw in (dict(copyrnerf=True), dict(whole_image=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dataclasses.replace(tcfg, **kw)
+    kw = dict(density_thresh=0.01, max_steps=64, grid_size=GRID, train_budget=BUDGET,
+              infer_budget=BUDGET, device="cpu")
+    for mode in (dict(finetune_decoder=True), dict(copyrnerf=True), dict(whole_image=True)):
+        wcfg = dataclasses.replace(tcfg, **mode)
+        model = t_api.WatermarkModel(wcfg, **kw)
+        t_twm.WatermarkTrainer("wm", _opt(), model, workspace=None, mute=True)
+        whole = mode.keys() & {"copyrnerf", "whole_image"}
+        assert wcfg.decoder.num_bits == (tcfg.message_dim if whole else 1)
+        assert ("msg_mlp" in model.trainable) == ("copyrnerf" in mode)
+    # --lambda_msg_reg regularises the msg tables, which CopyRNeRF lacks:
+    # JAX's ValueError
+    model = t_api.WatermarkModel(dataclasses.replace(tcfg, copyrnerf=True), **kw)
+    with pytest.raises(ValueError, match="no msg_tables in its trainable subtree"):
+        t_twm.WatermarkTrainer("wm", _opt(lambda_msg_reg=0.1), model, workspace=None, mute=True)
 
 
 def test_density_fn_is_message_free_and_equals_the_backbones():
