@@ -109,7 +109,8 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                backbone leaf (K4's full backward), each profiled over 16
                more steps and one step of each against its plain version;
                finally a second WatermarkTrainer.train at the recipe with
-               --n_views 2 (lossw halves; bit accuracy, watermark rays/s;
+               --n_views 2 for 400 steps (lossw halves; bit accuracy,
+               watermark rays/s;
                one whole two-view step against the plain versions);
   9. device loop — K5 (sample compaction, csrc/compact.cu): pack, unpack
                and unpack backward bit-exact against their plain versions
@@ -194,7 +195,22 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                not gated); --prewatermark: pretrain_hidden 200 steps on
                phase 7's views, the views watermarked, 512 clean loop steps
                on them, bit survival over 4 rendered views (reported);
-               the FiLM encoder once on the card against the CPU.
+               the FiLM encoder once on the card against the CPU;
+ 13. lpips, clip, fixed — on phase 7's backbone at the recipe's widths:
+               --patch_size 32 with random lpips-alex weights (a torch.save
+               file) through Trainer.train for 64 steps (4 patches a step;
+               the LPIPS term in every step, finite losses), the LPIPS
+               meter of an evaluation on the held-out view against the
+               plain CPU value (1e-4 relative), the device loop's refusal;
+               32 GT-free CLIP steps on 64 x 64 --rand_pose bundles with a
+               random vision tower at ViT-B/32's widths injected (finite
+               losses, nonzero table gradients) and the CLI's --clip_text
+               refused (no weights; the hub offline); the fixed-step renderer
+               (cuda_ray off) in fp32 and bf16 at 512 and 128 + 128 samples:
+               an 800x800 view each (launches, busy ms, device ms by
+               kernel), 4096 rays against the plain route (>= 45 dB), PSNR
+               against the grid render; main_nerf --test without
+               --cuda_ray.  Every phase's wall seconds are logged.
 
 The last lines are one JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -215,6 +231,10 @@ import time
 
 import numpy as np
 import torch
+
+# no network: transformers would otherwise try to fetch the CLIP model that
+# the CLIP phase's --clip_text names (no CLIP weights ship with the repo)
+os.environ.setdefault("HF_HUB_OFFLINE", "1")
 
 # H100 SXM published peaks (dense): HBM bytes/s and bf16 / fp32 flop/s
 PEAK_BYTES = 3.35e12
@@ -264,6 +284,9 @@ WM_RES = RES // 2
 WM_BLOCK = WM_RES // 32
 WM_ITERS = 1000
 WM_TRIALS = 200
+# the --n_views 2 run's steps (cut from WM_ITERS to pay for phase 13's time;
+# in a 1000-step run lossw fell from 2.58 to 0.72 over its first 3 epochs of 32)
+WM_V2_ITERS = 400
 WM_STEP_RAYS = TRAIN_RAYS + WM_BITS * WM_BLOCK**2
 WM_RECIPE = ["-O", "--wtmk_tcnn", "--message_dim", "32", "--lambda_w", "0.005",
              "--lambda_i", "1.0", "--loss_w", "bce", "--iters", str(WM_ITERS),
@@ -1773,10 +1796,12 @@ class BallViews:
     view (shuffled per epoch) and colours them analytically (no images are
     stored).  ``error_map``: carry the provider's [views, 128 * 128] map of
     ones (``--error_map``), importance-sample each step's pixels from it and
-    hand the trainer the view's index and cells."""
+    hand the trainer the view's index and cells.  ``patch_size``: draw the
+    pixels as patch_size x patch_size patches (``--patch_size``)."""
 
-    def __init__(self, radius, seed=5, error_map=False):
+    def __init__(self, radius, seed=5, error_map=False, patch_size=1):
         self.radius = radius
+        self.patch_size = patch_size
         self.poses = orbit_poses(TRAIN_VIEWS, ORBIT_RADIUS, seed=seed)
         fl = RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
         self.intrinsics = np.array([fl, fl, RES / 2, RES / 2])
@@ -1792,7 +1817,7 @@ class BallViews:
         for v in self.rng.permutation(TRAIN_VIEWS):
             em = None if self.error_map is None else self.error_map[v:v + 1]
             r = get_rays(self.poses[v:v + 1], self.intrinsics, RES, RES, TRAIN_RAYS,
-                         rng=self.rng, error_map=em)
+                         rng=self.rng, error_map=em, patch_size=self.patch_size)
             batch = {"H": RES, "W": RES, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
                      "images": self.pixels(r["rays_o"], r["rays_d"])}
             if em is not None:
@@ -2456,7 +2481,8 @@ def wm_views2(dev, backbone_model, workdir):
     blocks render from two key poses and reach the decoder
     channel-concatenated.  Fails unless lossw halves and one whole
     two-view step through the kernels matches the plain versions."""
-    w = wm_train(dev, backbone_model, workdir, extra=["--n_views", "2"], tag="wm V=2")
+    w = wm_train(dev, backbone_model, workdir, iters=WM_V2_ITERS, extra=["--n_views", "2"],
+                 tag="wm V=2")
     trainer, lossw = w["trainer"], w["trainer"].stats["lossw"]
     if not lossw[-1] <= 0.5 * lossw[0]:
         raise AssertionError(f"V = 2: lossw did not halve: first epoch {lossw[0]}, last "
@@ -4275,6 +4301,446 @@ def phase_baselines(dev, backbone_model, wm_state, workdir):
     return res
 
 
+# ---------------------------------------------------------------- phase 13
+LPIPS_PATCH = 32          # --patch_size of the LPIPS run: 4096 rays = 4 patches
+LPIPS_STEPS = 64          # per-step clean steps with the patch LPIPS loss
+LPIPS_CPU_LIMIT = 1e-4    # the meter on the card against the plain CPU value, relative
+CLIP_STEPS = 32           # GT-free steps on --rand_pose bundles
+CLIP_SEED = 13
+# openai/clip-vit-base-patch32's vision tower: image, patch, width, layers,
+# heads, MLP, projection (the weights random: none ship, none are fetched)
+CLIP_B32 = dict(image=224, patch=32, width=768, layers=12, heads=12, mlp=3072, proj=512)
+# the fixed-step path: (--num_steps, --upsample_steps) of each served view
+FIXED_RUNS = {"512": (512, 0), "128+128": (128, 128)}
+FIXED_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# the device time of a fixed view by kernel, by a substring of their names
+FIXED_KERNELS = {"K1": "hash_encode_fwd", "K3": "composite_fwd", "K4 bf16": "field_mma_fwd",
+                 "K4 fp32": "field_fwd"}
+# JAX's refusal of the LPIPS loss in the device loop (trainer.py:699-705)
+LPIPS_LOOP_REFUSAL = ("--patch_size LPIPS loss is not supported with --steps_per_dispatch "
+                      "scan training; drop --steps_per_dispatch (per-step path) or unset the "
+                      "LPIPS weights")
+
+
+def clone_model(backbone, dev, dtype, cuda_ray=True, num_steps=512, upsample_steps=0):
+    """A model at ``dtype`` holding a copy of phase 7's backbone (params and
+    grid), with the occupancy grid or, ``cuda_ray`` off, the fixed-step
+    renderer at ``num_steps`` + ``upsample_steps``."""
+    from nerf_signature_tpu_torch.api import NGPModel
+    from nerf_signature_tpu_torch.train.trainer import param_leaves
+
+    cfg = dataclasses.replace(backbone.cfg, compute_dtype=dtype)
+    m = NGPModel(cfg, cuda_ray=cuda_ray, min_near=backbone.rc.min_near,
+                 density_thresh=backbone.density_thresh, dt_gamma=0.0, max_steps=1024,
+                 grid_size=backbone.rc.grid_size, seed=3, train_budget=backbone.train_budget,
+                 infer_budget=256,
+                 num_steps=num_steps, upsample_steps=upsample_steps, device=dev)
+    with torch.no_grad():
+        for a, b in zip(param_leaves(m.params), param_leaves(backbone.params)):
+            a.copy_(b)
+    m.occ = type(backbone.occ)(*(v.clone() if torch.is_tensor(v) else v for v in backbone.occ))
+    return m
+
+
+def check_launched(launches, want, tag, exact=False):
+    """Fail unless every kernel of ``want`` launched (a dict: exactly these
+    counts and no other kernel, where ``exact``)."""
+    if exact:
+        if {k: v for k, v in launches.items() if v} != want:
+            raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+        return
+    missing = [k for k in want if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} not launched ({launches})")
+
+
+def lpips_state_dict(seed):
+    """Random weights in the ``lpips.LPIPS(net='alex')`` key layout."""
+    from nerf_signature_tpu_torch.utils import lpips as t_lpips
+
+    g = torch.Generator().manual_seed(seed)
+    p = t_lpips.init_lpips_params(g)
+    sd = {}
+    for i, ci in enumerate(t_lpips._CONV_IDX):
+        sd[f"net.slice{i + 1}.{ci}.weight"] = p["convs"][i]["w"]
+        sd[f"net.slice{i + 1}.{ci}.bias"] = torch.randn(p["convs"][i]["b"].shape,
+                                                        generator=g) * 0.01
+        sd[f"lin{i}.model.1.weight"] = p["lins"][i].view(1, -1, 1, 1)
+    return sd
+
+
+def random_clip_tower(dev, seed):
+    """The port's vision-tower params at CLIP_B32's widths, random (normal,
+    std 0.02; LayerNorms at 1 and 0), and its meta."""
+    w = CLIP_B32
+    g = torch.Generator().manual_seed(seed)
+    D, F = w["width"], w["mlp"]
+
+    def n(*shape):
+        return (torch.randn(shape, generator=g) * 0.02).to(dev)
+
+    def ln():
+        return {"scale": torch.ones(D, device=dev), "bias": torch.zeros(D, device=dev)}
+
+    tokens = (w["image"] // w["patch"]) ** 2 + 1
+    params = {"class_embedding": n(D), "patch_embedding": n(D, 3, w["patch"], w["patch"]),
+              "position_embedding": n(tokens, D), "pre_ln": ln(), "post_ln": ln(),
+              "proj": n(D, w["proj"]), "layers": []}
+    for _ in range(w["layers"]):
+        layer = {"ln1": ln(), "ln2": ln(), "fc1_w": n(D, F), "fc1_b": n(F), "fc2_w": n(F, D),
+                 "fc2_b": n(D)}
+        for k in "qkvo":
+            layer[f"{k}_w"], layer[f"{k}_b"] = n(D, D), n(D)
+        params["layers"].append(layer)
+    meta = {"n_heads": w["heads"], "patch": w["patch"], "image_size": w["image"],
+            "act": "quick_gelu"}
+    return params, meta
+
+
+def step_opt(**kw):
+    from types import SimpleNamespace
+
+    opt = dict(lr=1e-2, iters=1000, num_rays=TRAIN_RAYS, max_steps=1024,
+               update_extra_interval=16, compact_frac=-1, group_budget=-1, max_ray_batch=CHUNK,
+               patch_size=1, lambda_ssim=0.0, color_space="srgb")
+    opt.update(kw)
+    return SimpleNamespace(**opt)
+
+
+def recorded_losses(trainer):
+    """Record the loss of every train step (a wrapper of train_step_data)."""
+    losses = []
+    step = trainer.train_step_data
+
+    def recorded(data):
+        out = step(data)
+        if out[0] is not None:
+            losses.append(float(out[0]))
+        return out
+
+    trainer.train_step_data = recorded
+    return losses
+
+
+def held_view():
+    """The held-out view of the train phase (seed 9) and its RGBA pixels."""
+    held = view_rays(orbit_poses(1, ORBIT_RADIUS, seed=9))
+    rgba = ball_rgba(held["rays_o"][0], held["rays_d"][0], radius=TRAIN_BALL)
+    return held, rgba
+
+
+def lpips_run(dev, backbone, workdir):
+    """--patch_size 32 with LPIPS weights through the clean per-step trainer
+    on phase 7's backbone: LPIPS_STEPS steps on 4 patches of 32 x 32 a step,
+    the LPIPS term in every step, finite losses; the LPIPS meter of an
+    evaluation (as --test runs it) on the held-out view, against the plain
+    CPU value on the same images; the device loop's refusal."""
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.train.metrics import LPIPSMeter, PSNRMeter
+    from nerf_signature_tpu_torch.train.trainer import Trainer
+    from nerf_signature_tpu_torch.utils import lpips as t_lpips
+
+    path = os.path.join(workdir, "alex.pth")
+    torch.save(lpips_state_dict(CLIP_SEED), path)
+    trainer = Trainer("ngp", step_opt(patch_size=LPIPS_PATCH, lpips_weights=path),
+                      clone_model(backbone, dev, torch.bfloat16), workspace=None,
+                      use_checkpoint="scratch")
+    if trainer._lpips_params is None:
+        raise AssertionError("lpips: the trainer resolved no weights from the file")
+    losses = recorded_losses(trainer)
+    calls = [0]
+    distance = t_lpips.lpips_distance
+
+    def counted(*a):
+        calls[0] += 1
+        return distance(*a)
+
+    loader = BallViews(TRAIN_BALL, patch_size=LPIPS_PATCH)
+    t_lpips.lpips_distance = counted
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        trainer.train(loader, None, max_epochs=LPIPS_STEPS // TRAIN_VIEWS)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = _cuda.launch_counts()
+    finally:
+        t_lpips.lpips_distance = distance
+    steps = trainer.global_step
+    losses = list(losses)
+    prof = profile_steps(trainer, loader, tag="lpips profile")
+    r = {"steps": steps, "seconds": seconds, "rays_per_s": steps * TRAIN_RAYS / seconds,
+         "loss_first": losses[0], "loss_last": losses[-1], "lpips_calls": calls[0],
+         "profile": prof, "launches": launches}
+    log(f"[lpips] {steps} steps of {TRAIN_RAYS} rays (4 patches of {LPIPS_PATCH}^2) in "
+        f"{seconds:.2f} s: {r['rays_per_s']:.0f} train rays/s; loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; the LPIPS term in {calls[0]} steps; launches {launches}")
+    if not (steps == LPIPS_STEPS and len(losses) == steps and calls[0] == steps
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"lpips: {steps} steps, {calls[0]} LPIPS terms, losses {losses}")
+    check_launched(launches, CLEAN_TRAIN, "lpips steps")
+    # ---- the meter, as --test runs it, on the card and on the CPU
+    held, rgba = held_view()
+    meter = LPIPSMeter(weights_path=path, device=dev)
+    trainer.metrics = [PSNRMeter(), meter]
+    trainer.evaluate_one_epoch([{"H": RES, "W": RES, "rays_o": held["rays_o"],
+                                 "rays_d": held["rays_d"],
+                                 "images": rgba.reshape(1, RES, RES, 4)}])
+    backup, trainer.model.params = trainer.model.params, trainer.eval_params()
+    try:
+        pred = trainer.model.render(held["rays_o"][0], held["rays_d"][0],
+                                    staged=True)["image"].float().cpu().numpy()
+    finally:
+        trainer.model.params = backup
+    gt = rgba[:, :3] * rgba[:, 3:] + (1.0 - rgba[:, 3:])
+    pred, gt = pred.reshape(1, RES, RES, 3), gt.reshape(1, RES, RES, 3)
+    on_card = t_lpips.lpips_metric(meter._params, pred, gt)
+    on_cpu = t_lpips.lpips_metric(t_lpips.load_lpips_params(path), pred, gt)
+    rel = abs(on_card - on_cpu) / max(abs(on_cpu), 1e-12)
+    r.update(meter=meter.measure(), lpips_card=on_card, lpips_cpu=on_cpu, lpips_rel=rel)
+    log(f"[lpips] the evaluation's {meter.report()}; the held-out view's LPIPS on the card "
+        f"{on_card:.6f}, on the CPU {on_cpu:.6f} (relative {rel:.2e}, limit {LPIPS_CPU_LIMIT})")
+    if not (meter.measure() is not None and math.isfinite(meter.measure())
+            and rel <= LPIPS_CPU_LIMIT):
+        raise AssertionError("lpips: the meter on the card differs from the CPU's")
+    try:
+        trainer.train_device(loader, 8, steps_per_dispatch=8)
+    except RuntimeError as e:
+        if str(e) != LPIPS_LOOP_REFUSAL:
+            raise
+        log(f"[lpips] the device loop refuses the LPIPS loss: {e}")
+    else:
+        raise AssertionError("lpips: the device loop took the LPIPS loss")
+    return r
+
+
+def clip_bundles(n, seed):
+    """n --rand_pose bundles as the provider collates them for 800 x 800 at
+    4096 rays: a 64 x 64 image of a random pose."""
+    from nerf_signature_tpu_torch.data.rays import get_rays, rand_poses
+
+    s = np.sqrt(RES * RES / TRAIN_RAYS)
+    rh = int(RES / s)
+    fl = RES / (2 * np.tan(BLENDER_ANGLE_X / 2))
+    poses = rand_poses(np.random.default_rng(seed), n, radius=ORBIT_RADIUS)
+    out = []
+    for i in range(n):
+        r = get_rays(poses[i:i + 1], np.array([fl, fl, RES / 2, RES / 2]) / s, rh, rh, -1)
+        out.append({"H": rh, "W": rh, "rays_o": r["rays_o"], "rays_d": r["rays_d"]})
+    return out
+
+
+def clip_run(dev, backbone, workdir):
+    """GT-free CLIP guidance on phase 7's backbone: a random vision tower at
+    ViT-B/32's widths and a random unit text vector injected into the clean
+    trainer (as JAX's test injects them), CLIP_STEPS steps on 64 x 64
+    --rand_pose bundles (each upsampled to 224); finite losses, nonzero hash
+    table gradients; the CLI's --clip_text refused with JAX's message (no
+    weights here, and the hub offline)."""
+    from types import SimpleNamespace
+
+    from nerf_signature_tpu_torch import main_nerf as t_main
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.train.trainer import Trainer
+
+    params, meta = random_clip_tower(dev, CLIP_SEED)
+    text = torch.randn((1, CLIP_B32["proj"]), generator=torch.Generator().manual_seed(1))
+    text = (text / text.norm()).to(dev)
+    trainer = Trainer("ngp", step_opt(), clone_model(backbone, dev, torch.bfloat16),
+                      workspace=None, use_checkpoint="scratch")
+    trainer._clip = SimpleNamespace(params=params, meta=meta, text_features=text)
+    bundles = clip_bundles(CLIP_STEPS + 16, seed=CLIP_SEED)
+    table = trainer.model.params["hash_table"]
+    losses, grads = [], []
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    for data in bundles[:CLIP_STEPS]:
+        losses.append(float(trainer.train_step_data(data)[0]))
+        grads.append(float(table.grad.abs().max()))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = _cuda.launch_counts()
+    prof = profile_steps(trainer, bundles[CLIP_STEPS:], tag="clip profile")
+    r = {"steps": CLIP_STEPS, "seconds": seconds, "image": bundles[0]["H"],
+         "rays_per_s": CLIP_STEPS * TRAIN_RAYS / seconds, "loss_first": losses[0],
+         "loss_last": losses[-1], "table_grad_max_min": min(grads), "profile": prof,
+         "launches": launches}
+    log(f"[clip] {CLIP_STEPS} GT-free steps of a {r['image']}x{r['image']} bundle in "
+        f"{seconds:.2f} s ({seconds / CLIP_STEPS * 1e3:.1f} ms a step); loss {losses[0]:.6f} "
+        f"-> {losses[-1]:.6f}; smallest max |table grad| {min(grads):.3g}; launches {launches}")
+    if not (all(math.isfinite(v) for v in losses) and min(grads) > 0):
+        raise AssertionError(f"clip: losses {losses}, table grads {grads}")
+    check_launched(launches, CLEAN_TRAIN, "clip steps")
+    try:
+        t_main.main([os.path.join(workdir, "no_scene"), "--workspace",
+                     os.path.join(workdir, "ws_clip"), "--test", "--clip_text", "a red ball"])
+    except RuntimeError as e:
+        msg = str(e)
+        if not (msg.startswith("CLIP weights unavailable (openai/clip-vit-base-patch32): ")
+                and msg.endswith("Provide a local model path via --clip_model.")):
+            raise
+        log(f"[clip] the CLI's --clip_text without weights: {msg}")
+        r["cli_error"] = msg
+    else:
+        raise AssertionError("clip: the CLI took --clip_text without weights")
+    return r
+
+
+def fixed_view(m, held, tag):
+    """One 800 x 800 view through the fixed-step path: the staged render
+    timed, its launches, and again under torch.profiler (busy ms, idle
+    share, device ms by kernel)."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    img = m.render(held["rays_o"][0], held["rays_d"][0], staged=True)["image"]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _cuda.launch_counts()
+
+    def work():
+        t = time.time()
+        m.render(held["rays_o"][0], held["rays_d"][0], staged=True)
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1e3
+
+    by_name, wall_prof = traced(work, tag)
+    r = {"wall_s": wall, "launches": {k: v for k, v in launches.items() if v}}
+    if by_name is None:
+        r.update(busy_ms=None, idle_share=None, by_kernel=None)
+    else:
+        busy = sum(by_name.values()) / 1e3
+        by_kernel = {k: sum(us for n, us in by_name.items() if pat in n) / 1e3
+                     for k, pat in FIXED_KERNELS.items()}
+        by_kernel["other"] = busy - sum(by_kernel.values())
+        r.update(busy_ms=busy, idle_share=1 - busy / wall_prof, by_kernel=by_kernel)
+    return img, r
+
+
+def fixed_runs(dev, backbone, workdir):
+    """The fixed-step path (cuda_ray off) on phase 7's backbone, in fp32 (the
+    CLI without -O: K4's SIMT route) and bf16 (--fp16), at the defaults
+    (512 samples) and at 128 + 128 (the pdf upsample): one 800 x 800 view
+    each through the kernels (K1, K4, K3 launched; no K2), the first 4096
+    rays against the plain route (>= 45 dB), the view's PSNR against the
+    grid render of the same backbone and against the analytic ball; then
+    the port's main_nerf --test without --cuda_ray on a checkpoint of the
+    backbone (11 views of 400 x 400 at the defaults, fp32)."""
+    from nerf_signature_tpu_torch import main_nerf as t_main
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.train.trainer import Trainer
+
+    held, rgba = held_view()
+    gt = torch.from_numpy(rgba[:, :3] * rgba[:, 3:] + (1.0 - rgba[:, 3:])).to(dev)
+    grid_model = clone_model(backbone, dev, torch.bfloat16)
+    img_grid = grid_model.render(held["rays_o"][0], held["rays_d"][0], staged=True)["image"]
+    out = {"grid_psnr_vs_ball": psnr(img_grid, gt)}
+    counts = {}
+    for dname, dtype in FIXED_DTYPES.items():
+        for run, (steps, up) in FIXED_RUNS.items():
+            tag = f"fixed {dname} {run}"
+            m = clone_model(backbone, dev, dtype, cuda_ray=False, num_steps=steps,
+                            upsample_steps=up)
+            img, r = fixed_view(m, held, tag)
+            n = r["launches"]
+            k4 = "K4_field" if dtype == torch.bfloat16 else "K4_field_f32"
+            chunks = math.ceil(RES * RES / CHUNK)
+            check_launched(n, {"K1_hash_encode": chunks * (2 if up else 1),
+                               k4: chunks * (2 if up else 1), "K3_composite": chunks}, tag,
+                           exact=True)
+            ro = torch.from_numpy(held["rays_o"][0, :CHUNK]).to(dev)
+            rd = torch.from_numpy(held["rays_d"][0, :CHUNK]).to(dev)
+            k, p = (m.render(ro, rd, plain=plain)["image"] for plain in (False, True))
+            r.update(kernel_vs_plain_db=psnr(k, p), kernel_vs_plain_max=float((k - p).abs().max()),
+                     psnr_vs_grid=psnr(img, img_grid), psnr_vs_ball=psnr(img, gt),
+                     samples=RES * RES * (steps + up))
+            log(f"[{tag}] 800x800 view, {steps} + {up} samples a ray: {r['wall_s']:.2f} s, "
+                f"busy {r['busy_ms']} ms (idle share {r['idle_share']}), device ms by kernel "
+                f"{r['by_kernel']}; launches {n}; kernel vs plain (4096 rays) "
+                f"{r['kernel_vs_plain_db']:.2f} dB (limit 45); PSNR vs the grid render "
+                f"{r['psnr_vs_grid']:.2f} dB, vs the ball {r['psnr_vs_ball']:.2f} dB (the grid "
+                f"render's {out['grid_psnr_vs_ball']:.2f})")
+            if not (bool(torch.isfinite(img).all()) and r["kernel_vs_plain_db"] >= 45.0):
+                raise AssertionError(f"{tag}: kernel vs plain {r['kernel_vs_plain_db']:.2f} dB")
+            out[f"{dname} {run}"] = r
+            counts[f"{dname} {run}"] = n
+            del m
+    # ---- the CLI: main_nerf --test without --cuda_ray (fp32, the defaults)
+    ws = os.path.join(workdir, "ws_fixed")
+    writer = Trainer("ngp", step_opt(), clone_model(backbone, dev, torch.bfloat16),
+                     workspace=ws, use_checkpoint="scratch", mute=True)
+    writer.save_checkpoint(full=False)
+    del writer
+    # a COLMAP-style transforms.json (half resolution): the clean provider's
+    # test path then renders 11 poses slerped between two frames, and reads
+    # no image (this machine has no cv2)
+    scene = write_scene(os.path.join(workdir, "scene_fixed"))
+    with open(os.path.join(scene, "transforms_test.json")) as f:
+        transforms = json.load(f)
+    transforms.update(h=RES // 2, w=RES // 2)
+    with open(os.path.join(scene, "transforms.json"), "w") as f:
+        json.dump(transforms, f)
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    rc = t_main.main([scene, "--workspace", ws, "--test", "--bound", "1.0", "--scale", "0.8",
+                      "--dt_gamma", "0", "--mesh_resolution", "64"])
+    torch.cuda.synchronize()
+    cli = {"rc": rc, "seconds": time.time() - t0, "launches": {
+        k: v for k, v in _cuda.launch_counts().items() if v}}
+    frames = sorted(os.listdir(os.path.join(ws, "results")))
+    log(f"[fixed cli] main_nerf --test without --cuda_ray: rc {rc}, {cli['seconds']:.2f} s, "
+        f"frames {frames}, launches {cli['launches']}")
+    if rc != 0 or len(frames) != 11:
+        raise AssertionError(f"fixed cli: {cli}")
+    check_launched(cli["launches"], ("K1_hash_encode", "K4_field_f32", "K3_composite"),
+                   "fixed cli")
+    if cli["launches"].get("K2_march", 0):
+        raise AssertionError(f"fixed cli: K2 launched without the grid: {cli}")
+    out["cli"] = cli
+    return out, counts
+
+
+def phase_lpips_clip_fixed(dev, backbone, workdir):
+    """The patch LPIPS loss and the LPIPS meter, GT-free CLIP
+    guidance, and the fixed-step renderer (cuda_ray off), each on phase 7's
+    backbone at the README recipe's widths (see lpips_run, clip_run,
+    fixed_runs)."""
+    t_phase = time.time()
+    res = {"lpips": lpips_run(dev, backbone, workdir)}
+    gc.collect()
+    res["clip"] = clip_run(dev, backbone, workdir)
+    gc.collect()
+    res["fixed"], counts = fixed_runs(dev, backbone, workdir)
+    gc.collect()
+    res["seconds"] = time.time() - t_phase
+    log(f"[lpips clip fixed] phase {res['seconds']:.1f} s")
+    return res, counts
+
+
+# each phase's wall seconds, by name (printed as it ends, and in the JSON line)
+PHASE_SECONDS = {}
+
+
+def timed(name, phase, *args, workdir=False):
+    """Run one phase (with a fresh temporary directory as its last argument
+    where ``workdir``), log and record its wall seconds, then collect the
+    garbage its trainers leave in cycles."""
+    t0 = time.time()
+    if workdir:
+        with tempfile.TemporaryDirectory() as d:
+            out = phase(*args, d)
+    else:
+        out = phase(*args)
+    PHASE_SECONDS[name] = time.time() - t0
+    log(f"[time] phase {name}: {PHASE_SECONDS[name]:.1f} s")
+    gc.collect()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible; this script runs on the card",
@@ -4282,32 +4748,25 @@ def main():
         return 1
     import nerf_signature_tpu_torch  # noqa: F401  (fails outside the repo)
 
-    gpu_line = phase_device()
+    gpu_line = timed("device", phase_device)
     dev = torch.device("cuda")
-    build_s = phase_build()
-    kernels = phase_kernels(dev)
-    train_kernels = phase_train_kernels(dev)
-    geometry, geometry_launches, geometry_stats = phase_geometry(dev)
-    with tempfile.TemporaryDirectory() as workdir:
-        launches, view = phase_serve(dev, workdir)
-    train = phase_train(dev)
+    build_s = timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels, dev)
+    train_kernels = timed("train-kernels", phase_train_kernels, dev)
+    geometry, geometry_launches, geometry_stats = timed("geometry", phase_geometry, dev)
+    launches, view = timed("serve", phase_serve, dev, workdir=True)
+    train = timed("train", phase_train, dev)
     backbone = train.pop("model")
-    with tempfile.TemporaryDirectory() as workdir:
-        wm = phase_wm(dev, backbone, workdir)
+    wm = timed("wm", phase_wm, dev, backbone, workdir=True)
     wm_state = wm.pop("trained_state")
-    gc.collect()
-    with tempfile.TemporaryDirectory() as workdir:
-        dl = phase_device_loop(dev, backbone, workdir)
-    gc.collect()
-    with tempfile.TemporaryDirectory() as workdir:
-        opts = phase_train_options(dev, backbone, dl["clean"]["psnr1"], workdir)
-    gc.collect()
-    with tempfile.TemporaryDirectory() as workdir:
-        k78 = phase_k7_k8(dev, backbone, dl["clean"], workdir)
-    gc.collect()
-    with tempfile.TemporaryDirectory() as workdir:
-        baselines = phase_baselines(dev, backbone, wm_state, workdir)
+    dl = timed("device loop", phase_device_loop, dev, backbone, workdir=True)
+    opts = timed("train options", phase_train_options, dev, backbone, dl["clean"]["psnr1"],
+                 workdir=True)
+    k78 = timed("k7 k8", phase_k7_k8, dev, backbone, dl["clean"], workdir=True)
+    baselines = timed("baselines", phase_baselines, dev, backbone, wm_state, workdir=True)
     del wm_state
+    slice15, fixed_counts = timed("lpips clip fixed", phase_lpips_clip_fixed, dev, backbone,
+                                  workdir=True)
     dl_launches = {"clean": dl["clean"].pop("launches"), "wm": dl["wm"].pop("launches")}
     rows, modelled = [], {}
     entries = [(name, name, None, None) for name in SOURCES] + [
@@ -4368,6 +4827,7 @@ def main():
                        train_plain_ms=t["plain_ms"], train_bound_ms=t["bound_ms"],
                        train_max_abs_err=t["max_abs_err"])
         row["device_loop_launches"] = {k: v[base] for k, v in dl_launches.items()}
+        row["fixed_launches"] = {k: v[base] for k, v in fixed_counts.items() if v.get(base)}
         rows.append(row)
         if "atomics_modelled" in r:
             modelled[name] = r["atomics_modelled"]
@@ -4473,6 +4933,7 @@ def main():
         "k7_k8": {k: k78[k] for k in ("k7_loop", "k7_1c_s2_loop", "wm_k7", "bg", "wm_bg")},
         "baselines": {k: baselines[k] for k in ("copyrnerf", "whole_image", "finetune_decoder",
                                                 "prewatermark", "film", "seconds")},
+        "lpips_clip_fixed": slice15, "phase_seconds": PHASE_SECONDS,
         "device_ms_from_events": len(EVENT_FALLBACKS)}, default=float))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

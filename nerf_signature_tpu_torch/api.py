@@ -9,7 +9,10 @@ On the card every chunk goes through the kernels (K2 marcher, K1 hash
 encoder, K4 field heads, K3 compositor, K9's effective table under a
 message, or under ``--copyrnerf`` K4's density logit and K10's colour-MLP
 input, and with ``bg_radius > 0`` K8's background sphere); on the CPU
-through their plain versions.  ``NGPModel`` is the clean model;
+through their plain versions.  With ``cuda_ray`` off the clean model
+renders through the fixed-step path (K1 + K4 on evenly spaced samples, K3
+with no early exit; the grid is neither updated nor marked), as JAX's does;
+the watermarked model always marches its grid.  ``NGPModel`` is the clean model;
 ``WatermarkModel`` holds a frozen ``backbone`` and the ``trainable``
 message tables (or CopyRNeRF MLP) and decoder, and renders with or without
 a message.
@@ -45,7 +48,7 @@ from .ops.grid import (
     update_occupancy_grid_,
 )
 from .ops.marching import coarse_grid, march_plan
-from .render.renderer import RenderConfig, render_rays_occ
+from .render.renderer import RenderConfig, render_rays_fixed, render_rays_occ
 from .utils.device import resolve_device
 
 
@@ -59,10 +62,7 @@ class _BaseModel:
         if device is None or torch.device(device).type == "cuda":
             check_kernel_geometry(cfg)  # before anything is built
         self.device = resolve_device(device)
-        if not cuda_ray:
-            raise NotImplementedError(
-                "the fixed-step renderer (cuda_ray off) is not ported yet; the "
-                "port renders through the occupancy grid (-O / --cuda_ray)")
+        self.use_occ = cuda_ray  # "cuda_ray" flag == occupancy-grid path
         self.rc = rc
         # renders are exact: t_cull is a train-step lever
         self.rc_eval = dataclasses.replace(rc, t_cull=0.0) if rc.t_cull else rc
@@ -108,7 +108,10 @@ class _BaseModel:
         given by a caller that counts them, so nothing is read back).  Random
         draws come from ``self.generator`` unless ``draws`` is given.  The
         grid's tensors are updated in place: a captured train step reads
-        them."""
+        them.  Without the occupancy grid (``cuda_ray`` off) it does
+        nothing, as in JAX."""
+        if not self.use_occ:
+            return
         if full is None:
             full = int(self.occ.iter_density) < 16
         update_occupancy_grid_(
@@ -119,7 +122,10 @@ class _BaseModel:
 
     @torch.no_grad()
     def mark_untrained_grid(self, poses, intrinsics):
-        """Mark cells no training camera sees as never occupied (-1)."""
+        """Mark cells no training camera sees as never occupied (-1);
+        nothing without the occupancy grid."""
+        if not self.use_occ:
+            return
         self.occ = mark_untrained_grid(
             self.occ, torch.as_tensor(np.asarray(poses, np.float32), device=self.device),
             tuple(np.asarray(intrinsics, np.float64).tolist()),
@@ -148,7 +154,10 @@ class _BaseModel:
         JAX package's staged path.  ``perturb`` jitters each ray's first
         sample with noise drawn from ``self.generator`` and marches with the
         train budget.  ``plain=True`` runs the plain versions of every kernel
-        (how the kernel path is checked on the card)."""
+        (how the kernel path is checked on the card).  The clean model with
+        ``cuda_ray`` off renders through ``render_rays_fixed`` in the same
+        chunk loop (perturbed: its jitter and upsample draws from
+        ``self.generator``; else the deterministic upsample)."""
         rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=self.device)
         rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=self.device)
         prefix = rays_o.shape[:-1]
@@ -164,22 +173,12 @@ class _BaseModel:
 
         # once per render: the gather-dtype tables, the packed MLP weights,
         # the bool grid and the prefilter's dilated coarse grid
-        rc = self.rc_eval
         field = self._render_field(message, plain)
         bg_fn = self._render_bg(plain)
-        grid = render_grid(self.occ, rc.t_cull)
-        plan = march_plan(grid.shape[0], grid.shape[1], bound=rc.bound,
-                          dt_gamma=rc.dt_gamma, max_steps=rc.max_steps,
-                          budget=budget, prefilter=rc.prefilter,
-                          group_budget=rc.group_budget or None)
-        coarse = coarse_grid(grid, plan)
-
-        def chunk(ro, rd, bg_c):
-            noise = (torch.rand((ro.shape[0],), generator=self.generator, device=self.device)
-                     if perturb else None)
-            return render_rays_occ(field, grid, ro, rd, rc, budget=budget, bg_color=bg_c,
-                                   aabb=self.aabb_infer, coarse=coarse, noise=noise,
-                                   plain=plain, bg_fn=bg_fn)
+        if self._fixed_step():
+            chunk = self._fixed_chunk(field, bg_fn, perturb, plain)
+        else:
+            chunk = self._occ_chunk(field, bg_fn, budget, perturb, plain)
 
         if staged and N > max_ray_batch:
             pad = (-N) % max_ray_batch
@@ -200,13 +199,55 @@ class _BaseModel:
         else:
             out = chunk(rays_o, rays_d, bg)
             results = {k: out[k] for k in ("image", "depth", "weights_sum")}
-            self._last_n_occupied = out["n_occupied"]
-            self._last_n_groups_occ = out["n_groups_occ"]
+            self._last_n_occupied = out.get("n_occupied")
+            self._last_n_groups_occ = out.get("n_groups_occ")
         results["image"] = results["image"].reshape(*prefix, 3)
         results["depth"] = results["depth"].reshape(*prefix)
         if "weights_sum" in results:
             results["weights_sum"] = results["weights_sum"].reshape(*prefix)
         return results
+
+    def _fixed_step(self):
+        """Whether renders take the fixed-step path (the clean model with
+        ``cuda_ray`` off; the watermarked model always marches its grid, as
+        JAX's does)."""
+        return False
+
+    def _occ_chunk(self, field, bg_fn, budget, perturb, plain):
+        rc = self.rc_eval
+        grid = render_grid(self.occ, rc.t_cull)
+        plan = march_plan(grid.shape[0], grid.shape[1], bound=rc.bound,
+                          dt_gamma=rc.dt_gamma, max_steps=rc.max_steps,
+                          budget=budget, prefilter=rc.prefilter,
+                          group_budget=rc.group_budget or None)
+        coarse = coarse_grid(grid, plan)
+
+        def chunk(ro, rd, bg_c):
+            noise = (torch.rand((ro.shape[0],), generator=self.generator, device=self.device)
+                     if perturb else None)
+            return render_rays_occ(field, grid, ro, rd, rc, budget=budget, bg_color=bg_c,
+                                   aabb=self.aabb_infer, coarse=coarse, noise=noise,
+                                   plain=plain, bg_fn=bg_fn)
+
+        return chunk
+
+    def _fixed_chunk(self, field, bg_fn, perturb, plain):
+        rc = self.rc
+
+        def chunk(ro, rd, bg_c):
+            noise = u = None
+            if perturb:
+                n = ro.shape[0]
+                noise = torch.rand((n, rc.num_steps), generator=self.generator,
+                                   device=self.device)
+                if rc.upsample_steps > 0:
+                    u = torch.rand((n, rc.upsample_steps), generator=self.generator,
+                                   device=self.device)
+            return render_rays_fixed(field, ro, rd, rc, bg_color=bg_c, noise=noise,
+                                     u_upsample=u, aabb=self.aabb_infer, plain=plain,
+                                     bg_fn=bg_fn)
+
+        return chunk
 
 
 class NGPModel(_BaseModel):
@@ -240,6 +281,9 @@ class NGPModel(_BaseModel):
 
     def _bg_tree(self):
         return self.params
+
+    def _fixed_step(self):
+        return not self.use_occ
 
 
 class WatermarkModel(_BaseModel):

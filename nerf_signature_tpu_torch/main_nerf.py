@@ -77,7 +77,7 @@ def main(argv=None):
         num_steps=opt.num_steps, upsample_steps=opt.upsample_steps,
         device=device,
     )
-    metrics = [PSNRMeter(), LPIPSMeter(weights_path=opt.lpips_weights)]
+    metrics = [PSNRMeter(), LPIPSMeter(weights_path=opt.lpips_weights, device=device)]
     if not opt.test:
         train_set = NeRFDataset(opt, type="train")
         if opt.prewatermark:

@@ -86,7 +86,8 @@ def setup(opt):
     )
     trainer = WatermarkTrainer(
         "ngp", opt, model, workspace=opt.workspace,
-        metrics=[PSNRMeter(), LPIPSMeter(weights_path=opt.lpips_weights), SSIMMeter()],
+        metrics=[PSNRMeter(), LPIPSMeter(weights_path=opt.lpips_weights, device=model.device),
+                 SSIMMeter()],
         metrics_message=[BitAccMeter()], eval_interval=opt.eval_interval,
         save_interval=opt.save_interval, use_checkpoint=opt.ckpt,
     )

@@ -1,4 +1,4 @@
-"""Evaluation metric meters: PSNR, SSIM, an inert LPIPS and the watermark's
+"""Evaluation metric meters: PSNR, SSIM, LPIPS (inert without weights) and the watermark's
 bit accuracy with its binomial p-value (numpy copies of
 ``nerf_signature_tpu/train/metrics.py``), and ``ssim_torch``, the
 differentiable SSIM of the patch guard (``--lambda_ssim``).
@@ -133,28 +133,49 @@ class SSIMMeter(_Meter):
 
 
 class LPIPSMeter(_Meter):
-    """LPIPS: explicitly inert, like the JAX package without weights --
-    ``measure()`` is None and ``report()`` says n/a.  The repo ships no LPIPS
-    weights, and the port's LPIPS network is not written yet."""
+    """LPIPS (alex) through ``utils/lpips.py`` when weights resolve (a
+    ``--lpips_weights`` / ``$LPIPS_WEIGHTS`` file or the ``lpips`` package),
+    on ``device`` (the card unless ``"cpu"``); otherwise explicitly inert,
+    like the JAX package's: ``measure()`` is None and ``report()`` says n/a.
+    A named weights file that does not exist raises."""
 
     name = "LPIPS"
 
-    def __init__(self, net="alex", weights_path=None):
+    def __init__(self, net="alex", weights_path=None, device=None):
         super().__init__()
-        self.weights_path = weights_path
+        from ..utils.device import resolve_device
+        from ..utils.lpips import load_lpips_params
+
+        params = load_lpips_params(weights_path)
+        if params is not None:  # the card is needed only when there is work for it
+            dev = resolve_device(device)
+            params = {"convs": [{k: v.to(dev) for k, v in c.items()} for c in params["convs"]],
+                      "lins": [v.to(dev) for v in params["lins"]]}
+        self._params = params
 
     @property
     def available(self):
-        return False
+        return self._params is not None
 
     def update(self, preds, truths):
-        return
+        if self._params is None:
+            return
+        from ..utils.lpips import lpips_metric
+
+        preds = np.asarray(preds, np.float32)
+        truths = np.asarray(truths, np.float32)
+        if preds.ndim == 3:
+            preds, truths = preds[None], truths[None]
+        self.V += lpips_metric(self._params, preds, truths)
+        self.N += 1
 
     def measure(self):
-        return None
+        return self.V / max(self.N, 1) if self._params is not None else None
 
     def report(self):
-        return f"{type(self).__name__} = n/a (lpips weights unavailable)"
+        if self._params is None:
+            return f"{type(self).__name__} = n/a (lpips weights unavailable)"
+        return super().report()
 
 
 class BitAccMeter(_Meter):

@@ -23,9 +23,14 @@ optimisation step only (``cfg_train``): evaluation, the test render and the
 grid updates stay exact.  With ``--bg_radius > 0`` the bg-sphere model
 (K8 and ``bg_net``) colours each ray's background and trains with the
 field: the ground truth composites over white and no random background is
-drawn.  Paths not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item: the patch LPIPS loss (its weights), ``--clip_text`` and
-``--devices > 1``.
+drawn.  ``--patch_size N`` (N >= 32) with LPIPS weights adds ``1e-3 *
+mean(LPIPS)`` over the batch's N x N patches (per step only, as in JAX).
+``--clip_text`` trains GT-free ``--rand_pose`` bundles on the CLIP guidance
+loss (``_train_step_clip``; weights through ``--clip_model``, none ship).
+Training with ``cuda_ray`` off is refused (ROADMAP queue 3: JAX's trainer
+marches an occupancy grid it never fills there); serving with it renders
+through the fixed-step path.  ``--devices > 1`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 import dataclasses
@@ -143,7 +148,7 @@ class Trainer:
         self.eval_interval = eval_interval
         self.max_keep_ckpt = max_keep_ckpt
         self.mute = mute
-        _refuse_unported(opt, model)
+        _refuse_unported(opt)
         self.cfg_train = train_cfg(model.cfg, opt)
         # the weight-free structural patch guard (shared with the watermark
         # stage): lambda_ssim * (1 - SSIM) over patch-structured batches
@@ -196,11 +201,40 @@ class Trainer:
                     self.log(f"[ckpt] {path} unreadable ({e}); falling back to previous")
         elif use_checkpoint and os.path.exists(use_checkpoint):
             self.load_checkpoint(use_checkpoint, model_only=True)
+        # the patch LPIPS loss (ref utils.py:374-377,528): weights resolved
+        # once; without them, or on patches below MIN_SIZE, one skip line
+        self._lpips_params = None
         if self.patch_size > 1:
-            self.log("[lpips] patch LPIPS loss skipped: no weights "
-                     "(set --lpips_weights or install lpips)")
+            from ..utils.lpips import MIN_SIZE, load_lpips_params
+
+            self._lpips_params = load_lpips_params(getattr(opt, "lpips_weights", None),
+                                                   model.device)
+            if self._lpips_params is None:
+                self.log("[lpips] patch LPIPS loss skipped: no weights "
+                         "(set --lpips_weights or install lpips)")
+            elif self.patch_size < MIN_SIZE:
+                self.log(f"[lpips] patch LPIPS loss skipped: patch_size "
+                         f"{self.patch_size} < {MIN_SIZE} (AlexNet stack "
+                         f"collapses)")
+                self._lpips_params = None
+            if self._lpips_params is not None:
+                self.log("[lpips] patch LPIPS loss active (1e-3, in-graph)")
         if self.lambda_ssim > 0:
             self.log(f"[ssim] patch SSIM guard active (lambda={self.lambda_ssim}, in-graph)")
+        # GT-free CLIP guidance (ref nerf/utils.py:474-489): asking for it
+        # without weights is an error, not a silent no-op
+        self._clip = None
+        clip_text = getattr(opt, "clip_text", "") or ""
+        if clip_text:
+            from ..utils.clip_loss import CLIPLoss
+
+            clip = CLIPLoss(getattr(opt, "clip_model", None) or "openai/clip-vit-base-patch32",
+                            device=model.device)
+            if not clip.available:
+                raise RuntimeError(clip.error)
+            clip.prepare_text([clip_text])
+            self._clip = clip
+            self.log(f"[clip] GT-free guidance active: {clip_text!r}")
 
     # ------------------------------------------------------------------ util
     def log(self, *args):
@@ -325,9 +359,21 @@ class Trainer:
             bg_fn=background_fn(fp, cfg))
         per_ray = torch.mean((out["image"] - gt) ** 2, dim=-1)
         loss = torch.mean(per_ray)
+        if self._lpips_params is not None:
+            from ..utils.lpips import lpips_distance
+
+            loss = loss + 1e-3 * torch.mean(lpips_distance(
+                self._lpips_params, *patches(out["image"], gt, self.patch_size)))
         if self.lambda_ssim > 0:
             loss = loss + self.lambda_ssim * (1.0 - patch_ssim(out["image"], gt,
                                                                self.patch_size))
+        self._optimize(loss)
+        return (loss.detach(), per_ray.detach(), out["n_occupied"],
+                out["n_occupied_raw"], out["n_groups_occ"])
+
+    def _optimize(self, loss):
+        """Backward, Adam at the scheduled lr, then the EMA."""
+        m = self.model
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         set_lr(self.optimizer, param_leaves(m.params)[0], self.lr_schedule,
@@ -339,8 +385,27 @@ class Trainer:
                 torch._foreach_mul_(ema, self.ema_decay)
                 torch._foreach_add_(ema, torch._foreach_mul(param_leaves(m.params),
                                                             1.0 - self.ema_decay))
-        return (loss.detach(), per_ray.detach(), out["n_occupied"],
-                out["n_occupied_raw"], out["n_groups_occ"])
+
+    def _train_step_clip(self, rays_o, rays_d, H, W, noise):
+        """One GT-free step (JAX ``_make_clip_step``): render the [H * W]
+        bundle through the grid at the train budget with march noise
+        ``noise`` [N] over white, the CLIP guidance loss of the [1, H, W]
+        image, then backward, Adam and the EMA.  The field at ``model.cfg``
+        and the grid at ``model.rc``, as JAX's step takes them.  Returns
+        the loss, detached."""
+        from ..utils.clip_loss import clip_guidance_loss
+
+        m = self.model
+        cfg, rc = m.cfg, m.rc
+        fp = field_params(m.params, cfg)
+        out = render_rays_occ(
+            lambda x, d: ngp_field(fp, cfg, x, d), render_grid(m.occ, rc.t_cull),
+            rays_o, rays_d, rc, budget=m.train_budget, bg_color=1.0, noise=noise,
+            bg_fn=background_fn(fp, cfg))
+        loss = clip_guidance_loss(self._clip.params, self._clip.meta,
+                                  self._clip.text_features, out["image"].reshape(1, H, W, 3))
+        self._optimize(loss)
+        return loss.detach()
 
     def opt_count(self):
         """Adam steps taken (optax's ``count``)."""
@@ -359,18 +424,27 @@ class Trainer:
         return bg, torch.rand((n,), generator=m.generator, device=m.device)
 
     def train_step_data(self, data):
+        m = self.model
+        if not m.use_occ:
+            raise NotImplementedError(TRAIN_WITHOUT_GRID)
+        dev = m.device
         if "images" not in data:
-            # GT-free rand_pose batch: no CLIP guidance in the port, skip it
+            # GT-free rand_pose batch: the CLIP step, or an explicit skip
+            if self._clip is not None:
+                rays_o = torch.as_tensor(np.asarray(data["rays_o"]).reshape(-1, 3), device=dev)
+                rays_d = torch.as_tensor(np.asarray(data["rays_d"]).reshape(-1, 3), device=dev)
+                noise = torch.rand((rays_o.shape[0],), generator=m.generator, device=dev)
+                loss = self._train_step_clip(rays_o, rays_d, int(data["H"]), int(data["W"]),
+                                             noise)
+                return loss, None, None, None, None
             if not getattr(self, "_warned_gt_free", False):
                 self._warned_gt_free = True
-                self.log("[train] skipping GT-free rand_pose batches: no --clip_text")
+                self.log("[train] skipping GT-free rand_pose batches: no --clip_text configured")
             return None, None, None, None, None
-        m = self.model
         images = np.asarray(data["images"]).reshape(-1, data["images"].shape[-1])
         if getattr(self.opt, "color_space", "srgb") == "linear":
             images = images.copy()
             images[..., :3] = srgb_to_linear(images[..., :3])
-        dev = m.device
         rays_o = torch.as_tensor(np.asarray(data["rays_o"]).reshape(-1, 3), device=dev)
         rays_d = torch.as_tensor(np.asarray(data["rays_d"]).reshape(-1, 3), device=dev)
         images = torch.as_tensor(np.asarray(images, np.float32), device=dev)
@@ -389,15 +463,16 @@ class Trainer:
                     and self.global_step != getattr(self, "_last_extra", -1)):
                 m.update_extra_state()
                 self._last_extra = self.global_step
+            gt_free = "images" not in data
             loss, per_ray, n_occ, n_occ_raw, n_groups = self.train_step_data(data)
-            if loss is None:
+            if loss is None:  # a GT-free batch skipped (no --clip_text)
                 continue
             if error_map is not None and "inds_coarse" in data:
                 # the EMA at the sampled cells, on the host (ref utils.py:549-556);
                 # a patch batch carries no inds_coarse and leaves the map as it is
                 update_error_map(error_map, data["index"], data["inds_coarse"],
                                  per_ray.cpu().numpy())
-            if self.global_step % update_interval == update_interval - 1:
+            if self.global_step % update_interval == update_interval - 1 and not gt_free:
                 self._adapt_budget(n_occ_raw.cpu().numpy())
                 self._adapt_compaction(float(n_occ.float().mean()))
                 self._adapt_group_budget(float(n_groups.float().mean()))
@@ -423,6 +498,16 @@ class Trainer:
         loader after every dispatch."""
         m = self.model
         max_steps = max_steps or self.opt.iters
+        if not m.use_occ:
+            raise NotImplementedError(TRAIN_WITHOUT_GRID)
+        # the loop takes the SSIM patch guard but not the LPIPS loss (JAX's
+        # message): the AlexNet stack would ride every step of the loop
+        if self._lpips_params is not None:
+            raise RuntimeError(
+                "--patch_size LPIPS loss is not supported with "
+                "--steps_per_dispatch scan training; drop "
+                "--steps_per_dispatch (per-step path) or unset the LPIPS "
+                "weights")
         em_host = getattr(loader, "error_map", None)
         if self.lambda_ssim > 0 and em_host is not None:
             raise RuntimeError(SSIM_WITH_ERROR_MAP)
@@ -476,6 +561,8 @@ class Trainer:
                      "(the torch-ngp Blender recipe uses 10) or check the scene scale.")
 
     def train(self, train_loader, valid_loader=None, max_epochs=1):
+        if not self.model.use_occ:
+            raise NotImplementedError(TRAIN_WITHOUT_GRID)
         if getattr(train_loader, "poses", None) is not None:
             self.model.mark_untrained_grid(train_loader.poses, train_loader.intrinsics)
         start = time.time()
@@ -630,13 +717,19 @@ class Trainer:
         ensure_occupancy(m, path, self.log)
 
 
-def patch_ssim(image, gt, patch_size):
-    """SSIM of the batch's leading patches: [N, 3] rays whose first
-    N // patch_size**2 * patch_size**2 are row-major patch_size**2 grids."""
+def patches(image, gt, patch_size):
+    """The batch's leading patches of [N, 3] rays whose first
+    N // patch_size**2 * patch_size**2 are row-major patch_size**2 grids:
+    (image, gt) as [n, patch_size, patch_size, 3]."""
     pp = patch_size
     n = image.shape[0] // (pp * pp)
-    return ssim_torch(image[:n * pp * pp].reshape(n, pp, pp, 3),
-                      gt[:n * pp * pp].reshape(n, pp, pp, 3))
+    return (image[:n * pp * pp].reshape(n, pp, pp, 3),
+            gt[:n * pp * pp].reshape(n, pp, pp, 3))
+
+
+def patch_ssim(image, gt, patch_size):
+    """SSIM of the batch's leading patches (``patches``)."""
+    return ssim_torch(*patches(image, gt, patch_size))
 
 
 def update_error_map(error_map, index, inds_coarse, per_ray):
@@ -667,9 +760,10 @@ def restore_occupancy(model, occ_state):
 
 def ensure_occupancy(model, path, log):
     """Best-format checkpoints drop the density grid: rebuild it from the
-    loaded density field (two full-grid passes through K1 + K4)."""
+    loaded density field (two full-grid passes through K1 + K4); nothing
+    without the occupancy grid (``cuda_ray`` off)."""
     m = model
-    if bool(m.occ.occupancy.any()):
+    if not m.use_occ or bool(m.occ.occupancy.any()):
         return
     log(f"[ckpt] {path} carries no occupancy grid (best-ckpt format "
         "drops it) — rebuilding from the density field")
@@ -698,15 +792,16 @@ def _copy_into(dst, src):
         a.copy_(b)
 
 
-def _refuse_unported(opt, model):
+TRAIN_WITHOUT_GRID = (
+    "training with cuda_ray off is refused (ROADMAP queue 3: 'training with cuda_ray off "
+    "trains nothing in the reference'): JAX's train step marches an occupancy grid that "
+    "it never updates there, so every ray renders the background and the field takes no "
+    "gradient. Train with -O / --cuda_ray; serving with cuda_ray off renders through the "
+    "fixed-step path.")
+
+
+def _refuse_unported(opt):
     """Raise on the train-path options this slice does not port."""
-    todo = []
     if getattr(opt, "devices", 0) > 1:
-        todo.append("--devices > 1 (ROADMAP: parallel/ as DDP over NCCL)")
-    if getattr(opt, "clip_text", ""):
-        todo.append("--clip_text (ROADMAP queue 1: LPIPS and CLIP weights)")
-    if getattr(opt, "patch_size", 1) > 1 and getattr(opt, "lpips_weights", None):
-        todo.append("--patch_size with LPIPS weights (ROADMAP queue 1: LPIPS and CLIP "
-                    "weights)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+        raise NotImplementedError(
+            "not ported yet: --devices > 1 (ROADMAP: parallel/ as DDP over NCCL)")

@@ -58,7 +58,7 @@ from nerf_signature_tpu_torch.train import checkpoint as t_ckpt
 from nerf_signature_tpu_torch.train import trainer as t_trainer
 from test_torch_render import H_GRID, ball_occupancy
 from test_torch_train import LEAVES, batch, draws, leaves_j, leaves_t
-from test_torch_train_ops import rel_l2
+from test_torch_train_ops import one_torch_thread, rel_l2  # noqa: F401
 
 T = torch.from_numpy
 DT = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

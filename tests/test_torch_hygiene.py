@@ -5,6 +5,7 @@
   (the port must run where JAX is not installed, and keeps its own copies).
 * No module of the port imports PIL or OpenCV at module level: the GPU
   machine has neither; the code that needs one imports it where it is used.
+  Nor ``transformers`` or ``lpips``: only their weight loaders import them.
 * Entry points run on the GPU unless asked for the CPU: with no GPU
   visible, ``NGPModel()`` and ``WatermarkModel()`` raise instead of running
   on the CPU.
@@ -69,6 +70,14 @@ def _module_level_roots(path):
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_image_library_at_module_level(path):
     bad = sorted({r for r in _module_level_roots(path) if r in ("PIL", "cv2")})
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad} at module level"
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_weights_library_at_module_level(path):
+    """``transformers`` (CLIP) and ``lpips`` are imported only inside their
+    loaders, where JAX imports them: the GPU machine need not have them."""
+    bad = sorted({r for r in _module_level_roots(path) if r in ("transformers", "lpips")})
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad} at module level"
 
 

@@ -1134,3 +1134,57 @@ def test_copyrnerf_input_kernel_matches_plain(cuda, M, D, bound):
     with pytest.raises(ValueError, match="contiguous"):
         t_k10.copyrnerf_input(torch.zeros((3, 8), device=cuda).t(), d[:8], rgb[:8], raw[:8],
                               msg, bound)
+
+
+# --------------------------------------------- the fixed-step path (cuda_ray off)
+@pytest.mark.parametrize("S", [512, 1024])
+def test_composite_kernels_at_the_fixed_path_lengths(cuda, S):
+    """K3 at the fixed path's lengths (num_steps + upsample_steps slots),
+    T_thresh 0 (no early exit) and its dense per-ray hit mask: forward
+    within 1e-5, backward within 1e-5 relative L2."""
+    N = 4096
+    g = torch.Generator().manual_seed(S)
+    sig = torch.empty((N, S)).exponential_(1 / 3.0, generator=g)
+    rgb = torch.rand((N, S, 3), generator=g)
+    dt = torch.rand((N, S), generator=g) * 4.0 / S
+    ts = torch.cumsum(dt, -1)
+    hit = torch.rand((N,), generator=g) < 0.9
+    sig, rgb, dt, ts = (v.to(cuda) for v in (sig, rgb, dt, ts))
+    mask = hit.to(cuda)[:, None].expand(N, S).contiguous()
+    k = t_comp.composite_rays(sig, rgb, dt, ts, mask=mask, T_thresh=0.0)
+    p = t_comp.composite_rays_plain(sig, rgb, dt, ts, mask=mask, T_thresh=0.0)
+    for name in k:
+        assert float((k[name] - p[name]).abs().max()) <= 1e-5, name
+    cts = [torch.randn(shape, generator=g).to(cuda) for shape in ((N,), (N,), (N, 3), (N, S))]
+    gs, gr = t_comp.composite_rays_bwd(sig, rgb, dt, ts, mask, 0.0, *cts)
+    s_, r_ = sig.clone().requires_grad_(True), rgb.clone().requires_grad_(True)
+    out = t_comp.composite_rays_plain(s_, r_, dt, ts, mask=mask, T_thresh=0.0)
+    gs_p, gr_p = torch.autograd.grad([out[n] for n in ("weights_sum", "depth", "image",
+                                                       "weights")], [s_, r_], cts)
+    assert rel_l2(gs, gs_p) <= 1e-5 and rel_l2(gr, gr_p) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fixed_path_chunk_kernels_match_plain(cuda, dtype):
+    """A 4096-ray chunk of ``NGPModel(cuda_ray=False)`` at the full widths
+    with the pdf upsample (128 + 128 samples): K1, K4 (the SIMT route in
+    fp32, the tensor cores in bf16) and K3 launch, and the image is within
+    45 dB PSNR of the plain route's (fp32 also within 1e-4)."""
+    from nerf_signature_tpu_torch.api import NGPModel
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    cfg = t_ngp.NGPConfig(compute_dtype=dtype)
+    m = NGPModel(cfg, cuda_ray=False, num_steps=128, upsample_steps=128, device=cuda)
+    m.params["hash_table"].mul_(1e4)
+    o, d = _rays(np.random.default_rng(2), 4096, 1.0)
+    _cuda.reset_launch_counts()
+    k = m.render(o, d)
+    counts = _cuda.launch_counts()
+    k4 = "K4_field" if dtype == torch.bfloat16 else "K4_field_f32"
+    assert counts["K1_hash_encode"] == 2 and counts[k4] == 2 and counts["K3_composite"] == 1
+    assert counts["K2_march"] == 0
+    p = m.render(o, d, plain=True)
+    mse = float(((k["image"] - p["image"]) ** 2).mean())
+    assert -10 * np.log10(max(mse, 1e-30)) >= 45.0
+    if dtype == torch.float32:
+        assert float((k["image"] - p["image"]).abs().max()) <= 1e-4

@@ -21,6 +21,7 @@ Tolerances and why (fp32, the CPU):
 """
 
 import os
+import sys
 import types
 
 import jax
@@ -360,7 +361,7 @@ def test_wm_loop_with_the_ssim_term_matches_jax():
 
 
 # -------------------------------------------------------------- refusals
-def test_the_combinations_jax_refuses_are_refused():
+def test_the_combinations_jax_refuses_are_refused(monkeypatch):
     jm, tm = make_models("fp32", 1.0)
     # --lambda_ssim without patches, both stages: JAX's ValueError
     for pkg, m in ((j_trainer, jm), (t_trainer, tm)):
@@ -377,10 +378,15 @@ def test_the_combinations_jax_refuses_are_refused():
                          mute=True)
         with pytest.raises(RuntimeError, match="mutually exclusive in the scan loop"):
             tr.train_device(loader, 4, steps_per_dispatch=4)
-    # LPIPS weights and CLIP text stay refused (their weights are not in the repo)
-    for kw in (dict(patch_size=4, lpips_weights="alex.pth"), dict(clip_text="a chair")):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1: LPIPS and CLIP weights"):
-            t_trainer.Trainer("ngp", _clean_opt(**kw), tm, workspace=None, mute=True)
+    # LPIPS weights that are not there, and CLIP text without transformers
+    # (the import made to fail): JAX's errors in both packages
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    for kw, err, match in ((dict(patch_size=4, lpips_weights="alex.pth"), FileNotFoundError,
+                            "does not exist"),
+                           (dict(clip_text="a chair"), RuntimeError, "CLIP weights unavailable")):
+        for pkg, m in ((j_trainer, jm), (t_trainer, tm)):
+            with pytest.raises(err, match=match):
+                pkg.Trainer("ngp", _clean_opt(**kw), m, workspace=None, mute=True)
 
 
 # ------------------------------------------------------------------- CLIs

@@ -55,7 +55,7 @@ from nerf_signature_tpu_torch.ops import marching as t_march
 from nerf_signature_tpu_torch.render import renderer as t_render
 from nerf_signature_tpu_torch.train import trainer as t_trainer
 from test_torch_render import H_GRID, make_models, view_rays
-from test_torch_train_ops import rel_l2
+from test_torch_train_ops import one_torch_thread, rel_l2  # noqa: F401
 
 T = torch.from_numpy
 BUDGET = 32
@@ -364,12 +364,19 @@ def test_adaptation_rules_match_jax():
     assert tt._rc_train().t_cull == 1e-5
 
 
-def test_trainer_refuses_unported_paths():
+def test_trainer_refuses_unported_paths(monkeypatch):
     _, tm = make_models("fp32", 1.0)
-    for kw in (dict(devices=2), dict(clip_text="a chair"),
-               dict(patch_size=4, lpips_weights="alex.pth")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_trainer.Trainer("ngp", _opt(**kw), tm, workspace=None, mute=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_trainer.Trainer("ngp", _opt(devices=2), tm, workspace=None, mute=True)
+    # LPIPS and CLIP are ported: a named weights file that does not exist,
+    # and --clip_text without transformers (the import made to fail), raise
+    # JAX's errors, not the port's refusal
+    with pytest.raises(FileNotFoundError, match="does not exist"):
+        t_trainer.Trainer("ngp", _opt(patch_size=4, lpips_weights="alex.pth"), tm,
+                          workspace=None, mute=True)
+    monkeypatch.setitem(__import__("sys").modules, "transformers", None)
+    with pytest.raises(RuntimeError, match="CLIP weights unavailable"):
+        t_trainer.Trainer("ngp", _opt(clip_text="a chair"), tm, workspace=None, mute=True)
     # --hash_fwd_corners 1 is ported (K7) and, as in JAX, needs
     # --stochastic_hash_grad on the model's config
     with pytest.raises(ValueError, match="requires --stochastic_hash_grad"):

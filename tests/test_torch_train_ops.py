@@ -43,6 +43,20 @@ def rel_l2(got, want):
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one CPU thread for a module's tests (autouse where a test
+    module imports it).  The Tier-1 run puts six workers on the machine's
+    cores, and torch's default of one OpenMP thread per core in each, which
+    spin at every op's barrier, made small-op tests up to ~50x slower: three
+    concurrent runs of ``test_torch_train.py``'s ``Trainer.train`` test took
+    370 s each with the default, 7.4 s at one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("x0", [-20.0, -15.5, 15.5, 20.0])
 def test_trunc_exp_vjp_matches_jax_beyond_the_clamp(x0):
     rng = np.random.default_rng(0)
