@@ -9,7 +9,9 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
 
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds the kernels (csrc/*.cu, sm_90a), one process a
-               source, all started together;
+               source, all started together; the tensor-core K4 kernels and
+               K4's tiled SIMT forward and feature-only backward (every
+               width) must report 0 spill bytes (ptxas -v);
   3. kernels — K1-K4 at the serving path's shapes: each kernel against its
                plain version on the same inputs (stated limits; K2 bit for
                bit with C = 1 and 2, dt_gamma 0 and 1/128, the prefilter on,
@@ -553,7 +555,47 @@ def phase_build():
     if sorted(spills) != sorted(TENSOR_CORE_SOURCES) or not all(spills.values()) or any(
             any(v) for v in spills.values()):
         raise AssertionError(f"the tensor-core kernels spill or were not reported: {spills}")
-    return info["seconds"]
+    # nor may K4's tiled SIMT kernels, at every width (field_bwd, the fp32
+    # full backward, is not held to it)
+    simt = ptxas_kernels(info["log"], SIMT_KERNELS)
+    log(f"[build] K4's tiled SIMT kernels (registers, spill stores, spill loads): "
+        f"{json.dumps(simt)}")
+    from nerf_signature_tpu_torch.ops import _cuda as c
+
+    want = {f"{src}[{','.join(map(str, w))}]" for src in SIMT_KERNELS for w in c.FIELD_WIDTHS}
+    if set(simt) != want or any(r["spill_stores"] or r["spill_loads"] for r in simt.values()):
+        raise AssertionError(f"K4's tiled SIMT kernels spill or were not reported: {simt}")
+    return info["seconds"], simt
+
+
+def ptxas_kernels(build_log, kernels):
+    """{"<source>[<width>]": {registers, spill_stores, spill_loads,
+    seconds}} of the kernel ``kernels[source]`` names, from ptxas -v's
+    report of each width's object in the build log."""
+    out = {}
+    for sec in build_log.split("== ")[1:]:
+        head = sec.split("\n", 1)[0]
+        name = head.split()[0]
+        src = name.split("[")[0]
+        if src not in kernels or "[" not in name:
+            continue
+        fn = None
+        for line in sec.splitlines():
+            mt = re.search(r"Function properties for (\S+)", line)
+            if mt:
+                fn = mt.group(1)
+                continue
+            if fn is None or kernels[src] not in fn:
+                continue
+            mt = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if mt:
+                out[name] = dict(spill_stores=int(mt.group(1)), spill_loads=int(mt.group(2)),
+                                 seconds=float(re.search(r"\(([\d.]+) s\)", head).group(1)))
+            mt = re.search(r"Used (\d+) registers", line)
+            if mt and name in out:
+                out[name]["registers"] = int(mt.group(1))
+                fn = None
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -805,21 +847,30 @@ def k4_forward(fp, cfg, feat, dirs):
         f"plain version's {steps}; density-only query equal to the colour query's: {same}")
     if not (e_rgb <= lim_rgb and e_sig <= lim_sig and e_geo <= 1.0 and same):
         raise AssertionError(f"{tag} differs from its plain version beyond its limits")
-    ms = median_ms(lambda: t_ngp.field_heads(fp, cfg, feat, dirs), 20)
+    run = lambda: t_ngp.field_heads(fp, cfg, feat, dirs)
+    ms = median_ms(run, 20)
     pms = median_ms(lambda: t_ngp.field_heads_plain(fp, cfg, fw, dirs), 5, 1)
-    lib = library_mlp_ms(fp, fw, dirs, cfg.compute_dtype)
     M = feat.shape[0]
     n_w = sum(w.numel() for w in fp["sigma_net"] + fp["color_net"])
     bms, bby = bound_of(M * (cfg.enc_dim * 4 + 12 + 4 + 12), M * 2 * n_w,
                         PEAK_BF16 if bf16 else PEAK_FP32)
-    return dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                library_ms=lib, share_not_equal=steps), (sp, rp)
+    row = dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+               share_not_equal=steps)
+    if bf16:
+        row["library_ms"] = library_mlp_ms(fp, fw, dirs, cfg.compute_dtype)
+    else:  # the SIMT kernel: device times too, its own and the fp32 chain's
+        dms = device_ms(run, 20)
+        lib, ldms = library_mlp_ms(fp, fw, dirs, cfg.compute_dtype, device=True)
+        row.update(device_ms=dms, library_ms=lib, library_device_ms=ldms)
+        log(f"[{tag}] M={M}: per call {ms:.4f} ms, device {dms:.4f} ms; library chain "
+            f"{lib:.4f} / {ldms:.4f} ms; bound {bms:.4f} ms ({bby}): {bms / dms:.1%} of it")
+    return row, (sp, rp)
 
 
-def library_mlp_ms(fp, feat, dirs, dtype=torch.bfloat16):
+def library_mlp_ms(fp, feat, dirs, dtype=torch.bfloat16, device=False):
     """The same two MLPs as a chain of torch.matmul calls in ``dtype`` (a
     yardstick, never called by the port); inputs prepared outside the timed
-    region."""
+    region.  With ``device``: (per call, device) ms."""
     from nerf_signature_tpu_torch.ops.sh import sh_encode
 
     ws = [w.to(dtype) for w in fp["sigma_net"]]
@@ -832,7 +883,7 @@ def library_mlp_ms(fp, feat, dirs, dtype=torch.bfloat16):
         c = torch.relu(torch.relu(xc @ wc[0]) @ wc[1]) @ wc[2]
         return h, c
 
-    return median_ms(run, 20)
+    return (median_ms(run, 20), device_ms(run, 20)) if device else median_ms(run, 20)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1400,15 +1451,16 @@ def k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb):
         raise AssertionError(f"{tag} differs from its plain version or from the full "
                              "backward's g_feat")
     del gf_full, gf_p
-    ms = median_ms(lambda: t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma,
-                                                      g_rgb, mma), 10)
+    run = lambda: t_ngp.field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma)
+    ms = median_ms(run, 10)
     full_ms = median_ms(lambda: t_ngp.field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma,
                                                       g_rgb, mma), 5)
     log(f"[{tag}] {ms:.4f} ms; the full backward (with the weight gradient) on the same "
         f"inputs {full_ms:.4f} ms")
     pms = median_ms(plain_bwd, 5, 1)
-    lib = median_ms(library_mlp_bwd(fp, feat[:, :cfg.enc_dim], dirs, g_sigma, g_rgb,
-                                    weights_grad=False, dtype=cfg.compute_dtype), 10)
+    lib_run = library_mlp_bwd(fp, feat[:, :cfg.enc_dim], dirs, g_sigma, g_rgb,
+                              weights_grad=False, dtype=cfg.compute_dtype)
+    lib = median_ms(lib_run, 10)
     # bound: cotangents read and g_feat written for every sample; feat and
     # dirs read, the forward and the transposed products done (4 flops a
     # weight) only for samples with a nonzero cotangent; no weight gradient
@@ -1418,8 +1470,14 @@ def k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb):
                         + flat.numel() * 4, n_hot * 4 * flat.numel(),
                         PEAK_BF16 if bf16 else PEAK_FP32)
     log(f"[{tag}] {n_hot} of {M} samples carry a nonzero cotangent")
-    return dict(max_abs_err=a4, rel_l2=e4, rel_l2_vs_full_bwd=e_full, ms=ms, plain_ms=pms,
-                bound_ms=bms, bound_by=bby, library_ms=lib, full_bwd_ms=full_ms)
+    row = dict(max_abs_err=a4, rel_l2=e4, rel_l2_vs_full_bwd=e_full, ms=ms, plain_ms=pms,
+               bound_ms=bms, bound_by=bby, library_ms=lib, full_bwd_ms=full_ms)
+    if not bf16:  # the SIMT kernel: device times too, its own and the chain's
+        dms, ldms = device_ms(run, 10), device_ms(lib_run, 10)
+        row.update(device_ms=dms, library_device_ms=ldms)
+        log(f"[{tag}] device {dms:.4f} ms; library chain {lib:.4f} / {ldms:.4f} ms; bound "
+            f"{bms:.4f} ms ({bby}): {bms / dms:.1%} of it")
+    return row
 
 
 def k4_route(counts, dtype, names, what):
@@ -4002,6 +4060,9 @@ K5_SOURCE = ("nerf_signature_tpu_torch/csrc/compact.cu",
              "nerf_signature_tpu/render/renderer.py:123")
 # the sources of the tensor-core kernels, which must build without spills
 TENSOR_CORE_SOURCES = ("field_mma.cu", "field_mma_bwd.cu", "field_mma_bwd_full.cu")
+# K4's tiled SIMT kernels, which must too, at every width: source ->
+# the kernel's name (a part of ptxas's mangled one)
+SIMT_KERNELS = {"field.cu": "field_fwd", "field_feat.cu": "field_bwd_feat"}
 
 
 # ---------------------------------------------------------------- phase 12
@@ -5344,7 +5405,7 @@ def main():
 
     gpu_line = timed("device", phase_device)
     dev = torch.device("cuda")
-    build_s = timed("build", phase_build)
+    build_s, simt_build = timed("build", phase_build)
     if sys.argv[1:] == ["--phase", "parallel"]:
         # phase 14 alone (development): its result, then the device line
         print(json.dumps({"parallel": timed("parallel", phase_parallel, dev, workdir=True),
@@ -5542,7 +5603,8 @@ def main():
     # K1's and K7's backward atomics as kernel_cases counts them from each
     # design on each row's inputs: a model, not a reading of the card
     print(json.dumps({"k1_bwd_atomics_modelled": modelled}))
-    print(json.dumps({"kernels": rows, "build_s": build_s, "view": view, "train": {
+    print(json.dumps({"kernels": rows, "build_s": build_s, "simt_build": simt_build,
+                      "view": view, "train": {
         k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1", "peak_gib",
                               "profile")},
         "geometry": geometry_stats, "wm": wm,

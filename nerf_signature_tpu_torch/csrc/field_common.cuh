@@ -1,6 +1,7 @@
 // Device helpers shared by the K4 kernels (field.cu, field_feat.cu): the
 // bf16 rounding, one dense layer, the degree-4 SH encoding, the transposed
-// product of the backward, the layer widths and the feature load.  The
+// product of the backward, the layer widths, the feature load, and the
+// tiled SIMT kernels' shared-memory plan and per-layer product.  The
 // sources that include it are compiled with -fmad=false.
 #pragma once
 
@@ -11,12 +12,13 @@
 // The widths (IN, HID, OUT1, HC) every K4 source is built for, one X(...) a
 // width: the NGPConfig defaults at 16 levels x 2 features and 8 x 4 (IN =
 // 32), at 8 x 2 (IN = 16), at 16 x 4 and 32 x 2 (IN = 64), and the narrow
-// test model (IN = 8).  The same
-// list is ops/_cuda.py:FIELD_WIDTHS.  ptxas takes minutes on each width of
-// the SIMT sources (field.cu, field_feat.cu), so ops/_cuda.py compiles them
-// once a width (-DNGP_IN=.. -DNGP_HID=.. -DNGP_OUT1=.. -DNGP_HC=..: the
-// object instantiates that width's launchers) and once without NGP_IN (the
-// C entry points, which call the launchers of every width), all in parallel.
+// test model (IN = 8).  The same list is ops/_cuda.py:FIELD_WIDTHS.  ptxas
+// takes up to two minutes on each width of field.cu (its full backward,
+// field_bwd) and half a minute on field_feat.cu's, so ops/_cuda.py compiles
+// these SIMT sources once a width (-DNGP_IN=.. -DNGP_HID=.. -DNGP_OUT1=..
+// -DNGP_HC=..: the object instantiates that width's launchers) and once
+// without NGP_IN (the C entry points, which call the launchers of every
+// width), all in parallel.
 #define NGP_FIELD_WIDTHS(X) X(32, 64, 16, 64) X(16, 64, 16, 64) X(64, 64, 16, 64) X(8, 16, 16, 16)
 
 __device__ __forceinline__ float round_to(float v, bool bf16) {
@@ -86,6 +88,216 @@ struct FieldDims {
   static constexpr int LD = (HC > HID ? (HC > OUT1 ? HC : OUT1) : (HID > OUT1 ? HID : OUT1)) + 1;
   static constexpr size_t SMEM = sizeof(float) * (2 * N_W + ACT_ROWS * T + T * LD);
 };
+
+// ------------------------------------------------------ the tiled SIMT kernels
+// field.cu:field_fwd and field_feat.cu:field_bwd_feat: a block of T threads
+// walks tiles of T samples (a persistent grid); wherever the work is per
+// sample, thread t takes sample t of the tile.  Dynamic shared memory holds
+// two activation buffers P and Q of ROWS rows of T floats ([row][sample]:
+// rows 16-byte aligned, a warp's reads of 8 consecutive float4 conflict-free),
+// then (backward only) one 64-bit ReLU mask a sample, the weights as
+// mlp_flat lays them out, and (backward only) the transposed weights the
+// input cotangents read and the queue of live samples.  The wrapper
+// computes the same bytes
+// (models/ngp.py:simt_launch) and the launcher refuses any other.
+template <int IN, int HID, int OUT1, int HC, int T, bool BWD>
+struct SimtDims {
+  static constexpr int CIN = SH_DIM + OUT1 - 1;
+  static constexpr int N_W = FieldDims<IN, HID, OUT1, HC>::N_W;
+  static constexpr int ROWS = (IN > HID ? IN : HID) > (HC > CIN ? HC : CIN)
+                                  ? (IN > HID ? IN : HID)
+                                  : (HC > CIN ? HC : CIN);
+  // the transposed Wc1, Wc0's geo rows (and a zero column for gh[0]), Ws1, Ws0
+  static constexpr int N_WT = BWD ? HC * HC + HC * OUT1 + OUT1 * HID + HID * IN : 0;
+  // (backward only) the queue of live samples, 2T indices, then 16 ints of
+  // scratch (the warps' counts of live samples, a chunk's number)
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * ROWS * T + N_W + N_WT) +
+      (BWD ? sizeof(unsigned long long) * T + sizeof(long long) * 2 * T + sizeof(int) * 16 : 0);
+  static_assert(T / 32 + 1 <= 16, "the scratch holds a count a warp and a chunk");
+  static_assert(N_W % 4 == 0 && (ROWS * T) % 4 == 0, "the weights must stay 16-byte aligned");
+};
+
+// One layer's product over a tile: out[s][n] = sum_{r < R} act[r][s] * B[r][n],
+// act in [row][sample] layout (T samples a row), B row-major with N
+// columns: the forward's W [K][N] or the backward's transposed W.  Each of
+// the T threads owns RM samples x RN outputs and keeps their sums in
+// registers; per r it loads RM activations and RN weights (16-byte shared
+// loads) and does RM x RN FMAs.  Every output starts at 0.0f and adds
+// fmaf(act, B, acc) over r ascending, the order of dense and matvec_t, so
+// the sums are theirs bit for bit.  Samples: 4 consecutive (RM = 4), or
+// those and the same 4 in the tile's second half (RM = 8); outputs: RN
+// consecutive, or 4 and the same 4 in the second half (RN = 8).  Lanes: 8
+// sample groups x 4 output groups a warp.
+template <int T, int N>
+struct MicroTile {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "product widths 8, 16, 32 or 64");
+  static constexpr int RN = N == 64 ? 8 : (N == 8 ? 2 : 4);
+  static constexpr int RM = N / RN;
+  static constexpr int NX = T / RM;  // sample groups
+  static_assert(T % 32 == 0 && NX % 8 == 0 && (N / RN) % 4 == 0 &&
+                    (NX / 8) * (N / RN / 4) * 32 == T,
+                "one thread a micro-tile");
+  int tx, ty;
+
+  __device__ __forceinline__ MicroTile() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    tx = (warp % (NX / 8)) * 8 + (lane & 7);
+    ty = (warp / (NX / 8)) * 4 + (lane >> 3);
+  }
+  // the first of 4 consecutive samples (h: which half, RM = 8)
+  __device__ __forceinline__ int sample4(int h) const { return h * (T / 2) + 4 * tx; }
+  // the i-th sample and the jj-th output of this thread
+  __device__ __forceinline__ int sample(int i) const { return sample4(i >> 2) + (i & 3); }
+  __device__ __forceinline__ int out(int jj) const {
+    return RN == 8 ? (jj >> 2) * (N / 2) + 4 * ty + (jj & 3) : RN * ty + jj;
+  }
+
+  template <int R>
+  __device__ __forceinline__ void mm(const float* __restrict__ act, const float* __restrict__ B,
+                                     float (&acc)[RM][RN]) const {
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
+    }
+    const float* a_p = act + 4 * tx;
+    const float* b_p = B + (RN == 8 ? 4 : RN) * ty;
+#pragma unroll 4
+    for (int r = 0; r < R; ++r) {
+      float a[RM], b[RN];
+#pragma unroll
+      for (int h = 0; h < RM / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(a_p + r * T + h * (T / 2));
+        a[4 * h + 0] = v.x;
+        a[4 * h + 1] = v.y;
+        a[4 * h + 2] = v.z;
+        a[4 * h + 3] = v.w;
+      }
+      if constexpr (RN == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(b_p + r * N);
+        b[0] = v.x;
+        b[1] = v.y;
+      } else {
+#pragma unroll
+        for (int h = 0; h < RN / 4; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(b_p + r * N + h * (N / 2));
+          b[4 * h + 0] = v.x;
+          b[4 * h + 1] = v.y;
+          b[4 * h + 2] = v.z;
+          b[4 * h + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+
+  // out[n][s] = f(sum, n, s) for this thread's outputs, as float4 over samples
+  template <class F>
+  __device__ __forceinline__ void store(float* dst, const float (&acc)[RM][RN],
+                                        F f) const {
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const int n = out(j);
+#pragma unroll
+      for (int h = 0; h < RM / 4; ++h) {
+        const int s = sample4(h);
+        float4* p = reinterpret_cast<float4*>(dst + n * T + s);
+        *p = make_float4(f(acc[4 * h + 0][j], n, s + 0), f(acc[4 * h + 1][j], n, s + 1),
+                         f(acc[4 * h + 2][j], n, s + 2), f(acc[4 * h + 3][j], n, s + 3));
+      }
+    }
+  }
+};
+
+// dst = f(act[0:R] x B) over the tile, each thread its micro-tile
+template <int T, int N, int R, class F>
+__device__ __forceinline__ void tile_layer(const float* act, const float* B, float* dst, F f) {
+  const MicroTile<T, N> mt;
+  float acc[MicroTile<T, N>::RM][MicroTile<T, N>::RN];
+  mt.template mm<R>(act, B, acc);
+  mt.store(dst, acc, f);
+}
+
+struct Relu {
+  __device__ __forceinline__ float operator()(float v, int, int) const { return fmaxf(v, 0.0f); }
+};
+struct Same {
+  __device__ __forceinline__ float operator()(float v, int, int) const { return v; }
+};
+
+// The tiled kernels' forward over a tile in steps, thread t taking sample m
+// (zeros where !valid); each step ends with the block synchronised.
+// feat -> P rows 0..IN-1
+template <int IN, int T>
+__device__ __forceinline__ void tile_feat(const float* __restrict__ feat, long long m, bool valid,
+                                          float* P) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < IN / 4; ++k) {
+    const float4 v = valid ? reinterpret_cast<const float4*>(feat + m * IN)[k]
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    P[(4 * k + 0) * T + t] = v.x;
+    P[(4 * k + 1) * T + t] = v.y;
+    P[(4 * k + 2) * T + t] = v.z;
+    P[(4 * k + 3) * T + t] = v.w;
+  }
+  __syncthreads();
+}
+
+// h = relu(feat Ws0) -> Q; o = h Ws1 -> P rows 15..15 + OUT1 - 1, so that
+// o[1:] (geo) lands where the colour MLP reads it, after SH4's 16 rows
+template <int IN, int HID, int OUT1, int T>
+__device__ __forceinline__ void tile_sigma_mlp(float* P, float* Q, const float* Ws0,
+                                               const float* Ws1) {
+  tile_layer<T, HID, IN>(P, Ws0, Q, Relu());
+  __syncthreads();
+  tile_layer<T, OUT1, HID>(Q, Ws1, P + (SH_DIM - 1) * T, Same());
+  __syncthreads();
+}
+
+// SH4 of sample m's direction -> P rows 0..15 (row 15 held o[0]: a thread
+// reads its own o[0] before)
+template <int T>
+__device__ __forceinline__ void tile_sh4(const float* __restrict__ dirs, long long m, bool valid,
+                                         float* P) {
+  float c[SH_DIM];
+  if (valid) {
+    sh4(dirs[m * 3 + 0], dirs[m * 3 + 1], dirs[m * 3 + 2], c);
+  } else {
+#pragma unroll
+    for (int k = 0; k < SH_DIM; ++k) c[k] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < SH_DIM; ++k) P[k * T + threadIdx.x] = c[k];
+  __syncthreads();
+}
+
+// c1 = relu(c Wc0) -> Q; c2 = relu(c1 Wc1) -> P
+template <int CIN, int HC, int T>
+__device__ __forceinline__ void tile_colour_mlp(float* P, float* Q, const float* Wc0,
+                                                const float* Wc1) {
+  tile_layer<T, HC, CIN>(P, Wc0, Q, Relu());
+  __syncthreads();
+  tile_layer<T, HC, HC>(Q, Wc1, P, Relu());
+  __syncthreads();
+}
+
+// the colour logits of thread t's sample from c2 (P), in dense's order
+template <int HC, int T>
+__device__ __forceinline__ void colour_logits(const float* P, const float* Wc2, float (&c3)[3]) {
+  c3[0] = c3[1] = c3[2] = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < HC; ++k) {
+    const float v = P[k * T + threadIdx.x];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) c3[j] = fmaf(v, Wc2[k * 3 + j], c3[j]);
+  }
+}
 
 template <int IN>
 __device__ __forceinline__ void load_feat(const float* __restrict__ feat, long long m, bool valid,

@@ -4,172 +4,264 @@
 // trunc_exp and the sigmoid) where the weights are a captured constant:
 // nerf_signature_tpu/train/trainer_wtmk.py:_wm_step_loss differentiates the
 // trainable subtree only, so the backbone's MLPs pass back the input
-// cotangent alone, g_feat [M, IN] from g_sigma and g_rgb, with JAX's bf16
-// rounding points (1) and (2) (field_mma.cuh) and no (3) when the flag
-// asks for them.
+// cotangent alone, g_feat [M, IN] from g_sigma and g_rgb.  The fp32 route
+// (bf16: the tensor cores, field_mma_bwd.cu).
 //
 // What bounds it on the H100: per sample the forward again and one
 // transposed product a layer (4 flops a weight, 37 kFLOP) on the fp32 FMA
 // units, against 284 B of inputs and outputs a sample: operations, at the
 // kernel's own roof; the bytes are the least time.
 //
-// Design: one thread per sample, no tile, no outer products, no block
-// partials and no reduce.  The weights are staged in static shared memory
-// (37 KB at the default widths, so several blocks fit on an SM, where
-// field_bwd's 189 KB allows one); the forward keeps only the ReLU masks of
-// the hidden layers (one bit a unit) in registers, since the input
-// cotangents need nothing else of the activations.  A sample whose
-// cotangents are all zero writes a zero g_feat and does no work.  The
-// products and roundings are field_bwd's (matvec_t), so g_feat equals its
-// g_feat bit for bit.  The port calls it for the fp32 route only (bf16 runs
-// on the tensor cores, field_mma_bwd.cu), but the rounding stays a runtime
-// argument: with it known at compile time ptxas hoists the weight loads,
-// and the full-width kernel spilled 34 KB (-Xptxas -v, sm_90a) and took 38
-// ms at the watermark step's shapes on an H100.  A file of its own so that
-// nvcc builds it in parallel with field.cu.
+// Design: the forward's tiling (field.cu:field_fwd, field_common.cuh:
+// MicroTile) on tiles of 256 live samples, one 256-thread block an SM (the
+// wrapper passes the count).  A block takes chunks of 256 samples from a
+// global counter (taken in turn, not by a fixed stride, they spread the
+// live samples over the blocks evenly), writes a zero g_feat for each
+// sample whose cotangents are all zero (the padded slots of rays that hit
+// little: half the watermark step's samples) and queues the others in
+// shared memory; each full queue (and the last, partial one) is a tile.  Shared memory (223,808 B at IN = 64)
+// holds the weights, the transposed weights the input cotangents read
+// (Wc1^T, Wc0's geo rows, Ws1^T, Ws0^T: each product then loads 16 bytes of
+// weights at once, as the forward does), the two activation buffers, the
+// hidden layer's ReLU mask (one 64-bit word a sample) and the queue.  Per
+// tile: the forward into P and Q (feat -> P, h -> Q with its mask saved,
+// o -> P rows 15..30 with o[0] kept per sample, SH4 -> P rows 0..15,
+// c1 -> Q, c2 -> P); per sample the colour output, the sigmoid's derivative
+// and g2 = mask(c2) * (Wc2 gc3) over c2 in place; then the transposed
+// products: g1 = mask(c1) * (Wc1 g2) over c1 in place (Q), gh[1:] =
+// Wc0[16:31] g1 into P rows 0..15 (the SH rows of Wc0 are skipped:
+// directions take no gradient), gh[0] from trunc_exp's clamped VJP per
+// sample, gh1 = mask(h) * (Ws1 gh) into Q, and g_feat = Ws0 gh1 from the
+// registers to memory.  Each sum starts at 0.0f and adds fmaf over j
+// ascending, matvec_t's order, and a sample's sums do not depend on the
+// samples it shares a tile with, so g_feat equals the one-thread-a-sample
+// kernel's bit for bit, and field_bwd's (field.cu), whose zero-cotangent
+// samples come out +0.  One thread a sample (the earlier design) held the
+// forward's and the cotangents' state in registers and spilled at every
+// width.  A file of its own so that nvcc builds it in parallel with
+// field.cu.
 
 #include <cuda_bf16.h>
+#include <limits.h>
 
 #include "common.cuh"
 #include "field_common.cuh"
 
-template <int J>
-__device__ __forceinline__ unsigned long long relu_mask(const float (&a)[J]) {
-  unsigned long long m = 0ull;
-#pragma unroll
-  for (int j = 0; j < J; ++j) m |= (a[j] > 0.0f ? 1ull : 0ull) << j;
-  return m;
-}
-
-template <int K>
-__device__ __forceinline__ void apply_mask(float (&g)[K], unsigned long long m) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) g[k] = ((m >> k) & 1ull) ? g[k] : 0.0f;
-}
+#define NGP_BWD_FEAT_T 256  // samples a tile = threads a block (models/ngp.py:SIMT_TILE)
 
 template <int IN, int HID, int OUT1, int HC>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(NGP_BWD_FEAT_T, 1)
     field_bwd_feat(const float* __restrict__ feat, const float* __restrict__ dirs,
                    const float* __restrict__ weights, const float* __restrict__ g_sigma,
                    const float* __restrict__ g_rgb, float* __restrict__ g_feat, long long M,
-                   int bf16_mode) {
-  using D = FieldDims<IN, HID, OUT1, HC>;
-  static_assert(HID <= 64 && HC <= 64, "ReLU masks are 64-bit");
-  constexpr int CIN = D::CIN, N_W = D::N_W;
-  __shared__ float w_s[N_W];
-  const bool bf16 = bf16_mode != 0;
-  for (int i = threadIdx.x; i < N_W; i += blockDim.x) w_s[i] = round_to(weights[i], bf16);
-  __syncthreads();
+                   int* __restrict__ next_chunk) {
+  constexpr int T = NGP_BWD_FEAT_T;
+  using D = SimtDims<IN, HID, OUT1, HC, T, true>;
+  using F = FieldDims<IN, HID, OUT1, HC>;
+  static_assert(HID <= 64, "the ReLU mask is 64-bit");
+  constexpr int CIN = D::CIN;
+  extern __shared__ __align__(16) float smem[];
+  float* P = smem;
+  float* Q = P + D::ROWS * T;
+  unsigned long long* mask_h = reinterpret_cast<unsigned long long*>(Q + D::ROWS * T);
+  float* w_s = reinterpret_cast<float*>(mask_h + T);
+  float* WT1 = w_s + D::N_W;        // [HC][HC]:    Wc1[k][j] at [j][k]
+  float* WT0 = WT1 + HC * HC;       // [HC][OUT1]:  Wc0[15 + jj][j] at [j][jj], jj = 0 zero
+  float* WTs1 = WT0 + HC * OUT1;    // [OUT1][HID]: Ws1[k][j] at [j][k]
+  float* WTs0 = WTs1 + OUT1 * HID;  // [HID][IN]:   Ws0[k][j] at [j][k]
   const float* Ws0 = w_s;
-  const float* Ws1 = Ws0 + D::N_S0;
-  const float* Wc0 = Ws1 + D::N_S1;
-  const float* Wc1 = Wc0 + D::N_C0;
-  const float* Wc2 = Wc1 + D::N_C1;
+  const float* Ws1 = Ws0 + F::N_S0;
+  const float* Wc0 = Ws1 + F::N_S1;
+  const float* Wc1 = Wc0 + F::N_C0;
+  const float* Wc2 = Wc1 + F::N_C1;
+  for (int i = threadIdx.x; i < D::N_W; i += T) w_s[i] = weights[i];
+  const float* gWs0 = weights;
+  const float* gWs1 = gWs0 + F::N_S0;
+  const float* gWc0 = gWs1 + F::N_S1;
+  const float* gWc1 = gWc0 + F::N_C0;
+  for (int i = threadIdx.x; i < HC * HC; i += T) WT1[i] = gWc1[(i % HC) * HC + i / HC];
+  for (int i = threadIdx.x; i < HC * OUT1; i += T) {
+    const int j = i / OUT1, jj = i % OUT1;
+    WT0[i] = jj == 0 ? 0.0f : gWc0[(SH_DIM - 1 + jj) * HC + j];
+  }
+  for (int i = threadIdx.x; i < OUT1 * HID; i += T) WTs1[i] = gWs1[(i % HID) * OUT1 + i / HID];
+  for (int i = threadIdx.x; i < HID * IN; i += T) WTs0[i] = gWs0[(i % IN) * HID + i / IN];
+  long long* queue = reinterpret_cast<long long*>(WTs0 + HID * IN);  // [2T] live samples
+  int* scratch = reinterpret_cast<int*>(queue + 2 * T);  // [T / 32] warp counts, a chunk
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int queued = 0;  // queue[0:queued], the same in every thread
+  bool scanning = true;
+  __syncthreads();
 
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  float4* out = reinterpret_cast<float4*>(g_feat + m * IN);
-  const float gs = g_sigma[m];
-  const float gr0 = g_rgb[m * 3 + 0], gr1 = g_rgb[m * 3 + 1], gr2 = g_rgb[m * 3 + 2];
-  if (gs == 0.0f && gr0 == 0.0f && gr1 == 0.0f && gr2 == 0.0f) {
+  while (true) {
+    // ---- queue the live samples of the chunks this block takes until a
+    // tile is full: a sample whose cotangents are all zero has a zero
+    // g_feat, written here
+    while (scanning && queued < T) {
+      if (t == 0) scratch[T / 32] = atomicAdd(next_chunk, 1);
+      __syncthreads();
+      const long long c0 = (long long)scratch[T / 32] * T;
+      if (c0 >= M) {
+        scanning = false;
+        break;
+      }
+      const long long m = c0 + t;
+      bool live = false;
+      if (m < M) {
+        live = g_sigma[m] != 0.0f || g_rgb[m * 3 + 0] != 0.0f || g_rgb[m * 3 + 1] != 0.0f ||
+               g_rgb[m * 3 + 2] != 0.0f;
+        if (!live) {
+          float4* out = reinterpret_cast<float4*>(g_feat + m * IN);
 #pragma unroll
-    for (int k = 0; k < IN / 4; ++k) out[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    return;
-  }
-  // ---- forward, recomputed with the forward kernel's roundings; keep masks
-  unsigned long long mask_h, mask_c1, mask_c2;
-  float h0;
-  float gc3[3];
-  {
-    float x[IN];
-    load_feat<IN>(feat, m, true, x, bf16);
-    float h[HID];
-    dense<IN, HID, true>(x, Ws0, h, bf16);
-    mask_h = relu_mask<HID>(h);
-    float o[OUT1];
-    dense<HID, OUT1, false>(h, Ws1, o, bf16);
-    h0 = o[0];
-    float c[CIN];
-    sh4(dirs[m * 3 + 0], dirs[m * 3 + 1], dirs[m * 3 + 2], c);
+          for (int k = 0; k < IN / 4; ++k) out[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) scratch[warp] = __popc(ballot);
+      __syncthreads();
+      int at = queued, total = 0;
 #pragma unroll
-    for (int j = 1; j < OUT1; ++j) c[SH_DIM + j - 1] = o[j];
-#pragma unroll
-    for (int k = 0; k < CIN; ++k) c[k] = round_to(c[k], bf16);
-    float c1[HC];
-    dense<CIN, HC, true>(c, Wc0, c1, bf16);
-    mask_c1 = relu_mask<HC>(c1);
-    float c2[HC];
-    dense<HC, HC, true>(c1, Wc1, c2, bf16);
-    mask_c2 = relu_mask<HC>(c2);
-    float c3[3];
-    dense<HC, 3, false>(c2, Wc2, c3, bf16);
-    const float gr[3] = {gr0, gr1, gr2};
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float s = 1.0f / (1.0f + expf(-c3[j]));
-      gc3[j] = round_to(gr[j] * (s * (1.0f - s)), bf16);  // (1)
+      for (int w = 0; w < T / 32; ++w) {
+        at += w < warp ? scratch[w] : 0;
+        total += scratch[w];
+      }
+      if (live) queue[at + __popc(ballot & ((1u << lane) - 1u))] = m;
+      queued += total;
+      __syncthreads();
     }
-  }
-  // ---- colour MLP, input cotangents only (2)
-  float g_in[CIN];
-  {
-    float g2[HC], g1[HC];
-    matvec_t<HC, 3>(Wc2, gc3, g2, bf16);
-    apply_mask<HC>(g2, mask_c2);
-    matvec_t<HC, HC>(Wc1, g2, g1, bf16);
-    apply_mask<HC>(g1, mask_c1);
-    matvec_t<CIN, HC>(Wc0, g1, g_in, bf16);
-  }
-  // ---- sigma MLP: trunc_exp's clamped VJP, then the two layers
-  float gh[OUT1];
-  gh[0] = round_to(gs * expf(ngp_clip(h0, -15.0f, 15.0f)), bf16);
+    if (queued == 0) break;
+    // ---- a tile of the first n queued samples, thread t taking sample t
+    const int n = queued < T ? queued : T;
+    const bool valid = t < n;
+    const long long m = valid ? queue[t] : 0;
+    const float gs = valid ? g_sigma[m] : 0.0f;
+    const float gr0 = valid ? g_rgb[m * 3 + 0] : 0.0f;
+    const float gr1 = valid ? g_rgb[m * 3 + 1] : 0.0f;
+    const float gr2 = valid ? g_rgb[m * 3 + 2] : 0.0f;
+    // ---- the forward, recomputed, with h's ReLU mask and o[0] kept
+    tile_feat<IN, T>(feat, m, valid, P);
+    tile_sigma_mlp<IN, HID, OUT1, T>(P, Q, Ws0, Ws1);
+    const float h0 = P[(SH_DIM - 1) * T + t];
+    {
+      unsigned long long mh = 0ull;
 #pragma unroll
-  for (int j = 1; j < OUT1; ++j) gh[j] = g_in[SH_DIM + j - 1];
-  float gh1[HID];
-  matvec_t<HID, OUT1>(Ws1, gh, gh1, bf16);
-  apply_mask<HID>(gh1, mask_h);
-  float gx[IN];
-  matvec_t<IN, HID>(Ws0, gh1, gx, bf16);
+      for (int k = 0; k < HID; ++k) mh |= (Q[k * T + t] > 0.0f ? 1ull : 0ull) << k;
+      mask_h[t] = mh;
+    }
+    tile_sh4<T>(dirs, m, valid, P);
+    tile_colour_mlp<CIN, HC, T>(P, Q, Wc0, Wc1);
+    // ---- per sample: the colour output's cotangent, then g2 over c2
+    {
+      float c3[3];
+      colour_logits<HC, T>(P, Wc2, c3);
+      const float gr[3] = {gr0, gr1, gr2};
+      float gc3[3];
 #pragma unroll
-  for (int k = 0; k < IN / 4; ++k)
-    out[k] = make_float4(gx[4 * k], gx[4 * k + 1], gx[4 * k + 2], gx[4 * k + 3]);
+      for (int j = 0; j < 3; ++j) {
+        const float s = 1.0f / (1.0f + expf(-c3[j]));
+        gc3[j] = gr[j] * (s * (1.0f - s));
+      }
+#pragma unroll 8
+      for (int k = 0; k < HC; ++k) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) acc = fmaf(Wc2[k * 3 + j], gc3[j], acc);
+        P[k * T + t] = P[k * T + t] > 0.0f ? acc : 0.0f;
+      }
+    }
+    __syncthreads();
+    // ---- the input cotangents, layer by layer
+    // g1 = mask(c1) * (Wc1 g2), over c1
+    tile_layer<T, HC, HC>(P, WT1, Q, [Q](float v, int n, int s) {
+      return Q[n * T + s] > 0.0f ? v : 0.0f;
+    });
+    __syncthreads();
+    tile_layer<T, OUT1, HC>(Q, WT0, P, Same());  // gh[1:] = Wc0[16:31] g1 (gh[0]: next)
+    __syncthreads();
+    P[t] = gs * expf(ngp_clip(h0, -15.0f, 15.0f));  // trunc_exp's clamped VJP
+    __syncthreads();
+    // gh1 = mask(h) * (Ws1 gh)
+    tile_layer<T, HID, OUT1>(P, WTs1, Q, [mask_h](float v, int n, int s) {
+      return (mask_h[s] >> n) & 1ull ? v : 0.0f;
+    });
+    __syncthreads();
+    {
+      using MT = MicroTile<T, IN>;  // g_feat = Ws0 gh1
+      MT mt;
+      float acc[MT::RM][MT::RN];
+      mt.template mm<HID>(Q, WTs0, acc);
+#pragma unroll
+      for (int i = 0; i < MT::RM; ++i) {
+        if (mt.sample(i) >= n) continue;
+        float* row = g_feat + queue[mt.sample(i)] * IN;
+        if constexpr (MT::RN == 2) {
+          *reinterpret_cast<float2*>(row + mt.out(0)) = make_float2(acc[i][0], acc[i][1]);
+        } else {
+#pragma unroll
+          for (int h = 0; h < MT::RN / 4; ++h)
+            *reinterpret_cast<float4*>(row + mt.out(4 * h)) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                            acc[i][4 * h + 3]);
+        }
+      }
+    }
+    // ---- dequeue the tile: the rest (fewer than T) to the front
+    __syncthreads();
+    const int rest = queued - n;
+    if (t < rest) queue[t] = queue[T + t];
+    queued = rest;
+    __syncthreads();
+  }
 }
 
 template <int IN, int HID, int OUT1, int HC>
 int launch_field_bwd_feat(const void* feat, const void* dirs, const void* weights,
                           const void* g_sigma, const void* g_rgb, void* g_feat, long long M,
-                          int bf16, cudaStream_t s) {
-  const int threads = 128;
-  field_bwd_feat<IN, HID, OUT1, HC><<<ngp_blocks(M, threads), threads, 0, s>>>(
+                          void* next_chunk, int n_blocks, long long smem, cudaStream_t s) {
+  using D = SimtDims<IN, HID, OUT1, HC, NGP_BWD_FEAT_T, true>;
+  if (smem != (long long)D::SMEM) return (int)cudaErrorInvalidValue;
+  auto kernel = field_bwd_feat<IN, HID, OUT1, HC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)D::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_blocks, NGP_BWD_FEAT_T, D::SMEM, s>>>(
       (const float*)feat, (const float*)dirs, (const float*)weights, (const float*)g_sigma,
-      (const float*)g_rgb, (float*)g_feat, M, bf16);
+      (const float*)g_rgb, (float*)g_feat, M, (int*)next_chunk);
   NGP_RETURN_LAST_ERROR();
 }
 
 #ifndef NGP_IN
 #define NGP_EXTERN(IN, HID, OUT1, HC) \
   extern template int launch_field_bwd_feat<IN, HID, OUT1, HC>(                           \
-      const void*, const void*, const void*, const void*, const void*, void*, long long, int, \
-      cudaStream_t);
+      const void*, const void*, const void*, const void*, const void*, void*, long long, void*, \
+      int, long long, cudaStream_t);
 NGP_FIELD_WIDTHS(NGP_EXTERN)
 #undef NGP_EXTERN
 
+// n_blocks >= 1 blocks of 256 threads with smem bytes of dynamic shared
+// memory each (models/ngp.py:simt_launch; any other size is refused);
+// next_chunk: one int32, 0 at the launch (the blocks take chunks from it).
 extern "C" int ngp_field_bwd_feat(const void* feat, const void* dirs, const void* weights,
                                   const void* g_sigma, const void* g_rgb, void* g_feat,
                                   long long M, int in_dim, int hidden, int out1,
-                                  int hidden_color, int bf16, void* stream) {
+                                  int hidden_color, void* next_chunk, int n_blocks,
+                                  long long smem, void* stream) {
   if (M == 0) return 0;
+  // chunk numbers (and the blocks' overshoot past the last) stay int32
+  if (n_blocks < 1 || next_chunk == nullptr ||
+      (M + NGP_BWD_FEAT_T - 1) / NGP_BWD_FEAT_T + n_blocks > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
   if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
     return launch_field_bwd_feat<IN, HID, OUT1, HC>(feat, dirs, weights, g_sigma, g_rgb,      \
-                                                    g_feat, M, bf16, s);
+                                                    g_feat, M, next_chunk, n_blocks, smem, s);
   NGP_FIELD_WIDTHS(NGP_DISPATCH)
 #undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
 #else
 template int launch_field_bwd_feat<NGP_IN, NGP_HID, NGP_OUT1, NGP_HC>(
-    const void*, const void*, const void*, const void*, const void*, void*, long long, int,
-    cudaStream_t);
+    const void*, const void*, const void*, const void*, const void*, void*, long long, void*,
+    int, long long, cudaStream_t);
 #endif  // NGP_IN

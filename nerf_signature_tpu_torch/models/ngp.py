@@ -392,6 +392,37 @@ def _mma_weights(flat, mma, widths, dev):
     return mma
 
 
+# K4's tiled SIMT kernels (fp32): samples a tile, which is also threads a
+# block, and blocks an SM of the persistent grid.  The forward
+# (csrc/field.cu:field_fwd) fits two blocks an SM, the feature-only
+# backward (csrc/field_feat.cu) one; the tiles are NGP_FWD_T and
+# NGP_BWD_FEAT_T there
+SIMT_TILE = {"fwd": 128, "bwd_feat": 256}
+SIMT_BLOCKS_PER_SM = {"fwd": 2, "bwd_feat": 1}
+
+
+def simt_launch(widths, kind, M=0, sms=1):
+    """Threads, dynamic shared-memory bytes and blocks of K4's SIMT
+    ``kind`` ("fwd" or "bwd_feat") at ``widths`` for M samples on ``sms``
+    SMs, as ``csrc/field_common.cuh:SimtDims`` lays the memory out (the
+    launcher refuses any other size): two activation buffers of
+    max(IN, HID, HC, CIN) rows of a tile's samples, the weights, and for the
+    backward its transposed weights, one 64-bit ReLU mask a sample and its
+    queue of live samples."""
+    in_dim, hidden, out1, hc = widths
+    cin = 16 + out1 - 1  # SH4 and geo
+    tile = SIMT_TILE[kind]
+    floats = 2 * max(in_dim, hidden, hc, cin) * tile + _n_weights(widths)
+    smem = 4 * floats
+    if kind == "bwd_feat":
+        # the transposed weights, the ReLU masks, the queue of live samples
+        # and 16 ints of scratch
+        smem += 4 * (hc * hc + hc * out1 + out1 * hidden + hidden * in_dim) + 8 * tile
+        smem += 8 * 2 * tile + 4 * 16
+    blocks = max(1, min(-(-M // tile), SIMT_BLOCKS_PER_SM[kind] * sms))
+    return tile, smem, blocks
+
+
 def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma=None, want_raw=False):
     in_dim, hidden, out1, hidden_c = widths
     M = feat.shape[0]
@@ -411,9 +442,10 @@ def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma=None, want_
         mma = _mma_weights(flat, mma, widths, dev)
         kernel = _cuda.FIELD_MMA_RAW if want_raw else _cuda.FIELD_MMA
         kernel(feat.data_ptr(), _cuda.ptr(dirs), mma.data_ptr(), *outs)
-    else:  # fp32: the SIMT kernel
+    else:  # fp32: the tiled SIMT kernel, a persistent grid
+        _, smem, blocks = simt_launch(widths, "fwd", M, _cuda.sm_count(dev))
         kernel = _cuda.FIELD_RAW if want_raw else _cuda.FIELD
-        kernel(feat.data_ptr(), _cuda.ptr(dirs), flat.data_ptr(), *outs)
+        kernel(feat.data_ptr(), _cuda.ptr(dirs), flat.data_ptr(), *outs, blocks, smem)
     return sigma, geo, rgb, raw
 
 
@@ -488,8 +520,11 @@ def field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None
     if _tensor_cores(cfg):
         mma = _mma_weights(flat, mma, widths, dev)
         _cuda.FIELD_BWD_FEAT_MMA(feat.data_ptr(), dirs.data_ptr(), mma.data_ptr(), *args)
-    else:  # fp32: the SIMT kernel, rounding flag 0
-        _cuda.FIELD_BWD_FEAT(feat.data_ptr(), dirs.data_ptr(), flat.data_ptr(), *args, 0)
+    else:  # fp32: the tiled SIMT kernel, a persistent grid taking chunks from a counter
+        _, smem, blocks = simt_launch(widths, "bwd_feat", M, _cuda.sm_count(dev))
+        next_chunk = torch.zeros((1,), dtype=torch.int32, device=dev)
+        _cuda.FIELD_BWD_FEAT(feat.data_ptr(), dirs.data_ptr(), flat.data_ptr(), *args,
+                             next_chunk.data_ptr(), blocks, smem)
     return g_feat
 
 

@@ -56,8 +56,9 @@ SOURCES = {
 # features and 8 x 4 (IN = 32), 8 x 2 (IN = 16), 16 x 4 and 32 x 2 (IN =
 # 64), the narrow test model
 FIELD_WIDTHS = ((32, 64, 16, 64), (16, 64, 16, 64), (64, 64, 16, 64), (8, 16, 16, 16))
-# the SIMT sources, on which ptxas takes minutes a width: compiled once a
-# width (-DNGP_IN=...) and once for their C entry points, all in parallel
+# the SIMT sources, on which ptxas takes half a minute (field_feat.cu) to two
+# minutes (field.cu's full backward) a width: compiled once a width
+# (-DNGP_IN=...) and once for their C entry points, all in parallel
 SPLIT_BY_WIDTH = ("field.cu", "field_feat.cu")
 
 _P = ctypes.c_void_p
@@ -76,10 +77,10 @@ _SIGNATURES = {
     "ngp_hash_encode_bwd_stoch": [_P, _P, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _U, _I, _P],
     "ngp_hash_encode_2d": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _P],
     "ngp_hash_encode_2d_bwd": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _U, _P],
-    "ngp_field": [_P] * 6 + [_L] + [_I] * 4 + [_P],
-    "ngp_field_raw": [_P] * 7 + [_L] + [_I] * 4 + [_P],
+    "ngp_field": [_P] * 6 + [_L] + [_I] * 5 + [_L, _P],
+    "ngp_field_raw": [_P] * 7 + [_L] + [_I] * 5 + [_L, _P],
     "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_P],
-    "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 5 + [_P],
+    "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 4 + [_P, _I, _L, _P],
     "ngp_field_mma": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     "ngp_field_mma_raw": [_P] * 7 + [_L] + [_I] * 4 + [_P],
     "ngp_field_mma_bwd_feat": [_P] * 6 + [_L] + [_I] * 4 + [_P],

@@ -39,10 +39,24 @@ versions, then per call and device ms with the L2 flushed), and
 WatermarkTrainer.train_device (1000 steps of the recipe on that backbone),
 each loop with its rays/s and one more dispatch profiled (wall and busy ms a
 step, K5 pack's device ms a step).  ``--sections`` picks among ``kernels``
-(everything before the rates), ``steps`` (the per-step rates) and ``loops``;
-all three by default.  Prints one JSON line (also to ``--out``).  Run each
-tree in its own process, in turns (parent, change, change, parent), all in
-one call to the card.
+(everything before the rates), ``steps`` (the per-step rates), ``loops`` and
+``k4`` (K4's fp32 SIMT kernels alone, below); the first three by default.
+Prints one JSON line (also to ``--out``).  Run each tree in its own
+process, in turns (parent, change, change, parent), all in one call to the
+card.
+
+``k4``: K4's fp32 forward on the serving chunk and its fp32 feature-only
+backward at the watermark step's samples, at 16 x 2, 8 x 2 (encoding width
+16), 16 x 4 (64) and 12 x 2 (24, run at 32), through ``chip_smoke.py``'s
+``k4_forward`` and ``k4_bwd_feat`` (each against its plain version; per
+call and device ms, the fp32 ``torch.matmul`` chain's, the bound), with a
+hash of every output (sigma, geo, rgb, the logit, the density-only query's
+sigma and geo; g_feat).  Then
+
+    python3 scripts_port/kernel_ab.py --compare A.json B.json ...
+
+prints, for each kernel row, every file's device ms and whether all the
+files' outputs are bit-equal.
 
 Where the tree's ``composite.cu`` has the serial chain of 32 shuffles (the
 cumulative sum of tau in slot order), each K3 row also has a ``K3_scan``
@@ -54,6 +68,7 @@ timed, never used).  The gap between the two is what the chain costs.
 import argparse
 import ctypes
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import os
@@ -146,7 +161,90 @@ def loops(out, dev, cs):
             k5_launches={k: v for k, v in w["launches"].items() if k.startswith("K5")})
 
 
+# the table geometries of the k4 section: (levels, features)
+K4_GEOMETRIES = {"16x2": (16, 2), "8x2": (8, 2), "16x4": (16, 4), "12x2": (12, 2)}
+
+
+def digest(t):
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def k4_simt(out, dev, cs):
+    """K4's fp32 SIMT forward and feature-only backward at K4_GEOMETRIES,
+    their rows and the hashes of their outputs, into ``out``."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+    from nerf_signature_tpu_torch.ops import marching as t_march
+    from nerf_signature_tpu_torch.render.renderer import default_aabb
+
+    for geo, (L, F) in K4_GEOMETRIES.items():
+        m = cs.make_model(dev, levels=L, features=F)
+        cfg = dataclasses.replace(m.cfg, compute_dtype=torch.float32)
+        fp = t_ngp.field_params(m.params, cfg)
+        pitch = t_ngp.feature_pitch(cfg)
+        ro, rd, _ = cs.serve_chunk(dev)
+        mk = t_march.march_rays_aabb(ro, rd, default_aabb(m.rc), m.occ.occupancy,
+                                     **cs.march_kwargs(m, None))
+        x01 = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+        dirs = mk["dirs"].reshape(-1, 3).contiguous()
+        feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions, cfg.log2_hashmap_size,
+                                  table_g=fp["hash_table_g"], pitch=pitch)
+        row, _ = cs.k4_forward(fp, cfg, feat, dirs)
+        s, g, r, raw = t_ngp.field_heads(fp, cfg, feat, dirs, want_geo=True, want_raw=True)
+        sd, gd, _ = t_ngp.field_heads(fp, cfg, feat, None, want_geo=True)
+        row.update(samples=feat.shape[0], sha={k: digest(v) for k, v in (
+            ("sigma", s), ("geo", g), ("rgb", r), ("raw", raw), ("density_sigma", sd),
+            ("density_geo", gd))})
+        out[f"K4_f32_{geo}"] = row
+        del m, mk, x01, dirs, feat, s, g, r, raw, sd, gd
+        mw = cs.make_wm_model(dev, levels=L, features=F)
+        x = cs.wm_step_inputs(dev)
+        fpw = t_ngp.field_params(mw.backbone, cfg)
+        mk = t_march.march_rays_aabb(
+            torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]]),
+            torch.cat([x["rd_b"].reshape(-1, 3), x["ct_d"]]), default_aabb(mw.rc),
+            mw.occ.occupancy, min_near=0.2, bound=1.0, max_steps=1024, budget=256)
+        live = mk["mask"].reshape(-1).float()
+        x01 = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+        dirs = mk["dirs"].reshape(-1, 3).contiguous()
+        with torch.no_grad():
+            feat = t_hash.hash_encode(x01, fpw["hash_table"], cfg.resolutions,
+                                      cfg.log2_hashmap_size, table_g=fpw["hash_table_g"],
+                                      pitch=pitch)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
+        g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
+        row = cs.k4_bwd_feat(fpw, cfg, feat, dirs, g_sigma, g_rgb)
+        w = t_ngp._kernel_widths(fpw, cfg)
+        gf = t_ngp.field_heads_bwd_feat(cfg, w, feat, dirs, fpw["mlp_flat"], g_sigma, g_rgb)
+        row.update(samples=feat.shape[0], sha={"g_feat": digest(gf)})
+        out[f"K4_bwd_feat_f32_{geo}"] = row
+        del mw, x, fpw, mk, live, x01, dirs, feat, g_sigma, g_rgb, gf
+
+
+def compare(paths):
+    """Each kernel row of the k4 section in every file: device ms, and
+    whether the files' outputs are bit-equal."""
+    runs = []
+    for path in paths:
+        with open(path) as f:
+            runs.append(json.loads(f.read().strip().splitlines()[-1]))
+    rows = {}
+    for name, row in runs[0].items():
+        if not (isinstance(row, dict) and "sha" in row):
+            continue
+        rows[name] = {"device_ms": [r[name]["device_ms"] for r in runs],
+                      "ms": [r[name]["ms"] for r in runs],
+                      "library_device_ms": [r[name]["library_device_ms"] for r in runs],
+                      "bound_ms": row["bound_ms"],
+                      "bit_equal": all(r[name]["sha"] == row["sha"] for r in runs)}
+    return {"files": paths, "gpu": [r.get("gpu") for r in runs], "rows": rows}
+
+
 def main():
+    if sys.argv[1:2] == ["--compare"]:
+        print(json.dumps(compare(sys.argv[2:])))
+        return 0
     ap = argparse.ArgumentParser()
     ap.add_argument("tree")
     ap.add_argument("--out")
@@ -348,6 +446,8 @@ def main():
         del r, w, tr
     if "loops" in sections:
         loops(out, dev, cs)
+    if "k4" in sections:
+        k4_simt(out, dev, cs)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

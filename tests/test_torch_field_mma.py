@@ -212,6 +212,7 @@ def test_route_follows_the_dtype(monkeypatch, dtype):
     for name in ("FIELD", "FIELD_MMA", "FIELD_BWD_FEAT", "FIELD_BWD_FEAT_MMA"):
         monkeypatch.setattr(_cuda, name, lambda *a, _n=name: calls.append((_n, a)))
     monkeypatch.setattr(_cuda, "check", lambda *a, **kw: None)
+    monkeypatch.setattr(_cuda, "sm_count", lambda dev: 132)
     cfg = _cfg("narrow", dtype)
     fp = t_ngp.field_params(_params("narrow"), cfg)
     widths = t_ngp._kernel_widths(fp, cfg)
@@ -228,7 +229,10 @@ def test_route_follows_the_dtype(monkeypatch, dtype):
     else:
         assert names == ["FIELD", "FIELD_BWD_FEAT"]
         assert calls[0][1][2] == fp["mlp_flat"].data_ptr()  # fp32 weights, unpacked
-        assert calls[1][1][-1] == 0  # no rounding
+        # the persistent grids' blocks and shared bytes, as simt_launch plans them
+        for (_, a), kind in zip(calls, ("fwd", "bwd_feat")):
+            _, smem, blocks = t_ngp.simt_launch(widths, kind, M, 132)
+            assert a[-2:] == (blocks, smem) and blocks == 1
 
 
 def _n_pack(widths):

@@ -20,10 +20,14 @@ bit (the same adds in bit order, the same bf16 rounding) and its backward
 exactly (a copy); the feature-only K4 backward equals the full one's g_feat
 bit for bit (fp32: the same SIMT products; bf16: the same tensor-core
 chain); the full K4 backward's weight gradient is deterministic (bit-equal
-repeats); P1 equals ``table[idx]`` for any N and unaligned views.  K1 is
-also held at rows of 1 and 8 features, at a padded output pitch (the
-columns past L*F exactly 0; the backward reads the same pitch) and on its
-backward's edges (M = 0, all-zero cotangents, one level of 2^19 rows, the
+repeats); K4's tiled fp32 forward and feature-only backward at every built
+width at 1, a tile less one, a tile and one, and 4097 samples (the forward
+with and without dirs, geo and the logit, each launch's outputs bit-equal
+to the full one's; the backward on chunks that mix live samples with
+all-zero cotangents and on all-zero chunks, which write 0); P1 equals
+``table[idx]`` for any N and unaligned views.  K1 is also held at rows of
+1 and 8 features, at a padded output pitch (the columns past L*F exactly 0;
+the backward reads the same pitch) and on its backward's edges (M = 0, all-zero cotangents, one level of 2^19 rows, the
 shared table); K4 at encoding widths 24 and 48 (run at 32 and 64); K9's
 backward at any T * F and more than 32 bits.  K3 is
 also held at its warp walk's edges (S not a multiple of the 32-slot chunk,
@@ -407,6 +411,86 @@ def test_field_bwd_feat_kernel_matches_plain(cuda, dtype, widths):
     sp, _, rp = t_ngp.field_heads_plain(fp, cfg, fp_[:, :cfg.enc_dim], d)
     torch.autograd.backward([sp, rp], [g_sigma, g_rgb])
     assert rel_l2(only, fp_.grad) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+# K4's tiled SIMT kernels (fp32) at every built width, at sample counts
+# around their tiles (models/ngp.py:SIMT_TILE): one sample, a tile less one
+# and plus one, and 4097
+SIMT_WIDTHS = ["full", "8x2", "16x4", "narrow"]
+RAGGED = {"1": lambda T: 1, "T-1": lambda T: T - 1, "T+1": lambda T: T + 1,
+          "4097": lambda T: 4097}
+
+
+def _simt_case(cuda, widths, M, seed):
+    cfg = t_ngp.NGPConfig(compute_dtype=torch.float32, **WIDTHS[widths])
+    params = t_ngp.init_ngp_params(torch.Generator().manual_seed(seed), cfg, cuda)
+    params["hash_table"].mul_(1e4)
+    fp = t_ngp.field_params(params, cfg)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = (torch.rand((M, 3), generator=g) * 2 - 1).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn((M, 3), generator=g), dim=-1).to(cuda)
+    with torch.no_grad():
+        feat = t_ngp._encode_pos(fp, cfg, x)
+    return cfg, fp, feat, d, g
+
+
+@pytest.mark.parametrize("case", list(RAGGED))
+@pytest.mark.parametrize("widths", SIMT_WIDTHS)
+def test_field_simt_forward_ragged(cuda, widths, case):
+    """The tiled fp32 forward with dirs, geo and the logit against its
+    plain version (1e-5); without geo and the logit, and the density-only
+    query (no dirs), bit-equal to that launch's sigma, geo and rgb."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    M = RAGGED[case](t_ngp.SIMT_TILE["fwd"])
+    cfg, fp, feat, d, _ = _simt_case(cuda, widths, M, 20)
+    _cuda.reset_launch_counts()
+    s, geo, rgb, raw = t_ngp.field_heads(fp, cfg, feat, d, want_geo=True, want_raw=True)
+    assert _cuda.launch_counts()["K4_field_raw_f32"] == 1
+    sp, gp, rp, rawp = t_ngp.field_heads_plain(fp, cfg, feat[:, :cfg.enc_dim], d, want_raw=True)
+    for a, b in ((s, sp), (geo, gp), (rgb, rp), (raw, rawp)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    s1, g1, r1 = t_ngp.field_heads(fp, cfg, feat, d)
+    assert g1 is None and torch.equal(s1, s) and torch.equal(r1, rgb)
+    s2, g2, r2 = t_ngp.field_heads(fp, cfg, feat, None, want_geo=True)
+    assert r2 is None and torch.equal(s2, s) and torch.equal(g2, geo)
+    s3, g3, r3 = t_ngp.field_heads(fp, cfg, feat, None)
+    assert g3 is None and r3 is None and torch.equal(s3, s)
+    assert _cuda.launch_counts()["K4_field_f32"] == 3
+
+
+@pytest.mark.parametrize("case", list(RAGGED))
+@pytest.mark.parametrize("widths", SIMT_WIDTHS)
+def test_field_simt_bwd_feat_ragged_and_zero_tiles(cuda, widths, case):
+    """The tiled feature-only backward: the first chunk of a tile's
+    samples mixes live samples with all-zero cotangents, the second (or
+    the ragged one sample past the first) is all zero; g_feat bit-equal to
+    the full backward's, exactly 0 where the cotangents are, within 1e-5
+    relative L2 of autograd through the plain version; all cotangents
+    zero: g_feat all 0."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    T = t_ngp.SIMT_TILE["bwd_feat"]
+    M = RAGGED[case](T)
+    cfg, fp, feat, d, g = _simt_case(cuda, widths, M, 22)
+    g_sigma = (torch.randn(M, generator=g) * 1e-3).to(cuda)
+    g_rgb = (torch.randn((M, 3), generator=g) * 1e-3).to(cuda)
+    i = torch.arange(M, device=cuda)
+    dead = (i % 3 == 1) | ((i >= T) & (i < 2 * T))
+    g_sigma[dead], g_rgb[dead] = 0.0, 0.0
+    w = t_ngp._kernel_widths(fp, cfg)
+    _cuda.reset_launch_counts()
+    only = t_ngp.field_heads_bwd_feat(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb)
+    assert _cuda.launch_counts()["K4_field_bwd_feat_f32"] == 1
+    full = t_ngp.field_heads_bwd(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb)[0]
+    assert torch.equal(only, full)
+    assert not bool(only[dead].any())
+    f = feat.clone().requires_grad_(True)
+    sp, _, rp = t_ngp.field_heads_plain(fp, cfg, f[:, :cfg.enc_dim], d)
+    torch.autograd.backward([sp, rp], [g_sigma, g_rgb])
+    assert rel_l2(only, f.grad) <= 1e-5
+    zero = t_ngp.field_heads_bwd_feat(cfg, w, feat, d, fp["mlp_flat"], g_sigma * 0, g_rgb * 0)
+    assert not bool(zero.any())
 
 
 def test_table_gather_kernel_matches_plain(cuda):
