@@ -10,8 +10,8 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds the kernels (csrc/*.cu, sm_90a), one process a
                source, all started together; the tensor-core K4 kernels and
-               K4's tiled SIMT forward and feature-only backward (every
-               width) must report 0 spill bytes (ptxas -v);
+               K4's tiled SIMT forward, feature-only and full backward
+               (every width) must report 0 spill bytes (ptxas -v);
   3. kernels — K1-K4 at the serving path's shapes: each kernel against its
                plain version on the same inputs (stated limits; K2 bit for
                bit with C = 1 and 2, dt_gamma 0 and 1/128, the prefilter on,
@@ -36,7 +36,9 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                backward, each with bit-equal repeats and its device time),
                K3's forward at this shape too; then one whole train step
                (loss and per-leaf gradients) through the kernels against
-               one through the plain versions, in bf16 and in fp32; then at
+               one through the plain versions, in bf16 and in fp32 (the fp32
+               step once more under torch.profiler: K4's full backward's
+               device ms and launches in it, its live samples); then at
                the watermark step's shapes (32 key blocks of 12x12 and 4096
                content rays, budget 256): K9 forward (bit-exact) and
                backward (exact), K1's backward into the message's
@@ -187,7 +189,8 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                first 16's) and 64 through train_device (K = 64), K10
                (csrc/copyrnerf.cu) and K4's density-logit route on both
                dtypes against their plain versions on a step's own samples
-               (times, device times, bounds), no launch of K9 or of K1's or
+               (times, device times, bounds; K10 also inside an eager step
+               and the profiled dispatch), no launch of K9 or of K1's or
                K4's backward; --whole_image_wm the same (64 + 64);
                --finetune_decoder from phase 8's watermarked model, 64
                looped steps in dispatches of 16 (the message tables
@@ -555,8 +558,7 @@ def phase_build():
     if sorted(spills) != sorted(TENSOR_CORE_SOURCES) or not all(spills.values()) or any(
             any(v) for v in spills.values()):
         raise AssertionError(f"the tensor-core kernels spill or were not reported: {spills}")
-    # nor may K4's tiled SIMT kernels, at every width (field_bwd, the fp32
-    # full backward, is not held to it)
+    # nor may K4's tiled SIMT kernels, at every width
     simt = ptxas_kernels(info["log"], SIMT_KERNELS)
     log(f"[build] K4's tiled SIMT kernels (registers, spill stores, spill loads): "
         f"{json.dumps(simt)}")
@@ -1105,7 +1107,9 @@ def phase_train_kernels(dev):
 
     # ---- one whole train step through the kernels and through the plain
     # versions, in bf16 and fp32
-    fp32_counts = {"train step": clean_steps(dev, ro, rd, bg, noise)["float32"]}
+    in_step = {}
+    fp32_counts = {"train step": clean_steps(dev, ro, rd, bg, noise, in_step=in_step)["float32"]}
+    results["K4_field_bwd_f32"]["in_step"] = in_step
     wm_kernels(dev, results, fp32_counts)
     results["K4_field_bwd_feat_f32"]["fp32_step_launches"] = fp32_counts
     for name, r in results.items():
@@ -1114,14 +1118,16 @@ def phase_train_kernels(dev):
     return results
 
 
-def clean_steps(dev, ro, rd, bg, noise, levels=16, features=2):
+def clean_steps(dev, ro, rd, bg, noise, levels=16, features=2, in_step=None):
     """One whole train step through the kernels against one through the
     plain versions, in bf16 and in fp32, at a table geometry (``levels`` x
     ``features``).  K2 is bit-exact and K3/K1 differ by fp32 sum order, so
     what is left is K4's bf16 roundings of sums taken in another order than
     cuBLAS's.  The limits are a few times the readings on an H100 (loss
     7.0e-8 relative; per-leaf rel L2 2.6e-4 in bf16, 8.1e-7 in fp32).  Fails
-    unless K4 ran on the dtype's route alone; returns each dtype's launches."""
+    unless K4 ran on the dtype's route alone; returns each dtype's launches.
+    With ``in_step`` (a dict) the fp32 step runs once more under
+    torch.profiler (``k4_bwd_in_step``), into it."""
     from nerf_signature_tpu_torch.ops import _cuda
 
     counts = {}
@@ -1142,8 +1148,51 @@ def clean_steps(dev, ro, rd, bg, noise, levels=16, features=2):
         if not (el <= lim_loss and worst <= lim_rel):
             raise AssertionError(f"train step through the kernels differs from the plain "
                                  f"one ({levels} x {features}, {str(dtype)})")
+        if in_step is not None and dtype == torch.float32:
+            in_step.update(k4_bwd_in_step(mt, ro, rd, bg, noise))
         del mt
     return counts
+
+
+def k4_bwd_in_step(mt, ro, rd, bg, noise):
+    """K4's fp32 full backward inside one fp32 clean step through the
+    kernels (``train_step_grads``) under torch.profiler: its device ms in
+    the step (field_bwd and its block-order reduce), its launches in the
+    step, and how many of the call's samples carry a cotangent (its own
+    inputs, recorded)."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    calls = []
+    full = t_ngp.field_heads_bwd
+
+    def recorded(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None):
+        calls.append(((g_sigma != 0) | (g_rgb != 0).any(-1)))
+        return full(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma)
+
+    t_ngp.field_heads_bwd = recorded
+    try:
+        _cuda.reset_launch_counts()
+        by_name, _ = traced(lambda: train_step_grads(mt, ro, rd, bg, noise, False),
+                            "fp32 clean step")
+        launches = _cuda.launch_counts()["K4_field_bwd_f32"]
+    finally:
+        t_ngp.field_heads_bwd = full
+    if by_name is None:
+        raise AssertionError("fp32 clean step: no trace held device events")
+    kern = sum(us for n, us in by_name.items() if "field_bwd<" in n) / 1e3
+    red = sum(us for n, us in by_name.items() if "wgrad_reduce" in n) / 1e3
+    busy = sum(by_name.values()) / 1e3
+    samples = [int(c.numel()) for c in calls]
+    live = [int(c.sum()) for c in calls]
+    log(f"[K4 bwd f32 in step] one fp32 clean step: {launches} launch(es); device "
+        f"{kern + red:.4f} ms (field_bwd {kern:.4f} + reduce {red:.4f}) of the step's "
+        f"{busy:.4f} busy ms; {live} of {samples} samples carry a nonzero cotangent")
+    if launches != 1 or len(calls) != 1 or kern <= 0.0:
+        raise AssertionError(f"fp32 clean step: K4's full backward launched {launches} times, "
+                             f"traced {kern} ms")
+    return {"device_ms": kern + red, "kernel_ms": kern, "reduce_ms": red, "launches": launches,
+            "step_busy_ms": busy, "samples": samples[0], "live_samples": live[0]}
 
 
 def wm_steps(dev, x, levels=16, features=2):
@@ -3204,11 +3253,12 @@ def k6_bytes(m, full):
     return cells * (4 + 4) * 2 + cells + draws + params
 
 
-def profile_dispatch(run, n, tag, compacting):
+def profile_dispatch(run, n, tag, compacting, match=()):
     """torch.profiler over one more dispatch of n steps: wall and device busy
-    ms a step and the idle share (as profile_steps reads them), and the
-    device ms a step of K5's pack kernels and of memsets (the pack's reset
-    of its scratch among them)."""
+    ms a step and the idle share (as profile_steps reads them), the device
+    ms a step of K5's pack kernels and of memsets (the pack's reset of its
+    scratch among them), and of the device work whose names hold each
+    string of ``match``."""
     def work():
         t0 = time.time()
         run()
@@ -3232,7 +3282,9 @@ def profile_dispatch(run, n, tag, compacting):
         f"{memset_us / n / 1e3:.4f}")
     return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
             "idle_share": 1 - busy_us / wall_us, "k5_pack_ms": pack_us / n / 1e3,
-            "memset_ms": memset_us / n / 1e3}
+            "memset_ms": memset_us / n / 1e3,
+            "matched_ms": {pat: sum(us for name, us in by_name.items() if pat in name) / n / 1e3
+                           for pat in match}}
 
 
 def phase_device_loop(dev, backbone_model, workdir):
@@ -3986,7 +4038,7 @@ SOURCES = {
                          "nerf_signature_tpu/ops/composite.py:25"),
     "K4_field_bwd": ("nerf_signature_tpu_torch/csrc/field_mma_bwd_full.cu",
                      "nerf_signature_tpu/models/mlp.py:30"),
-    "K4_field_bwd_f32": ("nerf_signature_tpu_torch/csrc/field.cu",
+    "K4_field_bwd_f32": ("nerf_signature_tpu_torch/csrc/field_bwd.cu",
                          "nerf_signature_tpu/models/mlp.py:30"),
     "K4_field_bwd_feat": ("nerf_signature_tpu_torch/csrc/field_mma_bwd.cu",
                           "nerf_signature_tpu/models/mlp.py:30"),
@@ -4062,7 +4114,8 @@ K5_SOURCE = ("nerf_signature_tpu_torch/csrc/compact.cu",
 TENSOR_CORE_SOURCES = ("field_mma.cu", "field_mma_bwd.cu", "field_mma_bwd_full.cu")
 # K4's tiled SIMT kernels, which must too, at every width: source ->
 # the kernel's name (a part of ptxas's mangled one)
-SIMT_KERNELS = {"field.cu": "field_fwd", "field_feat.cu": "field_bwd_feat"}
+SIMT_KERNELS = {"field.cu": "field_fwd", "field_feat.cu": "field_bwd_feat",
+                "field_bwd.cu": "field_bwd"}
 
 
 # ---------------------------------------------------------------- phase 12
@@ -4137,17 +4190,56 @@ def k10_row(args):
         f"rgb/raw/message bit-equal: {exact}")
     if not (err <= 1e-6 and exact and bool(torch.isfinite(k).all())):
         raise AssertionError("K10 differs from its plain version beyond its limits")
-    ms = median_ms(lambda: t_k10.copyrnerf_input(x, d, rgb, raw, msg, bound), 20)
-    dms = device_ms(lambda: t_k10.copyrnerf_input(x, d, rgb, raw, msg, bound), cold=True)
+    run = lambda: t_k10.copyrnerf_input(x, d, rgb, raw, msg, bound)
+    ms = median_ms(run, 20)
+    # device time from CUDA events over back-to-back calls: at the recipe's
+    # step a trace of these calls (device_ms, cold) has held a half or a
+    # tenth of their events, from one run to the next; the traced reading
+    # stays beside it as the record of that fault (the output's 725 MB
+    # leave nothing of a call in the L2 for the next)
+    dms, dtr = events_ms(run, 10), device_ms(run, cold=True)
     pms = median_ms(lambda: t_k10.copyrnerf_input_plain(x, d, rgb, raw, msg, bound), 10)
     pdms = device_ms(lambda: t_k10.copyrnerf_input_plain(x, d, rgb, raw, msg, bound), cold=True)
     # a sample reads x, d, rgb and raw and writes 88 + D floats; its ops: x01
     # and 2 x01 - 1 (12), 84 products and 84 sines or cosines (one op each)
     bms, bby = bound_of(M * (40 + (88 + D) * 4) + D * 4, M * (12 + 84 + 84), PEAK_FP32)
-    log(f"[K10] {ms:.4f} ms ({dms:.4f} device), plain {pms:.4f} ms ({pdms:.4f} device), "
-        f"bound {bms:.4f} ms ({bby})")
-    return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, plain_device_ms=pdms,
-                bound_ms=bms, bound_by=bby, library_ms=None, samples=M, message_dim=D)
+    log(f"[K10] {ms:.4f} ms ({dms:.4f} device from CUDA events; {dtr:.4f} from 20 traced "
+        f"calls), plain {pms:.4f} ms ({pdms:.4f} device), bound {bms:.4f} ms ({bby})")
+    return dict(max_abs_err=err, ms=ms, device_ms=dms, traced_device_ms=dtr,
+                plain_ms=pms, plain_device_ms=pdms, bound_ms=bms, bound_by=bby, library_ms=None,
+                samples=M, message_dim=D)
+
+
+def k10_in_step(trainer, data):
+    """K10 inside one eager CopyRNeRF watermark step (after one more to
+    warm up) under torch.profiler: its device ms and launches in the step
+    and each call's samples, beside its bound at those samples."""
+    from nerf_signature_tpu_torch.models import copyrnerf as t_crn
+
+    calls = []
+    build = t_crn.copyrnerf_input
+
+    def recorded(x, d, rgb, raw, message, bound):
+        calls.append((x.shape[0], message.shape[0]))
+        return build(x, d, rgb, raw, message, bound)
+
+    t_crn.copyrnerf_input = recorded
+    try:
+        trainer.train_step_data(data, trainer.random_message())
+        calls.clear()
+        by_name, _ = traced(lambda: trainer.train_step_data(data, trainer.random_message()),
+                            "copyrnerf step")
+    finally:
+        t_crn.copyrnerf_input = build
+    if by_name is None:
+        raise AssertionError("copyrnerf step: no trace held device events")
+    ms = sum(us for n, us in by_name.items() if "copyrnerf_input" in n) / 1e3
+    bms = sum(bound_of(M * (40 + (88 + D) * 4) + D * 4, M * (12 + 84 + 84), PEAK_FP32)[0]
+              for M, D in calls)
+    log(f"[K10] in an eager step: {len(calls)} call(s) on {[M for M, _ in calls]} samples, "
+        f"{ms:.4f} device ms against a bound of {bms:.4f} ms at those samples")
+    return {"device_ms": ms, "launches": len(calls), "samples": [M for M, _ in calls],
+            "bound_ms": bms}
 
 
 def k4_raw_rows(params, cfg, feat, dirs):
@@ -4189,7 +4281,7 @@ def k4_raw_rows(params, cfg, feat, dirs):
 
 
 def baseline_run(dev, backbone_model, workdir, tag, extra, required, absent, k4_names,
-                 per_step=True, loop_steps=BASE_STEPS, loop_k=BASE_K, ckpt=None):
+                 per_step=True, loop_steps=BASE_STEPS, loop_k=BASE_K, ckpt=None, match=()):
     """One baseline through main_nerf_wtmk's setup (``wm_train``): with
     ``per_step`` BASE_STEPS steps of WatermarkTrainer.train (each step's
     lossw; every loss finite; lossw of the last 16 below the first 16's),
@@ -4197,7 +4289,8 @@ def baseline_run(dev, backbone_model, workdir, tag, extra, required, absent, k4_
     (finite; with several dispatches the last one's lossw below the
     first's), one more dispatch profiled (busy ms a step), and test_bitacc
     over BASE_TRIALS messages (reported, not gated).  Every run must launch
-    ``required`` and none of ``absent``."""
+    ``required`` and none of ``absent``.  ``match``: names of device work
+    whose ms a step the profiled dispatch reports (``profile_dispatch``)."""
     from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.train import device_loop as t_dl
 
@@ -4250,7 +4343,7 @@ def baseline_run(dev, backbone_model, workdir, tag, extra, required, absent, k4_
                          loader.W, dev)
     res["profile"] = profile_dispatch(
         lambda: t_dl.wm_device_loop(trainer, wdata, ro_b, rd_b, loop_k), loop_k,
-        f"{tag} profile", trainer.model.rc.compact_frac > 0)
+        f"{tag} profile", trainer.model.rc.compact_frac > 0, match)
     res["bitacc"] = trainer.test_bitacc(make_loader("test", 1, BASE_TRIALS))
     res["decoded_shape"] = list(ro_b.shape)
     log(f"[{tag}] {res['rays_per_s']:.0f} watermark rays/s; busy "
@@ -4291,9 +4384,14 @@ def phase_baselines(dev, backbone_model, wm_state, workdir):
     t_phase = time.time()
     # ---- CopyRNeRF: the colour MLP (K10's input) and whole-image decodes
     r, w = baseline_run(dev, backbone_model, workdir, "copyrnerf", ["--copyrnerf"],
-                        COPYRNERF_REQUIRED, COPYRNERF_ABSENT, ("K4_field_raw",))
+                        COPYRNERF_REQUIRED, COPYRNERF_ABSENT, ("K4_field_raw",),
+                        match=("copyrnerf_input",))
     rec = record_field_inputs(w["trainer"], next(iter(w["loader"])))
     res["k10"] = k10_row(rec["k10"])
+    res["k10"]["in_step"] = k10_in_step(w["trainer"], next(iter(w["loader"])))
+    res["k10"]["in_loop_ms"] = r["profile"].get("matched_ms", {}).get("copyrnerf_input")
+    log(f"[K10] in the profiled dispatch (CUDA graph of {BASE_K} steps): "
+        f"{res['k10']['in_loop_ms']} device ms a step")
     res["k4_raw"] = k4_raw_rows(*rec["k4"])
     res["copyrnerf"] = r
     del r, w, rec
@@ -5488,7 +5586,7 @@ def main():
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "train_launches": train_n, "wm_launches": wm_n}
         for extra in ("device_ms", "plain_device_ms", "library_device_ms", "rel_l2", "full_bwd_ms",
-                      "share_not_equal", "rel_l2_vs_full_bwd", "needs"):
+                      "share_not_equal", "rel_l2_vs_full_bwd", "needs", "in_step"):
             if extra in r:
                 row[extra] = r[extra]
         if name in FP32_ROUTE:
@@ -5589,8 +5687,8 @@ def main():
                      "launches": crn["launches"][name],
                      **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms", "device_ms", "samples")},
-                     **({"plain_device_ms": r["plain_device_ms"]} if "plain_device_ms" in r
-                        else {}),
+                     **{k: r[k] for k in ("plain_device_ms", "in_step", "in_loop_ms",
+                                          "traced_device_ms") if k in r},
                      "loop_launches": crn["loop"]["launches"][name],
                      "train_launches": train["launches"][name],
                      "wm_launches": wm["launches"][name],

@@ -33,10 +33,10 @@
 // directions take no gradient), gh[0] from trunc_exp's clamped VJP per
 // sample, gh1 = mask(h) * (Ws1 gh) into Q, and g_feat = Ws0 gh1 from the
 // registers to memory.  Each sum starts at 0.0f and adds fmaf over j
-// ascending, matvec_t's order, and a sample's sums do not depend on the
-// samples it shares a tile with, so g_feat equals the one-thread-a-sample
-// kernel's bit for bit, and field_bwd's (field.cu), whose zero-cotangent
-// samples come out +0.  One thread a sample (the earlier design) held the
+// ascending, and a sample's sums do not depend on the samples it shares a
+// tile with, so g_feat equals the one-thread-a-sample kernel's bit for
+// bit, and field_bwd's (field_bwd.cu), whose zero-cotangent samples come
+// out +0.  One thread a sample (the earlier design) held the
 // forward's and the cotangents' state in registers and spilled at every
 // width.  A file of its own so that nvcc builds it in parallel with
 // field.cu.
@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(NGP_BWD_FEAT_T, 1)
       mask_h[t] = mh;
     }
     tile_sh4<T>(dirs, m, valid, P);
-    tile_colour_mlp<CIN, HC, T>(P, Q, Wc0, Wc1);
+    tile_colour_mlp<CIN, HC, T>(P, Q, Wc0, Wc1, P);
     // ---- per sample: the colour output's cotangent, then g2 over c2
     {
       float c3[3];

@@ -6,7 +6,7 @@ the direction, concatenated with the 15 geo features -> colour MLP
 31 -> 64 -> 64 -> 3 -> sigmoid.  The two heads run fused in one kernel (K4,
 ``field_heads``), forward and backward: on the tensor cores in bf16
 (``csrc/field_mma*.cu``), on the SIMT units in fp32 (``csrc/field.cu``,
-``csrc/field_feat.cu``).
+``csrc/field_bwd.cu``, ``csrc/field_feat.cu``).
 
 With ``bg_radius > 0`` the background-sphere model colours each ray's
 background (``ngp_background``: K8's 2D encoding of the ray's exit point on
@@ -165,7 +165,7 @@ def _tensor_cores(cfg: NGPConfig):
     """The route of K4's forward, full backward and feature-only backward on
     the card, by the dtype alone: the tensor-core kernels
     (``csrc/field_mma*.cu``) in bf16, the SIMT ones (``csrc/field.cu``,
-    ``csrc/field_feat.cu``) in fp32."""
+    ``csrc/field_bwd.cu``, ``csrc/field_feat.cu``) in fp32."""
     return cfg.compute_dtype == torch.bfloat16
 
 
@@ -395,30 +395,42 @@ def _mma_weights(flat, mma, widths, dev):
 # K4's tiled SIMT kernels (fp32): samples a tile, which is also threads a
 # block, and blocks an SM of the persistent grid.  The forward
 # (csrc/field.cu:field_fwd) fits two blocks an SM, the feature-only
-# backward (csrc/field_feat.cu) one; the tiles are NGP_FWD_T and
-# NGP_BWD_FEAT_T there
-SIMT_TILE = {"fwd": 128, "bwd_feat": 256}
-SIMT_BLOCKS_PER_SM = {"fwd": 2, "bwd_feat": 1}
+# backward (csrc/field_feat.cu) and the full one (csrc/field_bwd.cu) one;
+# the tiles are NGP_FWD_T, NGP_BWD_FEAT_T and NGP_BWD_T there.  The full
+# backward's rows are BWD_LD floats apart and it scans BWD_ROUND chunks
+# of a tile's samples a round (NGP_BWD_LD, NGP_BWD_U)
+SIMT_TILE = {"fwd": 128, "bwd_feat": 256, "bwd": 128}
+SIMT_BLOCKS_PER_SM = {"fwd": 2, "bwd_feat": 1, "bwd": 1}
+BWD_LD = 132
+BWD_ROUND = 4
 
 
 def simt_launch(widths, kind, M=0, sms=1):
     """Threads, dynamic shared-memory bytes and blocks of K4's SIMT
-    ``kind`` ("fwd" or "bwd_feat") at ``widths`` for M samples on ``sms``
-    SMs, as ``csrc/field_common.cuh:SimtDims`` lays the memory out (the
-    launcher refuses any other size): two activation buffers of
-    max(IN, HID, HC, CIN) rows of a tile's samples, the weights, and for the
-    backward its transposed weights, one 64-bit ReLU mask a sample and its
-    queue of live samples."""
+    ``kind`` ("fwd", "bwd_feat" or "bwd") at ``widths`` for M samples on
+    ``sms`` SMs, as the sources lay the memory out (the launchers refuse
+    any other size).  "fwd" and "bwd_feat" (``csrc/field_common.cuh:
+    SimtDims``): two activation buffers of max(IN, HID, HC, CIN) rows of a
+    tile's samples, the weights, and for the backward its transposed
+    weights, one 64-bit ReLU mask a sample and its queue of live samples.
+    "bwd" (``csrc/field_bwd.cu:BwdDims``): three activation buffers of
+    max(IN, HID, HC, 32) rows of BWD_LD floats, gc3's 4 rows, the weights
+    and their transposes, a queue of (BWD_ROUND + 1) tiles of int32 sample
+    numbers and a ballot a warp for each chunk of a round."""
     in_dim, hidden, out1, hc = widths
     cin = 16 + out1 - 1  # SH4 and geo
     tile = SIMT_TILE[kind]
-    floats = 2 * max(in_dim, hidden, hc, cin) * tile + _n_weights(widths)
-    smem = 4 * floats
-    if kind == "bwd_feat":
-        # the transposed weights, the ReLU masks, the queue of live samples
-        # and 16 ints of scratch
-        smem += 4 * (hc * hc + hc * out1 + out1 * hidden + hidden * in_dim) + 8 * tile
-        smem += 8 * 2 * tile + 4 * 16
+    n_wt = hc * hc + hc * out1 + out1 * hidden + hidden * in_dim  # the transposes
+    if kind == "bwd":
+        rows = max(in_dim, hidden, hc, 32)
+        smem = 4 * (3 * rows * BWD_LD + 4 * BWD_LD + _n_weights(widths) + n_wt)
+        smem += 4 * (BWD_ROUND + 1) * tile + 4 * BWD_ROUND * (tile // 32)
+    else:
+        smem = 4 * (2 * max(in_dim, hidden, hc, cin) * tile + _n_weights(widths))
+        if kind == "bwd_feat":
+            # the transposed weights, the ReLU masks, the queue of live
+            # samples and 16 ints of scratch
+            smem += 4 * n_wt + 8 * tile + 8 * 2 * tile + 4 * 16
     blocks = max(1, min(-(-M // tile), SIMT_BLOCKS_PER_SM[kind] * sms))
     return tile, smem, blocks
 
@@ -533,9 +545,10 @@ def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None):
     fp32, from the cotangents of sigma [M] and rgb [M, 3].  In bf16 the
     tensor-core kernel on the packed weights (``mma``, or packed from
     ``flat`` now), which recomputes the forward with the forward kernel's
-    fragments; in fp32 the SIMT one.  Either sums the weight gradient in
-    per-block partials, one block an SM, reduced in block order
-    (deterministic)."""
+    fragments; in fp32 the tiled SIMT one on the live samples.  Either sums
+    the weight gradient in per-block partials, one block an SM, each block
+    over a fixed share of the samples, reduced in block order
+    (deterministic on a given grid)."""
     in_dim, hidden, out1, hidden_c = widths
     M = feat.shape[0]
     dev = feat.device
@@ -558,12 +571,12 @@ def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None):
                             g_rgb.data_ptr(), g_feat.data_ptr(), partials.data_ptr(),
                             _mma_grad_index(tuple(widths), dev).data_ptr(), g_flat.data_ptr(),
                             M, n_blocks, in_dim, hidden, out1, hidden_c)
-    else:  # fp32: the SIMT kernel, one 128-sample block an SM
-        n_blocks = min((M + 127) // 128, sms)
+    else:  # fp32: the tiled SIMT kernel over queued live samples, one block an SM
+        _, smem, n_blocks = simt_launch(widths, "bwd", M, sms)
         partials = torch.empty((n_blocks, flat.numel()), dtype=torch.float32, device=dev)
         _cuda.FIELD_BWD(feat.data_ptr(), dirs.data_ptr(), flat.data_ptr(), g_sigma.data_ptr(),
                         g_rgb.data_ptr(), g_feat.data_ptr(), partials.data_ptr(),
-                        g_flat.data_ptr(), M, n_blocks, in_dim, hidden, out1, hidden_c)
+                        g_flat.data_ptr(), M, n_blocks, in_dim, hidden, out1, hidden_c, smem)
     return g_feat, g_flat
 
 

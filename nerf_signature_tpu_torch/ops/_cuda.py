@@ -33,8 +33,8 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 # -fmad=false: these kernels must round each product and sum like their plain
-# PyTorch versions (separate ops, no FMA contraction).  field.cu writes its
-# matrix-product FMAs explicitly and keeps the rest uncontracted too.
+# PyTorch versions (separate ops, no FMA contraction).  The K4 sources write
+# their matrix-product FMAs explicitly and keep the rest uncontracted too.
 SOURCES = {
     "marcher.cu": ["-fmad=false"],
     "hashenc.cu": ["-fmad=false"],
@@ -43,6 +43,7 @@ SOURCES = {
     "composite.cu": ["-fmad=false"],
     "field.cu": ["-fmad=false"],
     "field_feat.cu": ["-fmad=false"],
+    "field_bwd.cu": ["-fmad=false"],
     "field_mma.cu": ["-fmad=false"],
     "field_mma_bwd.cu": ["-fmad=false"],
     "field_mma_bwd_full.cu": ["-fmad=false"],
@@ -56,10 +57,10 @@ SOURCES = {
 # features and 8 x 4 (IN = 32), 8 x 2 (IN = 16), 16 x 4 and 32 x 2 (IN =
 # 64), the narrow test model
 FIELD_WIDTHS = ((32, 64, 16, 64), (16, 64, 16, 64), (64, 64, 16, 64), (8, 16, 16, 16))
-# the SIMT sources, on which ptxas takes half a minute (field_feat.cu) to two
-# minutes (field.cu's full backward) a width: compiled once a width
-# (-DNGP_IN=...) and once for their C entry points, all in parallel
-SPLIT_BY_WIDTH = ("field.cu", "field_feat.cu")
+# the SIMT sources, on which ptxas takes tens of seconds a width: compiled
+# once a width (-DNGP_IN=...) and once for their C entry points, all in
+# parallel
+SPLIT_BY_WIDTH = ("field.cu", "field_feat.cu", "field_bwd.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,7 +80,7 @@ _SIGNATURES = {
     "ngp_hash_encode_2d_bwd": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _U, _P],
     "ngp_field": [_P] * 6 + [_L] + [_I] * 5 + [_L, _P],
     "ngp_field_raw": [_P] * 7 + [_L] + [_I] * 5 + [_L, _P],
-    "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_P],
+    "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_L, _P],
     "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 4 + [_P, _I, _L, _P],
     "ngp_field_mma": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     "ngp_field_mma_raw": [_P] * 7 + [_L] + [_I] * 4 + [_P],

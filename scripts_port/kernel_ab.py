@@ -39,24 +39,39 @@ versions, then per call and device ms with the L2 flushed), and
 WatermarkTrainer.train_device (1000 steps of the recipe on that backbone),
 each loop with its rays/s and one more dispatch profiled (wall and busy ms a
 step, K5 pack's device ms a step).  ``--sections`` picks among ``kernels``
-(everything before the rates), ``steps`` (the per-step rates), ``loops`` and
-``k4`` (K4's fp32 SIMT kernels alone, below); the first three by default.
+(everything before the rates), ``steps`` (the per-step rates), ``loops``,
+``k4`` (K4's fp32 SIMT kernels alone, below) and ``k10`` (below); the first
+three by default.
 Prints one JSON line (also to ``--out``).  Run each tree in its own
 process, in turns (parent, change, change, parent), all in one call to the
 card.
 
-``k4``: K4's fp32 forward on the serving chunk and its fp32 feature-only
-backward at the watermark step's samples, at 16 x 2, 8 x 2 (encoding width
-16), 16 x 4 (64) and 12 x 2 (24, run at 32), through ``chip_smoke.py``'s
-``k4_forward`` and ``k4_bwd_feat`` (each against its plain version; per
-call and device ms, the fp32 ``torch.matmul`` chain's, the bound), with a
-hash of every output (sigma, geo, rgb, the logit, the density-only query's
-sigma and geo; g_feat).  Then
+``k4``: K4's fp32 forward on the serving chunk, its fp32 full backward at
+the train step's samples and its fp32 feature-only backward at the
+watermark step's, at 16 x 2, 8 x 2 (encoding width 16), 16 x 4 (64) and
+12 x 2 (24, run at 32), through ``chip_smoke.py``'s ``k4_forward``,
+``k4_bwd`` and ``k4_bwd_feat`` (each against its plain version; per call
+and device ms, the fp32 ``torch.matmul`` chain's, the bound), with a hash
+of every output (sigma, geo, rgb, the logit, the density-only query's
+sigma and geo; the full backward's g_feat and g_weights; g_feat).  The
+full backward's g_weights are also saved beside ``--out`` (``.gw.pt``).
+
+``k10``: K10 on the samples of an eager CopyRNeRF watermark step (the
+README recipe with ``--copyrnerf`` on a random full-width backbone, 2
+steps), through ``chip_smoke.py``'s ``k10_row`` (against its plain
+version; per call and cold device ms, the bound) and ``k10_in_step`` (its
+device ms inside one more eager step under torch.profiler), with a hash of
+its output; then on synthetic inputs at a third, two thirds and all of the
+recipe's 1,511,424 samples: its device ms from torch.profiler cold (the L2
+flushed) and warm, from CUDA events over back-to-back calls, and a fill_
+of as many bytes (cold), the card's write rate there.  Then
 
     python3 scripts_port/kernel_ab.py --compare A.json B.json ...
 
 prints, for each kernel row, every file's device ms and whether all the
-files' outputs are bit-equal.
+files' outputs are bit-equal, and, where ``.gw.pt`` files lie beside them,
+the worst relative L2 of each full backward's g_weights against the first
+file's.
 
 Where the tree's ``composite.cu`` has the serial chain of 32 shuffles (the
 cumulative sum of tau in slot order), each K3 row also has a ``K3_scan``
@@ -169,9 +184,10 @@ def digest(t):
     return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def k4_simt(out, dev, cs):
-    """K4's fp32 SIMT forward and feature-only backward at K4_GEOMETRIES,
-    their rows and the hashes of their outputs, into ``out``."""
+def k4_simt(out, dev, cs, gw_out):
+    """K4's fp32 SIMT forward, full backward and feature-only backward at
+    K4_GEOMETRIES, their rows and the hashes of their outputs, into ``out``;
+    the full backward's g_weights by geometry into ``gw_out``."""
     from nerf_signature_tpu_torch.models import ngp as t_ngp
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
     from nerf_signature_tpu_torch.ops import marching as t_march
@@ -196,7 +212,37 @@ def k4_simt(out, dev, cs):
             ("sigma", s), ("geo", g), ("rgb", r), ("raw", raw), ("density_sigma", sd),
             ("density_geo", gd))})
         out[f"K4_f32_{geo}"] = row
-        del m, mk, x01, dirs, feat, s, g, r, raw, sd, gd
+        del mk, x01, dirs, feat, s, g, r, raw, sd, gd
+        # the full backward at the train step's samples (chip_smoke.py's
+        # train-kernels phase: 4096 random rays, budget 128, its noise)
+        ro_t, rd_t = cs.train_rays(dev)
+        noise = torch.rand((cs.TRAIN_RAYS,), generator=torch.Generator(device=dev).manual_seed(7),
+                           device=dev)
+        grid = m.occ.occupancy
+        plan = t_march.march_plan(grid.shape[0], grid.shape[1], bound=1.0, max_steps=1024,
+                                  budget=cs.TRAIN_BUDGET)
+        mk = t_march.march_rays_aabb(ro_t, rd_t, default_aabb(m.rc), grid,
+                                     coarse=t_march.coarse_grid(grid, plan),
+                                     **dict(cs.march_kwargs(m, None), budget=cs.TRAIN_BUDGET,
+                                            noise=noise))
+        live = mk["mask"].reshape(-1).float()
+        x01 = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+        dirs = mk["dirs"].reshape(-1, 3).contiguous()
+        with torch.no_grad():
+            feat = t_hash.hash_encode(x01, fp["hash_table"], cfg.resolutions,
+                                      cfg.log2_hashmap_size, table_g=fp["hash_table_g"],
+                                      pitch=pitch)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
+        g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
+        row = cs.k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb)
+        w = t_ngp._kernel_widths(fp, cfg)
+        gf, gw = t_ngp.field_heads_bwd(cfg, w, feat, dirs, fp["mlp_flat"], g_sigma, g_rgb)
+        row.update(samples=feat.shape[0], live_samples=int(live.sum()),
+                   sha={"g_feat": digest(gf), "g_weights": digest(gw)})
+        out[f"K4_bwd_f32_{geo}"] = row
+        gw_out[geo] = gw.cpu()
+        del m, mk, live, x01, dirs, feat, g_sigma, g_rgb, gf, gw
         mw = cs.make_wm_model(dev, levels=L, features=F)
         x = cs.wm_step_inputs(dev)
         fpw = t_ngp.field_params(mw.backbone, cfg)
@@ -222,6 +268,48 @@ def k4_simt(out, dev, cs):
         del mw, x, fpw, mk, live, x01, dirs, feat, g_sigma, g_rgb, gf
 
 
+def k10(out, dev, cs):
+    """K10 on an eager CopyRNeRF step's own samples (a random full-width
+    backbone, the README recipe with --copyrnerf, 2 steps first): its row
+    (cold device ms), its device ms inside one more eager step, the hash of
+    its output, into ``out``."""
+    from nerf_signature_tpu_torch.ops import copyrnerf as t_k10
+
+    with tempfile.TemporaryDirectory() as workdir:
+        w = cs.wm_train(dev, cs.make_model(dev), workdir, iters=2, extra=["--copyrnerf"],
+                        tag="k10 ab", required=("K10_copyrnerf_input",),
+                        k4_names=("K4_field_raw",))
+        tr, loader = w["trainer"], w["loader"]
+        rec = cs.record_field_inputs(tr, next(iter(loader)))
+        row = cs.k10_row(rec["k10"])
+        row["in_step"] = cs.k10_in_step(tr, next(iter(loader)))
+        row["sha"] = {"out": digest(t_k10.copyrnerf_input(*rec["k10"]))}
+        out["K10"] = row
+        del w, tr, loader, rec
+    g = torch.Generator(device=dev).manual_seed(3)
+    sweep = {}
+    for M in K10_SAMPLES:
+        x = torch.rand((M, 3), generator=g, device=dev) * 2 - 1
+        d = torch.nn.functional.normalize(torch.randn((M, 3), generator=g, device=dev), dim=-1)
+        rgb = torch.rand((M, 3), generator=g, device=dev)
+        raw = torch.randn((M,), generator=g, device=dev)
+        msg = torch.randint(0, 2, (32,), generator=g, device=dev, dtype=torch.int32)
+        run = lambda: t_k10.copyrnerf_input(x, d, rgb, raw, msg, 1.0)
+        buf = torch.empty((M, 88 + 32), device=dev)
+        sweep[M] = {"cold_ms": cs.device_ms(run, 10, cold=True), "warm_ms": cs.device_ms(run, 10),
+                    "events_ms": cs.events_ms(run, 10),
+                    "fill_cold_ms": cs.device_ms(lambda: buf.fill_(1.0), 10, cold=True),
+                    "bound_ms": cs.bound_of(M * 520 + 128, M * 180, cs.PEAK_FP32)[0]}
+        print(f"[K10 sweep] {M} samples: {sweep[M]}", flush=True)
+        del x, d, rgb, raw, msg, buf
+    out["K10"]["by_samples"] = sweep
+
+
+# K10's synthetic sample counts: a third, two thirds and all of the recipe's
+# CopyRNeRF step (1,511,424 samples, chip_smoke.py's phase 12)
+K10_SAMPLES = (503_808, 1_007_616, 1_511_424)
+
+
 def compare(paths):
     """Each kernel row of the k4 section in every file: device ms, and
     whether the files' outputs are bit-equal."""
@@ -235,9 +323,18 @@ def compare(paths):
             continue
         rows[name] = {"device_ms": [r[name]["device_ms"] for r in runs],
                       "ms": [r[name]["ms"] for r in runs],
-                      "library_device_ms": [r[name]["library_device_ms"] for r in runs],
+                      "library_device_ms": [r[name].get("library_device_ms") for r in runs],
+                      "in_step_device_ms": [r[name].get("in_step", {}).get("device_ms")
+                                            for r in runs],
                       "bound_ms": row["bound_ms"],
-                      "bit_equal": all(r[name]["sha"] == row["sha"] for r in runs)}
+                      "bit_equal": all(r[name]["sha"] == row["sha"] for r in runs),
+                      "bit_equal_by_output": {k: all(r[name]["sha"][k] == v for r in runs)
+                                              for k, v in row["sha"].items()}}
+    gws = [torch.load(p + ".gw.pt") for p in paths if os.path.exists(p + ".gw.pt")]
+    if len(gws) > 1:
+        for geo, ref in gws[0].items():
+            rows[f"K4_bwd_f32_{geo}"]["g_weights_rel_l2_vs_first"] = max(
+                float((g[geo] - ref).norm() / ref.norm()) for g in gws[1:])
     return {"files": paths, "gpu": [r.get("gpu") for r in runs], "rows": rows}
 
 
@@ -447,7 +544,12 @@ def main():
     if "loops" in sections:
         loops(out, dev, cs)
     if "k4" in sections:
-        k4_simt(out, dev, cs)
+        gws = {}
+        k4_simt(out, dev, cs, gws)
+        if args.out:
+            torch.save(gws, args.out + ".gw.pt")
+    if "k10" in sections:
+        k10(out, dev, cs)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

@@ -175,6 +175,75 @@ def test_k10_plain_matches_jax_input(bound):
     assert np.array_equal(a[:, 84:88], b[:, 84:88])  # rgb and raw copied as they are
 
 
+def k10_plan(D):
+    """csrc/copyrnerf.cu's plan: the rows a block stages (the most, up to
+    64, whose floats and the message fit in 48 KB) and each angle q < 42 of
+    a sample as (position?, channel, frequency, sine column, cosine
+    column)."""
+    W = 88 + D
+    rows = min(64, (48 * 1024 // 4 - D) // W)
+    angles = []
+    for q in range(42):
+        pos = q < 30
+        c, k = divmod(q, 10) if pos else divmod(q - 30, 4)
+        col = q if pos else 30 + q
+        angles.append((pos, c, k, col, col + (30 if pos else 12)))
+    return rows, angles
+
+
+def k10_emulate(x, d, rgb, raw, msg, bound):
+    """K10's kernel in numpy: each block's rows staged (an angle item a ->
+    row a // 42, angle a % 42, its sine and cosine in their columns; rgb
+    and raw at 84..87; the message broadcast), then stored as the span
+    out[m0 W : (m0 + rows) W]."""
+    M, D = x.shape[0], msg.shape[0]
+    W = 88 + D
+    rows_per_block, angles = k10_plan(D)
+    out = np.full(M * W, np.nan, np.float32)
+    f32 = np.float32
+    for m0 in range(0, M, rows_per_block):
+        rows = min(rows_per_block, M - m0)
+        stage = np.full((rows, W), np.nan, np.float32)
+        for a in range(rows * 42):
+            r, q = divmod(a, 42)
+            pos, c, k, col_s, col_c = angles[q]
+            if pos:
+                x01 = (x[m0 + r, c] + f32(bound)) / (f32(2.0) * f32(bound))
+                p = f32(2.0) * x01 - f32(1.0)
+            else:
+                p = d[m0 + r, c]
+            ang = p * (f32(np.pi) * f32(2.0 ** k))
+            stage[r, col_s], stage[r, col_c] = np.sin(ang), np.cos(ang)
+        stage[:, 84:87], stage[:, 87] = rgb[m0:m0 + rows], raw[m0:m0 + rows]
+        stage[:, 88:] = np.where(msg != 0, f32(1.0), f32(-1.0))
+        out[m0 * W:(m0 + rows) * W] = stage.reshape(-1)
+    return out.reshape(M, W)
+
+
+@pytest.mark.parametrize("D", [0, 3, 32, 1024])
+def test_k10_column_map_matches_jax_layout(D):
+    """K10's (sample, channel, frequency) -> column map and its staged rows
+    against JAX's freq_encode order (sines channel-major, then cosines) and
+    concatenation; every column written once; at every D a block stages at
+    least one row within 48 KB."""
+    rows, angles = k10_plan(D)
+    assert 1 <= rows <= 64 and 4 * (rows * (88 + D) + D) <= 48 * 1024
+    cols = sorted(c for a in angles for c in a[3:])
+    assert cols == list(range(84))
+    x, d = _points(seed=4)
+    x = x[:70] * 2.0
+    d = d[:70]
+    rng = np.random.default_rng(5)
+    rgb = rng.uniform(size=(70, 3)).astype(np.float32)
+    raw = rng.normal(size=(70,)).astype(np.float32)
+    msg = rng.integers(0, 2, D).astype(np.int32)
+    a = k10_emulate(x, d, rgb, raw, msg, 2.0)
+    b = _jax_input(x, d, rgb, raw, msg, 2.0)
+    assert np.isfinite(a).all() and a.shape == b.shape
+    np.testing.assert_allclose(a[:, :84], b[:, :84], rtol=0, atol=1e-5)
+    assert np.array_equal(a[:, 84:], b[:, 84:])
+
+
 def test_wtmk_field_copyrnerf_message_changes_rgb_not_sigma():
     jm, tm = make_mode_models(dict(copyrnerf=True))
     x, d = _points(64, seed=4)

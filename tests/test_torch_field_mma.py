@@ -365,5 +365,7 @@ def test_full_bwd_route_follows_the_dtype(monkeypatch, dtype):
         assert args[9:11] == (M, 2)  # M, one block per 512-sample chunk (two here)
     else:
         assert names == ["FIELD", "FIELD_BWD"]
-        assert args[2] == flat.data_ptr() and len(args) == 14
-        assert args[8:10] == (M, 8)  # M, one block per 128-sample tile
+        assert args[2] == flat.data_ptr() and len(args) == 15
+        _, smem, blocks = t_ngp.simt_launch(widths, "bwd", M, 132)
+        assert args[8:10] == (M, blocks) == (M, 8)  # M, one block per 128-sample tile
+        assert args[14] == smem  # the shared bytes, as simt_launch plans them

@@ -283,7 +283,7 @@ def test_composite_bwd_kernel_matches_plain(cuda, use_mask):
 @pytest.mark.parametrize("widths", list(WIDTHS))
 def test_field_bwd_kernel_matches_plain(cuda, dtype, widths):
     """bf16: the tensor-core kernel (field_mma_bwd_full.cu); fp32: the SIMT
-    one (field.cu)."""
+    one over queued live samples (field_bwd.cu)."""
     from nerf_signature_tpu_torch.ops import _cuda
 
     kw = WIDTHS[widths]
@@ -298,8 +298,8 @@ def test_field_bwd_kernel_matches_plain(cuda, dtype, widths):
         feat = t_ngp._encode_pos(t_ngp.field_params(params, cfg), cfg, x)
     g_sigma = torch.randn(M, generator=g).to(cuda) * 1e-3
     g_rgb = torch.randn((M, 3), generator=g).to(cuda) * 1e-3
-    # padded samples carry zero cotangents; whole 128-sample tiles of them
-    # are skipped by the kernel
+    # padded samples carry zero cotangents; the fp32 kernel queues only the
+    # live samples
     dead = (torch.arange(M, device=cuda) // 128) % 3 == 0
     g_sigma[dead] = 0.0
     g_rgb[dead] = 0.0
@@ -491,6 +491,49 @@ def test_field_simt_bwd_feat_ragged_and_zero_tiles(cuda, widths, case):
     assert rel_l2(only, f.grad) <= 1e-5
     zero = t_ngp.field_heads_bwd_feat(cfg, w, feat, d, fp["mlp_flat"], g_sigma * 0, g_rgb * 0)
     assert not bool(zero.any())
+
+
+@pytest.mark.parametrize("case", list(RAGGED))
+@pytest.mark.parametrize("widths", SIMT_WIDTHS)
+def test_field_simt_bwd_ragged_and_dead_chunks(cuda, widths, case):
+    """The tiled full backward over queued live samples: the first chunk
+    mixes live samples with all-zero cotangents, the second (or the ragged
+    one sample past the first) is all dead; g_feat bit-equal to the
+    feature-only kernel's and exactly 0 on the dead samples, g_feat and the
+    five weight leaves within 1e-5 relative L2 of autograd through the
+    plain version, a repeat bit-equal; with 3 live samples (fewer than the
+    blocks) the same; all cotangents zero: both gradients all 0."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    T = t_ngp.SIMT_TILE["bwd"]
+    M = RAGGED[case](T)
+    cfg, fp, feat, d, g = _simt_case(cuda, widths, M, 24)
+    w = t_ngp._kernel_widths(fp, cfg)
+    i = torch.arange(M, device=cuda)
+    for dead in ((i % 3 == 1) | ((i >= T) & (i < 2 * T)), ~torch.isin(i, i[[0, M // 2, -1]])):
+        g_sigma = (torch.randn(M, generator=g) * 1e-3).to(cuda)
+        g_rgb = (torch.randn((M, 3), generator=g) * 1e-3).to(cuda)
+        g_sigma[dead], g_rgb[dead] = 0.0, 0.0
+        _cuda.reset_launch_counts()
+        gf, gw = t_ngp.field_heads_bwd(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb)
+        assert _cuda.launch_counts()["K4_field_bwd_f32"] == 1
+        only = t_ngp.field_heads_bwd_feat(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb)
+        assert torch.equal(gf, only) and not bool(gf[dead].any())
+        again = t_ngp.field_heads_bwd(cfg, w, feat, d, fp["mlp_flat"], g_sigma, g_rgb)
+        assert torch.equal(again[0], gf) and torch.equal(again[1], gw)
+        nets = [x.clone().requires_grad_(True) for x in fp["sigma_net"] + fp["color_net"]]
+        pp = dict(fp, sigma_net=nets[:2], color_net=nets[2:])
+        f = feat.clone().requires_grad_(True)
+        sp, _, rp = t_ngp.field_heads_plain(pp, cfg, f[:, :cfg.enc_dim], d)
+        torch.autograd.backward([sp, rp], [g_sigma, g_rgb])
+        assert rel_l2(gf, f.grad) <= 1e-5
+        W, IN, hid = cfg.enc_dim, w[0], w[1]
+        assert not bool(gw[W * hid:IN * hid].any())  # Ws0's padded rows
+        gw_w = torch.cat([gw[:W * hid], gw[IN * hid:]])
+        for a, b in zip(torch.split(gw_w, [x.numel() for x in nets]), nets):
+            assert rel_l2(a, b.grad.reshape(-1)) <= 1e-5
+    gf, gw = t_ngp.field_heads_bwd(cfg, w, feat, d, fp["mlp_flat"], g_sigma * 0, g_rgb * 0)
+    assert not bool(gf.any()) and not bool(gw.any())
 
 
 def test_table_gather_kernel_matches_plain(cuda):
@@ -1218,11 +1261,14 @@ def test_field_kernel_raw_logit(cuda, dtype, widths):
 
 
 @pytest.mark.parametrize("bound", [1.0, 2.0])
-@pytest.mark.parametrize("M,D", [(65_519, 32), (1000, 4), (3, 1), (0, 8), (77, 0)])
+@pytest.mark.parametrize("M,D", [(65_519, 32), (1000, 4), (3, 1), (0, 8), (77, 0), (4097, 3),
+                                 (70, 1024)])
 def test_copyrnerf_input_kernel_matches_plain(cuda, M, D, bound):
-    """K10 against its plain version: sinf/cosf against torch.sin/cos of the
+    """K10 against its plain version: sincosf against torch.sin/cos of the
     same fp32 products (1e-6 absolute: a few ulps of values in [-1, 1]),
-    everything else bit for bit."""
+    everything else bit for bit; rows of 88 + D floats staged a block at a
+    time (10 at D = 1024), stored in 16-byte pieces where (88 + D) % 4 ==
+    0, else 4-byte."""
     from nerf_signature_tpu_torch.ops import _cuda
     from nerf_signature_tpu_torch.ops import copyrnerf as t_k10
 
