@@ -29,68 +29,13 @@
 // written a ray; the backward reads the cotangent and writes the table's
 // gradient).  The background MLP that reads these features runs once a ray,
 // outside any kernel, as in JAX (models/ngp.py:ngp_background).
+//
+// Off the main path: the background colour runs as one kernel forward and
+// one backward (background.cu), which compute this encoding inside.  These
+// kernels stay for hash_encode_2d and bg_encode, held against their plain
+// versions.
 
-#include "hashenc.cuh"
-
-struct BgInput {
-  const float* x01;     // [N, 2] positions in [0, 1]^2, or null: from the rays
-  const float* rays_o;  // [N, 3]
-  const float* rays_d;  // [N, 3]
-  float r2;             // the sphere's radius squared (fp32, as JAX rounds it)
-};
-
-// sph_from_ray's exit point as (theta, phi) in [-1, 1], then (sph + 1) / 2,
-// each operation rounded where JAX rounds it
-__device__ __forceinline__ void bg_position(const BgInput& in, long long n, float (&x)[2]) {
-  if (in.x01 != nullptr) {
-    x[0] = in.x01[2 * n];
-    x[1] = in.x01[2 * n + 1];
-    return;
-  }
-  const float* o = in.rays_o + 3 * n;
-  const float* d = in.rays_d + 3 * n;
-  const float ox = o[0], oy = o[1], oz = o[2], dx = d[0], dy = d[1], dz = d[2];
-  const float a = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-  const float b = __fmul_rn(
-      2.0f, __fadd_rn(__fadd_rn(__fmul_rn(ox, dx), __fmul_rn(oy, dy)), __fmul_rn(oz, dz)));
-  const float c = __fsub_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oy, oy)), __fmul_rn(oz, oz)), in.r2);
-  const float disc = fmaxf(__fsub_rn(__fmul_rn(b, b), __fmul_rn(__fmul_rn(4.0f, a), c)), 0.0f);
-  const float t = __fdiv_rn(__fadd_rn(-b, __fsqrt_rn(disc)), __fmul_rn(2.0f, a));
-  const float px = __fadd_rn(ox, __fmul_rn(t, dx));
-  const float py = __fadd_rn(oy, __fmul_rn(t, dy));
-  const float pz = __fadd_rn(oz, __fmul_rn(t, dz));
-  const float pi = 3.14159265358979f;
-  const float theta =
-      __fdiv_rn(atan2f(__fsqrt_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py))), pz), pi);
-  const float phi = __fdiv_rn(atan2f(py, px), pi);
-  x[0] = __fmul_rn(__fadd_rn(__fsub_rn(__fmul_rn(2.0f, theta), 1.0f), 1.0f), 0.5f);
-  x[1] = __fmul_rn(__fadd_rn(phi, 1.0f), 0.5f);
-}
-
-// The 4 corners of one (ray, level): rows (level offset added) and bilinear
-// weights, in the JAX corner order ((0,0), (0,1), (1,0), (1,1)).
-__device__ __forceinline__ void corners_2d(const float (&xc)[2], float res, unsigned int mask,
-                                           unsigned int off, unsigned int (&idx)[4],
-                                           float (&cw)[4]) {
-  float w[2];
-  unsigned int cell[2];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const float s = __fmul_rn(xc[a], res);
-    const float f = floorf(s);
-    w[a] = __fsub_rn(s, f);
-    cell[a] = (unsigned int)f;
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const unsigned int di = (c >> 1) & 1u, dj = c & 1u;
-    idx[c] = ((((cell[0] + di) * 1u) ^ ((cell[1] + dj) * 2654435761u)) & mask) + off;
-    const float wx = di ? w[0] : __fsub_rn(1.0f, w[0]);
-    const float wy = dj ? w[1] : __fsub_rn(1.0f, w[1]);
-    cw[c] = __fmul_rn(wx, wy);
-  }
-}
+#include "bg_sphere.cuh"
 
 template <typename T, int F>
 __global__ void __launch_bounds__(128)
@@ -162,16 +107,6 @@ __global__ void __launch_bounds__(128)
       warp_add<F>(g_table, idx[c], v, any, grouped, lane);
     }
   }
-}
-
-static int bg_levels(HashLevels& p, int L, const float* res, int log2_size) {
-  unsigned int off[NGP_MAX_LEVELS], side[NGP_MAX_LEVELS];
-  if (L < 1 || L > NGP_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < L; ++l) {
-    off[l] = (unsigned int)l << log2_size;
-    side[l] = 0u;
-  }
-  return fill_levels(p, L, res, off, side, log2_size);
 }
 
 template <typename T, int F>

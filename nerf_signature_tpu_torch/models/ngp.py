@@ -9,9 +9,10 @@ the direction, concatenated with the 15 geo features -> colour MLP
 ``csrc/field_bwd.cu``, ``csrc/field_feat.cu``).
 
 With ``bg_radius > 0`` the background-sphere model colours each ray's
-background (``ngp_background``: K8's 2D encoding of the ray's exit point on
+background (``ngp_background``: the 2D encoding of the ray's exit point on
 the sphere, SH of the direction, ``bg_net``, a sigmoid), as JAX completes
-the reference's missing ``bg_net``.
+the reference's missing ``bg_net``; on the card all of it is K8, one kernel
+forward and one backward (``ops/background.py``).
 
 Params are a plain dict, laid out like the JAX tree: ``hash_table``
 [rows, F] fp32, ``sigma_net`` / ``color_net`` lists of ``[in, out]`` fp32
@@ -31,10 +32,17 @@ import torch
 
 from ..ops import _cuda
 from ..ops.activation import trunc_exp
+from ..ops.background import (
+    BackgroundFn,
+    BgMeta,
+    background_plain,
+    check_bg_buffers,
+    check_bg_geometry,
+    pack_bg_net,
+)
 from ..ops.hashenc import (
     KERNEL_FEATURES,
     KERNEL_MAX_LEVELS,
-    bg_encode,
     hash_encode,
     init_hash_table,
     init_hash_table_sized,
@@ -328,10 +336,15 @@ def check_kernel_geometry(cfg: NGPConfig):
     """Refuse up front, before a model is built on the card, a config
     whose field the kernels cannot run: a row width F that K1 lacks, more
     levels than it takes, or an encoding width (n_levels x F) above K4's
-    widest build, e.g. 16 x 8 (width 128)."""
+    widest build, e.g. 16 x 8 (width 128); and, with the bg model, a
+    ``bg_net`` other than IN -> 64 -> 3 (2 layers) or more than 32 bg
+    levels (K8's build)."""
     _check_field(_cfg_widths(cfg), cfg.sh_degree, (cfg.num_layers, cfg.num_layers_color),
                  cfg.n_features, cfg.n_levels, f"{cfg.n_levels} levels x {cfg.n_features} "
                  "features, ")
+    if cfg.bg_radius > 0:
+        check_bg_geometry(cfg.bg_n_levels, cfg.n_features, cfg.bg_hidden_dim,
+                          cfg.bg_num_layers, cfg.sh_degree)
 
 
 def _kernel_widths(params, cfg: NGPConfig):
@@ -596,33 +609,46 @@ def ngp_field(params, cfg: NGPConfig, x, d, plain=False):
     return sigma, rgb
 
 
+@functools.lru_cache(maxsize=None)
+def bg_meta(cfg: NGPConfig) -> BgMeta:
+    """The bg model's static geometry (built once a config)."""
+    return BgMeta(cfg.bg_resolutions, cfg.bg_log2_hashmap_size, float(cfg.bg_radius),
+                  cfg.compute_dtype, cfg.sh_degree)
+
+
 def bg_params(params, cfg: NGPConfig):
     """The background model's leaves of ``params`` (``bg_table``,
-    ``bg_net``) and ``bg_table_g``, the table in the gather dtype, cast once
-    per render or step."""
+    ``bg_net``), ``bg_table_g``, the table in the gather dtype, and on the
+    card ``bg_packed``, bg_net's weights packed and rounded to the compute
+    dtype (``ops/background.py:pack_bg_net``), each made once per render or
+    step and validated here, not at every call of the kernels."""
     table = params["bg_table"]
     gd = cfg.compute_dtype
-    return {"bg_table": table, "bg_net": params["bg_net"],
-            "bg_table_g": table.detach().to(gd) if gd != table.dtype else table.detach()}
+    out = {"bg_table": table, "bg_net": params["bg_net"],
+           "bg_table_g": table.detach().to(gd) if gd != table.dtype else table.detach()}
+    if table.is_cuda:
+        out["bg_packed"] = pack_bg_net(params["bg_net"], gd)
+        check_bg_buffers(out["bg_table_g"], out["bg_packed"], bg_meta(cfg))
+    return out
 
 
 def ngp_background(params, cfg: NGPConfig, rays_o, rays_d, plain=False):
     """Per-ray background colour of the bg-sphere model: rays [N, 3] -> rgb
     [N, 3] in [0, 1].  The 2D encoding of each ray's exit point on the
-    sphere of ``cfg.bg_radius`` (K8, or its plain version when ``plain``),
-    concatenated with the SH of the normalised direction, through
-    ``bg_net`` ([4F + 16 -> 64 -> 3]) and a sigmoid.  The MLP runs once a
-    ray, not once a sample: it stays ``mlp_apply`` (torch.matmul), as JAX
-    leaves it to XLA outside any kernel."""
-    table_g = params.get("bg_table_g")
-    if table_g is None:
-        table_g = bg_params(params, cfg)["bg_table_g"]
-    h2 = bg_encode(rays_o, rays_d, cfg.bg_radius, params["bg_table"], cfg.bg_resolutions,
-                   cfg.bg_log2_hashmap_size, table_g=table_g, plain=plain)
-    d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    h = mlp_apply(params["bg_net"], torch.cat([h2, sh_encode(d, cfg.sh_degree)], dim=-1),
-                  compute_dtype=cfg.compute_dtype)
-    return torch.sigmoid(h)
+    sphere of ``cfg.bg_radius``, concatenated with the SH of the normalised
+    direction, through ``bg_net`` ([4F + 16 -> 64 -> 3]) and a sigmoid.  On
+    the card one kernel forward and one backward (``BackgroundFn``); with
+    ``plain`` or on CPU tensors the chain of torch ops that is their plain
+    version (``background_plain``), differentiated by autograd."""
+    if plain or not rays_o.is_cuda:
+        table_g = params.get("bg_table_g")
+        return background_plain(rays_o, rays_d, params["bg_table"], params["bg_net"],
+                                bg_meta(cfg), table_g)
+    if params.get("bg_packed") is None:
+        params = bg_params(params, cfg)
+    w1, w2 = params["bg_net"]
+    return BackgroundFn.apply(rays_o, rays_d, params["bg_table"], w1, w2, params["bg_table_g"],
+                              params["bg_packed"], bg_meta(cfg))
 
 
 def background_fn(params, cfg: NGPConfig, plain=False):

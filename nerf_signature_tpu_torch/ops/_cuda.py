@@ -2,7 +2,8 @@
 
 The sources live in ``nerf_signature_tpu_torch/csrc/*.cu``.  At first use
 they are compiled by ``nvcc`` for ``sm_90a`` (one process per source, and
-per K4 width for the SIMT field sources, all started together) into ONE
+per K4 width for the SIMT field sources and per row width for K8's
+background colour, all started together) into ONE
 shared library with a plain C interface, which
 is loaded with ``ctypes``.  The library goes into ``_build/<hash>/``, where
 the hash covers the sources and the flags, so an edited source never loads
@@ -40,6 +41,7 @@ SOURCES = {
     "hashenc.cu": ["-fmad=false"],
     "hashenc_stoch.cu": ["-fmad=false"],
     "hashenc_bg.cu": ["-fmad=false"],
+    "background.cu": ["-fmad=false"],
     "composite.cu": ["-fmad=false"],
     "field.cu": ["-fmad=false"],
     "field_feat.cu": ["-fmad=false"],
@@ -61,6 +63,10 @@ FIELD_WIDTHS = ((32, 64, 16, 64), (16, 64, 16, 64), (64, 64, 16, 64), (8, 16, 16
 # once a width (-DNGP_IN=...) and once for their C entry points, all in
 # parallel
 SPLIT_BY_WIDTH = ("field.cu", "field_feat.cu", "field_bwd.cu")
+# K8's background colour (background.cu), ~40 s of ptxas a row width:
+# compiled once a width (-DNGP_BG_F=...) and once for its C entry points
+BG_FEATURES = (1, 2, 4, 8)
+SPLIT_BY_FEATURES = ("background.cu",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +84,8 @@ _SIGNATURES = {
     "ngp_hash_encode_bwd_stoch": [_P, _P, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _U, _I, _P],
     "ngp_hash_encode_2d": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _P],
     "ngp_hash_encode_2d_bwd": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _U, _P],
+    "ngp_bg_color": [_P, _P, _F, _P, _I, _I, _P, _P, _L, _I, _FP, _I, _P],
+    "ngp_bg_color_bwd": [_P, _P, _F, _P, _I, _I] + [_P] * 6 + [_L, _I, _FP, _I, _I, _I, _P],
     "ngp_field": [_P] * 6 + [_L] + [_I] * 5 + [_L, _P],
     "ngp_field_raw": [_P] * 7 + [_L] + [_I] * 5 + [_L, _P],
     "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_L, _P],
@@ -124,6 +132,9 @@ def _jobs():
             for w in FIELD_WIDTHS:
                 defs = [f"-DNGP_{k}={v}" for k, v in zip(("IN", "HID", "OUT1", "HC"), w)]
                 jobs.append((f"{name}[{','.join(map(str, w))}]", name, flags + defs))
+        if name in SPLIT_BY_FEATURES:
+            for f in BG_FEATURES:
+                jobs.append((f"{name}[F={f}]", name, flags + [f"-DNGP_BG_F={f}"]))
     return jobs
 
 
@@ -206,6 +217,18 @@ def library():
     return _lib
 
 
+# the current stream's handle as an int without building a torch.cuda.Stream
+# (a few microseconds a launch on the host); the public call where a build
+# of PyTorch lacks it
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream_handle():
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
+
+
 class CudaKernel:
     """One C entry point of the library.  ``launches`` counts the calls that
     launched the kernel (a wrapper's CPU path never comes here)."""
@@ -218,7 +241,7 @@ class CudaKernel:
     def __call__(self, *args):
         if self._fn is None:
             self._fn = getattr(library(), self.symbol)
-        rc = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        rc = self._fn(*args, current_stream_handle())
         if rc != 0:
             msg = library().ngp_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
@@ -231,6 +254,8 @@ HASH_ENCODE_1C = CudaKernel("ngp_hash_encode_1c")
 HASH_ENCODE_BWD_STOCH = CudaKernel("ngp_hash_encode_bwd_stoch")
 HASH_ENCODE_2D = CudaKernel("ngp_hash_encode_2d")
 HASH_ENCODE_2D_BWD = CudaKernel("ngp_hash_encode_2d_bwd")
+BG_COLOR = CudaKernel("ngp_bg_color")
+BG_COLOR_BWD = CudaKernel("ngp_bg_color_bwd")
 FIELD = CudaKernel("ngp_field")
 FIELD_MMA = CudaKernel("ngp_field_mma")
 FIELD_BWD = CudaKernel("ngp_field_bwd")
@@ -257,8 +282,10 @@ COPYRNERF_INPUT = CudaKernel("ngp_copyrnerf_input")
 # (fp32, ``_f32``); K2 on the bool grid and on the float render grid (the
 # transmittance cull, ``_cull``); K7, the stochastic hash estimators (the
 # one-corner forward and the one-corner backward); K8, the background
-# sphere's 2D encoding; K4's forward that also writes the density logit
-# (``_raw``); K10, the CopyRNeRF MLP's input
+# colour (its forward, and its backward: two kernels a launch), and the
+# background sphere's 2D encoding alone (off the main path); K4's
+# forward that also writes the density logit (``_raw``); K10, the CopyRNeRF
+# MLP's input
 KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH, "K2_march_cull": MARCH_CULL,
            "K3_composite": COMPOSITE, "K4_field": FIELD_MMA, "K4_field_f32": FIELD,
            "K1_hash_encode_bwd": HASH_ENCODE_BWD, "K3_composite_bwd": COMPOSITE_BWD,
@@ -270,6 +297,7 @@ KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH, "K2_march_cull": MA
            "K5_compact_unpack": COMPACT_UNPACK, "K5_compact_unpack_bwd": COMPACT_UNPACK_BWD,
            "K7_hash_encode_1c": HASH_ENCODE_1C, "K7_hash_encode_bwd_stoch": HASH_ENCODE_BWD_STOCH,
            "K8_hash_encode_2d": HASH_ENCODE_2D, "K8_hash_encode_2d_bwd": HASH_ENCODE_2D_BWD,
+           "K8_background": BG_COLOR, "K8_background_bwd": BG_COLOR_BWD,
            "K10_copyrnerf_input": COPYRNERF_INPUT}
 
 

@@ -25,12 +25,17 @@ into that corner's row (unbiased, one add instead of eight, never rounded
 to bf16), at a stride of levels when ``level_stride`` divides L; the
 forward stays K1's exact one, or with ``fwd_corners=1`` is the chosen row.
 
-K8 (``hash_encode_2d``, ``bg_encode``; ``csrc/hashenc_bg.cu``): 4-corner
-bilinear interpolation with the 2D hash, every level hashed, of the exit
-point of a ray on the background sphere (``ops/intersect.py:sph_from_ray``),
-computed inside the kernels from the rays.
+K8's encoding alone (``hash_encode_2d``, ``bg_encode``;
+``csrc/hashenc_bg.cu``): 4-corner bilinear interpolation with the 2D hash,
+every level hashed, of the exit point of a ray on the background sphere
+(``ops/intersect.py:sph_from_ray``), computed inside the kernels from the
+rays.  Off the main path: the background colour runs on the card as one
+kernel that encodes inside (``ops/background.py``); on the CPU
+``bg_encode``'s plain version is the first op of that kernel's plain
+chain.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -653,6 +658,14 @@ def _bg_inputs(x, rays_o, rays_d):
     return N, rays_o.device, (None, rays_o.data_ptr(), rays_d.data_ptr())
 
 
+@functools.lru_cache(maxsize=None)
+def _k8_levels(resolutions):
+    """K8's static level arguments, built once per resolutions: (the fp32
+    array, kept alive, its ctypes pointer, the combine mask)."""
+    res = np.ascontiguousarray(np.asarray(resolutions, np.float32))
+    return res, res.ctypes.data_as(_cuda._FP), combine_mask(resolutions)
+
+
 def _hash_encode_2d_kernel(x, rays_o, rays_d, radius, table_g, resolutions, log2_hashmap_size):
     """K8's forward (``csrc/hashenc_bg.cu:hash2d_fwd``) -> [N, L*F] fp32."""
     L = len(resolutions)
@@ -662,10 +675,10 @@ def _hash_encode_2d_kernel(x, rays_o, rays_d, radius, table_g, resolutions, log2
     N, dev, ptrs = _bg_inputs(x, rays_o, rays_d)
     _cuda.check(table_g, "table_g", table_g.dtype, (L << log2_hashmap_size, F), dev)
     out = torch.empty((N, L * F), dtype=torch.float32, device=dev)
-    res = np.ascontiguousarray(np.asarray(resolutions, np.float32))
+    _, res_ptr, _ = _k8_levels(tuple(map(float, resolutions)))
     _cuda.HASH_ENCODE_2D(*ptrs, float(np.float32(radius * radius)), table_g.data_ptr(),
                          int(table_g.dtype == torch.bfloat16), F, out.data_ptr(), N, L,
-                         res.ctypes.data_as(_cuda._FP), log2_hashmap_size)
+                         res_ptr, log2_hashmap_size)
     return out
 
 
@@ -678,9 +691,8 @@ def _hash_encode_2d_bwd_kernel(x, rays_o, rays_d, radius, g_feat, n_rows, resolu
     N, dev, ptrs = _bg_inputs(x, rays_o, rays_d)
     _cuda.check(g_feat, "g_feat", torch.float32, (N, L * F), dev)
     g_table = torch.zeros((n_rows, F), dtype=torch.float32, device=dev)
-    res = np.ascontiguousarray(np.asarray(resolutions, np.float32))
+    _, res_ptr, combine = _k8_levels(tuple(map(float, resolutions)))
     _cuda.HASH_ENCODE_2D_BWD(*ptrs, float(np.float32(radius * radius)), g_feat.data_ptr(),
                              int(gather_dtype == torch.bfloat16), F, g_table.data_ptr(), N, L,
-                             res.ctypes.data_as(_cuda._FP), log2_hashmap_size,
-                             combine_mask(resolutions))
+                             res_ptr, log2_hashmap_size, combine)
     return g_table

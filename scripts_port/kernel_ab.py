@@ -40,7 +40,7 @@ WatermarkTrainer.train_device (1000 steps of the recipe on that backbone),
 each loop with its rays/s and one more dispatch profiled (wall and busy ms a
 step, K5 pack's device ms a step).  ``--sections`` picks among ``kernels``
 (everything before the rates), ``steps`` (the per-step rates), ``loops``,
-``k4`` (K4's fp32 SIMT kernels alone, below) and ``k10`` (below); the first
+``k4`` (K4's fp32 SIMT kernels alone, below), ``k10`` and ``bg`` (below); the first
 three by default.
 Prints one JSON line (also to ``--out``).  Run each tree in its own
 process, in turns (parent, change, change, parent), all in one call to the
@@ -55,6 +55,20 @@ and device ms, the fp32 ``torch.matmul`` chain's, the bound), with a hash
 of every output (sigma, geo, rgb, the logit, the density-only query's
 sigma and geo; the full backward's g_feat and g_weights; g_feat).  The
 full backward's g_weights are also saved beside ``--out`` (``.gw.pt``).
+
+``bg``: the background colour (``models/ngp.py:ngp_background``) of a
+random bg model at the defaults (4 levels x F = 2 x 2^15 rows, bg_net 24
+-> 64 -> 3, seeded), in bf16 and fp32: its forward at the train step's
+4096 rays and at the serving chunk (no gradient), and its forward and
+backward together at the train step's rays (the gradients of bg_table and
+both bg_net matrices; its device ms by kernel too); each per call (CUDA
+events, median), on the device (torch.profiler) and the device work a call
+launches (kernels, memsets, copies: counted in a trace); with a hash of the
+outputs.  Then the bg loop
+(Trainer.train_device, 512 steps at K = 64 with --bg_radius 8 on
+chip_smoke.py's sky views; one more dispatch profiled: busy ms a step and
+the idle share) and one 800x800 view served on that model (the wall clock
+of a render, median of 3, and its device busy ms under torch.profiler).
 
 ``k10``: K10 on the samples of an eager CopyRNeRF watermark step (the
 README recipe with ``--copyrnerf`` on a random full-width backbone, 2
@@ -305,6 +319,82 @@ def k10(out, dev, cs):
     out["K10"]["by_samples"] = sweep
 
 
+def bg(out, dev, cs):
+    """The background colour's rows (forward at the train and serving
+    shapes, forward + backward at the train shape, bf16 and fp32), the bg
+    loop and a served bg view, into ``out``."""
+    import time
+
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+
+    ro_t, rd_t = cs.train_rays(dev)
+    ro_s, rd_s, _ = cs.serve_chunk(dev)
+    for dname, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        cfg = t_ngp.NGPConfig(bg_radius=cs.BG_RADIUS, compute_dtype=dtype)
+        params = t_ngp.init_ngp_params(torch.Generator().manual_seed(0), cfg, dev)
+        params["bg_table"].mul_(1e4)  # U(+-1): features that move the colour
+        leaves = [params["bg_table"]] + list(params["bg_net"])
+        for p in leaves:
+            p.requires_grad_(True)
+        bp = t_ngp.bg_params(params, cfg)
+        for shape, (ro, rd) in (("train", (ro_t, rd_t)), ("serve", (ro_s, rd_s))):
+            def fwd():
+                with torch.no_grad():
+                    return t_ngp.ngp_background(bp, cfg, ro, rd)
+
+            row = {"ms": cs.median_ms(fwd, 30), "device_ms": cs.device_ms(fwd, 30),
+                   "launched": cs.device_work(fwd), "sha": {"rgb": digest(fwd())}}
+            out[f"bg_fwd_{shape}_{dname}"] = row
+            print(f"[bg ab] fwd {shape} {dname}: {row}", flush=True)
+        g = torch.rand((ro_t.shape[0], 3), generator=torch.Generator(device=dev).manual_seed(5),
+                       device=dev)
+
+        def fwd_bwd():
+            return torch.autograd.grad(t_ngp.ngp_background(bp, cfg, ro_t, rd_t), leaves, g)
+
+        grads = fwd_bwd()
+        by_name, _ = cs.traced(lambda: [fwd_bwd() for _ in range(10)], "bg by kernel")
+        row = {"ms": cs.median_ms(fwd_bwd, 30), "device_ms": cs.device_ms(fwd_bwd, 30),
+               "launched": cs.device_work(fwd_bwd),
+               "device_ms_by_kernel": None if by_name is None else {
+                   name[:80]: us / 10 / 1e3 for name, us in by_name.items()},
+               "sha": {f"g{i}": digest(t) for i, t in enumerate(grads)}}
+        out[f"bg_fwd_bwd_train_{dname}"] = row
+        print(f"[bg ab] fwd+bwd train {dname}: {row}", flush=True)
+        del params, leaves, bp, grads
+    r = cs.train_case(dev, cs.TRAIN_BALL, cs.TRAIN_ITERS, steps_per_dispatch=cs.DL_K,
+                      bg_radius=cs.BG_RADIUS, views=cs.SkyBallViews)
+    tr, m = r["trainer"], r["trainer"].model
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+
+    data = t_dl.preload(r["loader"].poses, r["loader"].images, r["loader"].intrinsics, cs.RES,
+                        cs.RES, dev)
+    out["bg_loop"] = dict(
+        cs.profile_dispatch(lambda: t_dl.device_train_loop(tr, data, cs.DL_K), cs.DL_K,
+                            "bg loop profile", m.rc.compact_frac > 0),
+        steps=tr.global_step, seconds=r["seconds"], psnr1=r["psnr1"],
+        rays_per_s=tr.global_step * cs.TRAIN_RAYS / r["seconds"])
+    del data
+    held = r["held"]
+
+    def render():
+        return m.render(held["rays_o"][0], held["rays_d"][0], staged=True)["image"]
+
+    render()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof = cs.view_profile(render)
+    out["bg_view"] = {"wall_ms": sorted(walls)[1], "walls_ms": walls,
+                      "busy_ms": None if prof is None else prof["device_ms"],
+                      "profiled_wall_ms": None if prof is None else prof["wall_ms"]}
+    print(f"[bg ab] loop {out['bg_loop']}; served view {out['bg_view']}", flush=True)
+
+
 # K10's synthetic sample counts: a third, two thirds and all of the recipe's
 # CopyRNeRF step (1,511,424 samples, chip_smoke.py's phase 12)
 K10_SAMPLES = (503_808, 1_007_616, 1_511_424)
@@ -550,6 +640,8 @@ def main():
             torch.save(gws, args.out + ".gw.pt")
     if "k10" in sections:
         k10(out, dev, cs)
+    if "bg" in sections:
+        bg(out, dev, cs)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

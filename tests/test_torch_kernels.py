@@ -51,7 +51,11 @@ width, pitch and addressing; its backward within 1e-6 relative L2 (atomic
 order) touching the same rows, at level strides 1, 2 and 3 (3 runs at 1);
 K8 on given positions bit for bit (backward 1e-5), and from the rays within
 1e-3 (atan2f's ulps at resolution 2048) with the rays at phi's branch cut
-left out.
+left out; K8 as the whole background colour (``-k bg``) against the plain
+chain at F = 1, 2, 4 and 8 in fp32 (1e-3) and bf16 (relative L1 limits
+between the kernel's reading and a control's, which they refuse), its
+backward bit-equal over repeats and graph replays, one launch each way
+through autograd.
 """
 
 import numpy as np
@@ -60,6 +64,7 @@ import torch
 
 from nerf_signature_tpu_torch.kernel_cases import k3_edge_inputs, k5_edge_inputs
 from nerf_signature_tpu_torch.models import ngp as t_ngp
+from nerf_signature_tpu_torch.ops import background as t_bg
 from nerf_signature_tpu_torch.ops import composite as t_comp
 from nerf_signature_tpu_torch.ops import hashenc as t_hash
 from nerf_signature_tpu_torch.ops import marching as t_march
@@ -1198,12 +1203,154 @@ def test_k8_kernels_on_rays_match_plain(cuda):
     assert rel_l2(tt.grad, kb) <= 1e-6
 
 
+# ------------------------------------- K8: the whole background colour
+# limits against the plain chain (ops/background.py): fp32 1e-3 absolute on
+# the colour and 1e-3 relative L2 on each gradient (atan2f's ulps at
+# resolution 2048, as K8's encoding from the rays; fmaf sums in another
+# order than cuBLAS's).  bf16: 4e-3 absolute on the colour (a bf16 step of
+# bg_net's output where an fp32 sum rounds the other way, through the
+# sigmoid: at most ~2e-3), and on each output a relative L1 limit between
+# the kernel's reading and the control's, the fp32 kernel on the
+# bf16-rounded table and weights (mlp_apply's activation roundings
+# skipped): at these cases the kernel read at most colour 2.3e-5, table
+# 5.0e-4, W1 2.2e-3, W2 5.3e-4, the control at least 4.5e-4, 8.9e-3,
+# 2.4e-2, 2.4e-3 (scripts_port/bg_limits.py on an H100).
+BG_LIM = {torch.float32: 1e-3, torch.bfloat16: 4e-3}
+# fp32's backward also gives no cotangent to the rays at bg_net's ReLU kink
+# (a layer-1 pre-activation within BG_KINK of 0: background.relu_margin),
+# where the sums' orders may set the mask either way (chip_smoke.py BG_KINK)
+BG_KINK = 1e-4
+BG_RL1_BF16 = {"colour": 1e-4, "bg_table": 2e-3, "W1": 7e-3, "W2": 1.1e-3}
+
+
+def rel_l1(a, b):
+    return float((a.double() - b.double()).abs().sum() / b.double().abs().sum())
+
+
+def _bg_color_case(cuda, F, dtype, N, seed):
+    """(rays_o, rays_d, table, [W1, W2], table_g, packed, meta, cut) of a
+    random bg model at 4 levels x 2^15 rows, bg_net 4F + 16 -> 64 -> 3."""
+    g, o, d = _bg_inputs(cuda, N, seed)
+    table = (torch.rand((4 << 15, F), generator=g) * 2 - 1).to(cuda)
+    IN = 4 * F + 16
+    w1 = ((torch.rand((IN, 64), generator=g) * 2 - 1) * (6 / IN) ** 0.5).to(cuda)
+    w2 = ((torch.rand((64, 3), generator=g) * 2 - 1) * (6 / 64) ** 0.5).to(cuda)
+    meta = t_bg.BgMeta(tuple(t_hash.level_resolutions(4, 16, 2048).tolist()), 15, 8.0, dtype, 4)
+    tg = table.to(dtype)
+    packed = t_bg.pack_bg_net([w1, w2], dtype)
+    return o, d, table, [w1, w2], tg, packed, meta, t_hash.sphere_cut(o, d, 8.0)
+
+
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bg_color_kernels_match_chain(cuda, dtype, F):
+    """bg_color_fwd against the chain (background_plain) and bg_color_bwd
+    + bg_finish against its written-out backward (background_bwd_plain) at
+    4096 and a ragged 4133 rays, the rays at phi's cut left out (forward)
+    and given no cotangent (backward; in fp32 those at the ReLU kink too,
+    fewer than a tenth of them); in bf16 the control, the fp32
+    kernels on the bf16-rounded table and weights, is refused by the same
+    limits."""
+    for N, seed in ((4096, 11), (4133, 50 + F)):
+        o, d, table, net, tg, packed, meta, cut = _bg_color_case(cuda, F, dtype, N, seed)
+        k = t_bg.bg_color_kernel(o, d, tg, packed, meta)
+        p = t_bg.background_plain(o, d, table, net, meta, tg)
+        assert k.shape == (N, 3) and float((k - p)[~cut].abs().max()) <= BG_LIM[dtype]
+        g = torch.randn((N, 3), generator=torch.Generator().manual_seed(F)).to(cuda) * 1e-2
+        g[cut] = 0.0
+        if dtype == torch.float32:
+            kink = t_bg.relu_margin(o, d, table, net, meta, tg) < BG_KINK
+            assert int(kink.sum()) <= N // 10
+            g[kink] = 0.0
+        gk = t_bg._bg_color_bwd_kernel(o, d, tg, packed, g, table.shape[0], meta)
+        gp = t_bg.background_bwd_plain(o, d, table, net, g, meta, tg)
+        outs = ("bg_table", "W1", "W2")
+        if dtype == torch.float32:
+            for a, b in zip(gk, gp):
+                assert a.shape == b.shape and rel_l2(a, b) <= BG_LIM[dtype], rel_l2(a, b)
+            continue
+        meta_c = meta._replace(compute_dtype=torch.float32)
+        kc = t_bg.bg_color_kernel(o, d, tg.float(), packed, meta_c)
+        gc = t_bg._bg_color_bwd_kernel(o, d, tg.float(), packed, g, table.shape[0], meta_c)
+        assert rel_l1(k[~cut], p[~cut]) <= BG_RL1_BF16["colour"] < rel_l1(kc[~cut], p[~cut])
+        for name, a, b, c in zip(outs, gk, gp, gc):
+            assert a.shape == b.shape
+            assert rel_l1(a, b) <= BG_RL1_BF16[name] < rel_l1(c, b), (
+                name, rel_l1(a, b), rel_l1(c, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bg_color_bwd_is_bit_equal_over_repeats_and_graph_replays(cuda, dtype):
+    """No float atomics: the table's gradient and dW repeat bit for bit,
+    eagerly and across two replays of a captured CUDA graph (the kernels
+    keep no state between calls)."""
+    o, d, table, _, tg, packed, meta, _ = _bg_color_case(cuda, 2, dtype, 4096, 60)
+    g = torch.randn((4096, 3), generator=torch.Generator().manual_seed(1)).to(cuda) * 1e-2
+    run = lambda: t_bg._bg_color_bwd_kernel(o, d, tg, packed, g, table.shape[0], meta)
+    ref = [t.clone() for t in run()]
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(run(), ref))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for _ in range(2):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def test_bg_color_through_autograd_launches_one_kernel_each_way(cuda):
+    """ngp_background on the card: one forward launch, one backward launch
+    (counted; bg_color_bwd + bg_finish) and none of K8's encoding kernels;
+    the gradients those of the wrappers; frozen leaves launch no backward."""
+    from nerf_signature_tpu_torch.ops import _cuda
+    cfg = t_ngp.NGPConfig(bg_radius=8.0)
+    params = t_ngp.init_ngp_params(torch.Generator().manual_seed(0), cfg, cuda)
+    leaves = [params["bg_table"]] + list(params["bg_net"])
+    for p in leaves:
+        p.requires_grad_(True)
+    _, o, d = _bg_inputs(cuda, 4096, 61)
+    g = torch.rand((4096, 3), generator=torch.Generator().manual_seed(2)).to(cuda)
+    bp = t_ngp.bg_params(params, cfg)
+    _cuda.reset_launch_counts()
+    grads = torch.autograd.grad(t_ngp.ngp_background(bp, cfg, o, d), leaves, g)
+    n = _cuda.launch_counts()
+    assert n["K8_background"] == 1 and n["K8_background_bwd"] == 1
+    assert n["K8_hash_encode_2d"] == 0 and n["K8_hash_encode_2d_bwd"] == 0
+    want = t_bg._bg_color_bwd_kernel(o, d, bp["bg_table_g"], bp["bg_packed"], g,
+                                     params["bg_table"].shape[0], t_ngp.bg_meta(cfg))
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+    for p in leaves:
+        p.requires_grad_(False)
+    _cuda.reset_launch_counts()
+    c = t_ngp.ngp_background(t_ngp.bg_params(params, cfg), cfg, o, d)
+    assert not c.requires_grad and _cuda.launch_counts()["K8_background"] == 1
+    assert _cuda.launch_counts()["K8_background_bwd"] == 0
+
+
 def test_k7_k8_wrappers_raise_instead_of_falling_back(cuda):
     res = t_hash.level_resolutions(4, 16, 2048)
     tg = torch.zeros((4 << 15, 2), dtype=torch.bfloat16, device=cuda)
     bad = torch.zeros((3, 8), device=cuda).t()
     with pytest.raises(ValueError, match="contiguous"):
         t_hash._hash_encode_2d_kernel(None, bad, bad, 8.0, tg, res, 15)
+    o, d, table, _, btg, packed, meta, _ = _bg_color_case(cuda, 2, torch.bfloat16, 8, 62)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_bg.bg_color_kernel(bad, bad, btg, packed, meta)
+    with pytest.raises(ValueError, match="shape"):
+        t_bg._bg_color_bwd_kernel(o, d, btg, packed, torch.zeros((8, 2), device=cuda),
+                                  table.shape[0], meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_bg.bg_color_kernel(o.cpu(), d, btg, packed, meta)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        t_bg.bg_color_kernel(o, d, torch.zeros((4 << 15, 3), device=cuda), packed, meta)
     with pytest.raises(ValueError, match="contiguous"):
         t_hash._hash_encode_1c_kernel(bad, tg, 4 << 15, res, 15, False, None)
     with pytest.raises(ValueError, match="divide"):
