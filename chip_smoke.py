@@ -466,6 +466,17 @@ def device_ms(fn, reps=20, cold=False):
     return ms
 
 
+def call_split(fn, reps):
+    """One call of ``fn`` split into device and host time: ms a call (CUDA
+    events, median), its device ms warm and cold (``device_ms``), and the
+    host's µs a call: the ms a call less the warm device ms, the time the
+    idle device waits for the host to launch and return."""
+    ms = median_ms(fn, reps)
+    warm = device_ms(fn, reps)
+    return {"ms": ms, "device_ms_warm": warm, "device_ms_cold": device_ms(fn, reps, cold=True),
+            "host_us": (ms - warm) * 1e3}
+
+
 # the forward kernels a served view runs, by a substring of their names
 VIEW_KERNELS = {"K1": "hash_encode_fwd", "K2": "march_fwd", "K3": "composite_fwd",
                 "K4": "field_mma_fwd"}
@@ -2780,13 +2791,16 @@ def k5_check(mask, xyzs, rays_d, Mc, sig_c, rgb_c, g_sig, g_rgb, what):
     return comp, plain, leaves, (sp, rp)
 
 
-def k5_case(dev, mask, xyzs, rays_d, Mc, what, reps=50):
+def k5_case(dev, mask, xyzs, rays_d, Mc, what, reps=50, digest=None):
     """K5 at one step's shapes: bit-exact against the plain versions
-    (k5_check), then each kernel's time a call (CUDA events) and device time
-    (cold: the L2 flushed before each call), the plain version's, the plain
-    chain's (``library``: cumsum and
-    index_put_ for the pack, the gather for the unpack, indexing_backward --
-    index_put_ with accumulate -- for its backward) and the bound.  Bytes
+    (k5_check), then each kernel's time a call (CUDA events), device time
+    (cold: the L2 flushed before each call; and warm) and host µs a call
+    (``call_split``), the plain version's time, the yardstick's
+    (``library``: cumsum and index_put_ for the pack; for the unpack the
+    gather alone through a ``src`` built beforehand, the keep mask's zeros
+    excluded; indexing_backward -- index_put_ with accumulate -- for its
+    backward) and the bound; with ``digest``, each row's "sha" holds the
+    digests of the kernel's outputs.  Bytes
     the function must move: pack 1 B of mask and 4 B of slot map a sample,
     12 B of rays_d a ray, 12 B of position a kept sample, 28 B a slot
     (position, direction, sample index); unpack 4 B of slot map and 16 B of
@@ -2827,28 +2841,39 @@ def k5_case(dev, mask, xyzs, rays_d, Mc, what, reps=50):
     fns = {
         "K5_compact_pack": (lambda: t_compact.compact(mask, xyzs, rays_d, Mc),
                             lambda: t_compact.compact_plain(mask, xyzs, rays_d, Mc), lib_pack,
+                            "cumsum + index_put_ (the plain chain)",
                             M + 4 * M + 12 * N + 12 * K + 28 * Mc),
         "K5_compact_unpack": (lambda: t_compact._unpack_kernel(sig_c, rgb_c, comp.slot_of),
                               lambda: t_compact.uncompact_plain(sig_c, rgb_c, plain),
-                              lambda: (sig_c[src], rgb_c[src]), 4 * M + 16 * M + 16 * K),
+                              lambda: (sig_c[src], rgb_c[src]),
+                              "the gather alone (keep mask excluded)", 4 * M + 16 * M + 16 * K),
         "K5_compact_unpack_bwd": (
             lambda: t_compact.unpack_bwd(g_sig, g_rgb, comp.sample_of),
             lambda: torch.autograd.grad(outs, leaves, (g_sig, g_rgb), retain_graph=True),
-            lib_bwd, 4 * Mc + 16 * Mc + 16 * K),
+            lib_bwd, "indexing_backward (index_put_ with accumulate)", 4 * Mc + 16 * Mc + 16 * K),
     }
     rows = {}
-    for name, (kernel, plain_fn, lib, n_bytes) in fns.items():
+    for name, (kernel, plain_fn, lib, lib_what, n_bytes) in fns.items():
         b_ms, b_by = bound_of(n_bytes, 0, PEAK_FP32)
-        rows[name] = {"ms": median_ms(kernel, reps), "device_ms": device_ms(kernel, cold=True),
+        t, tl = call_split(kernel, reps), call_split(lib, reps)
+        rows[name] = {"ms": t["ms"], "device_ms": t["device_ms_cold"],
+                      "device_ms_warm": t["device_ms_warm"], "host_us": t["host_us"],
                       "plain_ms": median_ms(plain_fn, reps),
-                      "library_ms": median_ms(lib, reps),
-                      "library_device_ms": device_ms(lib, cold=True),
+                      "library_ms": tl["ms"], "library_device_ms": tl["device_ms_cold"],
+                      "library_host_us": tl["host_us"], "library_what": lib_what,
                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
                       "shape": f"{N} x {S}, Mc {Mc}, kept {K}"}
+        if digest is not None:
+            got = kernel()
+            if name == "K5_compact_pack":
+                got = [got.xyz_c, got.dir_c, got.slot_of, got.sample_of]
+            rows[name]["sha"] = [digest(v) for v in got]
         r = rows[name]
         log(f"[k5] {name} at {r['shape']}: bit-exact; {r['ms']:.4f} ms a call, device "
-            f"{r['device_ms']:.4f} (bound {b_ms:.4f}, {b_by}); plain {r['plain_ms']:.4f}; "
-            f"plain chain {r['library_ms']:.4f}, device {r['library_device_ms']:.4f}")
+            f"{r['device_ms']:.4f} cold, {r['device_ms_warm']:.4f} warm (bound {b_ms:.4f}, "
+            f"{b_by}), host {r['host_us']:.1f} us a call; plain {r['plain_ms']:.4f}; "
+            f"{lib_what} {r['library_ms']:.4f}, device {r['library_device_ms']:.4f} cold, "
+            f"host {r['library_host_us']:.1f} us")
     return rows
 
 
@@ -3789,19 +3814,21 @@ def k7_rows(dev, backbone_model):
     flat = chosen.reshape(-1)
     distinct = int(torch.unique(flat).numel())
     bms, bby = bound_of(M * 12 + M * L * F * 4 + distinct * F * 2, 0, PEAK_FP32)
+    t, tl = call_split(run, 20), call_split(lambda: tg.index_select(0, flat), 20)
     out["K7_hash_encode_1c"] = dict(
-        max_abs_err=err, ms=median_ms(run, 20), device_ms=device_ms(run, 20),
+        max_abs_err=err, ms=t["ms"], device_ms=t["device_ms_warm"],
+        device_ms_cold=t["device_ms_cold"], host_us=t["host_us"],
         plain_ms=median_ms(lambda: t_hash.hash_encode_1c_plain(x01, table, res, log2,
                                                                table_g=tg), 3, 1),
-        bound_ms=bms, bound_by=bby,
-        library_ms=median_ms(lambda: tg.index_select(0, flat), 20),
-        library_device_ms=device_ms(lambda: tg.index_select(0, flat), 20),
+        bound_ms=bms, bound_by=bby, library_ms=tl["ms"], library_device_ms=tl["device_ms_warm"],
+        library_host_us=tl["host_us"], library_what="the gather alone (choice excluded)",
         distinct_rows=distinct)
     r = out["K7_hash_encode_1c"]
     log(f"[K7 fwd 1c] {distinct} distinct rows chosen; per call {r['ms']:.4f} ms, device "
-        f"{r['device_ms']:.4f} ms, bound {bms:.4f} ms ({bby}); plain {r['plain_ms']:.4f} ms; "
-        f"the gather of the chosen rows {r['library_ms']:.4f} ms (device "
-        f"{r['library_device_ms']:.4f})")
+        f"{r['device_ms']:.4f} ms ({r['device_ms_cold']:.4f} cold), host {r['host_us']:.1f} "
+        f"us a call, bound {bms:.4f} ms ({bby}); plain {r['plain_ms']:.4f} ms; "
+        f"{r['library_what']} {r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f}, "
+        f"host {r['library_host_us']:.1f} us)")
 
     # ---- the backward at strides 1 and 2, on cotangents of the live samples
     g_feat = torch.zeros((M, pitch), device=dev)
@@ -6003,6 +6030,8 @@ def main():
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
+                     **{k: r[k] for k in ("device_ms_warm", "host_us", "library_host_us",
+                                          "library_what")},
                      "shape": r["shape"], "compact_frac": r["compact_frac"],
                      **{k: r[k] for k in ("repeats_bit_exact", "graph_replays_kept") if k in r},
                      "train_launches": train["launches"][base],
@@ -6056,7 +6085,9 @@ def main():
                                           "library_ms")},
                      **{k: r[k] for k in ("device_ms", "library_device_ms", "rel_l2",
                                           "rows_chosen_differently", "cut_rays", "rays",
-                                          "distinct_rows", "n_adds") if k in r},
+                                          "distinct_rows", "n_adds", "device_ms_cold",
+                                          "host_us", "library_host_us", "library_what")
+                        if k in r},
                      "train_launches": train["launches"][counter],
                      "wm_launches": wm["launches"][counter],
                      "device_loop_launches": {k: v[counter] for k, v in dl_launches.items()},

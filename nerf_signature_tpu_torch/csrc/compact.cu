@@ -62,6 +62,14 @@
 //   the caller's stream at every call, so every replay of a CUDA graph that
 //   captured the pack starts clean.  A memset and two launches, all on the
 //   caller's stream, allocating nothing: a CUDA graph can capture them.
+// * The unpack: a block takes a tile of UNPACK_TILE = 1024 consecutive
+//   samples (the grid covers M in tiles), reads their slot map as one int4
+//   a thread into shared memory, then, a warp's lanes on consecutive
+//   samples, gathers each kept sample's sigma and rgb row (a tile's kept
+//   samples hold consecutive slots, so the loads are coalesced) or writes
+//   zeros, and stores the tile's sigmas and its 3 x 1024 rgb floats as two
+//   contiguous spans in 16-byte stores from shared memory.  The unpack
+//   backward is one thread a slot in a grid-stride loop.
 
 #include "common.cuh"
 
@@ -72,6 +80,8 @@ constexpr int PACK_THREADS = 128;
 constexpr int PACK_ITEMS = 16;  // one uint4 of mask a thread
 constexpr int PACK_TILE = PACK_THREADS * PACK_ITEMS;
 constexpr int RAY_CAP = 256;    // rays a tile stages (S >= 9); more: read in place
+constexpr int UNPACK_ITEMS = 4;  // one int4 of slot map a thread
+constexpr int UNPACK_TILE = THREADS * UNPACK_ITEMS;
 constexpr unsigned FULL = 0xffffffffu;
 // a tile's status word: flag << 32 | value (a count or prefix below 2^31)
 constexpr unsigned long long FLAG_AGGREGATE = 1ull << 32;
@@ -133,6 +143,19 @@ __device__ __forceinline__ void store_run(T* p, long long q0, long long q1, long
     w.w = val(q + 3);
     reinterpret_cast<V4*>(p)[g] = w;
   }
+}
+
+// dst[0, n) = src[0, n) (src in shared memory, 16-byte aligned) by the
+// block's THREADS threads: float4 stores side by side where dst is 16-byte
+// aligned, scalars for the tail (and everywhere where it is not).
+__device__ __forceinline__ void store_span(float* dst, const float* src, int n) {
+  int q = 0;
+  if (aligned16(dst)) {
+    for (int g = threadIdx.x; g < n / 4; g += THREADS)
+      reinterpret_cast<float4*>(dst)[g] = reinterpret_cast<const float4*>(src)[g];
+    q = n & ~3;
+  }
+  for (q += threadIdx.x; q < n; q += THREADS) dst[q] = src[q];
 }
 
 // Exclusive scan of one int a thread over the block; *total gets the sum.
@@ -346,23 +369,60 @@ __global__ void __launch_bounds__(THREADS)
   store_run<int4>(sample_of, n_kept, Mc, t, nt, [](long long) { return -1; });
 }
 
+// unpack: a block takes a tile of UNPACK_TILE consecutive samples
 __global__ void __launch_bounds__(THREADS)
     k5_unpack(const float* __restrict__ sig_c, const float* __restrict__ rgb_c,
               const int* __restrict__ slot_of, long long M, float* __restrict__ sig,
               float* __restrict__ rgb) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < M; i += stride) {
-    const int s = slot_of[i];
+  __shared__ __align__(16) int sslot[UNPACK_TILE];        // the tile's slots
+  __shared__ __align__(16) float osig[UNPACK_TILE];       // its sigmas
+  __shared__ __align__(16) float orgb[3 * UNPACK_TILE];   // and rgb rows
+  const long long m0 = (long long)blockIdx.x * UNPACK_TILE;
+  const int len = (int)(m0 + UNPACK_TILE < M ? UNPACK_TILE : M - m0);
+
+  // slot_of: UNPACK_ITEMS samples a thread, one int4 (scalars at a ragged
+  // end or an unaligned map; -1 past the end)
+  const int first = threadIdx.x * UNPACK_ITEMS;
+  if (first + UNPACK_ITEMS <= len && aligned16(slot_of + m0)) {
+    reinterpret_cast<int4*>(sslot)[threadIdx.x] =
+        reinterpret_cast<const int4*>(slot_of + m0)[threadIdx.x];
+  } else {
+#pragma unroll
+    for (int c = 0; c < UNPACK_ITEMS; ++c)
+      sslot[first + c] = first + c < len ? slot_of[m0 + first + c] : -1;
+  }
+  __syncthreads();
+
+  // sample j = t + THREADS k: a warp's lanes on consecutive samples, whose
+  // kept slots are consecutive (the pack keeps sample order), so the loads
+  // of sig_c and rgb_c are coalesced; shared accesses at a stride of 1 and
+  // 3 words take distinct banks
+  float v[UNPACK_ITEMS][4];
+#pragma unroll
+  for (int k = 0; k < UNPACK_ITEMS; ++k) {
+    const int s = sslot[threadIdx.x + THREADS * k];
     if (s >= 0) {
-      sig[i] = sig_c[s];
+      v[k][0] = sig_c[s];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) rgb[3 * i + a] = rgb_c[3LL * s + a];
+      for (int a = 0; a < 3; ++a) v[k][1 + a] = rgb_c[3LL * s + a];
     } else {
-      sig[i] = 0.0f;
 #pragma unroll
-      for (int a = 0; a < 3; ++a) rgb[3 * i + a] = 0.0f;
+      for (int a = 0; a < 4; ++a) v[k][a] = 0.0f;
     }
   }
+#pragma unroll
+  for (int k = 0; k < UNPACK_ITEMS; ++k) {
+    const int j = threadIdx.x + THREADS * k;
+    osig[j] = v[k][0];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) orgb[3 * j + a] = v[k][1 + a];
+  }
+  __syncthreads();
+
+  // the tile's spans sig[m0, m0 + len) and rgb[3 m0, 3 (m0 + len)) from
+  // shared memory, in 16-byte stores side by side
+  store_span(sig + m0, osig, len);
+  store_span(rgb + 3 * m0, orgb, 3 * len);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -421,12 +481,13 @@ extern "C" int ngp_compact_pack(const void* mask, const void* xyzs, const void* 
   NGP_RETURN_LAST_ERROR();
 }
 
+// M below 2^31.  sig [M] and rgb [M, 3] may be views of one buffer.
 extern "C" int ngp_compact_unpack(const void* sig_c, const void* rgb_c, const void* slot_of,
                                   long long M, void* sig, void* rgb, cudaStream_t s) {
   if (M > 0) {
-    k5_unpack<<<stride_blocks(M), THREADS, 0, s>>>((const float*)sig_c, (const float*)rgb_c,
-                                                   (const int*)slot_of, M, (float*)sig,
-                                                   (float*)rgb);
+    k5_unpack<<<(unsigned int)((M + UNPACK_TILE - 1) / UNPACK_TILE), THREADS, 0, s>>>(
+        (const float*)sig_c, (const float*)rgb_c, (const int*)slot_of, M, (float*)sig,
+        (float*)rgb);
   }
   NGP_RETURN_LAST_ERROR();
 }

@@ -196,15 +196,15 @@ static int dispatch_fwd(int F, const void* x, const void* table, void* out, int 
 
 // table: [rows, F] in bf16 (table_bf16) or fp32, F = 1, 2, 4 or 8; out
 // [M, pitch] fp32 with pitch >= L*F (the columns past L*F written as zeros).
+// levels: the geometry's level block (take_levels).
 extern "C" int ngp_hash_encode(const void* x, const void* table, int table_bf16, int F,
-                               void* out, int pitch, long long M, int L, const float* res,
-                               const unsigned int* offset, const unsigned int* side,
-                               int log2_size, void* stream) {
+                               void* out, int pitch, long long M, const HashLevels* levels,
+                               void* stream) {
   HashLevels p;
-  const int rc = fill_levels(p, L, res, offset, side, log2_size);
+  const int rc = take_levels(p, levels);
   if (rc != 0) return rc;
   if (F != 1 && F != 2 && F != 4 && F != 8) return (int)cudaErrorInvalidValue;
-  if (pitch < L * F) return (int)cudaErrorInvalidValue;
+  if (pitch < p.L * F) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   return table_bf16 ? dispatch_fwd<__nv_bfloat16>(F, x, table, out, pitch, M, p, s)
@@ -227,13 +227,12 @@ static int launch_bwd(const void* x, const void* g_feat, int pitch, void* g_tabl
 // read); g_table: [rows, F] fp32, zeroed, 16-byte aligned.  combine: bit l
 // set where level l's adds are grouped by row before the atomics.
 extern "C" int ngp_hash_encode_bwd(const void* x, const void* g_feat, int pitch, int round_bf16,
-                                   int F, void* g_table, long long M, int L, const float* res,
-                                   const unsigned int* offset, const unsigned int* side,
-                                   int log2_size, unsigned int combine, void* stream) {
+                                   int F, void* g_table, long long M, const HashLevels* levels,
+                                   unsigned int combine, void* stream) {
   HashLevels p;
-  const int rc = fill_levels(p, L, res, offset, side, log2_size);
+  const int rc = take_levels(p, levels);
   if (rc != 0) return rc;
-  if (pitch < L * F) return (int)cudaErrorInvalidValue;
+  if (pitch < p.L * F) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (F) {

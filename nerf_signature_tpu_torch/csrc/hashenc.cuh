@@ -287,6 +287,16 @@ __device__ __forceinline__ void warp_add(float* g_table, unsigned int row, float
   }
 }
 
+// The level block a C entry of K1 or K7 is handed, prepared once per table
+// geometry on the host (ops/hashenc.py:level_args, a ctypes copy of this
+// struct): checked, then passed to the kernel by value.
+static inline int take_levels(HashLevels& p, const HashLevels* levels) {
+  if (levels == nullptr || levels->L < 1 || levels->L > NGP_MAX_LEVELS)
+    return (int)cudaErrorInvalidValue;
+  p = *levels;
+  return 0;
+}
+
 static inline int fill_levels(HashLevels& p, int L, const float* res, const unsigned int* offset,
                               const unsigned int* side, int log2_size) {
   if (L < 1 || L > NGP_MAX_LEVELS) return (int)cudaErrorInvalidValue;

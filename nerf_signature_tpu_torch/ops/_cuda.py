@@ -78,10 +78,12 @@ _UP = ctypes.POINTER(ctypes.c_uint)
 
 # symbol -> argtypes, the stream (last argument) included
 _SIGNATURES = {
-    "ngp_hash_encode": [_P, _P, _I, _I, _P, _I, _L, _I, _FP, _UP, _UP, _I, _P],
-    "ngp_hash_encode_bwd": [_P, _P, _I, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _U, _P],
-    "ngp_hash_encode_1c": [_P, _P, _I, _I, _P, _I, _L, _I, _FP, _UP, _UP, _I, _P],
-    "ngp_hash_encode_bwd_stoch": [_P, _P, _I, _I, _P, _L, _I, _FP, _UP, _UP, _I, _U, _I, _P],
+    # K1 and K7 take their geometry's level block (csrc/hashenc.cuh:HashLevels,
+    # prepared once: ops/hashenc.py:level_args) by its address
+    "ngp_hash_encode": [_P, _P, _I, _I, _P, _I, _L, _P, _P],
+    "ngp_hash_encode_bwd": [_P, _P, _I, _I, _I, _P, _L, _P, _U, _P],
+    "ngp_hash_encode_1c": [_P, _P, _I, _I, _P, _I, _L, _P, _P],
+    "ngp_hash_encode_bwd_stoch": [_P, _P, _I, _I, _P, _L, _P, _U, _I, _P],
     "ngp_hash_encode_2d": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _P],
     "ngp_hash_encode_2d_bwd": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _U, _P],
     "ngp_bg_color": [_P, _P, _F, _P, _I, _I, _P, _P, _L, _I, _FP, _I, _P],
@@ -218,14 +220,15 @@ def library():
 
 
 # the current stream's handle as an int without building a torch.cuda.Stream
-# (a few microseconds a launch on the host); the public call where a build
-# of PyTorch lacks it
+# or going through torch.cuda.current_device's Python (a few microseconds a
+# launch on the host); the public calls where a build of PyTorch lacks them
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_GET_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
 
 
 def current_stream_handle():
-    if _RAW_STREAM is not None:
-        return _RAW_STREAM(torch.cuda.current_device())
+    if _RAW_STREAM is not None and _GET_DEVICE is not None:
+        return _RAW_STREAM(_GET_DEVICE())
     return torch.cuda.current_stream().cuda_stream
 
 
@@ -355,6 +358,27 @@ def check(t, name, dtype, shape=None, device=None):
         raise ValueError(f"{name}: must be contiguous")
     if not t.is_cuda or (device is not None and t.device != device):
         raise ValueError(f"{name}: must be a CUDA tensor on {device}")
+
+
+def check_many(*specs, name_device=False):
+    """``check`` of several tensors, each spec (tensor, name, dtype, shape),
+    all on the first one's CUDA device: one pass of comparisons where every
+    check holds; where one fails, ``check`` of each in turn (the first on
+    any CUDA device, or with ``name_device`` on its own, which its error
+    then names; the rest on its device) raises that check's own error."""
+    first = specs[0][0]
+    dev = first.get_device()  # -1 on the CPU
+    ok = dev >= 0
+    for t, _, dtype, shape in specs:
+        if not ok:
+            break
+        ok = (t.dtype == dtype and t.get_device() == dev and t.is_contiguous()
+              and (shape is None or t.shape == shape))
+    if ok:
+        return
+    device = first.device
+    for i, (t, name, dtype, shape) in enumerate(specs):
+        check(t, name, dtype, shape, device if i or name_device else None)
 
 
 def needs_grad(*tensors):

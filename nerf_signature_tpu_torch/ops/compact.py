@@ -117,12 +117,15 @@ def compact(mask, xyzs, rays_d, Mc, plain=False, cap=None):
 
 
 def _unpack_kernel(sig_c, rgb_c, slot_of):
-    M, Mc, dev = slot_of.shape[0], sig_c.shape[0], sig_c.device
-    _cuda.check(sig_c, "sig_c", torch.float32, (Mc,), dev)
-    _cuda.check(rgb_c, "rgb_c", torch.float32, (Mc, 3), dev)
-    _cuda.check(slot_of, "slot_of", torch.int32, (M,), dev)
-    sig = torch.empty((M,), dtype=torch.float32, device=dev)
-    rgb = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    """K5 unpack on the card: (sigmas [M], rgbs [M, 3]), contiguous views of
+    one allocation (rgbs from the first 16-byte boundary past the sigmas)."""
+    M, Mc = slot_of.shape[0], sig_c.shape[0]
+    _cuda.check_many((sig_c, "sig_c", torch.float32, (Mc,)),
+                     (rgb_c, "rgb_c", torch.float32, (Mc, 3)),
+                     (slot_of, "slot_of", torch.int32, (M,)), name_device=True)
+    at = -(-M // 4) * 4
+    buf = sig_c.new_empty((at + 3 * M,))
+    sig, rgb = buf.as_strided((M,), (1,)), buf.as_strided((M, 3), (3, 1), at)
     _cuda.COMPACT_UNPACK(sig_c.data_ptr(), rgb_c.data_ptr(), slot_of.data_ptr(), M,
                          sig.data_ptr(), rgb.data_ptr())
     return sig, rgb

@@ -25,6 +25,13 @@ into that corner's row (unbiased, one add instead of eight, never rounded
 to bf16), at a stride of levels when ``level_stride`` divides L; the
 forward stays K1's exact one, or with ``fwd_corners=1`` is the chosen row.
 
+K1's and K7's C entries take a table geometry's level arguments (the
+resolutions, first rows and dense sides, with the backwards' combine mask)
+as one prepared block (``csrc/hashenc.cuh:HashLevels``), built at the
+geometry's first call and then looked up (``level_args``): a call's host
+path checks its tensors in one pass, allocates its output and makes one
+ctypes call.
+
 K8's encoding alone (``hash_encode_2d``, ``bg_encode``;
 ``csrc/hashenc_bg.cu``): 4-corner bilinear interpolation with the 2D hash,
 every level hashed, of the exit point of a ray on the background sphere
@@ -35,8 +42,10 @@ kernel that encodes inside (``ops/background.py``); on the CPU
 chain.
 """
 
+import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -417,6 +426,60 @@ def combine_mask(resolutions):
     return sum(1 << lv for lv, r in enumerate(resolutions) if r <= COMBINE_MAX_RES)
 
 
+class HashLevelsBlock(ctypes.Structure):
+    """``csrc/hashenc.cuh:HashLevels`` field for field: what K1's and K7's C
+    entries take by address."""
+
+    _fields_ = [("L", ctypes.c_int), ("log2_size", ctypes.c_int),
+                ("res", ctypes.c_float * KERNEL_MAX_LEVELS),
+                ("offset", ctypes.c_uint * KERNEL_MAX_LEVELS),
+                ("side", ctypes.c_uint * KERNEL_MAX_LEVELS)]
+
+
+class LevelArgs(NamedTuple):
+    """A table geometry's launch arguments, built once (``level_args``):
+    the per-level resolutions (float32), first rows and dense sides (uint32,
+    0 where hashed), the combine mask of the backwards (``combine_mask``)
+    and the COMBINE_MAX_RES it was taken at, and the C level block, a copy
+    of the three arrays, with its address (the entry reads the block, so
+    the cache keeps it alive)."""
+
+    res: np.ndarray
+    offsets: np.ndarray
+    sides: np.ndarray
+    combine: int
+    combine_limit: int
+    block: HashLevelsBlock
+    ptr: int
+
+
+# geometry -> LevelArgs, kept for the process (a run holds a few geometries)
+_LEVEL_ARGS = {}
+
+
+def level_args(resolutions, log2_hashmap_size, shared_table=False, dense_sides=None):
+    """The ``LevelArgs`` of a geometry, built at its first call and then
+    looked up: keyed by (the resolutions as a tuple, log2 size,
+    shared_table, the dense sides as a tuple or None), so a list and a tuple
+    of the same values share an entry and a caller's later change to its
+    list reaches nothing cached."""
+    key = (tuple(resolutions), log2_hashmap_size, bool(shared_table),
+           None if dense_sides is None else tuple(dense_sides))
+    got = _LEVEL_ARGS.get(key)
+    if got is None:
+        got = _LEVEL_ARGS[key] = _build_level_args(*key)
+    return got
+
+
+def _build_level_args(resolutions, log2_hashmap_size, shared_table, dense_sides):
+    L = len(resolutions)
+    res, offs, sides = _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides)
+    block = HashLevelsBlock(L=L, log2_size=log2_hashmap_size)
+    block.res[:L], block.offset[:L], block.side[:L] = res.tolist(), offs.tolist(), sides.tolist()
+    return LevelArgs(res, offs, sides, combine_mask(resolutions), COMBINE_MAX_RES, block,
+                     ctypes.addressof(block))
+
+
 def _kernel_features(F, L):
     """The row widths and level counts K1's kernels take: F in
     KERNEL_FEATURES, 1 to KERNEL_MAX_LEVELS levels."""
@@ -430,8 +493,8 @@ def _kernel_features(F, L):
 
 
 def _hash_encode_kernel(x, table_g, n_rows, resolutions, log2_hashmap_size, shared_table,
-                        dense_sides, pitch=None, kernel="HASH_ENCODE"):
-    """K1's forward (or, ``kernel="HASH_ENCODE_1C"``, K7's one-corner
+                        dense_sides, pitch=None, kernel=_cuda.HASH_ENCODE):
+    """K1's forward (or, ``kernel=_cuda.HASH_ENCODE_1C``, K7's one-corner
     forward: the same arguments) -> [M, pitch] fp32."""
     L = len(resolutions)
     F = _kernel_features(table_g.shape[-1], L)
@@ -441,15 +504,12 @@ def _hash_encode_kernel(x, table_g, n_rows, resolutions, log2_hashmap_size, shar
     if pitch < L * F:
         raise ValueError(f"pitch {pitch} < L*F = {L * F}")
     M = x.shape[0]
-    _cuda.check(x, "x", torch.float32, (M, 3))
-    _cuda.check(table_g, "table_g", table_g.dtype, (n_rows, F), x.device)
-    out = torch.empty((M, pitch), dtype=torch.float32, device=x.device)
-    res, offs, sides = _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides)
-    getattr(_cuda, kernel)(
-        x.data_ptr(), table_g.data_ptr(), int(table_g.dtype == torch.bfloat16), F,
-        out.data_ptr(), pitch, M, L,
-        res.ctypes.data_as(_cuda._FP), offs.ctypes.data_as(_cuda._UP),
-        sides.ctypes.data_as(_cuda._UP), log2_hashmap_size)
+    _cuda.check_many((x, "x", torch.float32, (M, 3)),
+                     (table_g, "table_g", table_g.dtype, (n_rows, F)))
+    out = x.new_empty((M, pitch))
+    kernel(x.data_ptr(), table_g.data_ptr(), int(table_g.dtype == torch.bfloat16), F,
+           out.data_ptr(), pitch, M,
+           level_args(resolutions, log2_hashmap_size, shared_table, dense_sides).ptr)
     return out
 
 
@@ -457,7 +517,7 @@ def _hash_encode_1c_kernel(x, table_g, n_rows, resolutions, log2_hashmap_size, s
                            dense_sides, pitch=None):
     """K7's one-corner forward (``csrc/hashenc_stoch.cu:hash_fwd_1c``)."""
     return _hash_encode_kernel(x, table_g, n_rows, resolutions, log2_hashmap_size,
-                               shared_table, dense_sides, pitch, kernel="HASH_ENCODE_1C")
+                               shared_table, dense_sides, pitch, kernel=_cuda.HASH_ENCODE_1C)
 
 
 def _bwd_args(x, g_feat, n_rows, resolutions, n_features):
@@ -468,9 +528,8 @@ def _bwd_args(x, g_feat, n_rows, resolutions, n_features):
     F = _kernel_features(n_features or pitch // L, L)
     if pitch < L * F:
         raise ValueError(f"g_feat: {pitch} columns < L*F = {L * F}")
-    _cuda.check(x, "x", torch.float32, (M, 3))
-    _cuda.check(g_feat, "g_feat", torch.float32, (M, pitch), x.device)
-    g_table = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
+    _cuda.check_many((x, "x", torch.float32, (M, 3)), (g_feat, "g_feat", torch.float32, (M, pitch)))
+    g_table = x.new_zeros((n_rows, F))
     return L, M, pitch, F, g_table
 
 
@@ -479,13 +538,20 @@ def _hash_encode_bwd_kernel(x, g_feat, n_rows, resolutions, log2_hashmap_size, g
     """K1's backward: g_feat [M, pitch] (its first L*F columns; F =
     ``n_features``, or pitch // L) -> the table's gradient [n_rows, F]."""
     L, M, pitch, F, g_table = _bwd_args(x, g_feat, n_rows, resolutions, n_features)
-    res, offs, sides = _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides)
+    levels = level_args(resolutions, log2_hashmap_size, shared_table, dense_sides)
     _cuda.HASH_ENCODE_BWD(
         x.data_ptr(), g_feat.data_ptr(), pitch, int(gather_dtype == torch.bfloat16), F,
-        g_table.data_ptr(), M, L,
-        res.ctypes.data_as(_cuda._FP), offs.ctypes.data_as(_cuda._UP),
-        sides.ctypes.data_as(_cuda._UP), log2_hashmap_size, combine_mask(resolutions))
+        g_table.data_ptr(), M, levels.ptr, _combine(levels, resolutions))
     return g_table
+
+
+def _combine(levels, resolutions):
+    """The geometry's cached combine mask, or, where COMBINE_MAX_RES has
+    been set since it was taken (a sweep of the limit), the mask at the
+    limit of the moment."""
+    if levels.combine_limit == COMBINE_MAX_RES:
+        return levels.combine
+    return combine_mask(resolutions)
 
 
 def _hash_encode_stoch_bwd_kernel(x, g_feat, n_rows, resolutions, log2_hashmap_size,
@@ -496,11 +562,9 @@ def _hash_encode_stoch_bwd_kernel(x, g_feat, n_rows, resolutions, log2_hashmap_s
     L, M, pitch, F, g_table = _bwd_args(x, g_feat, n_rows, resolutions, n_features)
     if stride < 1 or L % stride:
         raise ValueError(f"level stride {stride} does not divide L = {L}")
-    res, offs, sides = _level_args(L, resolutions, log2_hashmap_size, shared_table, dense_sides)
-    _cuda.HASH_ENCODE_BWD_STOCH(
-        x.data_ptr(), g_feat.data_ptr(), pitch, F, g_table.data_ptr(), M, L,
-        res.ctypes.data_as(_cuda._FP), offs.ctypes.data_as(_cuda._UP),
-        sides.ctypes.data_as(_cuda._UP), log2_hashmap_size, combine_mask(resolutions), stride)
+    levels = level_args(resolutions, log2_hashmap_size, shared_table, dense_sides)
+    _cuda.HASH_ENCODE_BWD_STOCH(x.data_ptr(), g_feat.data_ptr(), pitch, F, g_table.data_ptr(), M,
+                                levels.ptr, _combine(levels, resolutions), stride)
     return g_table
 
 

@@ -40,8 +40,8 @@ WatermarkTrainer.train_device (1000 steps of the recipe on that backbone),
 each loop with its rays/s and one more dispatch profiled (wall and busy ms a
 step, K5 pack's device ms a step).  ``--sections`` picks among ``kernels``
 (everything before the rates), ``steps`` (the per-step rates), ``loops``,
-``k4`` (K4's fp32 SIMT kernels alone, below), ``k10`` and ``bg`` (below); the first
-three by default.
+``k4`` (K4's fp32 SIMT kernels alone, below), ``k10``, ``bg``, ``k7k5`` and
+``k5host`` (below); the first three by default.
 Prints one JSON line (also to ``--out``).  Run each tree in its own
 process, in turns (parent, change, change, parent), all in one call to the
 card.
@@ -70,6 +70,32 @@ chip_smoke.py's sky views; one more dispatch profiled: busy ms a step and
 the idle share) and one 800x800 view served on that model (the wall clock
 of a render, median of 3, and its device busy ms under torch.profiler).
 
+``k7k5``: K7's one-corner forward (``ops/hashenc.py:_hash_encode_1c_kernel``)
+at the train step's 524,288 samples (``chip_smoke.py``'s noisy march of
+4096 random rays at budget 128 on the procedural ball) at 16 x 2 (pitch
+32) and 16 x 4, with K1's forward and backward and K7's backward at stride
+1 on the same samples (controls: the same level arguments, their kernels
+unchanged); then K5 at the clean and watermark steps' shapes
+(``chip_smoke.py``'s ``k5_march`` and ``auto_mc`` on that ball, through
+``k5_case``: bit-exact against the plain versions): the unpack, and the
+pack and unpack backward as controls.  Each row: ms a call (CUDA events,
+median), device ms cold (L2 flushed) and warm (torch.profiler), host µs a
+call (ms less the warm device ms), and ms a call in a stream of 200
+back-to-back calls (``loop_ms``: CUDA events around them all, the larger
+of host and device time a call); the yardsticks, labelled "the gather
+alone (choice excluded)" (``index_select`` of rows chosen beforehand) and
+"the gather alone (keep mask excluded)" (through a ``src`` built
+beforehand); the digests of every deterministic output (the backwards add
+by atomics and carry none).  K7's rows also time the host path alone: the
+wrapper on an empty batch (nothing launched) and the C entry at M = 0 in
+the tree's own argument form (13 scalars and arrays, or the prepared level
+block), each a perf_counter over ``HOST_CALLS`` calls.  It ends with
+``k5host``, which also runs alone: K5 unpack's host path at both shapes,
+five readings each (median and all) of the wrapper on an empty slot map,
+of its outputs' two ways of allocation (two tensors, or one buffer and two
+views), and of the unpack and its backward in streams of back-to-back
+calls.
+
 ``k10``: K10 on the samples of an eager CopyRNeRF watermark step (the
 README recipe with ``--copyrnerf`` on a random full-width backbone, 2
 steps), through ``chip_smoke.py``'s ``k10_row`` (against its plain
@@ -82,8 +108,8 @@ of as many bytes (cold), the card's write rate there.  Then
 
     python3 scripts_port/kernel_ab.py --compare A.json B.json ...
 
-prints, for each kernel row, every file's device ms and whether all the
-files' outputs are bit-equal, and, where ``.gw.pt`` files lie beside them,
+prints, for each kernel row, every file's device ms, ms and host µs a call
+and whether all the files' outputs are bit-equal, and, where ``.gw.pt`` files lie beside them,
 the worst relative L2 of each full backward's g_weights against the first
 file's.
 
@@ -395,6 +421,202 @@ def bg(out, dev, cs):
     print(f"[bg ab] loop {out['bg_loop']}; served view {out['bg_view']}", flush=True)
 
 
+# the table geometries of the k7k5 section's K7 rows: (levels, features)
+K7K5_GEOMETRIES = {"16x2": (16, 2), "16x4": (16, 4)}
+# calls a row of host-only timings averages over
+HOST_CALLS = 5000
+
+
+def host_us(fn, n=HOST_CALLS):
+    """The host's µs a call of ``fn`` (a perf_counter over ``n`` calls, the
+    device's queue drained before and after)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def loop_ms(fn, n=200):
+    """ms a call in a stream of ``n`` back-to-back calls (CUDA events around
+    them all): the larger of the host's time a call and the device's, with
+    none of the wake-up after a synchronize that a lone call's events see."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def entry_us(t_hash, _cuda, res, log2, F, pitch):
+    """K7's one-corner forward's C entry alone at M = 0 (it returns before
+    any launch), called with the tree's own argument form: the 13 scalars
+    and level arrays (their pointers made once, outside the timing) or the
+    prepared level block.  µs a call: ctypes' conversion and the entry's
+    checks."""
+    fn = getattr(_cuda.library(), "ngp_hash_encode_1c")
+    stream = _cuda.current_stream_handle()
+    if hasattr(t_hash, "level_args"):
+        block = t_hash.level_args(res, log2)
+        return len(_cuda._SIGNATURES["ngp_hash_encode_1c"]), host_us(
+            lambda: fn(0, 0, 1, F, 0, pitch, 0, block.ptr, stream))
+    a = t_hash._level_args(len(res), res, log2, False, None)
+    ptrs = (a[0].ctypes.data_as(_cuda._FP), a[1].ctypes.data_as(_cuda._UP),
+            a[2].ctypes.data_as(_cuda._UP))
+    return len(_cuda._SIGNATURES["ngp_hash_encode_1c"]), host_us(
+        lambda: fn(0, 0, 1, F, 0, pitch, 0, len(res), *ptrs, log2, stream))
+
+
+def k7k5(out, dev, cs):
+    """K7's one-corner forward at the train step's samples and geometries
+    K7K5_GEOMETRIES, K1's forward and backward and K7's backward there too
+    (controls: the same level arguments, their kernels unchanged), the host
+    path alone (the wrapper and the C entry at M = 0), and K5 at the clean
+    and watermark steps' shapes (its pack and unpack backward: controls),
+    into ``out``."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+    from nerf_signature_tpu_torch.ops import marching as t_march
+    from nerf_signature_tpu_torch.render.renderer import default_aabb
+
+    def split(fn, reps=30):
+        t = cs.call_split(fn, reps)
+        return dict(t, device_ms=t["device_ms_cold"], loop_ms=loop_ms(fn))
+
+    for geo, (L, F) in K7K5_GEOMETRIES.items():
+        m = cs.make_model(dev, levels=L, features=F)
+        cfg = m.cfg
+        fp = t_ngp.field_params(m.params, cfg)
+        pitch = t_ngp.feature_pitch(cfg)
+        ro_t, rd_t = cs.train_rays(dev)
+        noise = torch.rand((cs.TRAIN_RAYS,), generator=torch.Generator(device=dev).manual_seed(7),
+                           device=dev)
+        grid = m.occ.occupancy
+        plan = t_march.march_plan(grid.shape[0], grid.shape[1], bound=1.0, max_steps=1024,
+                                  budget=cs.TRAIN_BUDGET)
+        mk = t_march.march_rays_aabb(ro_t, rd_t, default_aabb(m.rc), grid,
+                                     coarse=t_march.coarse_grid(grid, plan),
+                                     **dict(cs.march_kwargs(m, None), budget=cs.TRAIN_BUDGET,
+                                            noise=noise))
+        live = mk["mask"].reshape(-1).float()
+        x01 = ((mk["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+        M = x01.shape[0]
+        table, tg = fp["hash_table"].detach(), fp["hash_table_g"]
+        res, log2, n_rows = cfg.resolutions, cfg.log2_hashmap_size, table.shape[0]
+        chosen, _ = t_hash.stochastic_choice(x01, res, log2)
+        flat = chosen.reshape(-1)
+        fwd = lambda: t_hash._hash_encode_1c_kernel(x01, tg, n_rows, res, log2, False, None,
+                                                    pitch)
+        gather = split(lambda: tg.index_select(0, flat))
+        bms, bby = cs.bound_of(M * 12 + M * L * F * 4 + int(torch.unique(flat).numel()) * F * 2,
+                               0, cs.PEAK_FP32)
+        x0 = torch.zeros((0, 3), device=dev)
+        n_args, c_us = entry_us(t_hash, _cuda, res, log2, F, pitch)
+        out[f"K7_fwd_1c_{geo}"] = dict(
+            split(fwd), samples=M, live_samples=int(live.sum()), pitch=pitch, bound_ms=bms,
+            bound_by=bby, library_what="the gather alone (choice excluded)",
+            library_ms=gather["ms"], library_device_ms=gather["device_ms"],
+            library_device_ms_warm=gather["device_ms_warm"], library_host_us=gather["host_us"],
+            library_loop_ms=gather["loop_ms"],
+            wrapper_m0_us=host_us(lambda: t_hash._hash_encode_1c_kernel(
+                x0, tg, n_rows, res, log2, False, None, pitch)),
+            c_entry_m0_us=c_us, c_entry_args=n_args, sha={"out": digest(fwd())})
+        k1 = lambda: t_hash._hash_encode_kernel(x01, tg, n_rows, res, log2, False, None, pitch)
+        out[f"K1_fwd_{geo}"] = dict(split(k1), sha={"out": digest(k1())})
+        g_feat = torch.zeros((M, pitch), device=dev)
+        g_feat[:, :L * F] = torch.randn((M, L * F), generator=torch.Generator(
+            device=dev).manual_seed(13), device=dev) * 1e-4 * live[:, None]
+        # the backwards add by atomics: timed, not hashed
+        out[f"K1_bwd_{geo}"] = split(lambda: t_hash._hash_encode_bwd_kernel(
+            x01, g_feat, n_rows, res, log2, torch.bfloat16, False, None, F), 20)
+        out[f"K7_bwd_{geo}"] = split(lambda: t_hash._hash_encode_stoch_bwd_kernel(
+            x01, g_feat, n_rows, res, log2, False, None, F, 1), 20)
+        for name in (f"K7_fwd_1c_{geo}", f"K1_fwd_{geo}", f"K1_bwd_{geo}", f"K7_bwd_{geo}"):
+            print(f"[k7k5] {name}: {out[name]}", flush=True)
+        del m, fp, mk, live, x01, table, tg, chosen, flat, g_feat
+    m = cs.make_model(dev)
+    for tag, n_rays, budget in (("clean", cs.TRAIN_RAYS, cs.TRAIN_BUDGET),
+                                ("wm", cs.WM_STEP_RAYS, 256)):
+        mask, xyzs, rd, n_occ = cs.k5_march(m, n_rays, budget, seed=41)
+        M = mask.numel()
+        Mc, frac = cs.auto_mc(n_occ, n_rays, budget)
+        rows = cs.k5_case(dev, mask, xyzs, rd, Mc, f"{n_rays} x {budget}", digest=digest)
+        comp = t_compact.compact(mask, xyzs, rd, Mc)
+        g = torch.Generator(device=dev).manual_seed(1)
+        sig_c = torch.randn((Mc,), generator=g, device=dev)
+        rgb_c = torch.rand((Mc, 3), generator=g, device=dev)
+        g_sig, g_rgb = torch.randn((M,), device=dev), torch.randn((M, 3), device=dev)
+        src = torch.clamp(torch.cumsum(mask.reshape(-1).to(torch.int64), 0) - 1, 0, Mc - 1)
+        for name, fn, lib in (
+                ("K5_compact_pack", lambda: t_compact.compact(mask, xyzs, rd, Mc), None),
+                ("K5_compact_unpack", lambda: t_compact._unpack_kernel(sig_c, rgb_c, comp.slot_of),
+                 lambda: (sig_c[src], rgb_c[src])),
+                ("K5_compact_unpack_bwd",
+                 lambda: t_compact.unpack_bwd(g_sig, g_rgb, comp.sample_of), None)):
+            rows[name]["loop_ms"] = loop_ms(fn)
+            if lib is not None:
+                rows[name]["library_loop_ms"] = loop_ms(lib)
+            out[f"{name}_{tag}"] = dict(rows[name], compact_frac=frac)
+            print(f"[k7k5] {name}_{tag}: {out[f'{name}_{tag}']}", flush=True)
+        del mask, xyzs, rd, comp, sig_c, rgb_c, g_sig, g_rgb, src
+
+
+def k5_host(out, dev, cs, reps=5):
+    """K5 unpack's host path at the clean and watermark steps' shapes (the
+    procedural ball of ``k7k5``), into ``out``: the wrapper on an empty slot
+    map (checks, allocation and the C entry, which launches nothing) and its
+    two ways to allocate the outputs (two tensors; one buffer and two views
+    of it), each ``host_us``; the unpack and, unchanged, its backward in
+    streams of back-to-back calls (``loop_ms``); each the median of
+    ``reps`` readings, all listed."""
+    import statistics
+
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    m = cs.make_model(dev)
+    for tag, n_rays, budget in (("clean", cs.TRAIN_RAYS, cs.TRAIN_BUDGET),
+                                ("wm", cs.WM_STEP_RAYS, 256)):
+        mask, xyzs, rd, n_occ = cs.k5_march(m, n_rays, budget, seed=41)
+        M = mask.numel()
+        Mc, _ = cs.auto_mc(n_occ, n_rays, budget)
+        comp = t_compact.compact(mask, xyzs, rd, Mc)
+        sig_c, rgb_c = torch.rand((Mc,), device=dev), torch.rand((Mc, 3), device=dev)
+        g_sig, g_rgb = torch.rand((M,), device=dev), torch.rand((M, 3), device=dev)
+        empty_map = comp.slot_of[:0]
+
+        def views(n=M):
+            buf = sig_c.new_empty((4 * n,))
+            return buf.as_strided((n,), (1,)), buf.as_strided((n, 3), (3, 1), n)
+
+        runs = {"wrapper_m0_us": (host_us, lambda: t_compact._unpack_kernel(sig_c, rgb_c,
+                                                                             empty_map)),
+                "two_allocations_us": (host_us, lambda: (sig_c.new_empty((M,)),
+                                                         sig_c.new_empty((M, 3)))),
+                "one_allocation_two_views_us": (host_us, views),
+                "unpack_loop_ms": (loop_ms, lambda: t_compact._unpack_kernel(sig_c, rgb_c,
+                                                                              comp.slot_of)),
+                "unpack_bwd_loop_ms": (loop_ms, lambda: t_compact.unpack_bwd(g_sig, g_rgb,
+                                                                             comp.sample_of))}
+        row = {}
+        for name, (timer, fn) in runs.items():
+            got = [timer(fn) for _ in range(reps)]
+            row[name], row[name + "_all"] = statistics.median(got), got
+        out[f"K5_unpack_host_{tag}"] = row
+        print(f"[k5 host] {tag}: {row}", flush=True)
+        del mask, xyzs, rd, comp, sig_c, rgb_c, g_sig, g_rgb, empty_map
+
+
 # K10's synthetic sample counts: a third, two thirds and all of the recipe's
 # CopyRNeRF step (1,511,424 samples, chip_smoke.py's phase 12)
 K10_SAMPLES = (503_808, 1_007_616, 1_511_424)
@@ -409,17 +631,23 @@ def compare(paths):
             runs.append(json.loads(f.read().strip().splitlines()[-1]))
     rows = {}
     for name, row in runs[0].items():
-        if not (isinstance(row, dict) and "sha" in row):
+        if not (isinstance(row, dict) and ("sha" in row or "host_us" in row)):
             continue
         rows[name] = {"device_ms": [r[name]["device_ms"] for r in runs],
                       "ms": [r[name]["ms"] for r in runs],
+                      "host_us": [r[name].get("host_us") for r in runs],
+                      "loop_ms": [r[name].get("loop_ms") for r in runs],
+                      "library_loop_ms": [r[name].get("library_loop_ms") for r in runs],
                       "library_device_ms": [r[name].get("library_device_ms") for r in runs],
                       "in_step_device_ms": [r[name].get("in_step", {}).get("device_ms")
                                             for r in runs],
-                      "bound_ms": row["bound_ms"],
-                      "bit_equal": all(r[name]["sha"] == row["sha"] for r in runs),
-                      "bit_equal_by_output": {k: all(r[name]["sha"][k] == v for r in runs)
-                                              for k, v in row["sha"].items()}}
+                      "bound_ms": row.get("bound_ms")}
+        if "sha" in row:
+            sha = row["sha"]
+            keys = sha.keys() if isinstance(sha, dict) else range(len(sha))
+            rows[name].update(bit_equal=all(r[name]["sha"] == sha for r in runs),
+                              bit_equal_by_output={k: all(r[name]["sha"][k] == sha[k]
+                                                          for r in runs) for k in keys})
     gws = [torch.load(p + ".gw.pt") for p in paths if os.path.exists(p + ".gw.pt")]
     if len(gws) > 1:
         for geo, ref in gws[0].items():
@@ -642,6 +870,10 @@ def main():
         k10(out, dev, cs)
     if "bg" in sections:
         bg(out, dev, cs)
+    if "k7k5" in sections:
+        k7k5(out, dev, cs)
+    if "k7k5" in sections or "k5host" in sections:
+        k5_host(out, dev, cs)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

@@ -40,15 +40,18 @@ with --t_cull captures its step again once, when the fog gate opens, and
 then launches the cull route every step.
 K5 (sample compaction) pack, unpack and unpack backward bit for bit
 against the plain versions on ``kernel_cases.k5_edge_inputs`` and at the
-clean and watermark steps' shapes; the pack also on a mask one byte off
-its alignment, repeated (its look-back's order), with a cap (a
-data-parallel rank's share of the global budget), and captured in a CUDA
-graph and replayed on other masks (its scratch reset); a clean step
-captured as a CUDA graph and replayed against the same steps run eagerly
-(1e-5: K1's atomics).
-K7's one-corner forward bit for bit (the same corner choice) at every row
-width, pitch and addressing; its backward within 1e-6 relative L2 (atomic
-order) touching the same rows, at level strides 1, 2 and 3 (3 runs at 1);
+clean and watermark steps' shapes; the unpack also on its tiles' edges
+(M below a tile, ragged, 0, nothing and everything kept, a cap, an
+unaligned slot map); the pack also on a mask one byte off its alignment,
+repeated (its look-back's order), with a cap (a data-parallel rank's
+share of the global budget), and captured in a CUDA graph and replayed
+on other masks (its scratch reset); a clean step captured as a CUDA
+graph and replayed against the same steps run eagerly (1e-5: K1's
+atomics).
+K7's one-corner forward bit for bit (the same corner choice) at every
+row width, pitch and addressing, and at two geometries called in turns;
+its backward within 1e-6 relative L2 (atomic order) touching the same
+rows, at level strides 1, 2 and 3 (3 runs at 1);
 K8 on given positions bit for bit (backward 1e-5), and from the rays within
 1e-3 (atan2f's ulps at resolution 2048) with the rays at phi's branch cut
 left out; K8 as the whole background colour (``-k bg``) against the plain
@@ -941,6 +944,58 @@ def test_compact_pack_graph_replays(cuda):
         assert _k5_pack_equal(comp, t_compact.compact_plain(*new, Mc)), seed
 
 
+# K5 unpack's tiles (1024 samples, csrc/compact.cu:UNPACK_TILE): name ->
+# (N, S, share of samples set, Mc as a share of M, cap as a share of Mc or None)
+K5_UNPACK_CASES = {"below_a_tile": (7, 100, 0.5, 0.5, None),
+                   "ragged_tiles": (37, 29, 0.4, 0.5, None),    # M = 1073, not a multiple of 4
+                   "m_zero": (0, 64, 0.5, 0.0, None),
+                   "nothing_kept": (40, 128, 0.0, 0.25, None),
+                   "everything_kept": (33, 128, 1.0, 1.0, None),
+                   "cap": (96, 128, 0.6, 0.5, 0.3)}
+
+
+@pytest.mark.parametrize("case", list(K5_UNPACK_CASES))
+def test_compact_unpack_tiles(cuda, case):
+    """K5 unpack against its plain version bit for bit, forward and through
+    autograd, at M below one tile, M not a multiple of the tile (nor of 4:
+    the rgb view's 16-byte offset), M = 0, nothing kept, everything kept,
+    and a data-parallel cap; the slot map also one element off its 16-byte
+    alignment (scalar reads).  The outputs are views of one buffer."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    N, S, on, mc_share, cap_share = K5_UNPACK_CASES[case]
+    g = torch.Generator().manual_seed(N * S + 5)
+    M = N * S
+    Mc = int(M * mc_share)
+    mask = (torch.rand((N, S), generator=g) < on).to(cuda)
+    xyzs = torch.rand((N, S, 3), generator=g).to(cuda)
+    rd = torch.randn((N, 3), generator=g).to(cuda)
+    cap = None if cap_share is None else torch.tensor(int(cap_share * Mc), device=cuda)
+    comp = t_compact.compact(mask, xyzs, rd, Mc, cap=cap)
+    plain = t_compact.compact_plain(mask, xyzs, rd, Mc, cap=cap)
+    kept = int(plain.keep.sum())
+    assert kept == {"nothing_kept": 0, "everything_kept": M}.get(case, kept)
+    sig_c = torch.randn((Mc,), generator=g).to(cuda).requires_grad_()
+    rgb_c = torch.rand((Mc, 3), generator=g).to(cuda).requires_grad_()
+    sp, rp = t_compact.uncompact_plain(sig_c, rgb_c, plain)
+    with torch.no_grad():
+        sk, rk = t_compact.uncompact(sig_c, rgb_c, comp)
+    assert torch.equal(sk, sp) and torch.equal(rk, rp)
+    assert sk.is_contiguous() and rk.is_contiguous() and rk.shape == (M, 3)
+    assert rk.data_ptr() - sk.data_ptr() == 4 * (-(-M // 4) * 4)
+    buf = torch.empty((M + 1,), dtype=torch.int32, device=cuda)
+    buf[1:] = comp.slot_of
+    su, ru = t_compact._unpack_kernel(sig_c.detach(), rgb_c.detach(), buf[1:])
+    assert torch.equal(su, sp) and torch.equal(ru, rp)
+    sk, rk = t_compact.uncompact(sig_c, rgb_c, comp)
+    assert torch.equal(sk, sp) and torch.equal(rk, rp)
+    if M:
+        gs, gr = torch.randn((M,), generator=g).to(cuda), torch.randn((M, 3), generator=g).to(cuda)
+        gk = torch.autograd.grad((sk * 2.0, rk), (sig_c, rgb_c), (gs, gr))
+        gp = torch.autograd.grad((sp * 2.0, rp), (sig_c, rgb_c), (gs, gr))
+        assert all(torch.equal(a, b) for a, b in zip(gk, gp))
+
+
 @pytest.mark.parametrize("C", [4, 3])
 def test_captured_step_replays_match_eager(cuda, monkeypatch, C):
     """One clean step captured as a CUDA graph and replayed over two
@@ -1077,6 +1132,25 @@ def test_k7_fwd_1c_kernel_is_bit_exact(cuda, L, F, pitch, gather):
     p = t_hash.hash_encode_1c_plain(x, table, res, 19, dense_sides=sides, table_g=tg)
     assert k.shape == (x.shape[0], pitch) and torch.equal(k[:, :L * F], p)
     assert not bool(k[:, L * F:].any())
+
+
+def test_k7_fwd_1c_two_geometries_in_turns(cuda):
+    """K7's one-corner forward at 16 x 2 and 8 x 4 (dense coarse levels),
+    called in turns: each call bit-equal to its plain version, each
+    geometry's level arguments built once (``hashenc.level_args``)."""
+    cases = []
+    for L, F, pitch, gather in ((16, 2, 32, "bf16"), (8, 4, 32, "dense")):
+        _, res, sides, rows, table, x, gd = _k7_inputs(cuda, L, F, gather, 30 + L)
+        tg = table.to(gd)
+        p = t_hash.hash_encode_1c_plain(x, table, res, 19, dense_sides=sides, table_g=tg)
+        cases.append((x, tg, rows, list(res), sides, pitch, L * F, p))
+    got = set()
+    for _ in range(3):
+        for x, tg, rows, res, sides, pitch, LF, p in cases:
+            k = t_hash._hash_encode_1c_kernel(x, tg, rows, res, 19, False, sides, pitch)
+            assert torch.equal(k[:, :LF], p) and not bool(k[:, LF:].any())
+            got.add(t_hash.level_args(res, 19, False, sides).ptr)
+    assert len(got) == 2
 
 
 @pytest.mark.parametrize("stride", [1, 2, 3])
