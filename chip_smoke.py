@@ -1299,6 +1299,120 @@ def check_step(tag, lk, gk_, lp, gp_, lim_rel, lim_loss=1e-6):
 # 4e-5 to 2.6e-4) is the check that fails a wrong kernel: it reads every
 # leaf's gradient, which a wrong product moves far more than the loss.
 TRAINED_LOSS_LIM = 1e-5
+# The attack steps' loss is an image MSE of a trained model (~7e-5), which
+# a single sample's colour moves: the two routes give each sample's sigma
+# and colour bit for bit, save a few in 10^5 whose colour logit rounds to
+# the neighbouring bf16 value (one bf16 step: 4.7e-4 to 1.4e-3 in a
+# sample's colour), and K3 may end a ray whose transmittance sits within
+# rounding of T_thresh a sample apart (~1e-4 at most).  Readings on an
+# H100, 300 attack steps of six trained models: 0 to 12 rays of 4096 part
+# a step, their colours up to 3.2e-4 apart, the loss over the other rays
+# at most 4.0e-6 relative; in ~500 steps such rays moved a step's whole
+# loss past 1e-5 twice (1.3e-5, and 1.4e-5 in the finetune_full step).  So
+# the rays where the routes part (a sample's sigma or colour not equal, or
+# a sample composited by one route only) are counted and held to
+# FLIP_RAY_SHARE and FLIP_RAY_LIM; the loss limit holds over the other
+# rays, and the gradients over all of them.  One bf16 step of a logit x
+# moves sigmoid(x) by at most ~1.6e-3 (near |x| = 2).
+FLIP_RAY_LIM = 2e-3
+FLIP_RAY_SHARE = 0.01  # at most 1% of the rays may part
+
+
+class AttackRenderCapture:
+    """Inside ``with``: each call of the attack losses' ``_render_mse``
+    records its rendered image and its target, and the compositor call
+    inside it its per-sample sigmas, colours, mask and weights (the calls
+    the loss makes, wrapped, not run again)."""
+
+    def __enter__(self):
+        from nerf_signature_tpu_torch.render import renderer
+        from nerf_signature_tpu_torch.train import attack as t_atk
+
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (renderer, "composite_rays"), (renderer, "composite_rays_plain"),
+            (t_atk, "render_rays_occ"), (t_atk, "_render_mse"))]
+        orig = {name: fn for _, name, fn in self.saved}
+
+        def composite(name):
+            def run(sigmas, rgbs, deltas, ts, mask=None, T_thresh=1e-4):
+                out = orig[name](sigmas, rgbs, deltas, ts, mask, T_thresh)
+                self.sigmas, self.rgbs = sigmas.detach(), rgbs.detach()
+                self.mask, self.weights = mask, out["weights"].detach()
+                return out
+            return run
+
+        def render(*a, **k):
+            out = orig["render_rays_occ"](*a, **k)
+            self.image = out["image"].detach()
+            return out
+
+        def mse(fp, wcfg, grid, rays_o, rays_d, target, *a):
+            self.target = target.detach()
+            return orig["_render_mse"](fp, wcfg, grid, rays_o, rays_d, target, *a)
+
+        renderer.composite_rays = composite("composite_rays")
+        renderer.composite_rays_plain = composite("composite_rays_plain")
+        t_atk.render_rays_occ, t_atk._render_mse = render, mse
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def attack_step_errors(loss, leaves):
+    """An attack step (``loss(plain)``, an image MSE) through the kernels
+    against one through the plain versions: ``step_errors`` with the loss
+    compared over the rays where the routes do not part (see FLIP_RAY_LIM),
+    the whole loss's relative error, and the rays that part, the samples
+    whose outputs differ and the largest colour difference of those rays.
+    Fails unless the two marches are one (every sample in the same slot)
+    and each route's captured image gives its loss bit for bit."""
+    runs = []
+    for plain in (False, True):
+        with AttackRenderCapture() as cap:
+            l = loss(plain)
+        runs.append((l.detach(), torch.autograd.grad(l, leaves), cap))
+    (lk, gk, ck), (lp, gp, cp) = runs
+    se = {}
+    for name, l, c in (("kernel", lk, ck), ("plain", lp, cp)):
+        se[name] = (c.image - c.target) ** 2
+        if not torch.equal(torch.mean(se[name]), l):
+            raise AssertionError(f"the captured {name} image does not give its loss")
+    if not torch.equal(ck.mask, cp.mask):
+        raise AssertionError("the two routes' marches differ")
+    differ = ((ck.sigmas != cp.sigmas) | (ck.rgbs != cp.rgbs).any(-1)) & cp.mask
+    apart = (differ | ((ck.weights > 0) != (cp.weights > 0))).any(-1)
+    n_apart = int(apart.sum())
+    keep = ~apart
+    e = step_errors(se["kernel"][keep].mean(), gk, se["plain"][keep].mean(), gp)
+    e.update(loss_rel_all=abs(float(lk) - float(lp)) / abs(float(lp)), rays=len(apart),
+             rays_apart=n_apart, samples_apart=int(differ.sum()),
+             rays_apart_max_abs=(float((ck.image - cp.image).abs()[apart].max())
+                                 if n_apart else 0.0),
+             loss=float(lk), loss_plain=float(lp), first_leaf_rel_l2=rel_l2(gk[0], gp[0]),
+             leaves=len(gp))
+    return e
+
+
+def check_attack_step(tag, loss, leaves, lim_rel):
+    """``attack_step_errors``, logged; fails past the limits: the loss over
+    the rays that do not part (TRAINED_LOSS_LIM), every leaf's gradient
+    (``lim_rel``), the share of rays that part (FLIP_RAY_SHARE) and their
+    colours (FLIP_RAY_LIM)."""
+    e = attack_step_errors(loss, leaves)
+    log(f"[{tag}] loss {e['loss']:.6g} vs plain {e['loss_plain']:.6g} (rel "
+        f"{e['loss_rel_all']:.3g}); {e['rays_apart']} of {e['rays']} rays part "
+        f"({e['samples_apart']} samples' outputs differ; limit {FLIP_RAY_SHARE:g} of the "
+        f"rays), their colours max abs {e['rays_apart_max_abs']:.3g} (limit {FLIP_RAY_LIM:g}); "
+        f"the loss over the other rays rel {e['loss_rel']:.3g} (limit {TRAINED_LOSS_LIM:g}); "
+        f"{e['kept']} of {e['leaves']} leaves' grads, worst rel L2 {e['worst_rel_l2']:.3g} "
+        f"(limit {lim_rel:g}); first leaf {e['first_leaf_rel_l2']:.3g}")
+    if not (e["loss_rel"] <= TRAINED_LOSS_LIM and e["worst_rel_l2"] <= lim_rel
+            and e["rays_apart"] <= FLIP_RAY_SHARE * e["rays"]
+            and e["rays_apart_max_abs"] <= FLIP_RAY_LIM):
+        raise AssertionError(f"{tag}: the step through the kernels differs from the plain one")
+    return e
 
 
 def k1_bwd(x01, live, n_rows, res, log2_size, F, gen, pitch=None):
@@ -2237,7 +2351,7 @@ def profile_steps(trainer, loader, n=16, tag="profile", step=None):
         f"{busy_us / n / 1e3:.3f} ms a step (idle share {1 - busy_us / wall_us:.1%}), "
         f"{len(by_name)} distinct device functions")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
-        log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name[:90]}")
+        log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name}")
     return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
             "idle_share": 1 - busy_us / wall_us}
 
@@ -2600,13 +2714,12 @@ def wm_attacks(trainer, make_loader, loader):
     prof = profile_steps(trainer, loader, tag="parameter attack profile",
                          step=lambda data: atk.step(msg()))
     bits = torch.as_tensor(msg(), device=dev)
-    (lk, gk), (lp, gp) = ((l.detach(), torch.autograd.grad(l, atk.leaves[:1]))
-                          for l in (atk.loss(bits, plain) for plain in (False, True)))
+    step = check_attack_step("parameter attack step", lambda plain: atk.loss(bits, plain),
+                             atk.leaves[:1], 5e-3)
     res["parameter"] = dict(bitacc_after=acc, seconds=seconds, steps=ATTACK_STEPS,
                             max_abs_change=dev_max[0], epsilon=ADV_EPSILON, profile=prof,
-                            step=check_step("parameter attack step", lk, gk, lp, gp, 5e-3,
-                                            TRAINED_LOSS_LIM))
-    del attacked, atk, a_leaves, gk, gp
+                            step=step)
+    del attacked, atk, a_leaves
 
     # ---- the backbone finetuning attack: the hash table, then every leaf
     for full, steps in ((False, ATTACK_STEPS), (True, ATTACK_FULL_STEPS)):
@@ -2640,12 +2753,11 @@ def wm_attacks(trainer, make_loader, loader):
         atk = t_atk.FinetuneAttack(trainer, num_rays=TRAIN_RAYS, full_backbone=full)
         out["profile"] = profile_steps(trainer, loader, tag=f"{key} profile", step=atk.step)
         ro, rd, target = t_atk._content(next(iter(loader)), TRAIN_RAYS, dev)
-        t_leaves = t_atk._leaves(atk.train_part)
-        (lk, gk), (lp, gp) = ((l.detach(), torch.autograd.grad(l, t_leaves))
-                              for l in (atk.loss(ro, rd, target, plain) for plain in (False, True)))
-        out["step"] = check_step(f"{key} step", lk, gk, lp, gp, 5e-3, TRAINED_LOSS_LIM)
+        out["step"] = check_attack_step(f"{key} step",
+                                        lambda plain: atk.loss(ro, rd, target, plain),
+                                        t_atk._leaves(atk.train_part), 5e-3)
         res[key] = out
-        del attacked, atk, t_leaves, gk, gp
+        del attacked, atk
     res["attack_launches"] = launches
     return res
 
@@ -3313,6 +3425,229 @@ def k6_bytes(m, full):
     return cells * (4 + 4) * 2 + cells + draws + params
 
 
+def k6_own_bytes(m, draws):
+    """The bytes K6's own work must move, its queries' left out: the grid's
+    decayed-max and live densities read and written (4 B each a cell), its
+    bitfield written (1 B), the draws read (as their tensors hold them),
+    each query's position written (12 B) and its sigma read (4 B)."""
+    cells = m.occ.density.numel()
+    drawn = sum(t.numel() * t.element_size() for d in draws for t in d if t is not None)
+    queried = sum(d.jitter.shape[0] for d in draws)
+    return cells * (4 + 4) * 2 + cells + drawn + queried * (12 + 4)
+
+
+# K6's own device work in a trace, by a substring of its names: its kernels
+# (csrc/grid.cu), the memsets of its scratch and the mean's reduction
+K6_OWN_TRACE = ("k6_", "Memset", "MeanOps")
+
+
+def k6_split(m, full, draws, reps=5, plain=False):
+    """One grid update of ``m`` (``update_extra_state``) on ``draws`` under
+    torch.profiler, ``reps`` times: its device ms a call, split into its
+    queries' (the device work of ``density_fn`` on the positions the update
+    handed it, recorded from one update and traced alone), the query's
+    setup (``m._density_query()``: the field's parameters, made once an
+    update, traced alone) and K6's own, the rest (and, on the kernel route,
+    its named work, K6_OWN_TRACE: the rest less the ~0.01-0.04 ms by which
+    the queries read apart inside the update and alone); and by kernel
+    (full names); ``plain``: of the plain route.  None where a trace came
+    back empty."""
+    kw = {"plain": True} if plain else {}  # (a parent tree's entry has no plain)
+    run = lambda: m.update_extra_state(full=full, draws=draws, **kw)  # noqa: E731
+    seen = []
+    make = m._density_query
+
+    def recording():
+        fn = make()
+        return lambda x: (seen.append(x.clone()), fn(x))[1]
+
+    m._density_query = recording
+    try:
+        run()
+    finally:
+        del m._density_query  # the class's again
+    with torch.no_grad():  # as the update queries
+        fn = m._density_query()
+        by_name, _ = traced(lambda: [run() for _ in range(reps)], "k6 split")
+        queries, _ = traced(lambda: [[fn(x) for x in seen] for _ in range(reps)], "k6 queries")
+        setup, _ = traced(lambda: [m._density_query() for _ in range(reps)], "k6 query setup")
+    if by_name is None or queries is None or setup is None:
+        return None
+    total, q_us, s_us = (sum(d.values()) for d in (by_name, queries, setup))
+    named = sum(us for name, us in by_name.items() if any(p in name for p in K6_OWN_TRACE))
+    return {"device_ms": total / reps / 1e3, "queries_ms": q_us / reps / 1e3,
+            "query_setup_ms": s_us / reps / 1e3, "own_ms": (total - q_us - s_us) / reps / 1e3,
+            "own_named_ms": named / reps / 1e3,
+            "by_kernel": {name: us / reps / 1e3 for name, us in
+                          sorted(by_name.items(), key=lambda kv: -kv[1])},
+            "queries_by_kernel": {name: us / reps / 1e3 for name, us in queries.items()},
+            "query_setup_by_kernel": {name: us / reps / 1e3 for name, us in setup.items()}}
+
+
+K6_SOURCE = ("nerf_signature_tpu_torch/csrc/grid.cu", "nerf_signature_tpu/ops/grid.py:136")
+# K6's counters by update kind
+K6_KERNELS = {"full": ("K6_full_points", "K6_full_finalize", "K6_full_threshold"),
+              "partial": ("K6_partial_occupied", "K6_partial_points", "K6_partial_scatter",
+                          "K6_partial_finalize", "K6_partial_threshold")}
+
+
+def k6_launches_an_update(C, H, full, chunk=1 << 21):
+    """K6's launches in one update of C cascades of H^3 cells (its queries
+    in chunks of ``chunk``)."""
+    n = H**3 if full else 2 * (H**3 // 4)
+    chunks = -(-n // chunk)
+    if full:
+        return {"K6_full_points": C, "K6_full_finalize": C * chunks, "K6_full_threshold": 1}
+    return {"K6_partial_occupied": 1, "K6_partial_points": C, "K6_partial_scatter": C * chunks,
+            "K6_partial_finalize": 1, "K6_partial_threshold": 1}
+
+
+def k6_bits_differ(a, b):
+    """The elements where two tensors' bits differ (floats by their bits)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def k6_check(m, full, draws, what):
+    """K6 on ``m``'s grid against its plain version, each from the grid as it
+    is, on ``draws``: first the queries' cells and positions
+    (``query_points``), then the update through ``update_extra_state``:
+    density, density_live, occupancy, mean_density and iter_density bit for
+    bit, the grid's tensors written in place; the grid is left as it was.
+    Returns the largest |difference| of density and density_live (0)."""
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+
+    kw = dict(bound=m.rc.bound, grid_size=m.rc.grid_size, full=full)
+    for cas, ((kc, kx), (pc, px)) in enumerate(zip(
+            t_grid.query_points(m.occ, draws, **kw),
+            t_grid.query_points(m.occ, draws, plain=True, **kw))):
+        bad = k6_bits_differ(kc, pc) + k6_bits_differ(kx, px)
+        if bad:
+            raise AssertionError(f"K6 {what}, cascade {cas}: {bad} query cells or position "
+                                 f"floats differ from the plain version's")
+    saved = [t.clone() for t in m.occ]
+    ids = [t.data_ptr() for t in m.occ]
+    outs = []
+    for plain in (True, False):
+        for a, b in zip(m.occ, saved):
+            a.copy_(b)
+        m.update_extra_state(full=full, draws=draws, plain=plain)
+        outs.append([t.clone() for t in m.occ])
+    if [t.data_ptr() for t in m.occ] != ids:
+        raise AssertionError(f"K6 {what}: the grid's tensors were replaced, not written in place")
+    for a, b in zip(m.occ, saved):
+        a.copy_(b)
+    for field, p, k in zip(m.occ._fields, *outs):
+        bad = k6_bits_differ(k, p)
+        if bad:
+            raise AssertionError(f"K6 {what}: {field} differs from the plain version's in {bad} "
+                                 f"elements")
+    return max(float((k - p).abs().max()) for field, p, k in zip(m.occ._fields, *outs)
+               if field in ("density", "density_live"))
+
+
+def k6_edges(dev):
+    """K6 on kernel_cases' edge grids (empty, untrained, one occupied cell,
+    the resample's u at 0 and at the count, duplicates) at C = 1 and 2, full
+    and partial, bit for bit against its plain version."""
+    from nerf_signature_tpu_torch.kernel_cases import k6_density, k6_edge_grids
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+
+    H, names = 32, []
+    for C in (1, 2):
+        for full in (True, False):
+            for name, dens, live, raw in k6_edge_grids(C, H, full):
+                draws = [t_grid.GridDraws(*(None if a is None else torch.from_numpy(a).to(dev)
+                                            for a in d)) for d in raw]
+                outs = []
+                for plain in (True, False):
+                    g = t_grid.OccupancyGrid(
+                        torch.from_numpy(dens).to(dev),
+                        torch.zeros((C, H, H, H), dtype=torch.bool, device=dev),
+                        torch.zeros((), device=dev), torch.zeros((), dtype=torch.int32,
+                                                                 device=dev),
+                        torch.from_numpy(live).to(dev))
+                    outs.append(t_grid.update_occupancy_grid_(
+                        g, k6_density, bound=float(C), grid_size=H, full=full, draws=draws,
+                        density_thresh=10.0, chunk=5000, plain=plain))
+                for field, p, k in zip(t_grid.OccupancyGrid._fields, *outs):
+                    if k6_bits_differ(k, p):
+                        raise AssertionError(f"K6 edge {name} (C {C}, full {full}): {field} "
+                                             f"differs from the plain version's")
+                names.append(f"{name} C{C} {'full' if full else 'partial'}")
+    return names
+
+
+def k6_phase(dev, m, launches):
+    """K6 (csrc/grid.cu): its launches in the clean loop's run (``launches``:
+    every update's kernels, by kind); against its plain version on the loop's
+    trained grid (C = 1), on a random bound-2 model's grid (C = 2) and on
+    the edge grids, full and partial, bit for bit; its device ms a call
+    apart from its queries', the plain route's beside it, and the bound of
+    its own bytes (k6_own_bytes), full and partial, on the trained grid."""
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+
+    C, H = m.occ.density.shape[0], m.rc.grid_size
+    updates = {"full": 16, "partial": TRAIN_ITERS // 16 - 16}
+    for kind, n_updates in updates.items():
+        for name, n in k6_launches_an_update(C, H, kind == "full").items():
+            if launches[name] != n * n_updates:
+                raise AssertionError(f"Trainer.train_device: {name} counted {launches[name]} "
+                                     f"launches in {n_updates} {kind} grid updates")
+    log(f"[k6] launches in the clean loop: "
+        f"{ {k: launches[k] for names in K6_KERNELS.values() for k in names} }")
+    out = {}
+    for kind, full in (("full", True), ("partial", False)):
+        draws = t_grid.draw_grid_randomness(torch.Generator(device=dev).manual_seed(21), C, H,
+                                            full, dev)
+        err = k6_check(m, full, draws, f"{kind}, trained grid")
+        saved = [t.clone() for t in m.occ]
+        split = k6_split(m, full, draws)
+        plain = k6_split(m, full, draws, plain=True)
+        run = lambda: m.update_extra_state(full=full, draws=draws)  # noqa: E731
+        plain_run = lambda: m.update_extra_state(full=full, draws=draws, plain=True)  # noqa
+        row = {"max_abs_err": err, "ms": None if split is None else split["own_named_ms"],
+               "plain_ms": None if plain is None else plain["own_ms"],
+               "own_by_difference_ms": None if split is None else split["own_ms"],
+               "update_ms": median_ms(run, 10), "plain_update_ms": median_ms(plain_run, 5),
+               "device_ms": None if split is None else split["device_ms"],
+               "plain_device_ms": None if plain is None else plain["device_ms"],
+               "queries_ms": None if split is None else split["queries_ms"],
+               "query_setup_ms": None if split is None else split["query_setup_ms"],
+               "library_ms": None,
+               "ms_is": "device ms a call of K6's own work: its kernels, memsets and mean "
+                        "(plain_ms: the plain route's device work less its queries' "
+                        "(density_fn on its positions) and the query's setup)",
+               **dict(zip(("bound_ms", "bound_by"),
+                          bound_of(k6_own_bytes(m, draws), 0, PEAK_FP32))),
+               "by_kernel": None if split is None else split["by_kernel"]}
+        for a, b in zip(m.occ, saved):
+            a.copy_(b)
+        out[kind] = row
+        log(f"[k6] {kind} update on the trained grid: bit-equal to the plain version; own "
+            f"{row['ms']} device ms a call (plain {row['plain_ms']}), queries "
+            f"{row['queries_ms']}, their setup {row['query_setup_ms']}, whole update "
+            f"{row['device_ms']} device ms (plain {row['plain_device_ms']}), "
+            f"{row['update_ms']:.3f} ms a call (plain {row['plain_update_ms']:.3f}); bound of "
+            f"its own bytes {row['bound_ms']:.4f} ms")
+        if split is not None:
+            for name, ms in list(split["by_kernel"].items())[:12]:
+                log(f"[k6]   {ms:8.4f} ms  {name}")
+    m2 = make_model(dev, bound=2.0, seed=4)
+    for _ in range(2):
+        m2.update_extra_state(full=True)
+    for kind, full in (("full", True), ("partial", False)):
+        draws = t_grid.draw_grid_randomness(torch.Generator(device=dev).manual_seed(22), 2, H,
+                                            full, dev)
+        k6_check(m2, full, draws, f"{kind}, bound 2 (C = 2)")
+    del m2
+    out["edges"] = k6_edges(dev)
+    log(f"[k6] bit-equal to the plain version at C = 2 (a random bound-2 model) and on the "
+        f"edge grids: {out['edges']}")
+    return out
+
+
 def profile_dispatch(run, n, tag, compacting, match=()):
     """torch.profiler over one more dispatch of n steps: wall and device busy
     ms a step and the idle share (as profile_steps reads them), the device
@@ -3337,7 +3672,7 @@ def profile_dispatch(run, n, tag, compacting, match=()):
     log(f"[{tag}] one dispatch of {n} steps: wall {wall_us / n / 1e3:.3f} ms a step, device "
         f"busy {busy_us / n / 1e3:.3f} ms a step (idle share {1 - busy_us / wall_us:.1%})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name[:90]}")
+        log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step ({us / busy_us:6.1%})  {name}")
     log(f"[{tag}] K5 pack {pack_us / n / 1e3:.4f} ms a step, memsets "
         f"{memset_us / n / 1e3:.4f}")
     return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
@@ -3400,20 +3735,10 @@ def phase_device_loop(dev, backbone_model, workdir):
         lambda: t_dl.device_train_loop(tr, data, DL_K), DL_K, "device loop profile",
         tr.model.rc.compact_frac > 0)
     res["clean"] = clean
-    # K6, the grid update (plain torch; its queries through K1 + K4), on the
-    # trained grid: 32 a 512-step run (every 16 steps), full for the first 16
-    m = tr.model
-    res["k6"] = {kind: {"ms": median_ms(lambda: m.update_extra_state(full=full), 5, 1),
-                        "device_ms": device_ms(lambda: m.update_extra_state(full=full), 3),
-                        **dict(zip(("bound_ms", "bound_by"),
-                                   bound_of(k6_bytes(m, full), 0, PEAK_FP32)))}
-                 for kind, full in (("full", True), ("partial", False))}
-    log(f"[k6] grid update: full {res['k6']['full']['ms']:.3f} ms a call (device "
-        f"{res['k6']['full']['device_ms']:.3f}, bound {res['k6']['full']['bound_ms']:.4f}), "
-        f"partial {res['k6']['partial']['ms']:.3f} (device "
-        f"{res['k6']['partial']['device_ms']:.3f}, bound "
-        f"{res['k6']['partial']['bound_ms']:.4f}); {TRAIN_ITERS // 16} a {TRAIN_ITERS}-step run")
-    del r, tr, m, data
+    # K6, the grid update, on the trained grid: 32 a 512-step run (every 16
+    # steps), full for the first 16
+    res["k6"] = k6_phase(dev, tr.model, launches)
+    del r, tr, data
     gc.collect()
 
     # ---- the watermark loop: WatermarkTrainer.train_device at the recipe
@@ -4510,9 +4835,8 @@ BASE_K = 64               # their --steps_per_dispatch
 BASE_TRIALS = 50          # test_bitacc messages of a baseline
 FT_K = 16                 # --finetune_decoder: dispatches of 16 (lossw first 16 vs last 16)
 # --finetune_decoder starts from phase 8's model with the decoder's last
-# layer re-drawn from FT_SEED (lossw near chance), and the last dispatch's
+# layer zeroed (every logit 0: lossw ln 2, chance), and the last dispatch's
 # mean lossw must fall below FT_MARGIN of the first's
-FT_SEED = 19
 FT_MARGIN = 0.5
 PRE_BITS = 16             # --prewatermark_bits (the CLI's default)
 PRE_STEPS = 200           # pretrain_hidden steps (--prewatermark_steps)
@@ -4747,16 +5071,13 @@ def baseline_run(dev, backbone_model, workdir, tag, extra, required, absent, k4_
     return res, w
 
 
-def redrawn_decoder_head(state, seed):
+def zeroed_decoder_head(state):
     """A watermark checkpoint's state with the decoder's last layer (the
-    linear map after the head) re-drawn from ``seed`` at its init (torch
-    Linear's U(+-1/sqrt(fan_in)) for weight and bias); every other array
-    shared with ``state``."""
+    linear map after the head) zeroed: every logit 0 and lossw ln 2 at the
+    first step, whatever the scale of the trained features it reads; every
+    other array shared with ``state``."""
     dec = state["trainable"]["decoder"]
-    rng = np.random.default_rng(seed)
-    bound = 1.0 / math.sqrt(dec["linear"]["w"].shape[0])
-    linear = {k: rng.uniform(-bound, bound, v.shape).astype(v.dtype)
-              for k, v in dec["linear"].items()}
+    linear = {k: np.zeros_like(v) for k, v in dec["linear"].items()}
     return {**state, "trainable": {**state["trainable"], "decoder": {**dec, "linear": linear}}}
 
 
@@ -4812,13 +5133,19 @@ def phase_baselines(dev, backbone_model, wm_state, workdir):
     del r, w
     gc.collect()
     # ---- --finetune_decoder from phase 8's watermarked model, its decoder's
-    # last layer re-drawn: from phase 8's converged decoder lossw starts at
+    # last layer zeroed: from phase 8's converged decoder lossw starts at
     # its floor, and whether the last dispatch's mean fell below the first's
     # was a coin flip (8 runs: first 0.0088-0.099, last 0.0019-0.0167, one
-    # failed); from a re-drawn head it starts near chance and must fall
-    # clearly (FT_MARGIN), while the message tables stay bit-equal
+    # failed); from a head re-drawn at its init (seed 19) it starts above
+    # chance by as much as the trained features' scale sets (9 models:
+    # first dispatch 2.31-2.90, the last over the first 0.05-0.62, one of 9
+    # looped runs past FT_MARGIN); from a zeroed head it starts at chance
+    # and falls alike on every model (4 models: first dispatch 0.488-0.494,
+    # the last over the first 0.256-0.278; scripts_port/ft_decoder_spread.py)
+    # and must fall clearly (FT_MARGIN), while the message tables stay
+    # bit-equal
     ckpt = os.path.join(workdir, "wm_trained", "ngp_ep0001.ckpt")
-    save_checkpoint(ckpt, redrawn_decoder_head(wm_state, FT_SEED))
+    save_checkpoint(ckpt, zeroed_decoder_head(wm_state))
     r, w = baseline_run(dev, backbone_model, workdir, "finetune decoder", ["--finetune_decoder"],
                         FINETUNE_REQUIRED, FINETUNE_ABSENT, ("K4_field",), per_step=False,
                         loop_k=FT_K, ckpt=ckpt, margin=FT_MARGIN)
@@ -5420,7 +5747,7 @@ def par_profile(work, n, tag):
         f"work {out['nccl_ms']:.4f} ms a step ({out['nccl_functions']}), device-to-device "
         f"copies {out['dtod_copy_ms']:.4f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step  {name[:90]}")
+        log(f"[{tag}]   {us / n / 1e3:8.4f} ms a step  {name}")
     return out
 
 
@@ -6038,6 +6365,23 @@ def main():
                      "wm_launches": wm["launches"][base],
                      "device_loop_launches": {k: v[base] for k, v in dl_launches.items()},
                      "parallel_launches": par_of(base)})
+    # K6 on the clean loop's trained grid: its own work, the
+    # queries apart; its launches: the clean device loop's run (one
+    # threshold pass an update, every kernel counted in kernel_launches)
+    for kind, names in K6_KERNELS.items():
+        r = dl["k6"][kind]
+        rows.append({"name": f"K6_{kind}", "route": "cuda", "source": K6_SOURCE[0],
+                     "replaces": K6_SOURCE[1], "path": "device loop (clean)",
+                     "launches": dl_launches["clean"][f"K6_{kind}_threshold"],
+                     "kernel_launches": {k: dl_launches["clean"][k] for k in names},
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "ms_is",
+                                          "own_by_difference_ms", "device_ms",
+                                          "plain_device_ms", "queries_ms", "query_setup_ms",
+                                          "update_ms", "plain_update_ms")},
+                     "train_launches": {k: train["launches"][k] for k in names},
+                     "wm_launches": {k: wm["launches"][k] for k in names},
+                     "parallel_launches": {k: par_of(k) for k in names}})
     # K2's cull route (slice 12): the clean step's shape at the train run's
     # t_cull is the row's headline, the serving shape and the other threshold
     # beside it; its launches: the --t_cull device loop's run (after the

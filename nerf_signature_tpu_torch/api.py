@@ -103,13 +103,14 @@ class _BaseModel:
         self.occ = init_occupancy_grid(self.rc.bound, self.rc.grid_size, self.device)
 
     @torch.no_grad()
-    def update_extra_state(self, decay=0.95, draws=None, full=None):
+    def update_extra_state(self, decay=0.95, draws=None, full=None, plain=False):
         """Full update for the first 16 updates, partial after (``full``
         given by a caller that counts them, so nothing is read back).  Random
         draws come from ``self.generator`` unless ``draws`` is given.  The
         grid's tensors are updated in place: a captured train step reads
-        them.  Without the occupancy grid (``cuda_ray`` off) it does
-        nothing, as in JAX."""
+        them.  On the card through K6's kernels (``plain=True``: its plain
+        version, how the two are held against each other).  Without the
+        occupancy grid (``cuda_ray`` off) it does nothing, as in JAX."""
         if not self.use_occ:
             return
         if full is None:
@@ -118,7 +119,7 @@ class _BaseModel:
             self.occ, self._density_query(), bound=self.rc.bound,
             grid_size=self.rc.grid_size, density_scale=self.rc.density_scale,
             density_thresh=self.density_thresh, decay=decay, full=full,
-            draws=draws, generator=self.generator)
+            draws=draws, generator=self.generator, plain=plain)
 
     @torch.no_grad()
     def mark_untrained_grid(self, poses, intrinsics):

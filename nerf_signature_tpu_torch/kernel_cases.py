@@ -138,3 +138,61 @@ def k5_edge_inputs(seed=5):
     mask.reshape(-1)[3 * 2048:8 * 2048] = False
     case("many_tiles", N, S, mask, 128 * 1024)
     return cases
+
+
+def k6_density(x):
+    """The edge cases' density query (any device): a ball of radius 1 whose
+    sigma falls from 30 to exactly 0 at its edge, 0 outside (tmp = 0 then
+    counts as queried and valid)."""
+    import torch
+
+    return torch.clamp_min(1.0 - (x * x).sum(-1), 0.0) * 30.0
+
+
+def k6_edge_grids(C, H, full, seed=6):
+    """numpy grid states and draws that drive K6 (the grid update) to the
+    edges of its design: [(name, density [C, H^3] f32, live [C, H^3] f32,
+    draws [(jitter [n, 3], rand_coords [q, 3] or None, occ_u [q] or None)]
+    per cascade)].  ``empty``: nothing occupied (the partial update's
+    uniform fallback); ``untrained``: every cell -1; ``one_cell``: a single
+    occupied cell among -1s and 0s; ``edges``: a tenth occupied, the
+    resample's u = 0, just below 1 and 1 exactly (u = count: the last
+    occupied cell) and past 1 (the cdf's end, clamped), int32 coords, a
+    cell drawn many times and cells that are also resampled (the last query
+    of a cell wins); ``random``: a third untrained, a tenth occupied."""
+    rng = np.random.default_rng(seed + 10 * C + H)
+    H3 = H**3
+    n, q = (H3, 0) if full else (2 * (H3 // 4), H3 // 4)
+    cases = []
+    for name in ("empty", "untrained", "one_cell", "edges", "random"):
+        dens = np.zeros((C, H3), np.float32)
+        if name == "untrained":
+            dens[:] = -1.0
+        elif name == "one_cell":
+            dens[:, ::3] = -1.0
+            dens[np.arange(C), rng.integers(0, H3, size=C) // 3 * 3 + 1] = 7.5
+        elif name in ("edges", "random"):
+            dens = rng.uniform(0.0, 40.0, size=(C, H3)).astype(np.float32)
+            dens[rng.uniform(size=(C, H3)) > 0.1] = 0.0
+            if name == "random":
+                dens[rng.uniform(size=(C, H3)) < 0.33] = -1.0
+        live = rng.uniform(-1.0, 30.0, size=(C, H3)).astype(np.float32)
+        draws = []
+        for cas in range(C):
+            jitter = rng.uniform(-1.0, 1.0, size=(n, 3)).astype(np.float32)
+            if full:
+                draws.append((jitter, None, None))
+                continue
+            coords = rng.integers(0, H, size=(q, 3))
+            u = rng.uniform(size=q).astype(np.float32)
+            if name == "edges":
+                coords = coords.astype(np.int32)
+                coords[: q // 8] = coords[0]  # one cell drawn q/8 times
+                # cells that are also resampled
+                occ = np.resize(np.flatnonzero(dens[cas] > 0), q // 4 - q // 8)
+                coords[q // 8: q // 4] = np.stack([occ // (H * H), occ // H % H, occ % H], -1)
+                u[:4] = [0.0, np.nextafter(np.float32(1), np.float32(0)), 1.0, 1.5]
+                u[4: q // 16] = 0.0
+            draws.append((jitter, coords, u))
+        cases.append((name, dens, live, draws))
+    return cases

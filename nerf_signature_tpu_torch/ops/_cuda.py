@@ -51,6 +51,7 @@ SOURCES = {
     "field_mma_bwd_full.cu": ["-fmad=false"],
     "msgtable.cu": ["-fmad=false"],
     "copyrnerf.cu": ["-fmad=false"],
+    "grid.cu": ["-fmad=false"],
     "gather.cu": [],
     "compact.cu": [],
 }
@@ -106,6 +107,11 @@ _SIGNATURES = {
     "ngp_compact_pack": [_P, _P, _P, _L, _I, _L] + [_P] * 6 + [_P],
     "ngp_compact_unpack": [_P, _P, _P, _L, _P, _P, _P],
     "ngp_compact_unpack_bwd": [_P, _P, _P, _L, _P, _P, _P],
+    "ngp_grid_occupied": [_P, _L, _I, _P, _P, _P, _P],
+    "ngp_grid_points": [_L, _I, _L, _P, _P, _I, _P, _P, _P, _F, _F, _F, _P, _P, _P],
+    "ngp_grid_scatter": [_P, _P, _L, _L, _F, _P, _P],
+    "ngp_grid_finalize": [_P, _P, _P, _P, _P, _L, _F, _F, _P],
+    "ngp_grid_threshold": [_P, _L, _P, _F, _P, _P, _P],
 }
 
 _lib = None
@@ -279,6 +285,16 @@ COMPACT_PACK = CudaKernel("ngp_compact_pack")
 COMPACT_UNPACK = CudaKernel("ngp_compact_unpack")
 COMPACT_UNPACK_BWD = CudaKernel("ngp_compact_unpack_bwd")
 COPYRNERF_INPUT = CudaKernel("ngp_copyrnerf_input")
+# K6, the grid update (csrc/grid.cu): the full update's kernels and the
+# partial update's, counted apart (the same entry points)
+GRID_POINTS_FULL = CudaKernel("ngp_grid_points")
+GRID_FINALIZE_FULL = CudaKernel("ngp_grid_finalize")
+GRID_THRESHOLD_FULL = CudaKernel("ngp_grid_threshold")
+GRID_OCCUPIED = CudaKernel("ngp_grid_occupied")
+GRID_POINTS = CudaKernel("ngp_grid_points")
+GRID_SCATTER = CudaKernel("ngp_grid_scatter")
+GRID_FINALIZE = CudaKernel("ngp_grid_finalize")
+GRID_THRESHOLD = CudaKernel("ngp_grid_threshold")
 
 # K4's forward, full backward and feature-only backward have two routes
 # each, counted apart: the tensor-core kernels (bf16) and the SIMT ones
@@ -288,7 +304,7 @@ COPYRNERF_INPUT = CudaKernel("ngp_copyrnerf_input")
 # colour (its forward, and its backward: two kernels a launch), and the
 # background sphere's 2D encoding alone (off the main path); K4's
 # forward that also writes the density logit (``_raw``); K10, the CopyRNeRF
-# MLP's input
+# MLP's input; K6, the grid update's kernels, full and partial
 KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH, "K2_march_cull": MARCH_CULL,
            "K3_composite": COMPOSITE, "K4_field": FIELD_MMA, "K4_field_f32": FIELD,
            "K1_hash_encode_bwd": HASH_ENCODE_BWD, "K3_composite_bwd": COMPOSITE_BWD,
@@ -301,7 +317,11 @@ KERNELS = {"K1_hash_encode": HASH_ENCODE, "K2_march": MARCH, "K2_march_cull": MA
            "K7_hash_encode_1c": HASH_ENCODE_1C, "K7_hash_encode_bwd_stoch": HASH_ENCODE_BWD_STOCH,
            "K8_hash_encode_2d": HASH_ENCODE_2D, "K8_hash_encode_2d_bwd": HASH_ENCODE_2D_BWD,
            "K8_background": BG_COLOR, "K8_background_bwd": BG_COLOR_BWD,
-           "K10_copyrnerf_input": COPYRNERF_INPUT}
+           "K10_copyrnerf_input": COPYRNERF_INPUT,
+           "K6_full_points": GRID_POINTS_FULL, "K6_full_finalize": GRID_FINALIZE_FULL,
+           "K6_full_threshold": GRID_THRESHOLD_FULL, "K6_partial_occupied": GRID_OCCUPIED,
+           "K6_partial_points": GRID_POINTS, "K6_partial_scatter": GRID_SCATTER,
+           "K6_partial_finalize": GRID_FINALIZE, "K6_partial_threshold": GRID_THRESHOLD}
 
 
 def reset_launch_counts():

@@ -40,8 +40,8 @@ WatermarkTrainer.train_device (1000 steps of the recipe on that backbone),
 each loop with its rays/s and one more dispatch profiled (wall and busy ms a
 step, K5 pack's device ms a step).  ``--sections`` picks among ``kernels``
 (everything before the rates), ``steps`` (the per-step rates), ``loops``,
-``k4`` (K4's fp32 SIMT kernels alone, below), ``k10``, ``bg``, ``k7k5`` and
-``k5host`` (below); the first three by default.
+``k4`` (K4's fp32 SIMT kernels alone, below), ``k10``, ``bg``, ``k7k5``,
+``k5host`` and ``k6`` (below); the first three by default.
 Prints one JSON line (also to ``--out``).  Run each tree in its own
 process, in turns (parent, change, change, parent), all in one call to the
 card.
@@ -95,6 +95,23 @@ five readings each (median and all) of the wrapper on an empty slot map,
 of its outputs' two ways of allocation (two tensors, or one buffer and two
 views), and of the unpack and its backward in streams of back-to-back
 calls.
+
+``k6``: K6, the occupancy-grid update (``ops/grid.py``), on the trained
+grid of the clean loop (Trainer.train_device, 512 steps at K = 64 on the
+radius-0.7 ball, as ``chip_smoke.py``'s device-loop phase trains it): first
+one more dispatch of that loop profiled (wall and busy ms a step, the idle
+share, the device ms a step of the kernels named ``k6_``); then one full and
+one partial update through ``update_extra_state`` on seeded draws, each from
+the same saved grid: ms a call (CUDA events, median), device ms warm and
+cold, the device ms a call split into its queries, the query's setup and
+K6's own work, and by kernel with full names (``chip_smoke.py:k6_split``),
+the bound of its own bytes and of the whole update's, and the digests of
+the grid's five tensors after one update (the trained grid itself differs
+from run to run: K1's backward adds by atomics); then the same update on
+``chip_smoke.py``'s
+seeded procedural model, its grid made by two full updates on seeded draws
+(no training, so every tree makes it bit for bit): ms, device ms and the
+digests, which ``--compare`` holds equal across the trees.
 
 ``k10``: K10 on the samples of an eager CopyRNeRF watermark step (the
 README recipe with ``--copyrnerf`` on a random full-width backbone, 2
@@ -383,7 +400,7 @@ def bg(out, dev, cs):
         row = {"ms": cs.median_ms(fwd_bwd, 30), "device_ms": cs.device_ms(fwd_bwd, 30),
                "launched": cs.device_work(fwd_bwd),
                "device_ms_by_kernel": None if by_name is None else {
-                   name[:80]: us / 10 / 1e3 for name, us in by_name.items()},
+                   name: us / 10 / 1e3 for name, us in by_name.items()},
                "sha": {f"g{i}": digest(t) for i, t in enumerate(grads)}}
         out[f"bg_fwd_bwd_train_{dname}"] = row
         print(f"[bg ab] fwd+bwd train {dname}: {row}", flush=True)
@@ -615,6 +632,71 @@ def k5_host(out, dev, cs, reps=5):
         out[f"K5_unpack_host_{tag}"] = row
         print(f"[k5 host] {tag}: {row}", flush=True)
         del mask, xyzs, rd, comp, sig_c, rgb_c, g_sig, g_rgb, empty_map
+
+
+def k6(out, dev, cs):
+    """The clean loop's profiled dispatch and K6's full and partial updates
+    on that loop's trained grid, into ``out``."""
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+
+    K = cs.DL_K
+    r = cs.train_case(dev, cs.TRAIN_BALL, cs.TRAIN_ITERS, steps_per_dispatch=K)
+    tr, m = r["trainer"], r["trainer"].model
+    data = t_dl.preload(r["loader"].poses, r["loader"].images, r["loader"].intrinsics, cs.RES,
+                        cs.RES, dev)
+    out["clean_loop"] = dict(
+        cs.profile_dispatch(lambda: t_dl.device_train_loop(tr, data, K), K, "device loop profile",
+                            m.rc.compact_frac > 0, match=("k6_",)),
+        steps=tr.global_step, seconds=r["seconds"], psnr1=r["psnr1"],
+        rays_per_s=tr.global_step * cs.TRAIN_RAYS / r["seconds"],
+        k6_launches={k: v for k, v in r["launches"].items() if k.startswith("K6")})
+    del data
+    saved = [t.clone() for t in m.occ]
+
+    def restore():
+        for a, b in zip(m.occ, saved):
+            a.copy_(b)
+
+    C, H = m.occ.density.shape[0], m.rc.grid_size
+    for kind, full in (("full", True), ("partial", False)):
+        draws = t_grid.draw_grid_randomness(torch.Generator(device=dev).manual_seed(21), C, H,
+                                            full, dev)
+        run = lambda: m.update_extra_state(full=full, draws=draws)  # noqa: E731
+        restore()
+        run()
+        row = {"sha": {name: digest(t) for name, t in zip(m.occ._fields, m.occ)},
+               "occupied": float(m.occ.occupancy.float().mean())}
+        restore()
+        row.update(ms=cs.median_ms(run, 10), device_ms=cs.device_ms(run, 5),
+                   device_ms_cold=cs.device_ms(run, 5, cold=True),
+                   split=cs.k6_split(m, full, draws),
+                   **dict(zip(("bound_ms", "bound_by"),
+                              cs.bound_of(cs.k6_own_bytes(m, draws), 0, cs.PEAK_FP32))),
+                   bound_whole_ms=cs.bound_of(cs.k6_bytes(m, full), 0, cs.PEAK_FP32)[0])
+        restore()
+        out[f"K6_{kind}"] = row
+        print(f"[k6 ab] {kind}: {row}", flush=True)
+    # the same on a grid every tree makes bit for bit (the loop's training is
+    # not: K1's backward adds by atomics): chip_smoke.py's seeded procedural
+    # model, its grid from two full updates on seeded draws
+    mb = cs.make_model(dev)
+    for seed in (31, 32):
+        mb.update_extra_state(full=True, draws=t_grid.draw_grid_randomness(
+            torch.Generator(device=dev).manual_seed(seed), C, H, True, dev))
+    start = [t.clone() for t in mb.occ]
+    for kind, full in (("full", True), ("partial", False)):
+        draws = t_grid.draw_grid_randomness(torch.Generator(device=dev).manual_seed(33), C, H,
+                                            full, dev)
+        run = lambda: mb.update_extra_state(full=full, draws=draws)  # noqa: E731
+        for a, b in zip(mb.occ, start):
+            a.copy_(b)
+        run()
+        row = {"sha": {name: digest(t) for name, t in zip(mb.occ._fields, mb.occ)},
+               "occupied": float(mb.occ.occupancy.float().mean()),
+               "ms": cs.median_ms(run, 10), "device_ms": cs.device_ms(run, 5)}
+        out[f"K6_{kind}_seeded"] = row
+        print(f"[k6 ab] {kind} on the seeded grid: {row}", flush=True)
 
 
 # K10's synthetic sample counts: a third, two thirds and all of the recipe's
@@ -874,6 +956,8 @@ def main():
         k7k5(out, dev, cs)
     if "k7k5" in sections or "k5host" in sections:
         k5_host(out, dev, cs)
+    if "k6" in sections:
+        k6(out, dev, cs)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

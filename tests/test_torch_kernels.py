@@ -1564,3 +1564,144 @@ def test_fixed_path_chunk_kernels_match_plain(cuda, dtype):
     assert -10 * np.log10(max(mse, 1e-30)) >= 45.0
     if dtype == torch.float32:
         assert float((k["image"] - p["image"]).abs().max()) <= 1e-4
+
+
+# ---- K6, the grid update (csrc/grid.cu): the kernel route against the plain
+# route on the same draws, bit for bit
+
+def _k6_grid(cuda, dens, live, H):
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+
+    C = dens.shape[0]
+    return t_grid.OccupancyGrid(torch.from_numpy(dens).to(cuda),
+                                torch.zeros((C, H, H, H), dtype=torch.bool, device=cuda),
+                                torch.zeros((), device=cuda),
+                                torch.tensor(5, dtype=torch.int32, device=cuda),
+                                torch.from_numpy(live).to(cuda))
+
+
+def _k6_draws(cuda, raw):
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+
+    return [t_grid.GridDraws(*(None if a is None else torch.from_numpy(a).to(cuda) for a in d))
+            for d in raw]
+
+
+def _k6_bits_equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b)
+
+
+K6_CASES = ("empty", "untrained", "one_cell", "edges", "random")
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "partial"])
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("name", K6_CASES)
+def test_grid_update_points_match_plain(cuda, name, C, full):
+    """The queries' cells and positions, kernel against plain, before
+    anything downstream (PyTorch's roundings on the card: the divide by H - 1
+    as a product with the fp32 reciprocal)."""
+    from nerf_signature_tpu_torch.kernel_cases import k6_edge_grids
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+
+    H = 32
+    (_, dens, live, raw), = [c for c in k6_edge_grids(C, H, full) if c[0] == name]
+    grid, draws = _k6_grid(cuda, dens, live, H), _k6_draws(cuda, raw)
+    kw = dict(bound=float(C), grid_size=H, full=full)
+    k = t_grid.query_points(grid, draws, **kw)
+    p = t_grid.query_points(grid, draws, plain=True, **kw)
+    for (kc, kx), (pc, px) in zip(k, p):
+        assert torch.equal(kc, pc)
+        _k6_bits_equal(kx, px)
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "partial"])
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("name", K6_CASES)
+def test_grid_update_kernel_matches_plain(cuda, name, C, full):
+    """update_occupancy_grid_ on the card: its five tensors bit-equal to the
+    plain route's, written in place (the same tensors), in several chunks;
+    the not-in-place form the same, its input untouched; the launches of
+    the update's own kernels."""
+    from nerf_signature_tpu_torch.kernel_cases import k6_density, k6_edge_grids
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+
+    H = 32
+    (_, dens, live, raw), = [c for c in k6_edge_grids(C, H, full) if c[0] == name]
+    draws = _k6_draws(cuda, raw)
+    kw = dict(bound=float(C), grid_size=H, full=full, draws=draws, density_thresh=10.0,
+              chunk=5000)
+    ref = t_grid.update_occupancy_grid_(_k6_grid(cuda, dens, live, H), k6_density, plain=True,
+                                        **kw)
+    grid = _k6_grid(cuda, dens, live, H)
+    before = [(id(t), t.data_ptr()) for t in grid]
+    _cuda.reset_launch_counts()
+    out = t_grid.update_occupancy_grid_(grid, k6_density, **kw)
+    counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+    assert out is grid and [(id(t), t.data_ptr()) for t in grid] == before
+    for a, b in zip(grid, ref):
+        _k6_bits_equal(a, b)
+    n = H**3 if full else 2 * (H**3 // 4)
+    chunks = -(-n // 5000)
+    want = ({"K6_full_points": C, "K6_full_finalize": C * chunks, "K6_full_threshold": 1}
+            if full else {"K6_partial_occupied": 1, "K6_partial_points": C,
+                          "K6_partial_scatter": C * chunks, "K6_partial_finalize": 1,
+                          "K6_partial_threshold": 1})
+    assert counts == want
+    g0 = _k6_grid(cuda, dens, live, H)
+    new = t_grid.update_occupancy_grid(g0, k6_density, **kw)
+    for a, b in zip(new, ref):
+        _k6_bits_equal(a, b)
+    _k6_bits_equal(g0.density, torch.from_numpy(dens).to(cuda))
+
+
+@pytest.mark.parametrize("bound", [1.0, 2.0])
+def test_grid_update_of_a_model_matches_plain(cuda, bound):
+    """A full-width random model (K1 + K4's queries), grid 128: two full
+    updates, then full and partial from the same state, kernel against
+    plain through update_extra_state; no host sync in the kernel route."""
+    from nerf_signature_tpu_torch.api import NGPModel
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+
+    m = NGPModel(t_ngp.NGPConfig(bound=bound), density_thresh=10.0, grid_size=128, seed=3,
+                 device=cuda)
+    m.params["hash_table"].mul_(1e4)
+    for _ in range(2):
+        m.update_extra_state(full=True)
+    start = [t.clone() for t in m.occ]
+    C = m.occ.density.shape[0]
+    for full in (True, False):
+        draws = t_grid.draw_grid_randomness(torch.Generator(device=cuda).manual_seed(9), C, 128,
+                                            full, cuda)
+        outs = []
+        for plain in (True, False):
+            for a, b in zip(m.occ, start):
+                a.copy_(b)
+            torch.cuda.synchronize()
+            if not plain:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                m.update_extra_state(full=full, draws=draws, plain=plain)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            outs.append([t.clone() for t in m.occ])
+        for a, b in zip(*outs):
+            _k6_bits_equal(a, b)
+        assert 0.0 < float(outs[0][1].float().mean()) < 1.0
+
+
+def test_grid_update_refuses_past_2_to_the_24_cells(cuda):
+    from nerf_signature_tpu_torch.kernel_cases import k6_density
+    from nerf_signature_tpu_torch.ops import _cuda
+    from nerf_signature_tpu_torch.ops import grid as t_grid
+
+    grid = t_grid.init_occupancy_grid(1.0, 257, device=cuda)
+    _cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="2\\^24"):
+        t_grid.update_occupancy_grid_(grid, k6_density, bound=1.0, grid_size=257, full=True,
+                                      generator=torch.Generator(device=cuda).manual_seed(0))
+    assert not any(_cuda.launch_counts().values())
