@@ -437,16 +437,11 @@ L2_FLUSH_BYTES = 200 * 2**20
 L2_FLUSH_KERNEL = "bitwise_not"
 
 
-def device_ms(fn, reps=20, cold=False):
-    """Device time of one call of ``fn``: the durations of the device work
-    that ``reps`` calls launch, summed from a torch.profiler trace, over
-    ``reps`` (the host's dispatch and the gaps between launches left out,
-    which CUDA events around a call count).  ``cold``: the L2 cache flushed
-    before each call (a buffer four times its size rewritten, that work left
-    out of the sum; the buffer freed on return, so no later peak memory
-    reading holds it), so that inputs the calls share come from memory each
-    time, as they do in a step.  Where every trace comes back empty,
-    ``events_ms`` measures it instead, warm (counted in EVENT_FALLBACKS)."""
+def device_ms_by_name(fn, reps=20, cold=False):
+    """``device_ms`` by name: {the name of a piece of device work: its device
+    ms a call}, from one torch.profiler trace of ``reps`` calls (``cold``:
+    the L2 flushed before each, the flush's work left out); None where
+    every trace came back empty."""
     fn()
     flush = torch.zeros((L2_FLUSH_BYTES // 4,), dtype=torch.int32, device="cuda") if cold else None
 
@@ -457,9 +452,25 @@ def device_ms(fn, reps=20, cold=False):
             fn()
 
     by_name, _ = traced(work, "device_ms")
-    if by_name:
-        return sum(us for name, us in by_name.items()
-                   if not (cold and L2_FLUSH_KERNEL in name)) / reps / 1e3
+    if not by_name:
+        return None
+    return {name: us / reps / 1e3 for name, us in by_name.items()
+            if not (cold and L2_FLUSH_KERNEL in name)}
+
+
+def device_ms(fn, reps=20, cold=False):
+    """Device time of one call of ``fn``: the durations of the device work
+    that ``reps`` calls launch, summed from a torch.profiler trace, over
+    ``reps`` (the host's dispatch and the gaps between launches left out,
+    which CUDA events around a call count).  ``cold``: the L2 cache flushed
+    before each call (a buffer four times its size rewritten, that work left
+    out of the sum; the buffer freed on return, so no later peak memory
+    reading holds it), so that inputs the calls share come from memory each
+    time, as they do in a step.  Where every trace comes back empty,
+    ``events_ms`` measures it instead, warm (counted in EVENT_FALLBACKS)."""
+    by_name = device_ms_by_name(fn, reps, cold)
+    if by_name is not None:
+        return sum(by_name.values())
     ms = events_ms(fn, reps)
     EVENT_FALLBACKS.append(ms)
     log(f"[trace] device_ms from CUDA events instead: {ms:.4f} ms a call")
@@ -3436,6 +3447,24 @@ def k6_own_bytes(m, draws):
     return cells * (4 + 4) * 2 + cells + drawn + queried * (12 + 4)
 
 
+def k6_query_bytes(cfg, cells):
+    """The bytes K6's queries (K1's forward and K4's density query on the
+    update's ``cells`` positions) must move: a position read (12 B), its
+    feature row of feature_pitch fp32 written by K1 and read back by K4, its
+    sigma written (4 B), and the rows of the bf16 table the queries touch,
+    read once: at a level of resolution r the update's cells (one jittered
+    position a cell of the grid, which they fill) reach its (r + 1)^3
+    corner points, which a hashed level spreads over its 2^S rows (expected
+    distinct rows 2^S (1 - exp(-(r + 1)^3 / 2^S)))."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+
+    size = float(1 << cfg.log2_hashmap_size)
+    sides = cfg.dense_sides or (0,) * cfg.n_levels
+    rows = sum((r + 1) ** 3 if side else size * -math.expm1(-(r + 1) ** 3 / size)
+               for r, side in zip(cfg.resolutions, sides))
+    return cells * (12 + 2 * 4 * t_ngp.feature_pitch(cfg) + 4) + rows * cfg.n_features * 2
+
+
 # K6's own device work in a trace, by a substring of its names: its kernels
 # (csrc/grid.cu), the memsets of its scratch and the mean's reduction
 K6_OWN_TRACE = ("k6_", "Memset", "MeanOps")
@@ -3621,7 +3650,10 @@ def k6_phase(dev, m, launches):
                         "(density_fn on its positions) and the query's setup)",
                **dict(zip(("bound_ms", "bound_by"),
                           bound_of(k6_own_bytes(m, draws), 0, PEAK_FP32))),
+               "queries_cells": sum(d.jitter.shape[0] for d in draws),
                "by_kernel": None if split is None else split["by_kernel"]}
+        row["queries_bound_ms"], row["queries_bound_by"] = bound_of(
+            k6_query_bytes(m.cfg, row["queries_cells"]), 0, PEAK_FP32)
         for a, b in zip(m.occ, saved):
             a.copy_(b)
         out[kind] = row
@@ -3630,7 +3662,8 @@ def k6_phase(dev, m, launches):
             f"{row['queries_ms']}, their setup {row['query_setup_ms']}, whole update "
             f"{row['device_ms']} device ms (plain {row['plain_device_ms']}), "
             f"{row['update_ms']:.3f} ms a call (plain {row['plain_update_ms']:.3f}); bound of "
-            f"its own bytes {row['bound_ms']:.4f} ms")
+            f"its own bytes {row['bound_ms']:.4f} ms, of its {row['queries_cells']} queries' "
+            f"{row['queries_bound_ms']:.4f} ms")
         if split is not None:
             for name, ms in list(split["by_kernel"].items())[:12]:
                 log(f"[k6]   {ms:8.4f} ms  {name}")
@@ -4092,22 +4125,15 @@ K8_BG_SOURCE = "nerf_signature_tpu_torch/csrc/background.cu"
 K8_BG_REPLACES = "nerf_signature_tpu/models/ngp.py:211"
 
 
-def k7_rows(dev, backbone_model):
-    """K7 at the clean step's shapes on phase 7's trained backbone (the noisy
-    march of 4096 rays at budget 128): the one-corner forward bit-exact
-    against its plain version, the backward at strides 1 and 2 within 1e-6
-    relative L2 (the atomics' order) with no row chosen differently; each
-    with its time, device time, bound (bytes), plain time and the library
-    yardstick (a gather of the chosen rows; index_add_ of their
-    cotangents), and K7's atomics as its design issues them (modelled,
-    beside K1's on the same cotangents)."""
-    from nerf_signature_tpu_torch.kernel_cases import k1_bwd_atomics, k7_bwd_atomics
+def k7_clean_inputs(dev, m):
+    """K7's inputs at the clean step's shape on model m: the noisy march of
+    4096 train rays at budget 128 on its grid -> (x01 [M, 3] in [0, 1], the
+    live mask [M] as floats, cotangents [M, feature_pitch] of 1e-4 normals on
+    the live samples' first L*F columns, zero elsewhere), from seed 13."""
     from nerf_signature_tpu_torch.models import ngp as t_ngp
-    from nerf_signature_tpu_torch.ops import hashenc as t_hash
     from nerf_signature_tpu_torch.ops import marching as t_march
     from nerf_signature_tpu_torch.render.renderer import default_aabb
 
-    m = backbone_model
     cfg = m.cfg
     ro, rd = train_rays(dev)
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -4115,15 +4141,39 @@ def k7_rows(dev, backbone_model):
     march = t_march.march_rays_aabb(ro, rd, default_aabb(m.rc), m.occ.occupancy,
                                     **{**march_kwargs(m, None), "budget": TRAIN_BUDGET},
                                     noise=noise)
-    N, S = march["mask"].shape
-    M = N * S
+    M = march["mask"].numel()
     live = march["mask"].reshape(-1).float()
     x01 = ((march["xyzs"].reshape(-1, 3) + 1.0) / 2.0).contiguous()
+    LF = cfg.n_levels * cfg.n_features
+    g_feat = torch.zeros((M, t_ngp.feature_pitch(cfg)), device=dev)
+    g_feat[:, :LF] = torch.randn((M, LF), generator=gen, device=dev) * 1e-4 * live[:, None]
+    return x01, live, g_feat
+
+
+def k7_rows(dev, backbone_model):
+    """K7 at the clean step's shapes on phase 7's trained backbone (the noisy
+    march of 4096 rays at budget 128): the one-corner forward bit-exact
+    against its plain version, the backward at strides 1 and 2 within 1e-6
+    relative L2 (the atomics' order) with no row chosen differently; each
+    with its time, device time, bound (bytes), plain time and the library
+    yardstick (a gather of the chosen rows; index_add_ of their
+    cotangents; the backward's device time split into its kernel and the
+    zeroing of the table's gradient, each with its bound: ``k7_bwd_row``),
+    and K7's atomics as its design issues them (modelled, beside K1's on the
+    same cotangents)."""
+    from nerf_signature_tpu_torch.kernel_cases import k1_bwd_atomics, k7_bwd_atomics
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+
+    m = backbone_model
+    cfg = m.cfg
+    x01, live, g_feat = k7_clean_inputs(dev, m)
+    M = x01.shape[0]
     fp = t_ngp.field_params(m.params, cfg)
     table, tg = fp["hash_table"].detach(), fp["hash_table_g"]
     res, log2, F, L = cfg.resolutions, cfg.log2_hashmap_size, cfg.n_features, cfg.n_levels
     n_rows, pitch = table.shape[0], t_ngp.feature_pitch(cfg)
-    chosen, phase_bits = t_hash.stochastic_choice(x01, res, log2)
+    chosen, _ = t_hash.stochastic_choice(x01, res, log2)
     out = {}
 
     # ---- the one-corner forward
@@ -4156,48 +4206,131 @@ def k7_rows(dev, backbone_model):
         f"host {r['library_host_us']:.1f} us)")
 
     # ---- the backward at strides 1 and 2, on cotangents of the live samples
-    g_feat = torch.zeros((M, pitch), device=dev)
-    g_feat[:, :L * F] = torch.randn((M, L * F), generator=gen, device=dev) * 1e-4 * live[:, None]
     g_w = g_feat[:, :L * F].contiguous()
-    n_hot = int((g_w != 0).any(-1).sum())
     modelled = {"K1_hash_encode_bwd (same cotangents)":
                 k1_bwd_atomics(x01, g_w, F, res, log2, torch.bfloat16)}
     for stride in K7_STRIDES:
         name = "K7_hash_encode_bwd_stoch" + ("" if stride == 1 else f"_s{stride}")
-        run = lambda: t_hash._hash_encode_stoch_bwd_kernel(x01, g_feat, n_rows, res, log2,
-                                                           False, None, F, stride)
-        gk = run()
-        gp = t_hash.hash_encode_stoch_bwd_plain(x01, g_w, n_rows, res, log2, stride)
-        e, a = rel_l2(gk, gp), float((gk - gp).abs().max())
-        moved = int((gk.ne(0).any(-1) != gp.ne(0).any(-1)).sum())
-        log(f"[K7 bwd] stride {stride}: rel L2 {e:.3g} (limit 1e-6), max abs err {a:.3g}, rows "
-            f"chosen differently {moved} (limit 0)")
-        if not (e <= 1e-6 and moved == 0):
-            raise AssertionError(f"K7's backward (stride {stride}) differs from its plain "
-                                 f"version: rel L2 {e}, {moved} rows")
-        del gk, gp
-        g3 = g_w.reshape(M, L, F).permute(1, 0, 2)
-        keep = (t_hash.level_keep(phase_bits, L, stride) if stride > 1
-                else torch.ones((L, M), dtype=torch.bool, device=dev))
-        vals = torch.where(keep[..., None], g3 * float(stride), 0.0)
-        idx = torch.cat([(chosen * F + f).reshape(-1) for f in range(F)])
-        val = torch.cat([vals[..., f].reshape(-1) for f in range(F)])
-        n_adds = int((val != 0).sum())
-        buf = torch.zeros(n_rows * F, device=dev)
-        lib = median_ms(lambda: buf.index_add_(0, idx, val), 10)
-        del idx, val, buf
-        bms, bby = bound_of(M * L * F * 4 + n_hot * 12 + n_rows * F * 4, n_adds, PEAK_FP32)
+        out[name] = k7_bwd_row(x01, g_feat, n_rows, res, log2, F, stride, "K7 bwd")
         modelled[name] = k7_bwd_atomics(x01, g_w, F, res, log2, level_stride=stride)
-        out[name] = dict(max_abs_err=a, rel_l2=e, rows_chosen_differently=moved,
-                         ms=median_ms(run, 20), device_ms=device_ms(run, 20),
-                         plain_ms=median_ms(lambda: t_hash.hash_encode_stoch_bwd_plain(
-                             x01, g_w, n_rows, res, log2, stride), 3, 1),
-                         bound_ms=bms, bound_by=bby, library_ms=lib, n_adds=n_adds)
-        log(f"[K7 bwd] stride {stride}: {n_hot} of {M} samples hot, {n_adds} adds; per call "
-            f"{out[name]['ms']:.4f} ms, device {out[name]['device_ms']:.4f} ms, bound {bms:.4f} "
-            f"ms ({bby}); index_add_ {lib:.4f} ms; atomics {modelled[name]} (modelled; K1's on "
-            f"these cotangents {modelled['K1_hash_encode_bwd (same cotangents)']})")
+        log(f"[K7 bwd] stride {stride}: atomics {modelled[name]} (modelled; K1's on these "
+            f"cotangents {modelled['K1_hash_encode_bwd (same cotangents)']})")
     return out, modelled
+
+
+# the name of K7's backward kernel in a trace; the rest of a call's device
+# work is the zeroing of the table's gradient
+K7_BWD_TRACE = "hash_bwd_stoch"
+
+
+def k7_bwd_row(x01, g_feat, n_rows, res, log2, F, stride, tag, reps=20):
+    """K7's backward at one input (positions x01 [M, 3], cotangents g_feat
+    [M, pitch]) and one level stride: within 1e-6 relative L2 of its plain
+    version (the atomics' order) with no row chosen differently (else
+    AssertionError); ms a call; device ms warm and cold (L2 flushed), each
+    split by name into the kernel (K7_BWD_TRACE) and the zeroing of the
+    table's gradient before it; the bounds (bytes): the whole call's -- the
+    cotangent's L*F columns of every row and a live sample's position read,
+    the gradient written once (the sectors the adds touch lie inside it) --;
+    the kernel's -- that cotangent and those positions, and each 32-byte
+    sector of the zeroed gradient its adds touch --; the kernel's on the
+    live pairs alone -- one F-float cotangent slice per kept (level, live
+    sample) with a nonzero slice in place of every row's L*F columns (what
+    the adds need: a row's zeros are known only once read, and the slots
+    past K5's kept count are rows of zeros) --; and the zeroing's -- the
+    gradient written once; the plain version's ms and index_add_'s of the
+    same adds."""
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+
+    M, L = x01.shape[0], len(res)
+    g_w = g_feat[:, :L * F].contiguous()
+    run = lambda: t_hash._hash_encode_stoch_bwd_kernel(x01, g_feat, n_rows, res, log2,  # noqa
+                                                       False, None, F, stride)
+    gk = run()
+    gp = t_hash.hash_encode_stoch_bwd_plain(x01, g_w, n_rows, res, log2, stride)
+    e, a = rel_l2(gk, gp), float((gk - gp).abs().max())
+    moved = int((gk.ne(0).any(-1) != gp.ne(0).any(-1)).sum())
+    log(f"[{tag}] stride {stride}: rel L2 {e:.3g} (limit 1e-6), max abs err {a:.3g}, rows "
+        f"chosen differently {moved} (limit 0)")
+    if not (e <= 1e-6 and moved == 0):
+        raise AssertionError(f"K7's backward (stride {stride}, {tag}) differs from its plain "
+                             f"version: rel L2 {e}, {moved} rows")
+    del gk, gp
+    chosen, phase_bits = t_hash.stochastic_choice(x01, res, log2)
+    g3 = g_w.reshape(M, L, F).permute(1, 0, 2)
+    keep = (t_hash.level_keep(phase_bits, L, stride) if stride > 1
+            else torch.ones((L, M), dtype=torch.bool, device=x01.device))
+    vals = torch.where(keep[..., None], g3 * float(stride), 0.0)
+    adding = (vals != 0).any(-1)
+    n_live = int((g_w != 0).any(-1).sum())
+    sectors = int(torch.unique(chosen[adding] * (F * 4) // 32).numel())
+    idx = torch.cat([(chosen * F + f).reshape(-1) for f in range(F)])
+    val = torch.cat([vals[..., f].reshape(-1) for f in range(F)])
+    n_adds = int((val != 0).sum())
+    buf = torch.zeros(n_rows * F, device=x01.device)
+    lib = median_ms(lambda: buf.index_add_(0, idx, val), 10)
+    del idx, val, buf, vals, keep, g3
+    read_bytes, zero_bytes = M * L * F * 4 + n_live * 12, n_rows * F * 4
+    live_bytes = int(adding.sum()) * F * 4 + n_live * 12 + sectors * 32
+    bms, bby = bound_of(read_bytes + zero_bytes, n_adds, PEAK_FP32)
+    kbms, _ = bound_of(read_bytes + sectors * 32, n_adds, PEAK_FP32)
+    klbms, _ = bound_of(live_bytes, n_adds, PEAK_FP32)
+    zbms, _ = bound_of(zero_bytes, 0, PEAK_FP32)
+    row = dict(max_abs_err=a, rel_l2=e, rows_chosen_differently=moved, ms=median_ms(run, reps),
+               plain_ms=median_ms(lambda: t_hash.hash_encode_stoch_bwd_plain(
+                   x01, g_w, n_rows, res, log2, stride), 3, 1),
+               bound_ms=bms, bound_by=bby, kernel_bound_ms=kbms, kernel_live_bound_ms=klbms,
+               zeroing_bound_ms=zbms,
+               library_ms=lib, n_adds=n_adds, pairs_added=int(adding.sum()), samples=M,
+               live_samples=n_live, sectors=sectors)
+    for kind, cold in (("", False), ("_cold", True)):
+        by_name = device_ms_by_name(run, reps, cold)
+        if by_name is None:
+            row["device_ms" + kind] = device_ms(run, reps, cold)
+            row["kernel_ms" + kind] = row["zeroing_ms" + kind] = None
+            continue
+        kernel = sum(ms for name, ms in by_name.items() if K7_BWD_TRACE in name)
+        row["device_ms" + kind] = sum(by_name.values())
+        row["kernel_ms" + kind], row["zeroing_ms" + kind] = kernel, row["device_ms" + kind] - kernel
+    log(f"[{tag}] stride {stride}: {n_live} of {M} samples live, {row['pairs_added']} (level, "
+        f"sample) adds into {sectors} sectors; per call {row['ms']:.4f} ms, device "
+        f"{row['device_ms']:.4f} ms warm ({row['device_ms_cold']:.4f} cold): kernel "
+        f"{row['kernel_ms']} / {row['kernel_ms_cold']} (bound {kbms:.4f}; on the live pairs "
+        f"alone {klbms:.4f}), zeroing "
+        f"{row['zeroing_ms']} / {row['zeroing_ms_cold']} (bound {zbms:.4f}); bound {bms:.4f} ms "
+        f"({bby}); index_add_ {lib:.4f} ms")
+    return row
+
+
+def k7_loop_inputs(tr, data):
+    """What K7's backward is handed in a K7 loop: one more dispatch of the
+    trainer's loop, its graph dropped so that its WARMUP_STEPS steps run
+    eagerly, with the backward's wrapper recording its first call's inputs:
+    (x01 [Mc, 3], g_feat [Mc, pitch], n_rows), the compacted samples and
+    the cotangent that K4's backward hands it.  The graph is dropped again
+    after (the next dispatch captures without the recorder)."""
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+
+    seen = []
+    real = t_hash._hash_encode_stoch_bwd_kernel
+
+    def record(x, g_feat, n_rows, *args):
+        if not seen:
+            seen.append((x.clone(), g_feat.clone(), n_rows))
+        return real(x, g_feat, n_rows, *args)
+
+    t_hash._hash_encode_stoch_bwd_kernel = record
+    try:
+        t_dl.drop_graph(tr)
+        t_dl.device_train_loop(tr, data, t_dl.WARMUP_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        t_hash._hash_encode_stoch_bwd_kernel = real
+        t_dl.drop_graph(tr)
+    if not seen:
+        raise AssertionError("the K7 loop's steps never called K7's backward")
+    return seen[0]
 
 
 def k8_rows(dev, bg_model):
@@ -4560,12 +4693,15 @@ def k8_bg_rows(dev, bg_model):
     return out
 
 
-def k7_loop(dev, exact, tag, **k7):
+def k7_loop(dev, exact, tag, loop_shape=False, **k7):
     """Trainer.train_device at K = 64 on phase 7's recipe with K7's options:
-    rays/s, busy ms a step (one more dispatch profiled) beside the exact
-    loop's of phase 9, held-out PSNR (gate: +6 dB over untrained; its gap to
-    the exact run's reported, not gated), launches (K7's backward every
-    step, K1's never; the one-corner forward every step where asked)."""
+    rays/s, busy ms a step (one more dispatch profiled; K7's backward
+    kernel's ms a step in it) beside the exact loop's of phase 9, held-out
+    PSNR (gate: +6 dB over untrained; its gap to the exact run's reported,
+    not gated), launches (K7's backward every step, K1's never; the
+    one-corner forward every step where asked).  ``loop_shape``: also K7's
+    backward rows (``k7_bwd_row``, strides 1 and 2) on the inputs the loop
+    hands it (``k7_loop_inputs``), as "bwd_loop_shape"."""
     from nerf_signature_tpu_torch.train import device_loop as t_dl
 
     r = train_case(dev, TRAIN_BALL, TRAIN_ITERS, steps_per_dispatch=DL_K, stochastic=True, **k7)
@@ -4574,12 +4710,26 @@ def k7_loop(dev, exact, tag, **k7):
     data = t_dl.preload(r["loader"].poses, r["loader"].images, r["loader"].intrinsics, RES,
                         RES, dev)
     prof = profile_dispatch(lambda: t_dl.device_train_loop(tr, data, DL_K), DL_K,
-                            f"{tag} profile", tr.model.rc.compact_frac > 0)
+                            f"{tag} profile", tr.model.rc.compact_frac > 0,
+                            match=(K7_BWD_TRACE,))
+    log(f"[{tag}] K7's backward kernel {prof.get('matched_ms', {}).get(K7_BWD_TRACE)} ms a step")
+    shape = {}
+    if loop_shape:
+        # K7's backward at the loop's own shape: the compacted slots and the
+        # cotangent K4's backward hands it, at strides 1 and 2
+        x01, g_feat, n_rows = k7_loop_inputs(tr, data)
+        cfg = tr.model.cfg
+        for stride in K7_STRIDES:
+            name = "K7_hash_encode_bwd_stoch" + ("" if stride == 1 else f"_s{stride}")
+            shape[name] = k7_bwd_row(x01, g_feat, n_rows, cfg.resolutions, cfg.log2_hashmap_size,
+                                     cfg.n_features, stride, f"{tag} shape")
+        del x01, g_feat
     res = {"steps": steps, "seconds": seconds, "rays_per_s": steps * TRAIN_RAYS / seconds,
            "step_ms": seconds / steps * 1e3, "psnr0": r["psnr0"], "psnr1": r["psnr1"],
            "exact_psnr1": exact["psnr1"], "psnr_gap": exact["psnr1"] - r["psnr1"],
            "exact_busy_ms": exact["profile"]["busy_ms"], "profile": prof,
-           "captures": tr.step_graph.captures, "launches": launches, "peak_gib": r["peak"]}
+           "captures": tr.step_graph.captures, "launches": launches, "peak_gib": r["peak"],
+           "bwd_loop_shape": shape}
     log(f"[{tag}] {steps} steps at K = {DL_K}: {seconds:.2f} s, {res['rays_per_s']:.0f} train "
         f"rays/s; busy {prof['busy_ms']} ms a step (the exact loop's {res['exact_busy_ms']}); "
         f"held-out PSNR {r['psnr0']:.2f} -> {r['psnr1']:.2f} dB (the exact run's "
@@ -4651,7 +4801,9 @@ def phase_k7_k8(dev, backbone_model, exact, workdir):
     backbone (lossw falls; no bg backward)."""
     res = {}
     res["k7_rows"], res["k7_atomics_modelled"] = k7_rows(dev, backbone_model)
-    res["k7_loop"] = k7_loop(dev, exact, "k7 loop")
+    res["k7_loop"] = k7_loop(dev, exact, "k7 loop", loop_shape=True)
+    for name, row in res["k7_loop"].pop("bwd_loop_shape").items():
+        res["k7_rows"][name]["loop_shape"] = row
     res["k7_1c_s2_loop"] = k7_loop(dev, exact, "k7 1c stride 2 loop", fwd_corners=1,
                                    level_stride=2)
     w = wm_falls(dev, backbone_model, workdir, K7_FLAGS, "wm k7", loop=True)
@@ -6378,7 +6530,8 @@ def main():
                                           "bound_by", "library_ms", "ms_is",
                                           "own_by_difference_ms", "device_ms",
                                           "plain_device_ms", "queries_ms", "query_setup_ms",
-                                          "update_ms", "plain_update_ms")},
+                                          "update_ms", "plain_update_ms", "queries_cells",
+                                          "queries_bound_ms", "queries_bound_by")},
                      "train_launches": {k: train["launches"][k] for k in names},
                      "wm_launches": {k: wm["launches"][k] for k in names},
                      "parallel_launches": {k: par_of(k) for k in names}})
@@ -6430,7 +6583,11 @@ def main():
                      **{k: r[k] for k in ("device_ms", "library_device_ms", "rel_l2",
                                           "rows_chosen_differently", "cut_rays", "rays",
                                           "distinct_rows", "n_adds", "device_ms_cold",
-                                          "host_us", "library_host_us", "library_what")
+                                          "host_us", "library_host_us", "library_what",
+                                          "kernel_ms", "kernel_ms_cold", "zeroing_ms",
+                                          "zeroing_ms_cold", "kernel_bound_ms",
+                                          "kernel_live_bound_ms", "zeroing_bound_ms", "live_samples", "sectors",
+                                          "loop_shape")
                         if k in r},
                      "train_launches": train["launches"][counter],
                      "wm_launches": wm["launches"][counter],

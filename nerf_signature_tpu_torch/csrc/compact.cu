@@ -26,7 +26,9 @@
 // What bounds it on the H100: bytes.  pack reads 1 B of mask a sample and
 // 12 + 12 B a kept sample, writes 4 B of slot map a sample and 12 + 12 + 4
 // B a slot; unpack reads 4 B of slot map a sample and writes 16 B, reading
-// 16 B a kept sample; there is no arithmetic to speak of.
+// 16 B a kept sample; its backward reads 4 B of sample map a slot and writes
+// 16 B, reading 16 B of cotangent a kept sample; there is no arithmetic to
+// speak of.
 //
 // Design: the pack is a single-pass stream compaction with a decoupled
 // look-back scan (Merrill & Garland, "Single-pass Parallel Prefix Scan with
@@ -69,7 +71,12 @@
 //   samples hold consecutive slots, so the loads are coalesced) or writes
 //   zeros, and stores the tile's sigmas and its 3 x 1024 rgb floats as two
 //   contiguous spans in 16-byte stores from shared memory.  The unpack
-//   backward is one thread a slot in a grid-stride loop.
+//   backward is the same gather through the inverse map (gather_tile, one
+//   body for both kernels): tiles of 1024 consecutive slots, sample_of
+//   read as int4, a warp's lanes on consecutive slots (the kept slots hold
+//   increasing samples, consecutive within a ray's prefix, so the loads of
+//   the cotangents are coalesced), g_sig_c and g_rgb_c stored as two spans
+//   in 16-byte stores, the empty slots as zeros.
 
 #include "common.cuh"
 #include "lookback.cuh"
@@ -272,42 +279,46 @@ __global__ void __launch_bounds__(THREADS)
   store_run<int4>(sample_of, n_kept, Mc, t, nt, [](long long) { return -1; });
 }
 
-// unpack: a block takes a tile of UNPACK_TILE consecutive samples
-__global__ void __launch_bounds__(THREADS)
-    k5_unpack(const float* __restrict__ sig_c, const float* __restrict__ rgb_c,
-              const int* __restrict__ slot_of, long long M, float* __restrict__ sig,
-              float* __restrict__ rgb) {
-  __shared__ __align__(16) int sslot[UNPACK_TILE];        // the tile's slots
+// One tile of a gather through a map, UNPACK_TILE consecutive outputs j a
+// block: dst_sig[j] = src_sig[map[j]] and dst_rgb[j] = src_rgb[map[j]] (rows
+// of 3), zeros where map[j] = -1; n outputs in all.  The unpack: map =
+// slot_of over the samples; its backward: map = sample_of over the slots.
+__device__ __forceinline__ void gather_tile(const float* __restrict__ src_sig,
+                                            const float* __restrict__ src_rgb,
+                                            const int* __restrict__ map, long long n,
+                                            float* __restrict__ dst_sig,
+                                            float* __restrict__ dst_rgb) {
+  __shared__ __align__(16) int smap[UNPACK_TILE];         // the tile's map
   __shared__ __align__(16) float osig[UNPACK_TILE];       // its sigmas
   __shared__ __align__(16) float orgb[3 * UNPACK_TILE];   // and rgb rows
   const long long m0 = (long long)blockIdx.x * UNPACK_TILE;
-  const int len = (int)(m0 + UNPACK_TILE < M ? UNPACK_TILE : M - m0);
+  const int len = (int)(m0 + UNPACK_TILE < n ? UNPACK_TILE : n - m0);
 
-  // slot_of: UNPACK_ITEMS samples a thread, one int4 (scalars at a ragged
+  // the map: UNPACK_ITEMS entries a thread, one int4 (scalars at a ragged
   // end or an unaligned map; -1 past the end)
   const int first = threadIdx.x * UNPACK_ITEMS;
-  if (first + UNPACK_ITEMS <= len && aligned16(slot_of + m0)) {
-    reinterpret_cast<int4*>(sslot)[threadIdx.x] =
-        reinterpret_cast<const int4*>(slot_of + m0)[threadIdx.x];
+  if (first + UNPACK_ITEMS <= len && aligned16(map + m0)) {
+    reinterpret_cast<int4*>(smap)[threadIdx.x] =
+        reinterpret_cast<const int4*>(map + m0)[threadIdx.x];
   } else {
 #pragma unroll
     for (int c = 0; c < UNPACK_ITEMS; ++c)
-      sslot[first + c] = first + c < len ? slot_of[m0 + first + c] : -1;
+      smap[first + c] = first + c < len ? map[m0 + first + c] : -1;
   }
   __syncthreads();
 
-  // sample j = t + THREADS k: a warp's lanes on consecutive samples, whose
-  // kept slots are consecutive (the pack keeps sample order), so the loads
-  // of sig_c and rgb_c are coalesced; shared accesses at a stride of 1 and
-  // 3 words take distinct banks
+  // output j = t + THREADS k: a warp's lanes on consecutive outputs, whose
+  // sources are consecutive where they are live (the pack keeps sample
+  // order), so the loads of src_sig and src_rgb are coalesced; shared
+  // accesses at a stride of 1 and 3 words take distinct banks
   float v[UNPACK_ITEMS][4];
 #pragma unroll
   for (int k = 0; k < UNPACK_ITEMS; ++k) {
-    const int s = sslot[threadIdx.x + THREADS * k];
+    const int s = smap[threadIdx.x + THREADS * k];
     if (s >= 0) {
-      v[k][0] = sig_c[s];
+      v[k][0] = src_sig[s];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) v[k][1 + a] = rgb_c[3LL * s + a];
+      for (int a = 0; a < 3; ++a) v[k][1 + a] = src_rgb[3LL * s + a];
     } else {
 #pragma unroll
       for (int a = 0; a < 4; ++a) v[k][a] = 0.0f;
@@ -322,35 +333,26 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
 
-  // the tile's spans sig[m0, m0 + len) and rgb[3 m0, 3 (m0 + len)) from
-  // shared memory, in 16-byte stores side by side
-  store_span(sig + m0, osig, len);
-  store_span(rgb + 3 * m0, orgb, 3 * len);
+  // the tile's spans dst_sig[m0, m0 + len) and dst_rgb[3 m0, 3 (m0 + len))
+  // from shared memory, in 16-byte stores side by side
+  store_span(dst_sig + m0, osig, len);
+  store_span(dst_rgb + 3 * m0, orgb, 3 * len);
 }
 
+// unpack: a block takes a tile of UNPACK_TILE consecutive samples
+__global__ void __launch_bounds__(THREADS)
+    k5_unpack(const float* __restrict__ sig_c, const float* __restrict__ rgb_c,
+              const int* __restrict__ slot_of, long long M, float* __restrict__ sig,
+              float* __restrict__ rgb) {
+  gather_tile(sig_c, rgb_c, slot_of, M, sig, rgb);
+}
+
+// unpack backward: a block takes a tile of UNPACK_TILE consecutive slots
 __global__ void __launch_bounds__(THREADS)
     k5_unpack_bwd(const float* __restrict__ g_sig, const float* __restrict__ g_rgb,
                   const int* __restrict__ sample_of, long long Mc, float* __restrict__ g_sig_c,
                   float* __restrict__ g_rgb_c) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long j = (long long)blockIdx.x * THREADS + threadIdx.x; j < Mc; j += stride) {
-    const int i = sample_of[j];
-    if (i >= 0) {
-      g_sig_c[j] = g_sig[i];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) g_rgb_c[3 * j + a] = g_rgb[3LL * i + a];
-    } else {
-      g_sig_c[j] = 0.0f;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) g_rgb_c[3 * j + a] = 0.0f;
-    }
-  }
-}
-
-// a grid-stride launch: at most 16 blocks an SM's worth (132 SMs)
-inline unsigned int stride_blocks(long long n) {
-  const unsigned int b = ngp_blocks(n, THREADS);
-  return b < 132u * 16u ? b : 132u * 16u;
+  gather_tile(g_sig, g_rgb, sample_of, Mc, g_sig_c, g_rgb_c);
 }
 
 }  // namespace
@@ -395,11 +397,13 @@ extern "C" int ngp_compact_unpack(const void* sig_c, const void* rgb_c, const vo
   NGP_RETURN_LAST_ERROR();
 }
 
+// Mc below 2^31.  g_sig_c [Mc] and g_rgb_c [Mc, 3] may be views of one
+// buffer.
 extern "C" int ngp_compact_unpack_bwd(const void* g_sig, const void* g_rgb,
                                       const void* sample_of, long long Mc, void* g_sig_c,
                                       void* g_rgb_c, cudaStream_t s) {
   if (Mc > 0) {
-    k5_unpack_bwd<<<stride_blocks(Mc), THREADS, 0, s>>>(
+    k5_unpack_bwd<<<(unsigned int)((Mc + UNPACK_TILE - 1) / UNPACK_TILE), THREADS, 0, s>>>(
         (const float*)g_sig, (const float*)g_rgb, (const int*)sample_of, Mc, (float*)g_sig_c,
         (float*)g_rgb_c);
   }

@@ -94,26 +94,27 @@ __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
 //
 // Design, level-major like the forward: a block takes a tile of consecutive
 // samples and stages their clipped positions and cotangent rows in shared
-// memory (the cotangent with 16-byte loads over the tile's contiguous rows,
-// the padded columns past L*F skipped).  A warp takes one (level, group of
-// 32 samples) task at a time, lane = sample; tasks run level-major over the
-// block's 8 warps, so a one-level table (the message feature) still fills
-// them.  A task whose 32 cotangents are all zero is skipped by a ballot:
+// memory (the cotangent with streamed 16-byte loads over the tile's contiguous
+// rows, NGP_STAGE_BATCH a thread in flight, the padded columns past L*F
+// skipped: stage_g, which K7's backward shares).  A warp takes one (level,
+// group of 32 samples) task at a time, lane = sample; tasks run level-major
+// over the block's 8 warps, so a one-level table (the message feature) still
+// fills them.  A task whose 32 cotangents are all zero is skipped by a ballot:
 // the dead slots at a ray's end and the padded samples cost a shared-memory
-// read.  Each lane recomputes its 8 corner rows and weights with the
-// forward's exact arithmetic (corners()), and per corner its contribution
-// cw_c * g (rounded to bf16 on its own under a bf16 gather, as JAX's
-// bf16 row gather's cotangent is).  At levels whose bit is set in
-// ``combine`` (coarse ones, chosen on the host from the resolution),
-// __match_any_sync groups the lanes that add into one row and the group's
-// lowest lane sums its peers' contributions by a tree of shuffles (pairwise
-// by rank within the group, reduce_peers) and issues one atomic for the
-// group; elsewhere every lane adds its own.  An add is one vector atomic a
-// corner (sm_90's float2 / float4 atomicAdd in global memory; two float4 at
-// F = 8), fire-and-forget (RED).  A zero contribution is not added: adding
-// +-0 to the zero-filled fp32 sum never changes it.  No gradient flows to
-// the positions.  The order of the adds varies from run to run, so the
-// result matches the plain version to fp32 rounding, not bit for bit.
+// read.  Each lane recomputes its 8 corner rows and weights with the forward's
+// exact arithmetic (corners()), and per corner its contribution cw_c * g
+// (rounded to bf16 on its own under a bf16 gather, as JAX's bf16 row gather's
+// cotangent is).  At levels whose bit is set in ``combine`` (coarse ones,
+// chosen on the host from the resolution), __match_any_sync groups the lanes
+// that add into one row and the group's lowest lane sums its peers'
+// contributions by a tree of shuffles (pairwise by rank within the group,
+// reduce_peers) and issues one atomic for the group; elsewhere every lane adds
+// its own.  An add is one vector atomic a corner (sm_90's float2 / float4
+// atomicAdd in global memory; two float4 at F = 8), fire-and-forget (RED).  A
+// zero contribution is not added: adding +-0 to the zero-filled fp32 sum never
+// changes it.  No gradient flows to the positions.  The order of the adds
+// varies from run to run, so the result matches the plain version to fp32
+// rounding, not bit for bit.
 template <int F>
 __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
     hash_encode_bwd(const float* __restrict__ x, const float* __restrict__ g_feat, int pitch,
@@ -126,7 +127,7 @@ __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
   const long long m0 = (long long)blockIdx.x * tile;
   const int rows = (int)min((long long)tile, M - m0);
   stage_x(sx, x, m0, rows);
-  stage_g(sg, g_feat, m0, rows, pitch, vec, LF, P);
+  stage_g(sg, nullptr, g_feat, m0, rows, pitch, vec, LF, P);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

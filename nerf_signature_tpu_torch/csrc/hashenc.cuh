@@ -136,6 +136,36 @@ __device__ __forceinline__ void scale(const float (&xc)[3], float res, float (&s
   for (int a = 0; a < 3; ++a) s[a] = __fmul_rn(xc[a], res);
 }
 
+// A scaled position's cell (its floor) and fractions, one rounding an axis.
+__device__ __forceinline__ void cell_of(const float (&s)[3], unsigned int (&cell)[3],
+                                        float (&w)[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float f = floorf(s[a]);
+    w[a] = __fsub_rn(s[a], f);
+    cell[a] = (unsigned int)f;
+  }
+}
+
+// Corner c's trilinear weight (JAX's corner order and roundings).
+__device__ __forceinline__ float corner_weight(const float (&w)[3], int c) {
+  const float wx = (c >> 2) & 1 ? w[0] : __fsub_rn(1.0f, w[0]);
+  const float wy = (c >> 1) & 1 ? w[1] : __fsub_rn(1.0f, w[1]);
+  const float wz = c & 1 ? w[2] : __fsub_rn(1.0f, w[2]);
+  return __fmul_rn(__fmul_rn(wx, wy), wz);
+}
+
+// Corner c's row (level offset added): the dense index, or the
+// XOR-of-primes hash masked to the level's size.
+__device__ __forceinline__ unsigned int corner_row(const unsigned int (&cell)[3], int c,
+                                                   unsigned int side, unsigned int mask,
+                                                   unsigned int off) {
+  const unsigned int cx = cell[0] + ((c >> 2) & 1), cy = cell[1] + ((c >> 1) & 1),
+                     cz = cell[2] + (c & 1);
+  if (side) return (cx * side + cy) * side + cz + off;
+  return (((cx * 1u) ^ (cy * 2654435761u) ^ (cz * 805459861u)) & mask) + off;
+}
+
 // The 8 corners of one scaled position: rows (level offset added) and
 // trilinear weights, in the JAX corner order and with its roundings.
 __device__ __forceinline__ void corners_of(const float (&s)[3], unsigned int side,
@@ -143,25 +173,11 @@ __device__ __forceinline__ void corners_of(const float (&s)[3], unsigned int sid
                                            unsigned int (&idx)[8], float (&cw)[8]) {
   float w[3];
   unsigned int cell[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float f = floorf(s[a]);
-    w[a] = __fsub_rn(s[a], f);
-    cell[a] = (unsigned int)f;
-  }
+  cell_of(s, cell, w);
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const unsigned int di = (c >> 2) & 1u, dj = (c >> 1) & 1u, dk = c & 1u;
-    const unsigned int cx = cell[0] + di, cy = cell[1] + dj, cz = cell[2] + dk;
-    if (side) {
-      idx[c] = (cx * side + cy) * side + cz + off;
-    } else {
-      idx[c] = (((cx * 1u) ^ (cy * 2654435761u) ^ (cz * 805459861u)) & mask) + off;
-    }
-    const float wx = di ? w[0] : __fsub_rn(1.0f, w[0]);
-    const float wy = dj ? w[1] : __fsub_rn(1.0f, w[1]);
-    const float wz = dk ? w[2] : __fsub_rn(1.0f, w[2]);
-    cw[c] = __fmul_rn(__fmul_rn(wx, wy), wz);
+    idx[c] = corner_row(cell, c, side, mask, off);
+    cw[c] = corner_weight(w, c);
   }
 }
 
@@ -204,28 +220,51 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, const float*
   }
 }
 
+// The backward's staging: a thread's loads issued NGP_STAGE_BATCH at a time
+// before their stores, so that a block's tile is in flight at once (a load
+// then its store, one after the other, left each thread's loads waiting on
+// one another)
+#define NGP_STAGE_BATCH 4
+
 // A tile's cotangents [rows][pitch] (their first L*F columns) into shared
-// memory at row pitch P, vec floats a load.
-__device__ __forceinline__ void stage_g(float* sg, const float* __restrict__ g_feat, long long m0,
+// memory at row pitch P, vec floats a load (streamed: read once); where
+// live is given, live[s] = 1 for each row s holding a nonzero value there
+// (live zeroed beforehand).
+__device__ __forceinline__ void stage_g(float* sg, unsigned int* live,
+                                        const float* __restrict__ g_feat, long long m0,
                                         int rows, int pitch, int vec, int LF, int P) {
   const float* src = g_feat + m0 * pitch;
   const int n = rows * pitch / vec;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int e = vec * i, s = e / pitch, c = e - s * pitch;
-    if (c >= LF) continue;  // the padded columns
-    float v[4];
-    if (vec == 4) {
-      const float4 a = reinterpret_cast<const float4*>(src)[i];
-      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    } else if (vec == 2) {
-      const float2 a = reinterpret_cast<const float2*>(src)[i];
-      v[0] = a.x, v[1] = a.y;
-    } else {
-      v[0] = src[i];
+  for (int i0 = threadIdx.x; i0 < n; i0 += NGP_STAGE_BATCH * blockDim.x) {
+    float v[NGP_STAGE_BATCH][4];
+#pragma unroll
+    for (int b = 0; b < NGP_STAGE_BATCH; ++b) {
+      const int i = i0 + b * blockDim.x, e = vec * i;
+      if (i < n && e % pitch < LF) {
+        if (vec == 4) {
+          const float4 a = __ldcs(reinterpret_cast<const float4*>(src) + i);
+          v[b][0] = a.x, v[b][1] = a.y, v[b][2] = a.z, v[b][3] = a.w;
+        } else if (vec == 2) {
+          const float2 a = __ldcs(reinterpret_cast<const float2*>(src) + i);
+          v[b][0] = a.x, v[b][1] = a.y;
+        } else {
+          v[b][0] = __ldcs(src + i);
+        }
+      }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (q < vec && c + q < LF) sg[s * P + c + q] = v[q];
+    for (int b = 0; b < NGP_STAGE_BATCH; ++b) {
+      const int i = i0 + b * blockDim.x, e = vec * i, s = e / pitch, c = e - s * pitch;
+      if (i >= n || c >= LF) continue;  // past the tile, or the padded columns
+      bool nonzero = false;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < vec && c + q < LF) {
+          sg[s * P + c + q] = v[b][q];
+          nonzero = nonzero || v[b][q] != 0.0f;
+        }
+      if (live != nullptr && nonzero) live[s] = 1u;
+    }
   }
 }
 

@@ -27,11 +27,34 @@
 // levels l with l % s == phase, its cotangent times s; the phase is
 // ((bits * 2654435761) >> 13) % s of a salted hash of the LAST level's
 // scaled position (phase_bits = hash3(bits_x ^ 0x9E3779B9, bits_y, bits_z)
-// & (2^24 - 1)).  K1's backward design otherwise: a staged tile, one warp a
-// (level, 32 samples) task, an all-zero task skipped by a ballot, coarse
-// levels' adds grouped by row (__match_any_sync, summed by reduce_peers, one
-// atomic a group), one vector atomic per (level, sample) instead of K1's
-// eight.  Bound: bytes (the cotangent read, the table's gradient written).
+// & (2^24 - 1)).  Bound on the H100: bytes.  The kernel alone reads the
+// cotangent once (a row of L*F floats a sample: a row's zeros are known
+// only once read; or, counting only what the adds need, one F-float slice
+// per kept live (level, sample)), a live sample's position, and the sectors
+// of the zeroed gradient its atomics touch.  The whole call, the zeroing
+// before the launch included, writes the table once (the touched sectors
+// lie inside it) and reads the cotangent and the positions.  Design:
+// * A block stages a tile of cotangent rows in shared memory (16-byte loads
+//   where the pitch allows, a thread's loads issued NGP_STAGE_BATCH at a
+//   time before their stores: hashenc.cuh:stage_g, K1's backward's
+//   staging), marking each row that holds a nonzero value.
+// * It compacts the tile's live rows once, in sample order (a ballot a
+//   warp, the warps' counts summed), and for each live sample reads its
+//   position and computes its level phase once.
+// * Its warps then take tasks over the kept (level, live sample) pairs
+//   only: task (slot j, 32 live samples), lane = live sample, at level j *
+//   s + the sample's phase.  So every lane of a task adds (but where a live
+//   row is zero at that level), and at stride s the corner work and the
+//   adds are cut by s.
+// * A lane draws its corner from the 8 weights and their running sum first
+//   (chosen_row), then computes that one corner's row: one index hashed per
+//   add, where the 8-corner path hashes eight.
+// * K1's backward's adds: at a task holding a level at resolution <=
+//   COMBINE_MAX_RES (ops/hashenc.py), the lanes adding into one row are
+//   grouped by __match_any_sync and summed by reduce_peers (one atomic a
+//   group; lanes at two levels never share a row but on the shared table,
+//   where grouping them is right too); one vector atomic an add (float2 /
+//   float4; two at F = 8).
 // The atomics' order varies, so the result matches the plain version to
 // fp32 rounding.  No gradient flows to the positions.
 
@@ -42,26 +65,30 @@ __device__ __forceinline__ unsigned int hash24(unsigned int a, unsigned int b, u
   return ((a * 1u) ^ (b * 2654435761u) ^ (c * 805459861u)) & 0xffffffu;
 }
 
-// The row of the corner drawn at this scaled position (corners' rows and
-// weights given): JAX's running sum, first corner with u < cum, else 7.
-__device__ __forceinline__ unsigned int chosen_row(const float (&s)[3],
-                                                   const unsigned int (&idx)[8],
-                                                   const float (&cw)[8]) {
+// The row of the corner drawn at this scaled position: the first corner c
+// (JAX order) with u < cw_0 + ... + cw_c, the running sum in fp32 in that
+// order, else corner 7; the weights first, then that one corner's row (one
+// index hashed, not eight).
+__device__ __forceinline__ unsigned int chosen_row(const float (&s)[3], unsigned int side,
+                                                   unsigned int mask, unsigned int off) {
   const unsigned int ub = hash24(__float_as_uint(s[0]), __float_as_uint(s[1]),
                                  __float_as_uint(s[2]));
   const float u = __fmul_rn((float)ub, 5.9604644775390625e-8f);  // * 2^-24, exact
+  float w[3];
+  unsigned int cell[3];
+  cell_of(s, cell, w);
   float cum = 0.0f;
-  unsigned int row = idx[7];
+  int chosen = 7;
   bool done = false;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    cum = __fadd_rn(cum, cw[c]);
+    cum = __fadd_rn(cum, corner_weight(w, c));
     if (!done && u < cum) {
-      row = idx[c];
+      chosen = c;
       done = true;
     }
   }
-  return row;
+  return corner_row(cell, chosen, side, mask, off);
 }
 
 // A sample's level phase for level_stride s, from its clipped position and
@@ -100,11 +127,8 @@ __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
       const float xc[3] = {sx[sc * 3 + 0], sx[sc * 3 + 1], sx[sc * 3 + 2]};
       float sp[3];
       scale(xc, res, sp);
-      unsigned int idx[8];
-      float cw[8];
-      corners_of(sp, side, mask, off, idx, cw);
       float r[F];
-      load_row<F>(table, chosen_row(sp, idx, cw), r);
+      load_row<F>(table, chosen_row(sp, side, mask, off), r);
       store_f<F>(so + s * P + l * F, r);
     }
   }
@@ -112,56 +136,94 @@ __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
   store_tile<F>(out, so, m0, rows, pitch, vec, LF, P);
 }
 
+// The backward's shared memory a sample: its staged cotangent row (P
+// floats), its position (3) and its entry in the live list (1 word)
+__host__ __device__ __forceinline__ int stoch_words(int P) { return P + 4; }
+
 template <int F>
 __global__ void __launch_bounds__(32 * NGP_ENC_WARPS)
     hash_bwd_stoch(const float* __restrict__ x, const float* __restrict__ g_feat, int pitch,
                    int vec, float* __restrict__ g_table, long long M, int tile, HashLevels p,
                    unsigned int combine, int stride) {
   extern __shared__ float smem[];
+  __shared__ float sres[NGP_MAX_LEVELS];
+  __shared__ unsigned int soff[NGP_MAX_LEVELS], sside[NGP_MAX_LEVELS];
+  __shared__ int swarp[NGP_ENC_WARPS];
   const int LF = p.L * F, P = stage_pitch<F>(LF);
-  float* sx = smem;             // [tile][3] clipped positions
-  float* sg = smem + 3 * tile;  // [tile][P] cotangents
+  float* sg = smem;            // [tile][P] cotangents
+  float* sx = sg + tile * P;   // [tile][3] the live samples' clipped positions, in list order
+  unsigned int* slist = reinterpret_cast<unsigned int*>(sx + 3 * tile);
+  // slist: first each row's live flag, then the live list: row | phase << 16
   const long long m0 = (long long)blockIdx.x * tile;
   const int rows = (int)min((long long)tile, M - m0);
-  stage_x(sx, x, m0, rows);
-  stage_g(sg, g_feat, m0, rows, pitch, vec, LF, P);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) slist[i] = 0u;
+  for (int l = threadIdx.x; l < p.L; l += blockDim.x) {
+    sres[l] = p.res[l];
+    soff[l] = p.offset[l];
+    sside[l] = p.side[l];
+  }
+  __syncthreads();
+  stage_g(sg, slist, g_feat, m0, rows, pitch, vec, LF, P);
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned int mask = (1u << p.log2_size) - 1u;
-  const float res_last = p.res[p.L - 1];
-  const float scale_ct = (float)stride;
-  const int groups = (rows + 31) >> 5;
-  for (int t = warp; t < p.L * groups; t += NGP_ENC_WARPS) {
-    const int l = t / groups, s = (t - l * groups) * 32 + lane;
-    const int sc = s < rows ? s : 0;
-    const float xc[3] = {sx[sc * 3 + 0], sx[sc * 3 + 1], sx[sc * 3 + 2]};
-    float g[F];
-    bool keep = s < rows;
-    if (keep && stride > 1) keep = (unsigned int)l % (unsigned int)stride ==
-                                   level_phase(xc, res_last, (unsigned int)stride);
-    if (keep) {
-      load_f<F>(sg + s * P + l * F, g);
-      if (stride > 1) {
+  // the live rows in sample order (tile <= the block's threads): thread t
+  // lists row t, reads its position and computes its phase
+  const int t = threadIdx.x;
+  const bool live = t < rows && slist[t] != 0u;
+  const unsigned int ballot = __ballot_sync(NGP_FULL, live);
+  if (lane == 0) swarp[warp] = __popc(ballot);
+  __syncthreads();  // every flag read: the list may overwrite them
+  int n_live = 0, k = 0;
 #pragma unroll
-        for (int f = 0; f < F; ++f) g[f] = __fmul_rn(g[f], scale_ct);
+  for (int w = 0; w < NGP_ENC_WARPS; ++w) {
+    if (w == warp) k = n_live;
+    n_live += swarp[w];
+  }
+  if (live) {
+    k += __popc(ballot & ((1u << lane) - 1u));
+    float xc[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      xc[a] = ngp_clip(x[(m0 + t) * 3 + a], 0.0f, 1.0f);
+      sx[3 * k + a] = xc[a];
+    }
+    const unsigned int phase =
+        stride > 1 ? level_phase(xc, sres[p.L - 1], (unsigned int)stride) : 0u;
+    slist[k] = (unsigned int)t | (phase << 16);
+  }
+  __syncthreads();
+
+  const unsigned int mask = (1u << p.log2_size) - 1u;
+  const float scale_ct = (float)stride;
+  const int chunks = (n_live + 31) >> 5, tasks = (p.L / stride) * chunks;
+  for (int task = warp; task < tasks; task += NGP_ENC_WARPS) {
+    const int j = task / chunks, i = (task - j * chunks) * 32 + lane;
+    const bool active = i < n_live;
+    const int ic = active ? i : 0;
+    const unsigned int e = slist[ic];
+    const int s = (int)(e & 0xffffu), l = j * stride + (int)(e >> 16);
+    float g[F];
+    bool any = false;
+    if (active) {
+      load_f<F>(sg + s * P + l * F, g);
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        if (stride > 1) g[f] = __fmul_rn(g[f], scale_ct);
+        any = any || g[f] != 0.0f;
       }
     } else {
 #pragma unroll
       for (int f = 0; f < F; ++f) g[f] = 0.0f;
     }
-    bool any = false;
-#pragma unroll
-    for (int f = 0; f < F; ++f) any = any || g[f] != 0.0f;
-    if (!__any_sync(NGP_FULL, any)) continue;  // 32 zero cotangents
+    if (!__any_sync(NGP_FULL, any)) continue;  // 32 zero slices of live rows
 
+    const float xc[3] = {sx[3 * ic], sx[3 * ic + 1], sx[3 * ic + 2]};
     float sp[3];
-    scale(xc, p.res[l], sp);
-    unsigned int idx[8];
-    float cw[8];
-    corners_of(sp, p.side[l], mask, p.offset[l], idx, cw);
-    const bool grouped = (combine >> l) & 1u;  // the same for the whole warp
-    warp_add<F>(g_table, chosen_row(sp, idx, cw), g, any, grouped, lane);
+    scale(xc, sres[l], sp);
+    const unsigned int row = chosen_row(sp, sside[l], mask, soff[l]);
+    const bool grouped = __any_sync(NGP_FULL, any && ((combine >> l) & 1u));
+    warp_add<F>(g_table, row, g, any, grouped, lane);
   }
 }
 
@@ -212,9 +274,12 @@ extern "C" int ngp_hash_encode_1c(const void* x, const void* table, int table_bf
 template <int F>
 static int launch_bwd_stoch(const void* x, const void* g_feat, int pitch, void* g_table,
                             long long M, const HashLevels& p, unsigned int combine, int stride,
-                            cudaStream_t s) {
-  const int P = stage_pitch<F>(p.L * F), tile = bwd_tile(P);
-  const size_t smem = sizeof(float) * tile * (3 + P);
+                            int tile, cudaStream_t s) {
+  // a thread lists each row of a tile; the shared memory fits beside the
+  // static level arrays within the 48 KB a block has without opting in
+  const size_t smem = sizeof(float) * tile * stoch_words(stage_pitch<F>(p.L * F));
+  if (tile < 32 || tile % 32 != 0 || tile > 32 * NGP_ENC_WARPS || smem > 47 * 1024)
+    return (int)cudaErrorInvalidValue;
   hash_bwd_stoch<F><<<ngp_blocks(M, tile), 32 * NGP_ENC_WARPS, smem, s>>>(
       (const float*)x, (const float*)g_feat, pitch, vec_width(g_feat, pitch), (float*)g_table, M,
       tile, p, combine, stride);
@@ -223,10 +288,13 @@ static int launch_bwd_stoch(const void* x, const void* g_feat, int pitch, void* 
 
 // g_feat: [M, pitch] fp32 with pitch >= L*F (the columns past L*F are not
 // read); g_table: [rows, F] fp32, zeroed, 16-byte aligned.  stride: the
-// effective level stride (1, or a divisor of L).
+// effective level stride (1, or a divisor of L).  tile: the samples a block
+// takes (ops/hashenc.py:stoch_bwd_tile), a multiple of 32 up to the block's
+// threads whose shared memory fits 47 KB, else refused.
 extern "C" int ngp_hash_encode_bwd_stoch(const void* x, const void* g_feat, int pitch, int F,
                                          void* g_table, long long M, const HashLevels* levels,
-                                         unsigned int combine, int stride, void* stream) {
+                                         unsigned int combine, int stride, int tile,
+                                         void* stream) {
   HashLevels p;
   const int rc = take_levels(p, levels);
   if (rc != 0) return rc;
@@ -234,10 +302,15 @@ extern "C" int ngp_hash_encode_bwd_stoch(const void* x, const void* g_feat, int 
   if (M == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (F) {
-    case 1: return launch_bwd_stoch<1>(x, g_feat, pitch, g_table, M, p, combine, stride, s);
-    case 2: return launch_bwd_stoch<2>(x, g_feat, pitch, g_table, M, p, combine, stride, s);
-    case 4: return launch_bwd_stoch<4>(x, g_feat, pitch, g_table, M, p, combine, stride, s);
-    case 8: return launch_bwd_stoch<8>(x, g_feat, pitch, g_table, M, p, combine, stride, s);
+    case 1:
+      return launch_bwd_stoch<1>(x, g_feat, pitch, g_table, M, p, combine, stride, tile, s);
+    case 2:
+      return launch_bwd_stoch<2>(x, g_feat, pitch, g_table, M, p, combine, stride, tile, s);
+    case 4:
+      return launch_bwd_stoch<4>(x, g_feat, pitch, g_table, M, p, combine, stride, tile, s);
+    case 8:
+      return launch_bwd_stoch<8>(x, g_feat, pitch, g_table, M, p, combine, stride, tile, s);
   }
   return (int)cudaErrorInvalidValue;
 }
+

@@ -31,6 +31,17 @@ def k3_edge_inputs(N, S, mask_kind, seed=8):
     return sig, rgb, dt, ts, (None if mask_kind == "off" else mask)
 
 
+def _distinct_and_lanes(r):
+    """Per warp of r [..., 32] (a lane's row, -1 for a lane adding nothing):
+    (the distinct rows among the adding lanes, the adding lanes)."""
+    import torch
+
+    s = torch.sort(r, dim=-1).values
+    distinct = ((s[..., :1] >= 0).sum(-1)
+                + ((s[..., 1:] != s[..., :-1]) & (s[..., 1:] >= 0)).sum(-1))
+    return distinct, (r >= 0).sum(-1)
+
+
 def _warp_atomics(rows, adding, combine):
     """The atomics of one corner's adds over warp tasks (a level, 32
     consecutive samples): rows [M, L] int64, adding [M, L] bool; one atomic
@@ -42,11 +53,7 @@ def _warp_atomics(rows, adding, combine):
     G = -(-M // 32)
     r = torch.full((G * 32, L), -1, dtype=torch.int64, device=rows.device)
     r[:M] = torch.where(adding, rows, -1)
-    r = r.reshape(G, 32, L).transpose(1, 2)  # [G, L, 32]
-    s = torch.sort(r, dim=-1).values
-    distinct = ((s[..., :1] >= 0).sum(-1)
-                + ((s[..., 1:] != s[..., :-1]) & (s[..., 1:] >= 0)).sum(-1))
-    lanes = (r >= 0).sum(-1)
+    distinct, lanes = _distinct_and_lanes(r.reshape(G, 32, L).transpose(1, 2))  # [G, L]
     grouped = torch.tensor([(combine >> lv) & 1 for lv in range(L)], dtype=torch.bool,
                            device=rows.device)
     return int(torch.where(grouped, distinct, lanes).sum())
@@ -79,23 +86,54 @@ def k1_bwd_atomics(x01, g_feat, n_features, resolutions, log2_hashmap_size, gath
 
 
 def k7_bwd_atomics(x01, g_feat, n_features, resolutions, log2_hashmap_size, level_stride=1,
-                   shared_table=False, dense_sides=None, combine=None):
+                   shared_table=False, dense_sides=None, combine=None, tile=None):
     """The atomic instructions K7's backward (``csrc/hashenc_stoch.cu``)
-    issues on these inputs by its design, counted as ``k1_bwd_atomics``
-    counts K1's: one add per (level, sample) with a nonzero cotangent at a
-    level it keeps (the effective ``level_stride``), into its chosen row,
-    grouped by row at the levels in ``combine``; two at F = 8."""
+    issues on these inputs by its design, counted in plain PyTorch on the
+    inputs' device.  Its tasks: per tile of ``tile`` samples (default the
+    launcher's, ``ops/hashenc.py:stoch_bwd_tile``, which asks the built
+    library), the live samples (a nonzero cotangent in the row's first L*F
+    columns) in sample order, 32 a warp; per level slot
+    j of L / s (s the effective ``level_stride``), lane = live sample at
+    level j * s + its phase.  A lane adds where its cotangent at that level
+    is nonzero; a warp whose adding lanes include a level in ``combine``
+    issues one atomic for each distinct row among them, else one a lane;
+    two at F = 8."""
+    import torch
+
     from .ops import hashenc as t_hash
 
     M, L, F = x01.shape[0], len(resolutions), n_features
+    dev = x01.device
     combine = t_hash.combine_mask(resolutions) if combine is None else combine
+    tile = t_hash.stoch_bwd_tile(F, L) if tile is None else tile
     rows, phase_bits = t_hash.stochastic_choice(x01, resolutions, log2_hashmap_size,
                                                 shared_table, dense_sides)
-    adding = (g_feat[:, :L * F].reshape(M, L, F) != 0).any(-1)
     stride = t_hash.effective_stride(L, level_stride)
-    if stride > 1:
-        adding &= t_hash.level_keep(phase_bits, L, stride).t()
-    return _warp_atomics(rows.t(), adding, combine) * (2 if F == 8 else 1)
+    g = g_feat[:, :L * F].reshape(M, L, F)
+    live = (g != 0).any(-1).any(-1)
+    phase = (((phase_bits * t_hash._PHASE_MUL) & t_hash._U32) >> 13) % stride
+    # each live sample's warp (tile, 32-sample chunk of the tile's live list) and lane
+    sample = torch.arange(M, device=dev)
+    n_tiles, warps = -(-M // tile), tile // 32
+    count = torch.cumsum(live.to(torch.int64), 0)
+    start = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+    start[1:] = count[torch.clamp(torch.arange(1, n_tiles + 1, device=dev) * tile, max=M) - 1]
+    rank = count - 1 - start[sample // tile]
+    warp = (sample // tile * warps + rank // 32)[live]
+    lane = (rank % 32)[live]
+    combined = torch.tensor([(combine >> lv) & 1 for lv in range(L)], dtype=torch.bool,
+                            device=dev)
+    atomics = 0
+    for j in range(L // stride):
+        level = j * stride + phase
+        adding = live & (g[sample, level] != 0).any(-1)
+        r = torch.full((n_tiles * warps, 32), -1, dtype=torch.int64, device=dev)
+        r[warp, lane] = torch.where(adding, rows[level, sample], -1)[live]
+        c = torch.zeros((n_tiles * warps, 32), dtype=torch.bool, device=dev)
+        c[warp, lane] = (adding & combined[level])[live]
+        distinct, lanes = _distinct_and_lanes(r)
+        atomics += int(torch.where(c.any(-1), distinct, lanes).sum())
+    return atomics * (2 if F == 8 else 1)
 
 
 def k5_edge_inputs(seed=5):

@@ -84,7 +84,7 @@ _SIGNATURES = {
     "ngp_hash_encode": [_P, _P, _I, _I, _P, _I, _L, _P, _P],
     "ngp_hash_encode_bwd": [_P, _P, _I, _I, _I, _P, _L, _P, _U, _P],
     "ngp_hash_encode_1c": [_P, _P, _I, _I, _P, _I, _L, _P, _P],
-    "ngp_hash_encode_bwd_stoch": [_P, _P, _I, _I, _P, _L, _P, _U, _I, _P],
+    "ngp_hash_encode_bwd_stoch": [_P, _P, _I, _I, _P, _L, _P, _U, _I, _I, _P],
     "ngp_hash_encode_2d": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _P],
     "ngp_hash_encode_2d_bwd": [_P, _P, _P, _F, _P, _I, _I, _P, _L, _I, _FP, _I, _U, _P],
     "ngp_bg_color": [_P, _P, _F, _P, _I, _I, _P, _P, _L, _I, _FP, _I, _P],

@@ -15,8 +15,8 @@ the field) and ``uncompact`` scatters the field's (sigma [Mc], rgb [Mc, 3])
 back to [M] and [M, 3], zero where a sample was not kept.  On CUDA tensors
 they launch ``csrc/compact.cu`` (``uncompact`` under autograd through
 ``UncompactFn``, whose backward is the gather through the inverse slot map,
-``K5_compact_unpack_bwd``) or raise; on CPU tensors (or ``plain=True``)
-they run ``compact_plain`` / ``uncompact_plain``, the JAX formula, whose
+``K5_compact_unpack_bwd``, tiled as the unpack is) or raise; on CPU tensors
+(or ``plain=True``) they run ``compact_plain`` / ``uncompact_plain``, the JAX formula, whose
 backward is autograd's ``indexing_backward`` of ``sig_c[clamp(rank)]``.
 Kernel and plain version agree bit for bit, forward and backward: every
 value is a copy.
@@ -116,6 +116,15 @@ def compact(mask, xyzs, rays_d, Mc, plain=False, cap=None):
     return Compaction(xyz_c, dir_c, Mc, slot_of=slot_of, sample_of=sample_of)
 
 
+def _sig_rgb(n, device):
+    """Uninitialised fp32 ([n], [n, 3]): contiguous views of one allocation,
+    the rows of 3 from the first 16-byte boundary past the n singles (one
+    allocation a call; the kernels store both as 16-byte spans)."""
+    at = -(-n // 4) * 4
+    buf = torch.empty((at + 3 * n,), dtype=torch.float32, device=device)
+    return buf.as_strided((n,), (1,)), buf.as_strided((n, 3), (3, 1), at)
+
+
 def _unpack_kernel(sig_c, rgb_c, slot_of):
     """K5 unpack on the card: (sigmas [M], rgbs [M, 3]), contiguous views of
     one allocation (rgbs from the first 16-byte boundary past the sigmas)."""
@@ -123,22 +132,20 @@ def _unpack_kernel(sig_c, rgb_c, slot_of):
     _cuda.check_many((sig_c, "sig_c", torch.float32, (Mc,)),
                      (rgb_c, "rgb_c", torch.float32, (Mc, 3)),
                      (slot_of, "slot_of", torch.int32, (M,)), name_device=True)
-    at = -(-M // 4) * 4
-    buf = sig_c.new_empty((at + 3 * M,))
-    sig, rgb = buf.as_strided((M,), (1,)), buf.as_strided((M, 3), (3, 1), at)
+    sig, rgb = _sig_rgb(M, sig_c.device)
     _cuda.COMPACT_UNPACK(sig_c.data_ptr(), rgb_c.data_ptr(), slot_of.data_ptr(), M,
                          sig.data_ptr(), rgb.data_ptr())
     return sig, rgb
 
 
 def unpack_bwd(g_sig, g_rgb, sample_of):
-    """K5 unpack backward on the card: (g_sig_c [Mc], g_rgb_c [Mc, 3])."""
+    """K5 unpack backward on the card: (g_sig_c [Mc], g_rgb_c [Mc, 3]),
+    views of one allocation (``_sig_rgb``)."""
     M, Mc, dev = g_sig.shape[0], sample_of.shape[0], g_sig.device
     _cuda.check(g_sig, "g_sigmas", torch.float32, (M,), dev)
     _cuda.check(g_rgb, "g_rgbs", torch.float32, (M, 3), dev)
     _cuda.check(sample_of, "sample_of", torch.int32, (Mc,), dev)
-    g_sig_c = torch.empty((Mc,), dtype=torch.float32, device=dev)
-    g_rgb_c = torch.empty((Mc, 3), dtype=torch.float32, device=dev)
+    g_sig_c, g_rgb_c = _sig_rgb(Mc, dev)
     _cuda.COMPACT_UNPACK_BWD(g_sig.data_ptr(), g_rgb.data_ptr(), sample_of.data_ptr(), Mc,
                              g_sig_c.data_ptr(), g_rgb_c.data_ptr())
     return g_sig_c, g_rgb_c

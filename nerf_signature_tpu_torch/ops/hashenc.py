@@ -558,14 +558,36 @@ def _hash_encode_stoch_bwd_kernel(x, g_feat, n_rows, resolutions, log2_hashmap_s
                                   shared_table, dense_sides, n_features=None, stride=1):
     """K7's backward (``csrc/hashenc_stoch.cu:hash_bwd_stoch``): g_feat [M,
     pitch] -> the table's gradient [n_rows, F], one unrounded add per kept
-    (level, sample) at the effective ``stride``."""
+    (level, sample) at the effective ``stride``: warp tasks over each tile's
+    kept (level, live sample) pairs only, the phase once a sample, one
+    index hashed an add (``kernel_cases.k7_bwd_atomics`` models them)."""
     L, M, pitch, F, g_table = _bwd_args(x, g_feat, n_rows, resolutions, n_features)
     if stride < 1 or L % stride:
         raise ValueError(f"level stride {stride} does not divide L = {L}")
     levels = level_args(resolutions, log2_hashmap_size, shared_table, dense_sides)
     _cuda.HASH_ENCODE_BWD_STOCH(x.data_ptr(), g_feat.data_ptr(), pitch, F, g_table.data_ptr(), M,
-                                levels.ptr, _combine(levels, resolutions), stride)
+                                levels.ptr, _combine(levels, resolutions), stride,
+                                stoch_bwd_tile(F, L))
     return g_table
+
+
+@functools.lru_cache(maxsize=None)
+def stoch_bwd_tile(n_features, L):
+    """The samples a block of K7's backward takes, which the wrapper hands
+    its C entry (and ``kernel_cases.k7_bwd_atomics`` models): the largest of
+    128, 64 and 32 whose shared memory -- a staged cotangent row at
+    ``csrc/hashenc.cuh:stage_pitch``'s pitch, a position and a list entry,
+    4-byte words -- fits 47 KB beside the kernel's static level arrays
+    within the 48 KB a block has without opting in (the C entry refuses a
+    tile that does not).  128 rather than K1's 256: twice the blocks at a
+    quarter of the shared memory each."""
+    LF, F = L * n_features, n_features
+    words = ((LF | 1) if F == 1 else LF + 4 if F == 8 else LF + F) + 4
+    tile = 128
+    while tile > 32 and 4 * tile * words > 47 * 1024:
+        tile //= 2
+    return tile
+
 
 
 # ---------------------------------------------------------------------------

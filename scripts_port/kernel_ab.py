@@ -73,12 +73,21 @@ of a render, median of 3, and its device busy ms under torch.profiler).
 ``k7k5``: K7's one-corner forward (``ops/hashenc.py:_hash_encode_1c_kernel``)
 at the train step's 524,288 samples (``chip_smoke.py``'s noisy march of
 4096 random rays at budget 128 on the procedural ball) at 16 x 2 (pitch
-32) and 16 x 4, with K1's forward and backward and K7's backward at stride
-1 on the same samples (controls: the same level arguments, their kernels
-unchanged); then K5 at the clean and watermark steps' shapes
-(``chip_smoke.py``'s ``k5_march`` and ``auto_mc`` on that ball, through
-``k5_case``: bit-exact against the plain versions): the unpack, and the
-pack and unpack backward as controls.  Each row: ms a call (CUDA events,
+32) and 16 x 4, with K1's forward and backward (controls: the same level
+arguments) and K7's backward at strides 1 and 2 on the same samples
+(``chip_smoke.py``'s ``k7_bwd_row``: against its plain version, device ms
+warm and cold split by name into the kernel and the zeroing of the
+table's gradient, each with its bound); then the K7 loop trained
+(``k7_trained``: Trainer.train_device, 512 steps at K = 64 with
+--stochastic_hash_grad; one more dispatch profiled, K7's backward kernel's
+ms a step), K7's backward at strides 1 and 2 on that model at the clean
+step's shape and at the loop's own (the inputs one more eager step hands
+it: K5's compacted slots, K4's cotangent), and K5 at the clean and
+watermark steps' shapes on its trained grid (no digests: the trained model
+differs from run to run); then K5 at those shapes on the ball
+(``chip_smoke.py``'s ``k5_march`` and ``auto_mc``, through ``k5_case``:
+bit-exact against the plain versions): the unpack, its backward and the
+pack.  Each row: ms a call (CUDA events,
 median), device ms cold (L2 flushed) and warm (torch.profiler), host µs a
 call (ms less the warm device ms), and ms a call in a stream of 200
 back-to-back calls (``loop_ms``: CUDA events around them all, the larger
@@ -557,11 +566,15 @@ def k7k5(out, dev, cs):
         # the backwards add by atomics: timed, not hashed
         out[f"K1_bwd_{geo}"] = split(lambda: t_hash._hash_encode_bwd_kernel(
             x01, g_feat, n_rows, res, log2, torch.bfloat16, False, None, F), 20)
-        out[f"K7_bwd_{geo}"] = split(lambda: t_hash._hash_encode_stoch_bwd_kernel(
-            x01, g_feat, n_rows, res, log2, False, None, F, 1), 20)
-        for name in (f"K7_fwd_1c_{geo}", f"K1_fwd_{geo}", f"K1_bwd_{geo}", f"K7_bwd_{geo}"):
+        names = [f"K7_fwd_1c_{geo}", f"K1_fwd_{geo}", f"K1_bwd_{geo}"]
+        for stride in (1, 2):
+            names.append(f"K7_bwd_{geo}" + ("" if stride == 1 else f"_s{stride}"))
+            out[names[-1]] = k7_bwd(cs, x01, g_feat, n_rows, res, log2, F, stride,
+                                    f"k7k5 {geo}")
+        for name in names:
             print(f"[k7k5] {name}: {out[name]}", flush=True)
         del m, fp, mk, live, x01, table, tg, chosen, flat, g_feat
+    k7_trained(out, dev, cs)
     m = cs.make_model(dev)
     for tag, n_rays, budget in (("clean", cs.TRAIN_RAYS, cs.TRAIN_BUDGET),
                                 ("wm", cs.WM_STEP_RAYS, 256)):
@@ -587,6 +600,74 @@ def k7k5(out, dev, cs):
             out[f"{name}_{tag}"] = dict(rows[name], compact_frac=frac)
             print(f"[k7k5] {name}_{tag}: {out[f'{name}_{tag}']}", flush=True)
         del mask, xyzs, rd, comp, sig_c, rgb_c, g_sig, g_rgb, src
+
+
+def k7_bwd(cs, x01, g_feat, n_rows, res, log2, F, stride, tag):
+    """K7's backward at one input and stride: ``chip_smoke.py``'s
+    ``k7_bwd_row`` (checked against its plain version; device ms warm and
+    cold, each split into the kernel and the zeroing of the table's
+    gradient; the bounds) and ms a call in a stream of calls."""
+    from nerf_signature_tpu_torch.ops import hashenc as t_hash
+
+    row = cs.k7_bwd_row(x01, g_feat, n_rows, res, log2, F, stride, tag)
+    row["loop_ms"] = loop_ms(lambda: t_hash._hash_encode_stoch_bwd_kernel(
+        x01, g_feat, n_rows, res, log2, False, None, F, stride))
+    return row
+
+
+def k7_trained(out, dev, cs):
+    """The K7 loop (Trainer.train_device, 512 steps at K = 64 with
+    --stochastic_hash_grad, as ``chip_smoke.py``'s phase 11 trains it), one
+    more dispatch profiled (busy ms a step, K7's backward kernel's ms a
+    step); K7's backward at strides 1 and 2 on that model at the clean
+    step's shape (``k7_clean_inputs``) and on the inputs the loop hands it
+    (``k7_loop_inputs``: K5's compacted slots, K4's cotangent); then K5 at
+    the clean and watermark steps' shapes on its trained grid (the unpack
+    backward; the pack and the unpack as controls), into ``out``.  The
+    trained model differs from run to run (atomics): each row lists its
+    shape, and no digest is kept."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+    from nerf_signature_tpu_torch.train import device_loop as t_dl
+
+    K = cs.DL_K
+    r = cs.train_case(dev, cs.TRAIN_BALL, cs.TRAIN_ITERS, steps_per_dispatch=K, stochastic=True)
+    tr = r["trainer"]
+    data = t_dl.preload(r["loader"].poses, r["loader"].images, r["loader"].intrinsics, cs.RES,
+                        cs.RES, dev)
+    prof = cs.profile_dispatch(lambda: t_dl.device_train_loop(tr, data, K), K,
+                               "k7 loop profile", tr.model.rc.compact_frac > 0,
+                               match=(cs.K7_BWD_TRACE,))
+    out["k7_loop"] = dict(prof, steps=tr.global_step, seconds=r["seconds"], psnr1=r["psnr1"],
+                          rays_per_s=tr.global_step * cs.TRAIN_RAYS / r["seconds"],
+                          k7_launches={k: v for k, v in r["launches"].items()
+                                       if k.startswith("K7")})
+    print(f"[k7k5] k7_loop: {out['k7_loop']}", flush=True)
+    cfg = tr.model.cfg
+    res, log2, F = cfg.resolutions, cfg.log2_hashmap_size, cfg.n_features
+    n_rows = tr.model.params["hash_table"].shape[0]
+    x01, _, g_feat = cs.k7_clean_inputs(dev, tr.model)
+    xl, gl, _ = cs.k7_loop_inputs(tr, data)
+    for stride in (1, 2):
+        for shape, (xs, gs) in (("trained", (x01, g_feat)), ("loop", (xl, gl))):
+            name = f"K7_bwd_{shape}_s{stride}"
+            out[name] = k7_bwd(cs, xs, gs, n_rows, res, log2, F, stride, f"k7k5 {shape}")
+            print(f"[k7k5] {name}: {out[name]}", flush=True)
+    del x01, g_feat, xl, gl, data
+    for tag, n_rays, budget in (("clean", cs.TRAIN_RAYS, cs.TRAIN_BUDGET),
+                                ("wm", cs.WM_STEP_RAYS, 256)):
+        mask, xyzs, rd, n_occ = cs.k5_march(tr.model, n_rays, budget, seed=41)
+        M = mask.numel()
+        Mc, frac = cs.auto_mc(n_occ, n_rays, budget)
+        rows = cs.k5_case(dev, mask, xyzs, rd, Mc, f"trained {n_rays} x {budget}")
+        comp = t_compact.compact(mask, xyzs, rd, Mc)
+        g_sig, g_rgb = torch.randn((M,), device=dev), torch.randn((M, 3), device=dev)
+        rows["K5_compact_unpack_bwd"]["loop_ms"] = loop_ms(
+            lambda: t_compact.unpack_bwd(g_sig, g_rgb, comp.sample_of))
+        for name, row in rows.items():
+            out[f"{name}_trained_{tag}"] = dict(row, compact_frac=frac)
+            print(f"[k7k5] {name}_trained_{tag}: {out[f'{name}_trained_{tag}']}", flush=True)
+        del mask, xyzs, rd, comp, g_sig, g_rgb
+    del r, tr
 
 
 def k5_host(out, dev, cs, reps=5):
@@ -713,17 +794,23 @@ def compare(paths):
             runs.append(json.loads(f.read().strip().splitlines()[-1]))
     rows = {}
     for name, row in runs[0].items():
-        if not (isinstance(row, dict) and ("sha" in row or "host_us" in row)):
+        if not (isinstance(row, dict) and ("sha" in row or "host_us" in row
+                                           or "kernel_ms" in row)):
             continue
         rows[name] = {"device_ms": [r[name]["device_ms"] for r in runs],
                       "ms": [r[name]["ms"] for r in runs],
+                      **{k: [r[name].get(k) for r in runs]
+                         for k in ("device_ms_cold", "kernel_ms", "kernel_ms_cold",
+                                   "zeroing_ms", "zeroing_ms_cold") if k in row},
                       "host_us": [r[name].get("host_us") for r in runs],
                       "loop_ms": [r[name].get("loop_ms") for r in runs],
                       "library_loop_ms": [r[name].get("library_loop_ms") for r in runs],
                       "library_device_ms": [r[name].get("library_device_ms") for r in runs],
                       "in_step_device_ms": [r[name].get("in_step", {}).get("device_ms")
                                             for r in runs],
-                      "bound_ms": row.get("bound_ms")}
+                      "bound_ms": row.get("bound_ms"),
+                      **{k: row[k] for k in ("kernel_bound_ms", "kernel_live_bound_ms",
+                                             "zeroing_bound_ms") if k in row}}
         if "sha" in row:
             sha = row["sha"]
             keys = sha.keys() if isinstance(sha, dict) else range(len(sha))

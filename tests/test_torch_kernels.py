@@ -42,8 +42,10 @@ K5 (sample compaction) pack, unpack and unpack backward bit for bit
 against the plain versions on ``kernel_cases.k5_edge_inputs`` and at the
 clean and watermark steps' shapes; the unpack also on its tiles' edges
 (M below a tile, ragged, 0, nothing and everything kept, a cap, an
-unaligned slot map); the pack also on a mask one byte off its alignment,
-repeated (its look-back's order), with a cap (a data-parallel rank's
+unaligned slot map), its backward on its own (a ragged Mc with empty
+slots at the tail, a tile's edge, all slots empty, an unaligned map, the
+outputs views of one allocation); the pack also on a mask one byte off its
+alignment, repeated (its look-back's order), with a cap (a data-parallel rank's
 share of the global budget), and captured in a CUDA graph and replayed
 on other masks (its scratch reset); a clean step captured as a CUDA
 graph and replayed against the same steps run eagerly (1e-5: K1's
@@ -51,7 +53,9 @@ atomics).
 K7's one-corner forward bit for bit (the same corner choice) at every
 row width, pitch and addressing, and at two geometries called in turns;
 its backward within 1e-6 relative L2 (atomic order) touching the same
-rows, at level strides 1, 2 and 3 (3 runs at 1);
+rows, at level strides 1, 2 and 3 (3 runs at 1), and on the edges of its
+live lists (a tile with no live row, rows live at some levels, M not a
+multiple of its tile, stride 4) and refusing a tile it cannot take;
 K8 on given positions bit for bit (backward 1e-5), and from the rays within
 1e-3 (atan2f's ulps at resolution 2048) with the rays at phi's branch cut
 left out; K8 as the whole background colour (``-k bg``) against the plain
@@ -996,6 +1000,53 @@ def test_compact_unpack_tiles(cuda, case):
         assert all(torch.equal(a, b) for a, b in zip(gk, gp))
 
 
+# K5 unpack backward's tiles (1024 slots, gather_tile): name -> (Mc, kept)
+K5_UNPACK_BWD_CASES = {"ragged_tail": (4099, 2500), "edge": (3072, 2048),
+                       "edge_plus_one": (2049, 2049), "all_empty": (1027, 0),
+                       "one_slot": (1, 1)}
+
+
+@pytest.mark.parametrize("case", list(K5_UNPACK_BWD_CASES))
+def test_compact_unpack_bwd_tiles(cuda, case):
+    """K5's unpack backward bit for bit against the gather through
+    ``sample_of`` (its plain version) and autograd's indexing_backward, at a
+    ragged Mc with a tail of empty slots (-1), kept counts at a tile's edge
+    and past it, and all slots empty; the map also one element off its
+    16-byte alignment (scalar reads); the two outputs are contiguous views
+    of one allocation, g_rgb_c at the first 16-byte boundary past g_sig_c."""
+    from nerf_signature_tpu_torch.ops import compact as t_compact
+
+    Mc, kept = K5_UNPACK_BWD_CASES[case]
+    g = torch.Generator().manual_seed(Mc + kept)
+    N, S = 64, 100
+    mask = torch.zeros(N * S, dtype=torch.bool)
+    mask[torch.randperm(N * S, generator=g)[:kept]] = True
+    mask = mask.reshape(N, S).to(cuda)
+    xyzs = torch.rand((N, S, 3), generator=g).to(cuda)
+    rd = torch.randn((N, 3), generator=g).to(cuda)
+    comp = t_compact.compact(mask, xyzs, rd, Mc)
+    plain = t_compact.compact_plain(mask, xyzs, rd, Mc)
+    assert int((comp.sample_of >= 0).sum()) == min(kept, Mc)
+    gs, gr = torch.randn((N * S,), generator=g).to(cuda), torch.randn((N * S, 3),
+                                                                       generator=g).to(cuda)
+    ks, kr = t_compact.unpack_bwd(gs, gr, comp.sample_of)
+    live = comp.sample_of >= 0
+    src = comp.sample_of.clamp(min=0).long()
+    assert torch.equal(ks, torch.where(live, gs[src], 0.0))
+    assert torch.equal(kr, torch.where(live[:, None], gr[src], 0.0))
+    assert ks.is_contiguous() and kr.is_contiguous() and kr.shape == (Mc, 3)
+    assert kr.data_ptr() - ks.data_ptr() == 4 * (-(-Mc // 4) * 4)
+    buf = torch.empty((Mc + 1,), dtype=torch.int32, device=cuda)
+    buf[1:] = comp.sample_of
+    us, ur = t_compact.unpack_bwd(gs, gr, buf[1:])
+    assert torch.equal(us, ks) and torch.equal(ur, kr)
+    leaves = [torch.randn((Mc,), generator=g).to(cuda).requires_grad_(),
+              torch.rand((Mc, 3), generator=g).to(cuda).requires_grad_()]
+    sp, rp = t_compact.uncompact_plain(*leaves, plain)
+    gp = torch.autograd.grad((sp, rp), leaves, (gs, gr))
+    assert torch.equal(ks, gp[0]) and torch.equal(kr, gp[1])
+
+
 @pytest.mark.parametrize("C", [4, 3])
 def test_captured_step_replays_match_eager(cuda, monkeypatch, C):
     """One clean step captured as a CUDA graph and replayed over two
@@ -1178,6 +1229,59 @@ def test_k7_bwd_kernel_matches_plain(cuda, L, F, pitch, gather, stride):
                               pitch=pitch)
     feat.backward(g_feat)
     assert rel_l2(tt.grad, p) <= 1e-6
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("L,F,pitch", [(16, 2, 32), (24, 1, 32), (8, 8, 64), (32, 2, 64)])
+def test_k7_bwd_kernel_live_lists(cuda, L, F, pitch, stride):
+    """K7's backward on the edges of its live lists: M not a multiple of
+    its tile (3 tiles and 45 rows), the second tile with no live row, every
+    3rd row dead, rows 5::7 live only at their first half of levels, a tile
+    of one live row, and the loop's layout (the slots past the kept count
+    zero); strides 1, 2 and 4 (each divides every L here).  Within 1e-6
+    relative L2 of the plain version (the atomics' order), no row chosen
+    differently."""
+    g, res, sides, rows, table, x, gd = _k7_inputs(cuda, L, F, "bf16", 40 + L + stride)
+    tile = t_hash.stoch_bwd_tile(F, L)
+    M = 3 * tile + 45
+    x = x[:M].contiguous()
+    g3 = torch.randn((M, L, F), generator=g)
+    g3[tile:2 * tile] = 0.0
+    g3[::3] = 0.0
+    g3[5::7, (L + 1) // 2:] = 0.0
+    g3[2 * tile:3 * tile] = 0.0
+    g3[2 * tile + 7] = torch.randn((L, F), generator=g)
+    g3[-20:] = 0.0  # the loop's empty slots at the end
+    g_feat = torch.zeros((M, pitch), device=cuda)
+    g_feat[:, :L * F] = g3.reshape(M, L * F).to(cuda)
+    eff = t_hash.effective_stride(L, stride)
+    k = t_hash._hash_encode_stoch_bwd_kernel(x, g_feat, rows, res, 19, False, sides, F, eff)
+    p = t_hash.hash_encode_stoch_bwd_plain(x, g_feat[:, :L * F].contiguous(), rows, res, 19,
+                                           eff, dense_sides=sides)
+    assert rel_l2(k, p) <= 1e-6
+    assert torch.equal(k.ne(0).any(-1), p.ne(0).any(-1))
+
+
+@pytest.mark.parametrize("tile", [0, 48, 288, "over 47 KB"])
+def test_k7_bwd_kernel_refuses_a_tile_it_cannot_take(cuda, tile):
+    """The tile comes from ``ops/hashenc.py:stoch_bwd_tile``; the C entry
+    refuses one that is not a multiple of 32 within the block's 256
+    threads, or whose shared memory passes 47 KB (128 samples at 32 levels
+    x 8 features), and launches nothing."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    L, F = (32, 8) if tile == "over 47 KB" else (16, 2)
+    tile = 128 if tile == "over 47 KB" else tile
+    assert t_hash.stoch_bwd_tile(F, L) == (32 if F == 8 else 128)
+    levels = t_hash.level_args(t_hash.level_resolutions(L, 16, 2048), 14)
+    x = torch.rand((64, 3), device=cuda)
+    g_feat = torch.randn((64, L * F), device=cuda)
+    g_table = torch.zeros((L << 14, F), device=cuda)
+    before = _cuda.HASH_ENCODE_BWD_STOCH.launches
+    with pytest.raises(RuntimeError, match="ngp_hash_encode_bwd_stoch"):
+        _cuda.HASH_ENCODE_BWD_STOCH(x.data_ptr(), g_feat.data_ptr(), L * F, F,
+                                    g_table.data_ptr(), 64, levels.ptr, 0, 1, tile)
+    assert _cuda.HASH_ENCODE_BWD_STOCH.launches == before and not bool(g_table.any())
 
 
 def test_k7_bwd_kernel_edges(cuda):
