@@ -55,16 +55,22 @@ CUDA toolkit (nvcc).  Phases, each failing loudly:
                16 x 4 (K4 at width 64, K1 with 4 features at 16 levels), 32 x 2
                (K4 at width 64, K1 at 32 levels), 12 x 2 (width 24: K4 at 32,
                the features zero-padded by K1), 24 x 1 (K1 with 1 feature a
-               row, width 24) and 8 x 8 (K1 with 8 features a row, width 64):
+               row, width 24), 8 x 8 (K1 with 8 features a row, width 64)
+               and 16 x 8 (width 128: K4's tensor-core kernels alone, bf16):
                K1 forward (bit-exact; the padded columns exactly 0) and
                backward (its atomics modelled), K4 forward, full and
-               feature-only backward on both routes, each against its plain
+               feature-only backward on both routes (bf16 alone at 16 x 8;
+               ptxas's registers and spills and the compiled plan's shared
+               memory and blocks an SM, as the runtime reports them, beside
+               its row), each against its plain
                version; a whole clean and a whole watermark step through the
-               kernels against the plain versions (bf16, fp32); but for
-               32 x 2, Trainer.train for 128 steps on the radius-0.7 ball
-               (launches; at 8 x 4, 16 x 4 and 12 x 2 the held-out PSNR must
-               rise 6 dB), then 64 watermark steps on that backbone; 16 x 8
-               (width 128) must be refused before a model is built;
+               kernels against the plain versions (bf16, fp32; bf16 at 16 x
+               8); but for 32 x 2, Trainer.train for 128 steps on the
+               radius-0.7 ball (launches; at 8 x 4, 16 x 4, 12 x 2 and 16 x
+               8 the held-out PSNR must rise 6 dB), then 64 watermark steps
+               on that backbone; 16 x 8 in fp32 and 32 x 8 in bf16 (widths
+               above the routes' widest builds, 64 and 128) must be refused
+               before a model is built;
   6. serve   — a full-width model (README Blender recipe: -O --bound 1.0
                --scale 0.8 --dt_gamma 0, NGPConfig defaults, grid 128^3,
                max_steps 1024, budget 256) with random weights from a seed
@@ -303,12 +309,18 @@ ADAPT_ITERS = 384
 # the table geometries (levels, features a row) the card takes besides
 # 16 x 2, and the length of their Trainer.train runs
 GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4), "32x2": (32, 2), "12x2": (12, 2),
-              "24x1": (24, 1), "8x8": (8, 8)}
+              "24x1": (24, 1), "8x8": (8, 8), "16x8": (16, 8)}
 # the geometries that also train and run the watermark stage (32 x 2, K4 at
 # width 64 as 16 x 4 is: its kernels and whole steps only)
-GEO_TRAINED = ("8x2", "8x4", "16x4", "12x2", "24x1", "8x8")
+GEO_TRAINED = ("8x2", "8x4", "16x4", "12x2", "24x1", "8x8", "16x8")
 # the geometries whose held-out PSNR must rise 6 dB in GEO_ITERS steps
-GEO_QUALITY = ("8x4", "16x4", "12x2")
+GEO_QUALITY = ("8x4", "16x4", "12x2", "16x8")
+# the geometries whose encoding width only the tensor-core kernels take
+# (K4 at IN = 128): bf16 alone, the fp32 route refused
+GEO_BF16_ONLY = ("16x8",)
+# the geometries refused before a model is built: (levels, features, dtype)
+GEO_REFUSED = {"16 x 8 in fp32": (16, 8, torch.float32),
+               "32 x 8 in bf16": (32, 8, torch.bfloat16)}
 GEO_ITERS = 128
 # the watermark stage's length on each geometry's trained backbone (two
 # epochs of the recipe's 32 views)
@@ -458,7 +470,7 @@ def device_ms_by_name(fn, reps=20, cold=False):
             if not (cold and L2_FLUSH_KERNEL in name)}
 
 
-def device_ms(fn, reps=20, cold=False):
+def device_ms(fn, reps=20, cold=False, bound=None):
     """Device time of one call of ``fn``: the durations of the device work
     that ``reps`` calls launch, summed from a torch.profiler trace, over
     ``reps`` (the host's dispatch and the gaps between launches left out,
@@ -466,25 +478,31 @@ def device_ms(fn, reps=20, cold=False):
     before each call (a buffer four times its size rewritten, that work left
     out of the sum; the buffer freed on return, so no later peak memory
     reading holds it), so that inputs the calls share come from memory each
-    time, as they do in a step.  Where every trace comes back empty,
-    ``events_ms`` measures it instead, warm (counted in EVENT_FALLBACKS)."""
+    time, as they do in a step.  Where every trace comes back empty, or
+    where ``bound`` (the row's bound_ms) is given and the trace reads under
+    it (a trace that lost some of the calls' device events), ``events_ms``
+    measures it instead, warm (counted in EVENT_FALLBACKS)."""
     by_name = device_ms_by_name(fn, reps, cold)
-    if by_name is not None:
-        return sum(by_name.values())
+    traced = None if by_name is None else sum(by_name.values())
+    if traced is not None and (bound is None or traced >= bound):
+        return traced
     ms = events_ms(fn, reps)
     EVENT_FALLBACKS.append(ms)
-    log(f"[trace] device_ms from CUDA events instead: {ms:.4f} ms a call")
+    why = ("every trace came back empty" if traced is None else
+           f"the trace read {traced:.4f} ms, under the bound {bound:.4f} ms")
+    log(f"[trace] device_ms from CUDA events instead ({why}): {ms:.4f} ms a call")
     return ms
 
 
-def call_split(fn, reps):
+def call_split(fn, reps, bound=None):
     """One call of ``fn`` split into device and host time: ms a call (CUDA
-    events, median), its device ms warm and cold (``device_ms``), and the
-    host's µs a call: the ms a call less the warm device ms, the time the
-    idle device waits for the host to launch and return."""
+    events, median), its device ms warm and cold (``device_ms``, held to
+    ``bound``), and the host's µs a call: the ms a call less the warm device
+    ms, the time the idle device waits for the host to launch and return."""
     ms = median_ms(fn, reps)
-    warm = device_ms(fn, reps)
-    return {"ms": ms, "device_ms_warm": warm, "device_ms_cold": device_ms(fn, reps, cold=True),
+    warm = device_ms(fn, reps, bound=bound)
+    return {"ms": ms, "device_ms_warm": warm,
+            "device_ms_cold": device_ms(fn, reps, cold=True, bound=bound),
             "host_us": (ms - warm) * 1e3}
 
 
@@ -596,18 +614,27 @@ def phase_build():
     for sec in info["log"].split("== ")[1:]:
         name = sec.split()[0]
         if name in TENSOR_CORE_SOURCES:
-            spills[name] = [int(n) for n in re.findall(r"(\d+) bytes spill stores", sec)]
-    log(f"[build] spill stores of the tensor-core kernels (bytes, per instantiation): {spills}")
+            spills[name] = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", sec)]
+    log(f"[build] spill stores and loads of the tensor-core kernels (bytes, per instantiation): "
+        f"{spills}")
     if sorted(spills) != sorted(TENSOR_CORE_SOURCES) or not all(spills.values()) or any(
             any(v) for v in spills.values()):
         raise AssertionError(f"the tensor-core kernels spill or were not reported: {spills}")
+    mma = mma_ptxas(info["log"])
+    log(f"[build] K4's tensor-core kernels by input width (registers, spill stores and loads "
+        f"from ptxas; threads, dynamic shared bytes, blocks an SM and local bytes as the "
+        f"runtime reports the compiled plan): {json.dumps(mma)}")
+    want = {(k, w[0]) for k in MMA_KERNELS for w in _cuda.MMA_WIDTHS}
+    if {(k, int(i)) for k, v in mma.items() for i in v} != want or any(
+            r["spill_stores"] or r["spill_loads"] or r["local_bytes"] or r["smem"] > 232_448
+            or r["blocks_per_sm"] < 1 for v in mma.values() for r in v.values()):
+        raise AssertionError(f"K4's tensor-core kernels spill, exceed a block's shared memory "
+                             f"or were not reported at every width: {mma}")
     # nor may K4's tiled SIMT kernels, at every width
     simt = ptxas_kernels(info["log"], SIMT_KERNELS)
     log(f"[build] K4's tiled SIMT kernels (registers, spill stores, spill loads): "
         f"{json.dumps(simt)}")
-    from nerf_signature_tpu_torch.ops import _cuda as c
-
-    want = {f"{src}[{','.join(map(str, w))}]" for src in SIMT_KERNELS for w in c.FIELD_WIDTHS}
+    want = {f"{src}[{','.join(map(str, w))}]" for src in SIMT_KERNELS for w in _cuda.FIELD_WIDTHS}
     if set(simt) != want or any(r["spill_stores"] or r["spill_loads"] for r in simt.values()):
         raise AssertionError(f"K4's tiled SIMT kernels spill or were not reported: {simt}")
     # nor may K8's background colour, at every row width
@@ -617,10 +644,59 @@ def phase_build():
         if name.startswith("background.cu["):
             bg[name] = [int(n) for n in re.findall(r"(\d+) bytes spill stores", sec)]
     log(f"[build] spill stores of K8's background colour (bytes, per instantiation): {bg}")
-    if (sorted(bg) != sorted(f"background.cu[F={f}]" for f in c.BG_FEATURES)
+    if (sorted(bg) != sorted(f"background.cu[F={f}]" for f in _cuda.BG_FEATURES)
             or not all(bg.values()) or any(any(v) for v in bg.values())):
         raise AssertionError(f"K8's background colour spills or was not reported: {bg}")
-    return info["seconds"], simt
+    return info["seconds"], simt, mma
+
+
+def mma_ptxas(build_log):
+    """{kernel: {IN: {registers, spill_stores, spill_loads, threads, smem,
+    blocks_per_sm, local_bytes}}} of K4's tensor-core kernels (MMA_KERNELS)
+    at every instantiated input width: registers and spills from ptxas -v's
+    report in the build log, the rest as the card's runtime reports the
+    compiled plan (ops/_cuda.py:mma_plan: blocks an SM from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Fails where the
+    wrappers' plan (models/ngp.py:mma_launch) is not the compiled one or the
+    runtime's registers are not ptxas's."""
+    from nerf_signature_tpu_torch.models import ngp as t_ngp
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    out = {}
+    for sec in build_log.split("== ")[1:]:
+        if sec.split()[0] not in TENSOR_CORE_SOURCES:
+            continue
+        key = None
+        for line in sec.splitlines():
+            mt = re.search(r"Function properties for (\S+)", line)
+            if mt:
+                key = None
+                width = re.search(r"MmaDimsILi(\d+)E", mt.group(1))
+                for kind, kname in MMA_KERNELS.items():
+                    if width and re.search(kname + r"I", mt.group(1)):
+                        key = (kind, int(width.group(1)))
+                continue
+            if key is None:
+                continue
+            row = out.setdefault(key[0], {}).setdefault(key[1], {})
+            mt = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if mt:
+                row.update(spill_stores=int(mt.group(1)), spill_loads=int(mt.group(2)))
+            mt = re.search(r"Used (\d+) registers", line)
+            if mt:
+                row["registers"] = int(mt.group(1))
+                key = None
+    for kind, by_in in out.items():
+        for in_dim, row in by_in.items():
+            widths = next(w for w in _cuda.MMA_WIDTHS if w[0] == in_dim)
+            plan = _cuda.mma_plan(kind, widths)
+            if ((plan["threads"], plan["smem"]) != t_ngp.mma_launch(widths, kind)
+                    or plan["registers"] != row.get("registers")):
+                raise AssertionError(f"K4 {kind} at IN={in_dim}: the compiled plan {plan} is not "
+                                     f"the wrappers' {t_ngp.mma_launch(widths, kind)} or ptxas's "
+                                     f"{row}")
+            row.update({k: plan[k] for k in ("threads", "smem", "blocks_per_sm", "local_bytes")})
+    return out
 
 
 def ptxas_kernels(build_log, kernels):
@@ -910,15 +986,15 @@ def k4_forward(fp, cfg, feat, dirs):
     bms, bby = bound_of(M * (cfg.enc_dim * 4 + 12 + 4 + 12), M * 2 * n_w,
                         PEAK_BF16 if bf16 else PEAK_FP32)
     row = dict(max_abs_err=e_rgb, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-               share_not_equal=steps)
-    if bf16:
-        row["library_ms"] = library_mlp_ms(fp, fw, dirs, cfg.compute_dtype)
-    else:  # the SIMT kernel: device times too, its own and the fp32 chain's
-        dms = device_ms(run, 20)
-        lib, ldms = library_mlp_ms(fp, fw, dirs, cfg.compute_dtype, device=True)
-        row.update(device_ms=dms, library_ms=lib, library_device_ms=ldms)
-        log(f"[{tag}] M={M}: per call {ms:.4f} ms, device {dms:.4f} ms; library chain "
-            f"{lib:.4f} / {ldms:.4f} ms; bound {bms:.4f} ms ({bby}): {bms / dms:.1%} of it")
+               share_not_equal=steps, in_dim=feat.shape[1])
+    # device times, the kernel's own (traced, and from CUDA events behind a
+    # spin kernel, which no lost trace event can shorten) and the chain's
+    dms, ems = device_ms(run, 20, bound=bms), events_ms(run, 20)
+    lib, ldms = library_mlp_ms(fp, fw, dirs, cfg.compute_dtype, device=True)
+    row.update(device_ms=dms, device_ms_events=ems, library_ms=lib, library_device_ms=ldms)
+    log(f"[{tag}] M={M}, IN={feat.shape[1]}: per call {ms:.4f} ms, device {dms:.4f} ms "
+        f"(CUDA events {ems:.4f}); library chain {lib:.4f} / {ldms:.4f} ms; bound {bms:.4f} ms "
+        f"({bby}): {bms / ems:.1%} of the events' reading")
     return row, (sp, rp)
 
 
@@ -1175,10 +1251,11 @@ def phase_train_kernels(dev):
     return results
 
 
-def clean_steps(dev, ro, rd, bg, noise, levels=16, features=2, in_step=None):
+def clean_steps(dev, ro, rd, bg, noise, levels=16, features=2, in_step=None,
+                dtypes=(torch.bfloat16, torch.float32)):
     """One whole train step through the kernels against one through the
-    plain versions, in bf16 and in fp32, at a table geometry (``levels`` x
-    ``features``).  K2 is bit-exact and K3/K1 differ by fp32 sum order, so
+    plain versions, in each of ``dtypes`` (bf16 and fp32), at a table
+    geometry (``levels`` x ``features``).  K2 is bit-exact and K3/K1 differ by fp32 sum order, so
     what is left is K4's bf16 roundings of sums taken in another order than
     cuBLAS's.  The limits are a few times the readings on an H100 (loss
     7.0e-8 relative; per-leaf rel L2 2.6e-4 in bf16, 8.1e-7 in fp32).  Fails
@@ -1189,6 +1266,8 @@ def clean_steps(dev, ro, rd, bg, noise, levels=16, features=2, in_step=None):
 
     counts = {}
     for dtype, lim_rel in ((torch.bfloat16, 2e-3), (torch.float32, 1e-5)):
+        if dtype not in dtypes:
+            continue
         lim_loss = 1e-6
         mt = make_model(dev, dtype=dtype, levels=levels, features=features)
         _cuda.reset_launch_counts()
@@ -1252,9 +1331,10 @@ def k4_bwd_in_step(mt, ro, rd, bg, noise):
             "step_busy_ms": busy, "samples": samples[0], "live_samples": live[0]}
 
 
-def wm_steps(dev, x, levels=16, features=2):
+def wm_steps(dev, x, levels=16, features=2, dtypes=(torch.bfloat16, torch.float32)):
     """One whole watermark step through the kernels against one through the
-    plain versions, in bf16 and in fp32, at a table geometry.  A conv bias
+    plain versions, in each of ``dtypes`` (bf16 and fp32), at a table
+    geometry.  A conv bias
     before a batch norm has a zero gradient in exact arithmetic (noise of
     ~1e-9 either way) and is left out of the per-leaf comparison.  The
     limits are a few times the readings on an H100 (loss equal; worst leaf
@@ -1264,6 +1344,8 @@ def wm_steps(dev, x, levels=16, features=2):
 
     counts = {}
     for dtype, lim_rel in ((torch.bfloat16, 5e-3), (torch.float32, 1e-4)):
+        if dtype not in dtypes:
+            continue
         lim_loss = 1e-6
         mt = make_wm_model(dev, dtype=dtype, levels=levels, features=features)
         _cuda.reset_launch_counts()
@@ -1521,7 +1603,6 @@ def k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb):
         raise AssertionError(f"{tag}: a repeat is not bit-equal (weight gradient or g_feat)")
     del gf_again, gw_again, gp4
     ms = median_ms(run, 10)
-    dms = device_ms(run)
     pms = median_ms(plain_bwd, 5, 1)
     del plain_bwd, f_p, s_p, r_p
     lib_run = library_mlp_bwd(fp, feat[:, :cfg.enc_dim], dirs, g_sigma, g_rgb,
@@ -1535,11 +1616,13 @@ def k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb):
     n_hot = int(((g_sigma != 0) | (g_rgb != 0).any(-1)).sum())
     bms, bby = bound_of(M * (4 + 12 + cfg.enc_dim * 4) + n_hot * (cfg.enc_dim * 4 + 12)
                         + n_w * 8, n_hot * 6 * n_w, PEAK_BF16 if bf16 else PEAK_FP32)
+    dms, ems = device_ms(run, bound=bms), events_ms(run, 10)
     log(f"[{tag}] {n_hot} of {M} samples carry a nonzero cotangent; per call {ms:.4f} ms, "
-        f"device {dms:.4f} ms; library chain {lib:.4f} / {ldms:.4f} ms; bound {bms:.4f} ms "
-        f"({bby}); bit-equal repeat")
-    return dict(max_abs_err=a4, rel_l2=e4, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
-                bound_by=bby, library_ms=lib, library_device_ms=ldms)
+        f"device {dms:.4f} ms (CUDA events {ems:.4f}); library chain {lib:.4f} / {ldms:.4f} "
+        f"ms; bound {bms:.4f} ms ({bby}); bit-equal repeat")
+    return dict(max_abs_err=a4, rel_l2=e4, ms=ms, device_ms=dms, device_ms_events=ems,
+                plain_ms=pms, bound_ms=bms, bound_by=bby, library_ms=lib,
+                library_device_ms=ldms, in_dim=feat.shape[1])
 
 
 def train_step_grads(m, ro, rd, bg, noise, plain):
@@ -1691,12 +1774,14 @@ def k4_bwd_feat(fp, cfg, feat, dirs, g_sigma, g_rgb):
                         PEAK_BF16 if bf16 else PEAK_FP32)
     log(f"[{tag}] {n_hot} of {M} samples carry a nonzero cotangent")
     row = dict(max_abs_err=a4, rel_l2=e4, rel_l2_vs_full_bwd=e_full, ms=ms, plain_ms=pms,
-               bound_ms=bms, bound_by=bby, library_ms=lib, full_bwd_ms=full_ms)
-    if not bf16:  # the SIMT kernel: device times too, its own and the chain's
-        dms, ldms = device_ms(run, 10), device_ms(lib_run, 10)
-        row.update(device_ms=dms, library_device_ms=ldms)
-        log(f"[{tag}] device {dms:.4f} ms; library chain {lib:.4f} / {ldms:.4f} ms; bound "
-            f"{bms:.4f} ms ({bby}): {bms / dms:.1%} of it")
+               bound_ms=bms, bound_by=bby, library_ms=lib, full_bwd_ms=full_ms,
+               in_dim=feat.shape[1])
+    # device times, the kernel's own (traced, and from CUDA events) and the chain's
+    dms, ems, ldms = device_ms(run, 10, bound=bms), events_ms(run, 10), device_ms(lib_run, 10)
+    row.update(device_ms=dms, device_ms_events=ems, library_device_ms=ldms)
+    log(f"[{tag}] IN={feat.shape[1]}: device {dms:.4f} ms (CUDA events {ems:.4f}); library "
+        f"chain {lib:.4f} / {ldms:.4f} ms; bound {bms:.4f} ms ({bby}): {bms / ems:.1%} of the "
+        f"events' reading")
     return row
 
 
@@ -1832,44 +1917,58 @@ def phase_geometry(dev):
     16 x 4 (K4 at width 64, K1 with 4 features at 16 levels), 32 x 2 (K4
     at width 64, K1 at its 32-level limit), 12 x 2 (width 24, K4 at 32 on
     features K1 writes zero-padded), 24 x 1 (K1 with 1 feature a row, width
-    24) and 8 x 8 (K1 with 8 features a row, width 64).
+    24), 8 x 8 (K1 with 8 features a row, width 64) and 16 x 8 (width 128:
+    K4 on the tensor cores alone, GEO_BF16_ONLY).
     For each: K1's forward (bit-exact) and K4's forward on the serving
     chunk's samples, K1's and K4's full backward at the train step's shapes,
     K4's feature-only backward at the watermark step's, each kernel against
-    its plain version on both of K4's routes; one whole clean step and one
-    whole watermark step through the kernels against the plain versions (bf16
-    and fp32, the existing limits).  For each of GEO_TRAINED: Trainer.train
-    for GEO_ITERS steps on the radius-0.7 ball, the quality limit checked at
+    its plain version on both of K4's routes (bf16 alone at GEO_BF16_ONLY);
+    one whole clean step and one whole watermark step through the kernels
+    against the plain versions (bf16 and fp32, the existing limits; bf16
+    alone at GEO_BF16_ONLY).  For each of GEO_TRAINED: Trainer.train for
+    GEO_ITERS steps on the radius-0.7 ball, the quality limit checked at
     GEO_QUALITY, then the watermark stage on the backbone that run trained:
     the README stage-2 recipe for GEO_WM_ITERS steps through the CLI's setup
-    (``wm_train``).  And the refusal of 16 x 8 (width 128) before a model is
-    built.  Returns each kernel's row at each geometry (keyed (kernel,
-    geometry); K1's forward is timed only where VARIANTS has a row for it),
-    each trained geometry's launches (under "train" its Trainer.train run's,
-    under "wm" its WatermarkTrainer.train run's) and its training numbers."""
+    (``wm_train``).  And the refusal of GEO_REFUSED (16 x 8 in fp32, 32 x 8
+    in bf16) before a model is built.  Returns each kernel's row at each
+    geometry (keyed (kernel, geometry); K1's forward is timed only where
+    VARIANTS has a row for it), each trained geometry's launches (under
+    "train" its Trainer.train run's, under "wm" its WatermarkTrainer.train
+    run's) and its training numbers."""
     from nerf_signature_tpu_torch.api import NGPModel
     from nerf_signature_tpu_torch.models import ngp as t_ngp
     from nerf_signature_tpu_torch.ops import hashenc as t_hash
     from nerf_signature_tpu_torch.ops import marching as t_march
     from nerf_signature_tpu_torch.render.renderer import default_aabb
 
-    try:
-        NGPModel(t_ngp.NGPConfig(n_levels=16, n_features=8), device=dev)
-    except NotImplementedError as e:
-        if "ROADMAP queue 3" not in str(e):
-            raise
-        log(f"[geometry] 16 x 8 refused up front: {str(e)[:120]}...")
-    else:
-        raise AssertionError("16 x 8 (encoding width 128) was not refused on the card")
+    for what, (L, F, dtype) in GEO_REFUSED.items():
+        try:
+            NGPModel(t_ngp.NGPConfig(n_levels=L, n_features=F, compute_dtype=dtype), device=dev)
+        except NotImplementedError as e:
+            if "ROADMAP queue 3" not in str(e):
+                raise
+            log(f"[geometry] {what} refused up front: {str(e)[:160]}...")
+        else:
+            raise AssertionError(f"{what} (encoding width {L * F}) was not refused on the card")
 
     rows, launches, stats = {}, {}, {}
+
+    def geometry_seconds(geo, t0):
+        """A geometry's own seconds, every check and run of it included."""
+        stats.setdefault(geo, {})["geometry_seconds"] = time.time() - t0
+        log(f"[time] geometry {geo}: {stats[geo]['geometry_seconds']:.1f} s")
+
     for geo, (L, F) in GEOMETRIES.items():
+        t_geo = time.time()
         gen = torch.Generator(device=dev).manual_seed(23)
         m = make_model(dev, levels=L, features=F)
         cfg, S_log2 = m.cfg, m.cfg.log2_hashmap_size
         fp = t_ngp.field_params(m.params, cfg)
+        # the fp32 route where its SIMT kernels take the width
+        f32 = geo not in GEO_BF16_ONLY
         cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
-        fp32 = t_ngp.field_params(m.params, cfg32)
+        fp32 = t_ngp.field_params(m.params, cfg32) if f32 else None
+        dtypes = (torch.bfloat16, torch.float32) if f32 else (torch.bfloat16,)
         aabb, grid = default_aabb(m.rc), m.occ.occupancy
         # K4's built input width: the rows K1 writes and K4 reads (the
         # columns past L*F zero)
@@ -1890,8 +1989,9 @@ def phase_geometry(dev):
             f"{pitch - L * F} padded columns exactly 0: {pad_zero}")
         if not (same and pad_zero):
             raise AssertionError(f"K1 ({geo}) differs from its plain version")
-        krows = {"K4_field": k4_forward(fp, cfg, feat, dirs)[0],
-               "K4_field_f32": k4_forward(fp32, cfg32, feat, dirs)[0]}
+        krows = {"K4_field": k4_forward(fp, cfg, feat, dirs)[0]}
+        if f32:
+            krows["K4_field_f32"] = k4_forward(fp32, cfg32, feat, dirs)[0]
         if ("K1_hash_encode", geo, None) in VARIANTS.values():
             krows["K1_hash_encode"] = dict(k1_timing(x01, fp, cfg.resolutions, S_log2, pitch),
                                            max_abs_err=0.0)
@@ -1913,15 +2013,16 @@ def phase_geometry(dev):
         g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
         g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
         krows["K4_field_bwd"] = k4_bwd(fp, cfg, feat, dirs, g_sigma, g_rgb)
-        krows["K4_field_bwd_f32"] = k4_bwd(fp32, cfg32, feat, dirs, g_sigma, g_rgb)
+        if f32:
+            krows["K4_field_bwd_f32"] = k4_bwd(fp32, cfg32, feat, dirs, g_sigma, g_rgb)
         del feat, x01, dirs, g_sigma, g_rgb, live
         bg = torch.rand((TRAIN_RAYS, 3), generator=gen, device=dev)
-        clean_steps(dev, ro, rd, bg, noise, L, F)
+        clean_steps(dev, ro, rd, bg, noise, L, F, dtypes=dtypes)
         # watermark step shapes: K4's feature-only backward, then the whole step
         mw = make_wm_model(dev, levels=L, features=F)
         x = wm_step_inputs(dev)
         fpw = t_ngp.field_params(mw.backbone, cfg)
-        fpw32 = t_ngp.field_params(mw.backbone, cfg32)
+        fpw32 = t_ngp.field_params(mw.backbone, cfg32) if f32 else None
         mk = t_march.march_rays_aabb(
             torch.cat([x["ro_b"].reshape(-1, 3), x["ct_o"]]),
             torch.cat([x["rd_b"].reshape(-1, 3), x["ct_d"]]), default_aabb(mw.rc),
@@ -1936,12 +2037,15 @@ def phase_geometry(dev):
         g_sigma = torch.randn((x01.shape[0],), generator=gen, device=dev) * 1e-4 * live
         g_rgb = torch.randn((x01.shape[0], 3), generator=gen, device=dev) * 1e-4 * live[:, None]
         krows["K4_field_bwd_feat"] = k4_bwd_feat(fpw, cfg, feat, dirs, g_sigma, g_rgb)
-        krows["K4_field_bwd_feat_f32"] = k4_bwd_feat(fpw32, cfg32, feat, dirs, g_sigma, g_rgb)
+        if f32:
+            krows["K4_field_bwd_feat_f32"] = k4_bwd_feat(fpw32, cfg32, feat, dirs, g_sigma,
+                                                         g_rgb)
         del feat, x01, dirs, g_sigma, g_rgb, live, mw, fpw, fpw32, m, fp, fp32
-        wm_steps(dev, x, L, F)
+        wm_steps(dev, x, L, F, dtypes=dtypes)
         rows.update({(k, geo): r for k, r in krows.items()})
         if geo not in GEO_TRAINED:
             gc.collect()
+            geometry_seconds(geo, t_geo)
             continue
         # the main path: Trainer.train with this geometry
         r = train_case(dev, TRAIN_BALL, GEO_ITERS, levels=L, features=F)
@@ -1965,6 +2069,7 @@ def phase_geometry(dev):
         stats[geo].update(wm_steps=w["steps"], wm_seconds=w["seconds"])
         del r, w
         gc.collect()  # the trainers hold cycles: free their models before the next phase
+        geometry_seconds(geo, t_geo)
     return rows, launches, stats
 
 
@@ -2978,7 +3083,7 @@ def k5_case(dev, mask, xyzs, rays_d, Mc, what, reps=50, digest=None):
     rows = {}
     for name, (kernel, plain_fn, lib, lib_what, n_bytes) in fns.items():
         b_ms, b_by = bound_of(n_bytes, 0, PEAK_FP32)
-        t, tl = call_split(kernel, reps), call_split(lib, reps)
+        t, tl = call_split(kernel, reps, b_ms), call_split(lib, reps)
         rows[name] = {"ms": t["ms"], "device_ms": t["device_ms_cold"],
                       "device_ms_warm": t["device_ms_warm"], "host_us": t["host_us"],
                       "plain_ms": median_ms(plain_fn, reps),
@@ -4189,7 +4294,7 @@ def k7_rows(dev, backbone_model):
     flat = chosen.reshape(-1)
     distinct = int(torch.unique(flat).numel())
     bms, bby = bound_of(M * 12 + M * L * F * 4 + distinct * F * 2, 0, PEAK_FP32)
-    t, tl = call_split(run, 20), call_split(lambda: tg.index_select(0, flat), 20)
+    t, tl = call_split(run, 20, bms), call_split(lambda: tg.index_select(0, flat), 20)
     out["K7_hash_encode_1c"] = dict(
         max_abs_err=err, ms=t["ms"], device_ms=t["device_ms_warm"],
         device_ms_cold=t["device_ms_cold"], host_us=t["host_us"],
@@ -4285,8 +4390,8 @@ def k7_bwd_row(x01, g_feat, n_rows, res, log2, F, stride, tag, reps=20):
                live_samples=n_live, sectors=sectors)
     for kind, cold in (("", False), ("_cold", True)):
         by_name = device_ms_by_name(run, reps, cold)
-        if by_name is None:
-            row["device_ms" + kind] = device_ms(run, reps, cold)
+        if by_name is None or sum(by_name.values()) < bms:  # empty, or short of events
+            row["device_ms" + kind] = device_ms(run, reps, cold, bound=bms)
             row["kernel_ms" + kind] = row["zeroing_ms" + kind] = None
             continue
         kernel = sum(ms for name, ms in by_name.items() if K7_BWD_TRACE in name)
@@ -4946,6 +5051,13 @@ VARIANTS = {
     "K4_field_bwd_in24_f32": ("K4_field_bwd_f32", "12x2", None),
     "K4_field_bwd_feat_in24": ("K4_field_bwd_feat", "12x2", None),
     "K4_field_bwd_feat_in24_f32": ("K4_field_bwd_feat_f32", "12x2", None),
+    # 16 x 8: K1 with 8 features a row at 16 levels (its staged tiles past
+    # 48 KB), K4 at input width 128 on the tensor cores (bf16 alone)
+    "K1_hash_encode_16x8": ("K1_hash_encode", "16x8", None),
+    "K1_hash_encode_bwd_16x8": ("K1_hash_encode_bwd", "16x8", None),
+    "K4_field_in128": ("K4_field", "16x8", None),
+    "K4_field_bwd_in128": ("K4_field_bwd", "16x8", None),
+    "K4_field_bwd_feat_in128": ("K4_field_bwd_feat", "16x8", None),
     # K1 with rows of 1 feature (24 x 1, output pitch 32) and of 8 (8 x 8)
     "K1_hash_encode_f1": ("K1_hash_encode", "24x1", None),
     "K1_hash_encode_bwd_f1": ("K1_hash_encode_bwd", "24x1", None),
@@ -4975,6 +5087,12 @@ K5_SOURCE = ("nerf_signature_tpu_torch/csrc/compact.cu",
              "nerf_signature_tpu/render/renderer.py:123")
 # the sources of the tensor-core kernels, which must build without spills
 TENSOR_CORE_SOURCES = ("field_mma.cu", "field_mma_bwd.cu", "field_mma_bwd_full.cu")
+# their kernels by models/ngp.py:mma_launch's kind (a part of ptxas's mangled
+# name, before the template's "I")
+MMA_KERNELS = {"fwd": "field_mma_fwd", "bwd_feat": "field_mma_bwd_feat",
+               "bwd": "field_mma_bwd_full"}
+# the kernels line's tensor-core K4 rows and their kind
+MMA_ROWS = {"K4_field": "fwd", "K4_field_bwd": "bwd", "K4_field_bwd_feat": "bwd_feat"}
 # K4's tiled SIMT kernels, which must too, at every width: source ->
 # the kernel's name (a part of ptxas's mangled one)
 SIMT_KERNELS = {"field.cu": "field_fwd", "field_feat.cu": "field_bwd_feat",
@@ -5134,14 +5252,14 @@ def k4_raw_rows(params, cfg, feat, dirs):
             f"(limit 1); other outputs equal to the launch without it: {same}")
         if not (same and share <= 1.0 and bool(torch.isfinite(raw).all())):
             raise AssertionError(f"{name} differs from its plain version beyond its limits")
-        ms = median_ms(lambda: t_ngp.field_heads(fp, c, feat, dirs, want_raw=True), 20)
-        dms = device_ms(lambda: t_ngp.field_heads(fp, c, feat, dirs, want_raw=True))
-        pms = median_ms(lambda: t_ngp.field_heads_plain(fp, c, fw, dirs, want_raw=True), 5, 1)
-        lib = library_mlp_ms(fp, fw, dirs, dtype)
         M = feat.shape[0]
         n_w = sum(w.numel() for w in fp["sigma_net"] + fp["color_net"])
         bms, bby = bound_of(M * (c.enc_dim * 4 + 12 + 4 + 12 + 4), M * 2 * n_w,
                             PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        ms = median_ms(lambda: t_ngp.field_heads(fp, c, feat, dirs, want_raw=True), 20)
+        dms = device_ms(lambda: t_ngp.field_heads(fp, c, feat, dirs, want_raw=True), bound=bms)
+        pms = median_ms(lambda: t_ngp.field_heads_plain(fp, c, fw, dirs, want_raw=True), 5, 1)
+        lib = library_mlp_ms(fp, fw, dirs, dtype)
         rows[name] = dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
                           bound_by=bby, library_ms=lib, samples=M)
     return rows
@@ -6396,7 +6514,7 @@ def main():
 
     gpu_line = timed("device", phase_device)
     dev = torch.device("cuda")
-    build_s, simt_build = timed("build", phase_build)
+    build_s, simt_build, mma_build = timed("build", phase_build)
     if sys.argv[1:] == ["--phase", "parallel"]:
         # phase 14 alone (development): its result, then the device line
         print(json.dumps({"parallel": timed("parallel", phase_parallel, dev, workdir=True),
@@ -6479,9 +6597,12 @@ def main():
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "train_launches": train_n, "wm_launches": wm_n}
         for extra in ("device_ms", "plain_device_ms", "library_device_ms", "rel_l2", "full_bwd_ms",
-                      "share_not_equal", "rel_l2_vs_full_bwd", "needs", "in_step"):
+                      "share_not_equal", "rel_l2_vs_full_bwd", "needs", "in_step", "in_dim",
+                      "device_ms_events"):
             if extra in r:
                 row[extra] = r[extra]
+        if base in MMA_ROWS:  # the tensor-core kernel's build at this row's input width
+            row["plan"] = mma_build[MMA_ROWS[base]][r["in_dim"]]
         if name in FP32_ROUTE:
             row["fp32_step_launches"] = {
                 step: c[name] for step, c in
@@ -6641,6 +6762,7 @@ def main():
     # design on each row's inputs: a model, not a reading of the card
     print(json.dumps({"k1_bwd_atomics_modelled": modelled}))
     print(json.dumps({"kernels": rows, "build_s": build_s, "simt_build": simt_build,
+                      "mma_build": mma_build,
                       "view": view, "train": {
         k: train[k] for k in ("steps", "seconds", "rays_per_s", "psnr0", "psnr1", "peak_gib",
                               "profile")},

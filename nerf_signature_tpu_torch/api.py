@@ -3,8 +3,9 @@ params, occupancy grid and render options, with the staged chunked render.
 
 The model lives on one device, ``"cuda"`` unless the caller passes
 ``device="cpu"``; with no GPU visible and no explicit CPU request it raises.
-On the card a table geometry the kernels lack (``check_kernel_geometry``,
-e.g. 16 levels x 4 features) is refused before anything is built.
+On the card a table geometry the kernels lack on the compute dtype's route
+(``check_kernel_geometry``: e.g. 16 levels x 8 features in fp32, 32 x 8
+in bf16) is refused before anything is built.
 On the card every chunk goes through the kernels (K2 marcher, K1 hash
 encoder, K4 field heads, K3 compositor, K9's effective table under a
 message, or under ``--copyrnerf`` K4's density logit and K10's colour-MLP

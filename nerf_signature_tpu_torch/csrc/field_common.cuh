@@ -1,5 +1,6 @@
 // Device helpers shared by the K4 SIMT kernels (field.cu, field_feat.cu,
-// field_bwd.cu): the degree-4 SH encoding, the layer widths, and the tiled
+// field_bwd.cu): the degree-4 SH encoding, the layer widths (the
+// tensor-core kernels' too), and the tiled
 // kernels' shared-memory plan, per-layer product, forward steps and
 // weight-gradient product.  The sources that include it are compiled with
 // -fmad=false.
@@ -19,6 +20,11 @@
 // without NGP_IN (the C entry points, which call the launchers of every
 // width), all in parallel.
 #define NGP_FIELD_WIDTHS(X) X(32, 64, 16, 64) X(16, 64, 16, 64) X(64, 64, 16, 64) X(8, 16, 16, 16)
+// The tensor-core kernels (field_mma*.cu, the bf16 route) are built for
+// those widths and for IN = 128 (16 levels x 8 features and 32 x 4; 12 x 8
+// runs at it zero-padded).  The same list is ops/_cuda.py:MMA_WIDTHS.
+#define NGP_MMA_WIDTHS(X) \
+  X(32, 64, 16, 64) X(16, 64, 16, 64) X(64, 64, 16, 64) X(8, 16, 16, 16) X(128, 64, 16, 64)
 
 // ops/sh.py:sh_encode at degree 4, term for term in the same order.
 __device__ __forceinline__ void sh4(float x, float y, float z, float* o) {

@@ -80,11 +80,11 @@ __global__ void __launch_bounds__(D::THREADS, D::MIN_BLOCKS)
 
 template <int IN, int HID, int OUT1, int HC>
 int launch_fwd(const void* feat, const void* dirs, const void* wpack, void* sigma, void* geo,
-               void* rgb, void* raw, long long M, cudaStream_t s) {
+               void* rgb, void* raw, long long M, long long smem, cudaStream_t s) {
   using D = FwdDims<IN, HID, OUT1, HC>;
   auto kernel = field_mma_fwd<D>;
   int blocks = 0;
-  const int rc = persistent_blocks<D>(kernel, M, &blocks);
+  const int rc = persistent_blocks<D>(kernel, M, smem, &blocks);
   if (rc != 0) return rc;
   kernel<<<blocks, D::THREADS, D::SMEM, s>>>((const float*)feat, (const float*)dirs,
                                              (const __nv_bfloat16*)wpack, (float*)sigma,
@@ -96,26 +96,44 @@ int launch_fwd(const void* feat, const void* dirs, const void* wpack, void* sigm
 
 // wpack: the packed bf16 weights (models/ngp.py:pack_mlp_mma), 16-byte
 // aligned.  raw: the density logit [M] fp32, or NULL.  Widths:
-// NGP_FIELD_WIDTHS (field_common.cuh).
+// NGP_MMA_WIDTHS (field_common.cuh).  smem: the plan's dynamic shared bytes
+// (models/ngp.py:mma_launch; any other size is refused).
 extern "C" int ngp_field_mma_raw(const void* feat, const void* dirs, const void* wpack,
                                  void* sigma, void* geo, void* rgb, void* raw, long long M,
                                  int in_dim, int hidden, int out1, int hidden_color,
-                                 void* stream) {
+                                 long long smem, void* stream) {
   if (M == 0) return 0;
   if (rgb != nullptr && dirs == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
   if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
-    return launch_fwd<IN, HID, OUT1, HC>(feat, dirs, wpack, sigma, geo, rgb, raw, M, s);
-  NGP_FIELD_WIDTHS(NGP_DISPATCH)
+    return launch_fwd<IN, HID, OUT1, HC>(feat, dirs, wpack, sigma, geo, rgb, raw, M, smem, s);
+  NGP_MMA_WIDTHS(NGP_DISPATCH)
 #undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int ngp_field_mma(const void* feat, const void* dirs, const void* wpack, void* sigma,
                              void* geo, void* rgb, long long M, int in_dim, int hidden, int out1,
-                             int hidden_color, void* stream) {
+                             int hidden_color, long long smem, void* stream) {
   return ngp_field_mma_raw(feat, dirs, wpack, sigma, geo, rgb, nullptr, M, in_dim, hidden, out1,
-                           hidden_color, stream);
+                           hidden_color, smem, stream);
 }
 
+// The forward's compiled plan at these widths (plan_of: threads, shared
+// bytes, blocks an SM, registers, local bytes), for models/ngp.py:mma_plan.
+template <int IN, int HID, int OUT1, int HC>
+static int plan_at(long long* out) {
+  using D = FwdDims<IN, HID, OUT1, HC>;
+  return plan_of<D>(field_mma_fwd<D>, out);
+}
+
+extern "C" int ngp_field_mma_plan(int in_dim, int hidden, int out1, int hidden_color,
+                                  long long* out) {
+#define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
+  if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
+    return plan_at<IN, HID, OUT1, HC>(out);
+  NGP_MMA_WIDTHS(NGP_DISPATCH)
+#undef NGP_DISPATCH
+  return (int)cudaErrorInvalidValue;
+}

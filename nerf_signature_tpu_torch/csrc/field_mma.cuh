@@ -64,13 +64,20 @@
 //   whose cotangents are all zero writes zeros and loads no features.  The
 //   full backward's block plan differs (field_mma_bwd_full.cu: 256-thread
 //   blocks, features loaded straight into fragments, the weight gradient
-//   from staged fragments).
+//   from staged fragments);
+// - each plan is chosen by whether its shared memory fits (FwdDims,
+//   BwdDims, FullDims): at IN = 128 (16 x 8, 32 x 4) the forward carries
+//   one 16-row tile a warp and the full backward runs 4 warps a block, so
+//   that each stays within the 232,448 B a block may have; g_feat is
+//   computed and written 64 columns at a time.
 // Compiled with -fmad=false, so SH and the sigmoid round like the plain
 // version.
 
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "field_common.cuh"
@@ -90,7 +97,8 @@ struct MmaDims {
   static constexpr int RT = RT_, ROWS = 16 * RT_, WARPS = WARPS_, THREADS = 32 * WARPS_,
                        MIN_BLOCKS = MIN_BLOCKS_;
   static_assert(OUT1 == 16 && SH_DIM == 16, "the colour input [SH(16), o(16)] is two k16 blocks");
-  static_assert((IN == 8 || IN == 16 || IN == 32 || IN == 64) && HID % 16 == 0 && HID <= 64 &&
+  static_assert((IN == 8 || IN == 16 || IN == 32 || IN == 64 || IN == 128) && HID % 16 == 0 &&
+                    HID <= 64 &&
                     HC % 16 == 0 && HC <= 64,
                 "fragment shapes and 32-bit ReLU masks");
   static_assert(ROWS <= 32, "a warp tile's liveness: one sample a lane");
@@ -104,22 +112,44 @@ struct MmaDims {
   static constexpr int N_PACK = O_C2 + HC * LD_C2;  // bf16 elements
   static_assert(N_PACK % 8 == 0, "16-byte staging");
   // feature tile row stride (floats): the 8-byte fragment reads of rows g =
-  // 0-3 (a half warp) fall in distinct banks (FLD = 8 or 8 mod 32: 24, 40
-  // and 72 at IN = 16, 32 and 64), and so do load_feat_tile's 16-byte pieces
+  // 0-3 (a half warp) fall in distinct banks (FLD = 8 or 8 mod 32: 24, 40,
+  // 72 and 136 at IN = 16, 32, 64 and 128), and so do load_feat_tile's
+  // 16-byte pieces
   static constexpr int FLD = IN == 8 ? IN : IN + 8;
   static constexpr int FTILE = ROWS * FLD;
   static constexpr size_t SMEM = (size_t)N_PACK * 2 + (size_t)WARPS * 2 * FTILE * 4;
 };
 
+// What dynamic shared memory an H100 SM holds (each block reserving 1 KB
+// besides), the most one block may opt in to (every plan's SMEM is held to
+// it at compile time), and the blocks of a plan an SM holds by its shared
+// memory.  models/ngp.py:mma_launch mirrors the plans chosen from these.
+constexpr size_t SM_SMEM = 233472, BLOCK_RESERVED = 1024, MAX_BLOCK_SMEM = 232448;
+__host__ __device__ constexpr int sm_blocks(size_t smem) {
+  return (int)(SM_SMEM / (smem + BLOCK_RESERVED));
+}
+
 // The forward carries two 16-row tiles a warp (each B fragment serves both)
-// under a 168-register cap; the backward holds the recomputed forward's
-// masks and the cotangents besides, and carries one under the same cap
-// (-Xptxas -v on sm_90a, full width: two tiles spill at 255 registers, one
-// spills at 128).
+// under a 168-register cap (3 blocks) while two blocks of that plan fit an
+// SM; the backward holds the recomputed forward's masks and the cotangents
+// besides, and carries one (-Xptxas -v on sm_90a, full width: two tiles
+// spill at 255 registers, one spills at 128).  Where two blocks of the
+// two-tile forward do not fit (IN = 128: 175,616 B, and layer 0's A
+// fragments alone would take 64 registers), the forward carries one tile
+// too.  A one-tile plan's register cap is the blocks of it an SM holds, at
+// most 3 (2 at IN = 128: 105,984 B, so 255 registers).
+template <int IN, int HID, int OUT1, int HC, int RT, int MIN_BLOCKS = 3>
+using TilePlan = MmaDims<IN, HID, OUT1, HC, RT, 4, MIN_BLOCKS>;
 template <int IN, int HID, int OUT1, int HC>
-using FwdDims = MmaDims<IN, HID, OUT1, HC, 2, 4, 3>;
+using OneTile = TilePlan<IN, HID, OUT1, HC, 1,
+                         sm_blocks(TilePlan<IN, HID, OUT1, HC, 1>::SMEM) < 3
+                             ? sm_blocks(TilePlan<IN, HID, OUT1, HC, 1>::SMEM)
+                             : 3>;
 template <int IN, int HID, int OUT1, int HC>
-using BwdDims = MmaDims<IN, HID, OUT1, HC, 1, 4, 3>;
+using FwdDims = std::conditional_t<(sm_blocks(TilePlan<IN, HID, OUT1, HC, 2>::SMEM) >= 2),
+                                   TilePlan<IN, HID, OUT1, HC, 2>, OneTile<IN, HID, OUT1, HC>>;
+template <int IN, int HID, int OUT1, int HC>
+using BwdDims = OneTile<IN, HID, OUT1, HC>;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -482,6 +512,29 @@ __device__ __forceinline__ void colour_mlp(const float (&dv)[D::RT][2][3],
 
 __device__ __forceinline__ float sigmoid_of(float v) { return 1.0f / (1.0f + expf(-v)); }
 
+// g_feat's columns [8 KLO, 8 (KLO + KT8)) of one warp tile whose rows start
+// at row0: round(g_h @ Ws0^T) over those columns (2), written for the rows
+// before M.  agh1: the masked cotangent of layer 0's output.
+template <class D, int KLO, int KT8>
+__device__ __forceinline__ void feat_cotangent(const uint32_t (&agh1)[D::RT][D::HID / 16][4],
+                                               uint32_t w, int lane, long long row0, long long M,
+                                               float* __restrict__ g_feat) {
+  const int g = lane >> 2, t = lane & 3;
+  float gx[D::RT][KT8][4];
+  mma_layer_t<KT8, KLO, D::LD_S0, false>(agh1, w, gx, lane);
+#pragma unroll
+  for (int r = 0; r < D::RT; ++r)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long m = row0 + r * 16 + g + 8 * hh;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < KT8; ++j)
+        *reinterpret_cast<float2*>(g_feat + m * D::IN + 8 * (KLO + j) + 2 * t) =
+            make_float2(bf16_round(gx[r][j][2 * hh]), bf16_round(gx[r][j][2 * hh + 1]));
+    }
+}
+
 // The backward of one warp tile whose rows start at row0: the forward again
 // with the forward kernel's fragments (keeping the ReLU masks), then the
 // input cotangents layer by layer down to g_feat, which it writes (rows past
@@ -575,37 +628,31 @@ __device__ __forceinline__ void bwd_chain(const uint32_t (&ax)[D::RT][D::KIN / 1
     }
   }
   // ---- sigma MLP, input cotangents (2)
-  float gx[D::RT][D::IN / 8][4];
+  uint32_t agh1[D::RT][D::HID / 16][4];
   {
-    uint32_t agh1[D::RT][D::HID / 16][4];
-    {
-      float acc[D::RT][D::HID / 8][4];
-      mma_layer_t<D::HID / 8, 0, D::LD_S1, false>(agh, w + 2u * D::O_S1, acc, lane);
+    float acc[D::RT][D::HID / 8][4];
+    mma_layer_t<D::HID / 8, 0, D::LD_S1, false>(agh, w + 2u * D::O_S1, acc, lane);
 #pragma unroll
-      for (int r = 0; r < D::RT; ++r) {
-        masked_frags<D::HID / 8>(acc[r], mask_h[r], agh1[r]);
-        st.template cot<L_S0>(r, agh1[r]);
-      }
+    for (int r = 0; r < D::RT; ++r) {
+      masked_frags<D::HID / 8>(acc[r], mask_h[r], agh1[r]);
+      st.template cot<L_S0>(r, agh1[r]);
     }
-    mma_layer_t<D::IN / 8, 0, D::LD_S0, false>(agh1, w, gx, lane);
   }
-#pragma unroll
-  for (int r = 0; r < D::RT; ++r)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const long long m = row0 + r * 16 + g + 8 * hh;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < D::IN / 8; ++j)
-        *reinterpret_cast<float2*>(g_feat + m * D::IN + 8 * j + 2 * t) =
-            make_float2(bf16_round(gx[r][j][2 * hh]), bf16_round(gx[r][j][2 * hh + 1]));
-    }
+  // g_feat in spans of at most 64 columns, so that the cotangent held in
+  // registers stays at 32 floats a lane at IN = 128
+  constexpr int SPAN = D::IN / 8 < 8 ? D::IN / 8 : 8;
+  static_assert(D::IN / 8 <= 2 * SPAN, "one or two spans");
+  feat_cotangent<D, 0, SPAN>(agh1, w, lane, row0, M, g_feat);
+  if constexpr (D::IN / 8 > SPAN) feat_cotangent<D, SPAN, SPAN>(agh1, w, lane, row0, M, g_feat);
 }
 
 // Blocks of a persistent grid: as many as fit on the card's SMs, at most
-// one warp per tile.
+// one warp per tile.  smem: the caller's dynamic shared bytes
+// (models/ngp.py:mma_launch), refused unless they are the plan's.
 template <class D, class Kernel>
-int persistent_blocks(Kernel kernel, long long M, int* blocks) {
+int persistent_blocks(Kernel kernel, long long M, long long smem, int* blocks) {
+  static_assert(D::SMEM <= MAX_BLOCK_SMEM, "more shared memory than a block may have");
+  if (smem != (long long)D::SMEM) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -619,6 +666,30 @@ int persistent_blocks(Kernel kernel, long long M, int* blocks) {
   const long long want = (tiles + D::WARPS - 1) / D::WARPS;
   const long long most = (long long)per_sm * sms;
   *blocks = (int)(want < most ? want : most);
+  return 0;
+}
+
+// A compiled plan as the card's runtime reports it, nothing launched:
+// out[0] threads a block, out[1] dynamic shared bytes, out[2] blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at those bytes), out[3]
+// registers a thread and out[4] local (spill) bytes a thread
+// (cudaFuncGetAttributes).
+template <class D, class Kernel>
+int plan_of(Kernel kernel, long long* out) {
+  static_assert(D::SMEM <= MAX_BLOCK_SMEM, "more shared memory than a block may have");
+  int per_sm = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::SMEM);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, D::THREADS, D::SMEM);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = D::THREADS;
+  out[1] = (long long)D::SMEM;
+  out[2] = per_sm;
+  out[3] = attr.numRegs;
+  out[4] = (long long)attr.localSizeBytes;
   return 0;
 }
 

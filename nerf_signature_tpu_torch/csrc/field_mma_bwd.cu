@@ -72,11 +72,12 @@ __global__ void __launch_bounds__(D::THREADS, D::MIN_BLOCKS)
 
 template <int IN, int HID, int OUT1, int HC>
 int launch_bwd_feat(const void* feat, const void* dirs, const void* wpack, const void* g_sigma,
-                    const void* g_rgb, void* g_feat, long long M, cudaStream_t s) {
+                    const void* g_rgb, void* g_feat, long long M, long long smem,
+                    cudaStream_t s) {
   using D = BwdDims<IN, HID, OUT1, HC>;
   auto kernel = field_mma_bwd_feat<D>;
   int blocks = 0;
-  const int rc = persistent_blocks<D>(kernel, M, &blocks);
+  const int rc = persistent_blocks<D>(kernel, M, smem, &blocks);
   if (rc != 0) return rc;
   kernel<<<blocks, D::THREADS, D::SMEM, s>>>((const float*)feat, (const float*)dirs,
                                              (const __nv_bfloat16*)wpack, (const float*)g_sigma,
@@ -86,17 +87,37 @@ int launch_bwd_feat(const void* feat, const void* dirs, const void* wpack, const
 
 }  // namespace
 
+// Widths: NGP_MMA_WIDTHS (field_common.cuh).  smem: the plan's dynamic
+// shared bytes (models/ngp.py:mma_launch; any other size is refused).
 extern "C" int ngp_field_mma_bwd_feat(const void* feat, const void* dirs, const void* wpack,
                                       const void* g_sigma, const void* g_rgb, void* g_feat,
                                       long long M, int in_dim, int hidden, int out1,
-                                      int hidden_color, void* stream) {
+                                      int hidden_color, long long smem, void* stream) {
   if (M == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
 #define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
   if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
     return launch_bwd_feat<IN, HID, OUT1, HC>(feat, dirs, wpack, g_sigma, g_rgb, g_feat, M, \
-                                              s);
-  NGP_FIELD_WIDTHS(NGP_DISPATCH)
+                                              smem, s);
+  NGP_MMA_WIDTHS(NGP_DISPATCH)
+#undef NGP_DISPATCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The feature-only backward's compiled plan at these widths (plan_of: threads, shared
+// bytes, blocks an SM, registers, local bytes), for models/ngp.py:mma_plan.
+template <int IN, int HID, int OUT1, int HC>
+static int plan_at(long long* out) {
+  using D = BwdDims<IN, HID, OUT1, HC>;
+  return plan_of<D>(field_mma_bwd_feat<D>, out);
+}
+
+extern "C" int ngp_field_mma_bwd_feat_plan(int in_dim, int hidden, int out1, int hidden_color,
+                                           long long* out) {
+#define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
+  if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
+    return plan_at<IN, HID, OUT1, HC>(out);
+  NGP_MMA_WIDTHS(NGP_DISPATCH)
 #undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

@@ -19,7 +19,13 @@
 // Design:
 // - a persistent grid of one 256-thread block an SM (8 warps; 202 KB of
 //   shared memory at full width: the packed weights, the block's fp32
-//   weight gradient in the packed layout, the staging of one block tile);
+//   weight gradient in the packed layout, the staging of one block tile).
+//   At IN = 128 a block tile of 8 warps would stage 163,840 B, 272,960 B
+//   in all, past the 232,448 B a block may have; there the block runs 4
+//   warps (FullDims): 191,008 B, the same code with half the live tiles in
+//   flight.  (Keeping 8 warps would need layer 0's activation read back
+//   from global memory and its weight gradient kept in per-block partial
+//   rows there: a second path through the dW pass for one width.)
 // - the block walks chunks of 32 warp tiles (512 samples).  All threads
 //   read the chunk's cotangents (the next chunk's are loaded while this one
 //   runs) and vote a 32-bit mask of the warp tiles with any nonzero
@@ -105,8 +111,13 @@ struct FullPlan : B {
   static constexpr size_t SMEM = (size_t)B::N_PACK * 6 + (size_t)STAGE * 2 + 2 * B::WARPS * 4;
 };
 
+// 8 warps a block where that plan's shared memory fits a block, else 4
+// (IN = 128: 272,960 B against 191,008 B).
+template <int IN, int HID, int OUT1, int HC, int WARPS>
+using FullOf = FullPlan<MmaDims<IN, HID, OUT1, HC, 1, WARPS, 1>>;
 template <int IN, int HID, int OUT1, int HC>
-using FullDims = FullPlan<MmaDims<IN, HID, OUT1, HC, 1, 8, 1>>;
+using FullDims = std::conditional_t<(FullOf<IN, HID, OUT1, HC, 8>::SMEM <= MAX_BLOCK_SMEM),
+                                    FullOf<IN, HID, OUT1, HC, 8>, FullOf<IN, HID, OUT1, HC, 4>>;
 
 // bwd_chain's Stage: writes a 16-row tile's A fragments to the block
 // tile's staging, rows [row, row + 16) of the layer's array.
@@ -310,8 +321,10 @@ __global__ void field_mma_bwd_reduce(const float* __restrict__ partials, int n_b
 template <int IN, int HID, int OUT1, int HC>
 int launch_bwd_full(const void* feat, const void* dirs, const void* wpack, const void* g_sigma,
                     const void* g_rgb, void* g_feat, void* partials, const void* index,
-                    void* g_flat, long long M, int n_blocks, cudaStream_t s) {
+                    void* g_flat, long long M, int n_blocks, long long smem, cudaStream_t s) {
   using D = FullDims<IN, HID, OUT1, HC>;
+  static_assert(D::SMEM <= MAX_BLOCK_SMEM, "more shared memory than a block may have");
+  if (smem != (long long)D::SMEM) return (int)cudaErrorInvalidValue;
   constexpr int n_w = FieldDims<IN, HID, OUT1, HC>::N_W;
   auto kernel = field_mma_bwd_full<D>;
   cudaError_t err =
@@ -332,19 +345,39 @@ int launch_bwd_full(const void* feat, const void* dirs, const void* wpack, const
 // wpack: the packed bf16 weights (models/ngp.py:pack_mlp_mma); partials:
 // [n_blocks, N_PACK] fp32 scratch, 16-byte aligned; index: int32 [n_weights],
 // each mlp_flat entry's packed position; n_blocks >= 1 blocks of 256
-// threads (one an SM).  feat 8-byte aligned, g_feat 16-byte aligned.
+// threads (128 at IN = 128; one an SM) with smem bytes of dynamic shared
+// memory (models/ngp.py:mma_launch; any other size is refused).  feat
+// 8-byte aligned, g_feat 16-byte aligned.  Widths: NGP_MMA_WIDTHS.
 extern "C" int ngp_field_mma_bwd(const void* feat, const void* dirs, const void* wpack,
                                  const void* g_sigma, const void* g_rgb, void* g_feat,
                                  void* partials, const void* index, void* g_flat, long long M,
                                  int n_blocks, int in_dim, int hidden, int out1, int hidden_color,
-                                 void* stream) {
+                                 long long smem, void* stream) {
   if (n_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
   if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
     return launch_bwd_full<IN, HID, OUT1, HC>(feat, dirs, wpack, g_sigma, g_rgb, g_feat,      \
-                                              partials, index, g_flat, M, n_blocks, s);
-  NGP_FIELD_WIDTHS(NGP_DISPATCH)
+                                              partials, index, g_flat, M, n_blocks, smem, s);
+  NGP_MMA_WIDTHS(NGP_DISPATCH)
+#undef NGP_DISPATCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The full backward's compiled plan at these widths (plan_of: threads, shared
+// bytes, blocks an SM, registers, local bytes), for models/ngp.py:mma_plan.
+template <int IN, int HID, int OUT1, int HC>
+static int plan_at(long long* out) {
+  using D = FullDims<IN, HID, OUT1, HC>;
+  return plan_of<D>(field_mma_bwd_full<D>, out);
+}
+
+extern "C" int ngp_field_mma_bwd_plan(int in_dim, int hidden, int out1, int hidden_color,
+                                      long long* out) {
+#define NGP_DISPATCH(IN, HID, OUT1, HC)                                     \
+  if (in_dim == IN && hidden == HID && out1 == OUT1 && hidden_color == HC) \
+    return plan_at<IN, HID, OUT1, HC>(out);
+  NGP_MMA_WIDTHS(NGP_DISPATCH)
 #undef NGP_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

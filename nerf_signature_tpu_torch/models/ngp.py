@@ -148,16 +148,17 @@ def field_params(params, cfg: NGPConfig):
     one fp32 buffer at K4's built widths, the SIMT kernels' layout) and, in
     bf16 on the card, ``mlp_mma`` (the tensor-core kernels' packed bf16
     weights).  Where K4 runs an encoding width W at a wider built input
-    width IN (24 at 32, 48 at 64), ``mlp_flat``'s Ws0 has IN rows, the last
-    IN - W zero: the same ``torch.cat`` appends them, and its backward drops
-    their gradients on the way to ``sigma_net[0]``."""
+    width IN of the dtype's route (24 at 32, 48 at 64, 96 at 128 in bf16),
+    ``mlp_flat``'s Ws0 has IN rows, the last IN - W zero: the same
+    ``torch.cat`` appends them, and its backward drops their gradients on
+    the way to ``sigma_net[0]``."""
     table = params["hash_table"]
     gd = cfg.compute_dtype
     out = dict(params)
     out["hash_table_g"] = table.detach().to(gd) if gd != table.dtype else table.detach()
     nets = list(params["sigma_net"]) + list(params["color_net"])
     ws0 = nets[0]
-    built = _built_widths((ws0.shape[0], ws0.shape[1], nets[1].shape[1], nets[2].shape[1]))
+    built = _built_widths((ws0.shape[0], ws0.shape[1], nets[1].shape[1], nets[2].shape[1]), gd)
     pad = [] if built is None or built[0] == ws0.shape[0] else [
         ws0.new_zeros(((built[0] - ws0.shape[0]) * ws0.shape[1],))]
     out["mlp_flat"] = torch.cat([ws0.reshape(-1)] + pad + [w.reshape(-1) for w in nets[1:]])
@@ -253,9 +254,9 @@ def pack_mlp_mma(flat, widths):
 
 def feature_pitch(cfg: NGPConfig):
     """The row width of the hash features K4 reads on the card: its built
-    input width for cfg's encoding width (the columns past ``enc_dim``
-    zero), or ``enc_dim`` where K4 lacks one."""
-    built = _built_widths(_cfg_widths(cfg))
+    input width on cfg's route for cfg's encoding width (the columns past
+    ``enc_dim`` zero), or ``enc_dim`` where K4 lacks one."""
+    built = _built_widths(_cfg_widths(cfg), cfg.compute_dtype)
     return cfg.enc_dim if built is None else built[0]
 
 
@@ -294,69 +295,84 @@ def field_heads_plain(params, cfg: NGPConfig, feat, dirs=None, want_raw=False):
 
 
 GEOMETRY_TODO = ("ROADMAP queue 3 item 'table geometries on the card with an encoding width "
-                 "above 64, rows of F not in {1, 2, 4, 8} or more than 32 levels'")
+                 "above 64 in fp32 (without -O) or above 128, rows of F not in {1, 2, 4, 8} or "
+                 "more than 32 levels'")
 
 
 def _cfg_widths(cfg: NGPConfig):
     return (cfg.enc_dim, cfg.hidden_dim, 1 + cfg.geo_feat_dim, cfg.hidden_dim_color)
 
 
-def _built_widths(widths):
-    """The K4 build (IN, hidden, 1 + geo, colour hidden) of FIELD_WIDTHS
-    that runs a field of these widths: the same hidden widths and the
-    smallest built input width IN >= W (the features and Ws0 zero-padded
-    from W to IN), or None."""
+def _route_widths(dtype):
+    """K4's built widths on the dtype's route: the tensor-core kernels'
+    (``MMA_WIDTHS``, up to IN = 128) in bf16, the SIMT kernels'
+    (``FIELD_WIDTHS``, up to 64) otherwise."""
+    return _cuda.MMA_WIDTHS if dtype == torch.bfloat16 else _cuda.FIELD_WIDTHS
+
+
+def _built_widths(widths, dtype):
+    """The K4 build (IN, hidden, 1 + geo, colour hidden) on the route of
+    ``dtype`` that runs a field of these widths: the same hidden widths and
+    the smallest built input width IN >= W (the features and Ws0
+    zero-padded from W to IN), or None."""
     w, rest = widths[0], tuple(widths[1:])
-    ins = [b[0] for b in _cuda.FIELD_WIDTHS if b[1:] == rest and b[0] >= w]
+    ins = [b[0] for b in _route_widths(dtype) if b[1:] == rest and b[0] >= w]
     return (min(ins),) + rest if ins else None
 
 
-def _check_field(widths, sh_degree, layers, n_features=None, n_levels=None, geometry=""):
+def _check_field(widths, dtype, sh_degree, layers, n_features=None, n_levels=None,
+                 geometry=""):
     """The one rule of what the card's field kernels run: K4's hidden widths
-    built in FIELD_WIDTHS with an input width at least the encoding width
-    (``_built_widths``: up to 64) with SH degree 4, a 2-layer sigma MLP and a
-    3-layer colour MLP, and, where given, K1's rows of ``n_features`` in
-    KERNEL_FEATURES and at most KERNEL_MAX_LEVELS levels.  Returns the built
-    widths; raises naming the ROADMAP item."""
-    built = _built_widths(widths)
+    built on the route of ``dtype`` with an input width at least the
+    encoding width (``_built_widths``: up to 128 in bf16, 64 in fp32) with
+    SH degree 4, a 2-layer sigma MLP and a 3-layer colour MLP, and, where
+    given, K1's rows of ``n_features`` in KERNEL_FEATURES and at most
+    KERNEL_MAX_LEVELS levels.  Returns the built widths; raises naming the
+    ROADMAP item."""
+    built = _built_widths(widths, dtype)
     if (built is not None and (sh_degree, *layers) == (4, 2, 3)
             and n_features in (None, *KERNEL_FEATURES)
             and (n_levels is None or n_levels <= KERNEL_MAX_LEVELS)):
         return built
+    bf16 = dtype == torch.bfloat16
+    route = "bf16 (-O), on the tensor cores" if bf16 else "fp32, on the SIMT units"
+    hint = "" if bf16 or _built_widths(widths, torch.bfloat16) is None else (
+        "; -O (bf16) runs this width")
     raise NotImplementedError(
         f"the card's field kernels do not run {geometry}MLP widths {widths}, SH degree "
-        f"{sh_degree}, {layers[0]} + {layers[1]} layers yet ({GEOMETRY_TODO}; K1 takes rows "
-        f"of F in {KERNEL_FEATURES} features at up to {KERNEL_MAX_LEVELS} levels, K4 an "
-        f"encoding width up to the built widths {_cuda.FIELD_WIDTHS} with SH degree 4, a "
-        f"2-layer sigma MLP and a 3-layer colour MLP); on the CPU (--cpu, device='cpu') "
-        f"every geometry runs through the plain versions")
+        f"{sh_degree}, {layers[0]} + {layers[1]} layers in {route}, yet ({GEOMETRY_TODO}; "
+        f"K1 takes rows of F in {KERNEL_FEATURES} features at up to {KERNEL_MAX_LEVELS} "
+        f"levels, K4 in {route[:4]} an encoding width up to the built widths "
+        f"{_route_widths(dtype)} with SH degree 4, a 2-layer sigma MLP and a 3-layer colour "
+        f"MLP{hint}); on the CPU (--cpu, device='cpu') every geometry runs through the plain "
+        f"versions")
 
 
 def check_kernel_geometry(cfg: NGPConfig):
     """Refuse up front, before a model is built on the card, a config
     whose field the kernels cannot run: a row width F that K1 lacks, more
     levels than it takes, or an encoding width (n_levels x F) above K4's
-    widest build, e.g. 16 x 8 (width 128); and, with the bg model, a
-    ``bg_net`` other than IN -> 64 -> 3 (2 layers) or more than 32 bg
-    levels (K8's build)."""
-    _check_field(_cfg_widths(cfg), cfg.sh_degree, (cfg.num_layers, cfg.num_layers_color),
-                 cfg.n_features, cfg.n_levels, f"{cfg.n_levels} levels x {cfg.n_features} "
-                 "features, ")
+    widest build on cfg's route: 128 in bf16 (32 x 8 is refused), 64 in
+    fp32 (16 x 8 without -O is); and, with the bg model, a ``bg_net`` other
+    than IN -> 64 -> 3 (2 layers) or more than 32 bg levels (K8's build)."""
+    _check_field(_cfg_widths(cfg), cfg.compute_dtype, cfg.sh_degree,
+                 (cfg.num_layers, cfg.num_layers_color), cfg.n_features, cfg.n_levels,
+                 f"{cfg.n_levels} levels x {cfg.n_features} features, ")
     if cfg.bg_radius > 0:
         check_bg_geometry(cfg.bg_n_levels, cfg.n_features, cfg.bg_hidden_dim,
                           cfg.bg_num_layers, cfg.sh_degree)
 
 
 def _kernel_widths(params, cfg: NGPConfig):
-    """K4's built widths (IN, hidden, 1 + geo, colour hidden) for the
-    widths read from the params (an encoding width W runs at the smallest
-    built IN >= W); raises where the kernels lack them (``_check_field``)."""
-    s, c = params["sigma_net"], params["color_net"]
-    widths = (s[0].shape[0], s[0].shape[1], s[-1].shape[1], c[0].shape[1])
-    widths = _check_field(widths, cfg.sh_degree, (len(s), len(c)))
+    """K4's built widths (IN, hidden, 1 + geo, colour hidden) on cfg's
+    route for the widths read from the params (an encoding width W runs at
+    the smallest built IN >= W); raises where the kernels lack them
+    (``_check_field``)."""
     if cfg.compute_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"compute dtype {cfg.compute_dtype}")
-    return widths
+    s, c = params["sigma_net"], params["color_net"]
+    widths = (s[0].shape[0], s[0].shape[1], s[-1].shape[1], c[0].shape[1])
+    return _check_field(widths, cfg.compute_dtype, cfg.sh_degree, (len(s), len(c)))
 
 
 def field_heads(params, cfg: NGPConfig, feat, dirs=None, want_geo=False, want_raw=False):
@@ -448,6 +464,49 @@ def simt_launch(widths, kind, M=0, sms=1):
     return tile, smem, blocks
 
 
+# What dynamic shared memory an H100 SM holds (each block reserving 1 KB
+# besides) and the most one block may opt in to: K4's tensor-core plans are
+# chosen by what fits (csrc/field_mma.cuh:SM_SMEM, BLOCK_RESERVED,
+# MAX_BLOCK_SMEM)
+SM_SMEM, BLOCK_RESERVED, MAX_BLOCK_SMEM = 233_472, 1_024, 232_448
+
+
+def _mma_smem(widths, kind, rt, warps):
+    """Dynamic shared bytes of K4's tensor-core ``kind`` at ``rt`` 16-row
+    tiles a warp and ``warps`` warps a block, as the sources lay the memory
+    out: the packed bf16 weights (``mma_layout``), then for "fwd" and
+    "bwd_feat" (``csrc/field_mma.cuh:MmaDims``) each warp's two fp32
+    feature tiles at a row stride of IN + 8 floats (8 at IN = 8), and for
+    "bwd" (``csrc/field_mma_bwd_full.cu:FullPlan``) the block's fp32 weight
+    gradient in the packed layout, the bf16 staging of each layer's input
+    activation and output cotangent for 16 samples a warp, and two vote
+    words a warp."""
+    in_dim, hidden, out1, hc = widths
+    n_pack = sum(rows * ld for _, rows, _, ld in mma_layout(widths))
+    if kind == "bwd":
+        units = [max(in_dim, 16), hidden, 16 + out1, hc, hc] + [hidden, out1, hc, hc, 8]
+        return 6 * n_pack + 2 * 16 * warps * sum(_mma_ld(u) for u in units) + 8 * warps
+    fld = in_dim if in_dim == 8 else in_dim + 8
+    return 2 * n_pack + warps * 2 * 16 * rt * fld * 4
+
+
+def mma_launch(widths, kind):
+    """Threads a block and dynamic shared bytes of K4's tensor-core
+    ``kind`` ("fwd", "bwd_feat" or "bwd") at built ``widths``, the plan
+    chosen as the sources choose it (``csrc/field_mma.cuh:FwdDims``,
+    ``BwdDims``; ``csrc/field_mma_bwd_full.cu:FullDims``): 4 warps a block,
+    the forward carrying two 16-row tiles a warp while two such blocks fit
+    an SM and one past that, the feature-only backward one; the full
+    backward 8 warps a block while that fits a block, else 4.  The
+    launchers refuse any other size; ``ops/_cuda.py:mma_plan`` reads the
+    compiled plan on the card."""
+    if kind == "bwd":
+        warps = 8 if _mma_smem(widths, kind, 1, 8) <= MAX_BLOCK_SMEM else 4
+        return 32 * warps, _mma_smem(widths, kind, 1, warps)
+    two_fit = SM_SMEM // (_mma_smem(widths, "fwd", 2, 4) + BLOCK_RESERVED) >= 2
+    return 128, _mma_smem(widths, kind, 2 if kind == "fwd" and two_fit else 1, 4)
+
+
 def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma=None, want_raw=False):
     in_dim, hidden, out1, hidden_c = widths
     M = feat.shape[0]
@@ -466,7 +525,8 @@ def _field_heads_kernel(cfg, flat, feat, dirs, want_geo, widths, mma=None, want_
     if _tensor_cores(cfg):
         mma = _mma_weights(flat, mma, widths, dev)
         kernel = _cuda.FIELD_MMA_RAW if want_raw else _cuda.FIELD_MMA
-        kernel(feat.data_ptr(), _cuda.ptr(dirs), mma.data_ptr(), *outs)
+        kernel(feat.data_ptr(), _cuda.ptr(dirs), mma.data_ptr(), *outs,
+               mma_launch(widths, "fwd")[1])
     else:  # fp32: the tiled SIMT kernel, a persistent grid
         _, smem, blocks = simt_launch(widths, "fwd", M, _cuda.sm_count(dev))
         kernel = _cuda.FIELD_RAW if want_raw else _cuda.FIELD
@@ -544,7 +604,8 @@ def field_heads_bwd_feat(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None
             hidden_c)
     if _tensor_cores(cfg):
         mma = _mma_weights(flat, mma, widths, dev)
-        _cuda.FIELD_BWD_FEAT_MMA(feat.data_ptr(), dirs.data_ptr(), mma.data_ptr(), *args)
+        _cuda.FIELD_BWD_FEAT_MMA(feat.data_ptr(), dirs.data_ptr(), mma.data_ptr(), *args,
+                                 mma_launch(widths, "bwd_feat")[1])
     else:  # fp32: the tiled SIMT kernel, a persistent grid taking chunks from a counter
         _, smem, blocks = simt_launch(widths, "bwd_feat", M, _cuda.sm_count(dev))
         next_chunk = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -577,13 +638,14 @@ def field_heads_bwd(cfg, widths, feat, dirs, flat, g_sigma, g_rgb, mma=None):
         mma = _mma_weights(flat, mma, widths, dev)
         if feat.data_ptr() % 8:
             raise ValueError("feat: must be 8-byte aligned")
-        # one 256-thread block an SM, each walking chunks of 512 samples
+        # one block an SM (mma_launch), each walking chunks of 512 samples
         n_blocks = max(1, min(-(-M // 512), sms))
         partials = torch.empty((n_blocks, mma.numel()), dtype=torch.float32, device=dev)
         _cuda.FIELD_BWD_MMA(feat.data_ptr(), dirs.data_ptr(), mma.data_ptr(), g_sigma.data_ptr(),
                             g_rgb.data_ptr(), g_feat.data_ptr(), partials.data_ptr(),
                             _mma_grad_index(tuple(widths), dev).data_ptr(), g_flat.data_ptr(),
-                            M, n_blocks, in_dim, hidden, out1, hidden_c)
+                            M, n_blocks, in_dim, hidden, out1, hidden_c,
+                            mma_launch(widths, "bwd")[1])
     else:  # fp32: the tiled SIMT kernel over queued live samples, one block an SM
         _, smem, n_blocks = simt_launch(widths, "bwd", M, sms)
         partials = torch.empty((n_blocks, flat.numel()), dtype=torch.float32, device=dev)

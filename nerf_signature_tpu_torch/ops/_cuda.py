@@ -55,11 +55,14 @@ SOURCES = {
     "gather.cu": [],
     "compact.cu": [],
 }
-# K4's widths (IN, hidden, 1 + geo, colour hidden), the list
-# csrc/field_common.cuh:NGP_FIELD_WIDTHS instantiates: 16 levels x 2
-# features and 8 x 4 (IN = 32), 8 x 2 (IN = 16), 16 x 4 and 32 x 2 (IN =
+# K4's widths (IN, hidden, 1 + geo, colour hidden) on the SIMT route (fp32),
+# the list csrc/field_common.cuh:NGP_FIELD_WIDTHS instantiates: 16 levels x
+# 2 features and 8 x 4 (IN = 32), 8 x 2 (IN = 16), 16 x 4 and 32 x 2 (IN =
 # 64), the narrow test model
 FIELD_WIDTHS = ((32, 64, 16, 64), (16, 64, 16, 64), (64, 64, 16, 64), (8, 16, 16, 16))
+# and on the tensor cores (bf16, NGP_MMA_WIDTHS): those and IN = 128 (16 x 8
+# and 32 x 4)
+MMA_WIDTHS = FIELD_WIDTHS + ((128, 64, 16, 64),)
 # the SIMT sources, on which ptxas takes tens of seconds a width: compiled
 # once a width (-DNGP_IN=...) and once for their C entry points, all in
 # parallel
@@ -93,10 +96,13 @@ _SIGNATURES = {
     "ngp_field_raw": [_P] * 7 + [_L] + [_I] * 5 + [_L, _P],
     "ngp_field_bwd": [_P] * 8 + [_L] + [_I] * 5 + [_L, _P],
     "ngp_field_bwd_feat": [_P] * 6 + [_L] + [_I] * 4 + [_P, _I, _L, _P],
-    "ngp_field_mma": [_P] * 6 + [_L] + [_I] * 4 + [_P],
-    "ngp_field_mma_raw": [_P] * 7 + [_L] + [_I] * 4 + [_P],
-    "ngp_field_mma_bwd_feat": [_P] * 6 + [_L] + [_I] * 4 + [_P],
-    "ngp_field_mma_bwd": [_P] * 9 + [_L] + [_I] * 5 + [_P],
+    "ngp_field_mma": [_P] * 6 + [_L] + [_I] * 4 + [_L, _P],
+    "ngp_field_mma_raw": [_P] * 7 + [_L] + [_I] * 4 + [_L, _P],
+    "ngp_field_mma_bwd_feat": [_P] * 6 + [_L] + [_I] * 4 + [_L, _P],
+    "ngp_field_mma_bwd": [_P] * 9 + [_L] + [_I] * 5 + [_L, _P],
+    "ngp_field_mma_plan": [_I] * 4 + [_P],
+    "ngp_field_mma_bwd_feat_plan": [_I] * 4 + [_P],
+    "ngp_field_mma_bwd_plan": [_I] * 4 + [_P],
     "ngp_msg_table": [_P, _P, _I, _L, _P, _P, _I, _P],
     "ngp_msg_table_bwd": [_P, _P, _I, _L, _P, _P],
     "ngp_table_gather": [_P, _P, _L, _L, _P, _P],
@@ -355,6 +361,28 @@ def count_replay(captured, replays=1):
     """Add a graph's captured launches (``capturing``) for its replays."""
     for name, n in captured.items():
         KERNELS[name].launches += n * replays
+
+
+# the C entries that report K4's tensor-core plans, by kind
+_MMA_PLAN_ENTRIES = {"fwd": "ngp_field_mma_plan", "bwd_feat": "ngp_field_mma_bwd_feat_plan",
+                     "bwd": "ngp_field_mma_bwd_plan"}
+MMA_PLAN_KEYS = ("threads", "smem", "blocks_per_sm", "registers", "local_bytes")
+
+
+def mma_plan(kind, widths):
+    """The compiled plan of K4's tensor-core ``kind`` ("fwd", "bwd_feat",
+    "bwd") at built ``widths``, as the current card's runtime reports it
+    (nothing is launched): threads a block and dynamic shared bytes (the
+    sources' plan), blocks an SM at those bytes
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+    (spill) bytes a thread (cudaFuncGetAttributes)."""
+    out = (ctypes.c_longlong * len(MMA_PLAN_KEYS))()
+    entry = _MMA_PLAN_ENTRIES[kind]
+    rc = getattr(library(), entry)(*widths, ctypes.addressof(out))
+    if rc != 0:
+        msg = library().ngp_error_string(rc).decode()
+        raise RuntimeError(f"{entry}{tuple(widths)}: CUDA error {rc} ({msg})")
+    return dict(zip(MMA_PLAN_KEYS, out))
 
 
 @functools.lru_cache(maxsize=None)

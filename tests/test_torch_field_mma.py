@@ -12,11 +12,15 @@ padded places; the sums run in another order, which moves values near zero
 by a few 1e-7).  The full backward sums the weight gradient in the packed
 layout and reads it back through ``mma_grad_to_flat``: the map is the
 adjoint of the pack, and autograd through the packed heads, then the map,
-is JAX's VJP.  An encoding width K4 lacks (24 at 12 x 2, 48 at 12 x 4)
-runs at the next built input width: ``field_params``' ``mlp_flat`` appends
-zero rows to Ws0, the pack carries them, and the way back (the map, then
-the cat's backward) drops their gradients.  The kernels themselves run on
-the card (``test_torch_kernels.py``).
+is JAX's VJP.  An encoding width K4 lacks (24 at 12 x 2, 48 at 12 x 4, 96
+at 12 x 8) runs at the next built input width: ``field_params``'
+``mlp_flat`` appends zero rows to Ws0, the pack carries them, and the way
+back (the map, then the cat's backward) drops their gradients.  Each
+kernel's dynamic shared memory at every built width, as
+``models/ngp.py:mma_launch`` hands it to the launchers, is held to what a
+block may have and, at IN = 64 and 128, to the figures the plans were sized
+by (the card's test holds it to the compiled plan).  The kernels themselves
+run on the card (``test_torch_kernels.py``).
 """
 
 import os
@@ -36,15 +40,20 @@ from nerf_signature_tpu_torch.ops.sh import sh_encode
 
 # the params' widths: "full": 16 levels x 2 features (and 8 x 4, the same
 # widths); "8x2": IN = 16; "16x4": IN = 64 (and 32 x 2); "w24" (12 x 2) and
-# "w48" (12 x 4): encoding widths 24 and 48, run at the built 32 and 64
+# "w48" (12 x 4): encoding widths 24 and 48, run at the built 32 and 64;
+# "w128" (16 x 8, and 32 x 4): IN = 128; "w96" (12 x 8): run at the built 128
 WIDTHS = {"full": (32, 64, 16, 64), "8x2": (16, 64, 16, 64), "16x4": (64, 64, 16, 64),
-          "narrow": (8, 16, 16, 16), "w24": (24, 64, 16, 64), "w48": (48, 64, 16, 64)}
+          "narrow": (8, 16, 16, 16), "w24": (24, 64, 16, 64), "w48": (48, 64, 16, 64),
+          "w128": (128, 64, 16, 64), "w96": (96, 64, 16, 64)}
 CFGS = {"full": {}, "8x2": dict(n_levels=8), "16x4": dict(n_features=4),
         "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12),
-        "w24": dict(n_levels=12), "w48": dict(n_levels=12, n_features=4)}
+        "w24": dict(n_levels=12), "w48": dict(n_levels=12, n_features=4),
+        "w128": dict(n_features=8, log2_hashmap_size=12),
+        "w96": dict(n_levels=12, n_features=8, log2_hashmap_size=12)}
 
 
-def _cfg(widths, dtype=torch.float32):
+def _cfg(widths, dtype=torch.bfloat16):
+    """The tensor-core kernels' config (bf16: their built widths pad Ws0)."""
     return t_ngp.NGPConfig(compute_dtype=dtype, **CFGS[widths])
 
 
@@ -63,8 +72,9 @@ def _unpack(packed, widths):
 
 
 def _built(widths):
-    """K4's built widths for these params' widths: IN the next built width."""
-    return t_ngp._built_widths(WIDTHS[widths])
+    """K4's built widths on the tensor cores for these params' widths: IN
+    the next built width."""
+    return t_ngp._built_widths(WIDTHS[widths], torch.bfloat16)
 
 
 def _pack(widths, seed=0):
@@ -183,15 +193,34 @@ def test_sources_list_every_cu_file():
     assert set(_cuda.SOURCES) == cu
 
 
-def test_field_widths_are_the_ones_the_sources_instantiate():
-    """FIELD_WIDTHS (the split build, the geometry check) and the C list
-    NGP_FIELD_WIDTHS (every K4 source's dispatch) are the same widths; the
-    SIMT sources are compiled once a width and once for the entry points."""
+def _c_widths(macro):
+    """The widths a ``#define <macro>(X) X(...) ...`` of field_common.cuh
+    lists, its continuation lines included."""
     with open(os.path.join(_cuda.CSRC, "field_common.cuh")) as f:
-        line = next(ln for ln in f if ln.startswith("#define NGP_FIELD_WIDTHS(X)"))
-    widths = tuple(tuple(int(v) for v in m.split(","))
-                   for m in re.findall(r"X\(([\d, ]+)\)", line))
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if ln.startswith(f"#define {macro}(X)"))
+    return tuple(tuple(int(v) for v in m.split(","))
+                 for m in re.findall(r"X\(([\d, ]+)\)", line))
+
+
+def test_field_widths_are_the_ones_the_sources_instantiate():
+    """FIELD_WIDTHS (the SIMT route: the split build, the geometry check in
+    fp32) and the C list NGP_FIELD_WIDTHS (the SIMT sources' dispatch) are
+    the same widths, and so are MMA_WIDTHS (the tensor cores: the geometry
+    check in bf16) and NGP_MMA_WIDTHS (the field_mma*.cu dispatch): the SIMT
+    list and IN = 128.  The SIMT sources are compiled once a width of their
+    own list (none at 128) and once for the entry points; every source
+    dispatches on the list of its route."""
+    widths = _c_widths("NGP_FIELD_WIDTHS")
     assert widths == _cuda.FIELD_WIDTHS
+    assert _c_widths("NGP_MMA_WIDTHS") == _cuda.MMA_WIDTHS == widths + ((128, 64, 16, 64),)
+    for name in os.listdir(_cuda.CSRC):
+        if name.startswith("field") and name.endswith(".cu"):
+            with open(os.path.join(_cuda.CSRC, name)) as f:
+                src = f.read()
+            route = "NGP_MMA_WIDTHS" if name.startswith("field_mma") else "NGP_FIELD_WIDTHS"
+            assert f"{route}(NGP_DISPATCH)" in src, name
+            assert ("NGP_FIELD_WIDTHS" in src) == (route == "NGP_FIELD_WIDTHS"), name
     jobs = [(src, flags) for _, src, flags in _cuda._jobs()]
     for name in _cuda.SPLIT_BY_WIDTH:
         mine = [flags for src, flags in jobs if src == name]
@@ -225,7 +254,10 @@ def test_route_follows_the_dtype(monkeypatch, dtype):
     if dtype == torch.bfloat16:
         assert names == ["FIELD_MMA", "FIELD_BWD_FEAT_MMA"]
         n_pack = sum(r * ld for _, r, _, ld in t_ngp.mma_layout(widths))
-        assert n_pack == 2048 and len(calls[0][1]) == 11
+        assert n_pack == 2048 and len(calls[0][1]) == 12 and len(calls[1][1]) == 12
+        # the shared bytes of each plan, as mma_launch gives them
+        for (_, a), kind in zip(calls, ("fwd", "bwd_feat")):
+            assert a[-1] == t_ngp.mma_launch(widths, kind)[1]
     else:
         assert names == ["FIELD", "FIELD_BWD_FEAT"]
         assert calls[0][1][2] == fp["mlp_flat"].data_ptr()  # fp32 weights, unpacked
@@ -360,7 +392,8 @@ def test_full_bwd_route_follows_the_dtype(monkeypatch, dtype):
     args = calls[1][1]
     if dtype == torch.bfloat16:
         assert names == ["FIELD_MMA", "FIELD_BWD_MMA"]
-        assert args[2] == mma.data_ptr() and len(args) == 15
+        assert args[2] == mma.data_ptr() and len(args) == 16
+        assert args[15] == t_ngp.mma_launch(widths, "bwd")[1]
         assert args[7] == t_ngp._mma_grad_index(widths, feat.device).data_ptr()
         assert args[9:11] == (M, 2)  # M, one block per 512-sample chunk (two here)
     else:
@@ -369,3 +402,25 @@ def test_full_bwd_route_follows_the_dtype(monkeypatch, dtype):
         _, smem, blocks = t_ngp.simt_launch(widths, "bwd", M, 132)
         assert args[8:10] == (M, blocks) == (M, 8)  # M, one block per 128-sample tile
         assert args[14] == smem  # the shared bytes, as simt_launch plans them
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd_feat", "bwd"])
+@pytest.mark.parametrize("widths", _cuda.MMA_WIDTHS, ids=lambda w: f"in{w[0]}")
+def test_tensor_core_shared_memory_fits_at_every_built_width(widths, kind):
+    """The bytes the wrappers hand to each launcher (``mma_launch``, which
+    the launchers require and the card's test holds to the compiled plan,
+    ``ops/_cuda.py:mma_plan``) fit in the 232,448 B a block may have on the
+    H100; the plan is chosen by what fits (IN = 128: the forward at one tile
+    a warp, the full backward at 4 warps, two and one blocks of them an SM
+    by shared memory); at IN = 64 and 128 the threads and bytes are the
+    figures the plans were sized by."""
+    threads, smem = t_ngp.mma_launch(widths, kind)
+    assert smem <= t_ngp.MAX_BLOCK_SMEM == 232_448
+    pinned = {64: {"fwd": (128, 100_864), "bwd_feat": (128, 64_000), "bwd": (256, 228_928)},
+              128: {"fwd": (128, 105_984), "bwd_feat": (128, 105_984), "bwd": (128, 191_008)}}
+    if widths[0] in pinned:
+        assert (threads, smem) == pinned[widths[0]][kind]
+    else:
+        assert threads == (256 if kind == "bwd" else 128)
+    by_smem = t_ngp.SM_SMEM // (smem + t_ngp.BLOCK_RESERVED)
+    assert by_smem >= (2 if kind == "fwd" else 1)

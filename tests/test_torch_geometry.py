@@ -1,9 +1,11 @@
 """The table geometries the card takes besides the default 16 x 2: 8
 levels x 2 features (K4 at encoding width 16), 8 x 4 (K1 with 4 features a
 row, K4 at width 32), 16 x 4 and 32 x 2 (K4 at width 64), 12 x 2 and 24 x 1
-(width 24: K4 at 32, zero-padded; 24 x 1 with rows of 1 feature) and 8 x 8
-(rows of 8 features, width 64), held against the JAX package on the CPU
-(the plain versions), plus the up-front refusal of what the card lacks.
+(width 24: K4 at 32, zero-padded; 24 x 1 with rows of 1 feature), 8 x 8
+(rows of 8 features, width 64) and 16 x 8 (width 128: K4's tensor-core
+kernels only, in bf16; the fp32 route stops at 64), held against the JAX
+package on the CPU (the plain versions), plus the up-front refusal of what
+the card lacks.
 
 Sizes: levels of 2^12 rows, the default MLP widths (64), inputs from numpy
 seeds; 8 levels at resolutions 16, 32, ..., 2048, 12 levels at 1, 2, ...,
@@ -63,13 +65,15 @@ from test_torch_train_ops import one_torch_thread, rel_l2  # noqa: F401
 T = torch.from_numpy
 DT = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 GEOMETRIES = {"8x2": (8, 2), "8x4": (8, 4), "16x4": (16, 4), "32x2": (32, 2), "12x2": (12, 2),
-              "24x1": (24, 1), "8x8": (8, 8)}
+              "24x1": (24, 1), "8x8": (8, 8), "16x8": (16, 8)}
 # (base, finest) resolution by level count: every level's a power of two
 RESOLUTIONS = {8: (16, 2048), 12: (1, 2048), 16: (1, 1 << 15)}
 # level counts whose resolutions no (base, finest) pair gives as powers of two
 LEVEL_RESOLUTIONS = {L: tuple(float(1 << (level // 2)) for level in range(L)) for L in (24, 32)}
-# K4's built input width for each geometry's encoding width
-BUILT_IN = {"8x2": 16, "8x4": 32, "16x4": 64, "32x2": 64, "12x2": 32, "24x1": 32, "8x8": 64}
+# K4's built input width for each geometry's encoding width (above 64 on
+# the tensor cores alone: bf16)
+BUILT_IN = {"8x2": 16, "8x4": 32, "16x4": 64, "32x2": 64, "12x2": 32, "24x1": 32, "8x8": 64,
+            "16x8": 128}
 SMALL = dict(log2_hashmap_size=12)
 
 
@@ -163,13 +167,17 @@ def _hash_encode_and_vjp_match_jax(name, F):
     assert rel_l2(tt.grad.numpy(), gj) <= 1e-6
 
 
-# ------------------------------------------------- K4 at IN = 16 / 32 / 64
+# ------------------------------------------- K4 at IN = 16 / 32 / 64 / 128
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
 def test_field_heads_match_jax(geometry, dtype):
     jcfg, tcfg = cfgs(geometry, dtype)
-    assert t_ngp._kernel_widths(t_ngp.init_ngp_params(torch.Generator(), tcfg), tcfg) == (
-        BUILT_IN[geometry], 64, 16, 64)
+    params = t_ngp.init_ngp_params(torch.Generator(), tcfg)
+    if dtype == "fp32" and BUILT_IN[geometry] > 64:  # the card's SIMT kernels stop at 64
+        with pytest.raises(NotImplementedError, match="fp32, on the SIMT units"):
+            t_ngp._kernel_widths(params, tcfg)
+    else:
+        assert t_ngp._kernel_widths(params, tcfg) == (BUILT_IN[geometry], 64, 16, 64)
     pj = jax_params(jcfg)
     pt = t_ckpt.params_from_jax(pj)
     rng = np.random.default_rng(41)
@@ -289,7 +297,7 @@ def test_msg_feature_four_features_matches_jax(hash_select, geometry):
     _msg_feature_matches_jax(hash_select, geometry)
 
 
-@pytest.mark.parametrize("geometry", ["24x1", "8x8"])
+@pytest.mark.parametrize("geometry", ["24x1", "8x8", "16x8"])
 @pytest.mark.parametrize("hash_select", [1, 0])
 def test_msg_feature_one_and_eight_features_matches_jax(hash_select, geometry):
     """K9's tables and the message's K1 at rows of 1 and 8 features."""
@@ -343,42 +351,46 @@ def test_hash_kernels_take_one_two_four_or_eight_features(F):
                                            torch.float32, True, None)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
 @pytest.mark.parametrize("levels,features", [(16, 2), (8, 2), (8, 4), (16, 4), (8, 1), (8, 3),
                                              (4, 4), (12, 2), (32, 2), (8, 8), (24, 1), (16, 8),
-                                             (40, 1)])
-def test_kernel_geometry_accepts_exactly_the_built_widths(levels, features):
-    """F in {1, 2, 4, 8}, at most 32 levels and an encoding width up to 64,
-    run at the smallest built K4 input width at least as wide (8 x 1 at 16,
-    12 x 2 at 32, 8 x 8 at 64); F = 3, 16 x 8 (width 128) and 40 levels are
-    refused."""
-    cfg = t_ngp.NGPConfig(n_levels=levels, n_features=features, log2_hashmap_size=10)
+                                             (40, 1), (32, 4), (12, 8), (32, 8)])
+def test_kernel_geometry_accepts_exactly_the_built_widths(levels, features, dtype):
+    """F in {1, 2, 4, 8}, at most 32 levels and an encoding width up to 128
+    in bf16 (-O: the tensor-core kernels) or 64 in fp32 (the SIMT ones),
+    run at the smallest built K4 input width of the route at least as wide
+    (8 x 1 at 16, 12 x 2 at 32, 8 x 8 at 64, 12 x 8 at 128 in bf16); F = 3,
+    40 levels and 32 x 8 (width 256) are refused, and 16 x 8, 32 x 4 and 12
+    x 8 in fp32."""
+    cfg = t_ngp.NGPConfig(n_levels=levels, n_features=features, log2_hashmap_size=10,
+                          compute_dtype=DT[dtype][1])
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(0), cfg)
     width = levels * features
-    ok = features in (1, 2, 4, 8) and levels <= 32 and width <= 64
+    widest = 128 if dtype == "bf16" else 64
+    ok = features in (1, 2, 4, 8) and levels <= 32 and width <= widest
     if ok:
         t_ngp.check_kernel_geometry(cfg)
         built = t_ngp._kernel_widths(params, cfg)
-        assert built in _cuda.FIELD_WIDTHS
-        assert built[0] == min(w for w in (16, 32, 64) if w >= width)
+        assert built in (_cuda.MMA_WIDTHS if dtype == "bf16" else _cuda.FIELD_WIDTHS)
+        assert built[0] == min(w for w in (16, 32, 64, 128) if w >= width)
         assert t_ngp.feature_pitch(cfg) == built[0]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
         t_ngp.check_kernel_geometry(cfg)
-    if width > 64:
+    if width > widest:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
             t_ngp._kernel_widths(params, cfg)
 
 
-def test_cuda_models_refuse_sixteen_by_eight_up_front():
-    """On a CUDA device string, before anything is built (no card needed):
-    16 x 8, encoding width 128, above K4's widest build."""
+def _refused_on_cuda_devices(cfg, match):
+    """NGPModel and WatermarkModel on each CUDA device string refuse cfg up
+    front, before anything is built (no card needed); the CPU builds it."""
     from nerf_signature_tpu_torch.api import NGPModel, WatermarkModel
 
-    cfg = t_ngp.NGPConfig(n_levels=16, n_features=8, log2_hashmap_size=10)
     for device in ("cuda", None, "cuda:0"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        with pytest.raises(NotImplementedError, match=match):
             NGPModel(cfg, grid_size=16, device=device)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        with pytest.raises(NotImplementedError, match=match):
             WatermarkModel(t_wm.WatermarkConfig(ngp=cfg, message_dim=2,
                                                 msg_log2_hashmap_size=10),
                            grid_size=16, device=device)
@@ -389,18 +401,47 @@ def test_cuda_models_refuse_sixteen_by_eight_up_front():
     assert out["image"].shape == (8, 3) and bool(torch.isfinite(out["image"]).all())
 
 
-@pytest.mark.parametrize("cli", ["main_nerf", "main_nerf_wtmk"])
-def test_clis_refuse_sixteen_by_eight_before_reading_the_scene(tmp_path, cli):
+def test_cuda_models_refuse_sixteen_by_eight_up_front():
+    """16 x 8 (encoding width 128) in fp32: above the SIMT kernels' widest
+    build (64); bf16 runs it on the tensor cores."""
+    cfg = t_ngp.NGPConfig(n_levels=16, n_features=8, log2_hashmap_size=10,
+                          compute_dtype=torch.float32)
+    _refused_on_cuda_devices(cfg, "fp32, on the SIMT units.*ROADMAP queue 3")
+    t_ngp.check_kernel_geometry(dataclasses.replace(cfg, compute_dtype=torch.bfloat16))
+
+
+def test_cuda_models_refuse_thirty_two_by_eight_up_front():
+    """32 x 8 (encoding width 256) in bf16: above the tensor-core kernels'
+    widest build (128)."""
+    cfg = t_ngp.NGPConfig(n_levels=32, n_features=8, log2_hashmap_size=10,
+                          compute_dtype=torch.bfloat16)
+    _refused_on_cuda_devices(cfg, "bf16 \\(-O\\), on the tensor cores.*ROADMAP queue 3")
+
+
+def _cli_refuses(tmp_path, cli, flags, match):
     import importlib
 
     main = importlib.import_module(f"nerf_signature_tpu_torch.{cli}").main
-    argv = [str(tmp_path / "no_scene"), "--workspace", str(tmp_path / "ws"), "-O",
-            "--n_levels", "16", "--n_features", "8"]
+    argv = [str(tmp_path / "no_scene"), "--workspace", str(tmp_path / "ws")] + flags
     if cli == "main_nerf_wtmk":
         argv += ["--wtmk_tcnn", "--ckpt", str(tmp_path / "none.ckpt")]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+    with pytest.raises(NotImplementedError, match=match):
         main(argv)
     assert not (tmp_path / "ws").exists()
+
+
+@pytest.mark.parametrize("cli", ["main_nerf", "main_nerf_wtmk"])
+def test_clis_refuse_sixteen_by_eight_before_reading_the_scene(tmp_path, cli):
+    """Without -O (fp32; --cuda_ray, so that only the geometry can refuse)."""
+    _cli_refuses(tmp_path, cli, ["--cuda_ray", "--n_levels", "16", "--n_features", "8"],
+                 "fp32, on the SIMT units.*ROADMAP queue 3")
+
+
+@pytest.mark.parametrize("cli", ["main_nerf", "main_nerf_wtmk"])
+def test_clis_refuse_thirty_two_by_eight_before_reading_the_scene(tmp_path, cli):
+    """Under -O (bf16): width 256."""
+    _cli_refuses(tmp_path, cli, ["-O", "--n_levels", "32", "--n_features", "8"],
+                 "bf16 \\(-O\\), on the tensor cores.*ROADMAP queue 3")
 
 
 def _permuted(mlp_apply, seed):

@@ -71,6 +71,7 @@ import torch
 
 from nerf_signature_tpu_torch.kernel_cases import k3_edge_inputs, k5_edge_inputs
 from nerf_signature_tpu_torch.models import ngp as t_ngp
+from nerf_signature_tpu_torch.ops import _cuda as t_cuda
 from nerf_signature_tpu_torch.ops import background as t_bg
 from nerf_signature_tpu_torch.ops import composite as t_comp
 from nerf_signature_tpu_torch.ops import hashenc as t_hash
@@ -81,10 +82,28 @@ pytestmark = pytest.mark.cuda
 # K4's widths: "full" is 16 levels x 2 features (8 x 4 has the same widths),
 # "8x2" encoding width 16, "16x4" width 64 (32 x 2 has the same), "narrow"
 # the 8-wide test model; "12x2" (width 24) and "12x4" (width 48) run at the
-# built 32 and 64, their features zero-padded by K1
+# built 32 and 64, their features zero-padded by K1; "16x8" (width 128) and
+# "12x8" (96, run at the built 128) only on the tensor cores (MMA_ONLY: in
+# fp32 the card refuses them up front, which those cases check instead)
 WIDTHS = {"full": {}, "8x2": dict(n_levels=8), "16x4": dict(n_features=4),
           "narrow": dict(n_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12),
-          "12x2": dict(n_levels=12), "12x4": dict(n_levels=12, n_features=4)}
+          "12x2": dict(n_levels=12), "12x4": dict(n_levels=12, n_features=4),
+          "16x8": dict(n_features=8), "12x8": dict(n_levels=12, n_features=8)}
+MMA_ONLY = ("16x8", "12x8")
+
+
+def _fp32_refused(widths, dtype):
+    """At an MMA_ONLY width in fp32: the card's refusal, before a model is
+    built and at K4's wrapper (True: the case ends there)."""
+    if widths not in MMA_ONLY or dtype != torch.float32:
+        return False
+    cfg = t_ngp.NGPConfig(compute_dtype=dtype, **dict(WIDTHS[widths], log2_hashmap_size=10))
+    with pytest.raises(NotImplementedError, match="fp32, on the SIMT units"):
+        t_ngp.check_kernel_geometry(cfg)
+    params = t_ngp.init_ngp_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match="fp32, on the SIMT units"):
+        t_ngp._kernel_widths(params, cfg)
+    return True
 
 
 @pytest.fixture
@@ -194,6 +213,8 @@ def test_march_cull_kernel_matches_plain(cuda, bound, prefilter, gamma, t_cull):
 def test_field_kernel_matches_plain(cuda, dtype, widths, query):
     from nerf_signature_tpu_torch.ops import _cuda
 
+    if _fp32_refused(widths, dtype):
+        return
     kw = WIDTHS[widths]
     cfg = t_ngp.NGPConfig(compute_dtype=dtype, **kw)
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(3), cfg, cuda)
@@ -298,6 +319,8 @@ def test_field_bwd_kernel_matches_plain(cuda, dtype, widths):
     one over queued live samples (field_bwd.cu)."""
     from nerf_signature_tpu_torch.ops import _cuda
 
+    if _fp32_refused(widths, dtype):
+        return
     kw = WIDTHS[widths]
     cfg = t_ngp.NGPConfig(compute_dtype=dtype, **kw)
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(7), cfg, cuda)
@@ -386,6 +409,8 @@ def test_msg_table_kernel_matches_plain(cuda, gather, F):
 def test_field_bwd_feat_kernel_matches_plain(cuda, dtype, widths):
     from nerf_signature_tpu_torch.ops import _cuda
 
+    if _fp32_refused(widths, dtype):
+        return
     kw = WIDTHS[widths]
     cfg = t_ngp.NGPConfig(compute_dtype=dtype, **kw)
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(10), cfg, cuda)
@@ -423,6 +448,59 @@ def test_field_bwd_feat_kernel_matches_plain(cuda, dtype, widths):
     sp, _, rp = t_ngp.field_heads_plain(fp, cfg, fp_[:, :cfg.enc_dim], d)
     torch.autograd.backward([sp, rp], [g_sigma, g_rgb])
     assert rel_l2(only, fp_.grad) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("widths", ["full", "16x8"])
+def test_field_mma_launchers_refuse_another_shared_size(cuda, widths):
+    """Each tensor-core launcher takes only its plan's dynamic shared bytes
+    (models/ngp.py:mma_launch): 16 more or fewer are refused before
+    anything launches, and the wrappers' own bytes launch."""
+    from nerf_signature_tpu_torch.ops import _cuda
+
+    cfg = t_ngp.NGPConfig(compute_dtype=torch.bfloat16, **WIDTHS[widths])
+    params = t_ngp.init_ngp_params(torch.Generator().manual_seed(12), cfg, cuda)
+    fp = t_ngp.field_params(params, cfg)
+    w = t_ngp._kernel_widths(params, cfg)
+    M = 1000
+    feat = torch.rand((M, w[0]), device=cuda)
+    d = torch.nn.functional.normalize(torch.randn((M, 3), device=cuda), dim=-1)
+    out = [torch.empty((M,), device=cuda), None, torch.empty((M, 3), device=cuda)]
+    gs, gr = torch.randn(M, device=cuda), torch.randn((M, 3), device=cuda)
+    g_feat, g_flat = torch.empty((M, w[0]), device=cuda), torch.empty_like(fp["mlp_flat"])
+    mma = fp["mlp_mma"]
+    n_blocks = 2
+    partials = torch.empty((n_blocks, mma.numel()), device=cuda)
+    index = t_ngp._mma_grad_index(w, cuda)
+    calls = {
+        "fwd": lambda smem: _cuda.FIELD_MMA(feat.data_ptr(), d.data_ptr(), mma.data_ptr(),
+                                            *map(_cuda.ptr, out), M, *w, smem),
+        "bwd_feat": lambda smem: _cuda.FIELD_BWD_FEAT_MMA(
+            feat.data_ptr(), d.data_ptr(), mma.data_ptr(), gs.data_ptr(), gr.data_ptr(),
+            g_feat.data_ptr(), M, *w, smem),
+        "bwd": lambda smem: _cuda.FIELD_BWD_MMA(
+            feat.data_ptr(), d.data_ptr(), mma.data_ptr(), gs.data_ptr(), gr.data_ptr(),
+            g_feat.data_ptr(), partials.data_ptr(), index.data_ptr(), g_flat.data_ptr(), M,
+            n_blocks, *w, smem)}
+    for kind, call in calls.items():
+        smem = t_ngp.mma_launch(w, kind)[1]
+        for wrong in (smem - 16, smem + 16):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                call(wrong)
+        call(smem)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd_feat", "bwd"])
+@pytest.mark.parametrize("widths", t_cuda.MMA_WIDTHS, ids=lambda w: f"in{w[0]}")
+def test_field_mma_plans_are_the_compiled_ones(cuda, widths, kind):
+    """The threads and shared bytes the wrappers plan (models/ngp.py:
+    mma_launch) are the compiled plan's, as the card's runtime reports it
+    (ops/_cuda.py:mma_plan); every plan runs at least one block an SM (the
+    forward two), spills nothing and fits a block's 232,448 B."""
+    plan = t_cuda.mma_plan(kind, widths)
+    assert (plan["threads"], plan["smem"]) == t_ngp.mma_launch(widths, kind)
+    assert plan["smem"] <= t_ngp.MAX_BLOCK_SMEM and plan["local_bytes"] == 0
+    assert plan["blocks_per_sm"] >= (2 if kind == "fwd" else 1)
 
 
 # K4's tiled SIMT kernels (fp32) at every built width, at sample counts
@@ -602,13 +680,14 @@ def test_hash_encode_kernel_one_level_and_shared_table(cuda, shared):
 
 @pytest.mark.parametrize("gather", ["bf16", "fp32", "dense"])
 @pytest.mark.parametrize("L,F", [(16, 2), (8, 2), (8, 4), (16, 4), (32, 2), (5, 2),
-                                 (5, 4), (24, 1), (5, 1), (8, 8), (5, 8)])
+                                 (5, 4), (24, 1), (5, 1), (8, 8), (5, 8), (16, 8), (12, 8)])
 def test_hash_encode_kernel_is_bit_exact(cuda, L, F, gather):
     """The level-major forward: equal to the plain version bit for bit, for
     rows of 1, 2, 4 and 8 features, at 16 x 4 and at 32 x 2
     (NGP_MAX_LEVELS), odd level counts (8-byte stores at F = 2, 4-byte ones
-    at F = 1) and a ragged last tile; its backward within 1e-5 relative L2
-    (atomic order)."""
+    at F = 1) and a ragged last tile, and at 16 x 8 and 12 x 8, whose
+    staged tiles take more than 48 KB of shared memory (the forward's
+    opt-in); its backward within 1e-5 relative L2 (atomic order)."""
     g = torch.Generator().manual_seed(15)
     res = t_hash.level_resolutions(L, 16, 2048)
     sides = t_hash.level_sides(res, 19, True) if gather == "dense" else None
@@ -703,7 +782,8 @@ def test_composite_kernels_empty_and_tiny(cuda, N, S):
     assert gs.shape == (N, S) and gr.shape == (N, S, 3) and bool(torch.isfinite(gs).all())
 
 
-@pytest.mark.parametrize("L,F,pitch", [(12, 2, 32), (24, 1, 32), (6, 8, 64), (5, 1, 8)])
+@pytest.mark.parametrize("L,F,pitch", [(12, 2, 32), (24, 1, 32), (6, 8, 64), (5, 1, 8),
+                                       (16, 8, 128), (12, 8, 128)])
 def test_hash_encode_kernels_at_a_padded_pitch(cuda, L, F, pitch):
     """K1 writing K4's built input width: the first L*F columns equal to
     the plain version bit for bit, the rest exactly 0; the backward reads
@@ -1156,7 +1236,8 @@ def test_loop_recaptures_once_when_the_cull_gate_opens(cuda):
 
 
 # ------------------------------------------------- K7: the stochastic estimators
-K7_GEOMETRIES = [(16, 2, 32), (8, 4, 32), (24, 1, 32), (8, 8, 64), (12, 2, 32), (5, 2, 10)]
+K7_GEOMETRIES = [(16, 2, 32), (8, 4, 32), (24, 1, 32), (8, 8, 64), (12, 2, 32), (5, 2, 10),
+                 (16, 8, 128), (12, 8, 128)]
 
 
 def _k7_inputs(cuda, L, F, gather, seed):
@@ -1539,7 +1620,7 @@ def test_k7_k8_wrappers_raise_instead_of_falling_back(cuda):
 
 # --------------------------------------------- the CopyRNeRF input (K4 raw, K10)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("widths", ["full", "16x4", "narrow"])
+@pytest.mark.parametrize("widths", ["full", "16x4", "narrow", "16x8", "12x8"])
 def test_field_kernel_raw_logit(cuda, dtype, widths):
     """K4 with ``want_raw``: sigma, geo and rgb bit-equal to the launch
     without it; the logit within the route's limits of the plain version's
@@ -1549,6 +1630,8 @@ def test_field_kernel_raw_logit(cuda, dtype, widths):
     backward's limits (fp32 1e-5, bf16 1e-2 relative L2)."""
     from nerf_signature_tpu_torch.ops import _cuda
 
+    if _fp32_refused(widths, dtype):
+        return
     cfg = t_ngp.NGPConfig(compute_dtype=dtype, **WIDTHS[widths])
     params = t_ngp.init_ngp_params(torch.Generator().manual_seed(3), cfg, cuda)
     params["hash_table"].mul_(1e4)
